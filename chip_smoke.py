@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`iridium_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line:
+  1. the card's name and power limit, then the kernel build and its time;
+  2. each hand-written kernel at the production shapes, launched on the
+     card and held against its plain PyTorch version on the same inputs,
+     with its time, the plain version's, a library call's where one
+     computes the same function, and the bound;
+  3. the offline decode at the production 10 MHz configuration: a
+     synthetic capture file through `Pipeline.run_file` and `RawPrinter`,
+     every injected payload bit-exact, scan and fused front-end launched;
+     then the same decode under torch.profiler (device time, idle share);
+  4. a short 1 MHz decode (decimation 4, so the window-gather path),
+     whose gather launches are checked against the plain gather, and the
+     per-symbol demod loop alone at a 256-burst batch;
+  5. the `kernels` JSON line: every kernel with its launches on the
+     pipeline runs, its times and its bound.
+The last line is the JSON result. Any failed check exits non-zero; with no
+CUDA device, or without the port's package beside this script, it fails
+before printing a result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+SEED = 1234
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of `reps` calls after one warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_flop / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# ---- phase 2: kernels against their plain versions ----
+
+def synthetic_spectrogram(p, gen):
+    """(frames, F) |X|^2 with exponential noise, tone bursts (one longer
+    than max_burst_len), and a comb blast that trips the squelch with more
+    than E_SQ emissions, then a mass deletion."""
+    import torch
+    F, n = p.fft_size, p.frames_per_block
+    dev = gen.device
+    mag2 = torch.empty((n, F), device=dev).exponential_(generator=gen)
+    long_frames = int(p.max_burst_len / F) + 20
+    bursts = [(600, 40, 1000), (640, 30, 2500), (700, long_frames, 6000),
+              (720, 10, 6050), (900, 25, 7000)]
+    for f0, nf, b in bursts:
+        mag2[f0:f0 + nf, b - 2:b + 3] += 2000.0
+    # comb: one peak every 2*half_bw+2 bins, for long enough that more
+    # than max_bursts bursts are active at once (4 creations per frame)
+    step = p.burst_width_bins + 2
+    n_blast = p.max_bursts // 4 + 20
+    comb = torch.arange(p.burst_width_bins, F - p.burst_width_bins, step,
+                        device=dev)
+    comb = comb[(comb - F // 2).abs() > 8]
+    mag2[1100:1100 + n_blast, comb] += 3000.0
+    return mag2
+
+
+def check_scan(p, dev) -> dict:
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.dsp import detect_scan, state as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    mag2 = synthetic_spectrogram(p, gen)
+    s0 = st.init_state(p, dev)
+    n_valid = p.block_samples
+    got = detect_scan.scan(mag2, s0, n_valid, p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = detect_scan.scan_plain(mag2, s0, n_valid, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ints = ("a_valid", "a_id", "a_start", "a_last", "mask_count", "g_id",
+            "g_start", "g_stop", "g_last", "g_bin", "ints")
+    for name in ints:
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"scan: {name} differs from the plain scan")
+    err = 0.0
+    for name in ("baseline_sum", "baseline_hist"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"scan: {name} not bit-equal")
+    for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
+        a, b = getattr(got, name), getattr(want, name)
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        err = max(err, float((a - b).abs().max()))
+    g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
+    if g["g_count"] < 20 or g["burst_dropped"] < 1:
+        raise AssertionError(f"scan: synthetic input did not reach the "
+                             f"squelch and drop paths: {g}")
+    ms = time_ms(lambda: detect_scan.scan(mag2, s0, n_valid, p))
+    F, H = p.fft_size, p.history_size
+    state_bytes = 4 * (H * F + 9 * F)
+    n_bytes = 4 * mag2.numel() + 2 * state_bytes
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(name="detect_scan", route="cuda",
+                source="iridium_tpu_torch/csrc/detect_scan.cu",
+                replaces="iridium_tpu/dsp/detect_pallas.py:152",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                detail=dict(gone=g["g_count"], dropped=g["burst_dropped"],
+                            tagged=g["n_tagged"]))
+
+
+# samples of one production block's stream: [tail | block | zero pad]
+STREAM_10MHZ = 2048 * 8192 + 2 * 1_126_400
+
+
+def covered_samples(starts2, span: int, n: int) -> int:
+    """Distinct stream samples that the windows [start, start + span)
+    cover: the input a gather must read at least once."""
+    import torch
+    from iridium_tpu_torch.ops import window_gather as wg
+    s = starts2[:, 0].long() * wg.ALIGN + starts2[:, 1].long()
+    edge = torch.zeros(n + 1, dtype=torch.int64, device=s.device)
+    edge.index_add_(0, s.clamp(max=n), torch.ones_like(s))
+    edge.index_add_(0, (s + span).clamp(max=n), -torch.ones_like(s))
+    return int((edge.cumsum(0)[:n] > 0).sum())
+
+
+def frontend_inputs(dev, gen, B, l_win, F, n_stream):
+    import torch
+    from iridium_tpu_torch.ops import window_gather as wg
+    planes = torch.randn((2, n_stream), device=dev, generator=gen)
+    n_tiles = (n_stream - l_win - 4096) // wg.ALIGN
+    tiles = torch.randint(0, n_tiles, (B,), device=dev, generator=gen)
+    rs = torch.randint(0, 40, (B,), device=dev, generator=gen)
+    starts2 = torch.stack([tiles, rs], 1).int().contiguous()
+    ks = torch.randint(-F // 2, F // 2, (B,), device=dev,
+                       generator=gen).int()
+    return planes, starts2, ks
+
+
+def check_fused(dev, F, decim, taps_np, B, l_win) -> dict:
+    import torch
+    from iridium_tpu_torch.ops import fused_frontend as ff
+    from iridium_tpu_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    planes, starts2, ks = frontend_inputs(dev, gen, B, l_win, F,
+                                          STREAM_10MHZ)
+    taps = torch.from_numpy(taps_np).to(dev)
+    ramp = ff.ramp_table(F, dev)
+    got = ff.fused(planes, starts2, ks, taps, ramp, l_win, decim)
+    want = ff.fused_plain(planes, starts2, ks, taps, ramp, l_win, decim)
+    err = 0.0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+        err = max(err, float((a - b).abs().max()))
+    ms = time_ms(lambda: ff.fused(planes, starts2, ks, taps, ramp, l_win,
+                                  decim))
+    plain_ms = time_ms(lambda: ff.fused_plain(planes, starts2, ks, taps,
+                                              ramp, l_win, decim), reps=3)
+    # library yardstick: elementwise rotate + strided conv1d on the
+    # windows gathered beforehand
+    ntaps = taps.shape[0]
+    n_out = l_win // decim
+    span = (n_out - 1) * decim + ntaps
+    x_re, x_im = wg.gather_plain(planes, starts2, span)
+    lib_ms = time_ms(lambda: ff.rotate_decimate(x_re, x_im, ks, ramp, taps,
+                                                decim, n_out), reps=3)
+    # each covered input sample read once, each output written once;
+    # 2 FLOP per multiply-add, 2 planes, ntaps per output
+    n_bytes = (8 * covered_samples(starts2, span, planes.shape[1])
+               + 8 * B * n_out + 4 * ntaps)
+    b_ms, b_by = bound(n_bytes, 4.0 * ntaps * B * n_out)
+    return dict(name="fused_frontend", route="cuda",
+                source="iridium_tpu_torch/csrc/fused_frontend.cu",
+                replaces="iridium_tpu/ops/fused_frontend.py:130",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def check_gather(dev, F, B, l_win) -> dict:
+    import torch
+    from iridium_tpu_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    planes, starts2, _ = frontend_inputs(dev, gen, B, l_win, F,
+                                         STREAM_10MHZ)
+    got = wg.gather(planes, starts2, l_win)
+    want = wg.gather_plain(planes, starts2, l_win)
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError("window_gather: not bit-equal to plain")
+    ms = time_ms(lambda: wg.gather(planes, starts2, l_win))
+    plain_ms = time_ms(lambda: wg.gather_plain(planes, starts2, l_win),
+                       reps=3)
+    idx = (starts2[:, 0].long() * wg.ALIGN + starts2[:, 1].long())[:, None] \
+        + torch.arange(l_win, device=dev)
+    lib_ms = time_ms(lambda: planes[:, idx], reps=3)
+    n_bytes = (8 * covered_samples(starts2, l_win, planes.shape[1])
+               + 8 * B * l_win)
+    b_ms, b_by = bound(n_bytes, 0)
+    return dict(name="window_gather", route="cuda",
+                source="iridium_tpu_torch/csrc/window_gather.cu",
+                replaces="iridium_tpu/ops/window_gather.py:55",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def kernel_phase(dev) -> list[dict]:
+    from iridium_tpu_torch.config import (DetectorConfig, DownmixConfig)
+    from iridium_tpu_torch.dsp import downmix
+
+    p = DetectorConfig(sample_rate=10_000_000, frames_per_block=2048,
+                       gone_capacity=2048).derived()
+    dmp = DownmixConfig().derived(p)
+    taps = np.asarray(downmix.make_consts(dmp).input_taps)
+    B, l_win = 256, 327_680
+    rows = [check_scan(p, dev),
+            check_fused(dev, p.fft_size, dmp.decimation, taps, B, l_win),
+            check_gather(dev, p.fft_size, B, l_win)]
+    for r in rows:
+        print("kernel_check " + json.dumps(r), flush=True)
+    return rows
+
+
+# ---- phases 3 and 4: the offline decode through Pipeline.run_file ----
+
+PROD = dict(sample_rate=10_000_000, frames_per_block=2048,
+            gone_capacity=2048)
+
+
+def production_capture(rng):
+    """Three blocks of 10 MHz noise (the last one partial) with 13 DL
+    bursts:
+    two in the simplex band with frames longer than the normal band
+    allows, one straddling the first block boundary. Returns the capture
+    and the injected (start, offset Hz, payload bits). (UL bursts are left
+    out: the reference's uw_start arithmetic rejects them, and so does
+    the port; test_e2e.py's test_ul_burst_rejected_like_reference.)"""
+    from iridium_tpu_torch.io import synth
+    fs = PROD["sample_rate"]
+    block = PROD["frames_per_block"] * 8192
+    total = 2 * block + 4_000_000
+    cap = synth.noise(total, seed=SEED)
+    plan = [(5_000_000, 137_000.0), (6_900_000, -2_310_000.0),
+            (8_800_000, 4_300_000.0), (10_700_000, 1_020_000.0),
+            (12_600_000, -4_400_000.0), (14_500_000, 3_050_000.0),
+            (block - 30_000, -220_000.0), (19_000_000, 4_650_000.0),
+            (21_500_000, -1_480_000.0), (24_000_000, 2_270_000.0),
+            (26_500_000, -3_330_000.0), (29_000_000, 620_000.0),
+            (31_500_000, -880_000.0)]
+    bursts = []
+    for start, off in plan:
+        n_bits = 500 if off > 4e6 else 300
+        # 8 guard bits after the payload: the end-of-frame magnitude drop
+        # (qpsk_demod.c:199-260) may trim the last symbols on the ramp
+        bits = rng.integers(0, 2, n_bits + 8).astype(np.uint8)
+        synth.add_burst(cap, synth.burst_waveform(bits, fs, off), start,
+                        snr_db=float(rng.uniform(22.0, 32.0)))
+        bursts.append((start, off, bits[:n_bits]))
+    return cap, bursts
+
+
+def write_cf32(path, cap):
+    np.ascontiguousarray(cap, np.complex64).view(np.float32).tofile(path)
+
+
+def decode_phase(dev, tmp) -> dict:
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+
+    cap, bursts = production_capture(np.random.default_rng(SEED))
+    path = os.path.join(tmp, "capture_10mhz.cf32")
+    write_cf32(path, cap)
+    seconds = len(cap) / PROD["sample_rate"]
+    det = DetectorConfig(**PROD)
+    t0 = 1_700_000_000_000_000_000
+    # warm-up decode (cuFFT plans, allocator); then the counted run
+    list(Pipeline(det_cfg=det, start_time_ns=t0, device=dev)
+         .run_file(path))
+    pipe = Pipeline(det_cfg=det, start_time_ns=t0, device=dev)
+    printer = RawPrinter()
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    lines = [printer.format(f) for f in frames]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    for name in ("detect_scan", "fused_frontend"):
+        if counts[name] == 0:
+            raise AssertionError(f"10 MHz decode never launched {name}")
+    missing = []
+    for start, off, bits in bursts:
+        exp = synth.expected_bits(bits, "DL")
+        hit = [f for f in frames
+               if len(f["bits"]) >= len(exp)
+               and np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
+               and abs(f["frequency"] - (det.center_frequency + off)) < 2e3]
+        if not hit:
+            missing.append((start, off))
+    if missing:
+        raise AssertionError(f"payloads not decoded bit-exact: {missing}")
+    st = pipe.stats
+    return dict(phase="decode_10mhz", capture_s=seconds, wall_s=wall,
+                realtime_x=seconds / wall, raw_lines=len(lines),
+                raw_per_s=len(lines) / wall, injected=len(bursts),
+                detected=st.n_detected, ok=st.n_ok,
+                ok_pct=100.0 * st.n_ok / max(st.n_detected, 1),
+                stages=dict(pipe.timing), launches=counts, path=path)
+
+
+def profile_phase(dev, path: str, wall_s: float) -> dict:
+    """The same 10 MHz decode under torch.profiler: device time summed
+    over kernels and copies, the number of device operations, and the
+    device's idle share against the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+
+    pipe = Pipeline(det_cfg=DetectorConfig(**PROD), start_time_ns=0,
+                    device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        list(pipe.run_file(path))
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in cuda) / 1e3
+    top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(phase="profile_10mhz", device_ms=device_ms,
+                device_ops=sum(e.count for e in cuda),
+                idle_share=1.0 - device_ms / 1e3 / wall_s,
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+
+
+def gather_phase(dev, tmp) -> dict:
+    """1 MHz (decimation 4): the fused shape is unsupported, so the
+    pipeline gathers windows; every gather it launches is checked
+    against the plain gather on the same stream."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.ops import window_gather as wg
+    from iridium_tpu_torch.runtime import pipeline as pl
+
+    bits = np.random.default_rng(SEED + 3).integers(0, 2, 300).astype(
+        np.uint8)
+    cap = synth.make_capture(bits, sample_rate=1_000_000,
+                             freq_offset_hz=100_000.0, snr_db=30.0)
+    path = os.path.join(tmp, "capture_1mhz.cf32")
+    write_cf32(path, cap)
+    calls = []
+    kernel_gather = wg.gather
+
+    def recording(planes, starts2, l_win):
+        out = kernel_gather(planes, starts2, l_win)
+        calls.append((planes, starts2, l_win, out))
+        return out
+
+    pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
+                       start_time_ns=0, device=dev)
+    _kernels.reset_counts()
+    pl.window_gather.gather = recording
+    try:
+        list(pipe.run_file(path))
+    finally:
+        pl.window_gather.gather = kernel_gather
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    if counts["window_gather"] == 0 or counts["detect_scan"] == 0:
+        raise AssertionError(f"1 MHz decode launches: {counts}")
+    if counts["fused_frontend"] != 0:
+        raise AssertionError("1 MHz decode took the fused path")
+    for planes, starts2, l_win, out in calls:
+        want = wg.gather_plain(planes, starts2, l_win)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            raise AssertionError("pipeline gather differs from plain")
+    return dict(phase="decode_1mhz", detected=pipe.stats.n_detected,
+                gathers_checked=len(calls), launches=counts)
+
+
+def demod_phase(dev) -> dict:
+    """The per-symbol demod loop alone, at the small-normal class's batch
+    (256 bursts, 205 symbols): the time the Python symbol loop costs."""
+    import torch
+    from iridium_tpu_torch.dsp import demod
+    from iridium_tpu_torch.io import synth
+    rng = np.random.default_rng(SEED + 4)
+    B, L, S = 256, 1918, 205
+    x = np.zeros((B, L), np.complex64)
+    for b in range(B):
+        sym = synth.burst_symbols(rng.integers(0, 2, 300))[28:]
+        w = synth.modulate(sym)[:L]
+        x[b, :len(w)] = w
+    xt = torch.from_numpy(x).to(dev)
+    n = torch.full((B,), L, dtype=torch.int32, device=dev)
+    direc = torch.zeros(B, dtype=torch.int32, device=dev)
+    dm = demod.Demod(S, 10.0)
+    ms = time_ms(lambda: dm(xt, n, direc), reps=3)
+    return dict(phase="demod_loop", batch=B, symbols=S, ms=ms)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device")
+    sys.path.insert(0, HERE)
+    try:
+        import iridium_tpu_torch
+    except ImportError:
+        return fail("the iridium_tpu_torch package is not beside this "
+                    "script")
+    if not os.path.abspath(iridium_tpu_torch.__file__).startswith(HERE):
+        return fail("iridium_tpu_torch was not imported from this checkout")
+    from iridium_tpu_torch import _kernels, device
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip(), flush=True)
+    dev = device.resolve("cuda")
+    t0 = time.perf_counter()
+    _kernels.build_all()
+    print(f"build: {len(_kernels.KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rows = kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dec = decode_phase(dev, tmp)
+        path = dec.pop("path")
+        print(json.dumps(dec), flush=True)
+        print(json.dumps(profile_phase(dev, path, dec["wall_s"])),
+              flush=True)
+        gat = gather_phase(dev, tmp)
+        print(json.dumps(gat), flush=True)
+    print(json.dumps(demod_phase(dev)), flush=True)
+    for r in rows:
+        r["launches"] = (dec["launches"][r["name"]]
+                         + gat["launches"][r["name"]])
+    if "jax" in sys.modules or "iridium_tpu" in sys.modules:
+        return fail("JAX or the JAX package was imported")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Build and bind the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` exports plain `extern "C"` functions. On first use
+one `nvcc` per source compiles it for `sm_90a` into
+`build/kernels/<name>-<hash>.so` (the hash covers the source and the
+flags, so an edited source rebuilds), and `ctypes` binds it. Importing
+this module needs no compiler: nothing is built until a kernel is
+launched on a CUDA tensor, or `build_all()` is called.
+
+Every launch goes through `Kernel.launch`, which raises on a non-zero
+`cudaError_t` from the C side and counts the launch in `Kernel.launches`.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+F32 = ctypes.c_float
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build the port's kernels")
+
+
+class Kernel:
+    """One CUDA source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, argtypes: list, extra_flags=()):
+        self.name = name
+        self.argtypes = argtypes
+        self.extra_flags = tuple(extra_flags)
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    @property
+    def source(self) -> Path:
+        return CSRC / f"{self.name}.cu"
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS + self.extra_flags).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the source unless a library of the same hash exists."""
+        out = self.library_path()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *self.extra_flags,
+               "-o", str(tmp), str(self.source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source.name}:\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, out)
+        return out
+
+    def _bind(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(str(self.build()))
+            fn = getattr(lib, self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._err, self._fn = err, fn
+        return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the C entry point on `device`'s current stream. The last
+        argument the C side takes is the stream; it is appended here."""
+        fn = self._bind()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            code = fn(*args, stream)
+        if code != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {code}: "
+                               f"{self._err(code).decode()}")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          device: torch.device, shape: tuple | None = None) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` (of
+    `shape`, where given)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+DETECT_SCAN = Kernel(
+    "detect_scan",
+    [P] * 19 + [I] * 11 + [F32] * 5 + [P],
+    # keep the noise-sum and relative-magnitude arithmetic free of fused
+    # multiply-adds, so baseline_sum stays bit-equal to the plain scan
+    extra_flags=("--fmad=false",))
+FUSED_FRONTEND = Kernel(
+    "fused_frontend",
+    [P, LL, P, P, P, P, I, I, I, I, I, I, P, P, P])
+WINDOW_GATHER = Kernel(
+    "window_gather",
+    [P, LL, P, I, I, I, P, P, P])
+
+KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER)
+
+
+def build_all() -> None:
+    """Compile every kernel, one nvcc process per source, all at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(k.build) for k in KERNELS]:
+            fut.result()
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,249 @@
+"""Burst-detector scan and detect step.
+
+`scan` runs the hand-written CUDA kernel (csrc/detect_scan.cu) on a CUDA
+state and `scan_plain` on a CPU one; `scan_plain` is the same state
+machine written with tensor ops, frame by frame, and is what the tests
+hold against the JAX package's Pallas kernel
+(iridium_tpu/dsp/detect_pallas.py, kernel :152-375). Both follow that
+kernel's greedy-argmax creation walk, not detect_fast's segment maxima.
+
+`detect_block` is the detect step: Blackman window, FFT, |X|^2 and
+fftshift of every frame of a block (`make_detect_block_pallas` :485-502),
+then the scan.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..config import DetectorParams
+from ..ops import windows
+from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
+
+MAX_FFT = 16384
+
+
+def supports(p: DetectorParams) -> bool:
+    """Shapes the kernel handles: those of detect_pallas.supports
+    (detect_pallas.py:72), with at most MAX_FFT bins spread over at most
+    1024 threads of one block."""
+    chunk = max(min(32, p.history_size // 2), 1)
+    while p.frames_per_block % chunk:
+        chunk //= 2
+    F = p.fft_size
+    threads = min(F, 1024)
+    return (F % 128 == 0 and F <= MAX_FFT and F % threads == 0
+            and (F // threads) in (1, 2, 4, 8, 16)
+            and chunk % 16 == 0 and 2 * chunk <= p.history_size
+            and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ))
+
+
+def _consts(p: DetectorParams) -> dict:
+    F = p.fft_size
+    return dict(
+        threshold=np.float32(p.threshold),
+        hist_f=np.float32(p.history_size),
+        enbw=np.float32(windows.BLACKMAN_ENBW),
+        f2=np.float32(F) * np.float32(F),
+        bin_width=np.float32(p.sample_rate) / np.float32(F),
+        k_create=max(1, min(4, p.max_new_per_frame)))
+
+
+def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
+         p: DetectorParams) -> ScanState:
+    """New state after the block of fftshifted |X|^2 rows `mag2`
+    (frames_per_block, F) f32. The input state is left as it was."""
+    if mag2.device.type == "cpu":
+        return scan_plain(mag2, state, n_valid, p)
+    if not supports(p):
+        raise ValueError("detector shape not supported by the scan kernel")
+    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+    dev = mag2.device
+    _kernels.check(mag2, "mag2", torch.float32, dev,
+                   (p.frames_per_block, F))
+    out = state.clone()
+    for name in GONE_FIELDS:
+        getattr(out, name).zero_()
+    for name, dtype, shape in (
+            ("baseline_hist", torch.float32, (H, F)),
+            ("baseline_sum", torch.float32, (F,)),
+            ("a_valid", torch.bool, (F,)),
+            ("a_id", torch.int32, (F,)), ("a_start", torch.int32, (F,)),
+            ("a_last", torch.int32, (F,)), ("a_mag", torch.float32, (F,)),
+            ("a_noise", torch.float32, (F,)),
+            ("mask_count", torch.int32, (F,)),
+            ("ints", torch.int32, (8,)), ("floats", torch.float32, (1,))):
+        _kernels.check(getattr(out, name), name, dtype, dev, shape)
+    c = _consts(p)
+    k = _kernels
+    k.DETECT_SCAN.launch(
+        dev, k.ptr(mag2), k.ptr(out.baseline_hist), k.ptr(out.baseline_sum),
+        k.ptr(out.a_valid), k.ptr(out.a_id), k.ptr(out.a_start),
+        k.ptr(out.a_last), k.ptr(out.a_mag), k.ptr(out.a_noise),
+        k.ptr(out.mask_count),
+        *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
+        k.ptr(out.ints), k.ptr(out.floats),
+        F, p.frames_per_block, H, G, int(n_valid), p.burst_width_bins // 2,
+        c["k_create"], int(p.max_bursts), int(p.max_burst_len),
+        int(p.burst_post_len), int(p.burst_pre_len),
+        float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
+        float(c["f2"]), float(c["bin_width"]))
+    return out
+
+
+def scan_plain(mag2: torch.Tensor, state: ScanState, n_valid: int,
+               p: DetectorParams) -> ScanState:
+    """The scan as tensor ops, one frame at a time (any device). Follows
+    the Pallas kernel line for line; the float arithmetic is f32 in the
+    same order, so baseline_sum is bit-equal to the kernel's."""
+    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+    dev = mag2.device
+    c = _consts(p)
+    thr, hist_f, enbw = c["threshold"], c["hist_f"], c["enbw"]
+    f2, bin_width, k_create = c["f2"], c["bin_width"], c["k_create"]
+    hb = p.burst_width_bins // 2
+    max_bursts = int(p.max_bursts)
+    s = state.clone()
+    hidx, prim, burst_id, sq_count, n_tagged, dropped, waits, _ = \
+        s.ints.tolist()
+    peak = np.float32(s.floats[0].item())
+    bsum, hist = s.baseline_sum, s.baseline_hist
+    valid, a_last, mask = s.a_valid, s.a_last, s.mask_count
+    g = torch.arange(F, device=dev)
+    dc = F // 2
+    elig = (g >= hb) & (g < F - hb) & ~((g >= dc - 3) & (g <= dc + 3))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rows = []
+
+    def emit(bins, stop):
+        for b in bins.tolist():
+            rows.append((int(s.a_id[b]), int(s.a_start[b]), stop,
+                         int(a_last[b]), b, float(s.a_mag[b]),
+                         float(s.a_noise[b])))
+
+    def near(b):
+        return (g - b).abs() <= hb
+
+    for f in range(p.frames_per_block):
+        idx = f * F
+        act = idx + F <= n_valid
+        mag = mag2[f]
+        primed = prim >= H and act
+
+        def noise_update():
+            nonlocal prim, hidx
+            ev = hist[hidx]
+            bsum.copy_((bsum - (ev if prim >= H else zero)) + mag)
+            hist[hidx] = mag
+            prim = min(prim + 1, H)
+            hidx = (hidx + 1) % H
+
+        rel = torch.where(bsum > 0, mag / bsum, zero)
+        n_act_pre = int(valid.sum())
+        relm = torch.where((mask == 0) & elig, rel, zero)
+        cand = torch.where(relm > thr, relm, zero)
+        crt = torch.zeros(F, dtype=torch.bool, device=dev)
+
+        if primed and n_act_pre > 0:
+            nxt = torch.cat([rel[1:], zero[None]])
+            prv = torch.cat([zero[None], rel[:-1]])
+            dil = torch.maximum(rel, torch.maximum(nxt, prv)) > thr
+            a_last.copy_(torch.where(valid & dil, idx, a_last))
+            longb = valid & ((a_last - s.a_start) > p.max_burst_len)
+            gone = valid & (((a_last + p.burst_post_len) <= idx) | longb)
+            n_del = int(gone.sum())
+            if n_del > 0:
+                n_tagged += n_del
+                dropped += max(n_del - E_DEL, 0)
+                gbins = torch.nonzero(gone).flatten()
+                emit(gbins[:E_DEL], idx)
+                # release the +-half_bw mask of every gone bin
+                cs = torch.cumsum(torch.cat([
+                    torch.zeros(hb + 1, dtype=torch.int64, device=dev),
+                    gone.long(),
+                    torch.zeros(hb, dtype=torch.int64, device=dev)]), 0)
+                mask -= (cs[2 * hb + 1:] - cs[:F]).int()
+                valid &= ~gone
+                if bool(longb.any()):
+                    noise_update()
+
+        n_acc = 0
+        for _ in range(k_create):
+            mt = cand.max()
+            m = np.float32(mt.item())
+            if not (primed and m > thr):
+                break
+            b = int(torch.nonzero(cand == mt)[0])
+            base_at = np.float32(bsum[b].item())
+            mag_db = np.float32(10.0) * np.log10(
+                max(m * hist_f * enbw, np.float32(1e-30)))
+            noise_db = np.float32(10.0) * np.log10(max(
+                base_at / hist_f / f2 / enbw / bin_width,
+                np.float32(1e-30)))
+            valid[b] = True
+            s.a_id[b] = burst_id
+            s.a_start[b] = idx - p.burst_pre_len
+            a_last[b] = idx - p.burst_pre_len
+            s.a_mag[b] = float(mag_db)
+            s.a_noise[b] = float(noise_db)
+            crt[b] = True
+            burst_id += 10
+            nb = near(b)
+            mask += nb.int()
+            cand = torch.where(nb, zero, cand)
+            peak = max(peak, mag_db)
+            n_acc += 1
+        if n_acc == k_create and bool((cand > thr).any()):
+            waits += 1
+
+        n_act_post = int(valid.sum())
+        squelch = max_bursts > 0 and primed and n_act_post > max_bursts
+        if squelch:
+            sq = valid & ~crt
+            n_sq = int(sq.sum())
+            n_tagged += n_sq
+            dropped += max(n_sq - E_SQ, 0)
+            emit(torch.nonzero(sq).flatten()[:E_SQ], idx)
+            valid.zero_()
+            mask.zero_()
+            sq_count += 3
+        elif act:
+            sq_count = max(sq_count - 1, 0)
+        if act and sq_count >= 10:
+            bsum.zero_()
+            prim = 0
+            sq_count = 0
+        if act and (0 if squelch else n_act_post) == 0:
+            noise_update()
+
+    n = min(len(rows), G)
+    for name in GONE_FIELDS:
+        getattr(s, name).zero_()
+    if n:
+        cols = list(zip(*rows[:n]))
+        for name, col in zip(GONE_FIELDS, cols):
+            t = getattr(s, name)
+            t[:n] = torch.tensor(col, dtype=t.dtype)
+    s.ints.copy_(torch.tensor([hidx, prim, burst_id, sq_count, n_tagged,
+                               dropped, waits, n], dtype=torch.int32))
+    s.floats[0] = float(peak)
+    return s
+
+
+def spectrogram(samples: torch.Tensor, p: DetectorParams) -> torch.Tensor:
+    """(block_samples,) complex64 -> (frames_per_block, F) f32 fftshifted
+    |X|^2 of the Blackman-windowed frames (window normalised by 0.42)."""
+    F, n_frames = p.fft_size, p.frames_per_block
+    window = torch.from_numpy(
+        windows.blackman(F) / np.float32(0.42)).to(samples.device)
+    frames = samples[: n_frames * F].reshape(n_frames, F)
+    spec = torch.fft.fft(frames * window[None, :])
+    return torch.fft.fftshift(spec.abs() ** 2, dim=-1)
+
+
+def detect_block(samples: torch.Tensor, state: ScanState, n_valid: int,
+                 p: DetectorParams) -> ScanState:
+    """The detect step: spectrogram of the block, then the scan."""
+    return scan(spectrogram(samples, p), state, n_valid, p)

@@ -1,0 +1,97 @@
+"""Detector state: the `FastState` contract of the JAX package
+(iridium_tpu/dsp/detect_fast.py:77-166) as tensors on one device.
+
+Field names are the JAX ones. The per-bin active-burst table is keyed by
+FFT bin (entry i is the burst centred at bin i). The noise history is a
+ring whose oldest row is at `hist_idx`; `convert.py` brings it to
+oldest-first order for hand-over and comparison. The integer and float
+scalars live in two small tensors (`ints`, `floats`) so that a kernel
+updates them without a host round trip; each has a field-named 0-d view.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import DetectorParams
+
+E_DEL = 8          # natural-deletion emissions per frame
+E_SQ = 16          # squelch emissions per frame
+
+INT_FIELDS = ("hist_idx", "primed", "burst_id", "squelch_count",
+              "n_tagged", "burst_dropped", "create_waits", "g_count")
+FLOAT_FIELDS = ("peak_signal_db",)
+PLANE_FIELDS = ("baseline_hist", "baseline_sum", "a_valid", "a_id",
+                "a_start", "a_last", "a_mag", "a_noise", "mask_count")
+GONE_FIELDS = ("g_id", "g_start", "g_stop", "g_last", "g_bin", "g_mag",
+               "g_noise")
+
+
+@dataclasses.dataclass
+class ScanState:
+    baseline_hist: torch.Tensor   # (H, F) f32 ring
+    baseline_sum: torch.Tensor    # (F,) f32
+    a_valid: torch.Tensor         # (F,) bool
+    a_id: torch.Tensor            # (F,) i32
+    a_start: torch.Tensor         # (F,) i32 samples, rel. block start
+    a_last: torch.Tensor          # (F,) i32
+    a_mag: torch.Tensor           # (F,) f32
+    a_noise: torch.Tensor         # (F,) f32
+    mask_count: torch.Tensor      # (F,) i32
+    g_id: torch.Tensor            # (G,) i32
+    g_start: torch.Tensor         # (G,) i32
+    g_stop: torch.Tensor          # (G,) i32
+    g_last: torch.Tensor          # (G,) i32
+    g_bin: torch.Tensor           # (G,) i32
+    g_mag: torch.Tensor           # (G,) f32
+    g_noise: torch.Tensor         # (G,) f32
+    ints: torch.Tensor            # (8,) i32, INT_FIELDS order
+    floats: torch.Tensor          # (1,) f32, FLOAT_FIELDS order
+
+    def clone(self) -> "ScanState":
+        return ScanState(**{f.name: getattr(self, f.name).clone()
+                            for f in dataclasses.fields(self)})
+
+
+def _scalar_view(group: str, i: int):
+    return property(lambda self: getattr(self, group)[i])
+
+
+for _i, _name in enumerate(INT_FIELDS):
+    setattr(ScanState, _name, _scalar_view("ints", _i))
+for _i, _name in enumerate(FLOAT_FIELDS):
+    setattr(ScanState, _name, _scalar_view("floats", _i))
+
+
+def init_state(p: DetectorParams, device: torch.device,
+               id_offset: int = 0) -> ScanState:
+    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+
+    def zi(n):
+        return torch.zeros(n, dtype=torch.int32, device=device)
+
+    def zf(n):
+        return torch.zeros(n, dtype=torch.float32, device=device)
+
+    ints = zi(len(INT_FIELDS))
+    ints[INT_FIELDS.index("burst_id")] = id_offset * 10
+    return ScanState(
+        baseline_hist=torch.zeros((H, F), dtype=torch.float32,
+                                  device=device),
+        baseline_sum=zf(F),
+        a_valid=torch.zeros(F, dtype=torch.bool, device=device),
+        a_id=zi(F), a_start=zi(F), a_last=zi(F), a_mag=zf(F),
+        a_noise=zf(F), mask_count=zi(F),
+        g_id=zi(G), g_start=zi(G), g_stop=zi(G), g_last=zi(G), g_bin=zi(G),
+        g_mag=zf(G), g_noise=zf(G),
+        ints=ints, floats=zf(len(FLOAT_FIELDS)))
+
+
+def rebase_(state: ScanState, block_samples: int) -> None:
+    """In place: shift the per-burst sample indices by -block_samples and
+    clear the gone count, preparing the carry for the next block."""
+    state.a_start.sub_(block_samples)
+    state.a_last.sub_(block_samples)
+    state.ints[INT_FIELDS.index("g_count")] = 0

@@ -1,0 +1,98 @@
+"""The port's burst front-end (iridium_tpu_torch/ops/window_gather.py and
+fused_frontend.py) against the JAX package's Pallas kernels in interpret
+mode and the float64 oracle of test_fused_frontend.py.
+
+The window gather is a copy: bit-exact against both JAX gathers. The
+fused front-end sums its FIR in another order than the TPU kernel's
+bf16x3 dots and the oracle's float64, so it is held at test_fused_
+frontend.py's tolerance (rtol 2e-4, atol 2e-3) on the valid outputs.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from iridium_tpu.ops import fused_frontend as jff  # noqa: E402
+from iridium_tpu.ops import window_gather as jwg  # noqa: E402
+from iridium_tpu_torch.ops import filters  # noqa: E402
+from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
+from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
+
+from test_fused_frontend import D, F, L_WIN, NTAPS, oracle  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _stream(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+            ).astype(np.complex64)
+
+
+def _planes(stream):
+    return torch.from_numpy(np.stack([stream.real, stream.imag]).copy())
+
+
+@pytest.mark.parametrize("l_blocks,n,starts", [
+    (1, 3 * wg.ALIGN, [[0, 0], [1, 0]]),
+    (1, 3 * wg.ALIGN, [[0, 1], [1, 1]]),
+    (1, 3 * wg.ALIGN, [[0, 39], [1, 39]]),
+    (2, 5 * wg.ALIGN, [[0, 0], [0, 39], [1, 1], [2, 17], [1, 39], [0, 20]]),
+    (1, 3 * wg.ALIGN + 64, [[2, 39], [2, 0]]),      # spill past the end
+])
+def test_window_gather_bit_exact(l_blocks, n, starts):
+    l_win = l_blocks * wg.ALIGN
+    stream = _stream(n, seed=l_blocks)
+    starts2 = np.array(starts, np.int32)
+    s = jnp.asarray(stream)
+    planes = jwg.stream_planes(s)
+    p_re, p_im = jwg.make_window_gather(l_win, interpret=True)(
+        planes[0], planes[1], jnp.asarray(starts2))
+    x_re, x_im = jwg.gather_windows_xla(
+        jnp.pad(s, (0, wg.MAX_SHIFT + 128)), jnp.asarray(starts2), l_win)
+    got = wg.gather(_planes(stream), torch.from_numpy(starts2), l_win)
+    for g, pw, xw in zip(got, (p_re, p_im), (x_re, x_im)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(pw))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(xw))
+
+
+def test_fused_plain_matches_pallas_and_oracle():
+    taps = filters.lpf_taps(1.0, 10_000_000.0, 100_000.0, 50_000.0)
+    assert len(taps) == NTAPS
+    cases = [(0, 0, 7), (1, 3, -100), (0, 7, 250), (2, 1, 0), (1, 5, -255)]
+    stream = _stream(L_WIN + 4 * wg.ALIGN, seed=3)
+    starts2 = np.array([[t, r] for t, r, _ in cases], np.int32)
+    ks = np.array([k for _, _, k in cases], np.int32)
+
+    s = jnp.asarray(stream)
+    planes = jwg.stream_planes(s)
+    fn = jff.make_fused_frontend(L_WIN, F, D, np.asarray(taps),
+                                 interpret=True)
+    j_re, j_im = fn(jff.stack_planes(planes[0], planes[1]),
+                    jnp.asarray(starts2), jff.make_ramp_table(F)(
+                        jnp.asarray(ks)))
+    assert ff.supports(F, D, L_WIN)
+    got_re, got_im = ff.fused(_planes(stream), torch.from_numpy(starts2),
+                              torch.from_numpy(ks), torch.from_numpy(taps),
+                              ff.ramp_table(F, CPU), L_WIN, D)
+    got = got_re.numpy() + 1j * got_im.numpy()
+    jax_out = np.asarray(j_re) + 1j * np.asarray(j_im)
+    n_cmp = (L_WIN - NTAPS) // D
+    for i, (t, r, k) in enumerate(cases):
+        want = oracle(stream, t, r, k, np.asarray(taps))
+        np.testing.assert_allclose(got[i, :n_cmp], want[:n_cmp],
+                                   rtol=2e-4, atol=2e-3)
+        np.testing.assert_allclose(got[i, :n_cmp], jax_out[i, :n_cmp],
+                                   rtol=2e-4, atol=2e-3)
+
+
+def test_ramp_table_matches_jax():
+    ks = np.array([-256, -3, 0, 1, 255], np.int32)
+    want = np.asarray(jff.make_ramp_table(F)(jnp.asarray(ks)))
+    ramp = ff.ramp_table(F, CPU).numpy()
+    m = (ks.astype(np.int64)[:, None] * np.arange(F)) % F
+    got = np.stack([ramp[0][m], ramp[1][m]], 1).reshape(want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-7)

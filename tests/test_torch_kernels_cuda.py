@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small shapes. Marked `cuda`: they skip without a CUDA device. The file
+imports no JAX, so it runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
+
+(chip_smoke.py holds the same kernels to the same tolerances at the
+production shapes.)
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
+from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
+from iridium_tpu_torch.ops import filters  # noqa: E402
+from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
+from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _planes(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((2, n)).astype(
+        np.float32)).to(dev)
+
+
+def test_window_gather_bit_exact(dev):
+    planes = _planes(3 * wg.ALIGN + 64, 1, dev)
+    starts2 = torch.tensor([[0, 0], [0, 39], [1, 1], [2, 17], [2, 39]],
+                           dtype=torch.int32, device=dev)
+    for a, b in zip(wg.gather(planes, starts2, wg.ALIGN),
+                    wg.gather_plain(planes, starts2, wg.ALIGN)):
+        assert torch.equal(a, b)
+
+
+def test_fused_frontend_matches_plain(dev):
+    F, D, l_win = 512, 8, 2 * wg.ALIGN
+    planes = _planes(l_win + 4 * wg.ALIGN, 2, dev)
+    starts2 = torch.tensor([[0, 0], [1, 7], [2, 3], [3, 5]],
+                           dtype=torch.int32, device=dev)
+    ks = torch.tensor([5, -250, 0, 255], dtype=torch.int32, device=dev)
+    taps = torch.from_numpy(filters.lpf_taps(
+        1.0, 10_000_000.0, 100_000.0, 50_000.0)).to(dev)
+    ramp = ff.ramp_table(F, dev)
+    for a, b in zip(ff.fused(planes, starts2, ks, taps, ramp, l_win, D),
+                    ff.fused_plain(planes, starts2, ks, taps, ramp, l_win,
+                                   D)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+
+
+def test_detect_scan_matches_plain(dev):
+    p = DetectorConfig(sample_rate=1_000_000, history_size=64,
+                       frames_per_block=256, max_new_per_frame=8,
+                       gone_capacity=64, max_bursts=20).derived()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    mag2 = torch.empty((256, p.fft_size), device=dev).exponential_(
+        generator=gen)
+    for f0, nf, b in [(70, 20, 200), (75, 120, 600), (90, 5, 900)]:
+        mag2[f0:f0 + nf, b - 1:b + 2] += 500.0
+    mag2[150:200, 20:1000:30] += 800.0           # trips the squelch
+    s0 = st.init_state(p, dev)
+    got = detect_scan.scan(mag2, s0, p.block_samples, p)
+    want = detect_scan.scan_plain(mag2, s0, p.block_samples, p)
+    for name in ("a_valid", "a_id", "a_start", "a_last", "mask_count",
+                 "g_id", "g_start", "g_stop", "g_last", "g_bin", "ints",
+                 "baseline_sum", "baseline_hist"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-5, atol=0)
+    assert int(got.g_count) >= 3
