@@ -9,15 +9,24 @@ Phases, each printing one line:
      card and held against its plain PyTorch version on the same inputs,
      with its time, the plain version's, a library call's where one
      computes the same function, and the bound;
-  3. the offline decode at the production 10 MHz configuration: a
-     synthetic capture file through `Pipeline.run_file` and `RawPrinter`,
-     every injected payload bit-exact, scan and fused front-end launched;
-     then the same decode under torch.profiler (device time, idle share);
+  3. the offline RAW decode at the production 10 MHz configuration: a
+     synthetic capture file through `Pipeline.run_file` (no LLRs) and
+     `RawPrinter`, every injected payload bit-exact, scan and fused
+     front-end launched; then the same decode under torch.profiler
+     (device time, idle share);
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
      whose gather launches are checked against the plain gather, and the
      per-symbol demod loop alone at a 256-burst batch;
-  5. the `kernels` JSON line: every kernel with its launches on the
-     pipeline runs, its times and its bound.
+  5. the protocol decode at the production 10 MHz configuration: a
+     capture with injected IRA, IBC and IDA frames (one ACARS SBD message
+     over two IDA bursts) through the pipeline with LLRs and the CLI's
+     decoders; every IDA payload, the ACARS text and the IRA ids come
+     back, and the unpacked LLRs are within one quantum of the f32 LLRs;
+  6. the block-gather sweep tool (`iridium_tpu_torch.tools.
+     exp_block_gather`) on the card, its sum check passing;
+  7. the `kernels` JSON line: every kernel with its launches on the
+     paths above (counts reset before each path and read after it), its
+     times and its bound.
 The last line is the JSON result. Any failed check exits non-zero; with no
 CUDA device, or without the port's package beside this script, it fails
 before printing a result. It imports nothing of JAX.
@@ -206,12 +215,15 @@ def check_fused(dev, F, decim, taps_np, B, l_win) -> dict:
     # 2 FLOP per multiply-add, 2 planes, ntaps per output
     n_bytes = (8 * covered_samples(starts2, span, planes.shape[1])
                + 8 * B * n_out + 4 * ntaps)
-    b_ms, b_by = bound(n_bytes, 4.0 * ntaps * B * n_out)
+    n_flop = 4.0 * ntaps * B * n_out
+    b_ms, b_by = bound(n_bytes, n_flop)
     return dict(name="fused_frontend", route="cuda",
                 source="iridium_tpu_torch/csrc/fused_frontend.cu",
                 replaces="iridium_tpu/ops/fused_frontend.py:130",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms,
+                detail=dict(bytes_ms=bound(n_bytes, 0)[0],
+                            operations_ms=bound(0, n_flop)[0]))
 
 
 def check_gather(dev, F, B, l_win) -> dict:
@@ -243,6 +255,52 @@ def check_gather(dev, F, B, l_win) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def check_block_gather(dev) -> dict:
+    """The block gather at the sweep tool's shapes (B = 128 windows of
+    512 rows from two (59,376, 640) planes) on random planes, for each
+    row block R; the row reports the fastest R, `detail` all of them."""
+    import torch
+    from iridium_tpu_torch.ops import block_gather as bg
+    from iridium_tpu_torch.tools import exp_block_gather as tool
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    mt = tool.FULL["M"] // tool.TILE
+    sre = torch.randn((mt, tool.TILE), device=dev, generator=gen)
+    sim = torch.randn((mt, tool.TILE), device=dev, generator=gen)
+    detail = []
+    for R in (64, 128, 256):
+        sh = tool.shapes(R, **tool.FULL)
+        st = torch.from_numpy(sh["starts"]).to(dev)
+        nt = sh["nt"]
+        got = bg.block_gather(sre, sim, st, R, nt)
+        want = bg.block_gather_plain(sre, sim, st, R, nt)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"block_gather R={R}: not bit-equal to "
+                                 "plain")
+        del got, want
+        ms = time_ms(lambda: bg.block_gather(sre, sim, st, R, nt))
+        plain_ms = time_ms(lambda: bg.block_gather_plain(sre, sim, st, R,
+                                                         nt), reps=3)
+        rows = (st.long()[:, None] * R
+                + torch.arange(nt, device=dev)).reshape(-1)
+        lib_ms = time_ms(lambda: (torch.index_select(sre, 0, rows),
+                                  torch.index_select(sim, 0, rows)), reps=3)
+        n_bytes = tool.moved_bytes(sh)
+        b_ms, b_by = bound(n_bytes, 0)
+        detail.append(dict(R=R, nt=nt, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                           gbps=n_bytes / ms / 1e6))
+    best = min(detail, key=lambda d: d["ms"])
+    return dict(name="block_gather", route="cuda",
+                source="iridium_tpu_torch/csrc/block_gather.cu",
+                replaces="tools/exp_pallas_gather.py:55",
+                max_abs_err=0.0, ms=best["ms"], plain_ms=best["plain_ms"],
+                bound_ms=best["bound_ms"], bound_by=best["bound_by"],
+                library_ms=best["library_ms"],
+                detail=dict(best_R=best["R"], per_R=detail))
+
+
 def kernel_phase(dev) -> list[dict]:
     from iridium_tpu_torch.config import (DetectorConfig, DownmixConfig)
     from iridium_tpu_torch.dsp import downmix
@@ -254,7 +312,8 @@ def kernel_phase(dev) -> list[dict]:
     B, l_win = 256, 327_680
     rows = [check_scan(p, dev),
             check_fused(dev, p.fft_size, dmp.decimation, taps, B, l_win),
-            check_gather(dev, p.fft_size, B, l_win)]
+            check_gather(dev, p.fft_size, B, l_win),
+            check_block_gather(dev)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
     return rows
@@ -317,9 +376,10 @@ def decode_phase(dev, tmp) -> dict:
     det = DetectorConfig(**PROD)
     t0 = 1_700_000_000_000_000_000
     # warm-up decode (cuFFT plans, allocator); then the counted run
-    list(Pipeline(det_cfg=det, start_time_ns=t0, device=dev)
-         .run_file(path))
-    pipe = Pipeline(det_cfg=det, start_time_ns=t0, device=dev)
+    list(Pipeline(det_cfg=det, start_time_ns=t0, device=dev,
+                  want_llr=False).run_file(path))
+    pipe = Pipeline(det_cfg=det, start_time_ns=t0, device=dev,
+                    want_llr=False)
     printer = RawPrinter()
     torch.cuda.synchronize()
     _kernels.reset_counts()
@@ -362,7 +422,7 @@ def profile_phase(dev, path: str, wall_s: float) -> dict:
     from iridium_tpu_torch.runtime.pipeline import Pipeline
 
     pipe = Pipeline(det_cfg=DetectorConfig(**PROD), start_time_ns=0,
-                    device=dev)
+                    device=dev, want_llr=False)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         list(pipe.run_file(path))
@@ -404,7 +464,7 @@ def gather_phase(dev, tmp) -> dict:
         return out
 
     pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
-                       start_time_ns=0, device=dev)
+                       start_time_ns=0, device=dev, want_llr=False)
     _kernels.reset_counts()
     pl.window_gather.gather = recording
     try:
@@ -446,6 +506,163 @@ def demod_phase(dev) -> dict:
     return dict(phase="demod_loop", batch=B, symbols=S, ms=ms)
 
 
+# ---- phase 5: the protocol decode (--parsed, ACARS) at 10 MHz ----
+
+ACARS_TEXT = b"SMOKE TEST 1"
+
+
+def frames_capture(rng):
+    """Three production blocks of 10 MHz noise (the last one partial)
+    with IRA and IBC frames in the simplex band and IDA frames in the
+    duplex band: five single-burst messages (one straddling the first
+    block boundary) and one ACARS SBD message over two IDA bursts 90 ms
+    apart on one channel. Returns the capture and what was injected."""
+    from iridium_tpu_torch.io import synth, synth_frames as sf
+    fs = PROD["sample_rate"]
+    block = PROD["frames_per_block"] * 8192
+    cap = synth.noise(2 * block + 4_000_000, seed=SEED + 6)
+    ira = [(55, 21, (1000, -500, 1200)), (12, 3, (500, 600, -700)),
+           (77, 40, (-1200, 300, 900))]
+    ibc = [(33, 9), (70, 12)]
+    ida = [b"HELLO-IRIDIUM", b"0123456789ABCDEFGHIJ", b"SMOKE", b"IRIDIUM",
+           b"BLOCK-EDGE"]
+    acars = sf.ida_message_bursts(
+        sf.sbd_ida_message(sf.acars_sbd(ACARS_TEXT)), lcw_code=6)
+    plan = [(sf.ira_payload_bits(sat, beam, xyz), 4_100_000.0 + 80_000 * k)
+            for k, (sat, beam, xyz) in enumerate(ira)]
+    plan += [(sf.ibc_payload_bits(sat, beam, iri_time=1000 + k),
+              4_200_000.0 + 80_000 * k) for k, (sat, beam) in enumerate(ibc)]
+    plan += [(sf.ida_payload_bits(t, lcw_code=6, lcw3_val=0x12345 + k),
+              off) for k, (t, off) in enumerate(zip(
+                  ida, (137_000.0, -2_310_000.0, 1_020_000.0, 3_050_000.0,
+                        -220_000.0)))]
+    starts = [5_000_000, 7_400_000, 9_800_000, 12_200_000, 14_600_000,
+              19_000_000, 21_400_000, 23_800_000, 26_200_000, block - 30_000]
+    plan = [(bits, off, start) for (bits, off), start in zip(plan, starts)]
+    plan += [(acars[0], -880_000.0, 29_000_000),
+             (acars[1], -880_000.0, 29_900_000)]
+    for bits, off, start in plan:
+        # 8 guard bits after the frame, as in production_capture
+        b = np.concatenate([bits, rng.integers(0, 2, 8).astype(np.uint8)])
+        synth.add_burst(cap, synth.burst_waveform(b, fs, off), start,
+                        snr_db=float(rng.uniform(22.0, 32.0)))
+    return cap, dict(ira=[(sat, beam) for sat, beam, _ in ira],
+                     ibc=ibc, ida=ida, bursts=len(plan))
+
+
+def parsed_phase(dev, tmp) -> dict:
+    """`--parsed --acars-json` at the production configuration, through
+    the calls the CLI's decode loop makes: the pipeline with LLRs, one
+    block-batched protocol decode per block, `IDA:` lines, the ACARS
+    reassembler and decoder. Every packed batch is recorded, and its
+    unpacked LLRs are held against the demod's f32 LLRs."""
+    import io
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.decode import batch, ida as ida_mod, sbd_acars
+    from iridium_tpu_torch.io import readers
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.runtime import pipeline as pl
+
+    cap, want = frames_capture(np.random.default_rng(SEED + 7))
+    path = os.path.join(tmp, "frames_10mhz.cf32")
+    write_cf32(path, cap)
+    seconds = len(cap) / PROD["sample_rate"]
+    det = DetectorConfig(**PROD)
+    packed = []
+    kernel_pack = pl.pack_outputs
+
+    def recording(dm, dd, s2_pad, want_llr):
+        out = kernel_pack(dm, dd, s2_pad, want_llr)
+        packed.append((dd.llr, out, s2_pad // 2))
+        return out
+
+    def decode():
+        pipe = pl.Pipeline(det_cfg=det, start_time_ns=1_700_000_000 * 10**9,
+                           device=dev, want_llr=True)
+        printer, reasm = RawPrinter(), ida_mod.IdaReassembler()
+        acars = sbd_acars.AcarsDecoder(json_out=True, text_out=io.StringIO(),
+                                       station="SMOKE")
+        lines, decoded = [], []
+        for frames in pipe.run_blocks(readers.read_blocks(
+                path, pipe.p.block_samples)):
+            for f, (d, b) in zip(frames, batch.decode_block(frames)):
+                lines.append(printer.format_ida(b) if b is not None
+                             else printer.format(f))
+                if d is not None:
+                    decoded.append(d)
+                if b is not None:
+                    reasm.push(b, acars.process)
+                reasm.flush(f["timestamp_ns"])
+        return pipe, lines, decoded, acars
+
+    decode()                                   # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    pl.pack_outputs = recording
+    try:
+        t = time.perf_counter()
+        pipe, lines, decoded, acars = decode()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        pl.pack_outputs = kernel_pack
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    for name in ("detect_scan", "fused_frontend"):
+        if counts[name] == 0:
+            raise AssertionError(f"parsed decode never launched {name}")
+    ida_lines = [x for x in lines if x.startswith("IDA:")]
+    missing = [t for t in want["ida"]
+               if not any(f"[{'.'.join(f'{c:02x}' for c in t)}]" in x
+                          and "CRC:OK" in x for x in ida_lines)]
+    if missing:
+        raise AssertionError(f"IDA payloads not recovered: {missing}")
+    ira = {(d.sat_id, d.beam_id) for k, d in decoded if k == "IRA"}
+    ibc = {(d.sat_id, d.beam_id) for k, d in decoded if k == "IBC"}
+    if not set(want["ira"]) <= ira or not set(want["ibc"]) <= ibc:
+        raise AssertionError(f"IRA/IBC ids: got {ira} / {ibc}, want "
+                             f"{want['ira']} / {want['ibc']}")
+    texts = [json.loads(x)["iridium"]["acars"].get("msg_text")
+             for x in acars.text_out.getvalue().splitlines()]
+    if texts != [ACARS_TEXT.decode()]:
+        raise AssertionError(f"ACARS text: {texts}")
+    # unpacked LLRs within one quantum (scale / 65535) of the f32 LLRs
+    worst = 0.0
+    for llr, out, ms in packed:
+        u = pl.unpack_outputs(out.cpu().numpy(), ms, True)["llr"]
+        f32 = llr.cpu().numpy()
+        q = f32.max(1, keepdims=True) / 65535.0
+        err = np.abs(u[:, :f32.shape[1]] - f32)
+        if (err > q + 1e-7 * np.abs(f32)).any():
+            raise AssertionError("unpacked LLRs beyond one quantum")
+        worst = max(worst, float((err / np.maximum(q, 1e-30)).max()))
+    st = pipe.stats
+    return dict(phase="decode_parsed_10mhz", capture_s=seconds, wall_s=wall,
+                realtime_x=seconds / wall, injected=want["bursts"],
+                detected=st.n_detected, ok=st.n_ok, lines=len(lines),
+                ida_lines=len(ida_lines), ira=len(ira), ibc=len(ibc),
+                acars=len(texts), llr_batches=len(packed),
+                llr_err_quanta=worst, stages=dict(pipe.timing),
+                launches=counts)
+
+
+def tool_phase(dev) -> dict:
+    """The block-gather sweep tool on the card: R = 64, 128, 256 at the
+    tool's shapes; each run's sum check must pass."""
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_block_gather as tool
+    _kernels.reset_counts()
+    res = tool.sweep((64, 128, 256), dev)
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    if counts["block_gather"] == 0:
+        raise AssertionError("the sweep tool never launched block_gather")
+    return dict(phase="tool_block_gather", launches=counts,
+                sweep=[{k: r[k] for k in ("R", "nt", "ms", "out_gbps",
+                                          "moved_gbps", "sum")}
+                       for r in res])
+
+
 def main() -> int:
     try:
         import torch
@@ -484,10 +701,16 @@ def main() -> int:
               flush=True)
         gat = gather_phase(dev, tmp)
         print(json.dumps(gat), flush=True)
-    print(json.dumps(demod_phase(dev)), flush=True)
+        print(json.dumps(demod_phase(dev)), flush=True)
+        par = parsed_phase(dev, tmp)
+        print(json.dumps(par), flush=True)
+    tool = tool_phase(dev)
+    print(json.dumps(tool), flush=True)
     for r in rows:
-        r["launches"] = (dec["launches"][r["name"]]
-                         + gat["launches"][r["name"]])
+        r["launches"] = sum(ph["launches"][r["name"]]
+                            for ph in (dec, gat, par, tool))
+        if r["launches"] == 0:
+            return fail(f"{r['name']} was launched on no path")
     if "jax" in sys.modules or "iridium_tpu" in sys.modules:
         return fail("JAX or the JAX package was imported")
     print(json.dumps({"kernels": rows}))

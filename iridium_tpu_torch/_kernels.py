@@ -137,8 +137,11 @@ FUSED_FRONTEND = Kernel(
 WINDOW_GATHER = Kernel(
     "window_gather",
     [P, LL, P, I, I, I, P, P, P])
+BLOCK_GATHER = Kernel(
+    "block_gather",
+    [P, P, LL, I, P, I, I, I, P, P, P])
 
-KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER)
+KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER)
 
 
 def build_all() -> None:

@@ -1,9 +1,16 @@
 """Command-line interface of the port: offline decode of a capture file to
-`RAW:` lines on stdout, with the JAX package's RAW-mode flags
-(iridium_tpu/cli.py) plus `--device`.
+`RAW:` lines on stdout, with the JAX package's flags (iridium_tpu/cli.py)
+plus `--device`, and its protocol decoders: `--parsed` `IDA:` lines,
+GSMTAP, ZMQ, ACARS text/JSON/UDP/feed, the diagnostic display, Doppler
+positioning and the live web map.
 
-    iridium-tpu-torch -f capture.cf32            # on the GPU
-    iridium-tpu-torch -f capture.cf32 --device cpu
+    iridium-tpu-torch -f capture.cf32                    # on the GPU
+    iridium-tpu-torch -f capture.cf32 --parsed --device cpu
+
+The decoders are host code (numpy); their LLRs come off the card with the
+packed rows only when a decoder is on. The JAX package's backend switches
+(`--no-pallas`, `--fir`, `--gather`, `--scan`) have no counterpart: the
+card's path always runs the port's kernels.
 
 Stats line: the gr-iridium-format 1 Hz stderr line (main.c:483-501).
 """
@@ -15,6 +22,8 @@ import sys
 import time
 
 from .config import DetectorConfig, DownmixConfig
+from .decode import batch as batch_mod
+from .decode import ida as ida_mod
 from .output.raw import RawPrinter
 
 
@@ -24,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Iridium burst detector and demodulator on a GPU "
                     "(PyTorch/CUDA). Outputs iridium-toolkit compatible "
                     "RAW format to stdout.")
-    p.add_argument("-f", "--file", help="read IQ samples from file")
+    p.add_argument("-f", "--file", help="read IQ samples from file "
+                   "('-' for stdin)")
     p.add_argument("--format", choices=("ci8", "ci16", "cf32"),
                    help="IQ file format (default: by extension, else ci8)")
     p.add_argument("-c", "--center-freq", type=float, default=1_622_000_000,
@@ -37,6 +47,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="file info string for output (default: auto)")
     p.add_argument("--no-gardner", action="store_true",
                    help="disable Gardner timing recovery")
+    p.add_argument("--parsed", action="store_true",
+                   help="output parsed IDA lines")
+    p.add_argument("--diagnostic", action="store_true",
+                   help="setup verification mode (suppresses RAW output)")
+    p.add_argument("--gsmtap", nargs="?", const="127.0.0.1:4729",
+                   metavar="HOST:PORT",
+                   help="send IDA frames as GSMTAP via UDP")
+    p.add_argument("--zmq", nargs="?", const="tcp://*:7006",
+                   metavar="ENDPOINT",
+                   help="publish output via ZMQ PUB socket")
+    p.add_argument("--web", nargs="?", const=8888, type=int, metavar="PORT",
+                   help="enable live web map")
+    p.add_argument("--position", nargs="?", const=-1.0, type=float,
+                   metavar="HEIGHT_M",
+                   help="estimate receiver position from Doppler shift "
+                        "(optional height aiding in meters)")
+    p.add_argument("--acars", action="store_true",
+                   help="decode and display ACARS messages from IDA")
+    p.add_argument("--acars-json", action="store_true",
+                   help="output ACARS as JSON")
+    p.add_argument("--acars-udp", action="append", default=[],
+                   metavar="HOST:PORT", help="stream ACARS JSON via UDP")
+    p.add_argument("--feed", nargs="?",
+                   const="tcp://feed.airframes.io:5590",
+                   metavar="PROTO://HOST:PORT",
+                   help="feed aggregator (udp:// for acarshub, tcp:// "
+                        "for airframes.io)")
+    p.add_argument("--station", default="IRIDIUM-TPU",
+                   help="station identifier for ACARS JSON output")
     p.add_argument("--burst-batch", type=int, default=128,
                    help="device burst batch size")
     p.add_argument("--frames-per-block", type=int, default=512,
@@ -52,24 +91,93 @@ def main(argv=None) -> int:
     if not args.file:
         print("error: -f/--file required", file=sys.stderr)
         return 2
+    from .io import readers
     from .runtime.pipeline import Pipeline   # deferred: imports torch
 
     det = DetectorConfig(center_frequency=args.center_freq,
                          sample_rate=args.sample_rate,
                          threshold_db=args.threshold,
                          frames_per_block=args.frames_per_block)
+    # LLRs cross the device->host boundary only when a protocol decoder
+    # consumes them; the RAW line itself never prints them.
+    decode_active = (args.parsed or args.gsmtap or args.web is not None
+                     or args.position is not None or args.acars
+                     or args.acars_json or args.acars_udp or args.feed)
     pipe = Pipeline(det_cfg=det, dm_cfg=DownmixConfig(),
                     burst_batch=args.burst_batch,
                     use_gardner=not args.no_gardner,
-                    device=args.device)
+                    device=args.device, want_llr=bool(decode_active))
     printer = RawPrinter(args.file_info)
-    t_start = last = time.time()
+
+    zmq_sock = None
+    if args.zmq is not None:
+        try:
+            import zmq as zmq_mod
+            ctx = zmq_mod.Context()
+            zmq_sock = ctx.socket(zmq_mod.PUB)
+            zmq_sock.bind(args.zmq.replace("*", "0.0.0.0")
+                          if "*" in args.zmq else args.zmq)
+        except ImportError:
+            print("warning: pyzmq not available, --zmq disabled",
+                  file=sys.stderr)
+
+    gsmtap = None
+    if args.gsmtap:
+        from .output.gsmtap import GsmtapSender
+        host, _, port = args.gsmtap.partition(":")
+        gsmtap = GsmtapSender(host or "127.0.0.1", int(port or 4729))
+
+    web = None
+    if args.web is not None:
+        from .output.web_map import WebMap
+        web = WebMap(port=args.web)
+        web.start()
+
+    doppler = None
+    if args.position is not None:
+        from .decode.doppler import DopplerSolver
+        doppler = DopplerSolver(
+            height_aid_m=None if args.position < 0 else args.position)
+
+    acars = None
+    if args.acars or args.acars_json or args.acars_udp or args.feed:
+        from .decode.sbd_acars import AcarsDecoder, FeedSender
+        feed = FeedSender(args.feed) if args.feed else None
+        acars = AcarsDecoder(json_out=args.acars_json,
+                             udp_targets=args.acars_udp,
+                             station=args.station,
+                             feed_sender=feed)
+
+    need_ida = (args.parsed or gsmtap is not None or acars is not None
+                or web is not None)
+    # Three independent reassembly contexts, like the reference's
+    # ida_ctx / acars_ida_ctx / mtpos_ida_ctx (main.c:351-369): each
+    # consumer sees every reassembled message exactly once.
+    reasm_gsmtap = ida_mod.IdaReassembler() if gsmtap else None
+    reasm_acars = ida_mod.IdaReassembler() if acars else None
+    reasm_mtpos = ida_mod.IdaReassembler() if web is not None else None
+
+    # any ACARS mode suppresses RAW stdout (reference frame_output.c:162,
+    # options.c:403-431: --acars/--acars-json/--acars-udp/--feed all set
+    # acars_enabled)
+    acars_mode = acars is not None
+
+    def emit(line: str) -> None:
+        if not args.diagnostic and not acars_mode:
+            print(line)
+        if zmq_sock is not None:
+            zmq_sock.send_string(line)
+
+    t_start = last_stat = last_solve = last_waiting = time.time()
     prev = dict(det=0, ok=0, handled=0, samples=0)
+    # Live mode: stdin pipe. The reference switches the first stats
+    # column from srr% to i:/s when live (main.c:487-492).
+    live = args.file in ("-", "/dev/stdin")
 
     def stats_line() -> None:
-        nonlocal last, prev
+        nonlocal last_stat, last_solve, last_waiting, prev
         now = time.time()
-        dt = now - last
+        dt = now - last_stat
         if dt < 1.0:
             return
         s = pipe.stats
@@ -80,7 +188,32 @@ def main(argv=None) -> int:
         srr = (s.n_samples - prev["samples"]) / (args.sample_rate * dt) * 100
         in_ok = 100.0 * dk / dd if dd > 0 else 0
         ok_avg = 100.0 * s.n_ok / s.n_detected if s.n_detected else 0
-        print(f"{int(now)} | srr: {srr:5.1f}%"
+        last_stat = now
+        prev = dict(det=s.n_detected, ok=s.n_ok, handled=s.n_handled,
+                    samples=s.n_samples)
+        if args.diagnostic:
+            # guided-setup display (reference main.c:444-481)
+            rt = int(elapsed)
+            bpm = s.n_detected * 60.0 / elapsed if elapsed > 0 else 0
+            nf = pipe.noise_floor_db()
+            pk = pipe.peak_signal_db()
+            line = (f"Runtime: {rt // 3600:02d}:{rt % 3600 // 60:02d}:"
+                    f"{rt % 60:02d}  |  Bursts: {s.n_detected} detected "
+                    f"({bpm:.1f}/min)  |  Decoded: {s.n_ok} "
+                    f"(ok_avg: {ok_avg:.0f}%)  |  Noise: {nf:.1f} dBFS/Hz"
+                    f"  |  Peak: {pk:.1f} dB  ")
+            if s.n_detected == 0 and elapsed > 120:
+                line += "| No bursts detected - check antenna"
+            elif ok_avg >= 70 and bpm >= 3:
+                line += f"| Setup looks good (gap: {pk - nf:.1f} dB)"
+            elif ok_avg < 70 and s.n_detected > 10:
+                line += "| Low decode rate - try adjusting gain"
+            elif ok_avg >= 70 and bpm < 3 and elapsed > 60:
+                line += "| Good decode rate but low burst count"
+            print(line, file=sys.stderr)
+            return
+        first = f"i: {dd / dt:3.0f}/s" if live else f"srr: {srr:5.1f}%"
+        print(f"{int(now)} | {first}"
               f" | i_avg: {s.n_detected / elapsed:3.0f}/s"
               f" | i_ok: {in_ok:3.0f}%"
               f" | o: {dh / dt:4.0f}/s"
@@ -88,19 +221,88 @@ def main(argv=None) -> int:
               f" | ok_avg: {ok_avg:3.0f}%"
               f" | ok: {s.n_ok:10d}"
               f" | d: {s.n_dropped}", file=sys.stderr)
-        last = now
-        prev = dict(det=s.n_detected, ok=s.n_ok, handled=s.n_handled,
-                    samples=s.n_samples)
+        # Doppler solve every ~10 s; "waiting" note every ~60 s while
+        # unconverged (reference main.c:507-519)
+        if doppler is not None and now - last_solve >= 10 and elapsed > 5:
+            last_solve = now
+            sol = doppler.solve()
+            if sol.converged:
+                print(f"POSITION: {sol.lat:.6f}, {sol.lon:.6f} "
+                      f"(HDOP={sol.hdop:.1f}, {sol.n_satellites} sats, "
+                      f"{sol.n_measurements} meas)", file=sys.stderr)
+                if web is not None:
+                    web.set_position(sol.lat, sol.lon, sol.hdop)
+            elif now - last_waiting >= 60:
+                last_waiting = now
+                print(f"POSITION: waiting ({sol.n_satellites} sats, "
+                      f"{sol.n_measurements} meas)", file=sys.stderr)
 
-    for frame in pipe.run_file(args.file, args.format):
-        print(printer.format(frame))
-        stats_line()
+    n_gsmtap = 0
+    need_frame = web is not None or doppler is not None
+
+    def send_gsmtap(data, ts, freq, direction, mag):
+        nonlocal n_gsmtap
+        gsmtap.send(data, freq, direction, mag)
+        n_gsmtap += 1
+
+    blocks = readers.read_blocks(args.file, pipe.p.block_samples,
+                                 args.format)
+    for frames in pipe.run_blocks(blocks):
+        # Block-vectorised protocol decode: one decode_block call covers
+        # every frame's BCH/LCW/IDA math (frame_decode.c:414-598,
+        # ida_decode.c:543-664).
+        if need_ida or need_frame:
+            results = batch_mod.decode_block(
+                frames, want_frame=need_frame, want_ida=need_ida)
+        else:
+            results = [(None, None)] * len(frames)
+        for f, (decoded, ida_burst) in zip(frames, results):
+            if args.parsed and ida_burst is not None:
+                emit(printer.format_ida(ida_burst))
+            else:
+                emit(printer.format(f))
+
+            if decoded is not None:
+                kind, d = decoded
+                if kind == "IRA":
+                    if web is not None:
+                        web.add_ra(d, f["timestamp_ns"], f["frequency"])
+                    if doppler is not None:
+                        doppler.add_measurement(d, f["frequency"],
+                                                f["timestamp_ns"])
+                elif kind == "IBC" and web is not None:
+                    web.add_sat(d, f["timestamp_ns"])
+
+            if gsmtap is not None and ida_burst is not None:
+                reasm_gsmtap.push(ida_burst, send_gsmtap)
+                reasm_gsmtap.flush(f["timestamp_ns"])
+            if acars is not None and ida_burst is not None:
+                reasm_acars.push(ida_burst, acars.process)
+                reasm_acars.flush(f["timestamp_ns"])
+            if reasm_mtpos is not None:
+                # MT position layer on the map (main.c:365-369 ->
+                # mtpos_ida_cb, web_map.c:280-361)
+                if ida_burst is not None:
+                    reasm_mtpos.push(ida_burst, web.mtpos_ida_cb)
+                reasm_mtpos.flush(f["timestamp_ns"])
+            stats_line()
+
+    # Shutdown summary prints unconditionally, like the reference
+    # (burst_detect.c:350-351).
     print(f"burst_detect: tagged {pipe.stats.n_detected} bursts total",
           file=sys.stderr)
     if pipe.stats.n_em_dropped or pipe.stats.n_create_waits:
         print(f"burst_detect: {pipe.stats.n_em_dropped} emission-cap "
               f"drops, {pipe.stats.n_create_waits} deferred creations",
               file=sys.stderr)
+    if gsmtap is not None:
+        print(f"gsmtap: sent {n_gsmtap} frames", file=sys.stderr)
+    if acars is not None:
+        acars.print_stats()
+    if web is not None:
+        web.stop()
+    if zmq_sock is not None:
+        zmq_sock.close(linger=0)
     return 0
 
 

@@ -48,17 +48,23 @@ def _round_up(x: int, m: int) -> int:
 
 
 # The packed output row (all int32 words), the JAX package's layout
-# without its optional LLR words (only the protocol decoders, not ported
-# yet, read LLRs):
+# (iridium_tpu/runtime/pipeline.py:55-69):
 #   [bits: ceil(2S/32) words, bit j of word w = bit 32w+j]
+#   [llr (optional): 1 word bitcast-f32 scale = the burst's max LLR, then
+#    ceil(2S/2) words of two u16 llr quanta each (lo = element 2i);
+#    q = clip(round(llr * 65535 / scale), 0, 65535), llr = q * scale / 65535]
 #   [4 words bitcast-f32: fine_offset, level, total_phase, uw_corr]
 #   [7 words i32: dm_ok, dd_ok, n_symbols, confidence, direction,
 #    start_dec, n_samples]
+# Only the protocol decoders read LLRs, so they cross to the host only
+# when asked for (`want_llr`).
 _META_WORDS = 11
 
 
-def packed_width(max_symbols: int) -> int:
-    return (2 * max_symbols + 31) // 32 + _META_WORDS
+def packed_width(max_symbols: int, want_llr: bool) -> int:
+    s2 = 2 * max_symbols
+    nl = 1 + (s2 + 1) // 2 if want_llr else 0
+    return (s2 + 31) // 32 + nl + _META_WORDS
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -67,24 +73,36 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_outputs(dm: downmix.DownmixOut, dd: demod_mod.DemodOut,
-                 s2_pad: int) -> torch.Tensor:
+                 s2_pad: int, want_llr: bool) -> torch.Tensor:
     """One burst batch's host-bound fields as a (B, W) int32 matrix (see
     the layout above); `unpack_outputs` is the host-side inverse."""
     B, S2 = dd.bits.shape
     NW = (s2_pad + 31) // 32
     dev = dd.bits.device
-    bits = torch.nn.functional.pad(dd.bits.long(), (0, NW * 32 - S2))
+    pad = torch.nn.functional.pad
+    bits = pad(dd.bits.long(), (0, NW * 32 - S2))
     words = (bits.reshape(B, NW, 32)
              << torch.arange(32, device=dev)).sum(-1)
+    cols = [_wrap_i32(words)]
+    if want_llr:
+        NL = (s2_pad + 1) // 2
+        scale = dd.llr.amax(1)
+        denom = torch.where(scale > 0, scale, 1.0)
+        q = torch.clamp(torch.round(dd.llr * (65535.0 / denom[:, None])),
+                        0, 65535).long()
+        q = pad(q, (0, NL * 2 - S2)).reshape(B, NL, 2)
+        cols += [scale.view(torch.int32)[:, None],
+                 _wrap_i32(q[:, :, 0] | (q[:, :, 1] << 16))]
     floats = torch.stack([dm.fine_offset, dd.level, dd.total_phase,
                           dm.uw_corr], 1).float().contiguous()
     ints = torch.stack([dm.ok.int(), dd.ok.int(), dd.n_symbols,
                         dd.confidence, dd.direction, dm.start_dec,
                         dm.n_samples], 1).int()
-    return torch.cat([_wrap_i32(words), floats.view(torch.int32), ints], 1)
+    return torch.cat(cols + [floats.view(torch.int32), ints], 1)
 
 
-def unpack_outputs(pi: np.ndarray, max_symbols: int) -> dict:
+def unpack_outputs(pi: np.ndarray, max_symbols: int,
+                   want_llr: bool) -> dict:
     """Host-side inverse of pack_outputs on a fetched (B, W) i32 matrix."""
     pi = np.ascontiguousarray(pi)
     B = pi.shape[0]
@@ -94,13 +112,24 @@ def unpack_outputs(pi: np.ndarray, max_symbols: int) -> dict:
     bw = pu[:, :NW]
     bits = ((bw[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1) \
         .reshape(B, NW * 32)[:, :S2].astype(np.int32)
-    fl = np.ascontiguousarray(pi[:, NW:NW + 4]).view(np.float32)
-    ii = pi[:, NW + 4:NW + _META_WORDS]
+    off = NW
+    if want_llr:
+        NL = (S2 + 1) // 2
+        scale = np.ascontiguousarray(pi[:, off]).view(np.float32)
+        lw = pu[:, off + 1:off + 1 + NL]
+        q = np.stack([lw & 0xFFFF, lw >> 16], axis=-1).reshape(B, NL * 2)
+        llr = q[:, :S2].astype(np.float32) * (scale[:, None]
+                                              / np.float32(65535.0))
+        off += 1 + NL
+    else:
+        llr = np.zeros((B, S2), np.float32)
+    fl = np.ascontiguousarray(pi[:, off:off + 4]).view(np.float32)
+    ii = pi[:, off + 4:off + _META_WORDS]
     return dict(
         dm_ok=ii[:, 0].astype(bool), dd_ok=ii[:, 1].astype(bool),
         n_sym=ii[:, 2], conf=ii[:, 3], direc=ii[:, 4],
         sdec=ii[:, 5].astype(np.int64),
-        bits=bits,
+        bits=bits, llr=llr,
         fine=fl[:, 0].astype(np.float64), level=fl[:, 1],
         total=fl[:, 2].astype(np.float64))
 
@@ -142,7 +171,8 @@ def build_frames_np(p, dmp, in_ntaps: int, start_time_ns: int,
         confidence=int(conf[i]), level=float(level[i]),
         n_symbols=ns_l[i],
         direction="UL" if direc[i] else "DL",
-        bits=u["bits"][js[i], :2 * ns_l[i]])
+        bits=u["bits"][js[i], :2 * ns_l[i]],
+        llr=u["llr"][js[i], :2 * ns_l[i]])
         for i in range(len(js))]
 
 
@@ -182,6 +212,7 @@ class BurstClass:
         self.demod = demod_mod.Demod(self.max_symbols, sps,
                                      pipe.use_gardner)
         self.taps, self.ramp = pipe.input_taps, pipe.ramp
+        self.want_llr = pipe.want_llr
 
     def run(self, planes: torch.Tensor, params: torch.Tensor
             ) -> torch.Tensor:
@@ -202,13 +233,16 @@ class BurstClass:
         dm = self.downmix(torch.complex(re, im), params[2], bins,
                           params[4])
         dd = self.demod(dm.samples, dm.n_samples, dm.direction)
-        return pack_outputs(dm, dd, 2 * self.max_symbols)
+        return pack_outputs(dm, dd, 2 * self.max_symbols,
+                            self.want_llr)
 
 
 class Pipeline:
     """Offline decode on one device. `device=None` means the current CUDA
     device and raises when there is none; `device="cpu"` runs the plain
-    versions of the kernels on the CPU."""
+    versions of the kernels on the CPU. `want_llr` carries each frame's
+    u16-quantised LLRs to the host (frame key "llr"; zeros without it)
+    for the protocol decoders."""
 
     def __init__(self,
                  det_cfg: DetectorConfig | None = None,
@@ -216,7 +250,8 @@ class Pipeline:
                  burst_batch: int = 128,
                  use_gardner: bool = True,
                  start_time_ns: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 want_llr: bool = True):
         self.device = device_mod.resolve(device)
         det_cfg = det_cfg or DetectorConfig()
         dm_cfg = dm_cfg or DownmixConfig()
@@ -227,6 +262,7 @@ class Pipeline:
             raise ValueError("detector configuration not supported by the "
                              "scan kernel")
         self.use_gardner = use_gardner
+        self.want_llr = want_llr
         taps = downmix.make_consts(dmp).input_taps
         self.in_ntaps = len(taps)
         self.input_taps = torch.from_numpy(taps).to(self.device)
@@ -381,10 +417,10 @@ class Pipeline:
 
         frames, o = [], 0
         for cls, sel in jobs:
-            W = packed_width(cls.max_symbols)
+            W = packed_width(cls.max_symbols, self.want_llr)
             packed = flat[o:o + len(sel) * W].reshape(len(sel), W)
             o += len(sel) * W
-            u = unpack_outputs(packed, cls.max_symbols)
+            u = unpack_outputs(packed, cls.max_symbols, self.want_llr)
             st.n_handled += int(u["dm_ok"].sum())
             ok = u["dm_ok"] & u["dd_ok"]
             st.n_ok += int(ok.sum())
@@ -445,3 +481,7 @@ class Pipeline:
         if avg > 0 and bin_width > 0:
             return 10.0 * np.log10(avg / bin_width)
         return -120.0
+
+    def peak_signal_db(self) -> float:
+        """Strongest detection so far, in dB (the diagnostic display)."""
+        return float(self.state.peak_signal_db)

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
+from iridium_tpu_torch.ops import block_gather as bg  # noqa: E402
 from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
@@ -81,3 +82,19 @@ def test_detect_scan_matches_plain(dev):
         torch.testing.assert_close(getattr(got, name), getattr(want, name),
                                    rtol=1e-5, atol=0)
     assert int(got.g_count) >= 3
+
+
+@pytest.mark.parametrize("R,nt", [(1, 8), (8, 16), (64, 128)])
+def test_block_gather_bit_exact(dev, R, nt):
+    mt, width = 300, 640
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7 + R)
+    sre = torch.randn((mt, width), device=dev, generator=gen)
+    sim = torch.randn((mt, width), device=dev, generator=gen)
+    # the last start runs past the planes' end, whose rows read as 0
+    st = torch.tensor([0, 1, (mt - nt) // R, mt // R], dtype=torch.int32,
+                      device=dev)
+    got = bg.block_gather(sre, sim, st, R, nt)
+    want = bg.block_gather_plain(sre, sim, st, R, nt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
