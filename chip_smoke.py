@@ -8,7 +8,9 @@ Phases, each printing one line:
   2. each hand-written kernel at the production shapes, launched on the
      card and held against its plain PyTorch version on the same inputs,
      with its time, the plain version's, a library call's where one
-     computes the same function, and the bound;
+     computes the same function, and the bound (the scan on three
+     blocks: synthetic, noise-only after priming, dense; the block gather
+     single-call and chained, at R = 64, 128, 256);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (no LLRs) and
      `RawPrinter`, every injected payload bit-exact, scan and fused
@@ -27,9 +29,10 @@ Phases, each printing one line:
   7. the `kernels` JSON line: every kernel with its launches on the
      paths above (counts reset before each path and read after it), its
      times and its bound.
-The last line is the JSON result. Any failed check exits non-zero; with no
-CUDA device, or without the port's package beside this script, it fails
-before printing a result. It imports nothing of JAX.
+Every printed number names the card (`card`: nvidia-smi's name and
+power limit). The last line is the JSON result. Any failed check exits
+non-zero; with no CUDA device, or without the port's package beside this
+script, it fails before printing a result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,75 +85,47 @@ def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
 
 # ---- phase 2: kernels against their plain versions ----
 
-def synthetic_spectrogram(p, gen):
-    """(frames, F) |X|^2 with exponential noise, tone bursts (one longer
-    than max_burst_len), and a comb blast that trips the squelch with more
-    than E_SQ emissions, then a mass deletion."""
+def check_scan(p, dev, card: str) -> dict:
+    """The scan kernel on the three inputs of `tools/exp_scan.py` at the
+    production shape (2048 x 8192): the synthetic block (bursts, a long
+    burst, a squelch blast), a noise-only block after priming, and a dense
+    block (~0.21 creations per frame). Each is held against the plain scan
+    and timed; the row reports the synthetic block, `detail` all three."""
     import torch
-    F, n = p.fft_size, p.frames_per_block
-    dev = gen.device
-    mag2 = torch.empty((n, F), device=dev).exponential_(generator=gen)
-    long_frames = int(p.max_burst_len / F) + 20
-    bursts = [(600, 40, 1000), (640, 30, 2500), (700, long_frames, 6000),
-              (720, 10, 6050), (900, 25, 7000)]
-    for f0, nf, b in bursts:
-        mag2[f0:f0 + nf, b - 2:b + 3] += 2000.0
-    # comb: one peak every 2*half_bw+2 bins, for long enough that more
-    # than max_bursts bursts are active at once (4 creations per frame)
-    step = p.burst_width_bins + 2
-    n_blast = p.max_bursts // 4 + 20
-    comb = torch.arange(p.burst_width_bins, F - p.burst_width_bins, step,
-                        device=dev)
-    comb = comb[(comb - F // 2).abs() > 8]
-    mag2[1100:1100 + n_blast, comb] += 3000.0
-    return mag2
-
-
-def check_scan(p, dev) -> dict:
-    import torch
-    from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.dsp import detect_scan, state as st
+    from iridium_tpu_torch.tools import exp_scan
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    mag2 = synthetic_spectrogram(p, gen)
-    s0 = st.init_state(p, dev)
     n_valid = p.block_samples
-    got = detect_scan.scan(mag2, s0, n_valid, p)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = detect_scan.scan_plain(mag2, s0, n_valid, p)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    ints = ("a_valid", "a_id", "a_start", "a_last", "mask_count", "g_id",
-            "g_start", "g_stop", "g_last", "g_bin", "ints")
-    for name in ints:
-        if not torch.equal(getattr(got, name), getattr(want, name)):
-            raise AssertionError(f"scan: {name} differs from the plain scan")
-    err = 0.0
-    for name in ("baseline_sum", "baseline_hist"):
-        if not torch.equal(getattr(got, name), getattr(want, name)):
-            raise AssertionError(f"scan: {name} not bit-equal")
-    for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
-        a, b = getattr(got, name), getattr(want, name)
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
-        err = max(err, float((a - b).abs().max()))
-    g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
-    if g["g_count"] < 20 or g["burst_dropped"] < 1:
-        raise AssertionError(f"scan: synthetic input did not reach the "
-                             f"squelch and drop paths: {g}")
-    ms = time_ms(lambda: detect_scan.scan(mag2, s0, n_valid, p))
+    per_input, err, plain_ms = [], 0.0, None
+    for name, mag2, s0 in exp_scan.inputs(p, dev):
+        got = detect_scan.scan(mag2, s0, n_valid, p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = detect_scan.scan_plain(mag2, s0, n_valid, p)
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, exp_scan.compare(got, want))
+        g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
+        if name == "synthetic" and (g["g_count"] < 20
+                                    or g["burst_dropped"] < 1):
+            raise AssertionError(f"scan: synthetic input did not reach the "
+                                 f"squelch and drop paths: {g}")
+        ms = time_ms(lambda: detect_scan.scan(mag2, s0, n_valid, p))
+        per_input.append(dict(input=name, ms=ms,
+                              us_per_frame=ms * 1e3 / p.frames_per_block,
+                              gone=g["g_count"], tagged=g["n_tagged"],
+                              dropped=g["burst_dropped"]))
     F, H = p.fft_size, p.history_size
     state_bytes = 4 * (H * F + 9 * F)
-    n_bytes = 4 * mag2.numel() + 2 * state_bytes
+    n_bytes = 4 * F * p.frames_per_block + 2 * state_bytes
     b_ms, b_by = bound(n_bytes, 0)
     return dict(name="detect_scan", route="cuda",
                 source="iridium_tpu_torch/csrc/detect_scan.cu",
                 replaces="iridium_tpu/dsp/detect_pallas.py:152",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                detail=dict(gone=g["g_count"], dropped=g["burst_dropped"],
-                            tagged=g["n_tagged"]))
+                max_abs_err=err, ms=per_input[0]["ms"], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                detail=dict(card=card, per_input=per_input))
 
 
 # samples of one production block's stream: [tail | block | zero pad]
@@ -182,7 +157,7 @@ def frontend_inputs(dev, gen, B, l_win, F, n_stream):
     return planes, starts2, ks
 
 
-def check_fused(dev, F, decim, taps_np, B, l_win) -> dict:
+def check_fused(dev, F, decim, taps_np, B, l_win, card: str) -> dict:
     import torch
     from iridium_tpu_torch.ops import fused_frontend as ff
     from iridium_tpu_torch.ops import window_gather as wg
@@ -222,11 +197,11 @@ def check_fused(dev, F, decim, taps_np, B, l_win) -> dict:
                 replaces="iridium_tpu/ops/fused_frontend.py:130",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
-                detail=dict(bytes_ms=bound(n_bytes, 0)[0],
+                detail=dict(card=card, bytes_ms=bound(n_bytes, 0)[0],
                             operations_ms=bound(0, n_flop)[0]))
 
 
-def check_gather(dev, F, B, l_win) -> dict:
+def check_gather(dev, F, B, l_win, card: str) -> dict:
     import torch
     from iridium_tpu_torch.ops import window_gather as wg
 
@@ -252,13 +227,14 @@ def check_gather(dev, F, B, l_win) -> dict:
                 source="iridium_tpu_torch/csrc/window_gather.cu",
                 replaces="iridium_tpu/ops/window_gather.py:55",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, detail=dict(card=card))
 
 
-def check_block_gather(dev) -> dict:
+def check_block_gather(dev, card: str) -> dict:
     """The block gather at the sweep tool's shapes (B = 128 windows of
     512 rows from two (59,376, 640) planes) on random planes, for each
-    row block R; the row reports the fastest R, `detail` all of them."""
+    row block R: single-call and chained (25 launches between two events)
+    times. The row reports the fastest R, `detail` all of them."""
     import torch
     from iridium_tpu_torch.ops import block_gather as bg
     from iridium_tpu_torch.tools import exp_block_gather as tool
@@ -279,16 +255,21 @@ def check_block_gather(dev) -> dict:
             raise AssertionError(f"block_gather R={R}: not bit-equal to "
                                  "plain")
         del got, want
-        ms = time_ms(lambda: bg.block_gather(sre, sim, st, R, nt))
+        # single calls are ~0.2 ms with tens of us of host launch time in
+        # them, so their median takes more samples than the others
+        ms = time_ms(lambda: bg.block_gather(sre, sim, st, R, nt), reps=21)
+        chained_ms = tool.time_gather(
+            lambda: bg.block_gather(sre, sim, st, R, nt), dev, 25)
         plain_ms = time_ms(lambda: bg.block_gather_plain(sre, sim, st, R,
                                                          nt), reps=3)
         rows = (st.long()[:, None] * R
                 + torch.arange(nt, device=dev)).reshape(-1)
         lib_ms = time_ms(lambda: (torch.index_select(sre, 0, rows),
-                                  torch.index_select(sim, 0, rows)), reps=3)
+                                  torch.index_select(sim, 0, rows)), reps=21)
         n_bytes = tool.moved_bytes(sh)
         b_ms, b_by = bound(n_bytes, 0)
-        detail.append(dict(R=R, nt=nt, ms=ms, plain_ms=plain_ms,
+        detail.append(dict(R=R, nt=nt, ms=ms, chained_ms=chained_ms,
+                           plain_ms=plain_ms,
                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                            gbps=n_bytes / ms / 1e6))
     best = min(detail, key=lambda d: d["ms"])
@@ -298,10 +279,10 @@ def check_block_gather(dev) -> dict:
                 max_abs_err=0.0, ms=best["ms"], plain_ms=best["plain_ms"],
                 bound_ms=best["bound_ms"], bound_by=best["bound_by"],
                 library_ms=best["library_ms"],
-                detail=dict(best_R=best["R"], per_R=detail))
+                detail=dict(card=card, best_R=best["R"], per_R=detail))
 
 
-def kernel_phase(dev) -> list[dict]:
+def kernel_phase(dev, card: str) -> list[dict]:
     from iridium_tpu_torch.config import (DetectorConfig, DownmixConfig)
     from iridium_tpu_torch.dsp import downmix
 
@@ -310,10 +291,11 @@ def kernel_phase(dev) -> list[dict]:
     dmp = DownmixConfig().derived(p)
     taps = np.asarray(downmix.make_consts(dmp).input_taps)
     B, l_win = 256, 327_680
-    rows = [check_scan(p, dev),
-            check_fused(dev, p.fft_size, dmp.decimation, taps, B, l_win),
-            check_gather(dev, p.fft_size, B, l_win),
-            check_block_gather(dev)]
+    rows = [check_scan(p, dev, card),
+            check_fused(dev, p.fft_size, dmp.decimation, taps, B, l_win,
+                        card),
+            check_gather(dev, p.fft_size, B, l_win, card),
+            check_block_gather(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
     return rows
@@ -692,20 +674,21 @@ def main() -> int:
     print(f"build: {len(_kernels.KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = kernel_phase(dev)
+    card = smi.stdout.strip()
+    rows = kernel_phase(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         dec = decode_phase(dev, tmp)
         path = dec.pop("path")
-        print(json.dumps(dec), flush=True)
-        print(json.dumps(profile_phase(dev, path, dec["wall_s"])),
-              flush=True)
+        print(json.dumps(dict(dec, card=card)), flush=True)
+        print(json.dumps(dict(profile_phase(dev, path, dec["wall_s"]),
+                              card=card)), flush=True)
         gat = gather_phase(dev, tmp)
-        print(json.dumps(gat), flush=True)
-        print(json.dumps(demod_phase(dev)), flush=True)
+        print(json.dumps(dict(gat, card=card)), flush=True)
+        print(json.dumps(dict(demod_phase(dev), card=card)), flush=True)
         par = parsed_phase(dev, tmp)
-        print(json.dumps(par), flush=True)
+        print(json.dumps(dict(par, card=card)), flush=True)
     tool = tool_phase(dev)
-    print(json.dumps(tool), flush=True)
+    print(json.dumps(dict(tool, card=card)), flush=True)
     for r in rows:
         r["launches"] = sum(ph["launches"][r["name"]]
                             for ph in (dec, gat, par, tool))

@@ -97,9 +97,11 @@ class Kernel:
         """Call the C entry point on `device`'s current stream. The last
         argument the C side takes is the stream; it is appended here."""
         fn = self._bind()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            code = fn(*args, stream)
+        if device.index is None or device.index == torch.cuda.current_device():
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code}: "
                                f"{self._err(code).decode()}")

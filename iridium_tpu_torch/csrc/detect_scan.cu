@@ -12,32 +12,66 @@
 // after another and the time goes to per-frame latency, not to bytes.
 //
 // Design: ONE thread block walks the frames in order. Each of its
-// T = min(1024, F) threads owns BPT = F / T contiguous bins. The hot
-// per-bin state lives on chip: baseline_sum, |X|^2 and the relative
-// magnitude in registers, a_last and mask_count in shared memory (each
-// thread touches only its own words), a_valid as a bitmask. The cold
-// per-bin fields (a_id, a_start, a_mag, a_noise) are read and written in
-// device memory only on the rare frames that create, delete or squelch a
-// burst, and the noise history ring stays in device memory (it fits in
-// L2). A noise-only frame costs one block-wide vote; the frame's |X|^2
-// row is loaded one frame ahead. Block-wide sums, prefix sums (emission
-// ranks in ascending bin order) and the argmax (max value, lowest bin on
-// ties, as one 64-bit key) use warp shuffles and shared memory.
+// T = min(1024, F) threads owns BPT = F / T contiguous bins (fewer, fatter
+// threads were slower: a frame's instructions are spread over fewer warps
+// and hide less latency). The kernel is bound by one SM's instruction
+// issue, so what a frame waits on is kept off the chain and the common
+// path is kept short:
+//   - the |X|^2 rows stream through a ring of kStages frames in shared
+//     memory, one 1-D TMA bulk copy a row (`cp.async.bulk`, completing on
+//     the stage's mbarrier), issued by thread 0 in the middle of the
+//     frame two before it;
+//   - the noise history stays a ring in device memory (16 MB at H = 512,
+//     in L2), and no thread loads or stores it: a noise update writes the
+//     frame's |X|^2 row from its ring stage to the history row with ONE
+//     bulk copy (shared -> global), and the row that the next update
+//     evicts is bulk-copied into shared memory at the first barrier after
+//     the update before;
+//   - a_last and a_start live in shared memory (each thread touches only
+//     its own words), baseline_sum in registers, a_valid and "mask is
+//     zero" as bitmasks; mask_count, a_id, a_mag and a_noise are touched in
+//     device memory only when a burst is created, released or emitted;
+//   - the relative magnitude |X|^2 / baseline_sum is divided out only
+//     where it can exceed the threshold: mag <= threshold * sum, with the
+//     product rounded down, proves mag / sum <= threshold, so the common
+//     bin costs one multiply and a compare, without a branch (the
+//     division stays IEEE, --fmad=false);
+//   - each thread also carries the baseline_sum of the two bins beside its
+//     range (updated with the same arithmetic, so bit-equal to the
+//     owner's), so the +-1-bin dilation needs no exchange between threads;
+//   - a frame makes ONE block-wide reduction: the creation argmax key
+//     (max value, lowest bin on ties, as one 64-bit key), the count and
+//     ascending-bin prefix of the gone bins (emission ranks) and the
+//     long-burst flag, in one barrier on alternating buffers. A deletion,
+//     each further creation round and a squelch add one barrier each; a
+//     mask release walks the list of gone bins, not a window per bin.
+// Up to BPT = 8 the rings fit in the 227 KB of shared memory; at BPT = 16
+// (F = 16384) each thread reads its |X|^2 words from device memory and
+// reads and writes its history words as 16-byte vectors, with the evicted
+// words (its own and the two halo words) loaded into registers one update
+// ahead; a barrier separates any two updates, so no thread writes a row
+// that another has still to read.
 //
 // Semantics follow the Pallas kernel exactly: frames past n_valid leave
-// the state alone; candidates come from the carried mask; deletions emit
-// in ascending bin order, at most kEDel per frame, and release the mask
-// of every gone bin; a long-burst deletion forces a noise update before
-// creation; squelch emits at most kESq per frame. The history is kept as
-// a ring (oldest row at hist_idx); the Pallas kernel returns it linear
-// with hist_idx 0, which is the same history.
+// the state alone; candidates come from the carried mask and the
+// frame-start relative magnitude; deletions emit in ascending bin order,
+// at most kEDel per frame, and release the mask of every gone bin; a
+// long-burst deletion forces a noise update before creation (here it runs
+// just after the creation walk, which reads only the created bin's
+// updated sum and computes it the same way); squelch emits at most kESq
+// per frame. The history is kept as a ring (oldest row at hist_idx); the
+// Pallas kernel returns it linear with hist_idx 0, which is the same
+// history.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kEDel = 8;
 constexpr int kESq = 16;
+constexpr int kStages = 3;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -69,11 +103,6 @@ struct State {
   float* scf;  // peak_signal_db
 };
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 __device__ __forceinline__ int warp_incl_scan(int v) {
   const int lane = threadIdx.x & 31;
   for (int o = 1; o < 32; o <<= 1) {
@@ -83,106 +112,265 @@ __device__ __forceinline__ int warp_incl_scan(int v) {
   return v;
 }
 
-// Sum over the block; every thread gets it.
-__device__ int block_sum(int v, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int r = lane < nw ? red[lane] : 0;
-  r = warp_sum(r);
-  __syncthreads();
-  return r;
-}
-
-// Exclusive prefix sum in thread order; *total gets the block sum.
-__device__ int block_excl_scan(int v, int* red, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int incl = warp_incl_scan(v);
-  if (lane == 31) red[warp] = incl;
-  __syncthreads();
-  const int ws = lane < nw ? red[lane] : 0;
-  const int wi = warp_incl_scan(ws);
-  const int warp_off = __shfl_sync(kFull, wi - ws, warp);
-  *total = __shfl_sync(kFull, wi, 31);
-  __syncthreads();
-  return warp_off + incl - v;
-}
-
-__device__ unsigned long long block_max64(unsigned long long v,
-                                          unsigned long long* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+__device__ __forceinline__ unsigned long long warp_max64(
+    unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) {
     const unsigned long long t = __shfl_xor_sync(kFull, v, o);
     v = t > v ? t : v;
   }
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  unsigned long long r = lane < nw ? red[lane] : 0ull;
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long t = __shfl_xor_sync(kFull, r, o);
-    r = t > r ? t : r;
+  return v;
+}
+
+// One block-wide reduction in one barrier: the max of `key`, the
+// exclusive prefix sum of `cnt` in thread order with its total, and the
+// OR of `flag`. Callers alternate between two buffers, so a buffer is
+// written again only after another call's barrier. On the common frame
+// all three are zero everywhere, and a vote on each side of the barrier
+// skips the rest.
+struct Red {
+  struct Warp {
+    unsigned long long key;
+    int cnt, flag;
+  } w[32];
+};
+struct Reduced {
+  unsigned long long key;
+  int excl, total;
+  bool any;
+};
+
+__device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
+                                Red* r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int incl = 0;
+  unsigned long long wk = 0ull;
+  bool wf = false;
+  if (__any_sync(kFull, cnt != 0 || key != 0ull || flag)) {
+    incl = warp_incl_scan(cnt);
+    wk = warp_max64(key);
+    wf = __any_sync(kFull, flag);
+  }
+  if (lane == 31) r->w[warp].cnt = incl;
+  if (lane == 0) {
+    r->w[warp].key = wk;
+    r->w[warp].flag = wf;
   }
   __syncthreads();
-  return r;
+  Reduced o{0ull, 0, 0, false};
+  const Red::Warp e = lane < nw ? r->w[lane] : Red::Warp{0ull, 0, 0};
+  if (__any_sync(kFull, e.cnt != 0 || e.key != 0ull || e.flag)) {
+    o.key = warp_max64(e.key);
+    o.any = __any_sync(kFull, e.flag);
+    const int wi = warp_incl_scan(e.cnt);
+    o.excl = __shfl_sync(kFull, wi - e.cnt, warp) + incl - cnt;
+    o.total = __shfl_sync(kFull, wi, 31);
+  }
+  return o;
+}
+
+// The relative magnitude rel = sum > 0 ? mag / sum : 0, and whether it
+// exceeds thr. For thr >= 0, mag <= RD(thr * sum) proves rel <= thr: if
+// sum > 0, mag / sum <= thr and so RN(mag / sum) <= thr; otherwise rel is
+// 0. So most bins need no division (a negative thr, which no
+// configuration gives, takes the exact test everywhere).
+__device__ __forceinline__ float rel_of(float mag, float sum) {
+  return sum > 0.0f ? mag / sum : 0.0f;
+}
+__device__ __forceinline__ bool maybe_above(float mag, float sum,
+                                            float thr) {
+  return mag > __fmul_rd(thr, sum);
+}
+__device__ __forceinline__ bool above(float mag, float sum, float thr) {
+  return (thr < 0.0f || maybe_above(mag, sum, thr)) &&
+         rel_of(mag, sum) > thr;
+}
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// BPT contiguous floats between p and v, as 16-byte vectors where BPT
+// allows (p is then 16-byte aligned: b0 is a multiple of BPT)
+template <int BPT>
+__device__ __forceinline__ void load_bins(float (&v)[BPT], const float* p) {
+  if constexpr (BPT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) v[i] = p[i];
+  }
+}
+
+template <int BPT>
+__device__ __forceinline__ void store_bins(float* p, const float (&v)[BPT]) {
+  if constexpr (BPT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) p[i] = v[i];
+  }
 }
 
 template <int BPT>
 __global__ void __launch_bounds__(1024)
     detect_scan_kernel(State st, Params p) {
-  extern __shared__ unsigned long long smem_u64[];
+  constexpr bool kRing = BPT <= 8;  // the rings fit in shared memory
+  constexpr unsigned kAll = (1u << BPT) - 1u;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int F = p.F, H = p.H, hb = p.half_bw, dc = F / 2;
-  unsigned long long* s_red64 = smem_u64;             // 32
-  int* s_red = reinterpret_cast<int*>(s_red64 + 32);  // 32
-  int* s_last = s_red + 32;                           // F, [i * T + tid]
-  int* s_mask = s_last + F;                           // F, [i * T + tid]
-  float* s_lo = reinterpret_cast<float*>(s_mask + F);  // T
-  float* s_hi = s_lo + T;                              // T
-  unsigned char* s_flag = reinterpret_cast<unsigned char*>(s_hi + T);  // F
+  const float thr = p.threshold;
+  float* s_ring = reinterpret_cast<float*>(smem_raw);  // kStages x F
+  float* s_ev = s_ring + (kRing ? kStages * F : 0);    // F if kRing
+  int* s_last = reinterpret_cast<int*>(s_ev + (kRing ? F : 0));
+  int* s_start = s_last + F;  // s_last, s_start: [i * T + tid]
+  unsigned short* s_gone = reinterpret_cast<unsigned short*>(s_start + F);
+  Red* s_red = reinterpret_cast<Red*>(s_gone + F);  // 2
+  // kStages row barriers, then the evicted-row barrier
+  unsigned long long* s_bar =
+      reinterpret_cast<unsigned long long*>(s_red + 2);
   const int b0 = tid * BPT;
+  const bool has_l = tid > 0, has_r = tid < T - 1;
 #define SI(i) ((i) * T + tid)
 
-  float bsum[BPT], mag[BPT], nxt[BPT], rel[BPT];
-  unsigned valid = 0, elig = 0;
+  // one F-float row from device memory into shared memory (thread 0)
+  auto load = [&](float* dst, const float* src, unsigned long long* bar) {
+    const unsigned n = (unsigned)F * sizeof(float);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem(bar)), "r"(n)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem(dst)),
+        "l"(src), "r"(n), "r"(smem(bar))
+        : "memory");
+  };
+  auto load_row = [&](int frame) {
+    const int s = frame % kStages;
+    load(s_ring + (size_t)s * F, st.mag2 + (size_t)frame * F, s_bar + s);
+  };
+
+  float bsum[BPT], ev[BPT];
+  unsigned valid = 0, elig = 0, unmasked = 0;
+  load_bins(bsum, st.bsum + b0);
 #pragma unroll
   for (int i = 0; i < BPT; ++i) {
     const int g = b0 + i;
-    bsum[i] = st.bsum[g];
     if (st.a_valid[g]) valid |= 1u << i;
     s_last[SI(i)] = st.a_last[g];
-    s_mask[SI(i)] = st.mask_count[g];
+    s_start[SI(i)] = st.a_start[g];
+    if (st.mask_count[g] == 0) unmasked |= 1u << i;
     if (g >= hb && g < F - hb && !(g >= dc - 3 && g <= dc + 3))
       elig |= 1u << i;
-    nxt[i] = st.mag2[g];
   }
+  float bsum_l = has_l ? st.bsum[b0 - 1] : 0.0f;
+  float bsum_r = has_r ? st.bsum[b0 + BPT] : 0.0f;
+  float ev_l = 0.0f, ev_r = 0.0f;
   int hidx = st.sc[0], prim = st.sc[1], burst_id = st.sc[2];
   int sq_count = st.sc[3], n_tagged = st.sc[4], dropped = st.sc[5];
   int waits = st.sc[6];
   float peak = st.scf[0];
-  int emitted = 0;
-  int n_act = block_sum(__popc(valid), s_red);
+  int emitted = 0, nred = 0;
+  int n_upd = 0, ev_loaded = 0;  // noise updates done, evicted rows loaded
 
-  auto noise_update = [&]() {
+  // the history row that the next noise update evicts: bulk-copied into
+  // s_ev once every thread is past the update before (thread 0; the
+  // history row was last written H updates ago, so all but the newest
+  // bulk store group are complete)
+  auto load_evicted = [&]() {
+    if constexpr (kRing) {
+      if (ev_loaded == n_upd) {
+        if (tid == 0) {
+          asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+          load(s_ev, st.hist + (size_t)hidx * F, s_bar + kStages);
+        }
+        ++ev_loaded;
+      }
+    } else {
+      const float* row = st.hist + (size_t)hidx * F;
+      load_bins(ev, row + b0);
+      if (has_l) ev_l = row[b0 - 1];
+      if (has_r) ev_r = row[b0 + BPT];
+    }
+  };
+  if constexpr (kRing) {
+    if (tid == 0) {
+      for (int s = 0; s <= kStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         smem(s_bar + s))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int f = 0; f < kStages && f < p.n_frames; ++f) load_row(f);
+    }
+  }
+  load_evicted();
+  int n_act =
+      block_reduce(0ull, __popc(valid), false, s_red + (nred++ & 1)).total;
+  // phase: begin
+
+  auto noise_update = [&](const float* row) {
     // burst_detect.c:438-454; the order (sum - evicted) + mag is kept
     const bool gate = prim >= H;
-    float* row = st.hist + (size_t)hidx * F + b0;
-#pragma unroll
-    for (int i = 0; i < BPT; ++i) {
-      const float ev = row[i];
-      bsum[i] = (bsum[i] - (gate ? ev : 0.0f)) + mag[i];
-      row[i] = mag[i];
+    float m[BPT];
+    load_bins(m, row + b0);
+    if constexpr (kRing) {
+      mbar_wait(smem(s_bar + kStages), n_upd & 1);
+      load_bins(ev, s_ev + b0);
+      if (has_l) ev_l = s_ev[b0 - 1];
+      if (has_r) ev_r = s_ev[b0 + BPT];
+      if (tid == 0) {
+        asm volatile(
+            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+            "cp.async.bulk.commit_group;\n" ::"l"(st.hist + (size_t)hidx * F),
+            "r"(smem(row)), "r"((unsigned)F * (unsigned)sizeof(float))
+            : "memory");
+      }
     }
+    // x - 0.0f is x in IEEE arithmetic, so an ungated update is a plain
+    // add (gate is the same in every thread: no divergence)
+    if (gate) {
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) bsum[i] = (bsum[i] - ev[i]) + m[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) bsum[i] = bsum[i] + m[i];
+    }
+    if constexpr (!kRing) store_bins(st.hist + (size_t)hidx * F + b0, m);
+    if (has_l) bsum_l = (bsum_l - (gate ? ev_l : 0.0f)) + row[b0 - 1];
+    if (has_r) bsum_r = (bsum_r - (gate ? ev_r : 0.0f)) + row[b0 + BPT];
     prim = min(prim + 1, H);
     hidx = hidx + 1 == H ? 0 : hidx + 1;
+    ++n_upd;
+    if constexpr (!kRing) load_evicted();
   };
-  auto emit = [&](int pos, int g, int stop, int last) {
+  auto emit = [&](int pos, int g, int stop, int last, int start) {
     if (pos >= p.G) return;
     st.g_id[pos] = st.a_id[g];
-    st.g_start[pos] = st.a_start[g];
+    st.g_start[pos] = start;
     st.g_stop[pos] = stop;
     st.g_last[pos] = last;
     st.g_bin[pos] = g;
@@ -191,129 +379,155 @@ __global__ void __launch_bounds__(1024)
   };
 
   for (int f = 0; f < p.n_frames; ++f) {
+    // phase: load
     const int idx = f * F;
-#pragma unroll
-    for (int i = 0; i < BPT; ++i) mag[i] = nxt[i];
-    if (f + 1 < p.n_frames) {
-      const float* row = st.mag2 + (size_t)(f + 1) * F + b0;
-#pragma unroll
-      for (int i = 0; i < BPT; ++i) nxt[i] = row[i];
+    const float* row = st.mag2 + (size_t)f * F;
+    if constexpr (kRing) {
+      mbar_wait(smem(s_bar + f % kStages), (f / kStages) & 1);
+      row = s_ring + (size_t)(f % kStages) * F;
     }
     const bool act = idx + F <= p.n_valid;
     const bool primed = prim >= H && act;
+    // above threshold: a branch-free filter over all bins, then the
+    // exact test only for the few bins that pass it
+    unsigned ab = 0;
+    {
+      float m[BPT];
+      load_bins(m, row + b0);
+      unsigned maybe = thr < 0.0f ? kAll : 0u;
 #pragma unroll
-    for (int i = 0; i < BPT; ++i)
-      rel[i] = bsum[i] > 0.0f ? mag[i] / bsum[i] : 0.0f;
+      for (int i = 0; i < BPT; ++i)
+        maybe |= (unsigned)maybe_above(m[i], bsum[i], thr) << i;
+      if (maybe) {
+#pragma unroll
+        for (int i = 0; i < BPT; ++i)
+          if (((maybe >> i) & 1u) && rel_of(m[i], bsum[i]) > thr)
+            ab |= 1u << i;
+      }
+    }
+    // the candidate pool from the carried (frame-start) mask, valued at
+    // the frame-start relative magnitude (burst_detect.c:679-699)
+    unsigned cand = ab & unmasked & elig;
+    auto best_key = [&]() {
+      unsigned long long key = 0;
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        if ((cand >> i) & 1u) {
+          const unsigned long long k =
+              ((unsigned long long)__float_as_uint(
+                   rel_of(row[b0 + i], bsum[i]))
+               << 32) |
+              (kFull - (unsigned)(b0 + i));
+          key = k > key ? k : key;
+        }
+      }
+      return key;
+    };
+    const unsigned long long key0 = primed && cand ? best_key() : 0ull;
 
+    // phase: track
     // update_bursts: extend a_last on the +-1-bin threshold dilation
     // (burst_detect.c:458-469), then find the gone bursts (:490-518)
     const bool track = primed && n_act > 0;
-    unsigned gone = 0, longb = 0;
-    if (track) {
-      s_lo[tid] = rel[0];
-      s_hi[tid] = rel[BPT - 1];
-      __syncthreads();
-      const float left = tid > 0 ? s_hi[tid - 1] : 0.0f;
-      const float right = tid < T - 1 ? s_lo[tid + 1] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        if (!((valid >> i) & 1u)) continue;
-        const float rm = i > 0 ? rel[i - 1] : left;
-        const float rp = i < BPT - 1 ? rel[i + 1] : right;
+    unsigned gone = 0;
+    bool longb = false;
+    if (track && valid) {
+      const bool al = has_l && above(row[b0 - 1], bsum_l, thr);
+      const bool ar = has_r && above(row[b0 + BPT], bsum_r, thr);
+      const unsigned dil = ab | (ab << 1) | (ab >> 1) | (al ? 1u : 0u) |
+                           (ar ? 1u << (BPT - 1) : 0u);
+      for (unsigned v = valid; v; v &= v - 1) {
+        const int i = __ffs(v) - 1;
         int last = s_last[SI(i)];
-        if (fmaxf(rel[i], fmaxf(rp, rm)) > p.threshold) {
+        if ((dil >> i) & 1u) {
           last = idx;
           s_last[SI(i)] = idx;
         }
-        const bool lb = (last - st.a_start[b0 + i]) > p.max_burst_len;
-        if (lb) longb |= 1u << i;
+        const bool lb = (last - s_start[SI(i)]) > p.max_burst_len;
+        longb |= lb;
         if (last + p.post_len <= idx || lb) gone |= 1u << i;
       }
     }
 
-    // candidate pool from the carried (frame-start) mask; rel becomes
-    // the candidate array (burst_detect.c:679-699)
-    bool any_cand = false;
-#pragma unroll
-    for (int i = 0; i < BPT; ++i) {
-      const float rm =
-          (s_mask[SI(i)] == 0 && ((elig >> i) & 1u)) ? rel[i] : 0.0f;
-      rel[i] = rm > p.threshold ? rm : 0.0f;
-      any_cand |= rel[i] > 0.0f;
-    }
+    // phase: reduce
+    const Reduced r =
+        block_reduce(key0, __popc(gone), longb, s_red + (nred++ & 1));
+    // every thread is past the last noise update: load the next evicted
+    // row
+    if constexpr (kRing) load_evicted();
 
-    if (track) {
-      int n_del;
-      const int off = block_excl_scan(__popc(gone), s_red, &n_del);
-      if (n_del > 0) {
-        const bool any_long = __syncthreads_or(longb != 0u) != 0;
-        n_tagged += n_del;
-        dropped += max(n_del - kEDel, 0);
-        int e = off;
-#pragma unroll
-        for (int i = 0; i < BPT; ++i) {
-          if (!((gone >> i) & 1u)) continue;
-          if (e < kEDel) emit(emitted + e, b0 + i, idx, s_last[SI(i)]);
-          ++e;
-        }
-        emitted += min(n_del, kEDel);
-        // release the +-half_bw mask of every gone bin, emitted or not
-#pragma unroll
-        for (int i = 0; i < BPT; ++i) s_flag[b0 + i] = (gone >> i) & 1u;
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < BPT; ++i) {
-          const int g = b0 + i;
-          const int lo = max(g - hb, 0), hi = min(g + hb, F - 1);
-          int c = 0;
-          for (int j = lo; j <= hi; ++j) c += s_flag[j];
-          s_mask[SI(i)] -= c;
-        }
-        __syncthreads();
-        valid &= ~gone;
-        n_act -= n_del;
-        // forced noise update on long-burst deletion (burst_detect.c:516)
-        if (any_long) noise_update();
+    // phase: delete
+    const int n_del = r.total;
+    const bool forced = n_del > 0 && r.any;
+    if (n_del > 0) {
+      n_tagged += n_del;
+      dropped += max(n_del - kEDel, 0);
+      int e = r.excl;
+      for (unsigned v = gone; v; v &= v - 1, ++e) {
+        const int i = __ffs(v) - 1;
+        if (e < kEDel)
+          emit(emitted + e, b0 + i, idx, s_last[SI(i)], s_start[SI(i)]);
+        s_gone[e] = (unsigned short)(b0 + i);
       }
+      emitted += min(n_del, kEDel);
+      __syncthreads();
+      // release the +-half_bw mask of every gone bin, emitted or not
+      int dec[BPT] = {};
+      for (int k = 0; k < n_del; ++k) {
+        const int gb = s_gone[k];
+        if (gb + hb < b0 || gb - hb >= b0 + BPT) continue;
+#pragma unroll
+        for (int i = 0; i < BPT; ++i)
+          if (abs(b0 + i - gb) <= hb) ++dec[i];
+      }
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        if (dec[i] == 0) continue;
+        const int m = st.mask_count[b0 + i] - dec[i];
+        st.mask_count[b0 + i] = m;
+        if (m == 0) unmasked |= 1u << i;
+      }
+      valid &= ~gone;
+      n_act -= n_del;
     }
 
+    // phase: create
     // create_new_bursts: greedy argmax-and-mask (burst_detect.c:556-632)
     unsigned crt = 0;
     int n_acc = 0;
-    bool live = __syncthreads_or(any_cand) != 0 && primed;
-    for (int j = 0; j < p.k_create && live; ++j) {
-      unsigned long long key = 0;
-#pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        const unsigned long long k =
-            ((unsigned long long)__float_as_uint(rel[i]) << 32) |
-            (kFull - (unsigned)(b0 + i));
-        key = k > key ? k : key;
-      }
-      key = block_max64(key, s_red64);
+    unsigned long long key = r.key;
+    for (int j = 0; j < p.k_create; ++j) {
+      if (j > 0)
+        key = block_reduce(best_key(), 0, false, s_red + (nred++ & 1)).key;
       const float m = __uint_as_float((unsigned)(key >> 32));
-      if (!(m > p.threshold)) {
-        live = false;
-        break;
-      }
+      if (!(m > thr)) break;
       const int b = (int)(kFull - (unsigned)(key & kFull));
       const float mag_db =
           10.0f * log10f(fmaxf(m * p.hist_f * p.enbw, 1e-30f));
       if (b / BPT == tid) {
         const int li = b - b0;
-        float base_at = 0.0f;
+        float base_at = 0.0f, ev_at = 0.0f;
 #pragma unroll
         for (int i = 0; i < BPT; ++i)
-          if (i == li) base_at = bsum[i];
+          if (i == li) {
+            base_at = bsum[i];
+            ev_at = ev[i];
+          }
+        // the sum after the forced noise update, which runs below
+        if (forced) {
+          if constexpr (kRing) {
+            mbar_wait(smem(s_bar + kStages), n_upd & 1);
+            ev_at = s_ev[b];
+          }
+          base_at = (base_at - (prim >= H ? ev_at : 0.0f)) + row[b];
+        }
         const float noise_db = 10.0f * log10f(fmaxf(
             base_at / p.hist_f / p.f2 / p.enbw / p.bin_width, 1e-30f));
         st.a_id[b] = burst_id;
-        st.a_start[b] = idx - p.pre_len;
+        s_start[SI(li)] = idx - p.pre_len;
         st.a_mag[b] = mag_db;
         st.a_noise[b] = noise_db;
-#pragma unroll
-        for (int i = 0; i < BPT; ++i)
-          if (i == li) s_last[SI(i)] = idx - p.pre_len;
+        s_last[SI(li)] = idx - p.pre_len;
         valid |= 1u << li;
         crt |= 1u << li;
       }
@@ -321,40 +535,61 @@ __global__ void __launch_bounds__(1024)
       ++n_acc;
       ++n_act;
       peak = fmaxf(peak, mag_db);
+      if (b + hb >= b0 && b - hb < b0 + BPT) {
 #pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        if (abs(b0 + i - b) <= hb) {
-          s_mask[SI(i)] += 1;
-          rel[i] = 0.0f;
+        for (int i = 0; i < BPT; ++i) {
+          if (abs(b0 + i - b) <= hb) {
+            st.mask_count[b0 + i] += 1;
+            unmasked &= ~(1u << i);
+            cand &= ~(1u << i);
+          }
         }
       }
     }
-    if (n_acc == p.k_create) {
-      bool more = false;
-#pragma unroll
-      for (int i = 0; i < BPT; ++i) more |= rel[i] > p.threshold;
-      if (__syncthreads_or(more)) ++waits;
+    if (n_acc == p.k_create &&
+        block_reduce(0ull, 0, cand != 0u, s_red + (nred++ & 1)).any)
+      ++waits;
+    if constexpr (kRing) {
+      // every thread is past frame f - 1, and its history store (if any)
+      // has read the stage: refill the stage with frame f + kStages - 1
+      const int nf = f - 1 + kStages;
+      if (tid == 0 && f >= 1 && nf < p.n_frames) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        load_row(nf);
+      }
+    }
+    // the forced noise update on a long-burst deletion
+    // (burst_detect.c:516). The barrier keeps the final update below from
+    // writing the history row that this update evicts next before every
+    // thread has read it (with BPT = 16 a thread reads its neighbours'
+    // halo words of that row).
+    if (forced) {
+      noise_update(row);
+      __syncthreads();
+      if constexpr (kRing) load_evicted();
     }
 
+    // phase: squelch
     // squelch (burst_detect.c:594-631)
     const bool squelch = p.max_bursts > 0 && primed && n_act > p.max_bursts;
     if (squelch) {
       const unsigned sq = valid & ~crt;
-      int n_sq;
-      const int off = block_excl_scan(__popc(sq), s_red, &n_sq);
-      n_tagged += n_sq;
-      dropped += max(n_sq - kESq, 0);
-      int e = off;
-#pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        if (!((sq >> i) & 1u)) continue;
-        if (e < kESq) emit(emitted + e, b0 + i, idx, s_last[SI(i)]);
-        ++e;
+      const Reduced q =
+          block_reduce(0ull, __popc(sq), false, s_red + (nred++ & 1));
+      n_tagged += q.total;
+      dropped += max(q.total - kESq, 0);
+      int e = q.excl;
+      for (unsigned v = sq; v; v &= v - 1, ++e) {
+        const int i = __ffs(v) - 1;
+        if (e < kESq)
+          emit(emitted + e, b0 + i, idx, s_last[SI(i)], s_start[SI(i)]);
       }
-      emitted += min(n_sq, kESq);
+      emitted += min(q.total, kESq);
       valid = 0;
 #pragma unroll
-      for (int i = 0; i < BPT; ++i) s_mask[SI(i)] = 0;
+      for (int i = 0; i < BPT; ++i)
+        if (!((unmasked >> i) & 1u)) st.mask_count[b0 + i] = 0;
+      unmasked = kAll;
       n_act = 0;
       sq_count += 3;
     } else if (act) {
@@ -364,20 +599,32 @@ __global__ void __launch_bounds__(1024)
     if (act && sq_count >= 10) {
 #pragma unroll
       for (int i = 0; i < BPT; ++i) bsum[i] = 0.0f;
+      bsum_l = 0.0f;
+      bsum_r = 0.0f;
       prim = 0;
       sq_count = 0;
     }
+    // phase: noise
     // final noise update if no burst is active (burst_detect.c:698)
-    if (act && n_act == 0) noise_update();
+    if (act && n_act == 0) noise_update(row);
   }
+  // phase: end
 
+  if constexpr (kRing) {
+    if (tid == 0) {
+      // the bulk copies still in flight: the history stores and the
+      // evicted row loaded for an update that did not come
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+      if (ev_loaded > n_upd) mbar_wait(smem(s_bar + kStages), n_upd & 1);
+    }
+  }
+  store_bins(st.bsum + b0, bsum);
 #pragma unroll
   for (int i = 0; i < BPT; ++i) {
     const int g = b0 + i;
-    st.bsum[g] = bsum[i];
     st.a_valid[g] = (valid >> i) & 1u;
     st.a_last[g] = s_last[SI(i)];
-    st.mask_count[g] = s_mask[SI(i)];
+    st.a_start[g] = s_start[SI(i)];
   }
   if (tid == 0) {
     st.sc[0] = hidx;
@@ -396,9 +643,12 @@ __global__ void __launch_bounds__(1024)
 template <int BPT>
 cudaError_t launch(const State& st, const Params& p, int T,
                    cudaStream_t stream) {
-  const size_t smem = 32 * sizeof(unsigned long long) + 32 * sizeof(int) +
-                      2 * (size_t)p.F * sizeof(int) +
-                      2 * (size_t)T * sizeof(float) + (size_t)p.F;
+  constexpr bool kRing = BPT <= 8;
+  const size_t F = p.F;
+  const size_t smem = (kRing ? (kStages + 1) * F * sizeof(float) : 0) +
+                      2 * F * sizeof(int) + F * sizeof(unsigned short) +
+                      2 * sizeof(Red) +
+                      (kStages + 1) * sizeof(unsigned long long);
   cudaError_t err = cudaFuncSetAttribute(
       detect_scan_kernel<BPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -7,8 +7,9 @@ the function of the Pallas prototype in tools/exp_pallas_gather.py
 (kernel :55-57, grid (B, nt / R) with R-row blocks at block index
 st[b] + t, :59-80).
 
-`block_gather` launches csrc/block_gather.cu on CUDA planes and runs
-`block_gather_plain` on CPU planes. Both are pure copies and agree bit
+`block_gather` launches csrc/block_gather.cu (TMA bulk copies through
+shared memory, each covered source row loaded once) on CUDA planes and
+runs `block_gather_plain` on CPU planes. Both are pure copies and agree bit
 for bit; rows outside the planes read as 0.
 """
 
@@ -52,10 +53,8 @@ def block_gather(sre: torch.Tensor, sim: torch.Tensor, st: torch.Tensor,
     if width % 4 or sre.data_ptr() % 16 or sim.data_ptr() % 16:
         raise ValueError("planes must be 16-byte aligned with a width "
                          "that is a multiple of 4")
-    o_re = torch.empty((B, nt, width), dtype=torch.float32, device=dev)
-    o_im = torch.empty((B, nt, width), dtype=torch.float32, device=dev)
-    if B > 65535:
-        raise ValueError(f"B={B} windows exceed the grid's 65535 rows")
+    o_re, o_im = torch.empty((2, B, nt, width), dtype=torch.float32,
+                             device=dev)
     if B == 0 or nt == 0:
         return o_re, o_im
     k = _kernels

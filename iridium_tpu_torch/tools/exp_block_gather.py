@@ -4,6 +4,8 @@ count R, with the `block_gather` kernel.
 
     python -m iridium_tpu_torch.tools.exp_block_gather [--device cpu]
         [--rows 64,128,256] [--small]
+    python -m iridium_tpu_torch.tools.exp_block_gather --source PATH
+        [--source PATH ...] [--rows 64]
 
 The port's counterpart of tools/exp_pallas_gather.py, with its inputs:
 B = 128 windows of W = ceil(302,080 / (R*640)) * R*640 samples from a
@@ -13,20 +15,30 @@ card each R is timed with CUDA events over a chain of launches; `--small`
 is a shape that the CPU runs in about a second. Prints one line per R:
 milliseconds per gather, the output's GB/s, and the GB/s of all the bytes
 moved (each covered input row read once, the output written once).
+
+`--source` (card only) builds each given kernel source (the same C entry
+point as csrc/block_gather.cu, for example an earlier design kept under
+build/) and prints, for the package's kernel and each source at the full
+shapes, its single-call median and chained time beside
+`torch.index_select` (one call per plane), after checking it bit-equal
+to the plain gather.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .. import device as device_mod
-from ..ops.block_gather import block_gather
+from .. import _kernels, device as device_mod
+from ..ops.block_gather import block_gather, block_gather_plain
+from . import variants
 
 TILE = 640
 FULL = dict(B=128, M=38_000_960, window=302_080)
@@ -100,6 +112,66 @@ def sweep(rows, dev: torch.device, small: bool = False,
     return [run_one(R, dev, reps=reps, **cfg) for R in rows]
 
 
+def single_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of single calls, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def compare_sources(rows, dev: torch.device, sources) -> list[dict]:
+    """The package's kernel and each other source at the full shapes on
+    random planes: bit-equal to the plain gather, then timed."""
+    cands = [("package", _kernels.BLOCK_GATHER)]
+    cands += [(str(src), variants.Variant(_kernels.BLOCK_GATHER,
+                                          Path(src).read_text()))
+              for src in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(cands)) as pool:
+        for fut in [pool.submit(k.build) for _, k in cands]:
+            fut.result()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    mt = FULL["M"] // TILE
+    sre = torch.randn((mt, TILE), device=dev, generator=gen)
+    sim = torch.randn((mt, TILE), device=dev, generator=gen)
+    out = []
+    for R in rows:
+        sh = shapes(R, **FULL)
+        st = torch.from_numpy(sh["starts"]).to(dev)
+        nt = sh["nt"]
+        want = block_gather_plain(sre, sim, st, R, nt)
+        idx = (st.long()[:, None] * R
+               + torch.arange(nt, device=dev)).reshape(-1)
+        lib = single_ms(lambda: (torch.index_select(sre, 0, idx),
+                                 torch.index_select(sim, 0, idx)))
+        n_bytes = moved_bytes(sh)
+        for name, k in cands:
+            with variants.swapped("BLOCK_GATHER", k):
+                got = block_gather(sre, sim, st, R, nt)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} R={R}: not bit-equal")
+                del got
+                fn = lambda: block_gather(sre, sim, st, R, nt)  # noqa: E731
+                ms = single_ms(fn)
+                chained = time_gather(fn, dev, 25)
+            out.append(dict(design=name, R=R, ms=ms, chained_ms=chained,
+                            index_select_ms=lib,
+                            bound_ms=n_bytes / 3.35e12 * 1e3))
+        out.append(dict(design="index_select again", R=R,
+                        ms=single_ms(lambda: (
+                            torch.index_select(sre, 0, idx),
+                            torch.index_select(sim, 0, idx)))))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="exp_block_gather",
                                  description=__doc__.split("\n\n")[0])
@@ -109,12 +181,19 @@ def main(argv=None) -> int:
                     help="comma-separated rows per block R")
     ap.add_argument("--small", action="store_true",
                     help="a small shape for the CPU")
+    ap.add_argument("--source", action="append", default=[],
+                    help="time the package's kernel beside this kernel "
+                    "source, repeatable (card only)")
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
+    rows = [int(r) for r in args.rows.split(",")]
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"device: {name}", flush=True)
-    rows = [int(r) for r in args.rows.split(",")]
+    if args.source:
+        for r in compare_sources(rows, dev, args.source):
+            print("design " + json.dumps(r), flush=True)
+        return 0
     for r in sweep(rows, dev, args.small, reps=3 if args.small else 25):
         print(f"R={r['R']:3d}: {r['ms']:8.3f} ms for {r['out_mb']:.0f} MB "
               f"out ({r['out_gbps']:.1f} GB/s out, {r['moved_gbps']:.1f} "

@@ -24,6 +24,7 @@ from iridium_tpu.ops import windows as jwindows  # noqa: E402
 from iridium_tpu_torch import convert  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
+from iridium_tpu_torch.tools import exp_scan  # noqa: E402
 
 from test_detect import tone_capture  # noqa: E402
 
@@ -233,3 +234,45 @@ def test_state_handover_jax_to_port():
     sp2 = detect_scan.scan(torch.from_numpy(m2), sp1, bs, pp)
     check_states(convert.state_to_numpy(sp2), jax_state_dict(sj2))
     assert int(sp2.g_count) >= 1
+
+
+def test_edges_and_tie_at_10mhz():
+    """F = 8192: bursts across the bins where the CUDA scan's thread
+    ownership changes (multiples of 8 and of F / 8), one kept alive by the
+    +-1-bin dilation across such an edge, an exact tie across one (the
+    lower bin wins) and a squelch blast; the plain scan that the card
+    tests trust is held to the Pallas scan on exactly these rows."""
+    jp, pp = params(sample_rate=10_000_000, history_size=32,
+                    frames_per_block=96, max_bursts=20)
+    mag2 = exp_scan.edge_spectrogram(pp, seed=11)
+    sj = pallas_scan(jp)(jnp.asarray(mag2), detect_fast.init_state(jp),
+                         jnp.int32(jp.block_samples))
+    sp = detect_scan.scan(torch.from_numpy(mag2), st.init_state(pp, CPU),
+                          pp.block_samples, pp)
+    got = convert.state_to_numpy(sp)
+    check_states(got, jax_state_dict(sj))
+    bins = set(got["g_bin"][:int(got["g_count"])].tolist()) | set(
+        np.flatnonzero(got["a_valid"]).tolist())
+    assert 3071 in bins and 3072 not in bins
+    assert int(got["burst_dropped"]) > 0
+
+
+def test_lone_long_burst_at_16k():
+    """F = 16384 (12 MHz, 16 bins a CUDA thread): a burst across a thread
+    edge, longer than max_burst_len and alone, so the frame of its
+    long-burst deletion runs the forced noise update and then the final
+    one; the plain scan is held to the Pallas scan on these rows."""
+    jp, pp = params(sample_rate=12_000_000, history_size=32,
+                    frames_per_block=128)
+    assert pp.fft_size == 16384
+    mag2 = exp_scan.long_burst_spectrogram(pp, seed=4)
+    sj = pallas_scan(jp)(jnp.asarray(mag2), detect_fast.init_state(jp),
+                         jnp.int32(jp.block_samples))
+    sp = detect_scan.scan(torch.from_numpy(mag2), st.init_state(pp, CPU),
+                          pp.block_samples, pp)
+    got = convert.state_to_numpy(sp)
+    check_states(got, jax_state_dict(sj))
+    # the first deletion is the long burst, at a bin beside the edge
+    assert int(got["g_count"]) >= 1
+    assert abs(int(got["g_bin"][0]) - pp.fft_size // 4) <= 1
+    assert int(got["g_last"][0]) - int(got["g_start"][0]) > pp.max_burst_len

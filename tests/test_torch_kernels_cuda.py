@@ -19,6 +19,7 @@ from iridium_tpu_torch.ops import block_gather as bg  # noqa: E402
 from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
+from iridium_tpu_torch.tools import exp_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -84,17 +85,68 @@ def test_detect_scan_matches_plain(dev):
     assert int(got.g_count) >= 3
 
 
-@pytest.mark.parametrize("R,nt", [(1, 8), (8, 16), (64, 128)])
+def test_detect_scan_edges_match_plain(dev):
+    """F = 8192 (10 MHz): bursts across the bins where thread ownership
+    changes, a burst kept alive by the dilation across such an edge, an
+    exact tie across one (the lower bin wins) and a squelch blast."""
+    p = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                       frames_per_block=256, max_new_per_frame=8,
+                       gone_capacity=64, max_bursts=20).derived()
+    mag2 = torch.from_numpy(exp_scan.edge_spectrogram(p, seed=11)).to(dev)
+    s0 = st.init_state(p, dev)
+    got = detect_scan.scan(mag2, s0, p.block_samples, p)
+    want = detect_scan.scan_plain(mag2, s0, p.block_samples, p)
+    exp_scan.compare(got, want)
+    assert int(got.squelch_count) > 0 or int(got.n_tagged) > 20
+    bins = set(got.g_bin[:int(got.g_count)].tolist()) | set(
+        torch.nonzero(got.a_valid).flatten().tolist())
+    assert 3071 in bins and 3072 not in bins
+
+
+@pytest.mark.parametrize("R,nt", [(1, 8), (8, 16), (64, 128), (256, 512)])
 def test_block_gather_bit_exact(dev, R, nt):
-    mt, width = 300, 640
+    mt, width = 700, 640
     gen = torch.Generator(device=dev)
     gen.manual_seed(7 + R)
     sre = torch.randn((mt, width), device=dev, generator=gen)
     sim = torch.randn((mt, width), device=dev, generator=gen)
-    # the last start runs past the planes' end, whose rows read as 0
-    st = torch.tensor([0, 1, (mt - nt) // R, mt // R], dtype=torch.int32,
-                      device=dev)
+    # windows wholly inside, starting before row 0 (one wholly before it),
+    # and running past the planes' end, whose outside rows read as 0
+    st = torch.tensor([0, 1, (mt - nt) // R, mt // R, -1, -(nt // R),
+                       (mt - 1) // R], dtype=torch.int32, device=dev)
     got = bg.block_gather(sre, sim, st, R, nt)
     want = bg.block_gather_plain(sre, sim, st, R, nt)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_block_gather_wide_rows_bit_exact(dev):
+    """Rows wider than the kernel's 8 KB copy chunk go in several chunks."""
+    mt, width, R, nt = 40, 2500, 2, 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    sre = torch.randn((mt, width), device=dev, generator=gen)
+    sim = torch.randn((mt, width), device=dev, generator=gen)
+    st = torch.tensor([0, 3, 17, -2, 19], dtype=torch.int32, device=dev)
+    got = bg.block_gather(sre, sim, st, R, nt)
+    want = bg.block_gather_plain(sre, sim, st, R, nt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_detect_scan_lone_long_burst_at_16k_matches_plain(dev):
+    """F = 16384 (12 MHz: 16 bins a thread, history words read and written
+    by the threads themselves): a burst across a thread edge, longer than
+    max_burst_len and alone, so the frame of its deletion runs the forced
+    noise update and then the final one."""
+    p = DetectorConfig(sample_rate=12_000_000, history_size=64,
+                       frames_per_block=192, max_new_per_frame=8,
+                       gone_capacity=64).derived()
+    assert p.fft_size == 16384 and detect_scan.supports(p)
+    mag2 = torch.from_numpy(exp_scan.long_burst_spectrogram(p, seed=4)).to(
+        dev)
+    s0 = st.init_state(p, dev)
+    got = detect_scan.scan(mag2, s0, p.block_samples, p)
+    want = detect_scan.scan_plain(mag2, s0, p.block_samples, p)
+    exp_scan.compare(got, want)
+    assert int(got.g_count) >= 1 and int(got.primed) == p.history_size

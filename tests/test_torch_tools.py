@@ -1,0 +1,57 @@
+"""The port's kernel-design tools on the CPU: the source rewriting that
+builds kernel variants (`tools/variants.py`), the phase probes of
+`tools/exp_scan.py`, and the scan inputs it times, at a small shape.
+(Building and timing the variants needs the card; chip_smoke.py and the
+tools' own runs do that.)"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from iridium_tpu_torch import _kernels  # noqa: E402
+from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
+from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
+from iridium_tpu_torch.tools import exp_scan, variants  # noqa: E402
+
+
+def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    base = _kernels.BLOCK_GATHER
+    v = variants.Variant(base, "// edited\n" + base.source.read_text())
+    assert v.source.parent.parent == tmp_path / "variants"
+    assert v.source.read_text().startswith("// edited")
+    assert v.library_path() != base.library_path()
+    with variants.swapped("BLOCK_GATHER", v):
+        assert _kernels.BLOCK_GATHER is v
+    assert _kernels.BLOCK_GATHER is base
+
+
+def test_probed_source_turns_every_marker_into_a_probe():
+    text = _kernels.DETECT_SCAN.source.read_text()
+    probed, names = exp_scan.probed_source(text)
+    assert names[0] == "setup" and "noise" in names and "reduce" in names
+    assert "// phase:" not in probed
+    for i in range(1, len(names)):
+        assert f"PHASE_PROBE({i});" in probed
+    assert probed.count("long long pt_ = clock64();") == 1
+    assert 'extern "C" int detect_scan_phases(' in probed
+
+
+def test_scan_inputs_at_a_small_shape():
+    p = DetectorConfig(sample_rate=1_000_000, history_size=64,
+                       frames_per_block=256, max_new_per_frame=8,
+                       gone_capacity=64, max_bursts=20).derived()
+    got = exp_scan.inputs(p, torch.device("cpu"))
+    assert [name for name, _, _ in got] == ["synthetic", "noise", "dense"]
+    for name, mag2, s0 in got:
+        assert mag2.shape == (p.frames_per_block, p.fft_size)
+        assert bool(torch.isfinite(mag2).all()), name
+    # the noise and dense blocks start from a primed history
+    assert int(got[1][2].primed) == p.history_size
+    dense = detect_scan.scan_plain(got[2][1], got[2][2], p.block_samples, p)
+    assert int(dense.n_tagged) + int(dense.a_valid.sum()) > 20
+    edge = exp_scan.edge_spectrogram(
+        DetectorConfig(sample_rate=10_000_000, history_size=32,
+                       frames_per_block=96).derived(), seed=1)
+    assert edge.dtype == np.float32 and edge.shape == (96, 8192)
