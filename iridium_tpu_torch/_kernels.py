@@ -135,7 +135,7 @@ DETECT_SCAN = Kernel(
     extra_flags=("--fmad=false",))
 FUSED_FRONTEND = Kernel(
     "fused_frontend",
-    [P, LL, P, P, P, P, I, I, I, I, I, I, P, P, P])
+    [P, LL, P, P, P, P, I, I, I, I, I, I, P, P, P, P])
 WINDOW_GATHER = Kernel(
     "window_gather",
     [P, LL, P, I, I, I, P, P, P])

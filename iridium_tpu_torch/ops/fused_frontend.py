@@ -13,7 +13,9 @@ first dec_cap outputs, which lie inside the window.
 
 `fused` launches csrc/fused_frontend.cu on CUDA planes and runs
 `fused_plain` on CPU planes; `fused_plain` gathers, rotates and runs a
-strided convolution.
+strided convolution. The kernel runs the FIR as 3xTF32 tensor-core
+products (f32-grade: within 1e-5 of `fused_plain` at the production
+shapes, where a single TF32 pass is ~1e-4 off).
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ def fused(planes: torch.Tensor, starts2: torch.Tensor, ks: torch.Tensor,
     _kernels.check(ramp, "ramp", torch.float32, dev, (2, F))
     if planes.dim() != 2 or planes.shape[0] != 2:
         raise ValueError("planes must be (2, N)")
-    if not supports(F, decim, l_win):
+    if not supports(F, decim, l_win) or F >= 65536:
         raise ValueError(f"unsupported shape F={F} decim={decim} "
                          f"l_win={l_win}")
     n_out = l_win // decim
@@ -94,9 +96,11 @@ def fused(planes: torch.Tensor, starts2: torch.Tensor, ks: torch.Tensor,
     out_im = torch.empty((B, n_out), dtype=torch.float32, device=dev)
     if B == 0:
         return out_re, out_im
+    # scratch: each burst's ramp in sample order (the kernel's first pass)
+    rot = torch.empty((B, 2, F), dtype=torch.float32, device=dev)
     k = _kernels
     k.FUSED_FRONTEND.launch(
         dev, k.ptr(planes), planes.shape[1], k.ptr(starts2), k.ptr(ks),
         k.ptr(taps), k.ptr(ramp), B, l_win, F, decim, ntaps, ALIGN,
-        k.ptr(out_re), k.ptr(out_im))
+        k.ptr(out_re), k.ptr(out_im), k.ptr(rot))
     return out_re, out_im

@@ -27,11 +27,9 @@ to the plain gather.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import json
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -130,13 +128,7 @@ def single_ms(fn, reps: int = 5) -> float:
 def compare_sources(rows, dev: torch.device, sources) -> list[dict]:
     """The package's kernel and each other source at the full shapes on
     random planes: bit-equal to the plain gather, then timed."""
-    cands = [("package", _kernels.BLOCK_GATHER)]
-    cands += [(str(src), variants.Variant(_kernels.BLOCK_GATHER,
-                                          Path(src).read_text()))
-              for src in sources]
-    with concurrent.futures.ThreadPoolExecutor(len(cands)) as pool:
-        for fut in [pool.submit(k.build) for _, k in cands]:
-            fut.result()
+    cands = variants.candidates(_kernels.BLOCK_GATHER, sources)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     mt = FULL["M"] // TILE

@@ -59,9 +59,9 @@ __device__ unsigned long long g_phase_count[16];
 """
 
 READER = """
-extern "C" int detect_scan_phases(unsigned long long* cycles,
-                                  unsigned long long* count) {
-  static const unsigned long long zero[16] = {};
+extern "C" int {entry}_phases(unsigned long long* cycles,
+                              unsigned long long* count) {{
+  static const unsigned long long zero[16] = {{}};
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess)
     e = cudaMemcpyFromSymbol(cycles, g_phase_cycles, sizeof zero);
@@ -72,7 +72,7 @@ extern "C" int detect_scan_phases(unsigned long long* cycles,
   if (e == cudaSuccess)
     e = cudaMemcpyToSymbol(g_phase_count, zero, sizeof zero);
   return (int)e;
-}
+}}
 """
 
 MARK = re.compile(r"^(\s*)// phase: (\w+)\s*$", re.M)
@@ -205,9 +205,11 @@ def compare(got: st.ScanState, want: st.ScanState) -> float:
     return err
 
 
-def probed_source(text: str) -> tuple[str, list[str]]:
-    """The kernel source with its phase markers turned into probes, and
-    the phase names in probe-index order (0 = before the first marker)."""
+def probed_source(text: str, entry: str = "detect_scan"
+                  ) -> tuple[str, list[str]]:
+    """The kernel source with its phase markers turned into probes and a
+    reader `<entry>_phases` appended, and the phase names in probe-index
+    order (0 = before the first marker)."""
     names = ["setup"]
 
     def sub(m):
@@ -222,19 +224,19 @@ def probed_source(text: str) -> tuple[str, list[str]]:
     head = "#include <cuda_runtime.h>\n"
     if head not in body:
         raise ValueError("source does not include cuda_runtime.h")
-    body = body.replace(head, head + PROBES, 1) + READER
+    body = body.replace(head, head + PROBES, 1) + READER.format(entry=entry)
     return body, names
 
 
 def phases(kernel: variants.Variant) -> tuple[list[int], list[int]]:
     """Read and clear a probed build's per-phase cycles and entries."""
-    fn = ctypes.CDLL(str(kernel.build())).detect_scan_phases
+    fn = getattr(ctypes.CDLL(str(kernel.build())), f"{kernel.name}_phases")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     cyc = (ctypes.c_ulonglong * 16)()
     cnt = (ctypes.c_ulonglong * 16)()
     code = fn(cyc, cnt)
     if code != 0:
-        raise RuntimeError(f"detect_scan_phases: CUDA error {code}")
+        raise RuntimeError(f"{kernel.name}_phases: CUDA error {code}")
     return list(cyc), list(cnt)
 
 

@@ -10,6 +10,7 @@ launches count nowhere.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 from pathlib import Path
@@ -41,3 +42,16 @@ def swapped(attr: str, kernel: _kernels.Kernel):
         yield kernel
     finally:
         setattr(_kernels, attr, saved)
+
+
+def candidates(base: _kernels.Kernel, sources
+               ) -> list[tuple[str, _kernels.Kernel]]:
+    """[("package", base)] and a Variant of `base` per source path, all
+    built at once (one nvcc each)."""
+    cands = [("package", base)]
+    cands += [(str(src), Variant(base, Path(src).read_text()))
+              for src in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(cands)) as pool:
+        for fut in [pool.submit(k.build) for _, k in cands]:
+            fut.result()
+    return cands

@@ -13,13 +13,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from iridium_tpu_torch import device as device_mod  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
 from iridium_tpu_torch.ops import block_gather as bg  # noqa: E402
 from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
-from iridium_tpu_torch.tools import exp_scan  # noqa: E402
+from iridium_tpu_torch.tools import exp_frontend, exp_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -28,7 +29,8 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    # TF32 off for the plain versions' convolutions, as the port runs them
+    return device_mod.resolve("cuda")
 
 
 def _planes(n, seed, dev):
@@ -58,7 +60,63 @@ def test_fused_frontend_matches_plain(dev):
     for a, b in zip(ff.fused(planes, starts2, ks, taps, ramp, l_win, D),
                     ff.fused_plain(planes, starts2, ks, taps, ramp, l_win,
                                    D)):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-3)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("l_win", [327_680, 1_126_400])
+def test_fused_frontend_production_taps_match_plain(dev, l_win):
+    """F = 8192, decimation 40, the 801 production taps, at the small
+    class's window and the large class's (n_out = 28,160): windows that
+    start before sample 0 and end past the stream, r = 39, k = -F/2 and
+    F/2 - 1, and a batch of 5 bursts."""
+    F, D = 8192, 40
+    n = l_win + 3 * wg.ALIGN + 1234
+    planes = _planes(n, 4, dev)
+    last = (n - l_win // 2) // wg.ALIGN          # runs past the end
+    starts2 = torch.tensor([[-1, 39], [0, 0], [1, 39], [last, 17], [2, 5]],
+                           dtype=torch.int32, device=dev)
+    ks = torch.tensor([-F // 2, F // 2 - 1, 0, 1, -1], dtype=torch.int32,
+                      device=dev)
+    taps = torch.from_numpy(exp_frontend.production_taps()).to(dev)
+    ramp = ff.ramp_table(F, dev)
+    got = ff.fused(planes, starts2, ks, taps, ramp, l_win, D)
+    want = ff.fused_plain(planes, starts2, ks, taps, ramp, l_win, D)
+    assert got[0].shape == (5, l_win // D)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_fused_frontend_raises_on_what_it_cannot_take(dev):
+    """No fallback on the card: a decimation the shape rules refuse, and
+    taps so long that the span does not fit in shared memory."""
+    planes = _planes(4 * wg.ALIGN, 5, dev)
+    starts2 = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    ks = torch.zeros(2, dtype=torch.int32, device=dev)
+    taps = torch.from_numpy(exp_frontend.production_taps()).to(dev)
+    ramp = ff.ramp_table(8192, dev)
+    with pytest.raises(ValueError):
+        ff.fused(planes, starts2, ks, taps, ramp, wg.ALIGN, 12)
+    long_taps = torch.full((4001,), 1.0 / 4001, device=dev)
+    with pytest.raises(RuntimeError):
+        ff.fused(planes, starts2, ks, long_taps, ramp, wg.ALIGN, 160)
+
+
+@pytest.mark.parametrize("D", [16, 32, 80, 160])
+def test_fused_frontend_other_decimations_match_plain(dev, D):
+    """The other decimations the shape rules take (4, 8, 20 and 40 MHz
+    captures), with the 801 production taps."""
+    F, l_win = 8192, 2 * wg.ALIGN
+    planes = _planes(l_win + 3 * wg.ALIGN + 5, 6 + D, dev)
+    starts2 = torch.tensor([[-1, 7], [0, 3], [2, 1]], dtype=torch.int32,
+                           device=dev)
+    ks = torch.tensor([-F // 2, 17, F // 2 - 1], dtype=torch.int32,
+                      device=dev)
+    taps = torch.from_numpy(exp_frontend.production_taps()).to(dev)
+    ramp = ff.ramp_table(F, dev)
+    for a, b in zip(ff.fused(planes, starts2, ks, taps, ramp, l_win, D),
+                    ff.fused_plain(planes, starts2, ks, taps, ramp, l_win,
+                                   D)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 def test_detect_scan_matches_plain(dev):

@@ -1,6 +1,7 @@
 """The port's kernel-design tools on the CPU: the source rewriting that
 builds kernel variants (`tools/variants.py`), the phase probes of
-`tools/exp_scan.py`, and the scan inputs it times, at a small shape.
+`tools/exp_scan.py`, and the scan inputs it times, at a small shape; the
+front-end tool `tools/exp_frontend.py` at its small CPU shape.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -12,7 +13,7 @@ torch = pytest.importorskip("torch")
 from iridium_tpu_torch import _kernels  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
-from iridium_tpu_torch.tools import exp_scan, variants  # noqa: E402
+from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -55,3 +56,43 @@ def test_scan_inputs_at_a_small_shape():
         DetectorConfig(sample_rate=10_000_000, history_size=32,
                        frames_per_block=96).derived(), seed=1)
     assert edge.dtype == np.float32 and edge.shape == (96, 8192)
+
+
+def test_probed_source_of_the_fused_frontend():
+    text = _kernels.FUSED_FRONTEND.source.read_text()
+    probed, names = exp_scan.probed_source(text, "fused_frontend")
+    assert names == ["setup", "load", "fir", "reduce", "end"]
+    assert 'extern "C" int fused_frontend_phases(' in probed
+    assert "detect_scan_phases" not in probed
+
+
+def test_exp_frontend_small_on_cpu(capsys):
+    assert exp_frontend.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "small package:" in out and "max|err| 0 " in out
+    with pytest.raises(SystemExit):
+        exp_frontend.main(["--device", "cpu", "--small", "--source", "x.cu"])
+
+
+def test_exp_frontend_bound_counts_the_work():
+    """The bound at the small-normal class's count of work: 3 TF32
+    multiply-adds per tap product on both planes at 495 TFLOP/s, and the
+    bytes of the samples the windows cover plus the outputs."""
+    B, l_win, ntaps = 4, 327_680, 801
+    planes = torch.zeros((2, 5 * l_win))
+    # two windows overlap by half; two are apart
+    starts2 = torch.tensor([[0, 0], [8, 0], [40, 0], [60, 3]],
+                           dtype=torch.int32)
+    b = exp_frontend.bound(planes, starts2, l_win, ntaps, 40)
+    n_out = l_win // 40
+    span = (n_out - 1) * 40 + ntaps
+    covered = 3 * span + 8 * 20480
+    assert b["bytes_ms"] == pytest.approx(
+        (8 * covered + 8 * B * n_out + 4 * ntaps) / 3.35e12 * 1e3)
+    assert b["tensor_ms"] == pytest.approx(
+        12 * ntaps * B * n_out / 495e12 * 1e3)
+    assert b["fp32_fma_ms"] == pytest.approx(
+        4 * ntaps * B * n_out / 67e12 * 1e3)
+    assert b["bound_ms"] == max(b["bytes_ms"], b["tensor_ms"])
+    assert b["bound_by"] == "bytes"
