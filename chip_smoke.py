@@ -10,16 +10,23 @@ Phases, each printing one line:
      with its time, the plain version's, a library call's where one
      computes the same function, and the bound (the scan on three
      blocks: synthetic, noise-only after priming, dense; the fused
-     front-end at the three burst classes' shapes, within max |err| 1e-5;
-     the block gather single-call and chained, at R = 64, 128, 256);
+     front-end at the three burst classes' batches of the 10 MHz group
+     program, within max |err| 1e-5; the window gather at the 1 MHz
+     small-normal batch; the block gather single-call and chained, at
+     R = 64, 128, 256);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (no LLRs) and
      `RawPrinter`, every injected payload bit-exact, scan and fused
-     front-end launched; then the same decode under torch.profiler
-     (device time, idle share);
+     front-end launched, the group program replayed as a CUDA graph (after
+     a warm-up decode that captures it); then the same decode under
+     torch.profiler (device time, idle share); then `group_oracle`: the
+     same capture through the host-routed flow gives the same lines, and
+     the group program through its graphs is bit-equal to the same
+     program run eagerly;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose gather launches are checked against the plain gather, and the
-     per-symbol demod loop alone at a 256-burst batch;
+     whose captured gathers are checked against the plain gather on the
+     graph's last inputs, and the per-symbol demod loop alone at a
+     256-burst batch;
   5. the protocol decode at the production 10 MHz configuration: a
      capture with injected IRA, IBC and IDA frames (one ACARS SBD message
      over two IDA bursts) through the pipeline with LLRs and the CLI's
@@ -27,9 +34,17 @@ Phases, each printing one line:
      back, and the unpacked LLRs are within one quantum of the f32 LLRs;
   6. the block-gather sweep tool (`iridium_tpu_torch.tools.
      exp_block_gather`) on the card, its sum check passing;
-  7. the `kernels` JSON line: every kernel with its launches on the
-     paths above (counts reset before each path and read after it), its
-     times and its bound.
+  7. `dense_10mhz`: 8 production blocks at a live band's density (~250
+     bursts/s, 22-32 dB, over the whole band, simplex included) through
+     the group flow, lines equal to the host-routed flow's, then the first
+     block again with class batches of 16/24/24 bursts, so that
+     overflow rounds run, against the host-routed flow at those batches;
+     the group program through its graphs on that dense group and on
+     an empty one, and each graph's replay alone;
+  8. the `kernels` JSON line: every kernel with its launches on the
+     paths above (counts reset before each path and read after it; a
+     graph replay adds the launches its capture recorded), its times and
+     its bound.
 Every printed number names the card (`card`: nvidia-smi's name and
 power limit). The last line is the JSON result. Any failed check exits
 non-zero; with no CUDA device, or without the port's package beside this
@@ -75,6 +90,21 @@ def time_ms(fn, reps: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of `reps` calls that end in a synchronise,
+    after one warm-up call: for work with a host wait inside it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
 
 
@@ -136,8 +166,9 @@ FUSED_MAX_ERR = 1e-5
 
 def check_fused(dev, card: str) -> dict:
     """The fused front-end at the three burst classes' shapes of the
-    10 MHz decode (`tools/exp_frontend.py`: 256 x 327,680; 48 x 327,680;
-    48 x 1,126,400), each held to `fused_plain` within max |err| 1e-5 and
+    10 MHz decode's group program (`tools/exp_frontend.py`: 1,024 x
+    327,680; 96 x 327,680; 48 x 1,126,400, from a 4-block group's
+    planes), each held to `fused_plain` within max |err| 1e-5 and
     timed beside the plain version and the library call (rotate + strided
     `conv1d`). The row reports the small-normal shape, `detail` all three
     with the bound's parts (bytes, f32-grade tensor products, FP32 FMAs)."""
@@ -149,7 +180,7 @@ def check_fused(dev, card: str) -> dict:
     for shape, B, l_win in tool.CLASSES:
         r = tool.run_class(shape, B, l_win, dev,
                            [("package", _kernels.FUSED_FRONTEND)], taps,
-                           tool.STREAM_10MHZ, phases=False)[0]
+                           tool.GROUP_10MHZ, phases=False)[0]
         if not r["max_abs_err"] <= FUSED_MAX_ERR:
             raise AssertionError(f"fused_frontend {shape}: max |err| "
                                  f"{r['max_abs_err']} > {FUSED_MAX_ERR}")
@@ -169,15 +200,26 @@ def check_fused(dev, card: str) -> dict:
                             per_shape=per_shape))
 
 
-def check_gather(dev, F, B, l_win, card: str) -> dict:
+def check_gather(dev, card: str) -> dict:
+    """The window gather at the batch the 1 MHz decode's group program
+    gives its small-normal class (decimation 4 has no fused front-end, so
+    the main path gathers there), from a 4-block group's planes, with
+    random window starts: bit-equal to the plain gather, timed beside it
+    and advanced indexing."""
     import torch
+    from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.ops import window_gather as wg
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
     from iridium_tpu_torch.tools import exp_frontend as tool
 
+    pipe = Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
+                    device=dev)
+    B, l_win = pipe.classes[0].batch, pipe.classes[0].l_win
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
-    planes, starts2, _ = tool.frontend_inputs(dev, gen, B, l_win, F,
-                                              tool.STREAM_10MHZ)
+    planes, starts2, _ = tool.frontend_inputs(
+        dev, gen, B, l_win, pipe.p.fft_size,
+        pipe.agg_blocks * pipe.stream_len)
     got = wg.gather(planes, starts2, l_win)
     want = wg.gather_plain(planes, starts2, l_win)
     for a, b in zip(got, want):
@@ -196,7 +238,8 @@ def check_gather(dev, F, B, l_win, card: str) -> dict:
                 source="iridium_tpu_torch/csrc/window_gather.cu",
                 replaces="iridium_tpu/ops/window_gather.py:55",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, detail=dict(card=card))
+                bound_by=b_by, library_ms=lib_ms,
+                detail=dict(card=card, B=B, l_win=l_win))
 
 
 def check_block_gather(dev, card: str) -> dict:
@@ -256,10 +299,9 @@ def kernel_phase(dev, card: str) -> list[dict]:
 
     p = DetectorConfig(sample_rate=10_000_000, frames_per_block=2048,
                        gone_capacity=2048).derived()
-    B, l_win = 256, 327_680
     rows = [check_scan(p, dev, card),
             check_fused(dev, card),
-            check_gather(dev, p.fft_size, B, l_win, card),
+            check_gather(dev, card),
             check_block_gather(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
@@ -308,7 +350,34 @@ def write_cf32(path, cap):
     np.ascontiguousarray(cap, np.complex64).view(np.float32).tofile(path)
 
 
-def decode_phase(dev, tmp) -> dict:
+GRAPH_PARTS = ("route", "small_normal", "small_simplex", "large")
+
+
+def graph_info(pipe) -> dict:
+    """The CUDA graphs of `pipe`, by group arity and part (the routing,
+    then each burst class; those never run are not captured): capture and
+    instantiate seconds, node count, memory pool, kernel launches per
+    replay."""
+    return {nb: {name: dict(capture_s=c.capture_s,
+                            instantiate_s=c.instantiate_s, nodes=c.nodes,
+                            pool_mib=c.pool_bytes / 2**20,
+                            launches_per_replay={k.name: n for k, n
+                                                 in c.launches.items()})
+                 for name, c in zip(GRAPH_PARTS, g.parts) if c.graph}
+            for nb, g in pipe.graphs.items()}
+
+
+def graph_run(pipe, g):
+    """The group program on the graph `g`'s current inputs, through its
+    graphs (skips as loaded)."""
+    return pipe.group_program(g.planes, g.tables, g.scal,
+                              g.scal[1:].tolist(), g)
+
+
+T0 = 1_700_000_000_000_000_000
+
+
+def decode_phase(dev, tmp) -> tuple[dict, dict]:
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
@@ -321,12 +390,14 @@ def decode_phase(dev, tmp) -> dict:
     write_cf32(path, cap)
     seconds = len(cap) / PROD["sample_rate"]
     det = DetectorConfig(**PROD)
-    t0 = 1_700_000_000_000_000_000
-    # warm-up decode (cuFFT plans, allocator); then the counted run
-    list(Pipeline(det_cfg=det, start_time_ns=t0, device=dev,
-                  want_llr=False).run_file(path))
-    pipe = Pipeline(det_cfg=det, start_time_ns=t0, device=dev,
+    pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
                     want_llr=False)
+    # warm-up decode (cuFFT plans, allocator, the group graph's capture);
+    # then the counted run on the same pipeline
+    t = time.perf_counter()
+    list(pipe.run_file(path))
+    warmup_s = time.perf_counter() - t
+    pipe.reset(T0)
     printer = RawPrinter()
     torch.cuda.synchronize()
     _kernels.reset_counts()
@@ -350,26 +421,28 @@ def decode_phase(dev, tmp) -> dict:
             missing.append((start, off))
     if missing:
         raise AssertionError(f"payloads not decoded bit-exact: {missing}")
+    if not pipe.graphs:
+        raise AssertionError("the decode replayed no group graph")
     st = pipe.stats
     return dict(phase="decode_10mhz", capture_s=seconds, wall_s=wall,
                 realtime_x=seconds / wall, raw_lines=len(lines),
                 raw_per_s=len(lines) / wall, injected=len(bursts),
                 detected=st.n_detected, ok=st.n_ok,
                 ok_pct=100.0 * st.n_ok / max(st.n_detected, 1),
-                stages=dict(pipe.timing), launches=counts, path=path)
+                q_peak=pipe.take_q_peak(), warmup_s=warmup_s,
+                stages=dict(pipe.timing), graphs=graph_info(pipe),
+                launches=counts), dict(pipe=pipe, path=path, lines=lines)
 
 
-def profile_phase(dev, path: str, wall_s: float) -> dict:
-    """The same 10 MHz decode under torch.profiler: device time summed
-    over kernels and copies, the number of device operations, and the
-    device's idle share against the unprofiled wall time."""
+def profile_phase(pipe, path: str, wall_s: float) -> dict:
+    """The same 10 MHz decode on the same pipeline (its graph captured)
+    under torch.profiler: device time summed over kernels and copies, the
+    number of device operations, and the device's idle share against the
+    unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from iridium_tpu_torch.config import DetectorConfig
-    from iridium_tpu_torch.runtime.pipeline import Pipeline
 
-    pipe = Pipeline(det_cfg=DetectorConfig(**PROD), start_time_ns=0,
-                    device=dev, want_llr=False)
+    pipe.reset(0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         list(pipe.run_file(path))
@@ -385,10 +458,44 @@ def profile_phase(dev, path: str, wall_s: float) -> dict:
                      for e in top])
 
 
+def group_oracle_phase(pipe, path: str, lines: list) -> dict:
+    """The RAW capture through the host-routed flow (gone tables to the
+    host, routing in numpy, eager class batches) on the same pipeline:
+    the same lines as the group flow's. Then the group program through
+    its graphs on their last inputs, bit-equal to the program run
+    eagerly on them."""
+    import torch
+    from iridium_tpu_torch.output.raw import RawPrinter
+
+    pipe.reset(T0)
+    pipe.host_routed = True
+    try:
+        printer = RawPrinter()
+        host = [printer.format(f) for f in pipe.run_file(path)]
+    finally:
+        pipe.host_routed = False
+    if host != lines:
+        raise AssertionError(f"host-routed lines differ: {len(host)} "
+                             f"against {len(lines)}")
+    res = dict(phase="group_oracle", lines=len(lines), host_lines_equal=True)
+    for nb, g in pipe.graphs.items():
+        replayed = graph_run(pipe, g)
+        eager = pipe.group_program(g.planes, g.tables, g.scal,
+                                   g.scal[1:].tolist())
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, eager):
+            raise AssertionError(
+                f"graph of arity {nb}: {int((replayed != eager).sum())} of "
+                f"{eager.numel()} words differ from the eager program")
+        res[f"arity_{nb}_words_bit_equal"] = eager.numel()
+    return res
+
+
 def gather_phase(dev, tmp) -> dict:
     """1 MHz (decimation 4): the fused shape is unsupported, so the
-    pipeline gathers windows; every gather it launches is checked
-    against the plain gather on the same stream."""
+    group program gathers windows; each gather captured into its graph is
+    checked after the run against the plain gather on the tensors of the
+    graph's last replay."""
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
@@ -407,7 +514,8 @@ def gather_phase(dev, tmp) -> dict:
 
     def recording(planes, starts2, l_win):
         out = kernel_gather(planes, starts2, l_win)
-        calls.append((planes, starts2, l_win, out))
+        if torch.cuda.is_current_stream_capturing():
+            calls.append((planes, starts2, l_win, out))
         return out
 
     pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
@@ -424,6 +532,8 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError(f"1 MHz decode launches: {counts}")
     if counts["fused_frontend"] != 0:
         raise AssertionError("1 MHz decode took the fused path")
+    if not calls:
+        raise AssertionError("no gather was captured into a group graph")
     for planes, starts2, l_win, out in calls:
         want = wg.gather_plain(planes, starts2, l_win)
         if not all(torch.equal(a, b) for a, b in zip(out, want)):
@@ -448,7 +558,7 @@ def demod_phase(dev) -> dict:
     xt = torch.from_numpy(x).to(dev)
     n = torch.full((B,), L, dtype=torch.int32, device=dev)
     direc = torch.zeros(B, dtype=torch.int32, device=dev)
-    dm = demod.Demod(S, 10.0)
+    dm = demod.Demod(S, 10.0, device=dev)
     ms = time_ms(lambda: dm(xt, n, direc), reps=3)
     return dict(phase="demod_loop", batch=B, symbols=S, ms=ms)
 
@@ -501,8 +611,10 @@ def parsed_phase(dev, tmp) -> dict:
     """`--parsed --acars-json` at the production configuration, through
     the calls the CLI's decode loop makes: the pipeline with LLRs, one
     block-batched protocol decode per block, `IDA:` lines, the ACARS
-    reassembler and decoder. Every packed batch is recorded, and its
-    unpacked LLRs are held against the demod's f32 LLRs."""
+    reassembler and decoder. Every packed batch captured into the group
+    graph is recorded, and after the counted decode its unpacked LLRs
+    (those of the graph's last replay) are held against the demod's f32
+    LLRs of that replay."""
     import io
     import torch
     from iridium_tpu_torch import _kernels
@@ -522,12 +634,14 @@ def parsed_phase(dev, tmp) -> dict:
 
     def recording(dm, dd, s2_pad, want_llr):
         out = kernel_pack(dm, dd, s2_pad, want_llr)
-        packed.append((dd.llr, out, s2_pad // 2))
+        if torch.cuda.is_current_stream_capturing():
+            packed.append((dd.llr, out, s2_pad // 2))
         return out
 
+    pipe = pl.Pipeline(det_cfg=det, device=dev, want_llr=True)
+
     def decode():
-        pipe = pl.Pipeline(det_cfg=det, start_time_ns=1_700_000_000 * 10**9,
-                           device=dev, want_llr=True)
+        pipe.reset(T0)
         printer, reasm = RawPrinter(), ida_mod.IdaReassembler()
         acars = sbd_acars.AcarsDecoder(json_out=True, text_out=io.StringIO(),
                                        station="SMOKE")
@@ -542,19 +656,21 @@ def parsed_phase(dev, tmp) -> dict:
                 if b is not None:
                     reasm.push(b, acars.process)
                 reasm.flush(f["timestamp_ns"])
-        return pipe, lines, decoded, acars
+        return lines, decoded, acars
 
-    decode()                                   # warm-up
-    torch.cuda.synchronize()
-    _kernels.reset_counts()
     pl.pack_outputs = recording
     try:
-        t = time.perf_counter()
-        pipe, lines, decoded, acars = decode()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        decode()                               # warm-up, graph capture
     finally:
         pl.pack_outputs = kernel_pack
+    if not packed:
+        raise AssertionError("no packed batch was captured")
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    lines, decoded, acars = decode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
     counts = {k.name: k.launches for k in _kernels.KERNELS}
     for name in ("detect_scan", "fused_frontend"):
         if counts[name] == 0:
@@ -591,7 +707,7 @@ def parsed_phase(dev, tmp) -> dict:
                 ida_lines=len(ida_lines), ira=len(ira), ibc=len(ibc),
                 acars=len(texts), llr_batches=len(packed),
                 llr_err_quanta=worst, stages=dict(pipe.timing),
-                launches=counts)
+                graphs=graph_info(pipe), launches=counts)
 
 
 def tool_phase(dev) -> dict:
@@ -608,6 +724,134 @@ def tool_phase(dev) -> dict:
                 sweep=[{k: r[k] for k in ("R", "nt", "ms", "out_gbps",
                                           "moved_gbps", "sum")}
                        for r in res])
+
+
+# ---- phase 7: a live band's density through the group flow ----
+
+DENSE_BLOCKS = 8
+DENSE_PER_S = 250.0        # BENCH_r05.json's det/s: a live 10 MHz band
+
+
+def dense_capture(rng):
+    """DENSE_BLOCKS production blocks of 10 MHz noise with DL bursts at
+    DENSE_PER_S after the detector's priming, each at a uniform start,
+    22-32 dB: 88% with 300-bit payloads over the duplex band (-4.9 to
+    +3.95 MHz from the centre), 12% with 500-bit frames in the simplex
+    band (+4.02 to +4.46 MHz). Payloads come from 48 waveforms made once
+    at baseband and shifted to each burst's offset."""
+    from iridium_tpu_torch import iridium
+    from iridium_tpu_torch.io import synth
+    fs = PROD["sample_rate"]
+    total = DENSE_BLOCKS * PROD["frames_per_block"] * 8192
+    cap = synth.noise(total, seed=SEED + 8)
+    first = (iridium.DEFAULT_HISTORY_SIZE + 32) * 8192
+    waves = [synth.burst_waveform(rng.integers(0, 2, nb).astype(np.uint8),
+                                  fs, 0.0)
+             for nb in [308] * 32 + [508] * 16]
+    n = int(DENSE_PER_S * (total - first) / fs)
+    for _ in range(n):
+        simplex = rng.random() < 0.12
+        w = waves[32 + rng.integers(16) if simplex else rng.integers(32)]
+        off = (rng.uniform(4.02e6, 4.46e6) if simplex
+               else rng.uniform(-4.9e6, 3.95e6))
+        start = int(rng.integers(first, total - len(w)))
+        # exp(i w n) for n = 512 a + b, as the outer product of two short
+        # tables
+        step = 2 * np.pi * off / fs
+        hi = np.exp(1j * step * 512 * np.arange(-(-len(w) // 512)))
+        lo = np.exp(1j * step * np.arange(512))
+        tone = (hi.astype(np.complex64)[:, None]
+                * lo.astype(np.complex64)[None, :]).reshape(-1)[:len(w)]
+        amp = np.float32(0.01 * 10.0 ** (rng.uniform(22.0, 32.0) / 20.0))
+        cap[start:start + len(w)] += (amp * w) * tone
+    return cap, n
+
+
+def dense_phase(dev, tmp) -> dict:
+    """The dense capture through the group flow (after a warm-up on its
+    first group that captures the graph), with its host-routed run on the
+    same pipeline; then its first block with class batches of 16, 24 and
+    24 bursts (`group_jobs=1, burst_batch=8`), group flow against
+    host-routed flow. Then the group program through its graphs on its
+    last (dense) group and on the same group emptied (head counts
+    zeroed), and each graph's replay alone."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+
+    t = time.perf_counter()
+    cap, injected = dense_capture(np.random.default_rng(SEED + 8))
+    path = os.path.join(tmp, "dense_10mhz.cf32")
+    write_cf32(path, cap)
+    make_s = time.perf_counter() - t
+    bs = PROD["frames_per_block"] * 8192
+    seconds = len(cap) / PROD["sample_rate"]
+    det = DetectorConfig(**PROD)
+
+    def lines_of(pipe, host_routed, source):
+        pipe.reset(T0)
+        pipe.host_routed = host_routed
+        try:
+            printer = RawPrinter()
+            return [printer.format(f) for f in source()]
+        finally:
+            pipe.host_routed = False
+
+    pipe = Pipeline(det_cfg=det, device=dev, want_llr=False)
+    lines_of(pipe, False, lambda: pipe.run_array(cap[:4 * bs]))  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    lines = lines_of(pipe, False, lambda: pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    st, timing, q_peak = pipe.stats, dict(pipe.timing), pipe.take_q_peak()
+    host = lines_of(pipe, True, lambda: pipe.run_file(path))
+    if host != lines:
+        raise AssertionError(f"dense: host-routed lines differ "
+                             f"({len(host)} against {len(lines)})")
+
+    g = pipe.graphs[4]
+    g.scal[1:] = 0                  # the first round: every class runs
+    dense_ms = host_ms(lambda: graph_run(pipe, g))
+    class_ms = {name: time_ms(c.graph.replay, reps=3)
+                for name, c in zip(GRAPH_PARTS, g.parts) if c.graph}
+    busy = g.tables[:, 0, 0].clone()
+    g.tables[:, 0, 0] = 0
+    empty_ms = host_ms(lambda: graph_run(pipe, g))
+    g.tables[:, 0, 0] = busy
+
+    small = Pipeline(det_cfg=det, device=dev, want_llr=False,
+                     group_jobs=1, burst_batch=8)
+    first = cap[:bs]
+    got = lines_of(small, False, lambda: small.run_array(first))
+    overflow = small.timing["n_overflow_rounds"]
+    want = lines_of(small, True, lambda: small.run_array(first))
+    if got != want or overflow < 1:
+        raise AssertionError(f"dense, small batches: {len(got)} lines "
+                             f"against {len(want)}, {overflow} overflow "
+                             "rounds")
+    block_ms = 1e3 * bs / PROD["sample_rate"]
+    return dict(phase="dense_10mhz", capture_s=seconds, make_s=make_s,
+                injected=injected, wall_s=wall, realtime_x=seconds / wall,
+                raw_lines=len(lines), raw_per_s=len(lines) / wall,
+                detected=st.n_detected, ok=st.n_ok,
+                ok_pct=100.0 * st.n_ok / max(st.n_detected, 1),
+                n_groups=timing["n_groups"],
+                n_overflow_rounds=timing["n_overflow_rounds"],
+                q_peak=q_peak, stages=timing, host_lines_equal=True,
+                small_batches=dict(lines=len(got), equal=True,
+                                   n_overflow_rounds=overflow,
+                                   graphs=graph_info(small)),
+                graph=dict(parts=graph_info(pipe)[4], replay_ms=class_ms,
+                           group_dense_ms=dense_ms, group_empty_ms=empty_ms,
+                           all_classes_share_of_block=sum(
+                               class_ms.values()) / block_ms,
+                           empty_share_of_block=empty_ms / block_ms),
+                launches=counts)
 
 
 def main() -> int:
@@ -640,23 +884,32 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     card = smi.stdout.strip()
+    clock = [time.perf_counter()]
+
+    def emit(res: dict) -> dict:
+        """Print a phase's line with the card and the phase's seconds."""
+        now = time.perf_counter()
+        print(json.dumps(dict(res, card=card, phase_s=now - clock[0])),
+              flush=True)
+        clock[0] = now
+        return res
+
     rows = kernel_phase(dev, card)
+    clock[0] = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        dec = decode_phase(dev, tmp)
-        path = dec.pop("path")
-        print(json.dumps(dict(dec, card=card)), flush=True)
-        print(json.dumps(dict(profile_phase(dev, path, dec["wall_s"]),
-                              card=card)), flush=True)
-        gat = gather_phase(dev, tmp)
-        print(json.dumps(dict(gat, card=card)), flush=True)
-        print(json.dumps(dict(demod_phase(dev), card=card)), flush=True)
-        par = parsed_phase(dev, tmp)
-        print(json.dumps(dict(par, card=card)), flush=True)
-    tool = tool_phase(dev)
-    print(json.dumps(dict(tool, card=card)), flush=True)
+        dec, ctx = decode_phase(dev, tmp)
+        emit(dec)
+        emit(profile_phase(ctx["pipe"], ctx["path"], dec["wall_s"]))
+        emit(group_oracle_phase(**ctx))
+        del ctx
+        gat = emit(gather_phase(dev, tmp))
+        emit(demod_phase(dev))
+        par = emit(parsed_phase(dev, tmp))
+        tool = emit(tool_phase(dev))
+        den = emit(dense_phase(dev, tmp))
     for r in rows:
         r["launches"] = sum(ph["launches"][r["name"]]
-                            for ph in (dec, gat, par, tool))
+                            for ph in (dec, gat, par, tool, den))
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
     if "jax" in sys.modules or "iridium_tpu" in sys.modules:

@@ -9,6 +9,8 @@ launched on a CUDA tensor, or `build_all()` is called.
 
 Every launch goes through `Kernel.launch`, which raises on a non-zero
 `cudaError_t` from the C side and counts the launch in `Kernel.launches`.
+A launch recorded into a CUDA graph is counted at each of the graph's
+replays instead (runtime/pipeline.py, `GroupGraph`).
 """
 
 from __future__ import annotations
@@ -156,3 +158,16 @@ def build_all() -> None:
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """Node count of a captured `cudaGraph_t` (`CUDAGraph.raw_cuda_graph()`),
+    through the driver's `cuGraphGetNodes`."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [P, P, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    code = lib.cuGraphGetNodes(raw_graph, None, ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {code}")
+    return n.value

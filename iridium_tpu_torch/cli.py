@@ -8,9 +8,13 @@ positioning and the live web map.
     iridium-tpu-torch -f capture.cf32 --parsed --device cpu
 
 The decoders are host code (numpy); their LLRs come off the card with the
-packed rows only when a decoder is on. The JAX package's backend switches
-(`--no-pallas`, `--fir`, `--gather`, `--scan`) have no counterpart: the
-card's path always runs the port's kernels.
+packed rows only when a decoder is on. `--agg-blocks` sets the blocks that
+share one group program and one result copy (4 for a file, 1 for stdin),
+`--save-bursts` dumps each burst's samples (the per-batch flow), and
+`--profile` writes a torch.profiler trace and prints the per-stage times.
+The JAX package's backend switches (`--no-pallas`, `--fir`, `--gather`,
+`--scan`) and `--mesh` have no counterpart: the card's path always runs
+the port's kernels, on one card.
 
 Stats line: the gr-iridium-format 1 Hz stderr line (main.c:483-501).
 """
@@ -18,6 +22,8 @@ Stats line: the gr-iridium-format 1 Hz stderr line (main.c:483-501).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -76,10 +82,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "for airframes.io)")
     p.add_argument("--station", default="IRIDIUM-TPU",
                    help="station identifier for ACARS JSON output")
+    p.add_argument("--save-bursts", metavar="DIR",
+                   help="save IQ samples of decoded bursts to directory")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace (Chrome/Perfetto "
+                        "JSON) of the run into DIR and print the "
+                        "per-stage timing breakdown")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="accepted for compatibility with iridium-tpu")
     p.add_argument("--burst-batch", type=int, default=128,
                    help="device burst batch size")
     p.add_argument("--frames-per-block", type=int, default=512,
                    help="FFT frames per device block")
+    p.add_argument("--agg-blocks", type=int, default=None,
+                   help="blocks per group program and result copy "
+                        "(default 4 for a file, 1 for stdin to keep the "
+                        "output latency at one block)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain versions of the kernels)")
@@ -103,10 +121,15 @@ def main(argv=None) -> int:
     decode_active = (args.parsed or args.gsmtap or args.web is not None
                      or args.position is not None or args.acars
                      or args.acars_json or args.acars_udp or args.feed)
+    # live mode (stdin): one block a group, to keep the output latency at
+    # one block, and the first stats column reads i:/s (main.c:487-492)
+    live = args.file in ("-", "/dev/stdin")
     pipe = Pipeline(det_cfg=det, dm_cfg=DownmixConfig(),
                     burst_batch=args.burst_batch,
                     use_gardner=not args.no_gardner,
-                    device=args.device, want_llr=bool(decode_active))
+                    device=args.device, want_llr=bool(decode_active),
+                    save_bursts_dir=args.save_bursts,
+                    agg_blocks=args.agg_blocks or (1 if live else 4))
     printer = RawPrinter(args.file_info)
 
     zmq_sock = None
@@ -170,9 +193,6 @@ def main(argv=None) -> int:
 
     t_start = last_stat = last_solve = last_waiting = time.time()
     prev = dict(det=0, ok=0, handled=0, samples=0)
-    # Live mode: stdin pipe. The reference switches the first stats
-    # column from srr% to i:/s when live (main.c:487-492).
-    live = args.file in ("-", "/dev/stdin")
 
     def stats_line() -> None:
         nonlocal last_stat, last_solve, last_waiting, prev
@@ -215,6 +235,7 @@ def main(argv=None) -> int:
         first = f"i: {dd / dt:3.0f}/s" if live else f"srr: {srr:5.1f}%"
         print(f"{int(now)} | {first}"
               f" | i_avg: {s.n_detected / elapsed:3.0f}/s"
+              f" | q_max: {pipe.take_q_peak():4d}"
               f" | i_ok: {in_ok:3.0f}%"
               f" | o: {dh / dt:4.0f}/s"
               f" | ok: {dk / dt:3.0f}/s"
@@ -245,47 +266,54 @@ def main(argv=None) -> int:
         gsmtap.send(data, freq, direction, mag)
         n_gsmtap += 1
 
-    blocks = readers.read_blocks(args.file, pipe.p.block_samples,
-                                 args.format)
-    for frames in pipe.run_blocks(blocks):
-        # Block-vectorised protocol decode: one decode_block call covers
-        # every frame's BCH/LCW/IDA math (frame_decode.c:414-598,
-        # ida_decode.c:543-664).
-        if need_ida or need_frame:
-            results = batch_mod.decode_block(
-                frames, want_frame=need_frame, want_ida=need_ida)
-        else:
-            results = [(None, None)] * len(frames)
-        for f, (decoded, ida_burst) in zip(frames, results):
-            if args.parsed and ida_burst is not None:
-                emit(printer.format_ida(ida_burst))
+    with profiler(args.profile, pipe.device) as prof:
+        blocks = readers.read_blocks(args.file, pipe.p.block_samples,
+                                     args.format)
+        for frames in pipe.run_blocks(blocks):
+            # Block-vectorised protocol decode: one decode_block call covers
+            # every frame's BCH/LCW/IDA math (frame_decode.c:414-598,
+            # ida_decode.c:543-664).
+            if need_ida or need_frame:
+                results = batch_mod.decode_block(
+                    frames, want_frame=need_frame, want_ida=need_ida)
             else:
-                emit(printer.format(f))
+                results = [(None, None)] * len(frames)
+            for f, (decoded, ida_burst) in zip(frames, results):
+                if args.parsed and ida_burst is not None:
+                    emit(printer.format_ida(ida_burst))
+                else:
+                    emit(printer.format(f))
 
-            if decoded is not None:
-                kind, d = decoded
-                if kind == "IRA":
-                    if web is not None:
-                        web.add_ra(d, f["timestamp_ns"], f["frequency"])
-                    if doppler is not None:
-                        doppler.add_measurement(d, f["frequency"],
-                                                f["timestamp_ns"])
-                elif kind == "IBC" and web is not None:
-                    web.add_sat(d, f["timestamp_ns"])
+                if decoded is not None:
+                    kind, d = decoded
+                    if kind == "IRA":
+                        if web is not None:
+                            web.add_ra(d, f["timestamp_ns"], f["frequency"])
+                        if doppler is not None:
+                            doppler.add_measurement(d, f["frequency"],
+                                                    f["timestamp_ns"])
+                    elif kind == "IBC" and web is not None:
+                        web.add_sat(d, f["timestamp_ns"])
 
-            if gsmtap is not None and ida_burst is not None:
-                reasm_gsmtap.push(ida_burst, send_gsmtap)
-                reasm_gsmtap.flush(f["timestamp_ns"])
-            if acars is not None and ida_burst is not None:
-                reasm_acars.push(ida_burst, acars.process)
-                reasm_acars.flush(f["timestamp_ns"])
-            if reasm_mtpos is not None:
-                # MT position layer on the map (main.c:365-369 ->
-                # mtpos_ida_cb, web_map.c:280-361)
-                if ida_burst is not None:
-                    reasm_mtpos.push(ida_burst, web.mtpos_ida_cb)
-                reasm_mtpos.flush(f["timestamp_ns"])
-            stats_line()
+                if gsmtap is not None and ida_burst is not None:
+                    reasm_gsmtap.push(ida_burst, send_gsmtap)
+                    reasm_gsmtap.flush(f["timestamp_ns"])
+                if acars is not None and ida_burst is not None:
+                    reasm_acars.push(ida_burst, acars.process)
+                    reasm_acars.flush(f["timestamp_ns"])
+                if reasm_mtpos is not None:
+                    # MT position layer on the map (main.c:365-369 ->
+                    # mtpos_ida_cb, web_map.c:280-361)
+                    if ida_burst is not None:
+                        reasm_mtpos.push(ida_burst, web.mtpos_ida_cb)
+                    reasm_mtpos.flush(f["timestamp_ns"])
+                stats_line()
+
+    if prof is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(trace)
+        print_profile(pipe.timing, trace)
 
     # Shutdown summary prints unconditionally, like the reference
     # (burst_detect.c:350-351).
@@ -304,6 +332,33 @@ def main(argv=None) -> int:
     if zmq_sock is not None:
         zmq_sock.close(linger=0)
     return 0
+
+
+def profiler(trace_dir: str | None, device):
+    """torch.profiler over the decode when `trace_dir` is given (the card's
+    activity too on a CUDA device), else a context that does nothing."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def print_profile(t, trace: str) -> None:
+    """The per-stage breakdown under the JAX package's keys
+    (iridium_tpu/cli.py:393-407): cumulative host wall seconds."""
+    nb = max(t["n_blocks"], 1)
+    print("profile: per-stage cumulative wall seconds "
+          "(ratios localize the bottleneck):", file=sys.stderr)
+    for k in ("step_dispatch", "group_dispatch", "result_fetch_wait",
+              "host_parse", "host_format"):
+        print(f"profile:   {k:<18} {t[k]:8.3f} s "
+              f"({t[k] / nb * 1e3:7.2f} ms/block)", file=sys.stderr)
+    print(f"profile:   blocks={t['n_blocks']} groups={t['n_groups']} "
+          f"overflow_rounds={t['n_overflow_rounds']}; "
+          f"trace written to {trace}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -93,13 +93,19 @@ def _pll_update(phi, total, sym, v):
 
 
 class Demod:
-    """`demod(x, n_samples, direction)` over a (B, L) burst batch."""
+    """`demod(x, n_samples, direction)` over a (B, L) burst batch. Its
+    constant tables live on `device`, so that a call copies nothing from
+    the host (as a call captured into a CUDA graph must not)."""
 
     def __init__(self, max_symbols: int, sps: float,
-                 use_gardner: bool = True):
+                 use_gardner: bool = True,
+                 device: str | torch.device = "cpu"):
         self.S = max_symbols
         self.sps = sps
         self.use_gardner = use_gardner
+        self.uw_dl = torch.tensor(iridium.UW_DL, device=device)
+        self.uw_ul = torch.tensor(iridium.UW_UL, device=device)
+        self.dqpsk_map = torch.tensor(DQPSK_MAP, device=device)
 
     def gardner_pll(self, x, n_samp):
         """Gardner timing loop with the PLL fused into the same symbol
@@ -208,8 +214,7 @@ class Demod:
             err = d.abs().sum(1) * (2.0 / np.pi)
             return torch.where(actual >= U, err, 999.0)
 
-        uw_dl = torch.tensor(iridium.UW_DL, device=dev)
-        uw_ul = torch.tensor(iridium.UW_UL, device=dev)
+        uw_dl, uw_ul = self.uw_dl.to(dev), self.uw_ul.to(dev)
         dl_ok = hard_check(uw_dl)
         ul_ok = hard_check(uw_ul)
         both_fail = ~dl_ok & ~ul_ok
@@ -226,7 +231,7 @@ class Demod:
 
         # DQPSK differential decode + bits
         prev = torch.cat([torch.zeros_like(hard[:, :1]), hard[:, :-1]], 1)
-        dec = torch.tensor(DQPSK_MAP, device=dev)[(hard - prev) % 4]
+        dec = self.dqpsk_map.to(dev)[(hard - prev) % 4]
         bits = torch.stack([(dec >> 1) & 1, dec & 1], -1).reshape(-1, 2 * S)
         bmask = torch.arange(2 * S, device=dev) < 2 * actual[:, None]
         bits = torch.where(bmask, bits, 0).int()

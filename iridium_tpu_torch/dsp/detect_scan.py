@@ -232,18 +232,28 @@ def scan_plain(mag2: torch.Tensor, state: ScanState, n_valid: int,
     return s
 
 
-def spectrogram(samples: torch.Tensor, p: DetectorParams) -> torch.Tensor:
+def frame_window(p: DetectorParams, device) -> torch.Tensor:
+    """(F,) f32 Blackman window normalised by 0.42."""
+    return torch.from_numpy(
+        windows.blackman(p.fft_size) / np.float32(0.42)).to(device)
+
+
+def spectrogram(samples: torch.Tensor, p: DetectorParams,
+                window: torch.Tensor | None = None) -> torch.Tensor:
     """(block_samples,) complex64 -> (frames_per_block, F) f32 fftshifted
-    |X|^2 of the Blackman-windowed frames (window normalised by 0.42)."""
+    |X|^2 of the Blackman-windowed frames. A caller that runs many blocks
+    passes `frame_window` once made: building it copies from the host,
+    which waits for the device."""
     F, n_frames = p.fft_size, p.frames_per_block
-    window = torch.from_numpy(
-        windows.blackman(F) / np.float32(0.42)).to(samples.device)
+    if window is None:
+        window = frame_window(p, samples.device)
     frames = samples[: n_frames * F].reshape(n_frames, F)
     spec = torch.fft.fft(frames * window[None, :])
     return torch.fft.fftshift(spec.abs() ** 2, dim=-1)
 
 
 def detect_block(samples: torch.Tensor, state: ScanState, n_valid: int,
-                 p: DetectorParams) -> ScanState:
+                 p: DetectorParams,
+                 window: torch.Tensor | None = None) -> ScanState:
     """The detect step: spectrogram of the block, then the scan."""
-    return scan(spectrogram(samples, p), state, n_valid, p)
+    return scan(spectrogram(samples, p, window), state, n_valid, p)

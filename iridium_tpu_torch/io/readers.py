@@ -33,8 +33,7 @@ def detect_format(path: str) -> str:
 
 def convert_ci8(raw: np.ndarray) -> np.ndarray:
     """Interleaved int8 IQ -> complex64, scaled by 1/128."""
-    f = raw.astype(np.float32) / np.float32(128.0)
-    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+    return (raw.astype(np.float32) / np.float32(128.0)).view(np.complex64)
 
 
 def convert_ci16(raw: np.ndarray) -> np.ndarray:
@@ -44,8 +43,9 @@ def convert_ci16(raw: np.ndarray) -> np.ndarray:
 
 
 def convert_cf32(raw: np.ndarray) -> np.ndarray:
-    """Interleaved float32 IQ -> complex64 (no quantisation)."""
-    return (raw[0::2] + 1j * raw[1::2]).astype(np.complex64)
+    """Interleaved float32 IQ -> complex64 (no quantisation): the same
+    bytes, copied out of the read-only read buffer."""
+    return raw.view(np.complex64).copy()
 
 
 _DTYPES = {"ci8": np.int8, "ci16": np.int16, "cf32": np.float32}

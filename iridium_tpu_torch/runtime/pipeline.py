@@ -1,17 +1,35 @@
 """Single-device block pipeline: capture blocks in, demodulated frames out.
 
-Port of iridium_tpu/runtime/pipeline.py, following its HOST-ROUTED flow
-(`_finish_group_host` :979-1081 + `_route_group` :1083-1122) rather than
-the on-device routing program (`_fused_for`), which existed to save
-round trips to a remote TPU. Per block:
+Port of iridium_tpu/runtime/pipeline.py with its default finish path
+(`_finish_group` :932-977). Blocks go in groups of `agg_blocks`:
 
-  [device] detect step: window + FFT + |X|^2, then the scan kernel
-  [host]   one (G+1, 6) gone-table copy; routing of the gone bursts into
-           three classes (small-normal, small-simplex, large) in numpy
-  [device] per class batch: front-end (fused kernel, or window gather +
-           rotate/decimate where the fused shape is unsupported),
-           downmix, demod, packed rows
-  [host]   one packed-row copy; vectorised frame building
+  [device] per block, the detect step (window + FFT + |X|^2, then the scan
+           kernel); it writes the block's stream planes [tail | block |
+           zero pad] and its gone table into the group's buffers
+  [device] per group, the group program (`_fused_for` :716-838): routing
+           of every gone burst of the group (start decomposition, length
+           clamp, class split, rank compaction into each class's batch of
+           fixed size), then the class batches (front-end kernel, downmix,
+           demod, packed rows). Between the two, the class counts come to
+           the host (12 bytes) so that a class with no burst runs no
+           batch. On the card the routing and each class batch are CUDA
+           graphs per group arity, captured the first time they run.
+  [host]   one copy per group of [heads | class counts | meta | table rows
+           | packed rows] into pinned memory, parsed into frames; a class
+           with more bursts than its batch takes another round.
+
+`run_blocks` keeps dispatching detect steps while `depth` earlier groups
+finish. Everything runs on one stream; the host waits only on the event of
+a group's result copy (and on a pinned upload buffer it is about to
+refill).
+
+Two other flows stay, as in the JAX package: the host-routed flow
+(`_finish_group_host` :979-1081; `host_routed = True`), the oracle of the
+group program in the tests, and the per-batch flow of `save_bursts_dir`
+(`_finish_group_legacy` :1152-1187), which dumps each burst's samples. The
+JAX package's fault salvage (`_retry`, `DeviceLostError`, `n_faults`)
+existed for a remote TPU's transient faults and is left out: a CUDA error
+is sticky and surfaces.
 
 The detector's IQ ring buffer (`burst_detect.c:388-422`) is a device-
 resident tail of the previous `l_ext` samples, placed in front of each
@@ -27,12 +45,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
+import os
+import sys
 import time
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from .. import device as device_mod
 from .. import iridium
 from ..config import DetectorConfig, DetectorParams, DownmixConfig, DownmixParams
@@ -190,34 +212,41 @@ class PipelineStats:
     # whose creation budget deferred a peak
     n_em_dropped: int = 0
     n_create_waits: int = 0
+    # peak blocks in flight since the last take_q_peak(): the analogue of
+    # the reference's samples_queue depth behind `q_max:` (main.c:428-432)
+    q_peak: int = 0
 
 
 class BurstClass:
-    """One burst class: window length, decimated length, batch size and
-    symbol cap, with its front-end, downmix and demod."""
+    """One burst class: window length, decimated length, the bursts it
+    runs at once (`batch` = jobs x bursts per job) and its symbol cap, with
+    its front-end, downmix and demod."""
 
     def __init__(self, pipe: "Pipeline", l_win: int, dec_cap: int,
-                 batch: int, frame_cap: int):
+                 jobs: int, per_job: int, frame_cap: int,
+                 fused: bool = True):
         p, dmp = pipe.p, pipe.dmp
         self.l_win = l_win
         self.dec_cap = dec_cap
-        self.batch = batch
+        self.jobs = jobs
+        self.per_job = per_job
+        self.batch = jobs * per_job
         self.decim = dmp.decimation
-        self.fused = fused_frontend.supports(p.fft_size, dmp.decimation,
-                                             l_win)
+        self.fused = fused and fused_frontend.supports(
+            p.fft_size, dmp.decimation, l_win)
         self.downmix = downmix.Downmix(p, dmp, dec_cap, frame_cap,
                                        pipe.device)
         sps = dmp.samples_per_symbol
         self.max_symbols = int(frame_cap / (sps - 0.5)) + 4
         self.demod = demod_mod.Demod(self.max_symbols, sps,
-                                     pipe.use_gardner)
+                                     pipe.use_gardner, pipe.device)
         self.taps, self.ramp = pipe.input_taps, pipe.ramp
         self.want_llr = pipe.want_llr
+        self.W = packed_width(self.max_symbols, pipe.want_llr)
 
-    def run(self, planes: torch.Tensor, params: torch.Tensor
-            ) -> torch.Tensor:
+    def forward(self, planes: torch.Tensor, params: torch.Tensor):
         """params (5, n) i32 rows [tile, r, ext_len, bin, shift_dec] ->
-        packed (n, W) i32 rows."""
+        the batch's DownmixOut and DemodOut."""
         starts2 = params[:2].T.contiguous()
         bins = params[3]
         ks = (bins - self.ramp.shape[1] // 2).contiguous()
@@ -232,9 +261,132 @@ class BurstClass:
                 xr, xi, ks, self.ramp, self.taps, self.decim, self.dec_cap)
         dm = self.downmix(torch.complex(re, im), params[2], bins,
                           params[4])
-        dd = self.demod(dm.samples, dm.n_samples, dm.direction)
-        return pack_outputs(dm, dd, 2 * self.max_symbols,
-                            self.want_llr)
+        return dm, self.demod(dm.samples, dm.n_samples, dm.direction)
+
+    def run(self, planes: torch.Tensor, params: torch.Tensor
+            ) -> torch.Tensor:
+        """params (5, n) -> packed (n, W) i32 rows."""
+        dm, dd = self.forward(planes, params)
+        return pack_outputs(dm, dd, 2 * self.max_symbols, self.want_llr)
+
+    def run_jobs(self, planes: torch.Tensor, params: torch.Tensor
+                 ) -> torch.Tensor:
+        """params (5, batch) in window order -> (batch, W) rows. On the card
+        one batch (a CUDA graph cannot skip work). On the CPU the JAX
+        package's per-job form (`_make_group_processor` :621-631): a job
+        of `per_job` bursts with none live gives zero rows and no work."""
+        if planes.device.type != "cpu":
+            return self.run(planes, params)
+        rows = []
+        for j0 in range(0, self.batch, self.per_job):
+            pj = params[:, j0:j0 + self.per_job]
+            rows.append(self.run(planes, pj) if bool((pj[2] > 0).any())
+                        else torch.zeros((self.per_job, self.W),
+                                         dtype=torch.int32))
+        return torch.cat(rows)
+
+
+@dataclasses.dataclass
+class _Group:
+    """Blocks finished together, with the buffers their detect steps fill
+    (block i at planes[:, i*stream_len:(i+1)*stream_len], tables[i]) and,
+    on the device flow, the pinned result of its last dispatched round."""
+    planes: torch.Tensor        # (2, agg_blocks * stream_len) f32
+    tables: torch.Tensor        # (agg_blocks, G + 1, 6) i32
+    bases: list = dataclasses.field(default_factory=list)
+    result: torch.Tensor | None = None
+    event: torch.cuda.Event | None = None
+
+
+class Captured:
+    """A function of static tensors as a CUDA graph. The first `replay`
+    runs `fn` eagerly on a side stream (cuFFT plans, kernel binding),
+    captures it and instantiates it; capture errors raise. Later replays
+    rerun the captured work on the current stream; `fn` is not kept. Kernel
+    launches made while capturing are taken off the kernels' counts and
+    added back at each replay."""
+
+    def __init__(self):
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}
+        self.capture_s = self.instantiate_s = None
+        self.nodes = self.pool_bytes = None
+
+    def replay(self, fn):
+        if self.graph is None:
+            self._capture(fn)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            k.launches += n
+        return self.out
+
+    def _capture(self, fn) -> None:
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn()
+        cur.wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = {k: k.launches for k in _kernels.KERNELS}
+        reserved = torch.cuda.memory_reserved()
+        try:
+            graph, keep = torch.cuda.CUDAGraph(keep_graph=True), True
+        except TypeError:        # older PyTorch: no node count
+            graph, keep = torch.cuda.CUDAGraph(), False
+        # no garbage collection while capturing: freeing another graph
+        # (an unreferenced pipeline's) is a call the driver refuses during
+        # a capture, and the capture would be lost
+        gc.collect()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                out = fn()
+        finally:
+            gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {k: k.launches - before[k] for k in _kernels.KERNELS
+                         if k.launches != before[k]}
+        for k in _kernels.KERNELS:
+            k.launches = before[k]
+        if keep:
+            self.nodes = _kernels.graph_nodes(graph.raw_cuda_graph())
+            t0 = time.perf_counter()
+            graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.graph, self.out = graph, out
+
+
+class GroupGraph:
+    """The group program of one arity on the card (the counterpart of the
+    program the JAX package jits per arity): its routing as one CUDA
+    graph, each burst class's batch as another, captured the first time
+    each runs (`parts`: routing, then the classes).
+
+    Their inputs are static buffers: the group's (2, nb * stream_len)
+    planes, its (nb, G + 1, 6) gone tables and [floor, skip x 3]; a class
+    graph reads the params the routing graph wrote. `load` copies a group
+    into them. The copy is what lets an overflow round re-run an earlier
+    group after later detect steps have filled other buffers."""
+
+    def __init__(self, pipe: "Pipeline", nb: int):
+        dev = pipe.device
+        self.planes = torch.zeros((2, nb * pipe.stream_len),
+                                  dtype=torch.float32, device=dev)
+        self.tables = torch.zeros((nb, pipe.p.gone_capacity + 1, 6),
+                                  dtype=torch.int32, device=dev)
+        self.scal = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.parts = [Captured() for _ in range(1 + len(pipe.classes))]
+
+    def load(self, planes, tables, scal) -> None:
+        self.planes.copy_(planes)
+        self.tables.copy_(tables)
+        for i, v in enumerate(scal):
+            self.scal[i].fill_(int(v))
 
 
 class Pipeline:
@@ -242,7 +394,10 @@ class Pipeline:
     device and raises when there is none; `device="cpu"` runs the plain
     versions of the kernels on the CPU. `want_llr` carries each frame's
     u16-quantised LLRs to the host (frame key "llr"; zeros without it)
-    for the protocol decoders."""
+    for the protocol decoders. `agg_blocks` blocks share one group
+    program and one result copy; `group_jobs` sizes the class batches
+    (the JAX package's capacities, `_build_burst_processor` :516-535);
+    `save_bursts_dir` takes the per-batch flow and dumps each burst."""
 
     def __init__(self,
                  det_cfg: DetectorConfig | None = None,
@@ -251,22 +406,36 @@ class Pipeline:
                  use_gardner: bool = True,
                  start_time_ns: int | None = None,
                  device: str | torch.device | None = None,
-                 want_llr: bool = True):
-        self.device = device_mod.resolve(device)
+                 want_llr: bool = True,
+                 save_bursts_dir: str | None = None,
+                 agg_blocks: int = 4,
+                 group_jobs: int = 8):
+        dev = device_mod.resolve(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         det_cfg = det_cfg or DetectorConfig()
         dm_cfg = dm_cfg or DownmixConfig()
         self.p: DetectorParams = det_cfg.derived()
         self.dmp: DownmixParams = dm_cfg.derived(self.p)
         p, dmp = self.p, self.dmp
-        if self.device.type == "cuda" and not detect_scan.supports(p):
+        if dev.type == "cuda" and not detect_scan.supports(p):
             raise ValueError("detector configuration not supported by the "
                              "scan kernel")
+        self.burst_batch = burst_batch
         self.use_gardner = use_gardner
         self.want_llr = want_llr
+        self.save_bursts_dir = save_bursts_dir
+        self.agg_blocks = max(agg_blocks, 1)
+        self.group_jobs = max(group_jobs, 1)
+        # the host-routed flow in place of the group program: the oracle
+        # the tests and chip_smoke.py hold the group program to
+        self.host_routed = False
         taps = downmix.make_consts(dmp).input_taps
         self.in_ntaps = len(taps)
-        self.input_taps = torch.from_numpy(taps).to(self.device)
-        self.ramp = fused_frontend.ramp_table(p.fft_size, self.device)
+        self.input_taps = torch.from_numpy(taps).to(dev)
+        self.ramp = fused_frontend.ramp_table(p.fft_size, dev)
+        self._det_window = detect_scan.frame_window(p, dev)
         ALIGN = window_gather.ALIGN
         # extraction window capacity: the longest [start, stop+pre)
         # window and enough input for dec_cap outputs, plus one ALIGN of
@@ -278,16 +447,17 @@ class Pipeline:
         # per-block device stream: [tail | block | zero pad]
         self.stream_len = p.block_samples + 2 * self.l_ext
 
-        # Window classes (iridium_tpu/runtime/pipeline.py:460-536): typical bursts fit a
-        # quarter of the full window; only the simplex band (above
-        # SIMPLEX_FREQUENCY_MIN, routed by bin with a margin over the
-        # largest fine-CFO correction) carries the long 444-symbol frames.
+        # Window classes (iridium_tpu/runtime/pipeline.py:460-536): typical
+        # bursts fit a quarter of the full window; only the simplex band
+        # (above SIMPLEX_FREQUENCY_MIN, routed by bin with a margin over
+        # the largest fine-CFO correction) carries the long 444-symbol
+        # frames.
         self.l_small = min(self.l_ext, _round_up(
             p.burst_pre_len + p.burst_post_len + 120_000 + self.in_ntaps
             + ALIGN, ALIGN))
-        dec_small = (self.l_small - self.in_ntaps) // dmp.decimation + 1
-        dec_large = (self.l_ext - self.in_ntaps) // dmp.decimation + 1
-        batch_large = max(8, burst_batch // 8)
+        self.dec_small = (self.l_small - self.in_ntaps) // dmp.decimation + 1
+        self.dec_large = (self.l_ext - self.in_ntaps) // dmp.decimation + 1
+        self.batch_large = max(8, burst_batch // 8)
         margin_hz = 150e3
         self.simplex_bin_min = int(np.floor(
             (iridium.SIMPLEX_FREQUENCY_MIN - margin_hz
@@ -295,17 +465,25 @@ class Pipeline:
         ) + p.fft_size // 2
         cap_n = int(iridium.MAX_FRAME_LENGTH_NORMAL
                     * dmp.samples_per_symbol) + 8
-        self.small_normal = BurstClass(self, self.l_small, dec_small,
-                                       2 * burst_batch, cap_n)
-        self.small_simplex = BurstClass(self, self.l_small, dec_small,
-                                        3 * batch_large,
-                                        dmp.max_frame_samples)
-        self.large = BurstClass(self, self.l_ext, dec_large,
-                                3 * batch_large, dmp.max_frame_samples)
+        J, bl = self.group_jobs, self.batch_large
+        # small-normal, small-simplex, large
+        self.classes = (
+            BurstClass(self, self.l_small, self.dec_small, max(J // 2, 1),
+                       2 * burst_batch, cap_n),
+            BurstClass(self, self.l_small, self.dec_small, max(J // 4, 1),
+                       3 * bl, dmp.max_frame_samples),
+            BurstClass(self, self.l_ext, self.dec_large, max(J // 12, 1),
+                       3 * bl, dmp.max_frame_samples))
+        self._legacy = None          # the per-batch flow's classes
+        self.graphs: dict[int, GroupGraph] = {}   # card only, by arity
+        self._free: list = []        # group buffers not in flight
+        self._block = None           # device block of the detect step
+        self._uploads = [None, None]  # pinned (buffer, event) ring
+        self._up_next = 0
         self.reset(start_time_ns)
 
     def reset(self, start_time_ns: int | None = None) -> None:
-        """Fresh stream state."""
+        """Fresh stream state; CUDA graphs and buffers are kept."""
         self.state = state_mod.init_state(self.p, self.device)
         self.tail = torch.zeros((2, self.l_ext), dtype=torch.float32,
                                 device=self.device)
@@ -314,143 +492,599 @@ class Pipeline:
         self.prev_tagged = 0
         self.stats = PipelineStats()
         self.start_time_ns = start_time_ns
-        # cumulative host wall seconds per stage; both stages end in a
-        # device-to-host copy, so they include the device work they wait
-        # for ("detect_s": detect step; "bursts_s": class batches, host
-        # routing and frame building)
+        # cumulative host wall seconds per stage and counts, under the
+        # JAX package's keys (device flow: step_dispatch, group_dispatch,
+        # result_fetch_wait, host_parse, host_format, n_blocks, n_groups,
+        # n_overflow_rounds; the other flows: gone_fetch_wait,
+        # burst_fetch_wait, n_burst_batches)
         self.timing = collections.Counter()
 
-    # ---- block processing ----
+    # ---- detect steps ----
 
-    def _step(self, samples: np.ndarray, n_valid: int):
-        """Detect step for one block; returns the block's stream planes
-        and its gone table on the host."""
-        p, dev = self.p, self.device
+    def _new_group(self) -> _Group:
+        if self._free:
+            return _Group(*self._free.pop())
+        # each detect step writes all of its block's part of both
+        n = self.agg_blocks
+        return _Group(
+            torch.empty((2, n * self.stream_len), dtype=torch.float32,
+                        device=self.device),
+            torch.empty((n, self.p.gone_capacity + 1, 6),
+                        dtype=torch.int32, device=self.device))
+
+    def _upload(self, samples: np.ndarray) -> torch.Tensor:
+        """The block on the device. On the card it goes through a ring of
+        two pinned buffers; one is refilled only after its copy ran."""
+        x = np.ascontiguousarray(samples, np.complex64)
+        if self.device.type == "cpu":
+            return torch.from_numpy(x)
+        if self._block is None:
+            self._block = torch.empty(x.shape, dtype=torch.complex64,
+                                      device=self.device)
+        i = self._up_next
+        self._up_next = 1 - i
+        if self._uploads[i] is None:
+            self._uploads[i] = (torch.empty(x.shape, dtype=torch.complex64,
+                                            pin_memory=True),
+                                torch.cuda.Event())
+        host, ev = self._uploads[i]
+        ev.synchronize()
+        host.numpy()[:] = x
+        self._block.copy_(host, non_blocking=True)
+        ev.record()
+        return self._block
+
+    def _dispatch_step(self, group: _Group, samples: np.ndarray,
+                       n_valid: int) -> None:
+        """Enqueue the detect step of one block; it fills the block's
+        planes and gone table in `group`."""
+        p = self.p
         if self.start_time_ns is None:
             self.start_time_ns = time.time_ns()
         if samples.shape != (p.block_samples,):
             raise ValueError(f"block of shape {samples.shape}, expected "
                              f"({p.block_samples},)")
-        block = torch.from_numpy(
-            np.ascontiguousarray(samples, np.complex64)).to(dev)
+        t0 = time.perf_counter()
+        block = self._upload(samples)
         if self._rebase:
             state_mod.rebase_(self.state, p.block_samples)
-        self.state = detect_scan.detect_block(block, self.state, n_valid, p)
-        bs, l_ext = p.block_samples, self.l_ext
-        planes = torch.zeros((2, self.stream_len), dtype=torch.float32,
-                             device=dev)
-        planes[:, :l_ext] = self.tail
-        planes[:, l_ext:l_ext + bs] = torch.view_as_real(block).T
-        self.tail = planes[:, bs:bs + l_ext].clone()
+        self.state = detect_scan.detect_block(block, self.state, n_valid, p,
+                                              self._det_window)
+        bi = len(group.bases)
+        bs, l_ext, sl = p.block_samples, self.l_ext, self.stream_len
+        seg = group.planes[:, bi * sl:(bi + 1) * sl]
+        seg[:, :l_ext] = self.tail
+        seg[:, l_ext:l_ext + bs] = torch.view_as_real(block).T
+        seg[:, l_ext + bs:] = 0
+        self.tail.copy_(seg[:, bs:bs + l_ext])
         st = self.state
-        head = torch.stack([st.g_count, st.n_tagged, st.burst_dropped,
-                            st.create_waits, st.g_count * 0,
-                            st.g_count * 0])
-        rows = torch.stack([st.g_id, st.g_start, st.g_stop, st.g_bin,
-                            st.g_mag.view(torch.int32),
-                            st.g_noise.view(torch.int32)], 1)
-        table = torch.cat([head[None], rows]).cpu().numpy()
+        zero = st.g_count * 0
+        group.tables[bi, 0].copy_(torch.stack(
+            [st.g_count, st.n_tagged, st.burst_dropped, st.create_waits,
+             zero, zero]))
+        group.tables[bi, 1:].copy_(torch.stack(
+            [st.g_id, st.g_start, st.g_stop, st.g_bin,
+             st.g_mag.view(torch.int32), st.g_noise.view(torch.int32)], 1))
         self._rebase = True
         self.stats.n_samples += n_valid
-        base = self.base_index
-        self.base_index += p.block_samples
-        return planes, table, base
+        group.bases.append(self.base_index)
+        self.base_index += bs
+        self.timing["step_dispatch"] += time.perf_counter() - t0
+        self.timing["n_blocks"] += 1
 
-    def _route(self, g: dict, base_index: int) -> dict:
-        """Burst routing (`_route_group`): the window start of each gone
-        burst in the block's stream, decomposed for the front-end
-        (tile * ALIGN + r + lead; ops/window_gather.py), and the class
-        split by lead-inflated extraction length."""
+    def _group_planes(self, group: _Group) -> torch.Tensor:
+        nb = len(group.bases)
+        return group.planes[:, :nb * self.stream_len].contiguous()
+
+    def _count_heads(self, heads: np.ndarray) -> None:
+        """Stats from the groups' gone-table head rows [g_count, n_tagged,
+        burst_dropped, create_waits] (counted once per group)."""
+        st = self.stats
+        for h in heads:
+            self.prev_tagged = max(self.prev_tagged, int(h[1]))
+            st.n_detected += int(h[0])
+        st.n_dropped = self.prev_tagged - st.n_detected
+        st.n_em_dropped = max(st.n_em_dropped, int(heads[:, 2].max()))
+        st.n_create_waits = max(st.n_create_waits, int(heads[:, 3].max()))
+
+    # ---- the group program (device flow) ----
+
+    def route(self, tables: torch.Tensor, floor: torch.Tensor,
+              skips: torch.Tensor):
+        """On-device burst routing over a group's stacked gone tables
+        (nb, G + 1, 6) (`_fused_for`'s routing, :754-826): each gone
+        burst's window start in the group's concatenated planes,
+        decomposed for the front-end (tile * ALIGN + r + lead), its
+        extraction length clamped, the class split by lead-inflated length
+        (l_small) and bin (simplex_bin_min), and for each class the members
+        ranked by flat index (bi * G + slot), window [skip, skip + batch).
+        `floor` (= -the group's first block's absolute start) clamps starts
+        before the stream; `skips` (3,) holds each class's window start.
+
+        Returns (class counts (3,) i32, [(meta (batch,) i32 flat index or
+        -1, table rows (6, batch) i32 [id, start, stop, bin, mag, noise],
+        params (5, batch) i32 [tile, r, ext_len, bin, shift_dec])] per
+        class); rows past a class's members are -1 / 0. Static shapes and
+        no host read, so it captures into a CUDA graph; `lax.cond`'s skip
+        of an empty class is a masked compute with the same values."""
         p = self.p
         ALIGN = window_gather.ALIGN
         decim = self.dmp.decimation
-        abs_start = g["start"].astype(np.int64) + base_index
-        cl = np.maximum(abs_start, 0)
-        el = (g["stop"].astype(np.int64) + p.burst_pre_len
-              + base_index - cl)
-        el = np.minimum(el, self.l_ext - ALIGN)
-        flat_start = cl - base_index + self.l_ext
+        dev = tables.device
+        nb, G = tables.shape[0], tables.shape[1] - 1
+        N = nb * G
+        rows = tables[:, 1:, :].long()
+        valid = (torch.arange(G, device=dev)[None, :]
+                 < tables[:, 0, 0].long()[:, None])
+        start, stop, bins = rows[..., 1], rows[..., 2], rows[..., 3]
+        blk = torch.arange(nb, device=dev)[:, None]
+        # group-relative start, run-start clamp (floor = -base0)
+        t_cl = torch.maximum(start + blk * p.block_samples, floor)
+        el = torch.clamp(stop + blk * p.block_samples + p.burst_pre_len
+                         - t_cl, max=self.l_ext - ALIGN)
+        flats = t_cl + blk * (self.stream_len - p.block_samples) + self.l_ext
+        r = flats % decim
+        tile = (flats - r) // ALIGN
+        lead = flats - (tile * ALIGN + r)
+        ext_infl = el + lead
+        small = ext_infl <= self.l_small
+        sim = bins >= self.simplex_bin_min
+        cols = torch.stack([tile, r, ext_infl, bins, lead // decim]
+                           ).reshape(5, N).int()
+        trows = tables[:, 1:, :].reshape(N, 6).T
+        iota = torch.arange(N, device=dev)
+        ncs, routed = [], []
+        for c, member in enumerate((valid & small & ~sim,
+                                    valid & small & sim,
+                                    valid & ~small)):
+            cap = self.classes[c].batch
+            member = member.reshape(N)
+            nk = member.sum()
+            ncs.append(nk)
+            # members first, by flat index
+            _, order = torch.sort(torch.where(member, iota, N), stable=True)
+            pos = skips[c] + torch.arange(cap, device=dev)
+            in_cap = torch.arange(cap, device=dev) < nk - skips[c]
+            idx = order[pos.clamp(max=N - 1)]
+            routed.append((torch.where(in_cap, idx, -1).int(),
+                           torch.where(in_cap, trows[:, idx], 0),
+                           torch.where(in_cap, cols[:, idx], 0)))
+        return torch.stack(ncs).int(), routed
+
+    def group_program(self, planes: torch.Tensor, tables: torch.Tensor,
+                      scal: torch.Tensor, skips,
+                      graph: GroupGraph | None = None) -> torch.Tensor:
+        """The group program: planes (2, nb * stream_len) f32, tables
+        (nb, G + 1, 6) i32, scal (4,) i64 [floor, skip x 3] on the device,
+        `skips` the same three skips on the host -> the 1-D i32 result
+        [heads (nb * 6) | class counts (3) | meta per class | table rows
+        per class (6 x batch) | packed rows per class (batch x W)], the JAX
+        package's layout. With `graph` (whose static buffers the inputs
+        must be) the routing and each class batch replay as CUDA graphs.
+
+        The class counts come to the host (12 bytes, a wait for the group's
+        detect steps and routing): a class with no member in its window
+        runs no batch and gives zero rows, as an empty job does in the JAX
+        package (:621-627). A graph cannot skip work, and an empty group's
+        replay of all three classes costs more than a tenth of a block's
+        capture time (PERF.md)."""
+        def run(part, fn):
+            return fn() if graph is None else graph.parts[part].replay(fn)
+
+        ncs, routed = run(0, lambda: self.route(tables, scal[0], scal[1:]))
+        live = [n > s for n, s in zip(ncs.tolist(), skips)]
+        parts = [tables[:, 0, :].reshape(-1), ncs]
+        parts += [meta for meta, _, _ in routed]
+        parts += [tw.reshape(-1) for _, tw, _ in routed]
+        for c, (cls, (_, _, params)) in enumerate(zip(self.classes, routed)):
+            parts.append(
+                run(1 + c, lambda cls=cls, params=params:
+                    cls.run_jobs(planes, params).reshape(-1)) if live[c]
+                else torch.zeros(cls.batch * cls.W, dtype=torch.int32,
+                                 device=planes.device))
+        return torch.cat(parts)
+
+    def _dispatch_group(self, group: _Group, skips: np.ndarray) -> None:
+        """Enqueue one round of the group program for `group` and the copy
+        of its result to the host."""
+        nb = len(group.bases)
+        skips = [int(s) for s in skips]
+        scal = [-group.bases[0]] + skips
+        t0 = time.perf_counter()
+        if self.device.type == "cpu":
+            group.result = self.group_program(
+                self._group_planes(group), group.tables[:nb],
+                torch.tensor(scal, dtype=torch.int64), skips)
+        else:
+            g = self.graphs.get(nb)
+            if g is None:
+                g = self.graphs[nb] = GroupGraph(self, nb)
+            g.load(group.planes[:, :nb * self.stream_len], group.tables[:nb],
+                   scal)
+            buf = self.group_program(g.planes, g.tables, g.scal, skips, g)
+            group.result = torch.empty(buf.shape, dtype=torch.int32,
+                                       pin_memory=True)
+            group.result.copy_(buf, non_blocking=True)
+            group.event = torch.cuda.Event()
+            group.event.record()
+        self.timing["group_dispatch"] += time.perf_counter() - t0
+
+    def _parse_group_buf(self, buf: np.ndarray, group: _Group,
+                         skips: np.ndarray, out: list[list[dict]],
+                         first_round: bool):
+        """Frames from one round's result. Returns (new skips, done):
+        done is False while a class has members past its window."""
+        p, dmp = self.p, self.dmp
+        nb, G = len(group.bases), p.gone_capacity
+        caps = np.asarray([c.batch for c in self.classes], np.int64)
+        o = nb * 6
+        heads = buf[:o].reshape(nb, 6)
+        ncs = buf[o:o + 3].astype(np.int64)
+        o += 3
+        metas, tws = [], []
+        for cap in caps:
+            metas.append(buf[o:o + cap])
+            o += cap
+        for cap in caps:
+            tws.append(buf[o:o + 6 * cap].reshape(6, cap))
+            o += 6 * cap
+        if first_round:
+            self._count_heads(heads)
+        base0 = group.bases[0]
+        for cls, meta, tw in zip(self.classes, metas, tws):
+            rows = buf[o:o + cls.batch * cls.W].reshape(cls.batch, cls.W)
+            o += cls.batch * cls.W
+            sel = meta >= 0
+            if not sel.any():
+                continue
+            u = unpack_outputs(rows, cls.max_symbols, self.want_llr)
+            self.stats.n_handled += int((u["dm_ok"] & sel).sum())
+            ok = u["dm_ok"] & u["dd_ok"] & sel
+            self.stats.n_ok += int(ok.sum())
+            if not ok.any():
+                continue
+            t1 = time.perf_counter()
+            js = np.nonzero(ok)[0]
+            bi = meta[js].astype(np.int64) // G
+            # the alignment lead, from the device routing's arithmetic
+            cl = np.maximum(base0 + bi * p.block_samples
+                            + tw[1, js].astype(np.int64), 0)
+            fpos = (cl - base0 - bi * p.block_samples + self.l_ext
+                    + bi * self.stream_len)
+            lead = fpos % window_gather.ALIGN - fpos % dmp.decimation
+            frames = build_frames_np(
+                p, dmp, self.in_ntaps, self.start_time_ns, tw[0, js],
+                tw[3, js], np.ascontiguousarray(tw[4, js]).view(np.float32),
+                np.ascontiguousarray(tw[5, js]).view(np.float32),
+                cl - lead, u, js)
+            for f, b in zip(frames, bi.tolist()):
+                out[b].append(f)
+            self.timing["host_format"] += time.perf_counter() - t1
+        return (np.minimum(skips + caps, ncs),
+                bool(np.all(ncs <= skips + caps)))
+
+    def _begin_group(self, group: _Group) -> None:
+        """What a group's finish needs and no host decision precedes: the
+        first round of the group program (device flow only)."""
+        if not (self.save_bursts_dir or self.host_routed):
+            self._dispatch_group(group, np.zeros(3, np.int64))
+
+    def _finish_group(self, group: _Group) -> list[list[dict]]:
+        """Per-block frame lists of a group, in block order, each sorted by
+        burst id; the group's buffers go back to the free list."""
+        if self.save_bursts_dir or self.host_routed:
+            out = self._finish_group_host(group)
+        else:
+            out = self._finish_group_device(group)
+        for frames in out:
+            frames.sort(key=lambda f: f["id"])
+        self._free.append((group.planes, group.tables))
+        return out
+
+    def _finish_group_device(self, group: _Group) -> list[list[dict]]:
+        out: list[list[dict]] = [[] for _ in group.bases]
+        skips = np.zeros(3, np.int64)
+        if group.result is None:
+            self._dispatch_group(group, skips)
+        first = True
+        while True:
+            t0 = time.perf_counter()
+            if group.event is not None:
+                group.event.synchronize()
+            buf = group.result.numpy()
+            self.timing["result_fetch_wait"] += time.perf_counter() - t0
+            self.timing["n_groups" if first else "n_overflow_rounds"] += 1
+            t1 = time.perf_counter()
+            skips, done = self._parse_group_buf(buf, group, skips, out,
+                                                first)
+            self.timing["host_parse"] += time.perf_counter() - t1
+            first = False
+            if done:
+                return out
+            self._dispatch_group(group, skips)
+
+    # ---- the host-routed flow (the oracle) ----
+
+    def _finish_group_host(self, group: _Group) -> list[list[dict]]:
+        """One stacked gone-table copy, routing in numpy, the class rounds,
+        one packed-row copy (`_finish_group_host` :979-1081)."""
+        p = self.p
+        nb = len(group.bases)
+        out: list[list[dict]] = [[] for _ in group.bases]
+        t0 = time.perf_counter()
+        tabs = group.tables[:nb].cpu().numpy()
+        self.timing["gone_fetch_wait"] += time.perf_counter() - t0
+        self.timing["n_groups"] += 1
+        self._count_heads(tabs[:, 0])
+        blocks_g = []
+        for bi, (tab, base) in enumerate(zip(tabs, group.bases)):
+            n = int(tab[0, 0])
+            if n > 0:
+                rows = tab[1:1 + n]
+                blocks_g.append((bi, dict(
+                    id=rows[:, 0], start=rows[:, 1], stop=rows[:, 2],
+                    bin=rows[:, 3], mag=rows[:, 4].view(np.float32),
+                    noise=rows[:, 5].view(np.float32)), base))
+        if not blocks_g:
+            return out
+        planes = self._group_planes(group)
+        if self.save_bursts_dir:
+            return self._finish_group_legacy(planes, blocks_g, out)
+
+        ginfo = self._route_group(blocks_g)
+        small = ginfo["small"]
+        sim = ginfo["bin"][small] >= self.simplex_bin_min
+        rounds = []
+        for cls, idx in zip(self.classes, (small[~sim], small[sim],
+                                           ginfo["large"])):
+            for r0 in range(0, len(idx), cls.batch):
+                sel = idx[r0:r0 + cls.batch]
+                params = np.zeros((5, cls.batch), np.int32)
+                params[:, :len(sel)] = np.stack(
+                    [ginfo[k][sel] for k in ("tile", "r", "ext_len", "bin",
+                                             "shift_dec")])
+                meta = np.full(cls.batch, -1, np.int64)
+                meta[:len(sel)] = sel
+                rounds.append((cls, params, meta))
+        t0 = time.perf_counter()
+        pf_all = torch.cat([
+            cls.run_jobs(planes, torch.from_numpy(params).to(self.device)
+                         ).reshape(-1)
+            for cls, params, _ in rounds]).cpu().numpy()
+        self.timing["burst_fetch_wait"] += time.perf_counter() - t0
+        self.timing["n_burst_batches"] += len(rounds)
+        o = 0
+        for cls, params, meta in rounds:
+            rows = pf_all[o:o + cls.batch * cls.W].reshape(cls.batch, cls.W)
+            o += cls.batch * cls.W
+            self._format_group(rows, meta, ginfo, out, cls.max_symbols)
+        return out
+
+    def _route_group(self, blocks_g) -> dict:
+        """Group-wide routing in numpy (`_route_group` :1083-1122): every
+        block's gone bursts in one table, starts offset into the group's
+        concatenated planes, decomposed for the front-end and split by
+        lead-inflated extraction length."""
+        p = self.p
+        sl = self.stream_len
+        ALIGN = window_gather.ALIGN
+        decim = self.dmp.decimation
+        flat_start, ext_len, cols = [], [], collections.defaultdict(list)
+        for bi, g, base_index in blocks_g:
+            abs_start = g["start"].astype(np.int64) + base_index
+            cl = np.maximum(abs_start, 0)
+            el = (g["stop"].astype(np.int64) + p.burst_pre_len
+                  + base_index - cl)
+            ext_len.append(np.minimum(el, self.l_ext - ALIGN))
+            flat_start.append(cl - base_index + self.l_ext + bi * sl)
+            cols["abs_cl"].append(cl)
+            cols["blk"].append(np.full(len(el), bi, np.int64))
+            for k in ("id", "bin", "mag", "noise"):
+                cols[k].append(g[k])
+        flat_start = np.concatenate(flat_start)
+        ext_len = np.concatenate(ext_len)
+        c = {k: np.concatenate(v) for k, v in cols.items()}
         r = flat_start % decim
         tile = (flat_start - r) // ALIGN
         lead = flat_start - (tile * ALIGN + r)
-        ext_infl = el + lead
+        ext_infl = ext_len + lead
         small = ext_infl <= self.l_small
         return dict(
-            params=np.stack([tile, r, ext_infl, g["bin"], lead // decim]
-                            ).astype(np.int32),
-            abs_al=cl - lead,
+            tile=tile.astype(np.int32), r=r.astype(np.int32),
+            ext_len=ext_infl.astype(np.int32), bin=c["bin"].astype(np.int32),
+            shift_dec=(lead // decim).astype(np.int32),
+            blk=c["blk"], id=c["id"], mag=c["mag"], noise=c["noise"],
+            abs_al=c["abs_cl"] - lead,
             small=np.nonzero(small)[0], large=np.nonzero(~small)[0])
 
-    def _finish(self, planes: torch.Tensor, table: np.ndarray,
-                base_index: int) -> list[dict]:
-        """Demodulate one block's gone bursts; frames sorted by id."""
-        p, dmp = self.p, self.dmp
-        g_count, n_tagged = int(table[0, 0]), int(table[0, 1])
-        st = self.stats
-        self.prev_tagged = max(self.prev_tagged, n_tagged)
-        st.n_detected += g_count
-        st.n_dropped = self.prev_tagged - st.n_detected
-        st.n_em_dropped = max(st.n_em_dropped, int(table[0, 2]))
-        st.n_create_waits = max(st.n_create_waits, int(table[0, 3]))
-        if g_count <= 0:
-            return []
-        rows = table[1:1 + g_count]
-        g = dict(id=rows[:, 0], start=rows[:, 1], stop=rows[:, 2],
-                 bin=rows[:, 3], mag=rows[:, 4].view(np.float32),
-                 noise=rows[:, 5].view(np.float32))
-        info = self._route(g, base_index)
-        small = info["small"]
-        sim = g["bin"][small] >= self.simplex_bin_min
-        jobs, outs = [], []
-        for cls, idx in ((self.small_normal, small[~sim]),
-                         (self.small_simplex, small[sim]),
-                         (self.large, info["large"])):
-            for r0 in range(0, len(idx), cls.batch):
-                sel = idx[r0:r0 + cls.batch]
-                params = torch.from_numpy(
-                    np.ascontiguousarray(info["params"][:, sel])
-                ).to(self.device)
-                outs.append(cls.run(planes, params).reshape(-1))
-                jobs.append((cls, sel))
-        flat = torch.cat(outs).cpu().numpy()
-        self.timing["batches"] += len(jobs)
+    def _format_group(self, rows, meta, ginfo, out, max_symbols) -> None:
+        u = unpack_outputs(rows, max_symbols, self.want_llr)
+        valid = meta >= 0
+        self.stats.n_handled += int((u["dm_ok"] & valid).sum())
+        ok = u["dm_ok"] & u["dd_ok"] & valid
+        self.stats.n_ok += int(ok.sum())
+        if not ok.any():
+            return
+        t1 = time.perf_counter()
+        js = np.nonzero(ok)[0]
+        e = meta[js]
+        frames = build_frames_np(
+            self.p, self.dmp, self.in_ntaps, self.start_time_ns,
+            ginfo["id"][e], ginfo["bin"][e], ginfo["mag"][e],
+            ginfo["noise"][e], ginfo["abs_al"][e], u, js)
+        for f, bi in zip(frames, ginfo["blk"][e].tolist()):
+            out[bi].append(f)
+        self.timing["host_format"] += time.perf_counter() - t1
 
-        frames, o = [], 0
-        for cls, sel in jobs:
-            W = packed_width(cls.max_symbols, self.want_llr)
-            packed = flat[o:o + len(sel) * W].reshape(len(sel), W)
-            o += len(sel) * W
-            u = unpack_outputs(packed, cls.max_symbols, self.want_llr)
-            st.n_handled += int(u["dm_ok"].sum())
-            ok = u["dm_ok"] & u["dd_ok"]
-            st.n_ok += int(ok.sum())
-            js = np.nonzero(ok)[0]
-            if len(js) == 0:
-                continue
-            e = sel[js]
-            frames += build_frames_np(
-                p, dmp, self.in_ntaps, self.start_time_ns, g["id"][e],
-                g["bin"][e], g["mag"][e], g["noise"][e], info["abs_al"][e],
-                u, js)
-        frames.sort(key=lambda f: f["id"])
+    # ---- the per-batch flow (--save-bursts) ----
+
+    def _legacy_classes(self):
+        """The per-batch processors (`_make_processor` :645-665): a small
+        and a full window, `burst_batch` bursts, the full symbol cap, the
+        window gathered at the burst's exact start."""
+        if self._legacy is None:
+            mf = self.dmp.max_frame_samples
+            self._legacy = (
+                BurstClass(self, self.l_small, self.dec_small, 1,
+                           self.burst_batch, mf, fused=False),
+                BurstClass(self, self.l_ext, self.dec_large, 1,
+                           self.burst_batch, mf, fused=False))
+        return self._legacy
+
+    def _route_bursts(self, bi: int, g: dict, base_index: int) -> list:
+        """One block's burst batches (`_route_bursts` :1262-1297): windows
+        at the exact start, lengths clamped to l_ext, bucketed by length."""
+        p = self.p
+        abs_start_cl = np.maximum(g["start"].astype(np.int64) + base_index,
+                                  0)
+        ext_len = np.minimum(g["stop"].astype(np.int64) + p.burst_pre_len
+                             + base_index - abs_start_cl, self.l_ext)
+        rel = abs_start_cl - base_index + self.l_ext + bi * self.stream_len
+        small = ext_len <= self.l_small
+        jobs = []
+        for idx, cls in zip((np.nonzero(small)[0], np.nonzero(~small)[0]),
+                            self._legacy_classes()):
+            for j0 in range(0, len(idx), self.burst_batch):
+                sel = idx[j0:j0 + self.burst_batch]
+                zero = np.zeros(len(sel), np.int64)
+                params = np.stack([zero, rel[sel], ext_len[sel],
+                                   g["bin"][sel], zero]).astype(np.int32)
+                jobs.append((bi, g, base_index, abs_start_cl, sel, cls,
+                             params))
+        return jobs
+
+    def _finish_group_legacy(self, planes, blocks_g, out):
+        jobs = []
+        for bi, g, base_index in blocks_g:
+            jobs += self._route_bursts(bi, g, base_index)
+        t0 = time.perf_counter()
+        res = []
+        for *_, cls, params in jobs:
+            dm, dd = cls.forward(planes,
+                                 torch.from_numpy(params).to(self.device))
+            res.append((dm, dd, pack_outputs(dm, dd, 2 * cls.max_symbols,
+                                             self.want_llr)))
+        pf_all = torch.cat([r[2] for r in res]).cpu().numpy()
+        self.timing["burst_fetch_wait"] += time.perf_counter() - t0
+        self.timing["n_burst_batches"] += len(jobs)
+        o = 0
+        for (bi, g, base, cl, sel, cls, _), (dm, dd, _) in zip(jobs, res):
+            pf = pf_all[o:o + len(sel)]
+            o += len(sel)
+            out[bi] += self._format_batch(pf, cls, dm, dd, g, sel, base, cl)
+        return out
+
+    def _format_batch(self, pf, cls, dm, dd, g, sel, base_index,
+                      abs_start_cl) -> list[dict]:
+        u = unpack_outputs(pf, cls.max_symbols, self.want_llr)
+        if self.save_bursts_dir:
+            self._save_bursts(dm, dd, g, sel, base_index)
+        self.stats.n_handled += int(u["dm_ok"].sum())
+        ok = u["dm_ok"] & u["dd_ok"]
+        self.stats.n_ok += int(ok.sum())
+        if not ok.any():
+            return []
+        t1 = time.perf_counter()
+        js = np.nonzero(ok)[0]
+        e = sel[js]
+        frames = build_frames_np(
+            self.p, self.dmp, self.in_ntaps, self.start_time_ns, g["id"][e],
+            g["bin"][e], g["mag"][e], g["noise"][e], abs_start_cl[e], u, js)
+        self.timing["host_format"] += time.perf_counter() - t1
         return frames
+
+    def _save_bursts(self, dm, dd, g, sel, base_index) -> None:
+        """--save-bursts: per-burst cf32 + metadata dumps (reference
+        qpsk_demod.c:339-389; `_save_bursts` :1339-1391)."""
+        try:
+            os.makedirs(self.save_bursts_dir, exist_ok=True)
+        except OSError as e:
+            # warn and go on, like the reference (qpsk_demod.c:346-350)
+            print(f"Warning: failed to create burst save directory: {e}",
+                  file=sys.stderr)
+            self.save_bursts_dir = None
+            return
+        p, dmp = self.p, self.dmp
+        samples = dm.samples.cpu().numpy()
+        n_samp = dm.n_samples.cpu().numpy()
+        dm_ok = dm.ok.cpu().numpy()
+        dd_ok = dd.ok.cpu().numpy()
+        direc = dd.direction.cpu().numpy()
+        sdec = dm.start_dec.cpu().numpy()
+        uw_corr = dm.uw_corr.cpu().numpy()
+        for j in range(len(sel)):
+            if not dm_ok[j]:
+                continue
+            gi = int(sel[j])
+            abs_start = max(int(g["start"][gi]) + base_index, 0)
+            ts = (self.start_time_ns
+                  + int(abs_start / p.sample_rate * 1e9)
+                  + (self.in_ntaps // 2) * 1_000_000_000 // p.sample_rate
+                  + int(int(sdec[j]) / dmp.output_sample_rate * 1e9))
+            k = int(g["bin"][gi]) - p.fft_size // 2
+            cf = p.center_frequency + k / p.fft_size * p.sample_rate
+            dir_str = ("DL" if int(direc[j]) == 0 else "UL") \
+                if dd_ok[j] else "UN"
+            base = os.path.join(
+                self.save_bursts_dir,
+                f"{ts:020d}_{cf:011.0f}_{int(g['id'][gi])}_{dir_str}")
+            n = int(n_samp[j])
+            samples[j, :n].astype(np.complex64).tofile(base + ".cf32")
+            with open(base + ".meta", "w") as f:
+                f.write(f"burst_id: {int(g['id'][gi])}\n"
+                        f"timestamp_ns: {ts}\n"
+                        f"center_freq_hz: {cf:.0f}\n"
+                        f"sample_rate_hz: {dmp.output_sample_rate}\n"
+                        f"samples_per_symbol: "
+                        f"{dmp.samples_per_symbol:.2f}\n"
+                        f"direction: {dir_str}\n"
+                        f"magnitude_db: {float(g['mag'][gi]):.2f}\n"
+                        f"noise_dbfs_hz: {float(g['noise'][gi]):.2f}\n"
+                        f"num_samples: {n}\n"
+                        f"uw_start_offset: {float(uw_corr[j]):.2f}\n")
+
+    # ---- drivers ----
 
     def process_block(self, samples: np.ndarray, n_valid: int
                       ) -> list[dict]:
-        """Feed one block (padded to block_samples); returns its frames."""
-        t0 = time.perf_counter()
-        ctx = self._step(samples, n_valid)
-        t1 = time.perf_counter()
-        frames = self._finish(*ctx)
-        self.timing["detect_s"] += t1 - t0
-        self.timing["bursts_s"] += time.perf_counter() - t1
-        self.timing["blocks"] += 1
-        return frames
+        """Feed one block (padded to block_samples) as a group of its own;
+        returns its frames."""
+        return next(iter(self.run_blocks([(samples, n_valid)])))
 
-    def run_blocks(self, blocks) -> Iterator[list[dict]]:
-        """`blocks` yields (samples, n_valid); yields each block's frames."""
+    def run_blocks(self, blocks, depth: int = 3) -> Iterator[list[dict]]:
+        """Pipelined driver (`run_blocks` :1196-1252): `blocks` yields
+        (samples, n_valid); yields each block's frames, in order. Detect
+        steps are dispatched as blocks arrive; every `agg_blocks` blocks
+        make a group whose first round is dispatched at once, and a group
+        is finished (waited on, parsed) only when more than `depth` are in
+        flight, or at the end."""
+        agg = self.agg_blocks
+        fut: collections.deque[_Group] = collections.deque()
+        group = None
         for samples, n_valid in blocks:
-            yield self.process_block(samples, n_valid)
+            if group is None:
+                group = self._new_group()
+            self._dispatch_step(group, samples, n_valid)
+            if len(group.bases) >= agg:
+                self._begin_group(group)
+                fut.append(group)
+                group = None
+            self.stats.q_peak = max(
+                self.stats.q_peak,
+                len(fut) * agg + (len(group.bases) if group else 0))
+            while len(fut) > depth:
+                yield from self._finish_group(fut.popleft())
+        if group is not None:
+            self._begin_group(group)
+            fut.append(group)
+        while fut:
+            yield from self._finish_group(fut.popleft())
+
+    def take_q_peak(self) -> int:
+        """Read and reset the peak in-flight depth (q_max: reset each stats
+        interval, main.c:428-432,524)."""
+        v, self.stats.q_peak = self.stats.q_peak, 0
+        return v
 
     def run_file(self, path: str, fmt: str | None = None) -> Iterator[dict]:
         for frames in self.run_blocks(

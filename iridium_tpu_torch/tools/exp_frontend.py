@@ -1,15 +1,16 @@
-"""Fused front-end at the three burst classes' shapes of a 10 MHz decode.
+"""Fused front-end at the three burst classes' batches of a 10 MHz decode.
 
     python -m iridium_tpu_torch.tools.exp_frontend [--source PATH ...]
         [--phases]
     python -m iridium_tpu_torch.tools.exp_frontend --device cpu --small
 
-The shapes are those `Pipeline(DetectorConfig(sample_rate=10_000_000,
-frames_per_block=2048, gone_capacity=2048))` gives its three classes, at
-the production 801 taps and decimation 40 (F = 8192): small normal
-(B = 256, l_win = 327,680), small simplex (48, 327,680) and large (48,
-1,126,400). Each class gets random planes of one block's stream and
-random window starts and bin offsets from a seeded generator.
+The shapes are the batches the group program of
+`Pipeline(DetectorConfig(sample_rate=10_000_000, frames_per_block=2048,
+gone_capacity=2048))` runs for its three classes (jobs x bursts a job),
+at the production 801 taps and decimation 40 (F = 8192): small normal
+(B = 1,024, l_win = 327,680), small simplex (96, 327,680) and large (48,
+1,126,400). Each class gets random planes of a 4-block group's streams
+and random window starts and bin offsets from a seeded generator.
 
 For the package's kernel and each `--source` (another kernel source with
 the same C entry point, built through `tools/variants.py`; an earlier
@@ -53,9 +54,10 @@ TF32_FLOP_PER_S = 495e12
 
 SEED = 1235
 F, DECIM = 8192, 40
-# samples of one production block's stream: [tail | block | zero pad]
-STREAM_10MHZ = 2048 * 8192 + 2 * 1_126_400
-CLASSES = (("small_normal", 256, 327_680), ("small_simplex", 48, 327_680),
+# samples of a 4-block group's planes, each block's stream
+# [tail | block | zero pad]
+GROUP_10MHZ = 4 * (2048 * 8192 + 2 * 1_126_400)
+CLASSES = (("small_normal", 1024, 327_680), ("small_simplex", 96, 327_680),
            ("large", 48, 1_126_400))
 SMALL = (("small", 4, 2 * wg.ALIGN),)
 
@@ -197,7 +199,7 @@ def main(argv=None) -> int:
     shapes = SMALL if args.small else CLASSES
     taps = production_taps()
     for cls, B, l_win in shapes:
-        n_stream = l_win + 4 * wg.ALIGN if args.small else STREAM_10MHZ
+        n_stream = l_win + 4 * wg.ALIGN if args.small else GROUP_10MHZ
         for r in run_class(cls, B, l_win, dev, cands, taps, n_stream,
                            args.phases):
             share = r["share_of_bound"]

@@ -5,7 +5,8 @@ imports no JAX, so it runs where JAX is not installed:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
 (chip_smoke.py holds the same kernels to the same tolerances at the
-production shapes.)
+production shapes.) The last test holds the pipeline's group program,
+replayed as a CUDA graph, to the same program run eagerly.
 """
 
 import numpy as np
@@ -208,3 +209,44 @@ def test_detect_scan_lone_long_burst_at_16k_matches_plain(dev):
     want = detect_scan.scan_plain(mag2, s0, p.block_samples, p)
     exp_scan.compare(got, want)
     assert int(got.g_count) >= 1 and int(got.primed) == p.history_size
+
+
+def test_group_graph_replay_matches_eager_program(dev):
+    """A 10 MHz capture with one burst through the pipeline on the card
+    (blocks of 64 frames, two a group, so graphs of arity 2 and 1; the
+    burst falls in the last group of two): the group program through each
+    arity's graphs equals it run eagerly on the same inputs, bit for bit,
+    and two runs through the graphs add twice the kernel launches their
+    captures recorded."""
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    cfg = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                         frames_per_block=64, gone_capacity=64)
+    bits = np.random.default_rng(3).integers(0, 2, 300).astype(np.uint8)
+    cap = synth.make_capture(bits, sample_rate=10_000_000,
+                             freq_offset_hz=137_000.0, snr_db=30.0)
+    pipe = Pipeline(det_cfg=cfg, burst_batch=4, group_jobs=2, agg_blocks=2,
+                    device=dev, want_llr=False)
+    frames = list(pipe.run_array(cap))
+    exp = synth.expected_bits(bits, "DL")
+    assert any(np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
+               for f in frames)
+    assert sorted(pipe.graphs) == [1, 2]
+    small_normal = pipe.graphs[2].parts[1]
+    assert small_normal.launches[_kernels.FUSED_FRONTEND] >= 1
+    assert small_normal.nodes > 1000
+    for nb, g in pipe.graphs.items():
+        route = g.parts[0]
+        skips = g.scal[1:].tolist()
+        eager = pipe.group_program(g.planes, g.tables, g.scal, skips)
+        before = {k: k.launches for k in _kernels.KERNELS}
+        replayed = pipe.group_program(g.planes, g.tables, g.scal, skips, g)
+        assert torch.equal(replayed, eager)
+        pipe.group_program(g.planes, g.tables, g.scal, skips, g)
+        counts = replayed[6 * nb:6 * nb + 3].tolist()
+        used = [route] + [c for c, n, s in zip(g.parts[1:], counts, skips)
+                          if n > s]
+        for k in _kernels.KERNELS:
+            assert k.launches - before[k] == 2 * sum(
+                c.launches.get(k, 0) for c in used)
