@@ -15,7 +15,8 @@ Phases, each printing one line:
      small-normal batch; the block gather single-call and chained, at
      R = 64, 128, 256);
   3. the offline RAW decode at the production 10 MHz configuration: a
-     synthetic capture file through `Pipeline.run_file` (no LLRs) and
+     synthetic capture file through `Pipeline.run_file` (the native
+     reader; no LLRs) and
      `RawPrinter`, every injected payload bit-exact, scan and fused
      front-end launched, the group program replayed as a CUDA graph (after
      a warm-up decode that captures it); then the same decode under
@@ -41,10 +42,24 @@ Phases, each printing one line:
      overflow rounds run, against the host-routed flow at those batches;
      the group program through its graphs on that dense group and on
      an empty one, and each graph's replay alone;
-  8. the `kernels` JSON line: every kernel with its launches on the
-     paths above (counts reset before each path and read after it; a
-     graph replay adds the launches its capture recorded), its times and
-     its bound.
+  8. `ingest`: the dense capture file through the native reader
+     (`Pipeline.run_file`) and through `readers.read_blocks`: each reader
+     alone in blocks/s, each decode's wall, realtime and `read` seconds
+     and the share of the wall no stage counts; equal lines;
+  9. `wideband_25mhz`: a 25 MHz capture (F = 32768, above the scan
+     kernel's MAX_FFT) through `Pipeline.run_file`: the scan resolves to
+     detect_fast, decimation 100 takes the window gather, every injected
+     payload comes back bit-exact, realtime as measured;
+  10. the `kernels` JSON line: every kernel with its launches on the
+     decode paths above (counts reset before each path and read after
+     it; a graph replay adds the launches its capture recorded), its
+     times and its bound.
+Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
+at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
+and 1000, history_size 16), and `detect_fast_card` holds detect_fast (one
+production block) and the exact scan (one small block) on the card to
+the same functions on the CPU; their launches are comparisons and are not
+counted.
 Every printed number names the card (`card`: nvidia-smi's name and
 power limit). The last line is the JSON result. Any failed check exits
 non-zero; with no CUDA device, or without the port's package beside this
@@ -620,7 +635,7 @@ def parsed_phase(dev, tmp) -> dict:
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.decode import batch, ida as ida_mod, sbd_acars
-    from iridium_tpu_torch.io import readers
+    from iridium_tpu_torch.io import native
     from iridium_tpu_torch.output.raw import RawPrinter
     from iridium_tpu_torch.runtime import pipeline as pl
 
@@ -646,8 +661,8 @@ def parsed_phase(dev, tmp) -> dict:
         acars = sbd_acars.AcarsDecoder(json_out=True, text_out=io.StringIO(),
                                        station="SMOKE")
         lines, decoded = [], []
-        for frames in pipe.run_blocks(readers.read_blocks(
-                path, pipe.p.block_samples)):
+        for frames in pipe.run_blocks(native.read_blocks(
+                path, pipe.p.block_samples, None, pipe.device)):
             for f, (d, b) in zip(frames, batch.decode_block(frames)):
                 lines.append(printer.format_ida(b) if b is not None
                              else printer.format(f))
@@ -767,7 +782,7 @@ def dense_capture(rng):
     return cap, n
 
 
-def dense_phase(dev, tmp) -> dict:
+def dense_phase(dev, tmp) -> tuple[dict, dict]:
     """The dense capture through the group flow (after a warm-up on its
     first group that captures the graph), with its host-routed run on the
     same pipeline; then its first block with class batches of 16, 24 and
@@ -851,7 +866,273 @@ def dense_phase(dev, tmp) -> dict:
                            all_classes_share_of_block=sum(
                                class_ms.values()) / block_ms,
                            empty_share_of_block=empty_ms / block_ms),
-                launches=counts)
+                launches=counts), dict(pipe=pipe, path=path, lines=lines,
+                                       seconds=seconds)
+
+
+# ---- scan_shapes: the kernel at the shapes the chunk rules refused ----
+
+SCAN_SHAPES = (dict(frames_per_block=100, history_size=32),
+               dict(frames_per_block=1000),
+               dict(frames_per_block=2048, history_size=16))
+
+
+def scan_shapes_phase(dev) -> dict:
+    """The scan kernel against the plain scan at 10 MHz (F = 8192) at the
+    shapes the Pallas scan's chunk rules refuse (frames_per_block 100 and
+    1000; history_size 16), on `tools/exp_scan.py`'s edge block (bursts
+    across thread edges, an exact tie, a squelch blast): bit-equal, timed,
+    with the scan each shape resolves to, and 25 MHz's (F = 32768, above
+    the kernel's MAX_FFT)."""
+    import torch
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan, state as st
+    from iridium_tpu_torch.tools import exp_scan
+
+    shapes = []
+    for kw in SCAN_SHAPES:
+        p = DetectorConfig(sample_rate=10_000_000, max_bursts=20,
+                           **kw).derived()
+        mag2 = torch.from_numpy(exp_scan.edge_spectrogram(p, seed=11)).to(
+            dev)
+        s0 = st.init_state(p, dev)
+        got = detect_scan.scan(mag2, s0, p.block_samples, p)
+        err = exp_scan.compare(got, detect_scan.scan_plain(
+            mag2, s0, p.block_samples, p))
+        shapes.append(dict(
+            frames_per_block=p.frames_per_block,
+            history_size=p.history_size,
+            resolves=detect_scan.resolve_impl(p), max_abs_err=err,
+            gone=int(got.g_count), tagged=int(got.n_tagged),
+            ms=time_ms(lambda: detect_scan.scan(mag2, s0, p.block_samples,
+                                                p))))
+    if any(sh["resolves"] != "scan" for sh in shapes):
+        raise AssertionError(f"a chunk shape does not resolve to the "
+                             f"kernel: {shapes}")
+    wide = DetectorConfig(sample_rate=25_000_000).derived()
+    return dict(phase="scan_shapes", shapes=shapes,
+                fft_25mhz=wide.fft_size,
+                resolves_25mhz=detect_scan.resolve_impl(wide))
+
+
+# ---- detect_fast_card: the other scans on the card against the CPU ----
+
+def _to(state, dev):
+    return type(state)(**{f: getattr(state, f).to(dev)
+                          for f in state.__dataclass_fields__})
+
+
+def detect_fast_card_phase(dev) -> dict:
+    """detect_fast on the card against detect_fast on the CPU on the same
+    |X|^2 rows of one production block (2048 x 8192, exp_scan's synthetic
+    block: bursts, a long burst, a squelch blast with emission drops):
+    integer fields, baseline sums and history bit-equal, dB fields within
+    rtol 1e-5; each run timed. Then the exact scan (detect.py) on the card
+    against the CPU on one small block (256 x 8192, the edge block), held
+    the same way."""
+    import torch
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect, detect_fast, state as st
+    from iridium_tpu_torch.tools import exp_scan
+
+    p = exp_scan.production_params()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    mag2 = exp_scan.synthetic_spectrogram(p, gen)
+    run = detect_fast.make_scan_fast(p)
+    card_ms = host_ms(lambda: run(mag2, st.init_state(p, dev),
+                                  p.block_samples), reps=1)
+    got = run(mag2, st.init_state(p, dev), p.block_samples)
+    t = time.perf_counter()
+    want = run(mag2.cpu(), st.init_state(p, "cpu"), p.block_samples)
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    err = exp_scan.compare(got, _to(want, dev))
+    g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
+    if g["g_count"] < 20 or g["burst_dropped"] < 1:
+        raise AssertionError(f"detect_fast: the synthetic block did not "
+                             f"reach the squelch and drop paths: {g}")
+
+    pe = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                        frames_per_block=256, max_new_per_frame=8,
+                        gone_capacity=64, max_bursts=20).derived()
+    m = torch.from_numpy(exp_scan.edge_spectrogram(pe, seed=11))
+    idxs = np.arange(pe.frames_per_block) * pe.fft_size
+    act = idxs + pe.fft_size <= pe.block_samples
+    step = detect.make_frame_step(pe)
+    t = time.perf_counter()
+    ge = detect.run_state_machine(m.to(dev), idxs, act,
+                                  detect.init_state(pe, dev), step)
+    torch.cuda.synchronize()
+    exact_ms = (time.perf_counter() - t) * 1e3
+    we = _to(detect.run_state_machine(m, idxs, act,
+                                      detect.init_state(pe, "cpu"), step),
+             dev)
+    for name in ("ints", "a_valid", "a_id", "a_start", "a_last", "a_bin",
+                 "mask_count", "g_id", "g_start", "g_stop", "g_last",
+                 "g_bin", "baseline_sum", "baseline_hist"):
+        if not torch.equal(getattr(ge, name), getattr(we, name)):
+            raise AssertionError(f"exact scan: {name} differs on the card")
+    for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
+        torch.testing.assert_close(getattr(ge, name), getattr(we, name),
+                                   rtol=1e-5, atol=0)
+    return dict(phase="detect_fast_card", block=[p.frames_per_block,
+                                                 p.fft_size],
+                fast_card_ms=card_ms, fast_cpu_ms=cpu_ms, max_db_err=err,
+                gone=g["g_count"], tagged=g["n_tagged"],
+                dropped=g["burst_dropped"],
+                exact_block=[pe.frames_per_block, pe.fft_size],
+                exact_card_ms=exact_ms, exact_gone=int(ge.g_count))
+
+
+# ---- wideband_25mhz: F = 32768, served by detect_fast ----
+
+WIDE = dict(sample_rate=25_000_000)
+
+
+def wideband_capture(rng):
+    """Two 25 MHz blocks (1024 frames of 32768, 1.342 s each) and part of
+    a third, noise with 10 DL bursts after the detector's priming, one
+    across the first block boundary, two 500-bit frames in the simplex
+    band, two beyond the 10 MHz band. Returns the capture and the injected
+    (start, offset Hz, payload bits)."""
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.io import synth
+    p = DetectorConfig(**WIDE).derived()
+    fs, block = p.sample_rate, p.block_samples
+    cap = synth.noise(2 * block + 8_000_000, seed=SEED + 9)
+    plan = [(18_500_000, 137_000.0), (23_500_000, -2_310_000.0),
+            (28_500_000, 4_300_000.0), (block - 60_000, -9_100_000.0),
+            (38_500_000, 10_200_000.0), (43_500_000, 1_020_000.0),
+            (48_500_000, 4_150_000.0), (53_500_000, -4_400_000.0),
+            (60_000_000, 3_050_000.0), (66_000_000, -700_000.0)]
+    bursts = []
+    for start, off in plan:
+        n_bits = 500 if 4e6 < off < 4.5e6 else 300
+        bits = rng.integers(0, 2, n_bits + 8).astype(np.uint8)
+        synth.add_burst(cap, synth.burst_waveform(bits, fs, off), start,
+                        snr_db=float(rng.uniform(22.0, 32.0)))
+        bursts.append((start, off, bits[:n_bits]))
+    return cap, bursts
+
+
+def wideband_phase(dev, tmp) -> dict:
+    """A 25 MHz capture file through `Pipeline.run_file` on the card
+    (after a warm-up decode that captures the group graphs): the scan
+    resolves to detect_fast (F = 32768), decimation 100 takes the window
+    gather, and every injected payload comes back bit-exact."""
+    import gc
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+
+    t = time.perf_counter()
+    cap, bursts = wideband_capture(np.random.default_rng(SEED + 9))
+    path = os.path.join(tmp, "capture_25mhz.cf32")
+    write_cf32(path, cap)
+    make_s = time.perf_counter() - t
+    seconds = len(cap) / WIDE["sample_rate"]
+    det = DetectorConfig(**WIDE)
+    pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
+                    want_llr=False)
+    if pipe.detect_impl != "fast":
+        raise AssertionError(f"25 MHz resolved to {pipe.detect_impl}")
+    t = time.perf_counter()
+    list(pipe.run_file(path))
+    warmup_s = time.perf_counter() - t
+    pipe.reset(T0)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    if (counts["window_gather"] == 0 or counts["detect_scan"] != 0
+            or counts["fused_frontend"] != 0):
+        raise AssertionError(f"25 MHz decode launches: {counts}")
+    missing = []
+    for start, off, bits in bursts:
+        exp = synth.expected_bits(bits, "DL")
+        if not any(len(f["bits"]) >= len(exp)
+                   and np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
+                   and abs(f["frequency"] - (det.center_frequency + off))
+                   < 2e3 for f in frames):
+            missing.append((start, off))
+    if missing:
+        raise AssertionError(f"25 MHz payloads not decoded bit-exact: "
+                             f"{missing}")
+    st, timing = pipe.stats, dict(pipe.timing)
+    res = dict(phase="wideband_25mhz", fft_size=pipe.p.fft_size,
+               detect_impl=pipe.detect_impl, decimation=pipe.dmp.decimation,
+               capture_s=seconds, make_s=make_s, warmup_s=warmup_s,
+               wall_s=wall, realtime_x=seconds / wall, injected=len(bursts),
+               payloads_bit_exact=len(bursts), detected=st.n_detected,
+               ok=st.n_ok, raw_lines=len(frames), stages=timing,
+               launches=counts)
+    del pipe, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---- ingest: the native reader against the Python reader ----
+
+STAGES = ("read", "step_dispatch", "group_dispatch", "result_fetch_wait",
+          "host_parse")        # host_format is inside host_parse
+
+
+def ingest_phase(dev, pipe, path: str, lines: list, seconds: float) -> dict:
+    """The dense capture file (8 production blocks) through the native
+    reader (`Pipeline.run_file`: a C++ thread converting into pinned
+    buffers) and through `readers.read_blocks` (numpy, then a copy into
+    the pipeline's pinned upload buffer), on the dense phase's warm
+    pipeline, after one plain read of the file so that both find it in the
+    page cache: blocks/s of each reader alone, the decode's wall, realtime
+    and `read` seconds, and the share of the wall no stage counts. Both
+    decodes give the dense phase's lines."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.io import native, readers
+    from iridium_tpu_torch.output.raw import RawPrinter
+
+    with open(path, "rb") as f:
+        while f.read(1 << 26):
+            pass
+    bs = pipe.p.block_samples
+    sources = {
+        "native": (lambda: native.read_blocks(path, bs, None, dev),
+                   lambda: pipe.run_file(path)),
+        "python": (lambda: readers.read_blocks(path, bs),
+                   lambda: (f for fr in pipe.run_blocks(
+                       readers.read_blocks(path, bs)) for f in fr))}
+    res, counts = dict(phase="ingest", capture_s=seconds), {}
+    for name, (alone, decode) in sources.items():
+        t = time.perf_counter()
+        n = sum(1 for _ in alone())
+        alone_s = time.perf_counter() - t
+        pipe.reset(T0)
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t = time.perf_counter()
+        printer = RawPrinter()
+        got = [printer.format(f) for f in decode()]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for k in _kernels.KERNELS:
+            counts[k.name] = counts.get(k.name, 0) + k.launches
+        if got != lines:
+            raise AssertionError(f"ingest: {name} reader gives other lines "
+                                 f"({len(got)} against {len(lines)})")
+        timing = dict(pipe.timing)
+        res[name] = dict(
+            reader_blocks_per_s=n / alone_s, wall_s=wall,
+            realtime_x=seconds / wall, read_s=timing["read"],
+            uncounted_share=1.0 - sum(timing[k] for k in STAGES) / wall,
+            stages=timing)
+    res.update(lines=len(lines), lines_equal=True, launches=counts)
+    return res
 
 
 def main() -> int:
@@ -896,6 +1177,8 @@ def main() -> int:
 
     rows = kernel_phase(dev, card)
     clock[0] = time.perf_counter()
+    emit(scan_shapes_phase(dev))
+    emit(detect_fast_card_phase(dev))
     with tempfile.TemporaryDirectory() as tmp:
         dec, ctx = decode_phase(dev, tmp)
         emit(dec)
@@ -906,10 +1189,14 @@ def main() -> int:
         emit(demod_phase(dev))
         par = emit(parsed_phase(dev, tmp))
         tool = emit(tool_phase(dev))
-        den = emit(dense_phase(dev, tmp))
+        den, ctx = dense_phase(dev, tmp)
+        emit(den)
+        ing = emit(ingest_phase(dev, **ctx))
+        del ctx
+        wide = emit(wideband_phase(dev, tmp))
     for r in rows:
         r["launches"] = sum(ph["launches"][r["name"]]
-                            for ph in (dec, gat, par, tool, den))
+                            for ph in (dec, gat, par, tool, den, ing, wide))
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
     if "jax" in sys.modules or "iridium_tpu" in sys.modules:

@@ -109,7 +109,7 @@ def main(argv=None) -> int:
     if not args.file:
         print("error: -f/--file required", file=sys.stderr)
         return 2
-    from .io import readers
+    from .io import native
     from .runtime.pipeline import Pipeline   # deferred: imports torch
 
     det = DetectorConfig(center_frequency=args.center_freq,
@@ -238,9 +238,11 @@ def main(argv=None) -> int:
               f" | q_max: {pipe.take_q_peak():4d}"
               f" | i_ok: {in_ok:3.0f}%"
               f" | o: {dh / dt:4.0f}/s"
+              f" | ok: {in_ok:3.0f}%"
               f" | ok: {dk / dt:3.0f}/s"
               f" | ok_avg: {ok_avg:3.0f}%"
               f" | ok: {s.n_ok:10d}"
+              f" | ok_avg: {s.n_ok / elapsed:3.0f}/s"
               f" | d: {s.n_dropped}", file=sys.stderr)
         # Doppler solve every ~10 s; "waiting" note every ~60 s while
         # unconverged (reference main.c:507-519)
@@ -267,8 +269,10 @@ def main(argv=None) -> int:
         n_gsmtap += 1
 
     with profiler(args.profile, pipe.device) as prof:
-        blocks = readers.read_blocks(args.file, pipe.p.block_samples,
-                                     args.format)
+        # a file through the native reader (into pinned buffers on the
+        # card), stdin through the Python reader
+        blocks = native.read_blocks(args.file, pipe.p.block_samples,
+                                    args.format, pipe.device)
         for frames in pipe.run_blocks(blocks):
             # Block-vectorised protocol decode: one decode_block call covers
             # every frame's BCH/LCW/IDA math (frame_decode.c:414-598,
@@ -352,8 +356,8 @@ def print_profile(t, trace: str) -> None:
     nb = max(t["n_blocks"], 1)
     print("profile: per-stage cumulative wall seconds "
           "(ratios localize the bottleneck):", file=sys.stderr)
-    for k in ("step_dispatch", "group_dispatch", "result_fetch_wait",
-              "host_parse", "host_format"):
+    for k in ("read", "step_dispatch", "group_dispatch",
+              "result_fetch_wait", "host_parse", "host_format"):
         print(f"profile:   {k:<18} {t[k]:8.3f} s "
               f"({t[k] / nb * 1e3:7.2f} ms/block)", file=sys.stderr)
     print(f"profile:   blocks={t['n_blocks']} groups={t['n_groups']} "

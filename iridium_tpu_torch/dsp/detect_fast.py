@@ -1,0 +1,360 @@
+"""Branchless chunked burst detector with per-bin state: the port of
+iridium_tpu/dsp/detect_fast.py (the JAX package's XLA scan).
+
+The pipeline runs it for the detector shapes the scan kernel
+(csrc/detect_scan.cu) refuses, such as F = 32768 at sample rates of about
+23.2 MHz and up (`detect_scan.resolve_impl`); the JAX package's bin-split
+mode runs it sharded. It is plain tensor ops on the state's device, frame
+by frame, with no host read inside a block, so on the card the host only
+enqueues.
+
+Its results depend on how it is built, and the tests hold it to the JAX
+function row for row, so it keeps that function's structure:
+  - the frames go in chunks of CHUNK (at most H / 2 and at most 32, a
+    divisor of frames_per_block): a chunk reads the 2 * CHUNK history rows
+    its noise updates can evict when it starts and writes the rows it
+    updated when it ends (at most two updates a frame, so a chunk never
+    evicts a row it wrote);
+  - creation candidates are the K_TOP = 2 * K_CREATE largest segment
+    maxima of the masked relative magnitude (segments of up to 16 bins, no
+    wider than half the burst width), walked greedily: a candidate within
+    half the burst width of an accepted one is skipped. The scan kernel's
+    greedy argmax walk can place same-frame secondary creations on other
+    bins (detect_pallas.py:27-35);
+  - the documented capacity divergences from the reference
+    (detect_fast.py:32-45): at most K_CREATE = 4 creations a frame (a
+    one-time note on stderr when max_new_per_frame asks for more; the
+    excess peaks create on later frames, counted in `create_waits`), at
+    most E_DEL deletion and E_SQ squelch emissions a frame (the excess is
+    counted in n_tagged and `burst_dropped` but not emitted; the mask is
+    released for every deleted burst), and the stale history row after two
+    noise resets in one chunk.
+
+`make_scan_fast` keeps the JAX function's local bin range (`n_bins`,
+`bin_lo`, `own_lo`, `own_hi`: bursts centred outside [own_lo, own_hi) are
+tracked but not emitted) and its one per-frame coupling sum, the
+[any long-burst deletion, active count] pair that the JAX package sums
+over shards with `psum` (:369-383). Here `coupling_sum` is that hook and
+defaults to the identity.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..config import DetectorParams
+from . import detect_scan
+from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
+from .state import init_state  # noqa: F401  (this module's state)
+
+E_TOT = E_DEL + E_SQ
+
+_warned_clamp = False
+
+
+def _warn_clamp_once(configured: int, used: int) -> None:
+    """The one-time note that the creation budget is clamped
+    (detect_fast.py:84-95)."""
+    global _warned_clamp
+    if not _warned_clamp:
+        _warned_clamp = True
+        print(f"detect_fast: clamping burst creations to {used}/frame "
+              f"(max_new_per_frame={configured}); excess peaks create "
+              "on later frames", file=sys.stderr)
+
+
+def chunk_frames(p: DetectorParams) -> int:
+    """Frames a chunk (detect_fast.py:196-204): at most two noise updates
+    a frame, and a chunk must not evict a row it wrote, so at most H / 2."""
+    chunk = max(min(32, p.history_size // 2), 1)
+    while p.frames_per_block % chunk:
+        chunk //= 2
+    return chunk
+
+
+def _window_sums(x: torch.Tensor, hb: int) -> torch.Tensor:
+    """out[i] = sum of x[max(i - hb, 0) : min(i + hb, n - 1) + 1] (int32):
+    the mask coverage that bursts centred at the bins of x add, clipped at
+    the edges (burst_detect.c:473-486)."""
+    n = x.shape[0]
+    cs = torch.cumsum(torch.nn.functional.pad(x, (hb + 1, hb)), 0,
+                      dtype=torch.int32)
+    return cs[2 * hb + 1:] - cs[:n]
+
+
+def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
+                   coupling_sum=None, id_stride: int = 1):
+    """Build run(mag2, state, n_valid, bin_lo=0, own_lo=0, own_hi=F) ->
+    new ScanState over a block of fftshifted |X|^2 rows (frames_per_block,
+    n_bins) f32; the input state is left as it was. `coupling_sum` maps the
+    frame's (2,) int64 [any long-burst deletion, owned active count] to
+    its sum over every bin range (identity: this range is all of them)."""
+    F = p.fft_size
+    FL = n_bins if n_bins is not None else F
+    G, H = p.gone_capacity, p.history_size
+    hb = p.burst_width_bins // 2
+    c = detect_scan._consts(p)
+    thr = float(c["threshold"])
+    hist_f, enbw = float(c["hist_f"]), float(c["enbw"])
+    f2, bin_width = float(c["f2"]), float(c["bin_width"])
+    K_CREATE = c["k_create"]
+    if p.max_new_per_frame > K_CREATE:
+        _warn_clamp_once(p.max_new_per_frame, K_CREATE)
+    K_TOP = 2 * K_CREATE
+    n_frames = p.frames_per_block
+    CHUNK = chunk_frames(p)
+    C2 = 2 * CHUNK
+    if G > n_frames * E_TOT:
+        raise ValueError(f"gone_capacity {G} above the {n_frames * E_TOT} "
+                         "emissions a block can make")
+    # segment maxima as the candidate pool (detect_fast.py:214-241)
+    SEG = 1
+    while SEG * 2 <= min(max(hb, 1), 16) and FL % (SEG * 2) == 0:
+        SEG *= 2
+    NS = FL // SEG if SEG >= 4 else FL
+    gsum = coupling_sum or (lambda x: x)
+    # earlier[j, k]: candidate k comes before candidate j
+    earlier = np.tril(np.ones((K_TOP, K_TOP), bool), -1)
+    dc = F // 2
+
+    def run(mag2: torch.Tensor, state: ScanState, n_valid: int,
+            bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
+        own_hi = F if own_hi is None else own_hi
+        dev = mag2.device
+        i32, i64 = torch.int32, torch.int64
+        iota = torch.arange(FL, device=dev)
+        gbins = bin_lo + iota
+        # edge and DC-notch exclusion and ownership, in global bins
+        eligible = ((gbins >= hb) & (gbins < F - hb)
+                    & ~((gbins >= dc - 3) & (gbins <= dc + 3))).float()
+        owned = (gbins >= own_lo) & (gbins < own_hi)
+        gbin_i = gbins.to(i32)
+        ones_i = torch.ones(FL, dtype=i32, device=dev)
+        zero_f = torch.zeros((), device=dev)
+        pool_rev = NS - 1 - torch.arange(NS, device=dev)
+        tri = torch.from_numpy(earlier).to(dev)
+        ar2 = torch.arange(C2, device=dev)
+        del_rows = torch.arange(1, E_DEL + 1, dtype=i32, device=dev)
+        sq_rows = torch.arange(1, E_SQ + 1, dtype=i32, device=dev)
+
+        s = state.clone()
+        hist = s.baseline_hist
+        bsum = s.baseline_sum
+        a_valid, a_id, a_start, a_last = s.a_valid, s.a_id, s.a_start, s.a_last
+        a_mag, a_noise, mask = s.a_mag, s.a_noise, s.mask_count
+        sc = s.ints.to(i64)
+        hidx, prim, burst_id, sq_count = sc[0], sc[1], sc[2], sc[3]
+        n_tagged, dropped, waits = sc[4], sc[5], sc[6]
+        peak = s.floats[0]
+        ems = torch.zeros((n_frames, E_TOT, 8), dtype=i32, device=dev)
+
+        def top_pool(relm):
+            """(values, bins) of the K_TOP largest segment maxima, in
+            descending order, the lower bin first among equal values (as
+            lax.top_k): the keys are unique, so any top-k gives them."""
+            if SEG >= 4:
+                segmax, segarg = relm.view(NS, SEG).max(1)
+            else:
+                segmax, segarg = relm, None
+            # relm >= +0.0, so its bits order as its values
+            key = (segmax.view(i32).to(i64) << 32) | pool_rev
+            si = torch.topk(key, K_TOP).indices
+            if segarg is None:
+                return segmax[si], si
+            return segmax[si], si * SEG + segarg[si]
+
+        n_act_frames = min(max((n_valid - F) // F + 1, 0), n_frames)
+        for c0 in range(0, n_act_frames, CHUNK):
+            pos = (hidx + ar2) % H
+            pre = hist[pos]
+            upd_k = torch.zeros((), dtype=i64, device=dev)
+            k0s, d0s, k1s, d1s = [], [], [], []
+            for f in range(c0, min(c0 + CHUNK, n_act_frames)):
+                idx = f * F
+                mag = mag2[f]
+                primed = prim >= H
+                ev = pre.index_select(0, torch.stack([upd_k, upd_k + 1]))
+                evict_a, evict_b = ev[0], ev[1]
+                rel = torch.where(bsum > 0, mag / bsum, zero_f)
+
+                # extend last_active (burst_detect.c:458-469)
+                th = rel > thr
+                dil = th.clone()
+                dil[:-1] |= th[1:]
+                dil[1:] |= th[:-1]
+                a_last = torch.where(a_valid & dil & primed, idx, a_last)
+
+                # peaks under the carried mask
+                relm = rel * (mask == 0) * eligible
+                relm = torch.where(relm > thr, relm, zero_f)
+
+                # gone bursts (burst_detect.c:490-518)
+                long_b = a_valid & ((a_last - a_start) > p.max_burst_len)
+                gone = a_valid & (((a_last + p.burst_post_len) <= idx)
+                                  | long_b)
+                flags = gone & primed
+                any_long = long_b.any().to(i64)
+                emit = flags & owned
+                vals8 = torch.stack(
+                    [a_id, a_start, torch.full_like(a_id, idx), a_last,
+                     gbin_i, a_mag.view(i32), a_noise.view(i32), ones_i], 1)
+                a_valid = a_valid & ~flags
+
+                # creation (burst_detect.c:556-632): the descending
+                # candidates, each skipped within half_bw of an accepted one
+                topv, topi = top_pool(relm)
+                above = primed & (topv > thr)
+                near = ((topi[:, None] - topi[None, :]).abs() <= hb) & tri
+                acc = torch.zeros(K_TOP, dtype=torch.bool, device=dev)
+                for j in range(K_TOP):
+                    acc[j] = above[j] & ~(acc & near[j]).any()
+                acc_i = acc.to(i64)
+                rank = torch.cumsum(acc_i, 0) - acc_i
+                take = acc & (rank < K_CREATE)
+                n_acc = take.sum()
+                ids_k = burst_id + 10 * id_stride * rank
+                at_any = torch.zeros(FL, dtype=torch.bool,
+                                     device=dev).scatter(0, topi, take)
+
+                # the per-frame coupling: [any long-burst deletion (forced
+                # noise update, :516), post-creation active count]
+                n_own_post = ((a_valid | at_any) & owned).sum()
+                cpl = gsum(torch.stack([any_long, n_own_post]))
+                force = (cpl[0] > 0) & primed
+                n_active = cpl[1]
+
+                # the created bursts' noise reads see the forced update at
+                # their bin, in the same float order
+                base_at, mag_at, ev_at = bsum[topi], mag[topi], evict_a[topi]
+                old_at = ev_at * (prim >= H)
+                base_eff = torch.where(force, (base_at - old_at) + mag_at,
+                                       base_at)
+                mag_db = 10.0 * torch.log10(
+                    torch.clamp(topv * hist_f * enbw, min=1e-30))
+                noise_db = 10.0 * torch.log10(torch.clamp(
+                    base_eff / hist_f / f2 / enbw / bin_width, min=1e-30))
+
+                # forced noise update (long-burst deletion)
+                did0, k0 = force, upd_k
+                old = evict_a * (prim >= H)
+                bsum = torch.where(force, (bsum - old) + mag, bsum)
+                prim = torch.clamp(prim + force.to(i64), max=H)
+                upd_k = upd_k + force.to(i64)
+
+                start = idx - p.burst_pre_len
+                a_valid = a_valid | at_any
+                a_id = a_id.scatter(0, topi, torch.where(
+                    take, ids_k.to(i32), a_id[topi]))
+                a_start = torch.where(at_any, start, a_start)
+                a_last = torch.where(at_any, start, a_last)
+                a_mag = a_mag.scatter(0, topi, torch.where(
+                    take, mag_db, a_mag[topi]))
+                a_noise = a_noise.scatter(0, topi, torch.where(
+                    take, noise_db, a_noise[topi]))
+                # one mask update: add the creations, release the deletions
+                mask = mask + _window_sums(at_any.to(i32) - flags.to(i32), hb)
+                burst_id = burst_id + 10 * id_stride * n_acc
+                peak = torch.maximum(peak, torch.where(
+                    take, mag_db, float("-inf")).max())
+                more = (n_acc == K_CREATE) & (acc & (rank >= K_CREATE)).any()
+                waits = waits + more.to(i64)
+
+                # squelch (burst_detect.c:594-631) on the coupled count
+                if p.max_bursts > 0:
+                    squelch = primed & (n_active > p.max_bursts)
+                else:
+                    squelch = torch.zeros((), dtype=torch.bool, device=dev)
+                sq_flags = squelch & a_valid & ~at_any
+
+                # the frame's emissions: deletion rows first (ascending
+                # bin), then squelch rows, each set ranked by one cumsum
+                fi_d = emit.to(i32)
+                fi_s = (sq_flags & owned).to(i32)
+                cs = torch.cumsum(fi_d + (fi_s << 16), 0, dtype=i32)
+                cs_d, cs_s = cs & 0xFFFF, cs >> 16
+                n_del, n_sq = cs_d[-1].to(i64), cs_s[-1].to(i64)
+                rows = torch.cat([torch.searchsorted(cs_d, del_rows),
+                                  torch.searchsorted(cs_s, sq_rows)])
+                ems[f] = torch.where((rows < FL)[:, None],
+                                     vals8[rows.clamp(max=FL - 1)], 0)
+                n_tagged = n_tagged + n_del + n_sq
+                dropped = (dropped + torch.clamp(n_del - E_DEL, min=0)
+                           + torch.clamp(n_sq - E_SQ, min=0))
+
+                a_valid = a_valid & ~squelch
+                mask = torch.where(squelch, 0, mask)
+                sq_count = torch.where(squelch, sq_count + 3,
+                                       torch.clamp(sq_count - 1, min=0))
+                # noise-estimate reset after repeated squelch; the history
+                # slots continue
+                reset = sq_count >= 10
+                bsum = torch.where(reset, zero_f, bsum)
+                prim = torch.where(reset, 0, prim)
+                sq_count = torch.where(reset, 0, sq_count)
+
+                # final noise update when no burst is active (:698)
+                evict2 = torch.where(did0, evict_b, evict_a)
+                k1 = upd_k
+                do1 = torch.where(squelch, 0, n_active) == 0
+                old = evict2 * (prim >= H)
+                bsum = torch.where(do1, (bsum - old) + mag, bsum)
+                prim = torch.clamp(prim + do1.to(i64), max=H)
+                upd_k = upd_k + do1.to(i64)
+                k0s.append(k0)
+                d0s.append(did0)
+                k1s.append(k1)
+                d1s.append(do1)
+
+            # the chunk's written rows: update k stores the |X|^2 row of the
+            # frame that made it; the rest keep what was read
+            nf = len(k0s)
+            frame_of = torch.full((C2 + 1,), c0, dtype=i64, device=dev)
+            local = torch.arange(c0, c0 + nf, device=dev)
+            frame_of.scatter_(0, torch.where(torch.stack(d0s),
+                                             torch.stack(k0s), C2), local)
+            frame_of.scatter_(0, torch.where(torch.stack(d1s),
+                                             torch.stack(k1s), C2), local)
+            hist[pos] = torch.where((ar2 < upd_k)[:, None],
+                                    mag2[frame_of[:C2]], pre)
+            hidx = (hidx + upd_k) % H
+
+        # the gone table: the emission rows in frame order, first G kept
+        em = ems.reshape(-1, 8)
+        cs = torch.cumsum((em[:, 7] > 0).to(i32), 0, dtype=i32)
+        src = torch.searchsorted(
+            cs, torch.arange(1, G + 1, dtype=i32, device=dev))
+        table = torch.where((src < em.shape[0])[:, None],
+                            em[src.clamp(max=em.shape[0] - 1)], 0)
+        # the row's columns are the gone fields, in order, then the flag
+        for k, name in enumerate(GONE_FIELDS):
+            col = table[:, k]
+            if name in ("g_mag", "g_noise"):
+                col = col.view(torch.float32)
+            getattr(s, name).copy_(col)
+        s.baseline_sum, s.a_valid, s.a_id = bsum, a_valid, a_id
+        s.a_start, s.a_last, s.a_mag, s.a_noise = (a_start, a_last, a_mag,
+                                                   a_noise)
+        s.mask_count = mask
+        s.ints = torch.stack([hidx, prim, burst_id, sq_count, n_tagged,
+                              dropped, waits,
+                              torch.clamp(cs[-1].to(i64), max=G)]).to(i32)
+        s.floats = peak.reshape(1)
+        return s
+
+    return run
+
+
+def make_detect_block_fast(p: DetectorParams):
+    """detect(samples, state, n_valid, window=None) -> new ScanState: the
+    spectrogram of the block (detect_scan.spectrogram), then the scan."""
+    run = make_scan_fast(p)
+
+    def detect(samples: torch.Tensor, state: ScanState, n_valid: int,
+               window: torch.Tensor | None = None) -> ScanState:
+        return run(detect_scan.spectrogram(samples, p, window), state,
+                   n_valid)
+
+    return detect

@@ -26,18 +26,39 @@ MAX_FFT = 16384
 
 
 def supports(p: DetectorParams) -> bool:
-    """Shapes the kernel handles: those of detect_pallas.supports
-    (detect_pallas.py:72), with at most MAX_FFT bins spread over at most
-    1024 threads of one block."""
-    chunk = max(min(32, p.history_size // 2), 1)
-    while p.frames_per_block % chunk:
-        chunk //= 2
+    """Shapes the kernel handles: a multiple of 128 bins, at most MAX_FFT,
+    spread over at most 1024 threads of one block; a history of two rows
+    or more (the row a noise update evicts was stored two or more updates
+    before, so its bulk store has completed); a gone table the per-frame
+    emission caps can fill (detect_fast's own rule). The kernel walks the
+    frames one by one, so the Pallas scan's chunk rules
+    (detect_pallas.py:72-79) do not apply."""
     F = p.fft_size
     threads = min(F, 1024)
     return (F % 128 == 0 and F <= MAX_FFT and F % threads == 0
             and (F // threads) in (1, 2, 4, 8, 16)
-            and chunk % 16 == 0 and 2 * chunk <= p.history_size
+            and p.history_size >= 2
             and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ))
+
+
+IMPLS = ("scan", "fast", "exact")
+
+
+def resolve_impl(p: DetectorParams, requested: str = "auto") -> str:
+    """The detector scan a pipeline runs: the JAX package's production
+    resolution (detect_pallas.resolve_impl :82-89, "scan" where it says
+    "pallas"): the kernel where it supports the shape, detect_fast
+    otherwise, on the CPU (where "scan" runs scan_plain) as on the card.
+    "exact" is detect.py's per-frame scan. Asking for "scan" on a shape
+    the kernel refuses raises."""
+    if requested == "auto":
+        return "scan" if supports(p) else "fast"
+    if requested not in IMPLS:
+        raise ValueError(f"detect_impl {requested!r}: expected 'auto' or "
+                         f"one of {IMPLS}")
+    if requested == "scan" and not supports(p):
+        raise ValueError("detector shape not supported by the scan kernel")
+    return requested
 
 
 def _consts(p: DetectorParams) -> dict:

@@ -55,19 +55,24 @@ class ScanState:
                             for f in dataclasses.fields(self)})
 
 
-def _scalar_view(group: str, i: int):
-    return property(lambda self: getattr(self, group)[i])
+def add_scalar_views(cls, int_fields, float_fields) -> None:
+    """Give `cls` a property per scalar field: the 0-d view of its entry
+    in the `ints` or `floats` tensor."""
+    for group, names in (("ints", int_fields), ("floats", float_fields)):
+        for i, name in enumerate(names):
+            setattr(cls, name, property(
+                lambda self, group=group, i=i: getattr(self, group)[i]))
 
 
-for _i, _name in enumerate(INT_FIELDS):
-    setattr(ScanState, _name, _scalar_view("ints", _i))
-for _i, _name in enumerate(FLOAT_FIELDS):
-    setattr(ScanState, _name, _scalar_view("floats", _i))
+add_scalar_views(ScanState, INT_FIELDS, FLOAT_FIELDS)
 
 
 def init_state(p: DetectorParams, device: torch.device,
-               id_offset: int = 0) -> ScanState:
-    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+               id_offset: int = 0, n_bins: int | None = None) -> ScanState:
+    """A fresh state over `n_bins` local bins (all fft_size bins by
+    default)."""
+    F = n_bins if n_bins is not None else p.fft_size
+    H, G = p.history_size, p.gone_capacity
 
     def zi(n):
         return torch.zeros(n, dtype=torch.int32, device=device)
@@ -89,9 +94,10 @@ def init_state(p: DetectorParams, device: torch.device,
         ints=ints, floats=zf(len(FLOAT_FIELDS)))
 
 
-def rebase_(state: ScanState, block_samples: int) -> None:
+def rebase_(state, block_samples: int) -> None:
     """In place: shift the per-burst sample indices by -block_samples and
-    clear the gone count, preparing the carry for the next block."""
+    clear the gone count, preparing the carry for the next block (a
+    `ScanState`, or detect.py's `DetectorState`)."""
     state.a_start.sub_(block_samples)
     state.a_last.sub_(block_samples)
-    state.ints[INT_FIELDS.index("g_count")] = 0
+    state.g_count.zero_()

@@ -3,8 +3,12 @@
 Port of iridium_tpu/runtime/pipeline.py with its default finish path
 (`_finish_group` :932-977). Blocks go in groups of `agg_blocks`:
 
+  [host]   a capture file's blocks come from the native reader
+           (io/native.py: a C++ thread converts them into pinned buffers)
   [device] per block, the detect step (window + FFT + |X|^2, then the scan
-           kernel); it writes the block's stream planes [tail | block |
+           `detect_scan.resolve_impl` picks for the configuration: the
+           scan kernel, or detect_fast where the kernel refuses the
+           shape); it writes the block's stream planes [tail | block |
            zero pad] and its gone table into the group's buffers
   [device] per group, the group program (`_fused_for` :716-838): routing
            of every gone burst of the group (start decomposition, length
@@ -59,9 +63,9 @@ from .. import device as device_mod
 from .. import iridium
 from ..config import DetectorConfig, DetectorParams, DownmixConfig, DownmixParams
 from ..dsp import demod as demod_mod
-from ..dsp import detect_scan, downmix
+from ..dsp import detect, detect_fast, detect_scan, downmix
 from ..dsp import state as state_mod
-from ..io import readers
+from ..io import native
 from ..ops import fused_frontend, window_gather
 
 
@@ -397,7 +401,10 @@ class Pipeline:
     for the protocol decoders. `agg_blocks` blocks share one group
     program and one result copy; `group_jobs` sizes the class batches
     (the JAX package's capacities, `_build_burst_processor` :516-535);
-    `save_bursts_dir` takes the per-batch flow and dumps each burst."""
+    `save_bursts_dir` takes the per-batch flow and dumps each burst.
+    `detect_impl` picks the detector scan (`detect_scan.resolve_impl`):
+    "auto" is the scan kernel where it takes the shape and detect_fast
+    otherwise, "scan", "fast" or "exact" (detect.py) ask for one."""
 
     def __init__(self,
                  det_cfg: DetectorConfig | None = None,
@@ -409,7 +416,8 @@ class Pipeline:
                  want_llr: bool = True,
                  save_bursts_dir: str | None = None,
                  agg_blocks: int = 4,
-                 group_jobs: int = 8):
+                 group_jobs: int = 8,
+                 detect_impl: str = "auto"):
         dev = device_mod.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -419,9 +427,14 @@ class Pipeline:
         self.p: DetectorParams = det_cfg.derived()
         self.dmp: DownmixParams = dm_cfg.derived(self.p)
         p, dmp = self.p, self.dmp
-        if dev.type == "cuda" and not detect_scan.supports(p):
-            raise ValueError("detector configuration not supported by the "
-                             "scan kernel")
+        self.detect_impl = detect_scan.resolve_impl(p, detect_impl)
+        if self.detect_impl == "scan":
+            self._detect = lambda x, st, n, w: detect_scan.detect_block(
+                x, st, n, p, w)
+        elif self.detect_impl == "fast":
+            self._detect = detect_fast.make_detect_block_fast(p)
+        else:
+            self._detect = detect.make_detect_block(p)
         self.burst_batch = burst_batch
         self.use_gardner = use_gardner
         self.want_llr = want_llr
@@ -484,7 +497,9 @@ class Pipeline:
 
     def reset(self, start_time_ns: int | None = None) -> None:
         """Fresh stream state; CUDA graphs and buffers are kept."""
-        self.state = state_mod.init_state(self.p, self.device)
+        init = (detect.init_state if self.detect_impl == "exact"
+                else state_mod.init_state)
+        self.state = init(self.p, self.device)
         self.tail = torch.zeros((2, self.l_ext), dtype=torch.float32,
                                 device=self.device)
         self._rebase = False
@@ -496,7 +511,8 @@ class Pipeline:
         # JAX package's keys (device flow: step_dispatch, group_dispatch,
         # result_fetch_wait, host_parse, host_format, n_blocks, n_groups,
         # n_overflow_rounds; the other flows: gone_fetch_wait,
-        # burst_fetch_wait, n_burst_batches)
+        # burst_fetch_wait, n_burst_batches), and `read`: the seconds
+        # run_blocks waits for the next block from its reader
         self.timing = collections.Counter()
 
     # ---- detect steps ----
@@ -512,9 +528,22 @@ class Pipeline:
             torch.empty((n, self.p.gone_capacity + 1, 6),
                         dtype=torch.int32, device=self.device))
 
-    def _upload(self, samples: np.ndarray) -> torch.Tensor:
-        """The block on the device. On the card it goes through a ring of
-        two pinned buffers; one is refilled only after its copy ran."""
+    def _upload(self, samples: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """The block on the device. A tensor (the native reader's block, in
+        pinned memory on the card) is only copied to the device; the
+        reader gives its buffer back once that copy has run. A numpy block
+        goes through a ring of two pinned buffers on the card; one is
+        refilled only after its copy ran."""
+        if isinstance(samples, torch.Tensor):
+            if self.device.type == "cpu":
+                return samples
+            if not samples.is_pinned():
+                raise ValueError("a host tensor block must be pinned")
+            if self._block is None:
+                self._block = torch.empty(samples.shape, dtype=samples.dtype,
+                                          device=self.device)
+            self._block.copy_(samples, non_blocking=True)
+            return self._block
         x = np.ascontiguousarray(samples, np.complex64)
         if self.device.type == "cpu":
             return torch.from_numpy(x)
@@ -548,8 +577,8 @@ class Pipeline:
         block = self._upload(samples)
         if self._rebase:
             state_mod.rebase_(self.state, p.block_samples)
-        self.state = detect_scan.detect_block(block, self.state, n_valid, p,
-                                              self._det_window)
+        self.state = self._detect(block, self.state, n_valid,
+                                  self._det_window)
         bi = len(group.bases)
         bs, l_ext, sl = p.block_samples, self.l_ext, self.stream_len
         seg = group.planes[:, bi * sl:(bi + 1) * sl]
@@ -559,9 +588,10 @@ class Pipeline:
         self.tail.copy_(seg[:, bs:bs + l_ext])
         st = self.state
         zero = st.g_count * 0
+        # the exact scan has no capacity counters (the JAX step's getattr)
         group.tables[bi, 0].copy_(torch.stack(
-            [st.g_count, st.n_tagged, st.burst_dropped, st.create_waits,
-             zero, zero]))
+            [st.g_count, st.n_tagged, getattr(st, "burst_dropped", zero),
+             getattr(st, "create_waits", zero), zero, zero]))
         group.tables[bi, 1:].copy_(torch.stack(
             [st.g_id, st.g_start, st.g_stop, st.g_bin,
              st.g_mag.view(torch.int32), st.g_noise.view(torch.int32)], 1))
@@ -1061,7 +1091,14 @@ class Pipeline:
         agg = self.agg_blocks
         fut: collections.deque[_Group] = collections.deque()
         group = None
-        for samples, n_valid in blocks:
+        it = iter(blocks)
+        while True:
+            t0 = time.perf_counter()
+            nxt = next(it, None)
+            self.timing["read"] += time.perf_counter() - t0
+            if nxt is None:
+                break
+            samples, n_valid = nxt
             if group is None:
                 group = self._new_group()
             self._dispatch_step(group, samples, n_valid)
@@ -1087,8 +1124,10 @@ class Pipeline:
         return v
 
     def run_file(self, path: str, fmt: str | None = None) -> Iterator[dict]:
-        for frames in self.run_blocks(
-                readers.read_blocks(path, self.p.block_samples, fmt)):
+        """Frames of a capture file, read by the native reader into pinned
+        buffers on the card ("-": stdin, through the Python reader)."""
+        for frames in self.run_blocks(native.read_blocks(
+                path, self.p.block_samples, fmt, self.device)):
             yield from frames
 
     def run_array(self, samples: np.ndarray) -> Iterator[dict]:

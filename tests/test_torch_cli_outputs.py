@@ -1,6 +1,7 @@
 """The port's extra outputs on the CPU: `--save-bursts` (the per-batch
 flow's per-burst dumps) against the JAX package's Pipeline on the same
-capture, `--profile`, and `--agg-blocks`.
+capture, `--profile`, `--agg-blocks`, and the stats line's fields against
+the JAX CLI's.
 
 Burst dumps: the same file names, the same `.meta` lines except
 magnitude_db, noise_dbfs_hz and uw_start_offset, which agree within 0.01
@@ -10,6 +11,7 @@ FIR sums 801 products in another order in each package).
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -94,8 +96,8 @@ def test_profile_writes_trace_and_stage_lines(capture_file, tmp_path,
     assert any(exp in line for line in cap.out.splitlines())
     assert (out / "trace.json").stat().st_size > 0
     prof = [x for x in cap.err.splitlines() if x.startswith("profile:")]
-    for key in ("step_dispatch", "group_dispatch", "result_fetch_wait",
-                "host_parse", "host_format"):
+    for key in ("read", "step_dispatch", "group_dispatch",
+                "result_fetch_wait", "host_parse", "host_format"):
         assert any(x.split()[1] == key for x in prof), key
     assert any("blocks=" in x and "groups=" in x
                and "overflow_rounds=" in x for x in prof)
@@ -111,3 +113,36 @@ def test_agg_blocks_print_the_same_lines(capture_file, capsys):
     # the same fields from the frequency on (the start time is the clock)
     assert [x.split(" ")[3:] for x in out[1]] == \
         [x.split(" ")[3:] for x in out[4]]
+
+
+def stats_fields(err: str) -> list[str]:
+    """Field names of the stats lines on stderr ("<t> | srr: ... | d: n")."""
+    lines = [x for x in err.splitlines() if x.count(" | ") >= 5]
+    assert lines, err
+    return [[f.split(":")[0] for f in x.split(" | ")[1:]] for x in lines]
+
+
+def test_stats_line_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    """Both CLIs on one 1 MHz capture with the clock stepping 2 s a read,
+    so that every frame prints a stats line: the same field names in the
+    same order (the values depend on the wall clock)."""
+    from iridium_tpu import cli as jax_cli
+    bits = np.random.default_rng(5).integers(0, 2, 300).astype(np.uint8)
+    cap = synth.make_capture(bits, sample_rate=1_000_000,
+                             freq_offset_hz=100_000.0, snr_db=30.0)
+    path = tmp_path / "cap.cf32"
+    np.ascontiguousarray(cap).view(np.float32).tofile(path)
+    argv = ["-f", str(path), "-r", "1000000", "--frames-per-block", "256",
+            "--burst-batch", "4"]
+    clock = iter(range(1_700_000_000, 1_800_000_000, 2))
+    monkeypatch.setattr(time, "time", lambda: float(next(clock)))
+    fields = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        assert main(argv + extra) == 0
+        out = capsys.readouterr()
+        assert any(x.startswith("RAW:") for x in out.out.splitlines())
+        fields[name] = stats_fields(out.err)
+    assert fields["port"] == fields["jax"]
+    assert fields["port"][0] == ["srr", "i_avg", "q_max", "i_ok", "o", "ok",
+                                 "ok", "ok_avg", "ok", "ok_avg", "d"]

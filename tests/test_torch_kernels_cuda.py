@@ -250,3 +250,96 @@ def test_group_graph_replay_matches_eager_program(dev):
         for k in _kernels.KERNELS:
             assert k.launches - before[k] == 2 * sum(
                 c.launches.get(k, 0) for c in used)
+
+
+def _bursty_spectrogram(p, dev, seed):
+    """(frames_per_block, F) |X|^2 on `dev`: noise, 3-bin bursts from 8
+    frames after the history is primed (one past max_burst_len where the
+    block is long enough) and a comb that trips the squelch."""
+    F, n, t0 = p.fft_size, p.frames_per_block, min(p.history_size + 8,
+                                                     p.frames_per_block // 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    mag2 = torch.empty((n, F), device=dev).exponential_(generator=gen)
+    long_frames = p.max_burst_len // F + 8
+    for f0, nf, b in [(t0, 20, F // 5), (t0 + 3, long_frames, F // 3),
+                      (t0 + 6, 4, F // 2 + 40), (t0 + 12, 30, 3 * F // 4)]:
+        mag2[f0:f0 + nf, b - 1:b + 2] += 500.0
+    step = p.burst_width_bins + 2
+    comb = torch.arange(p.burst_width_bins, F - p.burst_width_bins, step,
+                        device=dev)
+    comb = comb[(comb - F // 2).abs() > 8]
+    mag2[t0 + 40:t0 + 60, comb] += 800.0
+    return mag2
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(sample_rate=1_000_000, history_size=64, frames_per_block=100),
+    dict(sample_rate=10_000_000, frames_per_block=1000),
+    dict(sample_rate=10_000_000, history_size=16, frames_per_block=256)])
+def test_detect_scan_chunk_shapes_match_plain(dev, cfg):
+    """Shapes the Pallas scan's chunk rules refuse (frames_per_block 100
+    and 1000, history_size 16): the kernel walks the frames one by one and
+    equals the plain scan there, from a fresh state and from a primed
+    one."""
+    p = DetectorConfig(max_new_per_frame=8, max_bursts=20, **cfg).derived()
+    assert detect_scan.supports(p)
+    s = st.init_state(p, dev)
+    for seed in (1, 2):
+        mag2 = _bursty_spectrogram(p, dev, seed)
+        got = detect_scan.scan(mag2, s, p.block_samples, p)
+        want = detect_scan.scan_plain(mag2, s, p.block_samples, p)
+        exp_scan.compare(got, want)
+        s = want
+        st.rebase_(s, p.block_samples)
+    assert int(s.n_tagged) >= 3
+
+
+def _on(state, dev):
+    return type(state)(**{f: getattr(state, f).to(dev)
+                          for f in state.__dataclass_fields__})
+
+
+def test_detect_fast_on_card_matches_cpu(dev):
+    """detect_fast on the card and on the CPU on the same rows (two
+    blocks): integer fields, baseline sums and history bit-equal, dB
+    fields rtol 1e-5."""
+    from iridium_tpu_torch.dsp import detect_fast
+    p = DetectorConfig(sample_rate=1_000_000, history_size=64,
+                       frames_per_block=256, max_new_per_frame=8,
+                       max_bursts=20).derived()
+    run = detect_fast.make_scan_fast(p)
+    s_card, s_cpu = st.init_state(p, dev), st.init_state(p, "cpu")
+    for seed in (3, 4):
+        mag2 = _bursty_spectrogram(p, dev, seed)
+        s_card = run(mag2, s_card, p.block_samples)
+        s_cpu = run(mag2.cpu(), s_cpu, p.block_samples)
+        exp_scan.compare(s_card, _on(s_cpu, dev))
+        st.rebase_(s_card, p.block_samples)
+        st.rebase_(s_cpu, p.block_samples)
+    assert int(s_card.n_tagged) >= 3 and int(s_card.burst_dropped) >= 1
+
+
+def test_native_ring_reused_across_blocks(dev, tmp_path):
+    """Nine blocks through the reader's ring of N_BUFFERS (3) pinned
+    buffers, each copied to the card behind a device delay: a buffer
+    refilled before its copy ran would corrupt the blocks on the card."""
+    from iridium_tpu_torch.io import native
+    bs = 1 << 16
+    raw = np.random.default_rng(9).standard_normal(
+        2 * (9 * bs - 100)).astype(np.float32)
+    path = tmp_path / "x.cf32"
+    raw.tofile(path)
+    on_card, ns = [], []
+    assert native.N_BUFFERS < 9
+    for block, n in native.read_blocks(str(path), bs, device=dev):
+        assert block.is_pinned()
+        torch.cuda._sleep(2_000_000)
+        on_card.append(block.to(dev, non_blocking=True))
+        ns.append(n)
+    torch.cuda.synchronize()
+    assert ns == [bs] * 8 + [bs - 100]
+    got = torch.cat(on_card).cpu().numpy()
+    want = np.zeros(9 * bs, np.complex64)
+    want[:len(raw) // 2] = raw.view(np.complex64)
+    np.testing.assert_array_equal(got, want)

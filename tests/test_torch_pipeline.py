@@ -121,9 +121,11 @@ def test_pipeline_without_device_needs_cuda():
 
 
 def test_package_imports_no_jax(tmp_path):
-    """Every module of the port, and the CLI run with every decoder flag
-    (sockets on localhost, pyzmq hidden as on the card's machine), import
-    nothing of JAX."""
+    """Every module of the port (detect_fast, detect and the native reader
+    among them), and the CLI run with every decoder flag (sockets on
+    localhost, pyzmq hidden as on the card's machine), import nothing of
+    JAX; the CLI reads the file through the port's own native library,
+    not the JAX package's libhostio.so."""
     path = tmp_path / "noise.cf32"
     synth.noise(600_000, seed=1).view(np.float32).tofile(path)
     flags = ["-f", str(path), "--device", "cpu", "--parsed", "--diagnostic",
@@ -142,6 +144,10 @@ def test_package_imports_no_jax(tmp_path):
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'iridium_tpu')]\n"
         "assert not bad, bad\n"
+        "for m in ('dsp.detect_fast', 'dsp.detect', 'io.native'):\n"
+        "    assert 'iridium_tpu_torch.' + m in sys.modules, m\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libhostio-' in maps and '_native/libhostio' not in maps\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('iridium_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
