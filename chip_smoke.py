@@ -12,8 +12,9 @@ Phases, each printing one line:
      blocks: synthetic, noise-only after priming, dense; the fused
      front-end at the three burst classes' batches of the 10 MHz group
      program, within max |err| 1e-5; the window gather at the 1 MHz
-     small-normal batch; the block gather single-call and chained, at
-     R = 64, 128, 256);
+     small-normal batch and the 25 MHz small-normal and large batches,
+     with fine shifts up to the decimation; the block gather single-call
+     and chained, at R = 64, 128, 256);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
      reader; no LLRs) and
@@ -26,8 +27,9 @@ Phases, each printing one line:
      program run eagerly;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
      whose captured gathers are checked against the plain gather on the
-     graph's last inputs, and the per-symbol demod loop alone at a
-     256-burst batch;
+     graph's last inputs, its burst detected and its wall taken on the
+     captured graphs, and the per-symbol demod loop alone at a 256-burst
+     batch;
   5. the protocol decode at the production 10 MHz configuration: a
      capture with injected IRA, IBC and IDA frames (one ACARS SBD message
      over two IDA bursts) through the pipeline with LLRs and the CLI's
@@ -216,45 +218,32 @@ def check_fused(dev, card: str) -> dict:
 
 
 def check_gather(dev, card: str) -> dict:
-    """The window gather at the batch the 1 MHz decode's group program
-    gives its small-normal class (decimation 4 has no fused front-end, so
-    the main path gathers there), from a 4-block group's planes, with
-    random window starts: bit-equal to the plain gather, timed beside it
-    and advanced indexing."""
+    """The window gather at the class batches of the group programs that
+    gather (decimations with no fused front-end): the 1 MHz small-normal
+    batch (the row) and the 25 MHz small-normal and large batches, each
+    from random planes of a 4-block group's length with random starts
+    [tile, r < decimation] (`tools/exp_window_gather.py`). Each is
+    bit-equal to the plain gather and timed beside it and advanced
+    indexing; `detail.per_shape` has all three."""
     import torch
-    from iridium_tpu_torch.config import DetectorConfig
-    from iridium_tpu_torch.ops import window_gather as wg
-    from iridium_tpu_torch.runtime.pipeline import Pipeline
-    from iridium_tpu_torch.tools import exp_frontend as tool
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_window_gather as tool
 
-    pipe = Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
-                    device=dev)
-    B, l_win = pipe.classes[0].batch, pipe.classes[0].l_win
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED + 2)
-    planes, starts2, _ = tool.frontend_inputs(
-        dev, gen, B, l_win, pipe.p.fft_size,
-        pipe.agg_blocks * pipe.stream_len)
-    got = wg.gather(planes, starts2, l_win)
-    want = wg.gather_plain(planes, starts2, l_win)
-    for a, b in zip(got, want):
-        if not torch.equal(a, b):
-            raise AssertionError("window_gather: not bit-equal to plain")
-    ms = time_ms(lambda: wg.gather(planes, starts2, l_win))
-    plain_ms = time_ms(lambda: wg.gather_plain(planes, starts2, l_win),
-                       reps=3)
-    idx = (starts2[:, 0].long() * wg.ALIGN + starts2[:, 1].long())[:, None] \
-        + torch.arange(l_win, device=dev)
-    lib_ms = time_ms(lambda: planes[:, idx], reps=3)
-    n_bytes = (8 * tool.covered_samples(starts2, l_win, planes.shape[1])
-               + 8 * B * l_win)
-    b_ms, b_by = bound(n_bytes, 0)
+    shapes = {(s["rate_mhz"], s["shape"]): s
+              for s in tool.class_shapes((1.0, 25.0))}
+    per_shape = [tool.run_shape(shapes[key], dev,
+                                [("package", _kernels.WINDOW_GATHER)])[0]
+                 for key in ((1.0, "small_normal"), (25.0, "small_normal"),
+                             (25.0, "large"))]
+    torch.cuda.empty_cache()    # the 25 MHz plain gather's ~20 GB
+    row = per_shape[0]
     return dict(name="window_gather", route="cuda",
                 source="iridium_tpu_torch/csrc/window_gather.cu",
                 replaces="iridium_tpu/ops/window_gather.py:55",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                detail=dict(card=card, B=B, l_win=l_win))
+                max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"],
+                detail=dict(card=card, per_shape=per_shape))
 
 
 def check_block_gather(dev, card: str) -> dict:
@@ -510,7 +499,8 @@ def gather_phase(dev, tmp) -> dict:
     """1 MHz (decimation 4): the fused shape is unsupported, so the
     group program gathers windows; each gather captured into its graph is
     checked after the run against the plain gather on the tensors of the
-    graph's last replay."""
+    graph's last replay, and the burst is detected. The launches are the
+    first run's; the wall is a second run's, on the captured graphs."""
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
@@ -543,6 +533,12 @@ def gather_phase(dev, tmp) -> dict:
         pl.window_gather.gather = kernel_gather
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in _kernels.KERNELS}
+    # the same decode again on the captured graphs, for its wall
+    pipe.reset(0)
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
     if counts["window_gather"] == 0 or counts["detect_scan"] == 0:
         raise AssertionError(f"1 MHz decode launches: {counts}")
     if counts["fused_frontend"] != 0:
@@ -553,8 +549,13 @@ def gather_phase(dev, tmp) -> dict:
         want = wg.gather_plain(planes, starts2, l_win)
         if not all(torch.equal(a, b) for a, b in zip(out, want)):
             raise AssertionError("pipeline gather differs from plain")
+    if pipe.stats.n_detected < 1 or not frames:
+        raise AssertionError("1 MHz decode: the burst was not detected")
+    seconds = len(cap) / 1_000_000
     return dict(phase="decode_1mhz", detected=pipe.stats.n_detected,
-                gathers_checked=len(calls), launches=counts)
+                raw_lines=len(frames), gathers_checked=len(calls),
+                capture_s=seconds, wall_s=wall, realtime_x=seconds / wall,
+                launches=counts)
 
 
 def demod_phase(dev) -> dict:

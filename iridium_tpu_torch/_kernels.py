@@ -140,7 +140,7 @@ FUSED_FRONTEND = Kernel(
     [P, LL, P, P, P, P, I, I, I, I, I, I, P, P, P, P])
 WINDOW_GATHER = Kernel(
     "window_gather",
-    [P, LL, P, I, I, I, P, P, P])
+    [P, LL, P, P, I, I, I, P, P, P])
 BLOCK_GATHER = Kernel(
     "block_gather",
     [P, P, LL, I, P, I, I, I, P, P, P])

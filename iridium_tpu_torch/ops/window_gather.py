@@ -10,8 +10,11 @@ start modulo the decimation factor, and the multiple-of-decimation
 alignment lead is zeroed downstream (dsp/downmix.py shift_dec).
 
 `gather` launches csrc/window_gather.cu on CUDA planes and runs
-`gather_plain` on CPU planes. Both are pure copies and agree bit for bit;
-samples past the end of the planes read as 0.
+`gather_plain` on CPU planes. Both are pure copies and agree bit for bit,
+for any r >= 0; samples outside the planes read as 0. On the card the
+kernel walks the windows in order of their start, ranked on the card into
+an `order` scratch that the wrapper allocates; nothing is read back to the
+host, so the gather captures into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -64,7 +67,9 @@ def gather(planes: torch.Tensor, starts2: torch.Tensor,
     out_im = torch.empty((B, l_win), dtype=torch.float32, device=dev)
     if B == 0:
         return out_re, out_im
+    order = torch.empty(B, dtype=torch.int32, device=dev)
     k = _kernels
-    k.WINDOW_GATHER.launch(dev, k.ptr(planes), n, k.ptr(starts2), B, l_win,
-                           ALIGN, k.ptr(out_re), k.ptr(out_im))
+    k.WINDOW_GATHER.launch(dev, k.ptr(planes), n, k.ptr(starts2),
+                           k.ptr(order), B, l_win, ALIGN, k.ptr(out_re),
+                           k.ptr(out_im))
     return out_re, out_im

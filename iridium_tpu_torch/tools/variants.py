@@ -1,5 +1,5 @@
 """Kernels built from another copy of a `csrc/` source, for the design
-experiments of `exp_scan` and `exp_block_gather --source`.
+experiments of `exp_scan` and the tools' `--source` options.
 
 A `Variant` compiles its text under build/kernels/variants/ with the base
 kernel's C entry point and flags; `swapped` puts it in the base kernel's
@@ -44,12 +44,13 @@ def swapped(attr: str, kernel: _kernels.Kernel):
         setattr(_kernels, attr, saved)
 
 
-def candidates(base: _kernels.Kernel, sources
+def candidates(base: _kernels.Kernel, sources, edit=None
                ) -> list[tuple[str, _kernels.Kernel]]:
-    """[("package", base)] and a Variant of `base` per source path, all
-    built at once (one nvcc each)."""
+    """[("package", base)] and a Variant of `base` per source path (its
+    text passed through `edit` where given), all built at once (one nvcc
+    each)."""
     cands = [("package", base)]
-    cands += [(str(src), Variant(base, Path(src).read_text()))
+    cands += [(str(src), Variant(base, (edit or str)(Path(src).read_text())))
               for src in sources]
     with concurrent.futures.ThreadPoolExecutor(len(cands)) as pool:
         for fut in [pool.submit(k.build) for _, k in cands]:

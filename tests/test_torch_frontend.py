@@ -8,6 +8,8 @@ bf16x3 dots and the oracle's float64, so it is held at test_fused_
 frontend.py's tolerance (rtol 2e-4, atol 2e-3) on the valid outputs.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 
 from test_fused_frontend import D, F, L_WIN, NTAPS, oracle  # noqa: E402
+from test_torch_kernels_cuda import GATHER_CASES, N_GATHER  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -57,6 +60,45 @@ def test_window_gather_bit_exact(l_blocks, n, starts):
     for g, pw, xw in zip(got, (p_re, p_im), (x_re, x_im)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(pw))
         np.testing.assert_array_equal(g.numpy(), np.asarray(xw))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case_windows(l_win):
+    """Every GATHER_CASES window at `l_win` through the Pallas gather in
+    interpret mode and the XLA gather, in one call each (one compile per
+    l_win), on the N_GATHER-sample stream with zeros after it: the windows
+    that run past its end read zeros there, as the port's do."""
+    stream = _stream(N_GATHER, seed=7)
+    padded = jnp.asarray(np.concatenate(
+        [stream, np.zeros(2 * wg.ALIGN + 128, np.complex64)]))
+    starts2 = jnp.asarray(np.concatenate(
+        [np.array(s, np.int32) for s in GATHER_CASES.values()]))
+    planes = jwg.stream_planes(padded)
+    pallas = jwg.make_window_gather(l_win, interpret=True)(
+        planes[0], planes[1], starts2)
+    xla = jwg.gather_windows_xla(padded, starts2, l_win)
+    first, rows = 0, {}
+    for name, s in GATHER_CASES.items():
+        rows[name] = slice(first, first + len(s))
+        first += len(s)
+    return stream, rows, [np.asarray(a) for a in (*pallas, *xla)]
+
+
+@pytest.mark.parametrize("l_win", [wg.ALIGN, 2 * wg.ALIGN])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_window_gather_fine_shifts_bit_exact(case, l_win):
+    """The plain gather against both JAX gathers at the shifts the card's
+    aligned loads take apart: r at every residue mod 4, r from 40 to 99,
+    duplicated and unsorted starts, windows past the end of the planes."""
+    stream, rows, (p_re, p_im, x_re, x_im) = _jax_case_windows(l_win)
+    starts2 = torch.tensor(GATHER_CASES[case], dtype=torch.int32)
+    got = wg.gather(_planes(stream), starts2, l_win)
+    sl = rows[case]
+    for g, pw, xw in zip(got, (p_re[sl], p_im[sl]), (x_re[sl], x_im[sl])):
+        np.testing.assert_array_equal(g.numpy(), pw)
+        np.testing.assert_array_equal(g.numpy(), xw)
+    ends = (starts2[:, 0] * wg.ALIGN + starts2[:, 1] + l_win).tolist()
+    assert (max(ends) > N_GATHER) == (case == "past_the_end")
 
 
 def test_fused_plain_matches_pallas_and_oracle():

@@ -40,12 +40,55 @@ def _planes(n, seed, dev):
         np.float32)).to(dev)
 
 
-def test_window_gather_bit_exact(dev):
-    planes = _planes(3 * wg.ALIGN + 64, 1, dev)
-    starts2 = torch.tensor([[0, 0], [0, 39], [1, 1], [2, 17], [2, 39]],
-                           dtype=torch.int32, device=dev)
-    for a, b in zip(wg.gather(planes, starts2, wg.ALIGN),
-                    wg.gather_plain(planes, starts2, wg.ALIGN)):
+# Window-gather cases (starts [tile, r]) on planes of N_GATHER samples,
+# each at l_win ALIGN and 2 ALIGN; tests/test_torch_frontend.py holds the
+# plain gather to the JAX package's gathers on the same cases.
+N_GATHER = 4 * wg.ALIGN + 64          # windows at tile 3 run past the end
+GATHER_CASES = {
+    # every residue of r mod 4, so every shift of the aligned loads
+    "residues": [[0, 0], [0, 1], [1, 2], [1, 3], [2, 4], [0, 5], [1, 6],
+                 [2, 7]],
+    # the shifts of decimations 50 and 100 (12.5 and 25 MHz)
+    "shifts_40_to_99": [[0, 40], [1, 41], [1, 62], [1, 99], [0, 98],
+                        [2, 43]],
+    "duplicated_unsorted": [[2, 5], [0, 3], [2, 5], [1, 0], [0, 3],
+                            [0, 3]],
+    "past_the_end": [[3, 0], [3, 37], [3, 70], [3, 99]],
+}
+
+
+def _gather_cases():
+    rng = np.random.default_rng(8)
+    many = np.stack([rng.integers(-1, 4, 300), rng.integers(0, 100, 300)],
+                    1).tolist()
+    cases = [pytest.param(N_GATHER, s, l_win, id=f"{name}-{l_win}")
+             for name, s in GATHER_CASES.items()
+             for l_win in (wg.ALIGN, 2 * wg.ALIGN)]
+    return cases + [
+        pytest.param(3 * wg.ALIGN + 64,
+                     [[0, 0], [0, 39], [1, 1], [2, 17], [2, 39]], wg.ALIGN,
+                     id="decimation_40"),
+        pytest.param(N_GATHER, [], wg.ALIGN, id="B0"),
+        pytest.param(N_GATHER, [[1, 3]], wg.ALIGN, id="B1"),
+        # not a multiple of a block's run of the window (2,048 samples)
+        pytest.param(N_GATHER, [[0, 1], [2, 6], [1, 99], [3, 2]],
+                     wg.ALIGN + 4 * 37, id="ragged_run"),
+        pytest.param(N_GATHER, [[0, 2], [1, 3]], 4, id="l_win_4"),
+        pytest.param(N_GATHER, [[-1, 3], [-1, 99], [-2, 0], [0, 0]],
+                     wg.ALIGN, id="before_the_start"),
+        # more windows than the rank kernel's block, starts repeated
+        pytest.param(N_GATHER, many, wg.ALIGN, id="many_windows"),
+    ]
+
+
+@pytest.mark.parametrize("n,starts,l_win", _gather_cases())
+def test_window_gather_bit_exact(dev, n, starts, l_win):
+    planes = _planes(n, 1, dev)
+    starts2 = torch.tensor(starts, dtype=torch.int32,
+                           device=dev).reshape(-1, 2)
+    got = wg.gather(planes, starts2, l_win)
+    assert got[0].shape == (len(starts), l_win)
+    for a, b in zip(got, wg.gather_plain(planes, starts2, l_win)):
         assert torch.equal(a, b)
 
 

@@ -1,7 +1,9 @@
 """The port's kernel-design tools on the CPU: the source rewriting that
 builds kernel variants (`tools/variants.py`), the phase probes of
 `tools/exp_scan.py`, and the scan inputs it times, at a small shape; the
-front-end tool `tools/exp_frontend.py` at its small CPU shape.
+front-end tool `tools/exp_frontend.py` and the window-gather tool
+`tools/exp_window_gather.py` at their small CPU shapes, and the latter's
+shape table.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -13,7 +15,9 @@ torch = pytest.importorskip("torch")
 from iridium_tpu_torch import _kernels  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
+from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
+from iridium_tpu_torch.tools import exp_window_gather  # noqa: E402
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -96,3 +100,66 @@ def test_exp_frontend_bound_counts_the_work():
         4 * ntaps * B * n_out / 67e12 * 1e3)
     assert b["bound_ms"] == max(b["bytes_ms"], b["tensor_ms"])
     assert b["bound_by"] == "bytes"
+
+
+def test_exp_window_gather_small_on_cpu(capsys):
+    assert exp_window_gather.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "small 4 x 40960 package:" in out and '"max_abs_err": 0.0' in out
+    with pytest.raises(SystemExit):
+        exp_window_gather.main(["--device", "cpu", "--small", "--source",
+                                "x.cu"])
+
+
+def test_exp_window_gather_shapes_follow_the_pipeline():
+    """The class batches of the 1 MHz and 25 MHz group programs and their
+    group streams (4 blocks), read from the pipeline."""
+    got = {(s["rate_mhz"], s["shape"]): s
+           for s in exp_window_gather.class_shapes((1.0, 25.0))}
+    want = {(1.0, "small_normal"): (1024, 143_360),
+            (1.0, "small_simplex"): (96, 143_360),
+            (1.0, "large"): (48, 143_360),
+            (25.0, "small_normal"): (1024, 614_400),
+            (25.0, "small_simplex"): (96, 614_400),
+            (25.0, "large"): (48, 2_846_720)}
+    assert {k: (s["B"], s["l_win"]) for k, s in got.items()} == want
+    for (mhz, _), s in got.items():
+        assert s["decim"] == {1.0: 4, 25.0: 100}[mhz]
+        assert s["n_stream"] == {1.0: 5_341_184, 25.0: 156_991_488}[mhz]
+        assert not s["fused"]
+
+
+def test_exp_window_gather_inputs_and_bound():
+    """Starts keep every window inside the stream with r < decimation;
+    the bound counts the covered samples once and the output once."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    B, l_win, decim, n = 64, 2 * wg.ALIGN, 100, 6 * wg.ALIGN
+    planes, starts2 = exp_window_gather.gather_inputs(
+        torch.device("cpu"), gen, B, l_win, decim, n)
+    assert planes.shape == (2, n) and starts2.dtype == torch.int32
+    r = starts2[:, 1]
+    assert int(r.min()) >= 0 and int(r.max()) < decim
+    s = starts2[:, 0].long() * wg.ALIGN + r
+    assert int(s.min()) >= 0 and int(s.max()) + l_win <= n
+    two = torch.tensor([[0, 0], [1, 3]], dtype=torch.int32)
+    covered = wg.ALIGN + 3 + l_win          # two windows, overlapping
+    assert exp_window_gather.bound_ms(two, l_win, n) == pytest.approx(
+        (8 * covered + 8 * 2 * l_win) / 3.35e12 * 1e3)
+
+
+def test_exp_window_gather_adapts_an_unordered_entry():
+    """A source whose entry takes no `order` scratch gets an entry with
+    the package's argument list; the package's own source is kept."""
+    own = _kernels.WINDOW_GATHER.source.read_text()
+    assert exp_window_gather.adapted(own) == own
+    old = ('extern "C" int window_gather(const float* planes, long long n,'
+           '\n    const int* starts2, int B, int l_win, int align,'
+           '\n    float* out_re, float* out_im, cudaStream_t stream) {'
+           '\n  return 0;\n}\n')
+    new = exp_window_gather.adapted(old)
+    assert new.startswith(old.replace("window_gather(",
+                                      "window_gather_unordered(", 1))
+    assert "const int* starts2, int* order, int B," in new
+    assert new.count('extern "C" int window_gather(') == 1
