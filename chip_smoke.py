@@ -26,10 +26,23 @@ Phases, each printing one line:
      the group program through its graphs is bit-equal to the same
      program run eagerly;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose captured gathers are checked against the plain gather on the
-     graph's last inputs, its burst detected and its wall taken on the
-     captured graphs, and the per-symbol demod loop alone at a 256-burst
-     batch;
+     whose gathers captured into its graphs are held bit-equal to the
+     plain gather after every replay (`ReplayCheck`), its burst detected
+     and its wall taken on the captured graphs, and the per-symbol demod
+     loop alone at a 256-burst batch;
+  4b. `mesh`: the sharded pipeline (`parallel/stream.py`) in this
+     process at world size 1 over NCCL: the RAW 10 MHz capture in
+     replicated mode (lines with ids equal to phase 3's, every payload
+     bit-exact, the scan and the fused front-end launched), the 1 MHz
+     capture in binshard mode (detect_fast with its per-frame all_reduce;
+     lines, ids masked, equal to the single card's detect_fast decode;
+     the window gather launched), and the CLI with and without `--mesh 1`
+     (one spawned rank), each its own process: the same lines. The
+     front-end and gather calls in the sharded graphs (the sharded
+     capacities' batches, 256 and 48 bursts) are held to their plain
+     versions after every replay of the warm-up runs (`ReplayCheck`).
+     Walls and realtime factors beside the single card's, the
+     collectives' ms;
   5. the protocol decode at the production 10 MHz configuration: a
      capture with injected IRA, IBC and IDA frames (one ACARS SBD message
      over two IDA bursts) through the pipeline with LLRs and the CLI's
@@ -55,7 +68,9 @@ Phases, each printing one line:
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded), its
-     times and its bound.
+     times and its bound; `detail.path_checks` has the calls
+     `ReplayCheck` held in phases 4 and 4b, and `max_abs_err` covers
+     them.
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
 at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
 and 1000, history_size 16), and `detect_fast_card` holds detect_fast (one
@@ -70,6 +85,7 @@ script, it fails before printing a result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -314,46 +330,6 @@ def kernel_phase(dev, card: str) -> list[dict]:
 
 # ---- phases 3 and 4: the offline decode through Pipeline.run_file ----
 
-PROD = dict(sample_rate=10_000_000, frames_per_block=2048,
-            gone_capacity=2048)
-
-
-def production_capture(rng):
-    """Three blocks of 10 MHz noise (the last one partial) with 13 DL
-    bursts:
-    two in the simplex band with frames longer than the normal band
-    allows, one straddling the first block boundary. Returns the capture
-    and the injected (start, offset Hz, payload bits). (UL bursts are left
-    out: the reference's uw_start arithmetic rejects them, and so does
-    the port; test_e2e.py's test_ul_burst_rejected_like_reference.)"""
-    from iridium_tpu_torch.io import synth
-    fs = PROD["sample_rate"]
-    block = PROD["frames_per_block"] * 8192
-    total = 2 * block + 4_000_000
-    cap = synth.noise(total, seed=SEED)
-    plan = [(5_000_000, 137_000.0), (6_900_000, -2_310_000.0),
-            (8_800_000, 4_300_000.0), (10_700_000, 1_020_000.0),
-            (12_600_000, -4_400_000.0), (14_500_000, 3_050_000.0),
-            (block - 30_000, -220_000.0), (19_000_000, 4_650_000.0),
-            (21_500_000, -1_480_000.0), (24_000_000, 2_270_000.0),
-            (26_500_000, -3_330_000.0), (29_000_000, 620_000.0),
-            (31_500_000, -880_000.0)]
-    bursts = []
-    for start, off in plan:
-        n_bits = 500 if off > 4e6 else 300
-        # 8 guard bits after the payload: the end-of-frame magnitude drop
-        # (qpsk_demod.c:199-260) may trim the last symbols on the ramp
-        bits = rng.integers(0, 2, n_bits + 8).astype(np.uint8)
-        synth.add_burst(cap, synth.burst_waveform(bits, fs, off), start,
-                        snr_db=float(rng.uniform(22.0, 32.0)))
-        bursts.append((start, off, bits[:n_bits]))
-    return cap, bursts
-
-
-def write_cf32(path, cap):
-    np.ascontiguousarray(cap, np.complex64).view(np.float32).tofile(path)
-
-
 GRAPH_PARTS = ("route", "small_normal", "small_simplex", "large")
 
 
@@ -381,15 +357,31 @@ def graph_run(pipe, g):
 T0 = 1_700_000_000_000_000_000
 
 
+def missing_payloads(frames, bursts, det) -> list:
+    """The injected (start, offset) whose payload no frame carries
+    bit-exact within 2 kHz of its frequency."""
+    from iridium_tpu_torch.io import synth
+    missing = []
+    for start, off, bits in bursts:
+        exp = synth.expected_bits(bits, "DL")
+        if not any(len(f["bits"]) >= len(exp)
+                   and np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
+                   and abs(f["frequency"] - (det.center_frequency + off))
+                   < 2e3 for f in frames):
+            missing.append((start, off))
+    return missing
+
+
 def decode_phase(dev, tmp) -> tuple[dict, dict]:
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
-    from iridium_tpu_torch.io import synth
     from iridium_tpu_torch.output.raw import RawPrinter
     from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools.captures import (PROD, production_capture,
+                                                  write_cf32)
 
-    cap, bursts = production_capture(np.random.default_rng(SEED))
+    cap, bursts = production_capture(SEED)
     path = os.path.join(tmp, "capture_10mhz.cf32")
     write_cf32(path, cap)
     seconds = len(cap) / PROD["sample_rate"]
@@ -414,15 +406,7 @@ def decode_phase(dev, tmp) -> tuple[dict, dict]:
     for name in ("detect_scan", "fused_frontend"):
         if counts[name] == 0:
             raise AssertionError(f"10 MHz decode never launched {name}")
-    missing = []
-    for start, off, bits in bursts:
-        exp = synth.expected_bits(bits, "DL")
-        hit = [f for f in frames
-               if len(f["bits"]) >= len(exp)
-               and np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
-               and abs(f["frequency"] - (det.center_frequency + off)) < 2e3]
-        if not hit:
-            missing.append((start, off))
+    missing = missing_payloads(frames, bursts, det)
     if missing:
         raise AssertionError(f"payloads not decoded bit-exact: {missing}")
     if not pipe.graphs:
@@ -435,7 +419,8 @@ def decode_phase(dev, tmp) -> tuple[dict, dict]:
                 ok_pct=100.0 * st.n_ok / max(st.n_detected, 1),
                 q_peak=pipe.take_q_peak(), warmup_s=warmup_s,
                 stages=dict(pipe.timing), graphs=graph_info(pipe),
-                launches=counts), dict(pipe=pipe, path=path, lines=lines)
+                launches=counts), dict(pipe=pipe, path=path, lines=lines,
+                                       bursts=bursts)
 
 
 def profile_phase(pipe, path: str, wall_s: float) -> dict:
@@ -495,42 +480,114 @@ def group_oracle_phase(pipe, path: str, lines: list) -> dict:
     return res
 
 
+class ReplayCheck:
+    """Holds every kernel call captured into a pipeline's CUDA graphs to
+    its plain version after each replay of that graph: the fused
+    front-end within FUSED_MAX_ERR of `fused_plain`, the window gather
+    bit-equal to `gather_plain`. A graph reads static buffers and
+    rewrites its other tensors at each replay, so after a replay the
+    recorded inputs and outputs are that replay's. Used as a context
+    around a decode that captures its graphs; `summary` has, per kernel,
+    the calls checked, their (B, l_win) shapes and the largest |err|.
+    The comparisons launch no kernel."""
+
+    def __enter__(self):
+        import torch
+        from iridium_tpu_torch.ops import fused_frontend as ff
+        from iridium_tpu_torch.ops import window_gather as wg
+        from iridium_tpu_torch.runtime import pipeline as pl
+
+        self.calls: dict = {}       # Captured -> [(kernel, args, out)]
+        self.summary: dict = {}
+        self._cur = None
+        saved = self._saved = (ff.fused, wg.gather, pl.Captured._capture,
+                               pl.Captured.replay)
+        fused, gather, capture, replay = saved
+
+        def record(name, fn):
+            def wrapped(*args):
+                out = fn(*args)
+                if torch.cuda.is_current_stream_capturing():
+                    self.calls.setdefault(self._cur, []).append(
+                        (name, args, out))
+                return out
+            return wrapped
+
+        def capturing(part, fn):
+            self._cur = part
+            try:
+                capture(part, fn)
+            finally:
+                self._cur = None
+
+        def replaying(part, fn):
+            out = replay(part, fn)
+            for name, args, got in self.calls.get(part, ()):
+                self._check(name, args, got)
+            return out
+
+        ff.fused = record("fused_frontend", fused)
+        wg.gather = record("window_gather", gather)
+        pl.Captured._capture = capturing
+        pl.Captured.replay = replaying
+        return self
+
+    def __exit__(self, *exc):
+        from iridium_tpu_torch.ops import fused_frontend as ff
+        from iridium_tpu_torch.ops import window_gather as wg
+        from iridium_tpu_torch.runtime import pipeline as pl
+        (ff.fused, wg.gather, pl.Captured._capture,
+         pl.Captured.replay) = self._saved
+        self.calls.clear()
+        return False
+
+    def _check(self, name: str, args, got) -> None:
+        import torch
+        from iridium_tpu_torch.ops import fused_frontend as ff
+        from iridium_tpu_torch.ops import window_gather as wg
+        if name == "fused_frontend":
+            want = ff.fused_plain(*args)
+            err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                      for a, b in zip(got, want))
+            l_win, bad = args[5], not err <= FUSED_MAX_ERR
+        else:
+            want = wg.gather_plain(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = 0.0 if same else max(float((a - b).abs().max())
+                                       for a, b in zip(got, want))
+            l_win, bad = args[2], not same
+        shape = [args[1].shape[0], l_win]
+        if bad:
+            raise AssertionError(f"{name} {shape} in a graph replay: max "
+                                 f"|err| {err} against its plain version")
+        s = self.summary.setdefault(name, dict(calls=0, shapes=[],
+                                               max_abs_err=0.0))
+        s["calls"] += 1
+        if shape not in s["shapes"]:
+            s["shapes"].append(shape)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+
+
 def gather_phase(dev, tmp) -> dict:
     """1 MHz (decimation 4): the fused shape is unsupported, so the
-    group program gathers windows; each gather captured into its graph is
-    checked after the run against the plain gather on the tensors of the
-    graph's last replay, and the burst is detected. The launches are the
-    first run's; the wall is a second run's, on the captured graphs."""
+    group program gathers windows; each gather captured into a graph is
+    held bit-equal to the plain gather after every replay (`ReplayCheck`),
+    and the burst is detected. The launches are the first run's; the wall
+    is a second run's, on the captured graphs."""
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
-    from iridium_tpu_torch.io import synth
-    from iridium_tpu_torch.ops import window_gather as wg
     from iridium_tpu_torch.runtime import pipeline as pl
+    from iridium_tpu_torch.tools.captures import capture_1mhz, write_cf32
 
-    bits = np.random.default_rng(SEED + 3).integers(0, 2, 300).astype(
-        np.uint8)
-    cap = synth.make_capture(bits, sample_rate=1_000_000,
-                             freq_offset_hz=100_000.0, snr_db=30.0)
+    cap = capture_1mhz(SEED + 3)
     path = os.path.join(tmp, "capture_1mhz.cf32")
     write_cf32(path, cap)
-    calls = []
-    kernel_gather = wg.gather
-
-    def recording(planes, starts2, l_win):
-        out = kernel_gather(planes, starts2, l_win)
-        if torch.cuda.is_current_stream_capturing():
-            calls.append((planes, starts2, l_win, out))
-        return out
-
     pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
                        start_time_ns=0, device=dev, want_llr=False)
     _kernels.reset_counts()
-    pl.window_gather.gather = recording
-    try:
+    with ReplayCheck() as chk:
         list(pipe.run_file(path))
-    finally:
-        pl.window_gather.gather = kernel_gather
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in _kernels.KERNELS}
     # the same decode again on the captured graphs, for its wall
@@ -543,19 +600,16 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError(f"1 MHz decode launches: {counts}")
     if counts["fused_frontend"] != 0:
         raise AssertionError("1 MHz decode took the fused path")
-    if not calls:
+    if "window_gather" not in chk.summary:
         raise AssertionError("no gather was captured into a group graph")
-    for planes, starts2, l_win, out in calls:
-        want = wg.gather_plain(planes, starts2, l_win)
-        if not all(torch.equal(a, b) for a, b in zip(out, want)):
-            raise AssertionError("pipeline gather differs from plain")
     if pipe.stats.n_detected < 1 or not frames:
         raise AssertionError("1 MHz decode: the burst was not detected")
     seconds = len(cap) / 1_000_000
     return dict(phase="decode_1mhz", detected=pipe.stats.n_detected,
-                raw_lines=len(frames), gathers_checked=len(calls),
+                raw_lines=len(frames),
+                gathers_checked=chk.summary["window_gather"]["calls"],
                 capture_s=seconds, wall_s=wall, realtime_x=seconds / wall,
-                launches=counts)
+                kernel_checks=chk.summary, launches=counts)
 
 
 def demod_phase(dev) -> dict:
@@ -579,6 +633,163 @@ def demod_phase(dev) -> dict:
     return dict(phase="demod_loop", batch=B, symbols=S, ms=ms)
 
 
+# ---- mesh: the sharded pipeline at world size 1 over NCCL ----
+
+def strip_id(line: str) -> str:
+    import re
+    return re.sub(r"I:\d{11}", "I:-----------", line)
+
+
+def cli_lines(*runs: list) -> list:
+    """RAW lines of the port's CLI, each run (its arguments) as its own
+    process, all at once: per run the lines from the frequency on (the
+    first fields hold the wall-clock start)."""
+    procs = [subprocess.Popen([sys.executable, "-m", "iridium_tpu_torch.cli"]
+                              + args, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in runs]
+    out = []
+    try:
+        for args, p in zip(runs, procs):
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"CLI {args}: exit {p.returncode}\n"
+                                     f"{stderr[-2000:]}")
+            out.append([x.split(" ")[3:] for x in stdout.splitlines()])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def mesh_phase(dev, tmp, single: dict) -> dict:
+    """The sharded pipeline (`parallel/stream.py`) in this process at world
+    size 1 over NCCL: (1) replicated detect on the RAW 10 MHz capture file
+    (the scan kernel, the fused front-end), warm (graphs captured by a
+    first run): the single card's lines, ids included, and every payload
+    bit-exact; (2) binshard detect on the 1 MHz capture (detect_fast with
+    its per-frame all_reduce of the coupling pair, the window gather),
+    warm: the lines of the single card's Pipeline(detect_impl="fast") with
+    the ids masked; (3) the CLI with `--mesh 1` (one spawned rank) and
+    without it, each its own process, on the 1 MHz capture: the same
+    lines (the two processes run side by side). The warm-up runs of (1)
+    and (2) capture the graphs and hold every kernel call in them to its
+    plain version after each replay (`ReplayCheck`), at the shapes of the
+    sharded capacities. Walls and realtime factors beside the single
+    card's, the collectives' device ms, the kernel launches of (1) and
+    (2)."""
+    import torch
+    import torch.distributed as dist
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.parallel import distributed
+    from iridium_tpu_torch.parallel.stream import ShardedPipeline
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools.captures import PROD
+
+    def timed(pipe, path, check=None):
+        """A warm-up decode (under `check`, where given), then a counted
+        one: (lines, frames, wall, launches)."""
+        with check or contextlib.nullcontext():
+            list(pipe.run_file(path))
+        pipe.reset(T0)
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t = time.perf_counter()
+        frames = list(pipe.run_file(path))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        printer = RawPrinter()
+        return ([printer.format(f) for f in frames], frames, wall,
+                {k.name: k.launches for k in _kernels.KERNELS})
+
+    made = distributed.initialize(device="cuda")
+    try:
+        mesh = distributed.make_mesh()
+        res = dict(phase="mesh", world_size=mesh.n,
+                   backend=dist.get_backend())
+        det = DetectorConfig(**PROD)
+        sp = ShardedPipeline(det, mesh=mesh, start_time_ns=T0,
+                             want_llr=False, burst_batch=128)
+        chk = ReplayCheck()
+        lines, frames, wall, rep = timed(sp, single["path"], chk)
+        if lines != single["lines"]:
+            raise AssertionError(f"mesh replicated 10 MHz: {len(lines)} lines "
+                                 f"differ from the single card's "
+                                 f"{len(single['lines'])}")
+        missing = missing_payloads(frames, single["bursts"], det)
+        if missing:
+            raise AssertionError(f"mesh replicated 10 MHz: payloads not "
+                                 f"decoded bit-exact: {missing}")
+        for name in ("detect_scan", "fused_frontend"):
+            if rep[name] == 0:
+                raise AssertionError(f"mesh replicated never launched {name}")
+        if "fused_frontend" not in chk.summary:
+            raise AssertionError("mesh replicated: no front-end call was "
+                                 "checked")
+        checks = dict(chk.summary)
+        seconds = single["capture_s"]
+        res["replicated_10mhz"] = dict(
+            detect_impl=sp.detect_impl, lines=len(lines),
+            lines_equal_with_ids=True,
+            payloads_bit_exact=len(single["bursts"]), wall_s=wall,
+            realtime_x=seconds / wall, single_wall_s=single["wall_s"],
+            single_realtime_x=seconds / single["wall_s"],
+            collectives_ms=1e3 * sp.timing["collectives"],
+            n_collectives=sp.timing["n_collectives"],
+            stages=dict(sp.timing), launches=rep)
+        del sp
+
+        path1 = os.path.join(tmp, "capture_1mhz.cf32")
+        det1 = DetectorConfig(sample_rate=1_000_000)
+        one = Pipeline(det_cfg=det1, start_time_ns=T0, device=dev,
+                       want_llr=False, detect_impl="fast")
+        want, _, wall1, _ = timed(one, path1)
+        del one
+        sb = ShardedPipeline(det1, mesh=mesh, start_time_ns=T0,
+                             want_llr=False, burst_batch=128,
+                             detect_mode="binshard")
+        chk = ReplayCheck()
+        got, _, wall_b, binc = timed(sb, path1, chk)
+        if not want or list(map(strip_id, got)) != list(map(strip_id, want)):
+            raise AssertionError(f"mesh binshard 1 MHz: {len(got)} lines "
+                                 f"against {len(want)}")
+        if binc["window_gather"] == 0 or binc["detect_scan"] != 0:
+            raise AssertionError(f"mesh binshard 1 MHz launches: {binc}")
+        if "window_gather" not in chk.summary:
+            raise AssertionError("mesh binshard: no gather was checked")
+        checks.update(chk.summary)
+        seconds1 = os.path.getsize(path1) / 8 / 1_000_000
+        res["binshard_1mhz"] = dict(
+            detect_impl=sb.detect_impl, lines=len(got),
+            lines_equal_ids_masked=True, wall_s=wall_b,
+            realtime_x=seconds1 / wall_b, single_fast_wall_s=wall1,
+            single_fast_realtime_x=seconds1 / wall1,
+            collectives_ms=1e3 * sb.timing["collectives"],
+            n_collectives=sb.timing["n_collectives"],
+            stages=dict(sb.timing), launches=binc)
+        del sb
+    finally:
+        if made:
+            distributed.shutdown()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    args = ["-f", path1, "-r", "1000000"]
+    plain, meshed = cli_lines(args, args + ["--mesh", "1"])
+    if not plain or meshed != plain:
+        raise AssertionError(f"CLI --mesh 1: {len(meshed)} lines against "
+                             f"{len(plain)} without --mesh")
+    res["cli_1mhz"] = dict(lines=len(plain), mesh_1_lines_equal=True,
+                           both_processes_s=time.perf_counter() - t)
+    res["launches"] = {k: rep[k] + binc[k] for k in rep}
+    res["kernel_checks"] = checks
+    return res
+
+
 # ---- phase 5: the protocol decode (--parsed, ACARS) at 10 MHz ----
 
 ACARS_TEXT = b"SMOKE TEST 1"
@@ -591,6 +802,7 @@ def frames_capture(rng):
     block boundary) and one ACARS SBD message over two IDA bursts 90 ms
     apart on one channel. Returns the capture and what was injected."""
     from iridium_tpu_torch.io import synth, synth_frames as sf
+    from iridium_tpu_torch.tools.captures import PROD
     fs = PROD["sample_rate"]
     block = PROD["frames_per_block"] * 8192
     cap = synth.noise(2 * block + 4_000_000, seed=SEED + 6)
@@ -639,6 +851,7 @@ def parsed_phase(dev, tmp) -> dict:
     from iridium_tpu_torch.io import native
     from iridium_tpu_torch.output.raw import RawPrinter
     from iridium_tpu_torch.runtime import pipeline as pl
+    from iridium_tpu_torch.tools.captures import PROD, write_cf32
 
     cap, want = frames_capture(np.random.default_rng(SEED + 7))
     path = os.path.join(tmp, "frames_10mhz.cf32")
@@ -744,45 +957,6 @@ def tool_phase(dev) -> dict:
 
 # ---- phase 7: a live band's density through the group flow ----
 
-DENSE_BLOCKS = 8
-DENSE_PER_S = 250.0        # BENCH_r05.json's det/s: a live 10 MHz band
-
-
-def dense_capture(rng):
-    """DENSE_BLOCKS production blocks of 10 MHz noise with DL bursts at
-    DENSE_PER_S after the detector's priming, each at a uniform start,
-    22-32 dB: 88% with 300-bit payloads over the duplex band (-4.9 to
-    +3.95 MHz from the centre), 12% with 500-bit frames in the simplex
-    band (+4.02 to +4.46 MHz). Payloads come from 48 waveforms made once
-    at baseband and shifted to each burst's offset."""
-    from iridium_tpu_torch import iridium
-    from iridium_tpu_torch.io import synth
-    fs = PROD["sample_rate"]
-    total = DENSE_BLOCKS * PROD["frames_per_block"] * 8192
-    cap = synth.noise(total, seed=SEED + 8)
-    first = (iridium.DEFAULT_HISTORY_SIZE + 32) * 8192
-    waves = [synth.burst_waveform(rng.integers(0, 2, nb).astype(np.uint8),
-                                  fs, 0.0)
-             for nb in [308] * 32 + [508] * 16]
-    n = int(DENSE_PER_S * (total - first) / fs)
-    for _ in range(n):
-        simplex = rng.random() < 0.12
-        w = waves[32 + rng.integers(16) if simplex else rng.integers(32)]
-        off = (rng.uniform(4.02e6, 4.46e6) if simplex
-               else rng.uniform(-4.9e6, 3.95e6))
-        start = int(rng.integers(first, total - len(w)))
-        # exp(i w n) for n = 512 a + b, as the outer product of two short
-        # tables
-        step = 2 * np.pi * off / fs
-        hi = np.exp(1j * step * 512 * np.arange(-(-len(w) // 512)))
-        lo = np.exp(1j * step * np.arange(512))
-        tone = (hi.astype(np.complex64)[:, None]
-                * lo.astype(np.complex64)[None, :]).reshape(-1)[:len(w)]
-        amp = np.float32(0.01 * 10.0 ** (rng.uniform(22.0, 32.0) / 20.0))
-        cap[start:start + len(w)] += (amp * w) * tone
-    return cap, n
-
-
 def dense_phase(dev, tmp) -> tuple[dict, dict]:
     """The dense capture through the group flow (after a warm-up on its
     first group that captures the graph), with its host-routed run on the
@@ -796,9 +970,11 @@ def dense_phase(dev, tmp) -> tuple[dict, dict]:
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.output.raw import RawPrinter
     from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools.captures import (PROD, dense_capture,
+                                                  write_cf32)
 
     t = time.perf_counter()
-    cap, injected = dense_capture(np.random.default_rng(SEED + 8))
+    cap, injected = dense_capture(SEED + 8)
     path = os.path.join(tmp, "dense_10mhz.cf32")
     write_cf32(path, cap)
     make_s = time.perf_counter() - t
@@ -1025,8 +1201,8 @@ def wideband_phase(dev, tmp) -> dict:
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
-    from iridium_tpu_torch.io import synth
     from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools.captures import write_cf32
 
     t = time.perf_counter()
     cap, bursts = wideband_capture(np.random.default_rng(SEED + 9))
@@ -1053,14 +1229,7 @@ def wideband_phase(dev, tmp) -> dict:
     if (counts["window_gather"] == 0 or counts["detect_scan"] != 0
             or counts["fused_frontend"] != 0):
         raise AssertionError(f"25 MHz decode launches: {counts}")
-    missing = []
-    for start, off, bits in bursts:
-        exp = synth.expected_bits(bits, "DL")
-        if not any(len(f["bits"]) >= len(exp)
-                   and np.array_equal(np.asarray(f["bits"][:len(exp)]), exp)
-                   and abs(f["frequency"] - (det.center_frequency + off))
-                   < 2e3 for f in frames):
-            missing.append((start, off))
+    missing = missing_payloads(frames, bursts, det)
     if missing:
         raise AssertionError(f"25 MHz payloads not decoded bit-exact: "
                              f"{missing}")
@@ -1167,7 +1336,6 @@ def main() -> int:
 
     card = smi.stdout.strip()
     clock = [time.perf_counter()]
-
     def emit(res: dict) -> dict:
         """Print a phase's line with the card and the phase's seconds."""
         now = time.perf_counter()
@@ -1184,9 +1352,13 @@ def main() -> int:
         dec, ctx = decode_phase(dev, tmp)
         emit(dec)
         emit(profile_phase(ctx["pipe"], ctx["path"], dec["wall_s"]))
-        emit(group_oracle_phase(**ctx))
+        emit(group_oracle_phase(ctx["pipe"], ctx["path"], ctx["lines"]))
+        single = dict(path=ctx["path"], lines=ctx["lines"],
+                      bursts=ctx["bursts"], wall_s=dec["wall_s"],
+                      capture_s=dec["capture_s"])
         del ctx
         gat = emit(gather_phase(dev, tmp))
+        mesh = emit(mesh_phase(dev, tmp, single))
         emit(demod_phase(dev))
         par = emit(parsed_phase(dev, tmp))
         tool = emit(tool_phase(dev))
@@ -1195,11 +1367,17 @@ def main() -> int:
         ing = emit(ingest_phase(dev, **ctx))
         del ctx
         wide = emit(wideband_phase(dev, tmp))
+    paths = (dec, gat, mesh, par, tool, den, ing, wide)
     for r in rows:
-        r["launches"] = sum(ph["launches"][r["name"]]
-                            for ph in (dec, gat, par, tool, den, ing, wide))
+        r["launches"] = sum(ph["launches"][r["name"]] for ph in paths)
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
+        # the calls checked inside the decodes' graphs (ReplayCheck)
+        for ph in paths:
+            c = ph.get("kernel_checks", {}).get(r["name"])
+            if c:
+                r["detail"].setdefault("path_checks", {})[ph["phase"]] = c
+                r["max_abs_err"] = max(r["max_abs_err"], c["max_abs_err"])
     if "jax" in sys.modules or "iridium_tpu" in sys.modules:
         return fail("JAX or the JAX package was imported")
     print(json.dumps({"kernels": rows}))

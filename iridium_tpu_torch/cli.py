@@ -12,9 +12,14 @@ packed rows only when a decoder is on. `--agg-blocks` sets the blocks that
 share one group program and one result copy (4 for a file, 1 for stdin),
 `--save-bursts` dumps each burst's samples (the per-batch flow), and
 `--profile` writes a torch.profiler trace and prints the per-stage times.
-The JAX package's backend switches (`--no-pallas`, `--fir`, `--gather`,
-`--scan`) and `--mesh` have no counterpart: the card's path always runs
-the port's kernels, on one card.
+`--mesh N` decodes through the sharded pipeline (parallel/stream.py,
+replicated detect) over N ranks, one card each (gloo ranks with `--device
+cpu`): under torchrun it joins the launcher's group, which must have N
+ranks; otherwise it starts N local ranks (`distributed.spawn`). Every rank
+reads the file; rank 0 alone prints lines, runs the decoders and sockets
+and prints the stats line. The JAX package's backend switches
+(`--no-pallas`, `--fir`, `--gather`, `--scan`) have no counterpart: the
+card's path always runs the port's kernels.
 
 Stats line: the gr-iridium-format 1 Hz stderr line (main.c:483-501).
 """
@@ -101,6 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device; "
                         "'cpu' runs the plain versions of the kernels)")
+    p.add_argument("--mesh", type=int, metavar="N",
+                   help="run the capture through the sharded pipeline over "
+                        "N ranks, one card each (gloo ranks on the CPU with "
+                        "--device cpu); under torchrun the launcher's N "
+                        "ranks, else N local processes; output is printed "
+                        "by rank 0 only")
     return p
 
 
@@ -109,6 +120,17 @@ def main(argv=None) -> int:
     if not args.file:
         print("error: -f/--file required", file=sys.stderr)
         return 2
+    # live mode (stdin): one block a group, to keep the output latency at
+    # one block, and the first stats column reads i:/s (main.c:487-492)
+    live = args.file in ("-", "/dev/stdin")
+    if args.mesh is not None:
+        if live:
+            print("error: --mesh needs a file: every rank reads it",
+                  file=sys.stderr)
+            return 2
+        from .parallel import distributed
+        if not distributed.in_group():
+            return _spawn_mesh(args, sys.argv[1:] if argv is None else argv)
     from .io import native
     from .runtime.pipeline import Pipeline   # deferred: imports torch
 
@@ -121,15 +143,66 @@ def main(argv=None) -> int:
     decode_active = (args.parsed or args.gsmtap or args.web is not None
                      or args.position is not None or args.acars
                      or args.acars_json or args.acars_udp or args.feed)
-    # live mode (stdin): one block a group, to keep the output latency at
-    # one block, and the first stats column reads i:/s (main.c:487-492)
-    live = args.file in ("-", "/dev/stdin")
-    pipe = Pipeline(det_cfg=det, dm_cfg=DownmixConfig(),
-                    burst_batch=args.burst_batch,
-                    use_gardner=not args.no_gardner,
-                    device=args.device, want_llr=bool(decode_active),
-                    save_bursts_dir=args.save_bursts,
-                    agg_blocks=args.agg_blocks or (1 if live else 4))
+    agg = args.agg_blocks or (1 if live else 4)
+    made_group = False
+    if args.mesh is not None:
+        # a rank of the sharded pipeline (iridium_tpu/cli.py:150-175)
+        from .parallel.stream import ShardedPipeline
+        made_group = distributed.initialize(device=args.device)
+        mesh = distributed.make_mesh()
+        if mesh.n != args.mesh:
+            print(f"error: --mesh {args.mesh} but the group has {mesh.n} "
+                  "ranks", file=sys.stderr)
+            if made_group:
+                distributed.shutdown()
+            return 2
+        host0 = distributed.is_host0()
+        if args.save_bursts and host0:
+            print("warning: --save-bursts is not supported on the "
+                  "--mesh sharded path; ignoring", file=sys.stderr)
+        pipe = ShardedPipeline(det, DownmixConfig(), mesh=mesh,
+                               burst_batch=args.burst_batch,
+                               use_gardner=not args.no_gardner,
+                               want_llr=bool(decode_active), agg_blocks=agg,
+                               device=args.device)
+    else:
+        pipe = Pipeline(det_cfg=det, dm_cfg=DownmixConfig(),
+                        burst_batch=args.burst_batch,
+                        use_gardner=not args.no_gardner,
+                        device=args.device, want_llr=bool(decode_active),
+                        save_bursts_dir=args.save_bursts, agg_blocks=agg)
+        host0 = True
+    try:
+        return _decode(args, pipe, native, live, host0)
+    finally:
+        if made_group:
+            distributed.shutdown()
+
+
+def _spawn_mesh(args, argv: list) -> int:
+    """--mesh N outside a group: N local ranks, one card each, each running
+    main(argv); the exit code is rank 0's (any rank's failure raises)."""
+    import torch
+    from . import device as device_mod
+    from .parallel import distributed
+    dev = device_mod.resolve(args.device)
+    if dev.type == "cuda" and torch.cuda.device_count() < args.mesh:
+        # the JAX CLI's message (iridium_tpu/cli.py:158-162)
+        print(f"error: --mesh {args.mesh} but only "
+              f"{torch.cuda.device_count()} devices available",
+              file=sys.stderr)
+        return 2
+    return distributed.spawn(main, args.mesh, args.device, list(argv))[0]
+
+
+def _decode(args, pipe, native, live: bool, host0: bool) -> int:
+    """The decode loop with its outputs; on a rank other than 0 (host0
+    False) it only drives the pipeline: no lines, sockets or stats."""
+    if not host0:
+        for _ in pipe.run_blocks(native.read_blocks(
+                args.file, pipe.p.block_samples, args.format, pipe.device)):
+            pass
+        return 0
     printer = RawPrinter(args.file_info)
 
     zmq_sock = None

@@ -260,12 +260,15 @@ def frame_window(p: DetectorParams, device) -> torch.Tensor:
 
 
 def spectrogram(samples: torch.Tensor, p: DetectorParams,
-                window: torch.Tensor | None = None) -> torch.Tensor:
+                window: torch.Tensor | None = None,
+                n_frames: int | None = None) -> torch.Tensor:
     """(block_samples,) complex64 -> (frames_per_block, F) f32 fftshifted
-    |X|^2 of the Blackman-windowed frames. A caller that runs many blocks
-    passes `frame_window` once made: building it copies from the host,
-    which waits for the device."""
-    F, n_frames = p.fft_size, p.frames_per_block
+    |X|^2 of the Blackman-windowed frames (`n_frames` frames: a sharded
+    rank's time slice). A caller that runs many blocks passes
+    `frame_window` once made: building it copies from the host, which
+    waits for the device."""
+    F = p.fft_size
+    n_frames = p.frames_per_block if n_frames is None else n_frames
     if window is None:
         window = frame_window(p, samples.device)
     frames = samples[: n_frames * F].reshape(n_frames, F)

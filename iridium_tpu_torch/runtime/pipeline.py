@@ -226,7 +226,7 @@ class BurstClass:
     runs at once (`batch` = jobs x bursts per job) and its symbol cap, with
     its front-end, downmix and demod."""
 
-    def __init__(self, pipe: "Pipeline", l_win: int, dec_cap: int,
+    def __init__(self, pipe: "BurstDecoder", l_win: int, dec_cap: int,
                  jobs: int, per_job: int, frame_cap: int,
                  fused: bool = True):
         p, dmp = pipe.p, pipe.dmp
@@ -290,6 +290,231 @@ class BurstClass:
         return torch.cat(rows)
 
 
+def class_program(classes, planes: torch.Tensor, routing, skips,
+                  graph=None) -> list:
+    """The routing (`routing()` -> `_route_windows`' result) and the class
+    batches of one round, as [class counts (3,), meta per class, table rows
+    per class (6 x batch), packed rows per class (batch x W)], all i32 and
+    1-D. With `graph` (a GroupGraph whose static buffers the inputs are)
+    the routing is its part 0 and class c its part 1 + c, each replayed as
+    a CUDA graph. The class counts come to the host (12 bytes): a class
+    with no member in its window runs no batch and gives zero rows."""
+    def run(part, fn):
+        return fn() if graph is None else graph.parts[part].replay(fn)
+
+    ncs, routed = run(0, routing)
+    live = [n > s for n, s in zip(ncs.tolist(), skips)]
+    parts = [ncs]
+    parts += [meta for meta, _, _ in routed]
+    parts += [tw.reshape(-1) for _, tw, _ in routed]
+    for c, (cls, (_, _, params)) in enumerate(zip(classes, routed)):
+        parts.append(
+            run(1 + c, lambda cls=cls, params=params:
+                cls.run_jobs(planes, params).reshape(-1)) if live[c]
+            else torch.zeros(cls.batch * cls.W, dtype=torch.int32,
+                             device=planes.device))
+    return parts
+
+
+class BurstDecoder:
+    """What the single card's `Pipeline` and the sharded pipeline
+    (parallel/stream.py) share: the configuration, the front-end's taps
+    and ramp, the extraction window sizes, the three burst classes, the
+    routing of gone bursts into the classes' batches, and the parse of a
+    round's result into frames and stats."""
+
+    def __init__(self, det_cfg: DetectorConfig | None,
+                 dm_cfg: DownmixConfig | None, dev: torch.device,
+                 use_gardner: bool, want_llr: bool):
+        self.device = dev
+        self.p: DetectorParams = (det_cfg or DetectorConfig()).derived()
+        self.dmp: DownmixParams = (dm_cfg or DownmixConfig()).derived(self.p)
+        p, dmp = self.p, self.dmp
+        self.use_gardner = use_gardner
+        self.want_llr = want_llr
+        taps = downmix.make_consts(dmp).input_taps
+        self.in_ntaps = len(taps)
+        self.input_taps = torch.from_numpy(taps).to(dev)
+        self.ramp = fused_frontend.ramp_table(p.fft_size, dev)
+        self._det_window = detect_scan.frame_window(p, dev)
+        ALIGN = window_gather.ALIGN
+        # extraction window capacity: the longest [start, stop+pre)
+        # window and enough input for dec_cap outputs, plus one ALIGN of
+        # alignment lead
+        self.l_ext = _round_up(
+            max(p.max_extract,
+                (dmp.dec_cap - 1) * dmp.decimation + self.in_ntaps)
+            + ALIGN, ALIGN)
+        # Window classes (iridium_tpu/runtime/pipeline.py:460-536): typical
+        # bursts fit a quarter of the full window; only the simplex band
+        # (above SIMPLEX_FREQUENCY_MIN, routed by bin with a margin over
+        # the largest fine-CFO correction) carries the long 444-symbol
+        # frames.
+        self.l_small = min(self.l_ext, _round_up(
+            p.burst_pre_len + p.burst_post_len + 120_000 + self.in_ntaps
+            + ALIGN, ALIGN))
+        self.dec_small = (self.l_small - self.in_ntaps) // dmp.decimation + 1
+        self.dec_large = (self.l_ext - self.in_ntaps) // dmp.decimation + 1
+        margin_hz = 150e3
+        self.simplex_bin_min = int(np.floor(
+            (iridium.SIMPLEX_FREQUENCY_MIN - margin_hz
+             - p.center_frequency) * p.fft_size / p.sample_rate)
+        ) + p.fft_size // 2
+
+    def _burst_classes(self, jobs, per_job) -> tuple:
+        """The small-normal, small-simplex and large classes (in that
+        order), with max(jobs[c], 1) jobs of per_job[c] bursts each."""
+        dmp = self.dmp
+        cap_n = int(iridium.MAX_FRAME_LENGTH_NORMAL
+                    * dmp.samples_per_symbol) + 8
+        wins = ((self.l_small, self.dec_small, cap_n),
+                (self.l_small, self.dec_small, dmp.max_frame_samples),
+                (self.l_ext, self.dec_large, dmp.max_frame_samples))
+        return tuple(BurstClass(self, l_win, dec_cap, max(j, 1), b, cap)
+                     for (l_win, dec_cap, cap), j, b
+                     in zip(wins, jobs, per_job))
+
+    def _route_windows(self, tables: torch.Tensor, flats: torch.Tensor,
+                       ext_len: torch.Tensor, skips, keep=None):
+        """The routing's last steps (`_fused_for` :754-826) over gone
+        tables (nt, G + 1, 6): each burst's window of `ext_len` samples
+        that starts at `flats` in the planes (both (nt, G)), decomposed
+        for the front-end (tile * ALIGN + r + lead), the class split by
+        lead-inflated length (l_small) and bin (simplex_bin_min), and for
+        each class its valid members (and `keep`, where given) ranked by
+        flat index (table * G + slot) with one stable sort, window [skip,
+        skip + batch).
+
+        Returns (class counts (3,) i32, [(meta (batch,) i32 flat index or
+        -1, table rows (6, batch) i32 [id, start, stop, bin, mag, noise],
+        params (5, batch) i32 [tile, r, ext_len, bin, shift_dec])] per
+        class); rows past a class's members are -1 / 0."""
+        ALIGN = window_gather.ALIGN
+        decim = self.dmp.decimation
+        dev = tables.device
+        nt, G = tables.shape[0], tables.shape[1] - 1
+        N = nt * G
+        valid = (torch.arange(G, device=dev)[None, :]
+                 < tables[:, 0, 0].long()[:, None])
+        if keep is not None:
+            valid = valid & keep
+        bins = tables[:, 1:, 3].long()
+        r = flats % decim
+        tile = (flats - r) // ALIGN
+        lead = flats - (tile * ALIGN + r)
+        ext_infl = ext_len + lead
+        small = ext_infl <= self.l_small
+        sim = bins >= self.simplex_bin_min
+        cols = torch.stack([tile, r, ext_infl, bins, lead // decim]
+                           ).reshape(5, N).int()
+        trows = tables[:, 1:, :].reshape(N, 6).T
+        iota = torch.arange(N, device=dev)
+        ncs, routed = [], []
+        for c, member in enumerate((valid & small & ~sim,
+                                    valid & small & sim,
+                                    valid & ~small)):
+            cap = self.classes[c].batch
+            member = member.reshape(N)
+            nk = member.sum()
+            ncs.append(nk)
+            # members first, by flat index
+            _, order = torch.sort(torch.where(member, iota, N), stable=True)
+            pos = skips[c] + torch.arange(cap, device=dev)
+            in_cap = torch.arange(cap, device=dev) < nk - skips[c]
+            idx = order[pos.clamp(max=N - 1)]
+            routed.append((torch.where(in_cap, idx, -1).int(),
+                           torch.where(in_cap, trows[:, idx], 0),
+                           torch.where(in_cap, cols[:, idx], 0)))
+        return torch.stack(ncs).int(), routed
+
+    def _count_heads(self, heads: np.ndarray) -> None:
+        """Stats from gone-table head rows [g_count, n_tagged,
+        burst_dropped, create_waits, ...], one per block (counted once per
+        group)."""
+        st = self.stats
+        for h in heads:
+            self.prev_tagged = max(self.prev_tagged, int(h[1]))
+            st.n_detected += int(h[0])
+        st.n_dropped = self.prev_tagged - st.n_detected
+        st.n_em_dropped = max(st.n_em_dropped, int(heads[:, 2].max()))
+        st.n_create_waits = max(st.n_create_waits, int(heads[:, 3].max()))
+
+    def _array_blocks(self, samples: np.ndarray):
+        """(block, n_valid) of a capture in memory, the last block padded
+        with zeros."""
+        bs = self.p.block_samples
+        for i0 in range(0, len(samples), bs):
+            chunk = samples[i0:i0 + bs]
+            n_valid = len(chunk)
+            if n_valid < bs:
+                chunk = np.concatenate(
+                    [chunk, np.zeros(bs - n_valid, np.complex64)])
+            yield chunk, n_valid
+
+    def _noise_db(self, baseline_sum: float) -> float:
+        """A sum of bins' baselines as the average noise floor in
+        dBFS/Hz."""
+        p = self.p
+        avg = baseline_sum / (p.fft_size * p.history_size)
+        bin_width = p.sample_rate / p.fft_size
+        if avg > 0 and bin_width > 0:
+            return 10.0 * np.log10(avg / bin_width)
+        return -120.0
+
+    def _parse_round(self, part: np.ndarray, skips: np.ndarray, locate):
+        """The classes' part of one round's result, one row for each of n
+        buffers of the same layout (a rank's each): (n, W) i32 [class
+        counts (3) | meta per class | table rows per class (6 x batch) |
+        packed rows per class (batch x W)]. Counts n_handled and n_ok and
+        builds the frames of the decoded bursts; `locate(meta, rows)`
+        gives their clamped absolute starts and their positions in the
+        stream planes from their metas and table rows (6, k) i64.
+
+        Returns ([(meta, frame)], new skips, done): done is False while a
+        class has members past its window in some buffer."""
+        p, dmp = self.p, self.dmp
+        n = part.shape[0]
+        caps = np.asarray([c.batch for c in self.classes], np.int64)
+        ncs = part[:, :3].astype(np.int64)
+        o = 3
+        metas, tws = [], []
+        for cap in caps:
+            metas.append(part[:, o:o + cap].reshape(-1))
+            o += cap
+        for cap in caps:
+            tws.append(np.concatenate(list(
+                part[:, o:o + 6 * cap].reshape(n, 6, cap)), axis=1))
+            o += 6 * cap
+        found = []
+        for cls, meta, tw in zip(self.classes, metas, tws):
+            rows = part[:, o:o + cls.batch * cls.W].reshape(-1, cls.W)
+            o += cls.batch * cls.W
+            sel = meta >= 0
+            if not sel.any():
+                continue
+            u = unpack_outputs(rows, cls.max_symbols, self.want_llr)
+            self.stats.n_handled += int((u["dm_ok"] & sel).sum())
+            ok = u["dm_ok"] & u["dd_ok"] & sel
+            self.stats.n_ok += int(ok.sum())
+            if not ok.any():
+                continue
+            t1 = time.perf_counter()
+            js = np.nonzero(ok)[0]
+            m = meta[js].astype(np.int64)
+            cl, fpos = locate(m, tw[:, js].astype(np.int64))
+            # the alignment lead, from the routing's arithmetic
+            lead = fpos % window_gather.ALIGN - fpos % dmp.decimation
+            frames = build_frames_np(
+                p, dmp, self.in_ntaps, self.start_time_ns, tw[0, js],
+                tw[3, js], np.ascontiguousarray(tw[4, js]).view(np.float32),
+                np.ascontiguousarray(tw[5, js]).view(np.float32),
+                cl - lead, u, js)
+            found += zip(m.tolist(), frames)
+            self.timing["host_format"] += time.perf_counter() - t1
+        want = ncs.max(axis=0)
+        lim = skips + caps
+        return found, np.minimum(lim, want), bool(np.all(want <= lim))
+
 @dataclasses.dataclass
 class _Group:
     """Blocks finished together, with the buffers their detect steps fill
@@ -347,7 +572,9 @@ class Captured:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread-local: another thread's query of the device (NCCL's
+            # watchdog in a process group) must not invalidate the capture
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = fn()
         finally:
             gc.enable()
@@ -377,11 +604,11 @@ class GroupGraph:
     into them. The copy is what lets an overflow round re-run an earlier
     group after later detect steps have filled other buffers."""
 
-    def __init__(self, pipe: "Pipeline", nb: int):
+    def __init__(self, pipe: BurstDecoder, planes_len: int, n_tables: int):
         dev = pipe.device
-        self.planes = torch.zeros((2, nb * pipe.stream_len),
-                                  dtype=torch.float32, device=dev)
-        self.tables = torch.zeros((nb, pipe.p.gone_capacity + 1, 6),
+        self.planes = torch.zeros((2, planes_len), dtype=torch.float32,
+                                  device=dev)
+        self.tables = torch.zeros((n_tables, pipe.p.gone_capacity + 1, 6),
                                   dtype=torch.int32, device=dev)
         self.scal = torch.zeros(4, dtype=torch.int64, device=dev)
         self.parts = [Captured() for _ in range(1 + len(pipe.classes))]
@@ -393,7 +620,7 @@ class GroupGraph:
             self.scal[i].fill_(int(v))
 
 
-class Pipeline:
+class Pipeline(BurstDecoder):
     """Offline decode on one device. `device=None` means the current CUDA
     device and raises when there is none; `device="cpu"` runs the plain
     versions of the kernels on the CPU. `want_llr` carries each frame's
@@ -421,12 +648,8 @@ class Pipeline:
         dev = device_mod.resolve(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
-        det_cfg = det_cfg or DetectorConfig()
-        dm_cfg = dm_cfg or DownmixConfig()
-        self.p: DetectorParams = det_cfg.derived()
-        self.dmp: DownmixParams = dm_cfg.derived(self.p)
-        p, dmp = self.p, self.dmp
+        super().__init__(det_cfg, dm_cfg, dev, use_gardner, want_llr)
+        p = self.p
         self.detect_impl = detect_scan.resolve_impl(p, detect_impl)
         if self.detect_impl == "scan":
             self._detect = lambda x, st, n, w: detect_scan.detect_block(
@@ -436,57 +659,18 @@ class Pipeline:
         else:
             self._detect = detect.make_detect_block(p)
         self.burst_batch = burst_batch
-        self.use_gardner = use_gardner
-        self.want_llr = want_llr
         self.save_bursts_dir = save_bursts_dir
         self.agg_blocks = max(agg_blocks, 1)
         self.group_jobs = max(group_jobs, 1)
         # the host-routed flow in place of the group program: the oracle
         # the tests and chip_smoke.py hold the group program to
         self.host_routed = False
-        taps = downmix.make_consts(dmp).input_taps
-        self.in_ntaps = len(taps)
-        self.input_taps = torch.from_numpy(taps).to(dev)
-        self.ramp = fused_frontend.ramp_table(p.fft_size, dev)
-        self._det_window = detect_scan.frame_window(p, dev)
-        ALIGN = window_gather.ALIGN
-        # extraction window capacity: the longest [start, stop+pre)
-        # window and enough input for dec_cap outputs, plus one ALIGN of
-        # alignment lead
-        self.l_ext = _round_up(
-            max(p.max_extract,
-                (dmp.dec_cap - 1) * dmp.decimation + self.in_ntaps)
-            + ALIGN, ALIGN)
         # per-block device stream: [tail | block | zero pad]
         self.stream_len = p.block_samples + 2 * self.l_ext
-
-        # Window classes (iridium_tpu/runtime/pipeline.py:460-536): typical
-        # bursts fit a quarter of the full window; only the simplex band
-        # (above SIMPLEX_FREQUENCY_MIN, routed by bin with a margin over
-        # the largest fine-CFO correction) carries the long 444-symbol
-        # frames.
-        self.l_small = min(self.l_ext, _round_up(
-            p.burst_pre_len + p.burst_post_len + 120_000 + self.in_ntaps
-            + ALIGN, ALIGN))
-        self.dec_small = (self.l_small - self.in_ntaps) // dmp.decimation + 1
-        self.dec_large = (self.l_ext - self.in_ntaps) // dmp.decimation + 1
         self.batch_large = max(8, burst_batch // 8)
-        margin_hz = 150e3
-        self.simplex_bin_min = int(np.floor(
-            (iridium.SIMPLEX_FREQUENCY_MIN - margin_hz
-             - p.center_frequency) * p.fft_size / p.sample_rate)
-        ) + p.fft_size // 2
-        cap_n = int(iridium.MAX_FRAME_LENGTH_NORMAL
-                    * dmp.samples_per_symbol) + 8
         J, bl = self.group_jobs, self.batch_large
-        # small-normal, small-simplex, large
-        self.classes = (
-            BurstClass(self, self.l_small, self.dec_small, max(J // 2, 1),
-                       2 * burst_batch, cap_n),
-            BurstClass(self, self.l_small, self.dec_small, max(J // 4, 1),
-                       3 * bl, dmp.max_frame_samples),
-            BurstClass(self, self.l_ext, self.dec_large, max(J // 12, 1),
-                       3 * bl, dmp.max_frame_samples))
+        self.classes = self._burst_classes(
+            (J // 2, J // 4, J // 12), (2 * burst_batch, 3 * bl, 3 * bl))
         self._legacy = None          # the per-batch flow's classes
         self.graphs: dict[int, GroupGraph] = {}   # card only, by arity
         self._free: list = []        # group buffers not in flight
@@ -606,17 +790,6 @@ class Pipeline:
         nb = len(group.bases)
         return group.planes[:, :nb * self.stream_len].contiguous()
 
-    def _count_heads(self, heads: np.ndarray) -> None:
-        """Stats from the groups' gone-table head rows [g_count, n_tagged,
-        burst_dropped, create_waits] (counted once per group)."""
-        st = self.stats
-        for h in heads:
-            self.prev_tagged = max(self.prev_tagged, int(h[1]))
-            st.n_detected += int(h[0])
-        st.n_dropped = self.prev_tagged - st.n_detected
-        st.n_em_dropped = max(st.n_em_dropped, int(heads[:, 2].max()))
-        st.n_create_waits = max(st.n_create_waits, int(heads[:, 3].max()))
-
     # ---- the group program (device flow) ----
 
     def route(self, tables: torch.Tensor, floor: torch.Tensor,
@@ -638,48 +811,17 @@ class Pipeline:
         no host read, so it captures into a CUDA graph; `lax.cond`'s skip
         of an empty class is a masked compute with the same values."""
         p = self.p
-        ALIGN = window_gather.ALIGN
-        decim = self.dmp.decimation
         dev = tables.device
-        nb, G = tables.shape[0], tables.shape[1] - 1
-        N = nb * G
+        nb = tables.shape[0]
         rows = tables[:, 1:, :].long()
-        valid = (torch.arange(G, device=dev)[None, :]
-                 < tables[:, 0, 0].long()[:, None])
-        start, stop, bins = rows[..., 1], rows[..., 2], rows[..., 3]
+        start, stop = rows[..., 1], rows[..., 2]
         blk = torch.arange(nb, device=dev)[:, None]
         # group-relative start, run-start clamp (floor = -base0)
         t_cl = torch.maximum(start + blk * p.block_samples, floor)
         el = torch.clamp(stop + blk * p.block_samples + p.burst_pre_len
-                         - t_cl, max=self.l_ext - ALIGN)
+                         - t_cl, max=self.l_ext - window_gather.ALIGN)
         flats = t_cl + blk * (self.stream_len - p.block_samples) + self.l_ext
-        r = flats % decim
-        tile = (flats - r) // ALIGN
-        lead = flats - (tile * ALIGN + r)
-        ext_infl = el + lead
-        small = ext_infl <= self.l_small
-        sim = bins >= self.simplex_bin_min
-        cols = torch.stack([tile, r, ext_infl, bins, lead // decim]
-                           ).reshape(5, N).int()
-        trows = tables[:, 1:, :].reshape(N, 6).T
-        iota = torch.arange(N, device=dev)
-        ncs, routed = [], []
-        for c, member in enumerate((valid & small & ~sim,
-                                    valid & small & sim,
-                                    valid & ~small)):
-            cap = self.classes[c].batch
-            member = member.reshape(N)
-            nk = member.sum()
-            ncs.append(nk)
-            # members first, by flat index
-            _, order = torch.sort(torch.where(member, iota, N), stable=True)
-            pos = skips[c] + torch.arange(cap, device=dev)
-            in_cap = torch.arange(cap, device=dev) < nk - skips[c]
-            idx = order[pos.clamp(max=N - 1)]
-            routed.append((torch.where(in_cap, idx, -1).int(),
-                           torch.where(in_cap, trows[:, idx], 0),
-                           torch.where(in_cap, cols[:, idx], 0)))
-        return torch.stack(ncs).int(), routed
+        return self._route_windows(tables, flats, el, skips)
 
     def group_program(self, planes: torch.Tensor, tables: torch.Tensor,
                       scal: torch.Tensor, skips,
@@ -698,21 +840,9 @@ class Pipeline:
         package (:621-627). A graph cannot skip work, and an empty group's
         replay of all three classes costs more than a tenth of a block's
         capture time (PERF.md)."""
-        def run(part, fn):
-            return fn() if graph is None else graph.parts[part].replay(fn)
-
-        ncs, routed = run(0, lambda: self.route(tables, scal[0], scal[1:]))
-        live = [n > s for n, s in zip(ncs.tolist(), skips)]
-        parts = [tables[:, 0, :].reshape(-1), ncs]
-        parts += [meta for meta, _, _ in routed]
-        parts += [tw.reshape(-1) for _, tw, _ in routed]
-        for c, (cls, (_, _, params)) in enumerate(zip(self.classes, routed)):
-            parts.append(
-                run(1 + c, lambda cls=cls, params=params:
-                    cls.run_jobs(planes, params).reshape(-1)) if live[c]
-                else torch.zeros(cls.batch * cls.W, dtype=torch.int32,
-                                 device=planes.device))
-        return torch.cat(parts)
+        return torch.cat([tables[:, 0, :].reshape(-1)] + class_program(
+            self.classes, planes,
+            lambda: self.route(tables, scal[0], scal[1:]), skips, graph))
 
     def _dispatch_group(self, group: _Group, skips: np.ndarray) -> None:
         """Enqueue one round of the group program for `group` and the copy
@@ -728,7 +858,8 @@ class Pipeline:
         else:
             g = self.graphs.get(nb)
             if g is None:
-                g = self.graphs[nb] = GroupGraph(self, nb)
+                g = self.graphs[nb] = GroupGraph(
+                    self, nb * self.stream_len, nb)
             g.load(group.planes[:, :nb * self.stream_len], group.tables[:nb],
                    scal)
             buf = self.group_program(g.planes, g.tables, g.scal, skips, g)
@@ -744,54 +875,23 @@ class Pipeline:
                          first_round: bool):
         """Frames from one round's result. Returns (new skips, done):
         done is False while a class has members past its window."""
-        p, dmp = self.p, self.dmp
+        p = self.p
         nb, G = len(group.bases), p.gone_capacity
-        caps = np.asarray([c.batch for c in self.classes], np.int64)
-        o = nb * 6
-        heads = buf[:o].reshape(nb, 6)
-        ncs = buf[o:o + 3].astype(np.int64)
-        o += 3
-        metas, tws = [], []
-        for cap in caps:
-            metas.append(buf[o:o + cap])
-            o += cap
-        for cap in caps:
-            tws.append(buf[o:o + 6 * cap].reshape(6, cap))
-            o += 6 * cap
         if first_round:
-            self._count_heads(heads)
+            self._count_heads(buf[:nb * 6].reshape(nb, 6))
         base0 = group.bases[0]
-        for cls, meta, tw in zip(self.classes, metas, tws):
-            rows = buf[o:o + cls.batch * cls.W].reshape(cls.batch, cls.W)
-            o += cls.batch * cls.W
-            sel = meta >= 0
-            if not sel.any():
-                continue
-            u = unpack_outputs(rows, cls.max_symbols, self.want_llr)
-            self.stats.n_handled += int((u["dm_ok"] & sel).sum())
-            ok = u["dm_ok"] & u["dd_ok"] & sel
-            self.stats.n_ok += int(ok.sum())
-            if not ok.any():
-                continue
-            t1 = time.perf_counter()
-            js = np.nonzero(ok)[0]
-            bi = meta[js].astype(np.int64) // G
-            # the alignment lead, from the device routing's arithmetic
-            cl = np.maximum(base0 + bi * p.block_samples
-                            + tw[1, js].astype(np.int64), 0)
-            fpos = (cl - base0 - bi * p.block_samples + self.l_ext
-                    + bi * self.stream_len)
-            lead = fpos % window_gather.ALIGN - fpos % dmp.decimation
-            frames = build_frames_np(
-                p, dmp, self.in_ntaps, self.start_time_ns, tw[0, js],
-                tw[3, js], np.ascontiguousarray(tw[4, js]).view(np.float32),
-                np.ascontiguousarray(tw[5, js]).view(np.float32),
-                cl - lead, u, js)
-            for f, b in zip(frames, bi.tolist()):
-                out[b].append(f)
-            self.timing["host_format"] += time.perf_counter() - t1
-        return (np.minimum(skips + caps, ncs),
-                bool(np.all(ncs <= skips + caps)))
+
+        def locate(meta, rows):
+            bi = meta // G
+            cl = np.maximum(base0 + bi * p.block_samples + rows[1], 0)
+            return cl, (cl - base0 - bi * p.block_samples + self.l_ext
+                        + bi * self.stream_len)
+
+        found, skips, done = self._parse_round(buf[None, nb * 6:], skips,
+                                               locate)
+        for m, f in found:
+            out[m // G].append(f)
+        return skips, done
 
     def _begin_group(self, group: _Group) -> None:
         """What a group's finish needs and no host decision precedes: the
@@ -1131,29 +1231,12 @@ class Pipeline:
             yield from frames
 
     def run_array(self, samples: np.ndarray) -> Iterator[dict]:
-        bs = self.p.block_samples
-
-        def blocks():
-            for i0 in range(0, len(samples), bs):
-                chunk = samples[i0:i0 + bs]
-                n_valid = len(chunk)
-                if n_valid < bs:
-                    chunk = np.concatenate(
-                        [chunk, np.zeros(bs - n_valid, np.complex64)])
-                yield chunk, n_valid
-
-        for frames in self.run_blocks(blocks()):
+        for frames in self.run_blocks(self._array_blocks(samples)):
             yield from frames
 
     def noise_floor_db(self) -> float:
         """Average noise floor in dBFS/Hz (burst_detect.c:363-380)."""
-        p = self.p
-        avg = float(self.state.baseline_sum.sum()) \
-            / (p.fft_size * p.history_size)
-        bin_width = p.sample_rate / p.fft_size
-        if avg > 0 and bin_width > 0:
-            return 10.0 * np.log10(avg / bin_width)
-        return -120.0
+        return self._noise_db(float(self.state.baseline_sum.sum()))
 
     def peak_signal_db(self) -> float:
         """Strongest detection so far, in dB (the diagnostic display)."""

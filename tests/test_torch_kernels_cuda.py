@@ -386,3 +386,59 @@ def test_native_ring_reused_across_blocks(dev, tmp_path):
     want = np.zeros(9 * bs, np.complex64)
     want[:len(raw) // 2] = raw.view(np.complex64)
     np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_world_size_1_over_nccl_matches_single_card(dev, tmp_path):
+    """The sharded pipeline in this process at world size 1 over NCCL, on a
+    10 MHz capture with two bursts (blocks of 64 frames): replicated detect
+    (the scan kernel, the fused front-end) gives the single card's lines,
+    ids included; binshard detect (detect_fast with its per-frame
+    all_reduce) gives Pipeline(detect_impl="fast")'s with the ids masked.
+    Then `--mesh` with more ranks than cards exits 2."""
+    import re
+    from iridium_tpu_torch import _kernels, cli
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.parallel import distributed
+    from iridium_tpu_torch.parallel.stream import ShardedPipeline
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    cfg = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                         frames_per_block=64, gone_capacity=64)
+    bits = np.random.default_rng(3).integers(0, 2, 300).astype(np.uint8)
+    cap = synth.make_capture(bits, sample_rate=10_000_000,
+                             freq_offset_hz=137_000.0, snr_db=30.0)
+    synth.add_burst(cap, synth.burst_waveform(bits, 10_000_000, -1.2e6),
+                    len(cap) - 700_000, snr_db=28.0)
+    t0 = 1_700_000_000_000_000_000
+
+    def lines(pipe):
+        printer = RawPrinter("t1")
+        return sorted(printer.format(f) for f in pipe.run_array(cap))
+
+    def strip(ls):
+        return [re.sub(r"I:\d{11}", "I:-", x) for x in ls]
+
+    kw = dict(burst_batch=4, start_time_ns=t0, want_llr=False)
+    single = lines(Pipeline(det_cfg=cfg, device=dev, **kw))
+    fast = lines(Pipeline(det_cfg=cfg, device=dev, detect_impl="fast", **kw))
+    assert len(single) >= 2
+    made = distributed.initialize(device="cuda")
+    try:
+        mesh = distributed.make_mesh()
+        assert (mesh.n, mesh.device.type) == (1, "cuda")
+        _kernels.reset_counts()
+        sp = ShardedPipeline(cfg, mesh=mesh, **kw)
+        assert lines(sp) == single
+        assert _kernels.DETECT_SCAN.launches > 0
+        assert _kernels.FUSED_FRONTEND.launches > 0
+        assert sp.timing["collectives"] > 0
+        sb = ShardedPipeline(cfg, mesh=mesh, detect_mode="binshard", **kw)
+        assert strip(lines(sb)) == strip(fast)
+        assert sb.timing["n_collectives"] > cfg.frames_per_block
+    finally:
+        if made:
+            distributed.shutdown()
+    path = tmp_path / "cap.cf32"
+    np.ascontiguousarray(cap).view(np.float32).tofile(path)
+    assert cli.main(["-f", str(path),
+                     "--mesh", str(torch.cuda.device_count() + 1)]) == 2

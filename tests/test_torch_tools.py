@@ -3,7 +3,7 @@ builds kernel variants (`tools/variants.py`), the phase probes of
 `tools/exp_scan.py`, and the scan inputs it times, at a small shape; the
 front-end tool `tools/exp_frontend.py` and the window-gather tool
 `tools/exp_window_gather.py` at their small CPU shapes, and the latter's
-shape table.
+shape table; the line comparison of the mesh tool `tools/exp_mesh.py`.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -17,7 +17,7 @@ from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
-from iridium_tpu_torch.tools import exp_window_gather  # noqa: E402
+from iridium_tpu_torch.tools import exp_mesh, exp_window_gather  # noqa: E402
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -163,3 +163,24 @@ def test_exp_window_gather_adapts_an_unordered_entry():
                                       "window_gather_unordered(", 1))
     assert "const int* starts2, int* order, int B," in new
     assert new.count('extern "C" int window_gather(') == 1
+
+
+def test_exp_mesh_compare_lines():
+    """Equal lines, lines whose frequency or level differ (counted, with
+    the largest difference), ids masked and sorted, and the differences
+    that fail: another field, or another count."""
+    a = ("RAW: i-1-t1 0000123.4560 1622137000 N:30.12-80.00 I:00000000007 "
+         " 98% 0.01234 179 0101")
+    b = a.replace("1622137000", "1622137030").replace("0.01234", "0.01241")
+    c = a.replace("I:00000000007", "I:00000000042")
+    got = exp_mesh.compare_lines([a, b], [a, a], masked=False)
+    assert got["lines"] == 2 and got["equal"] == 1
+    assert got["fields"]["frequency"] == dict(lines=1, max_diff=30.0)
+    assert got["fields"]["level"]["lines"] == 1
+    assert abs(got["fields"]["level"]["max_diff"] - 7e-5) < 1e-9
+    assert exp_mesh.compare_lines([c], [a], masked=True) == dict(
+        lines=1, equal=1, fields={})
+    with pytest.raises(AssertionError, match="id"):
+        exp_mesh.compare_lines([c], [a], masked=False)
+    with pytest.raises(AssertionError, match="2 lines against 1"):
+        exp_mesh.compare_lines([a, a], [a], masked=False)
