@@ -14,22 +14,28 @@ Phases, each printing one line:
      program, within max |err| 1e-5; the window gather at the 1 MHz
      small-normal batch and the 25 MHz small-normal and large batches,
      with fine shifts up to the decimation; the block gather single-call
-     and chained, at R = 64, 128, 256);
+     and chained, at R = 64, 128, 256; the demod loop at the three 10 MHz
+     class batches in both modes, through `tools/exp_demod.py`, beside
+     the plain loop eager and captured as a CUDA graph);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
      reader; no LLRs) and
      `RawPrinter`, every injected payload bit-exact, scan and fused
      front-end launched, the group program replayed as a CUDA graph (after
-     a warm-up decode that captures it); then the same decode under
+     a warm-up decode that captures it), every class graph under 2,000
+     nodes and the large and small-normal ones apart by less than their
+     symbol counts (the demod loop is one kernel node); then the same
+     decode under
      torch.profiler (device time, idle share); then `group_oracle`: the
      same capture through the host-routed flow gives the same lines, and
      the group program through its graphs is bit-equal to the same
      program run eagerly;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose gathers captured into its graphs are held bit-equal to the
-     plain gather after every replay (`ReplayCheck`), its burst detected
-     and its wall taken on the captured graphs, and the per-symbol demod
-     loop alone at a 256-burst batch;
+     whose gathers and demod loops captured into its graphs are held to
+     their plain versions after every replay (`ReplayCheck`), its burst
+     detected and its wall taken on the captured graphs; then the
+     demodulator alone at a 256-burst batch (`demod_loop`: the kernel and
+     the plain tail, and the kernel alone);
   4b. `mesh`: the sharded pipeline (`parallel/stream.py`) in this
      process at world size 1 over NCCL: the RAW 10 MHz capture in
      replicated mode (lines with ids equal to phase 3's, every payload
@@ -38,9 +44,10 @@ Phases, each printing one line:
      lines, ids masked, equal to the single card's detect_fast decode;
      the window gather launched), and the CLI with and without `--mesh 1`
      (one spawned rank), each its own process: the same lines. The
-     front-end and gather calls in the sharded graphs (the sharded
-     capacities' batches, 256 and 48 bursts) are held to their plain
-     versions after every replay of the warm-up runs (`ReplayCheck`).
+     front-end, gather and demod-loop calls in the sharded graphs (the
+     sharded capacities' batches, 256 and 48 bursts) are held to their
+     plain versions after every replay of the warm-up runs
+     (`ReplayCheck`); the class graphs' nodes as in phase 3.
      Walls and realtime factors beside the single card's, the
      collectives' ms;
   5. the protocol decode at the production 10 MHz configuration: a
@@ -56,7 +63,8 @@ Phases, each printing one line:
      block again with class batches of 16/24/24 bursts, so that
      overflow rounds run, against the host-routed flow at those batches;
      the group program through its graphs on that dense group and on
-     an empty one, and each graph's replay alone;
+     an empty one, and each graph's replay alone; class graph nodes as in
+     phase 3;
   8. `ingest`: the dense capture file through the native reader
      (`Pipeline.run_file`) and through `readers.read_blocks`: each reader
      alone in blocks/s, each decode's wall, realtime and `read` seconds
@@ -67,10 +75,11 @@ Phases, each printing one line:
      payload comes back bit-exact, realtime as measured;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
-     it; a graph replay adds the launches its capture recorded), its
-     times and its bound; `detail.path_checks` has the calls
-     `ReplayCheck` held in phases 4 and 4b, and `max_abs_err` covers
-     them.
+     it; a graph replay adds the launches its capture recorded; per path
+     in `detail.launches_by_path`; the demod loop must launch on every
+     decode path), its times and its bound; `detail.path_checks` has the
+     calls `ReplayCheck` held in phases 4 and 4b, and `max_abs_err`
+     covers them.
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
 at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
 and 1000, history_size 16), and `detect_fast_card` holds detect_fast (one
@@ -314,6 +323,35 @@ def check_block_gather(dev, card: str) -> dict:
                 detail=dict(card=card, best_R=best["R"], per_R=detail))
 
 
+def check_demod(dev, card: str) -> dict:
+    """The demod loop kernel at the three class batches of the 10 MHz group
+    program (1,024 x 1,918 x 205; 96 and 48 x 4,440 x 471), both modes, on
+    `tools/exp_demod.py`'s bursts (random lengths, 0, 1, 3, 4 and L among
+    them; residual CFO; noise): held to `loop_plain` and, through
+    `Demod.decide`, the demodulator's fields to those on `loop_plain`'s
+    output (`exp_demod.compare_loop`, `compare_demod`); timed single-call
+    and chained beside the plain loop eager and, in Gardner mode, the plain
+    loop captured as a CUDA graph (nodes, capture s, replay ms). The row
+    reports the small-normal batch in Gardner mode, `detail` all six."""
+    import torch
+    from iridium_tpu_torch.tools import exp_demod as tool
+
+    per_shape = []
+    for sh in tool.class_shapes():
+        per_shape += tool.run_shape(sh, dev)
+        torch.cuda.empty_cache()
+    row = per_shape[0]
+    return dict(name="demod_loop", route="cuda",
+                source="iridium_tpu_torch/csrc/demod_loop.cu",
+                replaces="iridium_tpu/dsp/demod.py:142",
+                max_abs_err=max(r["out_max_abs_err"] for r in per_shape),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None,
+                detail=dict(card=card, per_shape=per_shape,
+                            products=tool.product_forms(dev)))
+
+
 def kernel_phase(dev, card: str) -> list[dict]:
     from iridium_tpu_torch.config import DetectorConfig
 
@@ -322,7 +360,8 @@ def kernel_phase(dev, card: str) -> list[dict]:
     rows = [check_scan(p, dev, card),
             check_fused(dev, card),
             check_gather(dev, card),
-            check_block_gather(dev, card)]
+            check_block_gather(dev, card),
+            check_demod(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
     return rows
@@ -333,18 +372,45 @@ def kernel_phase(dev, card: str) -> list[dict]:
 GRAPH_PARTS = ("route", "small_normal", "small_simplex", "large")
 
 
-def graph_info(pipe) -> dict:
-    """The CUDA graphs of `pipe`, by group arity and part (the routing,
-    then each burst class; those never run are not captured): capture and
-    instantiate seconds, node count, memory pool, kernel launches per
-    replay."""
+def graph_info(graphs: dict) -> dict:
+    """CUDA graphs (GroupGraphs by group arity, or the sharded process
+    step's), by part (the routing, then each burst class; those never run
+    are not captured): capture and instantiate seconds, node count, memory
+    pool, kernel launches per replay, and the replay's ms alone on its
+    last inputs."""
     return {nb: {name: dict(capture_s=c.capture_s,
                             instantiate_s=c.instantiate_s, nodes=c.nodes,
                             pool_mib=c.pool_bytes / 2**20,
+                            replay_ms=time_ms(c.graph.replay, reps=3),
                             launches_per_replay={k.name: n for k, n
                                                  in c.launches.items()})
                  for name, c in zip(GRAPH_PARTS, g.parts) if c.graph}
-            for nb, g in pipe.graphs.items()}
+            for nb, g in graphs.items()}
+
+
+# a class graph held ~130 nodes a symbol while the demod loop was a Python
+# loop (26,877-60,929 at 10 MHz); with its kernel the count must not grow
+# with the symbols
+MAX_CLASS_NODES = 2000
+
+
+def check_class_nodes(info: dict, classes, where: str) -> None:
+    """Every class graph of `info` (graph_info's) under MAX_CLASS_NODES
+    nodes, and the small-normal and large graphs' counts apart by less
+    than their classes' symbol counts are."""
+    spread = classes[2].demod.S - classes[0].demod.S
+    for key, parts in info.items():
+        for name in GRAPH_PARTS[1:]:
+            if name in parts and not parts[name]["nodes"] < MAX_CLASS_NODES:
+                raise AssertionError(f"{where}: class graph {name} (arity "
+                                     f"{key}) has {parts[name]['nodes']} "
+                                     "nodes")
+        if spread > 0 and "small_normal" in parts and "large" in parts:
+            d = abs(parts["large"]["nodes"] - parts["small_normal"]["nodes"])
+            if not d < spread:
+                raise AssertionError(f"{where}: the large and small-normal "
+                                     f"class graphs differ by {d} nodes, "
+                                     f"their symbols by {spread}")
 
 
 def graph_run(pipe, g):
@@ -411,6 +477,8 @@ def decode_phase(dev, tmp) -> tuple[dict, dict]:
         raise AssertionError(f"payloads not decoded bit-exact: {missing}")
     if not pipe.graphs:
         raise AssertionError("the decode replayed no group graph")
+    graphs = graph_info(pipe.graphs)
+    check_class_nodes(graphs, pipe.classes, "RAW decode")
     st = pipe.stats
     return dict(phase="decode_10mhz", capture_s=seconds, wall_s=wall,
                 realtime_x=seconds / wall, raw_lines=len(lines),
@@ -418,7 +486,7 @@ def decode_phase(dev, tmp) -> tuple[dict, dict]:
                 detected=st.n_detected, ok=st.n_ok,
                 ok_pct=100.0 * st.n_ok / max(st.n_detected, 1),
                 q_peak=pipe.take_q_peak(), warmup_s=warmup_s,
-                stages=dict(pipe.timing), graphs=graph_info(pipe),
+                stages=dict(pipe.timing), graphs=graphs,
                 launches=counts), dict(pipe=pipe, path=path, lines=lines,
                                        bursts=bursts)
 
@@ -484,25 +552,35 @@ class ReplayCheck:
     """Holds every kernel call captured into a pipeline's CUDA graphs to
     its plain version after each replay of that graph: the fused
     front-end within FUSED_MAX_ERR of `fused_plain`, the window gather
-    bit-equal to `gather_plain`. A graph reads static buffers and
-    rewrites its other tensors at each replay, so after a replay the
-    recorded inputs and outputs are that replay's. Used as a context
-    around a decode that captures its graphs; `summary` has, per kernel,
-    the calls checked, their (B, l_win) shapes and the largest |err|.
-    The comparisons launch no kernel."""
+    bit-equal to `gather_plain`, the demod loop to `loop_plain` within
+    `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
+    kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
+    its decisions on `loop_plain`'s (`compare_demod`; counted under
+    `demod_loop` as `decide_calls`). A graph reads
+    static buffers and rewrites its other tensors at each replay, so after
+    a replay the recorded inputs and outputs are that replay's. Used as a
+    context around a decode that captures its graphs; `summary` has, per
+    kernel, the calls checked, their shapes ((B, l_win); the demod's (B, L,
+    S)) and the largest |err|. The comparisons launch no kernel; a check
+    entered again adds to its summary."""
+
+    def __init__(self):
+        self.summary: dict = {}
 
     def __enter__(self):
         import torch
+        from iridium_tpu_torch.dsp import demod
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
 
         self.calls: dict = {}       # Captured -> [(kernel, args, out)]
-        self.summary: dict = {}
+        self._plain: dict = {}      # loop output's id -> loop_plain's
         self._cur = None
-        saved = self._saved = (ff.fused, wg.gather, pl.Captured._capture,
+        saved = self._saved = (ff.fused, wg.gather, demod.loop,
+                               demod.Demod.decide, pl.Captured._capture,
                                pl.Captured.replay)
-        fused, gather, capture, replay = saved
+        fused, gather, loop, decide, capture, replay = saved
 
         def record(name, fn):
             def wrapped(*args):
@@ -528,23 +606,54 @@ class ReplayCheck:
 
         ff.fused = record("fused_frontend", fused)
         wg.gather = record("window_gather", gather)
+        demod.loop = record("demod_loop", loop)
+        demod.Demod.decide = record("demod_decide", decide)
         pl.Captured._capture = capturing
         pl.Captured.replay = replaying
         return self
 
     def __exit__(self, *exc):
+        from iridium_tpu_torch.dsp import demod
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
-        (ff.fused, wg.gather, pl.Captured._capture,
-         pl.Captured.replay) = self._saved
+        (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
+         pl.Captured._capture, pl.Captured.replay) = self._saved
         self.calls.clear()
+        self._plain.clear()
         return False
 
     def _check(self, name: str, args, got) -> None:
         import torch
+        from iridium_tpu_torch.dsp import demod
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
+        from iridium_tpu_torch.tools import exp_demod
+        if name == "demod_loop":
+            want = demod.loop_plain(*args)
+            try:
+                res = exp_demod.compare_loop(got, want)
+            except AssertionError as e:
+                raise AssertionError(f"demod_loop in a graph replay: {e}")
+            # the decisions made on this output are checked next
+            self._plain[id(got[0])] = want
+            s = self._tally(name, list(args[0].shape) + [args[3]],
+                            res["out_max_abs_err"])
+            s["bit_equal"] = s.get("bit_equal", True) and res["out_bit_equal"]
+            return
+        if name == "demod_decide":
+            dm, pll_out, direction = args[0], args[1], args[4]
+            want = self._saved[3](dm, *self._plain.pop(id(pll_out)),
+                                  direction)
+            try:
+                res = exp_demod.compare_demod(got, want)
+            except AssertionError as e:
+                raise AssertionError(f"Demod in a graph replay: {e}")
+            s = self.summary["demod_loop"]
+            s["decide_calls"] = s.get("decide_calls", 0) + 1
+            s["decide_max_abs_err"] = max(s.get("decide_max_abs_err", 0.0),
+                                          *res.values())
+            return
         if name == "fused_frontend":
             want = ff.fused_plain(*args)
             err = max(float((a - b).abs().max()) if a.numel() else 0.0
@@ -560,12 +669,16 @@ class ReplayCheck:
         if bad:
             raise AssertionError(f"{name} {shape} in a graph replay: max "
                                  f"|err| {err} against its plain version")
+        self._tally(name, shape, err)
+
+    def _tally(self, name: str, shape: list, err: float) -> dict:
         s = self.summary.setdefault(name, dict(calls=0, shapes=[],
                                                max_abs_err=0.0))
         s["calls"] += 1
         if shape not in s["shapes"]:
             s["shapes"].append(shape)
         s["max_abs_err"] = max(s["max_abs_err"], err)
+        return s
 
 
 def gather_phase(dev, tmp) -> dict:
@@ -602,6 +715,9 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError("1 MHz decode took the fused path")
     if "window_gather" not in chk.summary:
         raise AssertionError("no gather was captured into a group graph")
+    if "demod_loop" not in chk.summary:
+        raise AssertionError("no demod loop was captured into a group "
+                             "graph")
     if pipe.stats.n_detected < 1 or not frames:
         raise AssertionError("1 MHz decode: the burst was not detected")
     seconds = len(cap) / 1_000_000
@@ -613,8 +729,9 @@ def gather_phase(dev, tmp) -> dict:
 
 
 def demod_phase(dev) -> dict:
-    """The per-symbol demod loop alone, at the small-normal class's batch
-    (256 bursts, 205 symbols): the time the Python symbol loop costs."""
+    """The demodulator alone (the loop kernel and the plain tail) at a
+    256-burst batch of the small-normal class's shape (1,918 samples, 205
+    symbols), and the loop alone."""
     import torch
     from iridium_tpu_torch.dsp import demod
     from iridium_tpu_torch.io import synth
@@ -630,7 +747,10 @@ def demod_phase(dev) -> dict:
     direc = torch.zeros(B, dtype=torch.int32, device=dev)
     dm = demod.Demod(S, 10.0, device=dev)
     ms = time_ms(lambda: dm(xt, n, direc), reps=3)
-    return dict(phase="demod_loop", batch=B, symbols=S, ms=ms)
+    loop_ms = time_ms(lambda: demod.loop(xt, n.long(), 10.0, S, True),
+                      reps=3)
+    return dict(phase="demod_loop", batch=B, symbols=S, ms=ms,
+                loop_ms=loop_ms)
 
 
 # ---- mesh: the sharded pipeline at world size 1 over NCCL ----
@@ -727,10 +847,11 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         for name in ("detect_scan", "fused_frontend"):
             if rep[name] == 0:
                 raise AssertionError(f"mesh replicated never launched {name}")
-        if "fused_frontend" not in chk.summary:
-            raise AssertionError("mesh replicated: no front-end call was "
-                                 "checked")
-        checks = dict(chk.summary)
+        for name in ("fused_frontend", "demod_loop"):
+            if name not in chk.summary:
+                raise AssertionError(f"mesh replicated: no {name} call was "
+                                     "checked")
+        demod_calls = chk.summary["demod_loop"]["calls"]
         seconds = single["capture_s"]
         res["replicated_10mhz"] = dict(
             detect_impl=sp.detect_impl, lines=len(lines),
@@ -740,7 +861,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             single_realtime_x=seconds / single["wall_s"],
             collectives_ms=1e3 * sp.timing["collectives"],
             n_collectives=sp.timing["n_collectives"],
-            stages=dict(sp.timing), launches=rep)
+            stages=dict(sp.timing), launches=rep,
+            graphs=graph_info({"block": sp._graph}))
+        check_class_nodes(res["replicated_10mhz"]["graphs"], sp.classes,
+                          "mesh replicated")
         del sp
 
         path1 = os.path.join(tmp, "capture_1mhz.cf32")
@@ -752,16 +876,16 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         sb = ShardedPipeline(det1, mesh=mesh, start_time_ns=T0,
                              want_llr=False, burst_batch=128,
                              detect_mode="binshard")
-        chk = ReplayCheck()
         got, _, wall_b, binc = timed(sb, path1, chk)
         if not want or list(map(strip_id, got)) != list(map(strip_id, want)):
             raise AssertionError(f"mesh binshard 1 MHz: {len(got)} lines "
                                  f"against {len(want)}")
         if binc["window_gather"] == 0 or binc["detect_scan"] != 0:
             raise AssertionError(f"mesh binshard 1 MHz launches: {binc}")
-        if "window_gather" not in chk.summary:
-            raise AssertionError("mesh binshard: no gather was checked")
-        checks.update(chk.summary)
+        if ("window_gather" not in chk.summary
+                or chk.summary["demod_loop"]["calls"] == demod_calls):
+            raise AssertionError("mesh binshard: no gather or no demod loop "
+                                 "was checked")
         seconds1 = os.path.getsize(path1) / 8 / 1_000_000
         res["binshard_1mhz"] = dict(
             detect_impl=sb.detect_impl, lines=len(got),
@@ -770,7 +894,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             single_fast_realtime_x=seconds1 / wall1,
             collectives_ms=1e3 * sb.timing["collectives"],
             n_collectives=sb.timing["n_collectives"],
-            stages=dict(sb.timing), launches=binc)
+            stages=dict(sb.timing), launches=binc,
+            graphs=graph_info({"block": sb._graph}))
+        check_class_nodes(res["binshard_1mhz"]["graphs"], sb.classes,
+                          "mesh binshard")
         del sb
     finally:
         if made:
@@ -786,7 +913,7 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     res["cli_1mhz"] = dict(lines=len(plain), mesh_1_lines_equal=True,
                            both_processes_s=time.perf_counter() - t)
     res["launches"] = {k: rep[k] + binc[k] for k in rep}
-    res["kernel_checks"] = checks
+    res["kernel_checks"] = chk.summary
     return res
 
 
@@ -936,7 +1063,7 @@ def parsed_phase(dev, tmp) -> dict:
                 ida_lines=len(ida_lines), ira=len(ira), ibc=len(ibc),
                 acars=len(texts), llr_batches=len(packed),
                 llr_err_quanta=worst, stages=dict(pipe.timing),
-                graphs=graph_info(pipe), launches=counts)
+                graphs=graph_info(pipe.graphs), launches=counts)
 
 
 def tool_phase(dev) -> dict:
@@ -1027,6 +1154,9 @@ def dense_phase(dev, tmp) -> tuple[dict, dict]:
                              f"against {len(want)}, {overflow} overflow "
                              "rounds")
     block_ms = 1e3 * bs / PROD["sample_rate"]
+    graphs, small_graphs = graph_info(pipe.graphs), graph_info(small.graphs)
+    check_class_nodes(graphs, pipe.classes, "dense decode")
+    check_class_nodes(small_graphs, small.classes, "dense, small batches")
     return dict(phase="dense_10mhz", capture_s=seconds, make_s=make_s,
                 injected=injected, wall_s=wall, realtime_x=seconds / wall,
                 raw_lines=len(lines), raw_per_s=len(lines) / wall,
@@ -1037,8 +1167,8 @@ def dense_phase(dev, tmp) -> tuple[dict, dict]:
                 q_peak=q_peak, stages=timing, host_lines_equal=True,
                 small_batches=dict(lines=len(got), equal=True,
                                    n_overflow_rounds=overflow,
-                                   graphs=graph_info(small)),
-                graph=dict(parts=graph_info(pipe)[4], replay_ms=class_ms,
+                                   graphs=small_graphs),
+                graph=dict(parts=graphs[4], replay_ms=class_ms,
                            group_dense_ms=dense_ms, group_empty_ms=empty_ms,
                            all_classes_share_of_block=sum(
                                class_ms.values()) / block_ms,
@@ -1369,9 +1499,16 @@ def main() -> int:
         wide = emit(wideband_phase(dev, tmp))
     paths = (dec, gat, mesh, par, tool, den, ing, wide)
     for r in rows:
-        r["launches"] = sum(ph["launches"][r["name"]] for ph in paths)
+        by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}
+        r["launches"] = sum(by_path.values())
+        r["detail"]["launches_by_path"] = by_path
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
+        # the demodulator runs on every decode path
+        if r["name"] == "demod_loop" and not all(
+                n for ph, n in by_path.items() if ph != tool["phase"]):
+            return fail(f"demod_loop was not launched on every decode "
+                        f"path: {by_path}")
         # the calls checked inside the decodes' graphs (ReplayCheck)
         for ph in paths:
             c = ph.get("kernel_checks", {}).get(r["name"])

@@ -145,7 +145,15 @@ BLOCK_GATHER = Kernel(
     "block_gather",
     [P, P, LL, I, P, I, I, I, P, P, P])
 
-KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER)
+DEMOD_LOOP = Kernel(
+    "demod_loop",
+    [P, LL, P, I, I, F32, F32, I, I, P, P, P, P],
+    # every product and sum rounded on its own, as the plain loop's
+    # separate tensor operations round them
+    extra_flags=("--fmad=false",))
+
+KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
+           DEMOD_LOOP)
 
 
 def build_all() -> None:

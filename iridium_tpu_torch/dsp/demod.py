@@ -7,12 +7,16 @@ sources (qpsk_demod.c): Catmull-Rom interpolation :56-81, Gardner loop
 confidence :199-260, DQPSK map :264-273, UW checks :277-325, bits and
 LLR :329-335, 489-503.
 
-The two per-symbol loops (Gardner position tracking and the PLL) run as
-one Python loop over symbols on (B,) tensors, as the JAX package's fused
-scan does; the sample reads are plain indexing (the JAX package's
-"gather" form, `gardner_pll` :142). Its static-window form existed only
-to avoid dynamic addressing on the TPU and gives the same values for
-every valid symbol.
+The two per-symbol loops (Gardner position tracking and the PLL), which
+the JAX package runs as one compiled `lax.scan` with (batch,) carries
+(`gardner_pll` :142-171, `gardner_pll_win` :193-230, `pll_only`
+:238-247), are `loop`: on a CUDA tensor one launch of
+csrc/demod_loop.cu (a thread per burst walks the symbols with its carry
+in registers), on a CPU tensor `loop_plain`, a Python loop over symbols on
+(B,) tensors. The sample reads are plain indexing (the JAX package's
+"gather" form); its static-window form existed only to avoid dynamic
+addressing on the TPU and gives the same values for every valid symbol.
+The rest of the demodulator (`Demod.decide`) is plain tensor code.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import iridium
+from .. import _kernels, iridium
 
 PLL_ALPHA = 0.2
 SQRT1_2 = 0.70710678118654752
@@ -92,6 +96,91 @@ def _pll_update(phi, total, sym, v):
             torch.where(upd, total + sc, total), out)
 
 
+def _gardner_pll(x, n_samp, sps, S):
+    """Gardner timing loop with the PLL fused into the same symbol loop
+    (the PLL consumes symbols in production order)."""
+    B = x.shape[0]
+    dev = x.device
+    nf = n_samp.float()
+    pos = torch.zeros(B, device=dev)
+    tmo = torch.zeros(B, device=dev)
+    prev = torch.zeros(B, dtype=torch.complex64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    phi = torch.ones(B, dtype=torch.complex64, device=dev)
+    total = torch.zeros(B, device=dev)
+    outs, valids = [], []
+    for t in range(S):
+        active = ~done & (pos < nf - 3)
+        done = done | ~active
+        on = _cubic4(x, pos, n_samp)
+        midpos = pos - sps * 0.5
+        mid = _cubic4(x, midpos, n_samp)
+        do_mid = (midpos >= 1.0) if t > 0 else torch.zeros_like(done)
+        err = torch.clamp(((prev - on) * torch.conj(mid)).real, -1.0, 1.0)
+        tmo2 = torch.where(do_mid, tmo + GARDNER_KI * err, tmo)
+        adjust = torch.clamp(GARDNER_KP * err + tmo2, -0.5, 0.5)
+        pos2 = torch.where(do_mid, pos + adjust, pos)
+        phi, total, out = _pll_update(phi, total, on, active)
+        pos = torch.where(active, pos2 + sps, pos)
+        tmo = torch.where(active, tmo2, tmo)
+        prev = torch.where(active, on, prev)
+        outs.append(out)
+        valids.append(active)
+    return torch.stack(outs, 1), torch.stack(valids, 1), total
+
+
+def _simple_pll(x, n_samp, sps, S):
+    """--no-gardner: strided decimation, then the PLL."""
+    B, L = x.shape
+    dev = x.device
+    idx = torch.arange(S, device=dev) * int(round(sps))
+    valid = idx[None, :] < n_samp[:, None]
+    syms = x[:, torch.clamp(idx, 0, L - 1)]
+    phi = torch.ones(B, dtype=torch.complex64, device=dev)
+    total = torch.zeros(B, device=dev)
+    outs = []
+    for t in range(S):
+        phi, total, out = _pll_update(phi, total, syms[:, t], valid[:, t])
+        outs.append(out)
+    return torch.stack(outs, 1), valid, total
+
+
+def loop_plain(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
+               use_gardner: bool):
+    """The symbol loop as tensor code: x (B, L) c64, n_samp (B,) i64 ->
+    (PLL output (B, S) c64, valid (B, S) bool, summed PLL corrections (B,)
+    f32). Every t < S is written, active or not."""
+    if use_gardner:
+        return _gardner_pll(x, n_samp, sps, S)
+    return _simple_pll(x, n_samp, sps, S)
+
+
+def loop(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
+         use_gardner: bool):
+    """`loop_plain`'s function: on a CPU tensor `loop_plain`, on a CUDA
+    tensor one launch of csrc/demod_loop.cu (or a raise)."""
+    if x.device.type == "cpu":
+        return loop_plain(x, n_samp, sps, S, use_gardner)
+    dev = x.device
+    B = x.shape[0]
+    _kernels.check(x, "x", torch.complex64, dev)
+    _kernels.check(n_samp, "n_samp", torch.int64, dev, (B,))
+    if x.dim() != 2 or x.shape[1] < 4:
+        raise ValueError(f"x must be (B, L) with L >= 4, got "
+                         f"{tuple(x.shape)}")
+    L = x.shape[1]
+    out = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, S), dtype=torch.uint8, device=dev)
+    total = torch.empty(B, dtype=torch.float32, device=dev)
+    if B:
+        k = _kernels
+        k.DEMOD_LOOP.launch(dev, k.ptr(x), L, k.ptr(n_samp), B, S,
+                            float(sps), float(sps * 0.5), int(round(sps)),
+                            int(use_gardner), k.ptr(out), k.ptr(valid),
+                            k.ptr(total))
+    return torch.view_as_complex(out), valid.view(torch.bool), total
+
+
 class Demod:
     """`demod(x, n_samples, direction)` over a (B, L) burst batch. Its
     constant tables live on `device`, so that a call copies nothing from
@@ -107,65 +196,20 @@ class Demod:
         self.uw_ul = torch.tensor(iridium.UW_UL, device=device)
         self.dqpsk_map = torch.tensor(DQPSK_MAP, device=device)
 
-    def gardner_pll(self, x, n_samp):
-        """Gardner timing loop with the PLL fused into the same symbol
-        loop (the PLL consumes symbols in production order)."""
-        B = x.shape[0]
-        dev = x.device
-        sps = self.sps
-        nf = n_samp.float()
-        pos = torch.zeros(B, device=dev)
-        tmo = torch.zeros(B, device=dev)
-        prev = torch.zeros(B, dtype=torch.complex64, device=dev)
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        phi = torch.ones(B, dtype=torch.complex64, device=dev)
-        total = torch.zeros(B, device=dev)
-        outs, valids = [], []
-        for t in range(self.S):
-            active = ~done & (pos < nf - 3)
-            done = done | ~active
-            on = _cubic4(x, pos, n_samp)
-            midpos = pos - sps * 0.5
-            mid = _cubic4(x, midpos, n_samp)
-            do_mid = (midpos >= 1.0) if t > 0 else torch.zeros_like(done)
-            err = torch.clamp(((prev - on) * torch.conj(mid)).real,
-                              -1.0, 1.0)
-            tmo2 = torch.where(do_mid, tmo + GARDNER_KI * err, tmo)
-            adjust = torch.clamp(GARDNER_KP * err + tmo2, -0.5, 0.5)
-            pos2 = torch.where(do_mid, pos + adjust, pos)
-            phi, total, out = _pll_update(phi, total, on, active)
-            pos = torch.where(active, pos2 + sps, pos)
-            tmo = torch.where(active, tmo2, tmo)
-            prev = torch.where(active, on, prev)
-            outs.append(out)
-            valids.append(active)
-        return torch.stack(outs, 1), torch.stack(valids, 1), total
-
-    def simple_pll(self, x, n_samp):
-        """--no-gardner: strided decimation, then the PLL."""
-        B, L = x.shape
-        dev = x.device
-        idx = torch.arange(self.S, device=dev) * int(round(self.sps))
-        valid = idx[None, :] < n_samp[:, None]
-        syms = x[:, torch.clamp(idx, 0, L - 1)]
-        phi = torch.ones(B, dtype=torch.complex64, device=dev)
-        total = torch.zeros(B, device=dev)
-        outs = []
-        for t in range(self.S):
-            phi, total, out = _pll_update(phi, total, syms[:, t],
-                                          valid[:, t])
-            outs.append(out)
-        return torch.stack(outs, 1), valid, total
-
     def __call__(self, x: torch.Tensor, n_samples: torch.Tensor,
                  direction: torch.Tensor) -> DemodOut:
+        # `loop` by its module global, so that a caller can wrap it
+        pll_out, valid, total_phase = loop(x, n_samples.long(), self.sps,
+                                           self.S, self.use_gardner)
+        return self.decide(pll_out, valid, total_phase, direction)
+
+    def decide(self, pll_out: torch.Tensor, valid: torch.Tensor,
+               total_phase: torch.Tensor, direction: torch.Tensor
+               ) -> DemodOut:
+        """The loop's output -> hard decisions, end-of-frame trim,
+        confidence, UW checks, bits and LLRs."""
         S = self.S
-        dev = x.device
-        n_samp = n_samples.long()
-        if self.use_gardner:
-            pll_out, valid, total_phase = self.gardner_pll(x, n_samp)
-        else:
-            pll_out, valid, total_phase = self.simple_pll(x, n_samp)
+        dev = pll_out.device
         n_sym = valid.sum(1)
         iota_s = torch.arange(S, device=dev)
 
@@ -178,7 +222,8 @@ class Demod:
                         torch.where(re < 0, 2, 3)))
         cmax = torch.cummax(torch.where(valid, mags, -torch.inf), 1).values
         low = valid & (mags < cmax / MAGNITUDE_DROP)
-        f2 = torch.zeros((x.shape[0], 2), dtype=torch.bool, device=dev)
+        f2 = torch.zeros((pll_out.shape[0], 2), dtype=torch.bool,
+                         device=dev)
         low1 = torch.cat([f2[:, :1], low[:, :-1]], 1)
         low2 = torch.cat([f2, low[:, :-2]], 1)
         trip = low & low1 & low2

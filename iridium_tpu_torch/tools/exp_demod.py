@@ -1,0 +1,388 @@
+"""The demodulator's symbol loop (dsp/demod.py `loop`) at the burst
+classes' batches, and the class graphs with it and with its plain
+version.
+
+    python -m iridium_tpu_torch.tools.exp_demod [--classes]
+    python -m iridium_tpu_torch.tools.exp_demod --device cpu --small
+
+The shapes follow the code: the three classes of the production 10 MHz
+group program, (batch, frame cap L, symbols S, samples per symbol) from
+`Pipeline(det_cfg=DetectorConfig(sample_rate=10_000_000), device="cpu")
+.classes`. Each gets `inputs`: DQPSK bursts from the unique word on,
+with a residual CFO, a phase, a timing offset, 8-30 dB of noise and
+random lengths (0, 3, 4 and L among them), zero past each length as the
+downmix leaves them.
+
+For each shape, in both modes (Gardner and `--no-gardner`), the kernel
+(`loop` on the card) is held against `loop_plain` on the same inputs: the
+valid flags equal, the output within 1e-4 of each burst's peak magnitude,
+the summed corrections within rtol 1e-4, atol 1e-5; and `Demod.decide`
+on both gives equal ok, direction, n_symbols, confidence and bits, and
+level, total_phase and LLRs within rtol 1e-4, atol 1e-5. A burst whose
+output is not bit-equal is reported with the first symbol where it
+differs. Then the tool times the kernel (median single call, and a call
+in a run of calls back to back), the plain loop run eagerly, and, in
+Gardner mode, the plain loop captured as a CUDA graph (its nodes,
+capture seconds and replay ms), and prints ns per symbol step (the kernel's time over S: the
+bursts' chains of S steps run side by side). The bound counts the bytes
+this run's data needs (the samples below each length read once, the
+outputs written once) at 3.35 TB/s.
+
+`--classes` (card only): the production 10 MHz pipeline decodes the
+first group (4 blocks) of `tools/captures.py`'s dense capture twice, once
+as the package runs it and once with `loop_plain` in the kernel's place
+(this tool's swap; the package has no switch), and prints each class
+graph's nodes, capture and instantiate seconds and replay ms, and each
+decode's wall (its first, which captures the graphs, and a second on
+them, with its group stages): the class graphs before and after the
+kernel, in one process. With the kernel it also lists the device
+operations that take the small-normal replay's time (torch.profiler).
+
+On the CPU (`--small`: 9 bursts of 400 samples, 40 symbols) `loop` is
+`loop_plain`, and times are the host clock's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import gc
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import _kernels, device as device_mod, iridium
+from ..config import DetectorConfig
+from ..dsp import demod
+from ..io import synth
+from .exp_block_gather import time_gather
+from .exp_frontend import HBM_BYTES_PER_S
+from .exp_window_gather import samples_ms
+
+SEED = 1240
+CLASS_NAMES = ("small_normal", "small_simplex", "large")
+SMALL = (dict(shape="small", B=9, L=400, S=40, sps=10.0),)
+OUT_REL = 1e-4            # |out err| / the burst's peak |out|
+RTOL, ATOL = 1e-4, 1e-5   # total, level, total_phase, llr
+INT_FIELDS = ("ok", "direction", "n_symbols", "confidence", "bits")
+FLOAT_FIELDS = ("level", "total_phase", "llr")
+# FP32 operations a symbol step (counted from the source: two Catmull-Rom
+# reads, the timing error and the PLL step; --no-gardner the PLL alone),
+# with atan2f, cosf, sinf and hypotf at ~20 each
+OPS_PER_STEP = {True: 150, False: 110}
+FP32_FLOP_PER_S = 67e12
+
+
+def class_shapes() -> list[dict]:
+    """The three class batches of the production 10 MHz group program."""
+    from ..runtime.pipeline import Pipeline
+    pipe = Pipeline(det_cfg=DetectorConfig(sample_rate=10_000_000),
+                    device="cpu")
+    return [dict(shape=name, B=c.batch, L=c.downmix.max_frame_cap,
+                 S=c.demod.S, sps=c.demod.sps)
+            for name, c in zip(CLASS_NAMES, pipe.classes)]
+
+
+def inputs(B: int, L: int, sps: float, seed: int, cfo_hz: float = 300.0):
+    """(x (B, L) c64, n_samples (B,) i64, direction (B,) i32) as numpy:
+    DL bursts from the unique word on (16 payloads, reused), each with a
+    residual CFO of up to `cfo_hz`, a phase, a timing offset of up to 4
+    samples and noise at 8-30 dB; half of them end mid-row (noise after
+    them). Lengths are uniform in [L/4, L], the first five 0, 3, 4, L and
+    1; samples from each length on are zero."""
+    rng = np.random.default_rng(seed)
+    isps = int(round(sps))
+    lead = iridium.PREAMBLE_LENGTH_SHORT * isps
+    waves = []
+    for _ in range(min(B, 16)):
+        bits = rng.integers(0, 2, 2 * (L // isps + 8)).astype(np.uint8)
+        waves.append(synth.modulate(synth.burst_symbols(bits), sps=isps))
+    n = rng.integers(L // 4, L + 1, B)
+    n[:5] = [0, 3, 4, L, 1][:B]
+    x = np.zeros((B, L), np.complex64)
+    t = np.arange(L)
+    for b in range(B):
+        w = waves[b % len(waves)]
+        off = int(rng.integers(-4, 5))
+        sig = w[lead + off:lead + off + L]
+        cfo = rng.uniform(-cfo_hz, cfo_hz) / (isps
+                                              * iridium.SYMBOLS_PER_SECOND)
+        rot = np.exp(1j * (2 * np.pi * cfo * t[:len(sig)]
+                           + rng.uniform(0, 2 * np.pi)))
+        row = np.zeros(L, np.complex128)
+        row[:len(sig)] = sig * rot
+        if rng.random() < 0.5:
+            row[int(rng.integers(L // 2, L + 1)):] = 0
+        sigma = 10.0 ** (-rng.uniform(8.0, 30.0) / 20.0) / np.sqrt(2.0)
+        row += sigma * (rng.standard_normal(L) + 1j * rng.standard_normal(L))
+        row[n[b]:] = 0
+        x[b] = row
+    direction = rng.integers(0, 2, B).astype(np.int32)
+    return x, n.astype(np.int64), direction
+
+
+def compare_loop(got, want) -> dict:
+    """The kernel's loop output against the plain loop's: raises past the
+    limits; returns the errors and the bursts that part from it."""
+    (go, gv, gt), (wo, wv, wt) = got, want
+    peak = wo.abs().amax(1)
+    err = (go - wo).abs().amax(1)
+    t_err = (gt - wt).abs()
+    res = dict(valid_equal=bool(torch.equal(gv, wv)),
+               out_max_abs_err=float(err.max()),
+               out_max_rel_err=float((err / peak.clamp_min(1e-30)).max()),
+               total_max_abs_err=float(t_err.max()),
+               out_bit_equal=bool(torch.equal(go, wo)),
+               total_bit_equal=bool(torch.equal(gt, wt)))
+    differ = (go != wo).any(1)
+    first = torch.where(differ, (go != wo).int().argmax(1), -1)
+    res["parted"] = [[b, int(first[b])]
+                     for b in torch.nonzero(differ).flatten().tolist()[:20]]
+    res["n_parted"] = int(differ.sum())
+    bad = []
+    if not res["valid_equal"]:
+        bad.append("valid")
+    if not bool((err <= OUT_REL * peak).all()):
+        bad.append(f"out (max {res['out_max_rel_err']:.3g} of the peak)")
+    if not bool((t_err <= ATOL + RTOL * wt.abs()).all()):
+        bad.append(f"total (max |err| {res['total_max_abs_err']:.3g})")
+    if bad:
+        raise AssertionError("demod loop against loop_plain: "
+                             + ", ".join(bad) + f"; parted {res['parted']}")
+    return res
+
+
+def compare_demod(got: demod.DemodOut, want: demod.DemodOut) -> dict:
+    """Demod's fields with the kernel against those with the plain loop:
+    raises past the limits; returns the float fields' max |err|."""
+    for name in INT_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.equal(a, b):
+            raise AssertionError(f"Demod {name}: {int((a != b).sum())} "
+                                 "values differ with the kernel")
+    res = {}
+    for name in FLOAT_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        res[f"{name}_max_abs_err"] = (float((a - b).abs().max())
+                                      if a.numel() else 0.0)
+    return res
+
+
+def bound(n: torch.Tensor, B: int, L: int, S: int, use_gardner: bool
+          ) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, bytes): the samples this data needs read
+    once (Gardner: each row below its length; --no-gardner: the S strided
+    samples), the lengths, the outputs (c64 + u8 a symbol, f32 a burst)
+    written once; against the FP32 operations of B x S steps."""
+    read = (8 * int(n.clamp(0, L).sum()) if use_gardner else 8 * B * S)
+    n_bytes = read + 8 * B + 9 * B * S + 4 * B
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = OPS_PER_STEP[use_gardner] * B * S / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes", n_bytes) if t_b >= t_o else (t_o, "operations",
+                                                       n_bytes)
+
+
+def plain_graph(fn) -> dict:
+    """`fn` captured as a CUDA graph (pipeline.Captured): nodes, capture
+    and instantiate seconds, replay ms (median of 3 after a warm-up)."""
+    from ..runtime.pipeline import Captured
+    c = Captured()
+    c.replay(fn)
+    torch.cuda.synchronize()
+    replay = statistics.median(samples_ms(c.graph.replay,
+                                          torch.device("cuda"), 3))
+    res = dict(nodes=c.nodes, capture_s=c.capture_s,
+               instantiate_s=c.instantiate_s, replay_ms=replay)
+    del c
+    return res
+
+
+def run_shape(sh: dict, dev: torch.device, graphs: bool = True,
+              reps: int = 7) -> list[dict]:
+    """Both modes at one shape: checked, then timed; one dict a mode."""
+    B, L, S, sps = sh["B"], sh["L"], sh["S"], sh["sps"]
+    x, n, direction = inputs(B, L, sps, SEED + B + L)
+    x = torch.from_numpy(x).to(dev)
+    n = torch.from_numpy(n).to(dev)
+    direction = torch.from_numpy(direction).to(dev)
+    out = []
+    for use_gardner in (True, False):
+        dm = demod.Demod(S, sps, use_gardner, dev)
+        args = (x, n, sps, S, use_gardner)
+        got = demod.loop(*args)
+        want = demod.loop_plain(*args)
+        res = dict(shape=sh["shape"], B=B, L=L, S=S, sps=sps,
+                   mode="gardner" if use_gardner else "no_gardner")
+        res.update(compare_loop(got, want))
+        res.update(compare_demod(dm.decide(*got, direction),
+                                 dm.decide(*want, direction)))
+        del got, want
+        fn = lambda: demod.loop(*args)  # noqa: E731
+        ms = statistics.median(samples_ms(fn, dev, reps))
+        chained = time_gather(fn, dev, reps)
+        plain = statistics.median(samples_ms(
+            lambda: demod.loop_plain(*args), dev, 1 if dev.type == "cuda"
+            else 2))
+        b_ms, b_by, n_bytes = bound(n, B, L, S, use_gardner)
+        res.update(ms=ms, chained_ms=chained, ns_per_step=chained * 1e6 / S,
+                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   bound_bytes=n_bytes, share_of_bound=b_ms / ms,
+                   library_ms=None)
+        if graphs and use_gardner and dev.type == "cuda":
+            res["plain_graph"] = plain_graph(
+                lambda: demod.loop_plain(*args))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out.append(res)
+    return out
+
+
+def product_forms(dev: torch.device, n: int = 1 << 20) -> dict:
+    """What the kernel's arithmetic assumes of PyTorch on the card, on n
+    random complex pairs: the share of PyTorch's complex products whose
+    real part is fma(a, c, -(b d)) and imaginary part fma(a, d, b c) (the
+    kernel's `cmul`; b d and b c rounded), against a c - b d and a d + b c
+    rounded at each step; and the share of complex magnitudes equal to
+    torch.hypot (hypotf). The fused forms are computed in f64 and rounded
+    once to f32 (exact but for a double rounding, rare)."""
+    rng = np.random.default_rng(SEED)
+    a, b = (rng.standard_normal((2, n)).astype(np.float32) for _ in "ab")
+    x = torch.from_numpy(a).to(dev)
+    y = torch.from_numpy(b).to(dev)
+    xc, yc = torch.complex(x[0], x[1]), torch.complex(y[0], y[1])
+    got = torch.view_as_real(xc * yc).cpu().numpy()
+    mag = xc.abs()
+    hyp = float((mag == torch.hypot(x[0], x[1])).float().mean())
+    (ar, ai), (br, bi), d = a, b, np.float64
+
+    def share(want, col):
+        return float((want.astype(np.float32) == got[:, col]).mean())
+    return dict(
+        fused_re=share(ar.astype(d) * br - ai * bi, 0),
+        fused_im=share(ar.astype(d) * bi + ai * br, 1),
+        rounded_re=share(ar * br - ai * bi, 0),
+        rounded_im=share(ar * bi + ai * br, 1),
+        abs_is_hypot=hyp)
+
+
+@contextlib.contextmanager
+def plain_in_place():
+    """`loop_plain` wherever the package calls `demod.loop`."""
+    saved = demod.loop
+    demod.loop = demod.loop_plain
+    try:
+        yield
+    finally:
+        demod.loop = saved
+
+
+def replay_top(c, dev: torch.device, reps: int = 3, top: int = 8) -> list:
+    """torch.profiler over `reps` replays of a captured graph: its device
+    operations with the most device time, as (name, ms a replay, launches
+    a replay)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            c.graph.replay()
+        torch.cuda.synchronize(dev)
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return [(e.key[:70], e.self_device_time_total / 1e3 / reps,
+             e.count / reps) for e in ops[:top]]
+
+
+def class_graphs(dev: torch.device) -> dict:
+    """The production 10 MHz pipeline's class graphs of a 4-block group
+    (the dense capture's first), captured with the kernel and with
+    `loop_plain` in its place: per class its nodes, capture and
+    instantiate seconds, replay ms; each decode's wall, the first
+    (captures included) and a second on the captured graphs, with the
+    second's group stages; and, with the kernel, the device operations
+    that take the small-normal replay's time."""
+    from ..runtime.pipeline import Pipeline
+    from .captures import PROD, dense_capture
+    cap, _ = dense_capture(SEED)
+    group = cap[:4 * PROD["frames_per_block"] * 8192]
+    del cap
+    res = {}
+    for name, ctx in (("kernel", contextlib.nullcontext),
+                      ("plain", plain_in_place)):
+        pipe = Pipeline(det_cfg=DetectorConfig(**PROD), device=dev,
+                        want_llr=False)
+        with ctx():
+            t = time.perf_counter()
+            lines = sum(1 for _ in pipe.run_array(group))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            pipe.reset()
+            t = time.perf_counter()
+            again = sum(1 for _ in pipe.run_array(group))
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t
+        if again != lines:
+            raise AssertionError(f"{name}: {again} lines on the captured "
+                                 f"graphs against {lines}")
+        stages = {k: pipe.timing[k] for k in (
+            "step_dispatch", "group_dispatch", "result_fetch_wait",
+            "n_overflow_rounds")}
+        g = pipe.graphs[4]
+        g.scal[1:] = 0                  # the first round: every class runs
+        parts = {}
+        for cname, c in zip(("route",) + CLASS_NAMES, g.parts):
+            if c.graph is None:
+                continue
+            parts[cname] = dict(
+                nodes=c.nodes, capture_s=c.capture_s,
+                instantiate_s=c.instantiate_s,
+                replay_ms=statistics.median(samples_ms(c.graph.replay, dev,
+                                                       5)))
+        res[name] = dict(lines=lines, first_decode_s=wall,
+                         warm_decode_s=warm, warm_stages=stages, parts=parts)
+        if name == "kernel":
+            res[name]["small_normal_top"] = replay_top(g.parts[1], dev)
+        del pipe, g, c
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="exp_demod",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    ap.add_argument("--small", action="store_true",
+                    help="a small shape for the CPU")
+    ap.add_argument("--classes", action="store_true",
+                    help="the pipeline's class graphs with the kernel and "
+                    "with the plain loop (card only)")
+    args = ap.parse_args(argv)
+    dev = device_mod.resolve(args.device)
+    if args.classes and dev.type != "cuda":
+        ap.error("--classes needs the card")
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"device: {name}", flush=True)
+    if dev.type == "cuda":
+        _kernels.DEMOD_LOOP.build()
+        print("products " + json.dumps(product_forms(dev)), flush=True)
+    for sh in SMALL if args.small else class_shapes():
+        for r in run_shape(sh, dev, reps=3 if args.small else 7):
+            print(f"{r['shape']} {r['B']} x {r['L']} x {r['S']} {r['mode']}: "
+                  f"{r['ms']:.4f} ms (chained {r['chained_ms']:.4f}, "
+                  f"{r['ns_per_step']:.1f} ns a step), plain "
+                  f"{r['plain_ms']:.2f}, bound {r['bound_ms']:.5f} "
+                  + json.dumps(r), flush=True)
+    if args.classes:
+        print("class_graphs " + json.dumps(class_graphs(dev)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,11 +16,14 @@ torch = pytest.importorskip("torch")
 
 from iridium_tpu_torch import device as device_mod  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
+from iridium_tpu_torch import _kernels  # noqa: E402
+from iridium_tpu_torch.dsp import demod  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
 from iridium_tpu_torch.ops import block_gather as bg  # noqa: E402
 from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
+from iridium_tpu_torch.tools import exp_demod  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -261,7 +264,6 @@ def test_group_graph_replay_matches_eager_program(dev):
     arity's graphs equals it run eagerly on the same inputs, bit for bit,
     and two runs through the graphs add twice the kernel launches their
     captures recorded."""
-    from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.io import synth
     from iridium_tpu_torch.runtime.pipeline import Pipeline
     cfg = DetectorConfig(sample_rate=10_000_000, history_size=64,
@@ -278,7 +280,9 @@ def test_group_graph_replay_matches_eager_program(dev):
     assert sorted(pipe.graphs) == [1, 2]
     small_normal = pipe.graphs[2].parts[1]
     assert small_normal.launches[_kernels.FUSED_FRONTEND] >= 1
-    assert small_normal.nodes > 1000
+    # the demod loop is one kernel node, not ~130 nodes a symbol
+    assert small_normal.launches[_kernels.DEMOD_LOOP] == 1
+    assert small_normal.nodes < 2000
     for nb, g in pipe.graphs.items():
         route = g.parts[0]
         skips = g.scal[1:].tolist()
@@ -442,3 +446,50 @@ def test_sharded_world_size_1_over_nccl_matches_single_card(dev, tmp_path):
     np.ascontiguousarray(cap).view(np.float32).tofile(path)
     assert cli.main(["-f", str(path),
                      "--mesh", str(torch.cuda.device_count() + 1)]) == 2
+
+
+def _demod_inputs(dev, B=37, L=1918, seed=41):
+    x, n, direction = exp_demod.inputs(B, L, 10.0, seed=seed)
+    return tuple(torch.from_numpy(v).to(dev) for v in (x, n, direction))
+
+
+@pytest.mark.parametrize("use_gardner", [True, False],
+                         ids=["gardner", "no_gardner"])
+def test_demod_loop_matches_plain(dev, use_gardner):
+    """The demod loop kernel against `loop_plain` on the card at B = 37,
+    L = 1,918, S = 205 (the 10 MHz small-normal class's frame cap and
+    symbols), lengths 0, 1, 3, 4 and L among them: valid equal, the output
+    within 1e-4 of each burst's peak, the corrections within rtol 1e-4,
+    atol 1e-5; Demod's ok, direction, n_symbols, confidence and bits equal
+    and its float fields within rtol 1e-4, atol 1e-5 (`exp_demod`'s
+    limits). One launch."""
+    S = 205
+    x, n, direction = _demod_inputs(dev)
+    want = demod.loop_plain(x, n, 10.0, S, use_gardner)
+    before = _kernels.DEMOD_LOOP.launches
+    got = demod.loop(x, n, 10.0, S, use_gardner)
+    torch.cuda.synchronize()
+    assert _kernels.DEMOD_LOOP.launches == before + 1
+    exp_demod.compare_loop(got, want)
+    dm = demod.Demod(S, 10.0, use_gardner, dev)
+    exp_demod.compare_demod(dm.decide(*got, direction),
+                            dm.decide(*want, direction))
+
+
+def test_demod_on_card_launches_the_kernel_only(dev, monkeypatch):
+    """`Demod` on CUDA tensors launches the kernel once a call and never
+    runs `loop_plain`; a tensor the kernel cannot take raises."""
+    def refuse(*args):
+        raise AssertionError("loop_plain ran on the card")
+    x, n, direction = _demod_inputs(dev, B=5)
+    monkeypatch.setattr(demod, "loop_plain", refuse)
+    for use_gardner in (True, False):
+        before = _kernels.DEMOD_LOOP.launches
+        out = demod.Demod(205, 10.0, use_gardner, dev)(x, n.int(), direction)
+        torch.cuda.synchronize()
+        assert _kernels.DEMOD_LOOP.launches == before + 1
+        assert out.bits.shape == (5, 410) and out.bits.device == x.device
+    with pytest.raises(ValueError):
+        demod.loop(x[:, ::2], n, 10.0, 205, True)
+    with pytest.raises(ValueError):
+        demod.loop(x, n.int(), 10.0, 205, True)

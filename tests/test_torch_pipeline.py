@@ -146,7 +146,7 @@ def test_package_imports_no_jax(tmp_path):
         "assert not bad, bad\n"
         "for m in ('dsp.detect_fast', 'dsp.detect', 'io.native',\n"
         "          'parallel.stream', 'parallel.distributed',\n"
-        "          'tools.exp_mesh', 'tools.captures'):\n"
+        "          'tools.exp_mesh', 'tools.captures', 'tools.exp_demod'):\n"
         "    assert 'iridium_tpu_torch.' + m in sys.modules, m\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libhostio-' in maps and '_native/libhostio' not in maps\n"

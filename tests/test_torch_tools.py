@@ -3,7 +3,9 @@ builds kernel variants (`tools/variants.py`), the phase probes of
 `tools/exp_scan.py`, and the scan inputs it times, at a small shape; the
 front-end tool `tools/exp_frontend.py` and the window-gather tool
 `tools/exp_window_gather.py` at their small CPU shapes, and the latter's
-shape table; the line comparison of the mesh tool `tools/exp_mesh.py`.
+shape table; the demod-loop tool `tools/exp_demod.py` at its small CPU
+shape, its shape table, inputs, checks and bound; the line comparison of
+the mesh tool `tools/exp_mesh.py`.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -17,7 +19,8 @@ from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
-from iridium_tpu_torch.tools import exp_mesh, exp_window_gather  # noqa: E402
+from iridium_tpu_torch.tools import exp_demod, exp_mesh  # noqa: E402
+from iridium_tpu_torch.tools import exp_window_gather  # noqa: E402
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -184,3 +187,65 @@ def test_exp_mesh_compare_lines():
         exp_mesh.compare_lines([c], [a], masked=False)
     with pytest.raises(AssertionError, match="2 lines against 1"):
         exp_mesh.compare_lines([a, a], [a], masked=False)
+
+
+def test_exp_demod_small_on_cpu(capsys):
+    assert exp_demod.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    for mode in ("gardner", "no_gardner"):
+        assert f"small 9 x 400 x 40 {mode}:" in out
+    assert out.count('"out_bit_equal": true') == 2
+    with pytest.raises(SystemExit):
+        exp_demod.main(["--device", "cpu", "--small", "--classes"])
+
+
+def test_exp_demod_shapes_inputs_and_bound():
+    """The three 10 MHz class batches (batch, frame cap, symbols) from the
+    pipeline; inputs with the edge lengths and zeros from each length on;
+    the bound counts the samples below each length once (Gardner) or the
+    S strided samples (--no-gardner), and the outputs once."""
+    got = {s["shape"]: (s["B"], s["L"], s["S"], s["sps"])
+           for s in exp_demod.class_shapes()}
+    assert got == {"small_normal": (1024, 1918, 205, 10.0),
+                   "small_simplex": (96, 4440, 471, 10.0),
+                   "large": (48, 4440, 471, 10.0)}
+    x, n, direction = exp_demod.inputs(20, 400, 10.0, seed=5)
+    assert x.shape == (20, 400) and x.dtype == np.complex64
+    assert list(n[:5]) == [0, 3, 4, 400, 1] and n.min() >= 0
+    assert n.max() <= 400 and set(direction) <= {0, 1}
+    for row, k in zip(x, n):
+        assert not row[k:].any() and (k < 8 or row[:k].any())
+    nt = torch.from_numpy(n)
+    b, by, n_bytes = exp_demod.bound(nt, 20, 400, 40, True)
+    assert n_bytes == 8 * int(n.sum()) + 8 * 20 + 9 * 20 * 40 + 4 * 20
+    assert by == "bytes" and b == pytest.approx(n_bytes / 3.35e12 * 1e3)
+    assert exp_demod.bound(nt, 20, 400, 40, False)[2] == (
+        8 * 20 * 40 + 8 * 20 + 9 * 20 * 40 + 4 * 20)
+
+
+def test_exp_demod_checks_catch_a_parting_burst():
+    """compare_loop passes equal outputs and names the burst and symbol
+    where one parts; beyond 1e-4 of the peak, or with other valid flags,
+    it raises. compare_demod raises on a differing integer field."""
+    from iridium_tpu_torch.dsp import demod
+    x, n, direction = (torch.from_numpy(v) for v in
+                       exp_demod.inputs(6, 400, 10.0, seed=6))
+    want = demod.loop_plain(x, n, 10.0, 40, True)
+    assert exp_demod.compare_loop(want, want)["n_parted"] == 0
+    out = want[0].clone()
+    out[3, 17] += 1e-6 * out[3].abs().max()
+    res = exp_demod.compare_loop((out, want[1], want[2]), want)
+    assert res["parted"] == [[3, 17]] and not res["out_bit_equal"]
+    out[3, 17] += 1e-3 * out[3].abs().max()
+    with pytest.raises(AssertionError, match="out"):
+        exp_demod.compare_loop((out, want[1], want[2]), want)
+    valid = want[1].clone()
+    valid[2, 0] = ~valid[2, 0]
+    with pytest.raises(AssertionError, match="valid"):
+        exp_demod.compare_loop((want[0], valid, want[2]), want)
+    dm = demod.Demod(40, 10.0)
+    d = dm.decide(*want, direction)
+    assert exp_demod.compare_demod(d, d)["llr_max_abs_err"] == 0.0
+    with pytest.raises(AssertionError, match="bits"):
+        exp_demod.compare_demod(d._replace(bits=1 - d.bits), d)
