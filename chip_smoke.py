@@ -69,10 +69,11 @@ Phases, each printing one line:
      (`Pipeline.run_file`) and through `readers.read_blocks`: each reader
      alone in blocks/s, each decode's wall, realtime and `read` seconds
      and the share of the wall no stage counts; equal lines;
-  9. `wideband_25mhz`: a 25 MHz capture (F = 32768, above the scan
-     kernel's MAX_FFT) through `Pipeline.run_file`: the scan resolves to
-     detect_fast, decimation 100 takes the window gather, every injected
-     payload comes back bit-exact, realtime as measured;
+  9. `wideband_25mhz`: a 25 MHz capture (F = 32768) through
+     `Pipeline.run_file`: the scan resolves to the scan kernel, which runs
+     as a cluster of 2 blocks and launches, decimation 100 takes the window
+     gather, every injected payload comes back bit-exact, realtime as
+     measured;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
@@ -82,10 +83,13 @@ Phases, each printing one line:
      covers them.
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
 at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
-and 1000, history_size 16), and `detect_fast_card` holds detect_fast (one
-production block) and the exact scan (one small block) on the card to
-the same functions on the CPU; their launches are comparisons and are not
-counted.
+and 1000, history_size 16) and at the 25 and 50 MHz blocks (1,024 x
+32,768 and 1,024 x 65,536, the kernel as a cluster of 2 and 4 blocks,
+timed; in the `kernels` line's `detail.per_shape`), and
+`detect_fast_card` holds detect_fast (one production block) and the exact
+scan (one small block) on the card to the same functions on the CPU, and
+counts detect_fast's device launches at the 25 MHz block; their launches
+are comparisons and are not counted.
 Every printed number names the card (`card`: nvidia-smi's name and
 power limit). The last line is the JSON result. Any failed check exits
 non-zero; with no CUDA device, or without the port's package beside this
@@ -189,16 +193,27 @@ def check_scan(p, dev, card: str) -> dict:
                               us_per_frame=ms * 1e3 / p.frames_per_block,
                               gone=g["g_count"], tagged=g["n_tagged"],
                               dropped=g["burst_dropped"]))
-    F, H = p.fft_size, p.history_size
-    state_bytes = 4 * (H * F + 9 * F)
-    n_bytes = 4 * F * p.frames_per_block + 2 * state_bytes
-    b_ms, b_by = bound(n_bytes, 0)
+    b_ms, b_by = scan_bound(p)
+    shape = dict(shape=[p.frames_per_block, p.fft_size], clusters=1,
+                 ms=per_input[0]["ms"],
+                 us_per_frame=per_input[0]["us_per_frame"],
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 max_abs_err=err)
     return dict(name="detect_scan", route="cuda",
                 source="iridium_tpu_torch/csrc/detect_scan.cu",
                 replaces="iridium_tpu/dsp/detect_pallas.py:152",
                 max_abs_err=err, ms=per_input[0]["ms"], plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                detail=dict(card=card, per_input=per_input))
+                detail=dict(card=card, per_input=per_input,
+                            per_shape=[shape]))
+
+
+def scan_bound(p) -> tuple[float, str]:
+    """The scan's bytes bound: the block's |X|^2 rows read once, the
+    state (history and the 9 per-bin planes) read and written once."""
+    F, H = p.fft_size, p.history_size
+    state_bytes = 4 * (H * F + 9 * F)
+    return bound(4 * F * p.frames_per_block + 2 * state_bytes, 0)
 
 
 # the fused front-end's agreement with fused_plain: its 3xTF32 products
@@ -1184,13 +1199,64 @@ SCAN_SHAPES = (dict(frames_per_block=100, history_size=32),
                dict(frames_per_block=2048, history_size=16))
 
 
+WIDE_RATES = (25_000_000, 50_000_000)
+
+
+def check_cluster_shape(rate: int, dev) -> dict:
+    """The scan kernel at the derived configuration of `rate` (1,024 frames
+    of 32,768 or 65,536 bins, which it runs as a cluster of 2 or 4
+    blocks) against the plain scan: `tools/exp_scan.py`'s synthetic block
+    from a fresh state (its first 512 frames prime the history; bursts, a
+    long burst), timed, then its cluster edge block from the state that
+    block left (bursts beside the DC notch on a block edge, ties and
+    dilations across the other edges, a comb). Bit-equal, dB fields
+    within rtol 1e-5."""
+    import torch
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan, state as st
+    from iridium_tpu_torch.tools import exp_scan
+
+    p = DetectorConfig(sample_rate=rate).derived()
+    nv = p.block_samples
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    synth = exp_scan.synthetic_spectrogram(p, gen)
+    s0 = st.init_state(p, dev)
+    got = detect_scan.scan(synth, s0, nv, p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = detect_scan.scan_plain(synth, s0, nv, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = exp_scan.compare(got, want)
+    ms = time_ms(lambda: detect_scan.scan(synth, s0, nv, p))
+    del synth
+    st.rebase_(want, nv)
+    edge = torch.from_numpy(exp_scan.cluster_edge_spectrogram(
+        p, seed=11)).to(dev)
+    got_e = detect_scan.scan(edge, want, nv, p)
+    err = max(err, exp_scan.compare(
+        got_e, detect_scan.scan_plain(edge, want, nv, p)))
+    b_ms, b_by = scan_bound(p)
+    return dict(shape=[p.frames_per_block, p.fft_size],
+                sample_rate=rate, clusters=detect_scan.clusters(p.fft_size),
+                resolves=detect_scan.resolve_impl(p), ms=ms,
+                us_per_frame=ms * 1e3 / p.frames_per_block,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, gone=int(got.g_count),
+                tagged=int(got.n_tagged), edge_gone=int(got_e.g_count),
+                edge_tagged=int(got_e.n_tagged),
+                edge_dropped=int(got_e.burst_dropped))
+
+
 def scan_shapes_phase(dev) -> dict:
     """The scan kernel against the plain scan at 10 MHz (F = 8192) at the
     shapes the Pallas scan's chunk rules refuse (frames_per_block 100 and
     1000; history_size 16), on `tools/exp_scan.py`'s edge block (bursts
     across thread edges, an exact tie, a squelch blast): bit-equal, timed,
-    with the scan each shape resolves to, and 25 MHz's (F = 32768, above
-    the kernel's MAX_FFT)."""
+    with the scan each shape resolves to; then at 25 and 50 MHz (F =
+    32768 and 65536), which must resolve to the kernel, as its cluster of
+    2 and 4 blocks (`check_cluster_shape`)."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect_scan, state as st
@@ -1216,10 +1282,11 @@ def scan_shapes_phase(dev) -> dict:
     if any(sh["resolves"] != "scan" for sh in shapes):
         raise AssertionError(f"a chunk shape does not resolve to the "
                              f"kernel: {shapes}")
-    wide = DetectorConfig(sample_rate=25_000_000).derived()
-    return dict(phase="scan_shapes", shapes=shapes,
-                fft_25mhz=wide.fft_size,
-                resolves_25mhz=detect_scan.resolve_impl(wide))
+    wide = [check_cluster_shape(rate, dev) for rate in WIDE_RATES]
+    if any(w["resolves"] != "scan" or w["clusters"] < 2 for w in wide):
+        raise AssertionError(f"a wideband shape does not resolve to the "
+                             f"cluster kernel: {wide}")
+    return dict(phase="scan_shapes", shapes=shapes, wide=wide)
 
 
 # ---- detect_fast_card: the other scans on the card against the CPU ----
@@ -1236,7 +1303,10 @@ def detect_fast_card_phase(dev) -> dict:
     integer fields, baseline sums and history bit-equal, dB fields within
     rtol 1e-5; each run timed. Then the exact scan (detect.py) on the card
     against the CPU on one small block (256 x 8192, the edge block), held
-    the same way."""
+    the same way. Last, detect_fast on the card alone at the 25 MHz block
+    (1,024 x 32,768, the synthetic block), which the scan kernel now
+    serves: its seconds, and its device launches a block counted by
+    torch.profiler."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect, detect_fast, state as st
@@ -1282,8 +1352,25 @@ def detect_fast_card_phase(dev) -> dict:
     for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
         torch.testing.assert_close(getattr(ge, name), getattr(we, name),
                                    rtol=1e-5, atol=0)
+    pw = DetectorConfig(sample_rate=25_000_000).derived()
+    gen.manual_seed(SEED)
+    mw = exp_scan.synthetic_spectrogram(pw, gen)
+    run_w = detect_fast.make_scan_fast(pw)
+    wide_ms = host_ms(lambda: run_w(mw, st.init_state(pw, dev),
+                                    pw.block_samples), reps=1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_w(mw, st.init_state(pw, dev), pw.block_samples)
+        torch.cuda.synchronize()
+    wide_launches = sum(e.count for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    wb_ms, wb_by = scan_bound(pw)
     return dict(phase="detect_fast_card", block=[p.frames_per_block,
                                                  p.fft_size],
+                wide_block=[pw.frames_per_block, pw.fft_size],
+                wide_fast_card_ms=wide_ms,
+                wide_device_launches=wide_launches,
+                wide_bound_ms=wb_ms, wide_bound_by=wb_by,
                 fast_card_ms=card_ms, fast_cpu_ms=cpu_ms, max_db_err=err,
                 gone=g["g_count"], tagged=g["n_tagged"],
                 dropped=g["burst_dropped"],
@@ -1291,7 +1378,7 @@ def detect_fast_card_phase(dev) -> dict:
                 exact_card_ms=exact_ms, exact_gone=int(ge.g_count))
 
 
-# ---- wideband_25mhz: F = 32768, served by detect_fast ----
+# ---- wideband_25mhz: F = 32768, the scan kernel as a cluster ----
 
 WIDE = dict(sample_rate=25_000_000)
 
@@ -1325,8 +1412,9 @@ def wideband_capture(rng):
 def wideband_phase(dev, tmp) -> dict:
     """A 25 MHz capture file through `Pipeline.run_file` on the card
     (after a warm-up decode that captures the group graphs): the scan
-    resolves to detect_fast (F = 32768), decimation 100 takes the window
-    gather, and every injected payload comes back bit-exact."""
+    resolves to the scan kernel (F = 32768: a cluster of 2 blocks), which
+    launches, decimation 100 takes the window gather, and every injected
+    payload comes back bit-exact."""
     import gc
     import torch
     from iridium_tpu_torch import _kernels
@@ -1343,7 +1431,7 @@ def wideband_phase(dev, tmp) -> dict:
     det = DetectorConfig(**WIDE)
     pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
                     want_llr=False)
-    if pipe.detect_impl != "fast":
+    if pipe.detect_impl != "scan":
         raise AssertionError(f"25 MHz resolved to {pipe.detect_impl}")
     t = time.perf_counter()
     list(pipe.run_file(path))
@@ -1356,7 +1444,7 @@ def wideband_phase(dev, tmp) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = {k.name: k.launches for k in _kernels.KERNELS}
-    if (counts["window_gather"] == 0 or counts["detect_scan"] != 0
+    if (counts["window_gather"] == 0 or counts["detect_scan"] == 0
             or counts["fused_frontend"] != 0):
         raise AssertionError(f"25 MHz decode launches: {counts}")
     missing = missing_payloads(frames, bursts, det)
@@ -1476,7 +1564,10 @@ def main() -> int:
 
     rows = kernel_phase(dev, card)
     clock[0] = time.perf_counter()
-    emit(scan_shapes_phase(dev))
+    shp = emit(scan_shapes_phase(dev))
+    rows[0]["detail"]["per_shape"] += shp["wide"]
+    rows[0]["max_abs_err"] = max([rows[0]["max_abs_err"]]
+                                 + [w["max_abs_err"] for w in shp["wide"]])
     emit(detect_fast_card_phase(dev))
     with tempfile.TemporaryDirectory() as tmp:
         dec, ctx = decode_phase(dev, tmp)

@@ -131,7 +131,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 DETECT_SCAN = Kernel(
     "detect_scan",
-    [P] * 19 + [I] * 11 + [F32] * 5 + [P],
+    [P] * 19 + [I] * 11 + [F32] * 5 + [I, P],
     # keep the noise-sum and relative-magnitude arithmetic free of fused
     # multiply-adds, so baseline_sum stays bit-equal to the plain scan
     extra_flags=("--fmad=false",))

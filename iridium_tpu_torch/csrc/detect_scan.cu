@@ -11,12 +11,12 @@
 // f + 1 depends on the state that frame f leaves, so the frames run one
 // after another and the time goes to per-frame latency, not to bytes.
 //
-// Design: ONE thread block walks the frames in order. Each of its
-// T = min(1024, F) threads owns BPT = F / T contiguous bins (fewer, fatter
-// threads were slower: a frame's instructions are spread over fewer warps
-// and hide less latency). The kernel is bound by one SM's instruction
-// issue, so what a frame waits on is kept off the chain and the common
-// path is kept short:
+// Design, up to F = 16384: ONE thread block walks the frames in order.
+// Each of its T = min(1024, F) threads owns BPT = F / T contiguous bins
+// (fewer, fatter threads were slower: a frame's instructions are spread
+// over fewer warps and hide less latency). The kernel is bound by one
+// SM's instruction issue, so what a frame waits on is kept off the chain
+// and the common path is kept short:
 //   - the |X|^2 rows stream through a ring of kStages frames in shared
 //     memory, one 1-D TMA bulk copy a row (`cp.async.bulk`, completing on
 //     the stage's mbarrier), issued by thread 0 in the middle of the
@@ -51,6 +51,31 @@
 // words (its own and the two halo words) loaded into registers one update
 // ahead; a barrier separates any two updates, so no thread writes a row
 // that another has still to read.
+//
+// Above 16384 bins (F = 32768 and 65536) one SM cannot hold the state, so
+// a thread-block cluster of C = F / 16384 blocks walks the frames
+// together, each block owning 16384 contiguous bins as the F = 16384 path
+// does (1024 threads, 16 bins a thread, words from device memory). The
+// blocks meet where bins of one touch another's:
+//   - the frame's reduction: each block's warp partials go to shared
+//     memory, a cluster barrier (arrive.release / wait.acquire) publishes
+//     them, and every warp reads all C blocks' partials through
+//     distributed shared memory (`mapa`): the key is the max, the count's
+//     prefix adds the counts of the lower ranks (emission order is
+//     ascending bin, which is rank order), the flag is the OR. Every
+//     branch around a barrier depends only on such cluster-wide values;
+//   - the mask release: a block lists its own gone bins; a thread whose
+//     +-half_bw window reaches past its block's edge also walks the end of
+//     the neighbour's list, read through distributed shared memory after a
+//     cluster barrier;
+//   - the halo words: the edge threads read the neighbour's |X|^2 and
+//     evicted history words from device memory (past L1), and the barrier
+//     after the forced noise update is a cluster barrier, so no block
+//     writes a history row its neighbour has still to read;
+//   - the scalars evolve identically in every block; rank 0 writes them,
+//     and a last cluster barrier keeps every block's shared memory alive
+//     until the others have read it.
+// The DC notch (F / 2) lies on the edge between ranks C / 2 - 1 and C / 2.
 //
 // Semantics follow the Pallas kernel exactly: frames past n_valid leave
 // the state alone; candidates come from the carried mask and the
@@ -112,6 +137,11 @@ __device__ __forceinline__ int warp_incl_scan(int v) {
   return v;
 }
 
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
 __device__ __forceinline__ unsigned long long warp_max64(
     unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -121,12 +151,48 @@ __device__ __forceinline__ unsigned long long warp_max64(
   return v;
 }
 
-// One block-wide reduction in one barrier: the max of `key`, the
-// exclusive prefix sum of `cnt` in thread order with its total, and the
-// OR of `flag`. Callers alternate between two buffers, so a buffer is
-// written again only after another call's barrier. On the common frame
-// all three are zero everywhere, and a vote on each side of the barrier
-// skips the rest.
+// This block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of every block of the cluster: what any of them wrote
+// before it (shared or device memory) is seen by any of them after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The barrier between the phases: the block's, or the cluster's
+template <int C>
+__device__ __forceinline__ void phase_sync() {
+  if constexpr (C == 1)
+    __syncthreads();
+  else
+    cluster_sync();
+}
+
+// *p in the shared memory of cluster block `rank` (a generic address)
+template <typename T>
+__device__ __forceinline__ const T* peer(const T* p, int rank) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(a)
+               : "l"(p), "r"(rank));
+  return reinterpret_cast<const T*>(a);
+}
+
+// One reduction over the block (C = 1) or the cluster, in one barrier:
+// the max of `key`, the exclusive prefix sum of `cnt` in bin order with
+// its total, and the OR of `flag`; with the counts of the blocks of lower
+// rank (`lo`) and of this block (`own`). Callers alternate between two
+// buffers, so a buffer is written again only after another call's
+// barrier. On the common frame all three are zero everywhere, and a vote
+// on each side of the barrier skips the rest (the votes skip shuffles
+// only, never a barrier).
 struct Red {
   struct Warp {
     unsigned long long key;
@@ -135,10 +201,11 @@ struct Red {
 };
 struct Reduced {
   unsigned long long key;
-  int excl, total;
+  int excl, total, lo, own;
   bool any;
 };
 
+template <int C>
 __device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
                                 Red* r) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -156,15 +223,44 @@ __device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
     r->w[warp].key = wk;
     r->w[warp].flag = wf;
   }
-  __syncthreads();
-  Reduced o{0ull, 0, 0, false};
-  const Red::Warp e = lane < nw ? r->w[lane] : Red::Warp{0ull, 0, 0};
-  if (__any_sync(kFull, e.cnt != 0 || e.key != 0ull || e.flag)) {
-    o.key = warp_max64(e.key);
-    o.any = __any_sync(kFull, e.flag);
-    const int wi = warp_incl_scan(e.cnt);
-    o.excl = __shfl_sync(kFull, wi - e.cnt, warp) + incl - cnt;
-    o.total = __shfl_sync(kFull, wi, 31);
+  phase_sync<C>();
+  Reduced o{0ull, 0, 0, 0, 0, false};
+  if constexpr (C == 1) {
+    const Red::Warp e = lane < nw ? r->w[lane] : Red::Warp{0ull, 0, 0};
+    if (__any_sync(kFull, e.cnt != 0 || e.key != 0ull || e.flag)) {
+      o.key = warp_max64(e.key);
+      o.any = __any_sync(kFull, e.flag);
+      const int wi = warp_incl_scan(e.cnt);
+      o.excl = __shfl_sync(kFull, wi - e.cnt, warp) + incl - cnt;
+      o.total = __shfl_sync(kFull, wi, 31);
+      o.own = o.total;
+    }
+  } else {
+    // lane l reads warp l's partial of every block of the cluster
+    const int me = cluster_rank();
+    unsigned long long k = 0ull;
+    int lo = 0, own = 0, all = 0;
+    bool fl = false;
+    if (lane < nw) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const Red::Warp e = peer(r, q)->w[lane];
+        k = e.key > k ? e.key : k;
+        fl |= e.flag != 0;
+        all += e.cnt;
+        if (q < me) lo += e.cnt;
+        if (q == me) own = e.cnt;
+      }
+    }
+    if (__any_sync(kFull, all != 0 || k != 0ull || fl)) {
+      o.key = warp_max64(k);
+      o.any = __any_sync(kFull, fl);
+      const int wi = warp_incl_scan(own);
+      o.lo = warp_sum(lo);
+      o.own = __shfl_sync(kFull, wi, 31);
+      o.total = warp_sum(all);
+      o.excl = o.lo + __shfl_sync(kFull, wi - own, warp) + incl - cnt;
+    }
   }
   return o;
 }
@@ -235,26 +331,37 @@ __device__ __forceinline__ void store_bins(float* p, const float (&v)[BPT]) {
   }
 }
 
-template <int BPT>
+// C blocks of a cluster (C = 1: one block) walk the frames together;
+// block `rank` owns bins [rank * FB, (rank + 1) * FB), FB = F / C. Bins
+// (b0, a key's bin, mask windows, the DC notch) are global; shared-memory
+// indices (SI) are the block's own.
+template <int BPT, int C>
 __global__ void __launch_bounds__(1024)
     detect_scan_kernel(State st, Params p) {
+  static_assert(C == 1 || BPT == 16, "a cluster runs the 16-bin path");
   constexpr bool kRing = BPT <= 8;  // the rings fit in shared memory
   constexpr unsigned kAll = (1u << BPT) - 1u;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int F = p.F, H = p.H, hb = p.half_bw, dc = F / 2;
+  const int FB = F / C;
+  const int rank = C == 1 ? 0 : cluster_rank();
   const float thr = p.threshold;
   float* s_ring = reinterpret_cast<float*>(smem_raw);  // kStages x F
   float* s_ev = s_ring + (kRing ? kStages * F : 0);    // F if kRing
   int* s_last = reinterpret_cast<int*>(s_ev + (kRing ? F : 0));
-  int* s_start = s_last + F;  // s_last, s_start: [i * T + tid]
-  unsigned short* s_gone = reinterpret_cast<unsigned short*>(s_start + F);
-  Red* s_red = reinterpret_cast<Red*>(s_gone + F);  // 2
+  int* s_start = s_last + FB;  // s_last, s_start: [i * T + tid]
+  // the block's gone bins of the frame, ascending (global bins: F <= 65536
+  // fits; store local bins and the rank if larger clusters are allowed)
+  unsigned short* s_gone = reinterpret_cast<unsigned short*>(s_start + FB);
+  Red* s_red = reinterpret_cast<Red*>(s_gone + FB);  // 2
   // kStages row barriers, then the evicted-row barrier
   unsigned long long* s_bar =
       reinterpret_cast<unsigned long long*>(s_red + 2);
-  const int b0 = tid * BPT;
-  const bool has_l = tid > 0, has_r = tid < T - 1;
+  int* s_ngone = reinterpret_cast<int*>(s_bar + kStages + 1);  // s_gone's
+  const int lo_bin = rank * FB;
+  const int b0 = lo_bin + tid * BPT;
+  const bool has_l = b0 > 0, has_r = b0 + BPT < F;
 #define SI(i) ((i) * T + tid)
 
   // one F-float row from device memory into shared memory (thread 0)
@@ -313,8 +420,9 @@ __global__ void __launch_bounds__(1024)
     } else {
       const float* row = st.hist + (size_t)hidx * F;
       load_bins(ev, row + b0);
-      if (has_l) ev_l = row[b0 - 1];
-      if (has_r) ev_r = row[b0 + BPT];
+      // in a cluster a halo word may be another block's: read it past L1
+      if (has_l) ev_l = C > 1 ? __ldcg(row + b0 - 1) : row[b0 - 1];
+      if (has_r) ev_r = C > 1 ? __ldcg(row + b0 + BPT) : row[b0 + BPT];
     }
   };
   if constexpr (kRing) {
@@ -329,7 +437,7 @@ __global__ void __launch_bounds__(1024)
   }
   load_evicted();
   int n_act =
-      block_reduce(0ull, __popc(valid), false, s_red + (nred++ & 1)).total;
+      block_reduce<C>(0ull, __popc(valid), false, s_red + (nred++ & 1)).total;
   // phase: begin
 
   auto noise_update = [&](const float* row) {
@@ -451,7 +559,7 @@ __global__ void __launch_bounds__(1024)
 
     // phase: reduce
     const Reduced r =
-        block_reduce(key0, __popc(gone), longb, s_red + (nred++ & 1));
+        block_reduce<C>(key0, __popc(gone), longb, s_red + (nred++ & 1));
     // every thread is past the last noise update: load the next evicted
     // row
     if constexpr (kRing) load_evicted();
@@ -467,18 +575,35 @@ __global__ void __launch_bounds__(1024)
         const int i = __ffs(v) - 1;
         if (e < kEDel)
           emit(emitted + e, b0 + i, idx, s_last[SI(i)], s_start[SI(i)]);
-        s_gone[e] = (unsigned short)(b0 + i);
+        s_gone[e - r.lo] = (unsigned short)(b0 + i);
       }
       emitted += min(n_del, kEDel);
-      __syncthreads();
+      if (C > 1 && tid == 0) *s_ngone = r.own;
+      phase_sync<C>();
       // release the +-half_bw mask of every gone bin, emitted or not
       int dec[BPT] = {};
-      for (int k = 0; k < n_del; ++k) {
-        const int gb = s_gone[k];
-        if (gb + hb < b0 || gb - hb >= b0 + BPT) continue;
+      auto release = [&](int gb) {
+        if (gb + hb < b0 || gb - hb >= b0 + BPT) return false;
 #pragma unroll
         for (int i = 0; i < BPT; ++i)
           if (abs(b0 + i - gb) <= hb) ++dec[i];
+        return true;
+      };
+      for (int k = 0; k < r.own; ++k) release(s_gone[k]);
+      if constexpr (C > 1) {
+        // gone bins of the neighbours whose windows reach this thread's
+        // bins: the top of the lower block's list, the bottom of the upper
+        if (rank > 0 && b0 - hb < lo_bin) {
+          const unsigned short* g = peer(s_gone, rank - 1);
+          for (int k = *peer(s_ngone, rank - 1) - 1; k >= 0; --k)
+            if (!release(g[k])) break;
+        }
+        if (rank < C - 1 && b0 + BPT + hb > lo_bin + FB) {
+          const unsigned short* g = peer(s_gone, rank + 1);
+          const int n = *peer(s_ngone, rank + 1);
+          for (int k = 0; k < n; ++k)
+            if (!release(g[k])) break;
+        }
       }
 #pragma unroll
       for (int i = 0; i < BPT; ++i) {
@@ -498,13 +623,14 @@ __global__ void __launch_bounds__(1024)
     unsigned long long key = r.key;
     for (int j = 0; j < p.k_create; ++j) {
       if (j > 0)
-        key = block_reduce(best_key(), 0, false, s_red + (nred++ & 1)).key;
+        key = block_reduce<C>(best_key(), 0, false, s_red + (nred++ & 1))
+                  .key;
       const float m = __uint_as_float((unsigned)(key >> 32));
       if (!(m > thr)) break;
       const int b = (int)(kFull - (unsigned)(key & kFull));
       const float mag_db =
           10.0f * log10f(fmaxf(m * p.hist_f * p.enbw, 1e-30f));
-      if (b / BPT == tid) {
+      if ((unsigned)(b - b0) < (unsigned)BPT) {
         const int li = b - b0;
         float base_at = 0.0f, ev_at = 0.0f;
 #pragma unroll
@@ -547,7 +673,7 @@ __global__ void __launch_bounds__(1024)
       }
     }
     if (n_acc == p.k_create &&
-        block_reduce(0ull, 0, cand != 0u, s_red + (nred++ & 1)).any)
+        block_reduce<C>(0ull, 0, cand != 0u, s_red + (nred++ & 1)).any)
       ++waits;
     if constexpr (kRing) {
       // every thread is past frame f - 1, and its history store (if any)
@@ -562,10 +688,10 @@ __global__ void __launch_bounds__(1024)
     // (burst_detect.c:516). The barrier keeps the final update below from
     // writing the history row that this update evicts next before every
     // thread has read it (with BPT = 16 a thread reads its neighbours'
-    // halo words of that row).
+    // halo words of that row; in a cluster, maybe another block's).
     if (forced) {
       noise_update(row);
-      __syncthreads();
+      phase_sync<C>();
       if constexpr (kRing) load_evicted();
     }
 
@@ -575,7 +701,7 @@ __global__ void __launch_bounds__(1024)
     if (squelch) {
       const unsigned sq = valid & ~crt;
       const Reduced q =
-          block_reduce(0ull, __popc(sq), false, s_red + (nred++ & 1));
+          block_reduce<C>(0ull, __popc(sq), false, s_red + (nred++ & 1));
       n_tagged += q.total;
       dropped += max(q.total - kESq, 0);
       int e = q.excl;
@@ -626,7 +752,7 @@ __global__ void __launch_bounds__(1024)
     st.a_last[g] = s_last[SI(i)];
     st.a_start[g] = s_start[SI(i)];
   }
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     st.sc[0] = hidx;
     st.sc[1] = prim;
     st.sc[2] = burst_id;
@@ -637,28 +763,52 @@ __global__ void __launch_bounds__(1024)
     st.sc[7] = min(emitted, p.G);
     st.scf[0] = peak;
   }
+  // no block leaves while another may still read its shared memory
+  if constexpr (C > 1) cluster_sync();
 #undef SI
 }
 
-template <int BPT>
+template <int BPT, int C>
 cudaError_t launch(const State& st, const Params& p, int T,
                    cudaStream_t stream) {
   constexpr bool kRing = BPT <= 8;
-  const size_t F = p.F;
+  const size_t F = p.F, FB = F / C;
   const size_t smem = (kRing ? (kStages + 1) * F * sizeof(float) : 0) +
-                      2 * F * sizeof(int) + F * sizeof(unsigned short) +
+                      2 * FB * sizeof(int) + FB * sizeof(unsigned short) +
                       2 * sizeof(Red) +
-                      (kStages + 1) * sizeof(unsigned long long);
+                      (kStages + 2) * sizeof(unsigned long long);
   cudaError_t err = cudaFuncSetAttribute(
-      detect_scan_kernel<BPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      detect_scan_kernel<BPT, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  detect_scan_kernel<BPT><<<1, T, smem, stream>>>(st, p);
+  if constexpr (C == 1) {
+    detect_scan_kernel<BPT, C><<<1, T, smem, stream>>>(st, p);
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C, 1, 1);
+    cfg.blockDim = dim3(T, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, detect_scan_kernel<BPT, C>, st, p);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // a refused launch leaves nothing behind
+      return err;
+    }
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// `clusters` blocks of a cluster share the F bins (1 for F <= 16384; 2 or
+// 4 of 16384 bins each above)
 extern "C" int detect_scan(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
@@ -667,7 +817,7 @@ extern "C" int detect_scan(
     int n_frames, int H, int G, int n_valid, int half_bw, int k_create,
     int max_bursts, int max_burst_len, int post_len, int pre_len,
     float threshold, float hist_f, float enbw, float f2, float bin_width,
-    cudaStream_t stream) {
+    int clusters, cudaStream_t stream) {
   const State st{mag2,  hist,   bsum,    a_valid, a_id,   a_start, a_last,
                  a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
                  g_bin, g_mag,  g_noise, sc,      scf};
@@ -675,14 +825,24 @@ extern "C" int detect_scan(
                  half_bw,    k_create, max_bursts, max_burst_len, post_len,
                  pre_len,    threshold, hist_f,  enbw,     f2,
                  bin_width};
-  const int T = F < 1024 ? F : 1024;
-  if (T % 32 != 0 || F % T != 0) return (int)cudaErrorInvalidValue;
-  switch (F / T) {
-    case 1: return (int)launch<1>(st, p, T, stream);
-    case 2: return (int)launch<2>(st, p, T, stream);
-    case 4: return (int)launch<4>(st, p, T, stream);
-    case 8: return (int)launch<8>(st, p, T, stream);
-    case 16: return (int)launch<16>(st, p, T, stream);
+  if (clusters < 1 || F % clusters != 0) return (int)cudaErrorInvalidValue;
+  const int FB = F / clusters;
+  const int T = FB < 1024 ? FB : 1024;
+  if (T % 32 != 0 || FB % T != 0) return (int)cudaErrorInvalidValue;
+  if (clusters > 1) {
+    if (FB / T != 16 || F > 65536) return (int)cudaErrorInvalidValue;
+    switch (clusters) {
+      case 2: return (int)launch<16, 2>(st, p, T, stream);
+      case 4: return (int)launch<16, 4>(st, p, T, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (FB / T) {
+    case 1: return (int)launch<1, 1>(st, p, T, stream);
+    case 2: return (int)launch<2, 1>(st, p, T, stream);
+    case 4: return (int)launch<4, 1>(st, p, T, stream);
+    case 8: return (int)launch<8, 1>(st, p, T, stream);
+    case 16: return (int)launch<16, 1>(st, p, T, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

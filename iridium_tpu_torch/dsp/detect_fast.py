@@ -2,11 +2,12 @@
 iridium_tpu/dsp/detect_fast.py (the JAX package's XLA scan).
 
 The pipeline runs it for the detector shapes the scan kernel
-(csrc/detect_scan.cu) refuses, such as F = 32768 at sample rates of about
-23.2 MHz and up (`detect_scan.resolve_impl`); the JAX package's bin-split
-mode runs it sharded. It is plain tensor ops on the state's device, frame
-by frame, with no host read inside a block, so on the card the host only
-enqueues.
+(csrc/detect_scan.cu) refuses, such as F = 131072 at sample rates above
+about 92.7 MHz (`detect_scan.resolve_impl`), or where it is asked for
+(`detect_impl="fast"`); the sharded pipeline's bin-split mode runs it
+sharded, as the JAX package's does. It is plain tensor ops on the state's
+device, frame by frame, with no host read inside a block, so on the card
+the host only enqueues.
 
 Its results depend on how it is built, and the tests hold it to the JAX
 function row for row, so it keeps that function's structure:

@@ -22,21 +22,33 @@ from ..config import DetectorParams
 from ..ops import windows
 from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
 
-MAX_FFT = 16384
+# bins one thread block of the kernel holds (1024 threads, 16 bins each);
+# above it a cluster of F / BLOCK_BINS blocks shares the bins
+BLOCK_BINS = 16384
+MAX_FFT = 4 * BLOCK_BINS
+
+
+def clusters(F: int) -> int:
+    """Blocks of the kernel's cluster at F bins: 1 up to BLOCK_BINS, then
+    F / BLOCK_BINS (2 at F = 32768, 4 at 65536)."""
+    return max(1, F // BLOCK_BINS)
 
 
 def supports(p: DetectorParams) -> bool:
-    """Shapes the kernel handles: a multiple of 128 bins, at most MAX_FFT,
-    spread over at most 1024 threads of one block; a history of two rows
-    or more (the row a noise update evicts was stored two or more updates
-    before, so its bulk store has completed); a gone table the per-frame
-    emission caps can fill (detect_fast's own rule). The kernel walks the
-    frames one by one, so the Pallas scan's chunk rules
+    """Shapes the kernel handles: a multiple of 128 bins spread over at
+    most 1024 threads of one block (up to 16384 bins), or F = 32768 or
+    65536 over a cluster of 2 or 4 such blocks of 16384 bins; a history
+    of two rows or more (the row a noise update evicts was stored two or
+    more updates before, so its bulk store has completed); a gone table
+    the per-frame emission caps can fill (detect_fast's own rule). The
+    kernel walks the frames one by one, so the Pallas scan's chunk rules
     (detect_pallas.py:72-79) do not apply."""
     F = p.fft_size
     threads = min(F, 1024)
-    return (F % 128 == 0 and F <= MAX_FFT and F % threads == 0
-            and (F // threads) in (1, 2, 4, 8, 16)
+    one_block = (F <= BLOCK_BINS and F % threads == 0
+                 and (F // threads) in (1, 2, 4, 8, 16))
+    return (F % 128 == 0
+            and (one_block or F in (2 * BLOCK_BINS, MAX_FFT))
             and p.history_size >= 2
             and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ))
 
@@ -75,7 +87,9 @@ def _consts(p: DetectorParams) -> dict:
 def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
          p: DetectorParams) -> ScanState:
     """New state after the block of fftshifted |X|^2 rows `mag2`
-    (frames_per_block, F) f32. The input state is left as it was."""
+    (frames_per_block, F) f32. The input state is left as it was. Above
+    16384 bins the kernel runs as a cluster of `clusters(F)` blocks; a
+    launch the card refuses raises."""
     if mag2.device.type == "cpu":
         return scan_plain(mag2, state, n_valid, p)
     if not supports(p):
@@ -110,7 +124,7 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
         c["k_create"], int(p.max_bursts), int(p.max_burst_len),
         int(p.burst_post_len), int(p.burst_pre_len),
         float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
-        float(c["f2"]), float(c["bin_width"]))
+        float(c["f2"]), float(c["bin_width"]), clusters(F))
     return out
 
 

@@ -1,9 +1,11 @@
 """Detector-scan timing inputs and per-phase breakdown on the card.
 
-    python -m iridium_tpu_torch.tools.exp_scan [--source PATH ...]
+    python -m iridium_tpu_torch.tools.exp_scan [--fft F] [--source PATH ...]
 
 Three |X|^2 blocks at the production shape (2,048 frames x 8,192 bins,
-10 MHz), each with the state it starts from:
+10 MHz; with `--fft 32768` or `--fft 65536` the derived 25 or 50 MHz
+configuration, 1,024 frames, which the kernel runs as a cluster of 2 or 4
+blocks), each with the state it starts from:
   - `synthetic`: tone bursts (one longer than max_burst_len) and a comb
     blast that trips the squelch, from a fresh state (its first 512
     frames prime the noise history);
@@ -14,10 +16,11 @@ Three |X|^2 blocks at the production shape (2,048 frames x 8,192 bins,
 
 The tool builds a copy of csrc/detect_scan.cu (or of `--source`) under
 build/ in which every `// phase: NAME` comment of the kernel becomes a
-clock64() probe on thread 0, runs it on the three inputs and prints, per
-input, the kernel's uninstrumented microseconds per frame and the share
-of thread 0's cycles spent in each phase, with `nvcc -Xptxas -v`'s
-register and spill report. The committed kernel carries no probe.
+clock64() probe on thread 0 (of the cluster's first block), runs it on
+the three inputs and prints, per input, the kernel's uninstrumented
+microseconds per frame and the share of thread 0's cycles spent in each
+phase, with `nvcc -Xptxas -v`'s register and spill report. The committed
+kernel carries no probe.
 """
 
 from __future__ import annotations
@@ -42,13 +45,17 @@ from .exp_block_gather import single_ms
 SEED = 1234
 PROD = dict(sample_rate=10_000_000, frames_per_block=2048,
             gone_capacity=2048)
+# the configuration timed at each FFT size: the production one at 8192,
+# the derived configurations of the sample rates that give the others
+CONFIGS = {8192: PROD, 32768: dict(sample_rate=25_000_000),
+           65536: dict(sample_rate=50_000_000)}
 
 PROBES = """
 __device__ unsigned long long g_phase_cycles[16];
 __device__ unsigned long long g_phase_count[16];
 #define PHASE_PROBE(k)                                                  \\
   do {                                                                  \\
-    if (threadIdx.x == 0) {                                             \\
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                          \\
       const long long t_ = clock64();                                   \\
       atomicAdd(&g_phase_cycles[pc_], (unsigned long long)(t_ - pt_));  \\
       atomicAdd(&g_phase_count[pc_], 1ull);                             \\
@@ -78,8 +85,8 @@ extern "C" int {entry}_phases(unsigned long long* cycles,
 MARK = re.compile(r"^(\s*)// phase: (\w+)\s*$", re.M)
 
 
-def production_params():
-    return DetectorConfig(**PROD).derived()
+def production_params(fft: int = 8192):
+    return DetectorConfig(**CONFIGS[fft]).derived()
 
 
 def synthetic_spectrogram(p, gen):
@@ -147,6 +154,40 @@ def edge_spectrogram(p, seed: int, squelch: bool = True) -> np.ndarray:
         comb = np.arange(40, F - 40, 40)
         comb = comb[np.abs(comb - F // 2) > 8]
         mag2[t0 + 30:t0 + 50, comb] += 800.0
+    return mag2
+
+
+def cluster_edge_spectrogram(p, seed: int) -> np.ndarray:
+    """(frames_per_block, F) f32 |X|^2 (numpy) for F = 32768 or 65536 that
+    works the edges between the kernel's cluster blocks (every 16384
+    bins), from 8 frames after the history is primed. At the DC edge
+    (F / 2): a burst just below the +-3-bin notch, and one just above it
+    that the first one's mask holds back until its release (read from the
+    other block's gone list). At every other edge e, on a flat noise
+    floor: two candidates of exactly equal magnitude at e - 1 and e (the
+    lower must win), then e alone, which keeps the burst at e - 1 alive
+    through the +-1-bin dilation across the edge; later a 3-bin burst
+    across e. Then a comb of peaks every 40 bins that trips the squelch
+    (with max_bursts 20, more than E_SQ emissions: drops)."""
+    F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
+    edge = detect_scan.BLOCK_BINS
+    if F % edge or F < 2 * edge or t0 + 80 > n:
+        raise ValueError(f"F {F}, {n} frames: no cluster edges to work")
+    rng = np.random.default_rng(seed)
+    mag2 = rng.exponential(size=(n, F)).astype(np.float32)
+    dc = F // 2
+    for e in range(edge, F, edge):
+        if e == dc:
+            mag2[t0:t0 + 6, dc - 6:dc - 3] += 300.0
+            mag2[t0 + 2:t0 + 34, dc + 4:dc + 7] += 300.0
+            continue
+        mag2[:, e - 32:e + 32] = 1.0
+        mag2[t0:t0 + 6, e - 1:e + 1] += 300.0
+        mag2[t0 + 6:t0 + 20, e] += 300.0
+        mag2[t0 + 40:t0 + 52, e - 1:e + 2] += 300.0
+    comb = np.arange(40, F - 40, 40)
+    comb = comb[np.abs(comb - dc) > 8]
+    mag2[t0 + 60:t0 + 80, comb] += 800.0
     return mag2
 
 
@@ -248,20 +289,24 @@ def ptxas_report(kernel: _kernels.Kernel) -> list[str]:
          "-Xptxas", "-v", "-o", str(out), str(kernel.source)],
         capture_output=True, text=True)
     return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln
+            or "Function properties" in ln]
 
 
-def breakdown(source: Path, dev: torch.device) -> dict:
+def breakdown(source: Path, dev: torch.device, fft: int = 8192) -> dict:
     """Uninstrumented time and probed phase shares of the kernel built
-    from `source`, on each of the three inputs."""
-    p = production_params()
+    from `source`, on each of the three inputs at `fft` bins."""
+    p = production_params(fft)
     text = source.read_text()
     plain = variants.Variant(_kernels.DETECT_SCAN, text)
     probed_text, names = probed_source(text)
     probed = variants.Variant(_kernels.DETECT_SCAN, probed_text)
     plain.build()
     probed.build()
-    res = dict(source=str(source), ptxas=ptxas_report(plain), inputs=[])
+    res = dict(source=str(source), fft=p.fft_size,
+               clusters=detect_scan.clusters(p.fft_size),
+               frames=p.frames_per_block, ptxas=ptxas_report(plain),
+               inputs=[])
     print(json.dumps(res), flush=True)
     n_valid = p.block_samples
     for name, mag2, s0 in inputs(p, dev):
@@ -292,13 +337,16 @@ def main(argv=None) -> int:
     ap.add_argument("--source", type=Path, action="append",
                     help="kernel source to probe, repeatable (default: the "
                     "package's)")
+    ap.add_argument("--fft", type=int, default=8192, choices=sorted(CONFIGS),
+                    help="FFT size of the blocks (default 8192, the 10 MHz "
+                    "production shape)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("exp_scan: needs a CUDA device", file=sys.stderr)
         return 1
     for src in args.source or [_kernels.DETECT_SCAN.source]:
-        print(json.dumps(breakdown(src.resolve(), torch.device("cuda"))),
-              flush=True)
+        print(json.dumps(breakdown(src.resolve(), torch.device("cuda"),
+                                   args.fft)), flush=True)
     return 0
 
 

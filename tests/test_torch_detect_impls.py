@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from iridium_tpu.config import DetectorConfig as JaxDetConfig  # noqa: E402
 from iridium_tpu.dsp import detect as jdetect  # noqa: E402
+from iridium_tpu.dsp import detect_pallas  # noqa: E402
 from iridium_tpu.output.raw import RawPrinter as JaxRawPrinter  # noqa: E402
 from iridium_tpu.runtime.pipeline import Pipeline as JaxPipeline  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
@@ -152,9 +153,9 @@ def test_detect_block_matches_run_state_machine():
 CONFIGS = [
     (dict(sample_rate=10_000_000, frames_per_block=2048,
           gone_capacity=2048), "scan"),
-    (dict(sample_rate=25_000_000), "fast"),
+    (dict(sample_rate=25_000_000), "scan"),
     (dict(sample_rate=24_000_000, frames_per_block=64, history_size=16),
-     "fast"),
+     "scan"),
     (dict(sample_rate=10_000_000, frames_per_block=100), "scan"),
     (dict(sample_rate=10_000_000, frames_per_block=1000), "scan"),
     (dict(sample_rate=1_000_000, history_size=16), "scan"),
@@ -173,6 +174,23 @@ def test_every_jax_config_builds(cfg, impl):
             detect_scan.resolve_impl(p, "scan")
     with pytest.raises(ValueError):
         detect_scan.resolve_impl(p, "pallas")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(sample_rate=10_000_000, frames_per_block=2048, gone_capacity=2048),
+    dict(sample_rate=20_000_000), dict(sample_rate=25_000_000),
+    dict(sample_rate=40_000_000), dict(sample_rate=50_000_000),
+    dict(sample_rate=1_000_000)])
+def test_scan_wherever_jax_runs_its_pallas_scan(cfg):
+    """Each configuration the JAX package derives at 1-50 MHz (F = 1024 to
+    65536) goes through its Pallas scan on its chip
+    (detect_pallas.resolve_impl): the port resolves it to its scan kernel
+    too, not to detect_fast."""
+    jp = JaxDetConfig(**cfg).derived()
+    pp = DetectorConfig(**cfg).derived()
+    assert pp.fft_size == jp.fft_size and detect_pallas.supports(jp)
+    assert detect_scan.resolve_impl(pp) == "scan"
+    assert detect_scan.resolve_impl(pp, "scan") == "scan"
 
 
 def test_fast_pipeline_matches_jax_pipeline():

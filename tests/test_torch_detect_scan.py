@@ -276,3 +276,48 @@ def test_lone_long_burst_at_16k():
     assert int(got["g_count"]) >= 1
     assert abs(int(got["g_bin"][0]) - pp.fft_size // 4) <= 1
     assert int(got["g_last"][0]) - int(got["g_start"][0]) > pp.max_burst_len
+
+
+@pytest.mark.parametrize("rate,rows", [
+    (25_000_000, "edge"), (25_000_000, "long_burst"),
+    (50_000_000, "edge"), (50_000_000, "long_burst")])
+def test_cluster_shapes_match_pallas(rate, rows):
+    """F = 32768 and 65536, which the CUDA kernel runs as a cluster of 2
+    and 4 blocks of 16384 bins: the plain scan that the card tests hold
+    the cluster kernel to is held to the Pallas scan here. The edge rows
+    put bursts beside the DC notch on the edge at F / 2 (the mask of one
+    crosses it and holds the other back until its release), an exact tie
+    across each other edge (the lower bin wins) kept alive across it by
+    the dilation, and a squelch comb with emission drops; the long-burst
+    rows a lone burst past max_burst_len (forced, then final noise update),
+    across the edge at 16384 when F = 65536."""
+    jp, pp = params(sample_rate=rate, history_size=32, frames_per_block=128,
+                    max_bursts=20)
+    F, dc = pp.fft_size, pp.fft_size // 2
+    assert F == rate // 25_000_000 * 32768 and detect_scan.supports(pp)
+    if rows == "edge":
+        mag2 = exp_scan.cluster_edge_spectrogram(pp, seed=11)
+    else:
+        mag2 = exp_scan.long_burst_spectrogram(pp, seed=4)
+    sj = pallas_scan(jp)(jnp.asarray(mag2), detect_fast.init_state(jp),
+                         jnp.int32(jp.block_samples))
+    sp = detect_scan.scan(torch.from_numpy(mag2), st.init_state(pp, CPU),
+                          pp.block_samples, pp)
+    got = convert.state_to_numpy(sp)
+    check_states(got, jax_state_dict(sj))
+    bins = got["g_bin"][:int(got["g_count"])].tolist()
+    if rows == "long_burst":
+        assert abs(bins[0] - F // 4) <= 1
+        assert int(got["g_last"][0]) - int(got["g_start"][0]) > \
+            pp.max_burst_len
+        return
+    # both bursts beside the notch, the upper one after the lower's release
+    low = [i for i, b in enumerate(bins) if dc - 6 <= b < dc - 3]
+    high = [i for i, b in enumerate(bins) if dc + 3 < b <= dc + 6]
+    assert low and high
+    assert got["g_start"][high[0]] + pp.burst_pre_len >= \
+        got["g_stop"][low[0]]
+    for e in range(detect_scan.BLOCK_BINS, F, detect_scan.BLOCK_BINS):
+        if e != dc:
+            assert e - 1 in bins and e not in bins
+    assert int(got["burst_dropped"]) > 0

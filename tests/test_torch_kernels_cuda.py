@@ -342,6 +342,68 @@ def test_detect_scan_chunk_shapes_match_plain(dev, cfg):
     assert int(s.n_tagged) >= 3
 
 
+@pytest.mark.parametrize("rate", [25_000_000, 50_000_000])
+def test_detect_scan_cluster_matches_plain(dev, rate):
+    """F = 32768 and 65536, the kernel as a cluster of 2 and 4 blocks of
+    16384 bins: bit-equal to the plain scan on tools/exp_scan.py's
+    cluster edge block (bursts beside the DC notch on the block edge at
+    F / 2, a tie and a dilation across every other edge, a squelch blast
+    with emission drops) and its long-burst block (forced, then final
+    noise update); then over three blocks whose state goes from the kernel
+    to the plain scan and back."""
+    p = DetectorConfig(sample_rate=rate, history_size=32,
+                       frames_per_block=128, max_bursts=20).derived()
+    assert detect_scan.clusters(p.fft_size) == p.fft_size // 16384 > 1
+    assert detect_scan.supports(p)
+    nv = p.block_samples
+    edge = torch.from_numpy(exp_scan.cluster_edge_spectrogram(p, seed=11))
+    longb = torch.from_numpy(exp_scan.long_burst_spectrogram(p, seed=4))
+    blocks = [edge.to(dev), _bursty_spectrogram(p, dev, 3), longb.to(dev)]
+    s0 = st.init_state(p, dev)
+    for mag2 in (blocks[0], blocks[2]):
+        got = detect_scan.scan(mag2, s0, nv, p)
+        exp_scan.compare(got, detect_scan.scan_plain(mag2, s0, nv, p))
+    # the carry: chain a runs kernel, plain, kernel and chain b plain,
+    # kernel, plain, each block from its own chain's state
+    runs = (detect_scan.scan, detect_scan.scan_plain)
+    s_a, s_b = s0, s0
+    for k, mag2 in enumerate(blocks):
+        got_a = runs[k % 2](mag2, s_a, nv, p)
+        got_b = runs[1 - k % 2](mag2, s_b, nv, p)
+        exp_scan.compare(got_a, got_b)
+        if k == 0:
+            assert int(got_a.burst_dropped) > 0
+        s_a, s_b = got_a, got_b
+        st.rebase_(s_a, nv)
+        st.rebase_(s_b, nv)
+    assert int(s_a.n_tagged) > 40
+
+
+def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
+    """F = 131072 (100 MHz) is above the kernel's cluster of 4: `scan`
+    raises and `auto` resolves to detect_fast. A cluster the C side
+    refuses (8 blocks at F = 65536) raises too, and nothing runs in its
+    place."""
+    p = DetectorConfig(sample_rate=100_000_000, history_size=16,
+                       frames_per_block=16, gone_capacity=64).derived()
+    assert p.fft_size == 131072 and not detect_scan.supports(p)
+    assert detect_scan.resolve_impl(p) == "fast"
+    with pytest.raises(ValueError):
+        detect_scan.resolve_impl(p, "scan")
+    mag2 = torch.ones((16, p.fft_size), device=dev)
+    with pytest.raises(ValueError):
+        detect_scan.scan(mag2, st.init_state(p, dev), p.block_samples, p)
+    q = DetectorConfig(sample_rate=50_000_000, history_size=16,
+                       frames_per_block=16, gone_capacity=64).derived()
+    s0 = st.init_state(q, dev)
+    before = _kernels.DETECT_SCAN.launches
+    monkeypatch.setattr(detect_scan, "clusters", lambda F: 8)
+    with pytest.raises(RuntimeError):
+        detect_scan.scan(torch.ones((16, q.fft_size), device=dev), s0,
+                         q.block_samples, q)
+    assert _kernels.DETECT_SCAN.launches == before
+
+
 def _on(state, dev):
     return type(state)(**{f: getattr(state, f).to(dev)
                           for f in state.__dataclass_fields__})

@@ -65,6 +65,21 @@ def test_scan_inputs_at_a_small_shape():
     assert edge.dtype == np.float32 and edge.shape == (96, 8192)
 
 
+def test_scan_configs_per_fft_size():
+    """`exp_scan --fft F` times the derived configuration that gives F:
+    the 10 MHz production one at 8192, 25 and 50 MHz (the kernel's
+    clusters of 2 and 4) at 32768 and 65536. The cluster edge rows need
+    a cluster edge."""
+    for fft, frames in ((8192, 2048), (32768, 1024), (65536, 1024)):
+        p = exp_scan.production_params(fft)
+        assert (p.fft_size, p.frames_per_block) == (fft, frames)
+        assert detect_scan.supports(p)
+    assert [detect_scan.clusters(f) for f in (8192, 16384, 32768, 65536)
+            ] == [1, 1, 2, 4]
+    with pytest.raises(ValueError):
+        exp_scan.cluster_edge_spectrogram(exp_scan.production_params(), 1)
+
+
 def test_probed_source_of_the_fused_frontend():
     text = _kernels.FUSED_FRONTEND.source.read_text()
     probed, names = exp_scan.probed_source(text, "fused_frontend")
