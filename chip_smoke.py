@@ -42,8 +42,11 @@ Phases, each printing one line:
      bit-exact, the scan and the fused front-end launched), the 1 MHz
      capture in binshard mode (detect_fast with its per-frame all_reduce;
      lines, ids masked, equal to the single card's detect_fast decode;
-     the window gather launched), and the CLI with and without `--mesh 1`
-     (one spawned rank), each its own process: the same lines. The
+     the window gather launched), the CLI with and without `--mesh 1`
+     (one spawned rank), each its own process, on the 1 MHz capture: the
+     same lines, and the RAW capture through the CLI from its file and,
+     with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
+     block): the same lines. The
      front-end, gather and demod-loop calls in the sharded graphs (the
      sharded capacities' batches, 256 and 48 bursts) are held to their
      plain versions after every replay of the warm-up runs
@@ -71,7 +74,7 @@ Phases, each printing one line:
      and the share of the wall no stage counts; equal lines;
   9. `wideband_25mhz`: a 25 MHz capture (F = 32768) through
      `Pipeline.run_file`: the scan resolves to the scan kernel, which runs
-     as a cluster of 2 blocks and launches, decimation 100 takes the window
+     as a cluster of 4 blocks and launches, decimation 100 takes the window
      gather, every injected payload comes back bit-exact, realtime as
      measured;
   10. the `kernels` JSON line: every kernel with its launches on the
@@ -83,9 +86,12 @@ Phases, each printing one line:
      covers them.
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
 at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
-and 1000, history_size 16) and at the 25 and 50 MHz blocks (1,024 x
-32,768 and 1,024 x 65,536, the kernel as a cluster of 2 and 4 blocks,
-timed; in the `kernels` line's `detail.per_shape`), and
+and 1000, history_size 16), at sizes its layout pads or splits unevenly
+(1,152, 12,288, 16,384 and 20,480 bins) and at the 25, 50, 100 and 200
+MHz blocks (1,024 x 32,768 to 1,024 x 262,144, the kernel as a cluster of
+4, 8 and 16 blocks), each timed with its layout (in the `kernels`
+line's `detail.per_shape`), with `ptxas -v`'s registers and spill bytes
+per instantiation (`detail.ptxas`), and
 `detect_fast_card` holds detect_fast (one production block) and the exact
 scan (one small block) on the card to the same functions on the CPU, and
 counts detect_fast's device launches at the 25 MHz block; their launches
@@ -775,16 +781,20 @@ def strip_id(line: str) -> str:
     return re.sub(r"I:\d{11}", "I:-----------", line)
 
 
-def cli_lines(*runs: list) -> list:
-    """RAW lines of the port's CLI, each run (its arguments) as its own
-    process, all at once: per run the lines from the frequency on (the
-    first fields hold the wall-clock start)."""
-    procs = [subprocess.Popen([sys.executable, "-m", "iridium_tpu_torch.cli"]
-                              + args, cwd=HERE, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for args in runs]
-    out = []
+def cli_lines(*runs) -> list:
+    """RAW lines of the port's CLI, each run (its arguments, or (its
+    arguments, a file fed to its stdin)) as its own process, all at once:
+    per run the lines from the frequency on (the first fields hold the
+    wall-clock start)."""
+    procs, out = [], []
     try:
+        for run in runs:
+            args, src = (run, None) if isinstance(run, list) else run
+            with open(src or os.devnull, "rb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "iridium_tpu_torch.cli"] + args,
+                    cwd=HERE, stdin=f, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
         for args, p in zip(runs, procs):
             stdout, stderr = p.communicate(timeout=600)
             if p.returncode != 0:
@@ -809,7 +819,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     warm: the lines of the single card's Pipeline(detect_impl="fast") with
     the ids masked; (3) the CLI with `--mesh 1` (one spawned rank) and
     without it, each its own process, on the 1 MHz capture: the same
-    lines (the two processes run side by side). The warm-up runs of (1)
+    lines; (4) the CLI on the RAW 10 MHz capture as a file, and from
+    stdin with `--mesh 1` (rank 0 reads it and broadcasts each block): the
+    same lines (the four processes run side by side). The warm-up runs of
+    (1)
     and (2) capture the graphs and hold every kernel call in them to its
     plain version after each replay (`ReplayCheck`), at the shapes of the
     sharded capacities. Walls and realtime factors beside the single
@@ -921,12 +934,20 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
 
     t = time.perf_counter()
     args = ["-f", path1, "-r", "1000000"]
-    plain, meshed = cli_lines(args, args + ["--mesh", "1"])
+    raw = ["--format", "cf32"]
+    plain, meshed, raw_file, raw_stdin = cli_lines(
+        args, args + ["--mesh", "1"], ["-f", single["path"]] + raw,
+        (["-f", "-", "--mesh", "1"] + raw, single["path"]))
     if not plain or meshed != plain:
         raise AssertionError(f"CLI --mesh 1: {len(meshed)} lines against "
                              f"{len(plain)} without --mesh")
-    res["cli_1mhz"] = dict(lines=len(plain), mesh_1_lines_equal=True,
-                           both_processes_s=time.perf_counter() - t)
+    if not raw_file or raw_stdin != raw_file:
+        raise AssertionError(f"CLI --mesh 1 -f -: {len(raw_stdin)} lines "
+                             f"against {len(raw_file)} from the file")
+    res["cli_1mhz"] = dict(lines=len(plain), mesh_1_lines_equal=True)
+    res["cli_stdin_10mhz"] = dict(lines=len(raw_file),
+                                  mesh_1_stdin_lines_equal=True)
+    res["cli_processes_s"] = time.perf_counter() - t
     res["launches"] = {k: rep[k] + binc[k] for k in rep}
     res["kernel_checks"] = chk.summary
     return res
@@ -1199,18 +1220,65 @@ SCAN_SHAPES = (dict(frames_per_block=100, history_size=32),
                dict(frames_per_block=2048, history_size=16))
 
 
-WIDE_RATES = (25_000_000, 50_000_000)
+# the derived configurations above 16,384 bins: 1,024 frames of 32,768,
+# 65,536, 131,072 and 262,144 bins, clusters of 4, 8 and 16 blocks of
+# 8,192 bins and 16 blocks of 16,384 (the wide path)
+WIDE_RATES = (25_000_000, 50_000_000, 100_000_000, 200_000_000)
+# (sample rate, fft_size) of shapes whose layout pads or splits unevenly:
+# 1,152 (one block of 576 threads of 2 bins), 12,288 and 20,480 (clusters
+# of 2 and 4 blocks of 6,144 and 5,120 bins on 768 and 640 threads), and
+# 16,384 (2 blocks of 8,192: 20 MHz)
+ODD_SHAPES = ((1_000_000, 1152), (12_000_000, 12288), (20_000_000, 16384),
+              (20_000_000, 20480))
+
+
+def check_odd_shape(rate: int, F: int, dev) -> dict:
+    """The scan kernel at `rate` with `fft_size` F (1,024 frames, history
+    512, max_bursts 20) against the plain scan on `tools/exp_scan.py`'s
+    shape edge block from a fresh state (bursts beside the DC notch, a tie
+    and a dilation across a thread or block edge, a burst by the last
+    eligible bins, squelch drops): bit-equal, dB fields within rtol 1e-5;
+    timed with its layout."""
+    import torch
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan, state as st
+    from iridium_tpu_torch.tools import exp_scan
+
+    p = DetectorConfig(sample_rate=rate, fft_size=F, max_bursts=20).derived()
+    nv = p.block_samples
+    mag2 = torch.from_numpy(exp_scan.shape_edge_spectrogram(p, seed=11)).to(
+        dev)
+    s0 = st.init_state(p, dev)
+    got = detect_scan.scan(mag2, s0, nv, p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = detect_scan.scan_plain(mag2, s0, nv, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = exp_scan.compare(got, want)
+    if int(got.burst_dropped) < 1:
+        raise AssertionError(f"scan at F = {F}: no squelch drops")
+    ms = time_ms(lambda: detect_scan.scan(mag2, s0, nv, p))
+    b_ms, b_by = scan_bound(p)
+    return dict(shape=[p.frames_per_block, F], sample_rate=rate,
+                layout=list(detect_scan.layout(F)),
+                resolves=detect_scan.resolve_impl(p), ms=ms,
+                us_per_frame=ms * 1e3 / p.frames_per_block,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, gone=int(got.g_count),
+                tagged=int(got.n_tagged), dropped=int(got.burst_dropped))
 
 
 def check_cluster_shape(rate: int, dev) -> dict:
     """The scan kernel at the derived configuration of `rate` (1,024 frames
-    of 32,768 or 65,536 bins, which it runs as a cluster of 2 or 4
+    of 32,768 to 262,144 bins, which it runs as a cluster of 4 to 16
     blocks) against the plain scan: `tools/exp_scan.py`'s synthetic block
     from a fresh state (its first 512 frames prime the history; bursts, a
     long burst), timed, then its cluster edge block from the state that
     block left (bursts beside the DC notch on a block edge, ties and
     dilations across the other edges, a comb). Bit-equal, dB fields
-    within rtol 1e-5."""
+    within rtol 1e-5. Also how many such clusters the card holds at once
+    (`max_active_clusters`: a cluster of 16 is a non-portable size)."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect_scan, state as st
@@ -1240,6 +1308,9 @@ def check_cluster_shape(rate: int, dev) -> dict:
     b_ms, b_by = scan_bound(p)
     return dict(shape=[p.frames_per_block, p.fft_size],
                 sample_rate=rate, clusters=detect_scan.clusters(p.fft_size),
+                layout=list(detect_scan.layout(p.fft_size)),
+                max_active_clusters=detect_scan.max_active_clusters(
+                    p.fft_size),
                 resolves=detect_scan.resolve_impl(p), ms=ms,
                 us_per_frame=ms * 1e3 / p.frames_per_block,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1249,14 +1320,16 @@ def check_cluster_shape(rate: int, dev) -> dict:
                 edge_dropped=int(got_e.burst_dropped))
 
 
-def scan_shapes_phase(dev) -> dict:
+def scan_shapes_phase(dev, spills: dict) -> dict:
     """The scan kernel against the plain scan at 10 MHz (F = 8192) at the
     shapes the Pallas scan's chunk rules refuse (frames_per_block 100 and
     1000; history_size 16), on `tools/exp_scan.py`'s edge block (bursts
     across thread edges, an exact tie, a squelch blast): bit-equal, timed,
-    with the scan each shape resolves to; then at 25 and 50 MHz (F =
-    32768 and 65536), which must resolve to the kernel, as its cluster of
-    2 and 4 blocks (`check_cluster_shape`)."""
+    with the scan each shape resolves to; then at the odd sizes of
+    ODD_SHAPES (`check_odd_shape`) and at 25, 50, 100 and 200 MHz (F =
+    32768 to 262144), which must resolve to the kernel, as its cluster of
+    4, 8 and 16 blocks (`check_cluster_shape`). `spills`: `ptxas -v`'s
+    registers and spill bytes per instantiation of the kernel."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect_scan, state as st
@@ -1282,11 +1355,17 @@ def scan_shapes_phase(dev) -> dict:
     if any(sh["resolves"] != "scan" for sh in shapes):
         raise AssertionError(f"a chunk shape does not resolve to the "
                              f"kernel: {shapes}")
+    odd = [check_odd_shape(rate, F, dev) for rate, F in ODD_SHAPES]
+    if any(o["resolves"] != "scan" for o in odd):
+        raise AssertionError(f"an odd shape does not resolve to the "
+                             f"kernel: {odd}")
     wide = [check_cluster_shape(rate, dev) for rate in WIDE_RATES]
-    if any(w["resolves"] != "scan" or w["clusters"] < 2 for w in wide):
+    if any(w["resolves"] != "scan" or w["clusters"] < 2
+           or w["max_active_clusters"] < 1 for w in wide):
         raise AssertionError(f"a wideband shape does not resolve to the "
                              f"cluster kernel: {wide}")
-    return dict(phase="scan_shapes", shapes=shapes, wide=wide)
+    return dict(phase="scan_shapes", shapes=shapes, odd=odd, wide=wide,
+                ptxas=spills)
 
 
 # ---- detect_fast_card: the other scans on the card against the CPU ----
@@ -1412,7 +1491,7 @@ def wideband_capture(rng):
 def wideband_phase(dev, tmp) -> dict:
     """A 25 MHz capture file through `Pipeline.run_file` on the card
     (after a warm-up decode that captures the group graphs): the scan
-    resolves to the scan kernel (F = 32768: a cluster of 2 blocks), which
+    resolves to the scan kernel (F = 32768: a cluster of 4 blocks), which
     launches, decimation 100 takes the window gather, and every injected
     payload comes back bit-exact."""
     import gc
@@ -1547,6 +1626,7 @@ def main() -> int:
         return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip(), flush=True)
     dev = device.resolve("cuda")
+    from iridium_tpu_torch.tools import exp_scan
     t0 = time.perf_counter()
     _kernels.build_all()
     print(f"build: {len(_kernels.KERNELS)} kernels in "
@@ -1564,10 +1644,14 @@ def main() -> int:
 
     rows = kernel_phase(dev, card)
     clock[0] = time.perf_counter()
-    shp = emit(scan_shapes_phase(dev))
-    rows[0]["detail"]["per_shape"] += shp["wide"]
+    # the scan's `ptxas -v` report, kept by its build
+    shp = emit(scan_shapes_phase(dev, exp_scan.spill_table(
+        exp_scan.ptxas_report(_kernels.DETECT_SCAN))))
+    rows[0]["detail"]["per_shape"] += shp["odd"] + shp["wide"]
+    rows[0]["detail"]["ptxas"] = shp["ptxas"]
     rows[0]["max_abs_err"] = max([rows[0]["max_abs_err"]]
-                                 + [w["max_abs_err"] for w in shp["wide"]])
+                                 + [w["max_abs_err"]
+                                    for w in shp["odd"] + shp["wide"]])
     emit(detect_fast_card_phase(dev))
     with tempfile.TemporaryDirectory() as tmp:
         dec, ctx = decode_phase(dev, tmp)

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports plain `extern "C"` functions. On first use
 one `nvcc` per source compiles it for `sm_90a` into
 `build/kernels/<name>-<hash>.so` (the hash covers the source and the
-flags, so an edited source rebuilds), and `ctypes` binds it. Importing
+flags, so an edited source rebuilds), with ptxas's register and spill
+report beside it (`<name>-<hash>.ptxas`), and `ctypes` binds it. Importing
 this module needs no compiler: nothing is built until a kernel is
 launched on a CUDA tensor, or `build_all()` is called.
 
@@ -67,19 +68,24 @@ class Kernel:
         h.update(" ".join(NVCC_FLAGS + self.extra_flags).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
+    def ptxas_path(self) -> Path:
+        """`ptxas -v`'s report of the library's build."""
+        return self.library_path().with_suffix(".ptxas")
+
     def build(self) -> Path:
         """Compile the source unless a library of the same hash exists."""
-        out = self.library_path()
-        if out.exists():
+        out, report = self.library_path(), self.ptxas_path()
+        if out.exists() and report.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, *self.extra_flags,
-               "-o", str(tmp), str(self.source)]
+               "-Xptxas", "-v", "-o", str(tmp), str(self.source)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n"
                                f"{res.stdout}\n{res.stderr}")
+        report.write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
         return out
 
@@ -131,7 +137,9 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 DETECT_SCAN = Kernel(
     "detect_scan",
-    [P] * 19 + [I] * 11 + [F32] * 5 + [I, P],
+    # the state's 19 planes and the halo scratch, ..., the layout
+    # (clusters, block_bins, threads, bins_per_thread), the stream
+    [P] * 20 + [I] * 11 + [F32] * 5 + [I] * 4 + [P],
     # keep the noise-sum and relative-magnitude arithmetic free of fused
     # multiply-adds, so baseline_sum stays bit-equal to the plain scan
     extra_flags=("--fmad=false",))

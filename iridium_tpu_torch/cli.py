@@ -16,8 +16,9 @@ share one group program and one result copy (4 for a file, 1 for stdin),
 replicated detect) over N ranks, one card each (gloo ranks with `--device
 cpu`): under torchrun it joins the launcher's group, which must have N
 ranks; otherwise it starts N local ranks (`distributed.spawn`). Every rank
-reads the file; rank 0 alone prints lines, runs the decoders and sockets
-and prints the stats line. The JAX package's backend switches
+reads the file; with `-f -` rank 0 alone reads stdin and broadcasts each
+block to the others. Rank 0 alone prints lines, runs the decoders and
+sockets and prints the stats line. The JAX package's backend switches
 (`--no-pallas`, `--fir`, `--gather`, `--scan`) have no counterpart: the
 card's path always runs the port's kernels.
 
@@ -124,10 +125,6 @@ def main(argv=None) -> int:
     # one block, and the first stats column reads i:/s (main.c:487-492)
     live = args.file in ("-", "/dev/stdin")
     if args.mesh is not None:
-        if live:
-            print("error: --mesh needs a file: every rank reads it",
-                  file=sys.stderr)
-            return 2
         from .parallel import distributed
         if not distributed.in_group():
             return _spawn_mesh(args, sys.argv[1:] if argv is None else argv)
@@ -195,12 +192,33 @@ def _spawn_mesh(args, argv: list) -> int:
     return distributed.spawn(main, args.mesh, args.device, list(argv))[0]
 
 
+def _blocks(args, pipe, native, live: bool):
+    """The decode's (block, n_valid) pairs: a file through the native
+    reader (into pinned buffers on the card), which on the mesh every rank
+    runs; stdin through the Python reader. On the mesh, stdin is read by
+    rank 0 alone, from fd 0: a rank that `distributed.spawn` started
+    inherits the CLI process's fd 0 (multiprocessing replaces only
+    `sys.stdin`, with /dev/null), and the CLI process itself reads
+    nothing; under torchrun it is rank 0's own stdin. Rank 0 broadcasts
+    each block and the stream's end to the others
+    (`ShardedPipeline.share_blocks`)."""
+    if not (live and args.mesh is not None):
+        return native.read_blocks(args.file, pipe.p.block_samples,
+                                  args.format, pipe.device)
+
+    def stdin_blocks():
+        from .io import readers
+        with open(0, "rb", closefd=False) as f:
+            yield from readers.read_stream(f, pipe.p.block_samples,
+                                           args.format or "ci8")
+    return pipe.share_blocks(stdin_blocks() if pipe.rank == 0 else None)
+
+
 def _decode(args, pipe, native, live: bool, host0: bool) -> int:
     """The decode loop with its outputs; on a rank other than 0 (host0
     False) it only drives the pipeline: no lines, sockets or stats."""
     if not host0:
-        for _ in pipe.run_blocks(native.read_blocks(
-                args.file, pipe.p.block_samples, args.format, pipe.device)):
+        for _ in pipe.run_blocks(_blocks(args, pipe, native, live)):
             pass
         return 0
     printer = RawPrinter(args.file_info)
@@ -342,11 +360,7 @@ def _decode(args, pipe, native, live: bool, host0: bool) -> int:
         n_gsmtap += 1
 
     with profiler(args.profile, pipe.device) as prof:
-        # a file through the native reader (into pinned buffers on the
-        # card), stdin through the Python reader
-        blocks = native.read_blocks(args.file, pipe.p.block_samples,
-                                    args.format, pipe.device)
-        for frames in pipe.run_blocks(blocks):
+        for frames in pipe.run_blocks(_blocks(args, pipe, native, live)):
             # Block-vectorised protocol decode: one decode_block call covers
             # every frame's BCH/LCW/IDA math (frame_decode.c:414-598,
             # ida_decode.c:543-664).

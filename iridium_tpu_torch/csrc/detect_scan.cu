@@ -11,22 +11,43 @@
 // f + 1 depends on the state that frame f leaves, so the frames run one
 // after another and the time goes to per-frame latency, not to bytes.
 //
-// Design, up to F = 16384: ONE thread block walks the frames in order.
-// Each of its T = min(1024, F) threads owns BPT = F / T contiguous bins
-// (fewer, fatter threads were slower: a frame's instructions are spread
-// over fewer warps and hide less latency). The kernel is bound by one
-// SM's instruction issue, so what a frame waits on is kept off the chain
-// and the common path is kept short:
-//   - the |X|^2 rows stream through a ring of kStages frames in shared
-//     memory, one 1-D TMA bulk copy a row (`cp.async.bulk`, completing on
-//     the stage's mbarrier), issued by thread 0 in the middle of the
-//     frame two before it;
-//   - the noise history stays a ring in device memory (16 MB at H = 512,
-//     in L2), and no thread loads or stores it: a noise update writes the
-//     frame's |X|^2 row from its ring stage to the history row with ONE
-//     bulk copy (shared -> global), and the row that the next update
-//     evicts is bulk-copied into shared memory at the first barrier after
-//     the update before;
+// Layout: the caller hands the kernel (C, FB, T, BPT) (dsp/detect_scan.py
+// `layout`, the one place it is decided): C blocks (1, or a cluster of 2,
+// 4, 8 or 16), block r owning the FB bins [r FB, min((r + 1) FB, F)), T
+// threads a block of BPT contiguous bins each. Every multiple of 128 bins
+// up to 262144 has one:
+//   - F <= 8192: one block, BPT = F / 1024 rounded up to a power of two;
+//   - F <= 131072: a cluster of the least power of two of blocks of at
+//     most 8192 bins, 8 a thread (16,384 bins: 2 blocks; 131,072: 16);
+//   - F <= 262144: a cluster of 16 blocks of at most 16384 bins, 16 a
+//     thread (the wide path).
+// Sizes that no power-of-two BPT splits into whole warps (1152 = 576 x 2
+// does; 4224 = 528 x 8 does not) are padded: T is rounded up to whole
+// warps and the threads past the block's last bin are idle. Padding keeps
+// one instantiation per BPT (instantiating BPT = 3, 6, 11, ... would
+// multiply the build and the register budgets) and costs only idle lanes.
+// An idle thread holds no bin: it is never valid, eligible, masked or
+// gone, reads its |X|^2 words from the block's first bins and stores
+// nothing; it takes part in every barrier and warp reduction. The DC notch
+// (F / 2) is an eligibility rule on global bins; no code needs it on a
+// block edge.
+//
+// Design of a block: it walks the frames in order, each of its threads
+// owning BPT bins (as many threads as 1024 allow: fewer, fatter threads
+// were slower, a frame's instructions are spread over fewer warps and hide
+// less latency). The kernel is bound by the frame's chain of dependent
+// steps on one SM, so what a frame waits on is kept off the chain and the
+// common path is kept short:
+//   - the block's |X|^2 words of each row stream through a ring of kStages
+//     frames in shared memory, one 1-D TMA bulk copy a row
+//     (`cp.async.bulk`, completing on the stage's mbarrier), issued by
+//     thread 0 a frame or two ahead;
+//   - the noise history stays a ring in device memory (16 MB at 8192 bins
+//     and H = 512, in L2) that no thread loads or stores: a noise update
+//     writes the frame's row from its ring stage to the history row with
+//     ONE bulk copy (shared -> global), and the row that the next update
+//     evicts is bulk-copied into shared memory by thread 0 once every
+//     thread has read the row before;
 //   - a_last and a_start live in shared memory (each thread touches only
 //     its own words), baseline_sum in registers, a_valid and "mask is
 //     zero" as bitmasks; mask_count, a_id, a_mag and a_noise are touched in
@@ -39,43 +60,56 @@
 //   - each thread also carries the baseline_sum of the two bins beside its
 //     range (updated with the same arithmetic, so bit-equal to the
 //     owner's), so the +-1-bin dilation needs no exchange between threads;
-//   - a frame makes ONE block-wide reduction: the creation argmax key
-//     (max value, lowest bin on ties, as one 64-bit key), the count and
-//     ascending-bin prefix of the gone bins (emission ranks) and the
-//     long-burst flag, in one barrier on alternating buffers. A deletion,
-//     each further creation round and a squelch add one barrier each; a
-//     mask release walks the list of gone bins, not a window per bin.
-// Up to BPT = 8 the rings fit in the 227 KB of shared memory; at BPT = 16
-// (F = 16384) each thread reads its |X|^2 words from device memory and
-// reads and writes its history words as 16-byte vectors, with the evicted
-// words (its own and the two halo words) loaded into registers one update
-// ahead; a barrier separates any two updates, so no thread writes a row
-// that another has still to read.
+//   - a frame makes ONE reduction: the creation argmax key (max value,
+//     lowest bin on ties, as one 64-bit key), the count and ascending-bin
+//     prefix of the gone bins (emission ranks) and the long-burst flag, on
+//     alternating buffers. A deletion, each further creation round and a
+//     squelch add one barrier each; a mask release walks the list of gone
+//     bins, not a window per bin.
+// Up to 8 bins a thread the ring has 3 stages of FB words. The wide path
+// (16 bins a thread) fits 2 stages of 16384 words beside the evicted row
+// and the gone list, and keeps a_last and a_start in device memory (read
+// only where a burst is active); it loads the evicted row at the frame's
+// start, once every thread has arrived on s_ev_free after reading the row
+// before (prefetching the row after next into L2 did not pay). It spills
+// under the 64 registers of 1024 threads (bsum[16], the halo sums and the
+// scalars), and spills reach L2, since 227 KB of shared memory leave ~28
+// KB of L1; so the layout gives it only what one cluster of 16 ring
+// blocks cannot hold.
+// (16384 bins, tools/exp_scan.py's synthetic block on an H100 SXM at
+// 700 W: one block on the wide path 7.8 us a frame, a cluster of 2 ring
+// blocks 3.9, the earlier design that read each thread's 16 words of
+// |X|^2 and history from device memory 10.1.)
 //
-// Above 16384 bins (F = 32768 and 65536) one SM cannot hold the state, so
-// a thread-block cluster of C = F / 16384 blocks walks the frames
-// together, each block owning 16384 contiguous bins as the F = 16384 path
-// does (1024 threads, 16 bins a thread, words from device memory). The
-// blocks meet where bins of one touch another's:
+// A cluster (F > 8192) has more state than one SM holds, so C blocks walk
+// the frames together and meet where bins of one touch another's:
 //   - the frame's reduction: each block's warp partials go to shared
 //     memory, a cluster barrier (arrive.release / wait.acquire) publishes
-//     them, and every warp reads all C blocks' partials through
-//     distributed shared memory (`mapa`): the key is the max, the count's
-//     prefix adds the counts of the lower ranks (emission order is
-//     ascending bin, which is rank order), the flag is the OR. Every
-//     branch around a barrier depends only on such cluster-wide values;
-//   - the mask release: a block lists its own gone bins; a thread whose
-//     +-half_bw window reaches past its block's edge also walks the end of
-//     the neighbour's list, read through distributed shared memory after a
+//     them, warp 0 of each block reads every block's partials through
+//     distributed shared memory (`mapa`) and hands the result to its
+//     block: the key is the max, the count's prefix adds the counts of the
+//     lower ranks (emission order is ascending bin, which is rank order),
+//     the flag is the OR. Every branch around a barrier depends only on
+//     such cluster-wide values;
+//   - the mask release: a block lists its own gone bins (local bins, so
+//     that a 16-bit entry holds them at any F); a thread whose +-half_bw
+//     window reaches past its block's edge also walks the end of the
+//     neighbour's list, read through distributed shared memory after a
 //     cluster barrier;
-//   - the halo words: the edge threads read the neighbour's |X|^2 and
-//     evicted history words from device memory (past L1), and the barrier
-//     after the forced noise update is a cluster barrier, so no block
-//     writes a history row its neighbour has still to read;
+//   - the halo words: the edge threads read the neighbour's |X|^2 words
+//     from device memory (|X|^2 is read-only); the halo word of the row a
+//     noise update evicts is, for a row stored during the launch, the
+//     |X|^2 word the edge thread itself added then (kept in its own ring,
+//     `halo`, H words each side), and for an older row the history word,
+//     read right after the update before, ahead of the barrier that
+//     orders the neighbour's next store of that row (the bulk copies hold
+//     only the block's own words); the barrier after the forced noise
+//     update is a cluster barrier;
 //   - the scalars evolve identically in every block; rank 0 writes them,
 //     and a last cluster barrier keeps every block's shared memory alive
 //     until the others have read it.
-// The DC notch (F / 2) lies on the edge between ranks C / 2 - 1 and C / 2.
+// C = 16 is above the portable cluster size and is launched with
+// cudaFuncAttributeNonPortableClusterSizeAllowed.
 //
 // Semantics follow the Pallas kernel exactly: frames past n_valid leave
 // the state alone; candidates come from the carried mask and the
@@ -95,6 +129,8 @@
 namespace {
 
 constexpr int kEDel = 8;
+constexpr int kMaxBins = 16384;  // the most bins a block holds
+constexpr size_t kMaxShared = 227 * 1024;  // a block's most on sm_90
 constexpr int kESq = 16;
 constexpr int kStages = 3;
 constexpr unsigned kFull = 0xffffffffu;
@@ -103,6 +139,7 @@ struct Params {
   int F, n_frames, H, G, n_valid, half_bw, k_create, max_bursts,
       max_burst_len, post_len, pre_len;
   float threshold, hist_f, enbw, f2, bin_width;
+  int block_bins;  // FB: the bins of a block (the last block: the rest)
 };
 
 struct State {
@@ -126,6 +163,8 @@ struct State {
   int* sc;    // hist_idx, primed, burst_id, squelch_count, n_tagged,
               // burst_dropped, create_waits, g_count
   float* scf;  // peak_signal_db
+  float* halo;  // a cluster's [C][2][H] halo words of the history rows
+                // stored during the launch (the edge threads' own)
 };
 
 __device__ __forceinline__ int warp_incl_scan(int v) {
@@ -185,20 +224,35 @@ __device__ __forceinline__ const T* peer(const T* p, int rank) {
   return reinterpret_cast<const T*>(a);
 }
 
-// One reduction over the block (C = 1) or the cluster, in one barrier:
-// the max of `key`, the exclusive prefix sum of `cnt` in bin order with
-// its total, and the OR of `flag`; with the counts of the blocks of lower
-// rank (`lo`) and of this block (`own`). Callers alternate between two
-// buffers, so a buffer is written again only after another call's
-// barrier. On the common frame all three are zero everywhere, and a vote
-// on each side of the barrier skips the rest (the votes skip shuffles
-// only, never a barrier).
+// One reduction over the block (C = 1) or the cluster: the max of `key`,
+// the exclusive prefix sum of `cnt` in bin order with its total, and the
+// OR of `flag`; with the counts of the blocks of lower rank (`lo`) and of
+// this block (`own`). One block: one barrier. A cluster: a cluster barrier
+// publishes every block's warp partials, warp 0 of each block reads all of
+// them through distributed shared memory (lane l: warp l of each block)
+// and leaves the cluster's result in its own shared memory, and a block
+// barrier hands it to the other warps (a read by every warp of every
+// block, C x 32 remote loads a lane, was most of a frame at C = 8).
+// Callers alternate between two buffers, so a buffer is written again only
+// after another call's barriers. On the common frame all three are zero
+// everywhere, and votes skip the rest (the votes skip shuffles only, never
+// a barrier).
 struct Red {
   struct Warp {
     unsigned long long key;
     int cnt, flag;
   } w[32];
+  unsigned long long cl_key;  // the cluster's result (warp 0's)
+  int cl_lo, cl_total, cl_any, cl_pad;
 };
+
+// The counters that only the final state reports, kept by thread 0 alone
+// (every thread would count the same, in registers the wide path lacks)
+struct Tally {
+  int n_tagged, dropped, waits;
+  float peak;
+};
+
 struct Reduced {
   unsigned long long key;
   int excl, total, lo, own;
@@ -225,43 +279,55 @@ __device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
   }
   phase_sync<C>();
   Reduced o{0ull, 0, 0, 0, 0, false};
-  if constexpr (C == 1) {
-    const Red::Warp e = lane < nw ? r->w[lane] : Red::Warp{0ull, 0, 0};
-    if (__any_sync(kFull, e.cnt != 0 || e.key != 0ull || e.flag)) {
-      o.key = warp_max64(e.key);
-      o.any = __any_sync(kFull, e.flag);
-      const int wi = warp_incl_scan(e.cnt);
-      o.excl = __shfl_sync(kFull, wi - e.cnt, warp) + incl - cnt;
-      o.total = __shfl_sync(kFull, wi, 31);
-      o.own = o.total;
-    }
-  } else {
-    // lane l reads warp l's partial of every block of the cluster
-    const int me = cluster_rank();
-    unsigned long long k = 0ull;
-    int lo = 0, own = 0, all = 0;
-    bool fl = false;
-    if (lane < nw) {
+  if constexpr (C > 1) {
+    if (warp == 0) {
+      // lane l reads warp l's partial of every block of the cluster
+      const int me = cluster_rank();
+      unsigned long long k = 0ull;
+      int lo = 0, all = 0;
+      bool fl = false;
+      if (lane < nw) {
 #pragma unroll
-      for (int q = 0; q < C; ++q) {
-        const Red::Warp e = peer(r, q)->w[lane];
-        k = e.key > k ? e.key : k;
-        fl |= e.flag != 0;
-        all += e.cnt;
-        if (q < me) lo += e.cnt;
-        if (q == me) own = e.cnt;
+        for (int q = 0; q < C; ++q) {
+          const Red::Warp e = peer(r, q)->w[lane];
+          k = e.key > k ? e.key : k;
+          fl |= e.flag != 0;
+          all += e.cnt;
+          if (q < me) lo += e.cnt;
+        }
+      }
+      if (__any_sync(kFull, all != 0 || k != 0ull || fl)) {
+        k = warp_max64(k);
+        fl = __any_sync(kFull, fl);
+        lo = warp_sum(lo);
+        all = warp_sum(all);
+      }
+      if (lane == 0) {
+        r->cl_key = k;
+        r->cl_lo = lo;
+        r->cl_total = all;
+        r->cl_any = fl;
       }
     }
-    if (__any_sync(kFull, all != 0 || k != 0ull || fl)) {
-      o.key = warp_max64(k);
-      o.any = __any_sync(kFull, fl);
-      const int wi = warp_incl_scan(own);
-      o.lo = warp_sum(lo);
-      o.own = __shfl_sync(kFull, wi, 31);
-      o.total = warp_sum(all);
-      o.excl = o.lo + __shfl_sync(kFull, wi - own, warp) + incl - cnt;
+    __syncthreads();
+    o.key = r->cl_key;
+    o.lo = r->cl_lo;
+    o.total = r->cl_total;
+    o.any = r->cl_any != 0;
+  }
+  // this block's warps, in order: the count's prefix and its total
+  const Red::Warp e = lane < nw ? r->w[lane] : Red::Warp{0ull, 0, 0};
+  if (__any_sync(kFull, e.cnt != 0 || e.key != 0ull || e.flag)) {
+    const int wi = warp_incl_scan(e.cnt);
+    o.own = __shfl_sync(kFull, wi, 31);
+    o.excl = __shfl_sync(kFull, wi - e.cnt, warp) + incl - cnt;
+    if constexpr (C == 1) {
+      o.key = warp_max64(e.key);
+      o.any = __any_sync(kFull, e.flag);
+      o.total = o.own;
     }
   }
+  o.excl += o.lo;
   return o;
 }
 
@@ -332,41 +398,74 @@ __device__ __forceinline__ void store_bins(float* p, const float (&v)[BPT]) {
 }
 
 // C blocks of a cluster (C = 1: one block) walk the frames together;
-// block `rank` owns bins [rank * FB, (rank + 1) * FB), FB = F / C. Bins
-// (b0, a key's bin, mask windows, the DC notch) are global; shared-memory
-// indices (SI) are the block's own.
+// block `rank` owns bins [lo_bin, hi_bin) (`layout`). Bins (b0, a key's
+// bin, mask windows, the DC notch) are global; the shared-memory rows hold
+// the block's own words (bin g at [g - lo_bin]).
 template <int BPT, int C>
 __global__ void __launch_bounds__(1024)
     detect_scan_kernel(State st, Params p) {
-  static_assert(C == 1 || BPT == 16, "a cluster runs the 16-bin path");
-  constexpr bool kRing = BPT <= 8;  // the rings fit in shared memory
+  static_assert(C == 1 || BPT >= 8, "a cluster block holds 8 bins a thread "
+                                     "or more");
+  // the wide path (16 bins a thread): two ring stages of kMaxBins words,
+  // a_last / a_start in device memory
+  constexpr bool kWide = BPT == 16;
+  constexpr int kStages = kWide ? 2 : 3;
   constexpr unsigned kAll = (1u << BPT) - 1u;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int F = p.F, H = p.H, hb = p.half_bw, dc = F / 2;
-  const int FB = F / C;
+  const int FB = p.block_bins;  // the bins of a block
+  // a row's words and the bin slots in shared memory
+  const int RW = kWide ? kMaxBins : FB, NB = kWide ? kMaxBins : T * BPT;
   const int rank = C == 1 ? 0 : cluster_rank();
   const float thr = p.threshold;
-  float* s_ring = reinterpret_cast<float*>(smem_raw);  // kStages x F
-  float* s_ev = s_ring + (kRing ? kStages * F : 0);    // F if kRing
-  int* s_last = reinterpret_cast<int*>(s_ev + (kRing ? F : 0));
-  int* s_start = s_last + FB;  // s_last, s_start: [i * T + tid]
-  // the block's gone bins of the frame, ascending (global bins: F <= 65536
-  // fits; store local bins and the rank if larger clusters are allowed)
-  unsigned short* s_gone = reinterpret_cast<unsigned short*>(s_start + FB);
-  Red* s_red = reinterpret_cast<Red*>(s_gone + FB);  // 2
-  // kStages row barriers, then the evicted-row barrier
+  const int lo_bin = rank * FB, hi_bin = min(lo_bin + FB, F);
+  const unsigned row_bytes = (unsigned)(hi_bin - lo_bin) * 4u;
+  float* s_ring = reinterpret_cast<float*>(smem_raw);  // kStages x RW
+  float* s_ev = s_ring + kStages * RW;                 // RW
+  int* s_last = reinterpret_cast<int*>(s_ev + RW);     // NB, unless kWide
+  int* s_start = s_last + (kWide ? 0 : NB);            // [i * T + tid]
+  // the block's gone bins of the frame, ascending, as local bins
+  unsigned short* s_gone =
+      reinterpret_cast<unsigned short*>(s_start + (kWide ? 0 : NB));
+  Red* s_red = reinterpret_cast<Red*>(s_gone + NB);  // 2
+  // kStages row barriers, the evicted row's arrival, and (wide path)
+  // its release: every thread has read its words of it
   unsigned long long* s_bar =
       reinterpret_cast<unsigned long long*>(s_red + 2);
-  int* s_ngone = reinterpret_cast<int*>(s_bar + kStages + 1);  // s_gone's
-  const int lo_bin = rank * FB;
+  unsigned long long* s_ev_full = s_bar + kStages;
+  unsigned long long* s_ev_free = s_bar + kStages + 1;
+  int* s_ngone = reinterpret_cast<int*>(s_bar + kStages + 2);  // s_gone's
+  Tally* s_tally = reinterpret_cast<Tally*>(s_bar + kStages + 3);
+  // in a cluster, the edge threads' halo words of the row the next update
+  // evicts (left, right), each kept by its thread
+  float* s_ev_halo = reinterpret_cast<float*>(s_bar + kStages + 5);
   const int b0 = lo_bin + tid * BPT;
-  const bool has_l = b0 > 0, has_r = b0 + BPT < F;
-#define SI(i) ((i) * T + tid)
+  // an idle thread (past the block's last bin) holds no bin and reads the
+  // block's first words
+  const bool live = b0 < hi_bin;
+  const int l0 = live ? b0 - lo_bin : 0;  // the first bin's row index
+  const bool has_l = live && b0 > 0, has_r = live && b0 + BPT < F;
+  // the threads whose halo bin is another block's
+  const bool edge_l = C > 1 && has_l && b0 == lo_bin;
+  const bool edge_r = C > 1 && has_r && b0 + BPT == hi_bin;
+  // a_last and a_start of the thread's bin i
+  auto last_of = [&](int i) -> int& {
+    if constexpr (kWide)
+      return st.a_last[b0 + i];
+    else
+      return s_last[i * T + tid];
+  };
+  auto start_of = [&](int i) -> int& {
+    if constexpr (kWide)
+      return st.a_start[b0 + i];
+    else
+      return s_start[i * T + tid];
+  };
 
-  // one F-float row from device memory into shared memory (thread 0)
-  auto load = [&](float* dst, const float* src, unsigned long long* bar) {
-    const unsigned n = (unsigned)F * sizeof(float);
+  // n bytes from device memory into shared memory (thread 0)
+  auto load = [&](float* dst, const float* src, unsigned n,
+                  unsigned long long* bar) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  ::"r"(smem(bar)), "r"(n)
                  : "memory");
@@ -378,85 +477,133 @@ __global__ void __launch_bounds__(1024)
   };
   auto load_row = [&](int frame) {
     const int s = frame % kStages;
-    load(s_ring + (size_t)s * F, st.mag2 + (size_t)frame * F, s_bar + s);
+    load(s_ring + (size_t)s * RW, st.mag2 + (size_t)frame * F + lo_bin,
+         row_bytes, s_bar + s);
   };
 
-  float bsum[BPT], ev[BPT];
-  unsigned valid = 0, elig = 0, unmasked = 0;
-  load_bins(bsum, st.bsum + b0);
+  float bsum[BPT];
+  unsigned valid = 0, unmasked = live ? 0u : kAll;
+  load_bins(bsum, st.bsum + lo_bin + l0);
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < BPT; ++i) {
-    const int g = b0 + i;
-    if (st.a_valid[g]) valid |= 1u << i;
-    s_last[SI(i)] = st.a_last[g];
-    s_start[SI(i)] = st.a_start[g];
-    if (st.mask_count[g] == 0) unmasked |= 1u << i;
-    if (g >= hb && g < F - hb && !(g >= dc - 3 && g <= dc + 3))
-      elig |= 1u << i;
+    for (int i = 0; i < BPT; ++i) {
+      const int g = b0 + i;
+      if (st.a_valid[g]) valid |= 1u << i;
+      if constexpr (!kWide) {
+        last_of(i) = st.a_last[g];
+        start_of(i) = st.a_start[g];
+      }
+      if (st.mask_count[g] == 0) unmasked |= 1u << i;
+    }
   }
+  // the bins that may start a burst: away from the band edges and the DC
+  // notch (computed where a bin is above threshold, not kept)
+  auto eligible = [&]() {
+    unsigned e = 0;
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const int g = b0 + i;
+      if (live && g >= hb && g < F - hb && !(g >= dc - 3 && g <= dc + 3))
+        e |= 1u << i;
+    }
+    return e;
+  };
   float bsum_l = has_l ? st.bsum[b0 - 1] : 0.0f;
   float bsum_r = has_r ? st.bsum[b0 + BPT] : 0.0f;
-  float ev_l = 0.0f, ev_r = 0.0f;
   int hidx = st.sc[0], prim = st.sc[1], burst_id = st.sc[2];
-  int sq_count = st.sc[3], n_tagged = st.sc[4], dropped = st.sc[5];
-  int waits = st.sc[6];
-  float peak = st.scf[0];
-  int emitted = 0, nred = 0;
-  int n_upd = 0, ev_loaded = 0;  // noise updates done, evicted rows loaded
+  int sq_count = st.sc[3];
+  int emitted = 0;
+  int n_upd = 0;  // noise updates done
+  // the evicted row of the next update is loaded; the reduction buffer
+  bool ev_ahead = false, red_odd = false;
+  auto red_buf = [&]() {
+    red_odd = !red_odd;
+    return s_red + (red_odd ? 1 : 0);
+  };
 
-  // the history row that the next noise update evicts: bulk-copied into
-  // s_ev once every thread is past the update before (thread 0; the
-  // history row was last written H updates ago, so all but the newest
-  // bulk store group are complete)
+  // the halo |X|^2 words of frame f (the edge threads': another block's,
+  // from device memory)
+  auto word_l = [&](const float* row, int f) {
+    return edge_l ? __ldg(st.mag2 + (size_t)f * F + b0 - 1) : row[l0 - 1];
+  };
+  auto word_r = [&](const float* row, int f) {
+    return edge_r ? __ldg(st.mag2 + (size_t)f * F + b0 + BPT)
+                  : row[l0 + BPT];
+  };
+  // the history row that the next noise update evicts, bulk-copied into
+  // s_ev by thread 0 once every thread has read the row before: up to 8
+  // bins a thread at the first barrier after the update; at 16 at the next
+  // frame's start, after the update's arrivals on s_ev_free. The row was
+  // stored H >= 2 updates ago, so all but the newest bulk store group are
+  // complete.
   auto load_evicted = [&]() {
-    if constexpr (kRing) {
-      if (ev_loaded == n_upd) {
-        if (tid == 0) {
-          asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
-          load(s_ev, st.hist + (size_t)hidx * F, s_bar + kStages);
-        }
-        ++ev_loaded;
+    if (!ev_ahead) {
+      if (tid == 0) {
+        if constexpr (kWide)
+          if (n_upd > 0) mbar_wait(smem(s_ev_free), (n_upd - 1) & 1);
+        asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+        load(s_ev, st.hist + (size_t)hidx * F + lo_bin, row_bytes,
+             s_ev_full);
       }
-    } else {
-      const float* row = st.hist + (size_t)hidx * F;
-      load_bins(ev, row + b0);
-      // in a cluster a halo word may be another block's: read it past L1
-      if (has_l) ev_l = C > 1 ? __ldcg(row + b0 - 1) : row[b0 - 1];
-      if (has_r) ev_r = C > 1 ? __ldcg(row + b0 + BPT) : row[b0 + BPT];
+      ev_ahead = true;
     }
   };
-  if constexpr (kRing) {
-    if (tid == 0) {
-      for (int s = 0; s <= kStages; ++s)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                         smem(s_bar + s))
-                     : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int f = 0; f < kStages && f < p.n_frames; ++f) load_row(f);
+  // in a cluster, the edge threads' halo words of that row, one update
+  // ahead: a row stored during this launch is in the thread's own ring of
+  // the halo words it added (st.halo; the neighbour stored the same
+  // words), an older one is read from the history right after an update,
+  // before the barrier that orders the neighbour's next store of the row
+  auto load_halo = [&]() {
+    if constexpr (C > 1) {
+      const float* ring = st.halo + (size_t)rank * 2 * H;
+      const float* row = st.hist + (size_t)hidx * F;
+      if (edge_l)
+        s_ev_halo[0] = n_upd >= H ? ring[hidx] : __ldcg(row + b0 - 1);
+      if (edge_r)
+        s_ev_halo[1] = n_upd >= H ? ring[H + hidx] : __ldcg(row + b0 + BPT);
     }
+  };
+  if (tid == 0) {
+    *s_tally = Tally{st.sc[4], st.sc[5], st.sc[6], st.scf[0]};
+    for (int s = 0; s <= kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem(s_bar + s))
+                   : "memory");
+    if constexpr (kWide)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem(s_ev_free)),
+                   "r"(T)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int f = 0; f < kStages && f < p.n_frames; ++f) load_row(f);
   }
   load_evicted();
-  int n_act =
-      block_reduce<C>(0ull, __popc(valid), false, s_red + (nred++ & 1)).total;
+  load_halo();
+  int n_act = block_reduce<C>(0ull, __popc(valid), false, red_buf()).total;
   // phase: begin
 
-  auto noise_update = [&](const float* row) {
+  auto noise_update = [&](const float* row, int f) {
     // burst_detect.c:438-454; the order (sum - evicted) + mag is kept
     const bool gate = prim >= H;
-    float m[BPT];
-    load_bins(m, row + b0);
-    if constexpr (kRing) {
-      mbar_wait(smem(s_bar + kStages), n_upd & 1);
-      load_bins(ev, s_ev + b0);
-      if (has_l) ev_l = s_ev[b0 - 1];
-      if (has_r) ev_r = s_ev[b0 + BPT];
-      if (tid == 0) {
-        asm volatile(
-            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-            "cp.async.bulk.commit_group;\n" ::"l"(st.hist + (size_t)hidx * F),
-            "r"(smem(row)), "r"((unsigned)F * (unsigned)sizeof(float))
-            : "memory");
-      }
+    float m[BPT], ev[BPT];
+    load_bins(m, row + l0);
+    mbar_wait(smem(s_ev_full), n_upd & 1);
+    load_bins(ev, s_ev + l0);
+    float e_l = 0.0f, e_r = 0.0f;
+    if (has_l) e_l = edge_l ? s_ev_halo[0] : s_ev[l0 - 1];
+    if (has_r) e_r = edge_r ? s_ev_halo[1] : s_ev[l0 + BPT];
+    if constexpr (kWide)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       smem(s_ev_free))
+                   : "memory");
+    if (tid == 0) {
+      // the frame's row is the history row: one bulk store
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+          "cp.async.bulk.commit_group;\n" ::"l"(st.hist + (size_t)hidx * F +
+                                                 lo_bin),
+          "r"(smem(row)), "r"(row_bytes)
+          : "memory");
     }
     // x - 0.0f is x in IEEE arithmetic, so an ungated update is a plain
     // add (gate is the same in every thread: no divergence)
@@ -467,13 +614,22 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
       for (int i = 0; i < BPT; ++i) bsum[i] = bsum[i] + m[i];
     }
-    if constexpr (!kRing) store_bins(st.hist + (size_t)hidx * F + b0, m);
-    if (has_l) bsum_l = (bsum_l - (gate ? ev_l : 0.0f)) + row[b0 - 1];
-    if (has_r) bsum_r = (bsum_r - (gate ? ev_r : 0.0f)) + row[b0 + BPT];
+    float* ring = st.halo + (size_t)rank * 2 * H;
+    if (has_l) {
+      const float x = word_l(row, f);
+      bsum_l = (bsum_l - (gate ? e_l : 0.0f)) + x;
+      if (edge_l) ring[hidx] = x;
+    }
+    if (has_r) {
+      const float x = word_r(row, f);
+      bsum_r = (bsum_r - (gate ? e_r : 0.0f)) + x;
+      if (edge_r) ring[H + hidx] = x;
+    }
     prim = min(prim + 1, H);
     hidx = hidx + 1 == H ? 0 : hidx + 1;
     ++n_upd;
-    if constexpr (!kRing) load_evicted();
+    ev_ahead = false;
+    load_halo();
   };
   auto emit = [&](int pos, int g, int stop, int last, int start) {
     if (pos >= p.G) return;
@@ -489,11 +645,9 @@ __global__ void __launch_bounds__(1024)
   for (int f = 0; f < p.n_frames; ++f) {
     // phase: load
     const int idx = f * F;
-    const float* row = st.mag2 + (size_t)f * F;
-    if constexpr (kRing) {
-      mbar_wait(smem(s_bar + f % kStages), (f / kStages) & 1);
-      row = s_ring + (size_t)(f % kStages) * F;
-    }
+    mbar_wait(smem(s_bar + f % kStages), (f / kStages) & 1);
+    const float* row = s_ring + (size_t)(f % kStages) * RW;
+    if constexpr (kWide) load_evicted();
     const bool act = idx + F <= p.n_valid;
     const bool primed = prim >= H && act;
     // above threshold: a branch-free filter over all bins, then the
@@ -501,7 +655,7 @@ __global__ void __launch_bounds__(1024)
     unsigned ab = 0;
     {
       float m[BPT];
-      load_bins(m, row + b0);
+      load_bins(m, row + l0);
       unsigned maybe = thr < 0.0f ? kAll : 0u;
 #pragma unroll
       for (int i = 0; i < BPT; ++i)
@@ -515,7 +669,8 @@ __global__ void __launch_bounds__(1024)
     }
     // the candidate pool from the carried (frame-start) mask, valued at
     // the frame-start relative magnitude (burst_detect.c:679-699)
-    unsigned cand = ab & unmasked & elig;
+    unsigned cand = ab & unmasked;
+    if (cand) cand &= eligible();
     auto best_key = [&]() {
       unsigned long long key = 0;
 #pragma unroll
@@ -523,7 +678,7 @@ __global__ void __launch_bounds__(1024)
         if ((cand >> i) & 1u) {
           const unsigned long long k =
               ((unsigned long long)__float_as_uint(
-                   rel_of(row[b0 + i], bsum[i]))
+                   rel_of(row[l0 + i], bsum[i]))
                << 32) |
               (kFull - (unsigned)(b0 + i));
           key = k > key ? k : key;
@@ -540,18 +695,18 @@ __global__ void __launch_bounds__(1024)
     unsigned gone = 0;
     bool longb = false;
     if (track && valid) {
-      const bool al = has_l && above(row[b0 - 1], bsum_l, thr);
-      const bool ar = has_r && above(row[b0 + BPT], bsum_r, thr);
+      const bool al = has_l && above(word_l(row, f), bsum_l, thr);
+      const bool ar = has_r && above(word_r(row, f), bsum_r, thr);
       const unsigned dil = ab | (ab << 1) | (ab >> 1) | (al ? 1u : 0u) |
                            (ar ? 1u << (BPT - 1) : 0u);
       for (unsigned v = valid; v; v &= v - 1) {
         const int i = __ffs(v) - 1;
-        int last = s_last[SI(i)];
+        int last = last_of(i);
         if ((dil >> i) & 1u) {
           last = idx;
-          s_last[SI(i)] = idx;
+          last_of(i) = idx;
         }
-        const bool lb = (last - s_start[SI(i)]) > p.max_burst_len;
+        const bool lb = (last - start_of(i)) > p.max_burst_len;
         longb |= lb;
         if (last + p.post_len <= idx || lb) gone |= 1u << i;
       }
@@ -559,58 +714,73 @@ __global__ void __launch_bounds__(1024)
 
     // phase: reduce
     const Reduced r =
-        block_reduce<C>(key0, __popc(gone), longb, s_red + (nred++ & 1));
-    // every thread is past the last noise update: load the next evicted
-    // row
-    if constexpr (kRing) load_evicted();
+        block_reduce<C>(key0, __popc(gone), longb, red_buf());
+    if constexpr (kWide) {
+      // every thread is past frame f - 1, and the history stores have
+      // read its stage: refill it with frame f + 1
+      if (tid == 0 && f >= 1 && f + 1 < p.n_frames) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        load_row(f + 1);
+      }
+    } else {
+      // every thread is past the last noise update: load the next evicted
+      // row
+      load_evicted();
+    }
 
     // phase: delete
     const int n_del = r.total;
     const bool forced = n_del > 0 && r.any;
     if (n_del > 0) {
-      n_tagged += n_del;
-      dropped += max(n_del - kEDel, 0);
+      if (tid == 0) {
+        s_tally->n_tagged += n_del;
+        s_tally->dropped += max(n_del - kEDel, 0);
+      }
       int e = r.excl;
       for (unsigned v = gone; v; v &= v - 1, ++e) {
         const int i = __ffs(v) - 1;
         if (e < kEDel)
-          emit(emitted + e, b0 + i, idx, s_last[SI(i)], s_start[SI(i)]);
-        s_gone[e - r.lo] = (unsigned short)(b0 + i);
+          emit(emitted + e, b0 + i, idx, last_of(i), start_of(i));
+        s_gone[e - r.lo] = (unsigned short)(b0 + i - lo_bin);
       }
       emitted += min(n_del, kEDel);
       if (C > 1 && tid == 0) *s_ngone = r.own;
       phase_sync<C>();
       // release the +-half_bw mask of every gone bin, emitted or not
-      int dec[BPT] = {};
-      auto release = [&](int gb) {
-        if (gb + hb < b0 || gb - hb >= b0 + BPT) return false;
+      if (live) {
+        int dec[BPT] = {};
+        auto release = [&](int gb) {
+          if (gb + hb < b0 || gb - hb >= b0 + BPT) return false;
 #pragma unroll
-        for (int i = 0; i < BPT; ++i)
-          if (abs(b0 + i - gb) <= hb) ++dec[i];
-        return true;
-      };
-      for (int k = 0; k < r.own; ++k) release(s_gone[k]);
-      if constexpr (C > 1) {
-        // gone bins of the neighbours whose windows reach this thread's
-        // bins: the top of the lower block's list, the bottom of the upper
-        if (rank > 0 && b0 - hb < lo_bin) {
-          const unsigned short* g = peer(s_gone, rank - 1);
-          for (int k = *peer(s_ngone, rank - 1) - 1; k >= 0; --k)
-            if (!release(g[k])) break;
+          for (int i = 0; i < BPT; ++i)
+            if (abs(b0 + i - gb) <= hb) ++dec[i];
+          return true;
+        };
+        for (int k = 0; k < r.own; ++k) release(lo_bin + s_gone[k]);
+        if constexpr (C > 1) {
+          // gone bins of the neighbours whose windows reach this thread's
+          // bins: the top of the lower block's list, the bottom of the
+          // upper's
+          if (rank > 0 && b0 - hb < lo_bin) {
+            const unsigned short* g = peer(s_gone, rank - 1);
+            const int base = lo_bin - FB;
+            for (int k = *peer(s_ngone, rank - 1) - 1; k >= 0; --k)
+              if (!release(base + g[k])) break;
+          }
+          if (rank < C - 1 && b0 + BPT + hb > hi_bin) {
+            const unsigned short* g = peer(s_gone, rank + 1);
+            const int n = *peer(s_ngone, rank + 1);
+            for (int k = 0; k < n; ++k)
+              if (!release(hi_bin + g[k])) break;
+          }
         }
-        if (rank < C - 1 && b0 + BPT + hb > lo_bin + FB) {
-          const unsigned short* g = peer(s_gone, rank + 1);
-          const int n = *peer(s_ngone, rank + 1);
-          for (int k = 0; k < n; ++k)
-            if (!release(g[k])) break;
-        }
-      }
 #pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        if (dec[i] == 0) continue;
-        const int m = st.mask_count[b0 + i] - dec[i];
-        st.mask_count[b0 + i] = m;
-        if (m == 0) unmasked |= 1u << i;
+        for (int i = 0; i < BPT; ++i) {
+          if (dec[i] == 0) continue;
+          const int m = st.mask_count[b0 + i] - dec[i];
+          st.mask_count[b0 + i] = m;
+          if (m == 0) unmasked |= 1u << i;
+        }
       }
       valid &= ~gone;
       n_act -= n_del;
@@ -623,45 +793,39 @@ __global__ void __launch_bounds__(1024)
     unsigned long long key = r.key;
     for (int j = 0; j < p.k_create; ++j) {
       if (j > 0)
-        key = block_reduce<C>(best_key(), 0, false, s_red + (nred++ & 1))
-                  .key;
+        key = block_reduce<C>(best_key(), 0, false, red_buf()).key;
       const float m = __uint_as_float((unsigned)(key >> 32));
       if (!(m > thr)) break;
       const int b = (int)(kFull - (unsigned)(key & kFull));
       const float mag_db =
           10.0f * log10f(fmaxf(m * p.hist_f * p.enbw, 1e-30f));
-      if ((unsigned)(b - b0) < (unsigned)BPT) {
+      if (live && (unsigned)(b - b0) < (unsigned)BPT) {
         const int li = b - b0;
-        float base_at = 0.0f, ev_at = 0.0f;
+        float base_at = 0.0f;
 #pragma unroll
         for (int i = 0; i < BPT; ++i)
-          if (i == li) {
-            base_at = bsum[i];
-            ev_at = ev[i];
-          }
+          if (i == li) base_at = bsum[i];
         // the sum after the forced noise update, which runs below
         if (forced) {
-          if constexpr (kRing) {
-            mbar_wait(smem(s_bar + kStages), n_upd & 1);
-            ev_at = s_ev[b];
-          }
-          base_at = (base_at - (prim >= H ? ev_at : 0.0f)) + row[b];
+          mbar_wait(smem(s_ev_full), n_upd & 1);
+          base_at = (base_at - (prim >= H ? s_ev[l0 + li] : 0.0f)) +
+                    row[l0 + li];
         }
         const float noise_db = 10.0f * log10f(fmaxf(
             base_at / p.hist_f / p.f2 / p.enbw / p.bin_width, 1e-30f));
         st.a_id[b] = burst_id;
-        s_start[SI(li)] = idx - p.pre_len;
+        start_of(li) = idx - p.pre_len;
         st.a_mag[b] = mag_db;
         st.a_noise[b] = noise_db;
-        s_last[SI(li)] = idx - p.pre_len;
+        last_of(li) = idx - p.pre_len;
         valid |= 1u << li;
         crt |= 1u << li;
       }
       burst_id += 10;
       ++n_acc;
       ++n_act;
-      peak = fmaxf(peak, mag_db);
-      if (b + hb >= b0 && b - hb < b0 + BPT) {
+      if (tid == 0) s_tally->peak = fmaxf(s_tally->peak, mag_db);
+      if (live && b + hb >= b0 && b - hb < b0 + BPT) {
 #pragma unroll
         for (int i = 0; i < BPT; ++i) {
           if (abs(b0 + i - b) <= hb) {
@@ -673,9 +837,10 @@ __global__ void __launch_bounds__(1024)
       }
     }
     if (n_acc == p.k_create &&
-        block_reduce<C>(0ull, 0, cand != 0u, s_red + (nred++ & 1)).any)
-      ++waits;
-    if constexpr (kRing) {
+        block_reduce<C>(0ull, 0, cand != 0u, red_buf()).any &&
+        tid == 0)
+      ++s_tally->waits;
+    if constexpr (!kWide) {
       // every thread is past frame f - 1, and its history store (if any)
       // has read the stage: refill the stage with frame f + kStages - 1
       const int nf = f - 1 + kStages;
@@ -686,13 +851,13 @@ __global__ void __launch_bounds__(1024)
     }
     // the forced noise update on a long-burst deletion
     // (burst_detect.c:516). The barrier keeps the final update below from
-    // writing the history row that this update evicts next before every
-    // thread has read it (with BPT = 16 a thread reads its neighbours'
-    // halo words of that row; in a cluster, maybe another block's).
+    // storing the history row that this update evicts next before every
+    // block has read its halo words of it, and lets the row's bulk copy
+    // overwrite s_ev.
     if (forced) {
-      noise_update(row);
+      noise_update(row, f);
       phase_sync<C>();
-      if constexpr (kRing) load_evicted();
+      load_evicted();
     }
 
     // phase: squelch
@@ -701,14 +866,16 @@ __global__ void __launch_bounds__(1024)
     if (squelch) {
       const unsigned sq = valid & ~crt;
       const Reduced q =
-          block_reduce<C>(0ull, __popc(sq), false, s_red + (nred++ & 1));
-      n_tagged += q.total;
-      dropped += max(q.total - kESq, 0);
+          block_reduce<C>(0ull, __popc(sq), false, red_buf());
+      if (tid == 0) {
+        s_tally->n_tagged += q.total;
+        s_tally->dropped += max(q.total - kESq, 0);
+      }
       int e = q.excl;
       for (unsigned v = sq; v; v &= v - 1, ++e) {
         const int i = __ffs(v) - 1;
         if (e < kESq)
-          emit(emitted + e, b0 + i, idx, s_last[SI(i)], s_start[SI(i)]);
+          emit(emitted + e, b0 + i, idx, last_of(i), start_of(i));
       }
       emitted += min(q.total, kESq);
       valid = 0;
@@ -732,70 +899,98 @@ __global__ void __launch_bounds__(1024)
     }
     // phase: noise
     // final noise update if no burst is active (burst_detect.c:698)
-    if (act && n_act == 0) noise_update(row);
+    if (act && n_act == 0) noise_update(row, f);
   }
   // phase: end
 
-  if constexpr (kRing) {
-    if (tid == 0) {
-      // the bulk copies still in flight: the history stores and the
-      // evicted row loaded for an update that did not come
-      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-      if (ev_loaded > n_upd) mbar_wait(smem(s_bar + kStages), n_upd & 1);
-    }
+  if (tid == 0) {
+    // the bulk copies still in flight: the history stores and the
+    // evicted row loaded for an update that did not come
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    if (ev_ahead) mbar_wait(smem(s_ev_full), n_upd & 1);
   }
-  store_bins(st.bsum + b0, bsum);
+  if (live) {
+    store_bins(st.bsum + b0, bsum);
 #pragma unroll
-  for (int i = 0; i < BPT; ++i) {
-    const int g = b0 + i;
-    st.a_valid[g] = (valid >> i) & 1u;
-    st.a_last[g] = s_last[SI(i)];
-    st.a_start[g] = s_start[SI(i)];
+    for (int i = 0; i < BPT; ++i) {
+      const int g = b0 + i;
+      st.a_valid[g] = (valid >> i) & 1u;
+      if constexpr (!kWide) {
+        st.a_last[g] = last_of(i);
+        st.a_start[g] = start_of(i);
+      }
+    }
   }
   if (tid == 0 && rank == 0) {
     st.sc[0] = hidx;
     st.sc[1] = prim;
     st.sc[2] = burst_id;
     st.sc[3] = sq_count;
-    st.sc[4] = n_tagged;
-    st.sc[5] = dropped;
-    st.sc[6] = waits;
+    st.sc[4] = s_tally->n_tagged;
+    st.sc[5] = s_tally->dropped;
+    st.sc[6] = s_tally->waits;
     st.sc[7] = min(emitted, p.G);
-    st.scf[0] = peak;
+    st.scf[0] = s_tally->peak;
   }
   // no block leaves while another may still read its shared memory
   if constexpr (C > 1) cluster_sync();
-#undef SI
+}
+
+// The dynamic shared memory of a block of T threads of BPT bins, FB bins
+// a block, as the kernel carves it up
+size_t shared_bytes(int FB, int T, int BPT) {
+  const bool wide = BPT == 16;
+  const size_t stages = wide ? 2 : 3;
+  const size_t RW = wide ? kMaxBins : FB;
+  const size_t NB = wide ? kMaxBins : (size_t)T * BPT;
+  return (stages + 1) * RW * sizeof(float) +
+         (wide ? 0 : 2 * NB * sizeof(int)) + NB * sizeof(unsigned short) +
+         2 * sizeof(Red) + (stages + 6) * sizeof(unsigned long long);
+}
+
+// The instantiation's attributes: its dynamic shared memory and, for a
+// cluster above the portable 8 blocks, the non-portable size
+template <int BPT, int C>
+cudaError_t set_attributes(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      detect_scan_kernel<BPT, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(detect_scan_kernel<BPT, C>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  return err;
+}
+
+template <int BPT, int C>
+cudaLaunchConfig_t cluster_config(int T, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(T, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int BPT, int C>
 cudaError_t launch(const State& st, const Params& p, int T,
                    cudaStream_t stream) {
-  constexpr bool kRing = BPT <= 8;
-  const size_t F = p.F, FB = F / C;
-  const size_t smem = (kRing ? (kStages + 1) * F * sizeof(float) : 0) +
-                      2 * FB * sizeof(int) + FB * sizeof(unsigned short) +
-                      2 * sizeof(Red) +
-                      (kStages + 2) * sizeof(unsigned long long);
-  cudaError_t err = cudaFuncSetAttribute(
-      detect_scan_kernel<BPT, C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = shared_bytes(p.block_bins, T, BPT);
+  cudaError_t err = set_attributes<BPT, C>(smem);
   if (err != cudaSuccess) return err;
   if constexpr (C == 1) {
     detect_scan_kernel<BPT, C><<<1, T, smem, stream>>>(st, p);
   } else {
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(C, 1, 1);
-    cfg.blockDim = dim3(T, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    const cudaLaunchConfig_t cfg =
+        cluster_config<BPT, C>(T, smem, stream, attr);
     err = cudaLaunchKernelEx(&cfg, detect_scan_kernel<BPT, C>, st, p);
     if (err != cudaSuccess) {
       cudaGetLastError();  // a refused launch leaves nothing behind
@@ -805,46 +1000,112 @@ cudaError_t launch(const State& st, const Params& p, int T,
   return cudaGetLastError();
 }
 
+// How many clusters of the instantiation the card can hold at once
+// (cudaOccupancyMaxActiveClusters, after the launch's attributes are set)
+template <int BPT, int C>
+cudaError_t max_clusters(const Params& p, int T, int* n) {
+  const size_t smem = shared_bytes(p.block_bins, T, BPT);
+  cudaError_t err = set_attributes<BPT, C>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config<BPT, C>(T, smem, 0, attr);
+  return cudaOccupancyMaxActiveClusters(n, detect_scan_kernel<BPT, C>, &cfg);
+}
+
+// Whether (clusters, block_bins, threads, bins_per_thread) is a layout the
+// kernel runs at F bins: every bin one thread's, whole warps of at most
+// 1024 threads and kMaxBins bin slots, shared memory within a block's
+// kMaxShared, an instantiation for the bins a thread and the cluster (the
+// wide path only in clusters of 16)
+bool valid_layout(int F, int C, int FB, int T, int BPT) {
+  if (F <= 0 || F % 128 != 0 || T < 32 || T > 1024 || T % 32 != 0 ||
+      BPT <= 0 || (long long)T * BPT > kMaxBins || FB <= 0 ||
+      FB % BPT != 0 || FB > T * BPT || FB - T * BPT <= -32 * BPT ||
+      shared_bytes(FB, T, BPT) > kMaxShared)
+    return false;
+  if ((long long)C * FB < F || (long long)(C - 1) * FB >= F) return false;
+  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return false;
+  if (C == 1) return BPT == 1 || BPT == 2 || BPT == 4 || BPT == 8;
+  return BPT == 8 || (BPT == 16 && C == 16);
+}
+
+// fn<BPT, C>() for the layout's instantiation (valid_layout holds)
+template <template <int, int> class Fn, typename... Args>
+cudaError_t dispatch(int C, int BPT, Args&&... args) {
+  switch (C * 64 + BPT) {
+    case 64 + 1: return Fn<1, 1>::run(args...);
+    case 64 + 2: return Fn<2, 1>::run(args...);
+    case 64 + 4: return Fn<4, 1>::run(args...);
+    case 64 + 8: return Fn<8, 1>::run(args...);
+    case 128 + 8: return Fn<8, 2>::run(args...);
+    case 256 + 8: return Fn<8, 4>::run(args...);
+    case 512 + 8: return Fn<8, 8>::run(args...);
+    case 1024 + 8: return Fn<8, 16>::run(args...);
+    default: return Fn<16, 16>::run(args...);
+  }
+}
+
+template <int BPT, int C>
+struct Launch {
+  static cudaError_t run(const State& st, const Params& p, int T,
+                         cudaStream_t stream) {
+    return launch<BPT, C>(st, p, T, stream);
+  }
+};
+
+template <int BPT, int C>
+struct MaxClusters {
+  static cudaError_t run(const Params& p, int T, int* n) {
+    if constexpr (C == 1) {
+      return cudaErrorInvalidValue;
+    } else {
+      return max_clusters<BPT, C>(p, T, n);
+    }
+  }
+};
+
 }  // namespace
 
-// `clusters` blocks of a cluster share the F bins (1 for F <= 16384; 2 or
-// 4 of 16384 bins each above)
+// The layout is dsp/detect_scan.py's `layout(F)`: `clusters` blocks of
+// `threads` threads, `block_bins` bins a block, `bins_per_thread` a thread.
+// `halo`: scratch of clusters x 2 x H floats (unused by one block).
 extern "C" int detect_scan(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
     int* mask_count, int* g_id, int* g_start, int* g_stop, int* g_last,
-    int* g_bin, float* g_mag, float* g_noise, int* sc, float* scf, int F,
-    int n_frames, int H, int G, int n_valid, int half_bw, int k_create,
-    int max_bursts, int max_burst_len, int post_len, int pre_len,
-    float threshold, float hist_f, float enbw, float f2, float bin_width,
-    int clusters, cudaStream_t stream) {
+    int* g_bin, float* g_mag, float* g_noise, int* sc, float* scf,
+    float* halo, int F, int n_frames, int H, int G, int n_valid,
+    int half_bw, int k_create, int max_bursts, int max_burst_len,
+    int post_len, int pre_len, float threshold, float hist_f, float enbw,
+    float f2, float bin_width, int clusters, int block_bins, int threads,
+    int bins_per_thread, cudaStream_t stream) {
   const State st{mag2,  hist,   bsum,    a_valid, a_id,   a_start, a_last,
                  a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
-                 g_bin, g_mag,  g_noise, sc,      scf};
+                 g_bin, g_mag,  g_noise, sc,      scf,    halo};
   const Params p{F,          n_frames, H,        G,        n_valid,
                  half_bw,    k_create, max_bursts, max_burst_len, post_len,
                  pre_len,    threshold, hist_f,  enbw,     f2,
-                 bin_width};
-  if (clusters < 1 || F % clusters != 0) return (int)cudaErrorInvalidValue;
-  const int FB = F / clusters;
-  const int T = FB < 1024 ? FB : 1024;
-  if (T % 32 != 0 || FB % T != 0) return (int)cudaErrorInvalidValue;
-  if (clusters > 1) {
-    if (FB / T != 16 || F > 65536) return (int)cudaErrorInvalidValue;
-    switch (clusters) {
-      case 2: return (int)launch<16, 2>(st, p, T, stream);
-      case 4: return (int)launch<16, 4>(st, p, T, stream);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (FB / T) {
-    case 1: return (int)launch<1, 1>(st, p, T, stream);
-    case 2: return (int)launch<2, 1>(st, p, T, stream);
-    case 4: return (int)launch<4, 1>(st, p, T, stream);
-    case 8: return (int)launch<8, 1>(st, p, T, stream);
-    case 16: return (int)launch<16, 1>(st, p, T, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                 bin_width,  block_bins};
+  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<Launch>(clusters, bins_per_thread, st, p, threads,
+                               stream);
+}
+
+// The clusters of the F-bin layout that the card can hold at once, into
+// *n (0: it cannot launch one); the launch's own attributes are set first,
+// so a cluster of 16 is asked for as the launch asks for it
+extern "C" int detect_scan_max_clusters(int F, int clusters, int block_bins,
+                                        int threads, int bins_per_thread,
+                                        int* n) {
+  Params p{};
+  p.F = F;
+  p.block_bins = block_bins;
+  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread) ||
+      clusters < 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch<MaxClusters>(clusters, bins_per_thread, p, threads,
+                                    n);
 }
 
 extern "C" const char* detect_scan_error_string(int code) {

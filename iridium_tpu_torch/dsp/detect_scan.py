@@ -22,33 +22,72 @@ from ..config import DetectorParams
 from ..ops import windows
 from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
 
-# bins one thread block of the kernel holds (1024 threads, 16 bins each);
-# above it a cluster of F / BLOCK_BINS blocks shares the bins
+# The kernel's layout (csrc/detect_scan.cu): one thread block, or a
+# thread-block cluster of C blocks, walks the frames; block r owns the FB
+# bins [r FB, min((r + 1) FB, F)) and thread t of it the BPT bins from
+# r FB + t BPT. A block of the ring path holds at most RING_BINS bins (1024
+# threads of 8 and its |X|^2 ring); a cluster has at most 16 blocks (H100's
+# largest, a non-portable size above 8), so above 16 x RING_BINS the
+# blocks take BLOCK_BINS bins (1024 threads of 16: the wide path). The
+# C entry refuses a layout whose shared memory a block cannot hold.
+RING_BINS = 8192
 BLOCK_BINS = 16384
-MAX_FFT = 4 * BLOCK_BINS
+MAX_THREADS = 1024
+MAX_CLUSTER = 16
+MAX_FFT = MAX_CLUSTER * BLOCK_BINS
+
+
+def layout(F: int) -> tuple[int, int, int, int]:
+    """(C, FB, T, BPT): blocks of the cluster, bins a block owns, threads
+    a block and bins a thread. Up to RING_BINS bins one block, each thread
+    with the fewest bins that 1024 threads hold (power-of-two F from 1024:
+    1024 threads); then the least power-of-two cluster of blocks of at most
+    RING_BINS bins, 8 a thread; above 16 such blocks (F > 131072) 16
+    blocks of 16 bins a thread. T is rounded up to whole warps: the
+    threads past the last bin hold no bin (F = 4224: 544 threads of 8
+    bins, the last 16 idle); every bin is one thread's."""
+    if F <= 0 or F % 128 or F > MAX_FFT:
+        raise ValueError(f"F = {F}: the scan kernel takes a multiple of "
+                         f"128 bins up to {MAX_FFT}")
+    C = 1
+    while C * RING_BINS < F and C < MAX_CLUSTER:
+        C *= 2
+    if C * RING_BINS < F:
+        BPT = 16
+    elif C > 1:
+        BPT = 8
+    else:
+        BPT = 1
+        while BPT * MAX_THREADS < F:
+            BPT *= 2
+    FB = -(-F // C)
+    FB = -(-FB // BPT) * BPT
+    T = -(-FB // BPT)
+    return C, FB, -(-T // 32) * 32, BPT
 
 
 def clusters(F: int) -> int:
-    """Blocks of the kernel's cluster at F bins: 1 up to BLOCK_BINS, then
-    F / BLOCK_BINS (2 at F = 32768, 4 at 65536)."""
-    return max(1, F // BLOCK_BINS)
+    """Blocks of the kernel's cluster at F bins (`layout`)."""
+    return layout(F)[0]
+
+
+def block_edges(F: int) -> list[int]:
+    """The first bin of every cluster block but the first."""
+    C, FB, _, _ = layout(F)
+    return [r * FB for r in range(1, C)]
 
 
 def supports(p: DetectorParams) -> bool:
-    """Shapes the kernel handles: a multiple of 128 bins spread over at
-    most 1024 threads of one block (up to 16384 bins), or F = 32768 or
-    65536 over a cluster of 2 or 4 such blocks of 16384 bins; a history
-    of two rows or more (the row a noise update evicts was stored two or
-    more updates before, so its bulk store has completed); a gone table
-    the per-frame emission caps can fill (detect_fast's own rule). The
-    kernel walks the frames one by one, so the Pallas scan's chunk rules
-    (detect_pallas.py:72-79) do not apply."""
+    """Shapes the kernel handles: every multiple of 128 bins up to MAX_FFT
+    (`layout`); a history of two rows or more (the row a noise update
+    evicts was stored two or more updates before, so that bulk store has
+    completed when the row is copied back into shared memory); a gone
+    table the
+    per-frame emission caps can fill (detect_fast's own rule). It is the
+    JAX package's Pallas `supports` (detect_pallas.py:72-79) without the
+    chunk rules: the kernel walks the frames one by one."""
     F = p.fft_size
-    threads = min(F, 1024)
-    one_block = (F <= BLOCK_BINS and F % threads == 0
-                 and (F // threads) in (1, 2, 4, 8, 16))
-    return (F % 128 == 0
-            and (one_block or F in (2 * BLOCK_BINS, MAX_FFT))
+    return (F % 128 == 0 and 0 < F <= MAX_FFT
             and p.history_size >= 2
             and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ))
 
@@ -87,9 +126,9 @@ def _consts(p: DetectorParams) -> dict:
 def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
          p: DetectorParams) -> ScanState:
     """New state after the block of fftshifted |X|^2 rows `mag2`
-    (frames_per_block, F) f32. The input state is left as it was. Above
-    16384 bins the kernel runs as a cluster of `clusters(F)` blocks; a
-    launch the card refuses raises."""
+    (frames_per_block, F) f32. The input state is left as it was. The
+    kernel runs in the `layout(F)` it is handed (above 16384 bins a
+    cluster); a launch the card refuses raises."""
     if mag2.device.type == "cpu":
         return scan_plain(mag2, state, n_valid, p)
     if not supports(p):
@@ -112,6 +151,10 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
             ("ints", torch.int32, (8,)), ("floats", torch.float32, (1,))):
         _kernels.check(getattr(out, name), name, dtype, dev, shape)
     c = _consts(p)
+    lay = layout(F)
+    # a cluster's edge threads keep the halo words they add (C x 2 x H)
+    halo = torch.empty(lay[0] * 2 * H if lay[0] > 1 else 1,
+                       dtype=torch.float32, device=dev)
     k = _kernels
     k.DETECT_SCAN.launch(
         dev, k.ptr(mag2), k.ptr(out.baseline_hist), k.ptr(out.baseline_sum),
@@ -119,13 +162,30 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
         k.ptr(out.a_last), k.ptr(out.a_mag), k.ptr(out.a_noise),
         k.ptr(out.mask_count),
         *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
-        k.ptr(out.ints), k.ptr(out.floats),
+        k.ptr(out.ints), k.ptr(out.floats), k.ptr(halo),
         F, p.frames_per_block, H, G, int(n_valid), p.burst_width_bins // 2,
         c["k_create"], int(p.max_bursts), int(p.max_burst_len),
         int(p.burst_post_len), int(p.burst_pre_len),
         float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
-        float(c["f2"]), float(c["bin_width"]), clusters(F))
+        float(c["f2"]), float(c["bin_width"]), *lay)
     return out
+
+
+def max_active_clusters(F: int) -> int:
+    """Clusters of the kernel's `layout(F)` (2 or more blocks) that the
+    current card can hold at once, asked with the launch's own attributes
+    (a cluster of 16 is a non-portable size): 0 means the card cannot
+    launch one. Needs the card and the built kernel."""
+    import ctypes
+    lib = ctypes.CDLL(str(_kernels.DETECT_SCAN.build()))
+    fn = lib.detect_scan_max_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    code = fn(F, *layout(F), ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"detect_scan_max_clusters: CUDA error {code}")
+    return n.value
 
 
 def scan_plain(mag2: torch.Tensor, state: ScanState, n_valid: int,

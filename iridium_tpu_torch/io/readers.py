@@ -81,6 +81,15 @@ def _read_stream(f, block_samples: int, dtype,
             return
 
 
+def read_stream(f, block_samples: int,
+                fmt: str = "ci8") -> Iterator[Tuple[np.ndarray, int]]:
+    """`read_blocks` over an open binary stream `f` (e.g. fd 0 opened
+    with `open(0, "rb", closefd=False)`)."""
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown IQ format: {fmt}")
+    yield from _read_stream(f, block_samples, _DTYPES[fmt], _CONVERT[fmt])
+
+
 def read_blocks(path: str, block_samples: int,
                 fmt: str | None = None) -> Iterator[Tuple[np.ndarray, int]]:
     """Yield (block complex64 of exactly block_samples, n_valid).
@@ -90,17 +99,11 @@ def read_blocks(path: str, block_samples: int,
     The final partial block is zero-padded; n_valid gives the true count.
     """
     if path == "-":
-        fmt = fmt or "ci8"
-        if fmt not in FORMATS:
-            raise ValueError(f"unknown IQ format: {fmt}")
         import sys
-        yield from _read_stream(sys.stdin.buffer, block_samples,
-                                _DTYPES[fmt], _CONVERT[fmt])
+        yield from read_stream(sys.stdin.buffer, block_samples, fmt or "ci8")
         return
     fmt = fmt or detect_format(path)
     if fmt not in FORMATS:
         raise ValueError(f"unknown IQ format: {fmt}")
     with open(path, "rb") as f:
-        yield from _read_stream(f, block_samples, _DTYPES[fmt],
-                                _CONVERT[fmt])
-
+        yield from read_stream(f, block_samples, fmt)

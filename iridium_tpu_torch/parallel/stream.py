@@ -49,7 +49,9 @@ and per group of `agg_blocks` blocks, after the detect steps:
 The collectives run on the current stream's order (NCCL waits for the
 work enqueued before it and the stream waits for NCCL), so a block is not
 read before its upload has run. Only rank 0 yields frames from `run_file`
-and `run_array`; `run_blocks` gives every rank the same lists.
+and `run_array`; `run_blocks` gives every rank the same lists. A stream
+that only rank 0 reads (stdin) reaches every rank through `share_blocks`,
+one broadcast a block.
 """
 
 from __future__ import annotations
@@ -565,6 +567,34 @@ class ShardedPipeline(pl.BurstDecoder):
     def take_q_peak(self) -> int:
         v, self.stats.q_peak = self.stats.q_peak, 0
         return v
+
+    def share_blocks(self, blocks) -> Iterator[tuple[torch.Tensor, int]]:
+        """Rank 0's blocks on every rank, for a stream that only rank 0 can
+        read (stdin). Rank 0 iterates `blocks` ((samples, n_valid) as
+        `readers.read_blocks` yields them; the other ranks pass None) and
+        broadcasts [n_valid, end] and then the block, a fresh
+        (block_samples,) complex64 tensor on the device each time; every
+        rank yields (block, n_valid) and stops after the same block, when
+        rank 0's blocks end (an empty stream: at once). Feed the result to
+        `run_blocks`."""
+        it = iter(blocks) if self.rank == 0 else None
+        head = torch.zeros(2, dtype=torch.int64, device=self.device)
+        while True:
+            nxt = next(it, None) if it is not None else None
+            if it is not None:
+                head.copy_(torch.tensor([0, 1] if nxt is None
+                                        else [int(nxt[1]), 0]))
+            self._coll(dist.broadcast, head, 0, self.mesh.group)
+            n_valid, end = head.tolist()
+            if end:
+                return
+            block = torch.empty(self.p.block_samples, dtype=torch.complex64,
+                                device=self.device)
+            if nxt is not None:
+                block.copy_(torch.as_tensor(nxt[0]))
+            self._coll(dist.broadcast, torch.view_as_real(block), 0,
+                       self.mesh.group)
+            yield block, n_valid
 
     def run_file(self, path: str, fmt: str | None = None) -> Iterator[dict]:
         """Frames of a capture file, which every rank reads (the native

@@ -3,9 +3,11 @@
     python -m iridium_tpu_torch.tools.exp_scan [--fft F] [--source PATH ...]
 
 Three |X|^2 blocks at the production shape (2,048 frames x 8,192 bins,
-10 MHz; with `--fft 32768` or `--fft 65536` the derived 25 or 50 MHz
-configuration, 1,024 frames, which the kernel runs as a cluster of 2 or 4
-blocks), each with the state it starts from:
+10 MHz; with `--fft 16384`, `32768`, `65536`, `131072` or `262144` the
+derived 20, 25, 50, 100 or 200 MHz configuration, 1,024 frames, which the
+kernel runs as a cluster of 2, 4, 8 or 16 blocks of 8,192 bins, and at
+262,144 of 16 blocks of 16,384: `detect_scan.layout`), each with the
+state it starts from:
   - `synthetic`: tone bursts (one longer than max_burst_len) and a comb
     blast that trips the squelch, from a fresh state (its first 512
     frames prime the noise history);
@@ -19,8 +21,10 @@ build/ in which every `// phase: NAME` comment of the kernel becomes a
 clock64() probe on thread 0 (of the cluster's first block), runs it on
 the three inputs and prints, per input, the kernel's uninstrumented
 microseconds per frame and the share of thread 0's cycles spent in each
-phase, with `nvcc -Xptxas -v`'s register and spill report. The committed
-kernel carries no probe.
+phase, with the build's `ptxas -v` register and spill report (`spills`,
+per instantiation). The committed kernel carries no probe. A `--source`
+must have the package's `detect_scan` entry point (the layout and the
+halo scratch) and take the layout `detect_scan.layout` gives.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -47,8 +50,11 @@ PROD = dict(sample_rate=10_000_000, frames_per_block=2048,
             gone_capacity=2048)
 # the configuration timed at each FFT size: the production one at 8192,
 # the derived configurations of the sample rates that give the others
-CONFIGS = {8192: PROD, 32768: dict(sample_rate=25_000_000),
-           65536: dict(sample_rate=50_000_000)}
+CONFIGS = {8192: PROD, 16384: dict(sample_rate=20_000_000),
+           32768: dict(sample_rate=25_000_000),
+           65536: dict(sample_rate=50_000_000),
+           131072: dict(sample_rate=100_000_000),
+           262144: dict(sample_rate=200_000_000)}
 
 PROBES = """
 __device__ unsigned long long g_phase_cycles[16];
@@ -158,25 +164,26 @@ def edge_spectrogram(p, seed: int, squelch: bool = True) -> np.ndarray:
 
 
 def cluster_edge_spectrogram(p, seed: int) -> np.ndarray:
-    """(frames_per_block, F) f32 |X|^2 (numpy) for F = 32768 or 65536 that
-    works the edges between the kernel's cluster blocks (every 16384
-    bins), from 8 frames after the history is primed. At the DC edge
-    (F / 2): a burst just below the +-3-bin notch, and one just above it
-    that the first one's mask holds back until its release (read from the
-    other block's gone list). At every other edge e, on a flat noise
-    floor: two candidates of exactly equal magnitude at e - 1 and e (the
-    lower must win), then e alone, which keeps the burst at e - 1 alive
-    through the +-1-bin dilation across the edge; later a 3-bin burst
-    across e. Then a comb of peaks every 40 bins that trips the squelch
-    (with max_bursts 20, more than E_SQ emissions: drops)."""
+    """(frames_per_block, F) f32 |X|^2 (numpy) for a shape the kernel runs
+    as a cluster (`detect_scan.block_edges`: every FB bins) that works the
+    edges between its blocks, from 8 frames after the history is primed.
+    At the DC edge (F / 2, an edge whenever the cluster has 2 blocks or F
+    splits evenly): a burst just below the +-3-bin notch, and one just
+    above it that the first one's mask holds back until its release (read
+    from the other block's gone list). At every other edge e, on a flat
+    noise floor: two candidates of exactly equal magnitude at e - 1 and e
+    (the lower must win), then e alone, which keeps the burst at e - 1
+    alive through the +-1-bin dilation across the edge; later a 3-bin
+    burst across e. Then a comb of peaks every 40 bins that trips the
+    squelch (with max_bursts 20, more than E_SQ emissions: drops)."""
     F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
-    edge = detect_scan.BLOCK_BINS
-    if F % edge or F < 2 * edge or t0 + 80 > n:
+    edges = detect_scan.block_edges(F) if F % 128 == 0 else []
+    if not edges or t0 + 80 > n:
         raise ValueError(f"F {F}, {n} frames: no cluster edges to work")
     rng = np.random.default_rng(seed)
     mag2 = rng.exponential(size=(n, F)).astype(np.float32)
     dc = F // 2
-    for e in range(edge, F, edge):
+    for e in edges:
         if e == dc:
             mag2[t0:t0 + 6, dc - 6:dc - 3] += 300.0
             mag2[t0 + 2:t0 + 34, dc + 4:dc + 7] += 300.0
@@ -185,6 +192,37 @@ def cluster_edge_spectrogram(p, seed: int) -> np.ndarray:
         mag2[t0:t0 + 6, e - 1:e + 1] += 300.0
         mag2[t0 + 6:t0 + 20, e] += 300.0
         mag2[t0 + 40:t0 + 52, e - 1:e + 2] += 300.0
+    comb = np.arange(40, F - 40, 40)
+    comb = comb[np.abs(comb - dc) > 8]
+    mag2[t0 + 60:t0 + 80, comb] += 800.0
+    return mag2
+
+
+def shape_edge_spectrogram(p, seed: int) -> np.ndarray:
+    """(frames_per_block, F) f32 |X|^2 (numpy) for any F the kernel takes:
+    `cluster_edge_spectrogram`'s rows where `layout` gives a cluster; in
+    one block, from 8 frames after the history is primed, a burst just
+    below the DC notch and one just above it that the first one's mask
+    holds back until its release; on a flat floor an exact tie across the
+    thread edge at 4 BPT (the lower bin wins), kept alive through the
+    dilation across it; a 3-bin burst over the last eligible bins (beside
+    the idle threads of a padded layout); then the squelch comb."""
+    C, _, _, bpt = detect_scan.layout(p.fft_size)
+    if C > 1:
+        return cluster_edge_spectrogram(p, seed)
+    F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
+    hb = p.burst_width_bins // 2
+    if t0 + 80 > n:
+        raise ValueError(f"{n} frames are too few for the rows")
+    rng = np.random.default_rng(seed)
+    mag2 = rng.exponential(size=(n, F)).astype(np.float32)
+    dc, e = F // 2, max(4 * bpt, hb + 8)
+    mag2[t0:t0 + 6, dc - 6:dc - 3] += 300.0
+    mag2[t0 + 2:t0 + 34, dc + 4:dc + 7] += 300.0
+    mag2[:, e - 4:e + 4] = 1.0
+    mag2[t0:t0 + 6, e - 1:e + 1] += 300.0
+    mag2[t0 + 6:t0 + 20, e] += 300.0
+    mag2[t0 + 10:t0 + 24, F - hb - 3:F - hb] += 300.0
     comb = np.arange(40, F - 40, 40)
     comb = comb[np.abs(comb - dc) > 8]
     mag2[t0 + 60:t0 + 80, comb] += 800.0
@@ -282,15 +320,36 @@ def phases(kernel: variants.Variant) -> tuple[list[int], list[int]]:
 
 
 def ptxas_report(kernel: _kernels.Kernel) -> list[str]:
-    """nvcc -Xptxas -v lines on registers, shared memory and spills."""
-    out = kernel.source.with_suffix(".ptxas.so")
-    res = subprocess.run(
-        [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, *kernel.extra_flags,
-         "-Xptxas", "-v", "-o", str(out), str(kernel.source)],
-        capture_output=True, text=True)
-    return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+    """The `ptxas -v` lines on registers, shared memory and spills that
+    the kernel's build kept beside its library."""
+    kernel.build()
+    return [ln.strip() for ln in kernel.ptxas_path().read_text().splitlines()
             if "registers" in ln or "spill" in ln
             or "Function properties" in ln]
+
+
+INSTANCE = re.compile(r"detect_scan_kernelILi(\d+)ELi(\d+)E")
+SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def spill_table(lines: list[str]) -> dict:
+    """`ptxas_report` lines -> {"BPT=b,C=c": dict(registers, spill_stores,
+    spill_loads)} per instantiation of the scan kernel."""
+    out, cur = {}, None
+    for ln in lines:
+        m = INSTANCE.search(ln)
+        if m:
+            cur = out.setdefault(f"BPT={m.group(1)},C={m.group(2)}", {})
+            continue
+        if cur is None:
+            continue
+        if m := SPILLS.search(ln):
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        elif m := REGISTERS.search(ln):
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def breakdown(source: Path, dev: torch.device, fft: int = 8192) -> dict:
@@ -304,9 +363,10 @@ def breakdown(source: Path, dev: torch.device, fft: int = 8192) -> dict:
     plain.build()
     probed.build()
     res = dict(source=str(source), fft=p.fft_size,
-               clusters=detect_scan.clusters(p.fft_size),
-               frames=p.frames_per_block, ptxas=ptxas_report(plain),
-               inputs=[])
+               layout=detect_scan.layout(p.fft_size),
+               frames=p.frames_per_block,
+               ptxas=ptxas_report(plain), inputs=[])
+    res["spills"] = spill_table(res["ptxas"])
     print(json.dumps(res), flush=True)
     n_valid = p.block_samples
     for name, mag2, s0 in inputs(p, dev):

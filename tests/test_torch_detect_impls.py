@@ -180,10 +180,18 @@ def test_every_jax_config_builds(cfg, impl):
     dict(sample_rate=10_000_000, frames_per_block=2048, gone_capacity=2048),
     dict(sample_rate=20_000_000), dict(sample_rate=25_000_000),
     dict(sample_rate=40_000_000), dict(sample_rate=50_000_000),
-    dict(sample_rate=1_000_000)])
+    dict(sample_rate=1_000_000), dict(sample_rate=100_000_000),
+    dict(sample_rate=200_000_000),
+    dict(sample_rate=10_000_000, fft_size=1152),
+    dict(sample_rate=10_000_000, fft_size=3072),
+    dict(sample_rate=10_000_000, fft_size=4224),
+    dict(sample_rate=25_000_000, fft_size=12288),
+    dict(sample_rate=25_000_000, fft_size=20480),
+    dict(sample_rate=30_000_000, fft_size=24576)])
 def test_scan_wherever_jax_runs_its_pallas_scan(cfg):
-    """Each configuration the JAX package derives at 1-50 MHz (F = 1024 to
-    65536) goes through its Pallas scan on its chip
+    """Each configuration the JAX package derives at 1-200 MHz (F = 1024
+    to 262144), and the library's fft_size at sizes that are no power of
+    two, goes through its Pallas scan on its chip
     (detect_pallas.resolve_impl): the port resolves it to its scan kernel
     too, not to detect_fast."""
     jp = JaxDetConfig(**cfg).derived()
@@ -191,6 +199,20 @@ def test_scan_wherever_jax_runs_its_pallas_scan(cfg):
     assert pp.fft_size == jp.fft_size and detect_pallas.supports(jp)
     assert detect_scan.resolve_impl(pp) == "scan"
     assert detect_scan.resolve_impl(pp, "scan") == "scan"
+
+
+def test_scan_refuses_above_a_cluster_of_16():
+    """400 MHz (F = 524288) is the one shape the JAX package's Pallas scan
+    takes and the kernel does not (one cluster holds 262144 bins): `auto`
+    resolves it to detect_fast and asking for the kernel raises."""
+    cfg = dict(sample_rate=400_000_000)
+    jp = JaxDetConfig(**cfg).derived()
+    pp = DetectorConfig(**cfg).derived()
+    assert pp.fft_size == jp.fft_size == 524288 and detect_pallas.supports(jp)
+    assert not detect_scan.supports(pp)
+    assert detect_scan.resolve_impl(pp) == "fast"
+    with pytest.raises(ValueError):
+        detect_scan.resolve_impl(pp, "scan")
 
 
 def test_fast_pipeline_matches_jax_pipeline():

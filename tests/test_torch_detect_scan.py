@@ -282,15 +282,15 @@ def test_lone_long_burst_at_16k():
     (25_000_000, "edge"), (25_000_000, "long_burst"),
     (50_000_000, "edge"), (50_000_000, "long_burst")])
 def test_cluster_shapes_match_pallas(rate, rows):
-    """F = 32768 and 65536, which the CUDA kernel runs as a cluster of 2
-    and 4 blocks of 16384 bins: the plain scan that the card tests hold
+    """F = 32768 and 65536, which the CUDA kernel runs as a cluster of 4
+    and 8 blocks of 8192 bins: the plain scan that the card tests hold
     the cluster kernel to is held to the Pallas scan here. The edge rows
     put bursts beside the DC notch on the edge at F / 2 (the mask of one
     crosses it and holds the other back until its release), an exact tie
     across each other edge (the lower bin wins) kept alive across it by
     the dilation, and a squelch comb with emission drops; the long-burst
     rows a lone burst past max_burst_len (forced, then final noise update),
-    across the edge at 16384 when F = 65536."""
+    across the block edge at F / 4."""
     jp, pp = params(sample_rate=rate, history_size=32, frames_per_block=128,
                     max_bursts=20)
     F, dc = pp.fft_size, pp.fft_size // 2

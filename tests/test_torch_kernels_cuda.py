@@ -344,8 +344,8 @@ def test_detect_scan_chunk_shapes_match_plain(dev, cfg):
 
 @pytest.mark.parametrize("rate", [25_000_000, 50_000_000])
 def test_detect_scan_cluster_matches_plain(dev, rate):
-    """F = 32768 and 65536, the kernel as a cluster of 2 and 4 blocks of
-    16384 bins: bit-equal to the plain scan on tools/exp_scan.py's
+    """F = 32768 and 65536, the kernel as a cluster of 4 and 8 blocks of
+    8192 bins: bit-equal to the plain scan on tools/exp_scan.py's
     cluster edge block (bursts beside the DC notch on the block edge at
     F / 2, a tie and a dilation across every other edge, a squelch blast
     with emission drops) and its long-burst block (forced, then final
@@ -353,7 +353,7 @@ def test_detect_scan_cluster_matches_plain(dev, rate):
     to the plain scan and back."""
     p = DetectorConfig(sample_rate=rate, history_size=32,
                        frames_per_block=128, max_bursts=20).derived()
-    assert detect_scan.clusters(p.fft_size) == p.fft_size // 16384 > 1
+    assert detect_scan.clusters(p.fft_size) == p.fft_size // 8192 > 1
     assert detect_scan.supports(p)
     nv = p.block_samples
     edge = torch.from_numpy(exp_scan.cluster_edge_spectrogram(p, seed=11))
@@ -379,14 +379,63 @@ def test_detect_scan_cluster_matches_plain(dev, rate):
     assert int(s_a.n_tagged) > 40
 
 
+# (sample rate, fft_size): shapes the kernel took up with its layout
+# function (`detect_scan.layout`): 1,152 (576 threads of 2 bins), 12,288
+# and 20,480 (clusters of 2 and 4 blocks of 6,144 and 5,120 bins on 768
+# and 640 threads), 16,384 (2 blocks of 8,192), 131,072 (16 blocks of
+# 8,192, 100 MHz) and 262,144 (16 blocks of 16,384 bins, 16 a thread: the
+# wide path, 200 MHz)
+NEW_SHAPES = [(1_000_000, 1152), (12_000_000, 12288), (20_000_000, 16384),
+              (20_000_000, 20480), (100_000_000, 131072),
+              (200_000_000, 262144)]
+
+
+@pytest.mark.parametrize("rate,F", NEW_SHAPES,
+                         ids=[str(F) for _, F in NEW_SHAPES])
+def test_detect_scan_new_shapes_match_plain(dev, rate, F):
+    """Bit-equal to the plain scan (tests/test_torch_scan_shapes.py holds
+    that to the Pallas scan) on `exp_scan.shape_edge_spectrogram`'s rows
+    from a fresh state (bursts beside the DC notch, ties and dilations
+    across the block edges, a burst by the last eligible bins, squelch
+    drops), then on a bursty block (a long burst) from the state the
+    first block left."""
+    p = DetectorConfig(sample_rate=rate, fft_size=F, history_size=32,
+                       frames_per_block=128, max_bursts=20).derived()
+    assert detect_scan.resolve_impl(p) == "scan"
+    nv = p.block_samples
+    s = st.init_state(p, dev)
+    edge = torch.from_numpy(exp_scan.shape_edge_spectrogram(p, seed=11))
+    for k, mag2 in enumerate((edge.to(dev), _bursty_spectrogram(p, dev, 3))):
+        before = _kernels.DETECT_SCAN.launches
+        got = detect_scan.scan(mag2, s, nv, p)
+        assert _kernels.DETECT_SCAN.launches == before + 1
+        want = detect_scan.scan_plain(mag2, s, nv, p)
+        exp_scan.compare(got, want)
+        if k == 0:
+            assert int(got.burst_dropped) > 0
+        s = want
+        st.rebase_(s, nv)
+    assert int(s.n_tagged) > 40
+
+
+def test_detect_scan_cluster_of_16_launch_attribute(dev):
+    """A cluster of 16 blocks is above the portable size of 8: the launch
+    sets cudaFuncAttributeNonPortableClusterSizeAllowed, with which the
+    card holds at least one such cluster of the kernel's blocks (227 KB of
+    shared memory each, one an SM); so do clusters of 2 to 8."""
+    for F in (32768, 65536, 131072, 262144):
+        assert detect_scan.max_active_clusters(F) >= 1, F
+    assert detect_scan.layout(262144)[0] == 16
+
+
 def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
-    """F = 131072 (100 MHz) is above the kernel's cluster of 4: `scan`
-    raises and `auto` resolves to detect_fast. A cluster the C side
-    refuses (8 blocks at F = 65536) raises too, and nothing runs in its
+    """F = 524288 (400 MHz) is above the kernel's cluster of 16: `scan`
+    raises and `auto` resolves to detect_fast. A layout the C side
+    refuses (a cluster of 32) raises too, and nothing runs in its
     place."""
-    p = DetectorConfig(sample_rate=100_000_000, history_size=16,
+    p = DetectorConfig(sample_rate=400_000_000, history_size=16,
                        frames_per_block=16, gone_capacity=64).derived()
-    assert p.fft_size == 131072 and not detect_scan.supports(p)
+    assert p.fft_size == 524288 and not detect_scan.supports(p)
     assert detect_scan.resolve_impl(p) == "fast"
     with pytest.raises(ValueError):
         detect_scan.resolve_impl(p, "scan")
@@ -397,7 +446,8 @@ def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
                        frames_per_block=16, gone_capacity=64).derived()
     s0 = st.init_state(q, dev)
     before = _kernels.DETECT_SCAN.launches
-    monkeypatch.setattr(detect_scan, "clusters", lambda F: 8)
+    monkeypatch.setattr(detect_scan, "layout",
+                        lambda F: (32, F // 32, 128, 16))
     with pytest.raises(RuntimeError):
         detect_scan.scan(torch.ones((16, q.fft_size), device=dev), s0,
                          q.block_samples, q)

@@ -4,10 +4,14 @@ pipeline (replicated detect, as the JAX CLI runs it) and print, from rank 0,
 the lines the plain CLI prints on the same capture: the RAW lines from the
 frequency on, burst ids included (the first fields hold the wall-clock
 start), the shutdown summary, and the stats line's fields (its values are
-rates over the wall clock, and it prints once a second). Also the errors
+rates over the wall clock, and it prints once a second); the same lines
+from stdin (`-f -`), which rank 0 reads and broadcasts. Also the errors
 of `--mesh`."""
 
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from iridium_tpu_torch.io import synth  # noqa: E402
 ARGS = ["-r", "1000000", "--frames-per-block", "256", "--burst-batch", "4",
         "--device", "cpu"]
 BLOCK = 256 * 1024
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def capture() -> np.ndarray:
@@ -99,6 +104,35 @@ def test_mesh_cli_without_cuda_raises(tmp_path):
         cli.main(["-f", str(path), "--mesh", "2"])
 
 
-def test_mesh_cli_needs_a_file(capsys):
-    assert cli.main(["-f", "-", "--mesh", "2", "--device", "cpu"]) == 2
-    assert "--mesh needs a file" in capsys.readouterr().err
+def _cli_on_stdin(data: bytes, extra: list) -> subprocess.CompletedProcess:
+    """`python -m iridium_tpu_torch.cli -f - ...` in its own process (from
+    the repo root) with `data` on its stdin."""
+    return subprocess.run(
+        [sys.executable, "-m", "iridium_tpu_torch.cli", "-f", "-"] + extra,
+        input=data, capture_output=True, timeout=300, cwd=ROOT)
+
+
+def test_mesh_cli_reads_stdin(tmp_path, capfd):
+    """`-f - --mesh 2`: rank 0 reads the capture from stdin and broadcasts
+    each block; rank 0 prints the lines the plain CLI prints on the same
+    file, from the frequency on."""
+    path = tmp_path / "cap.cf32"
+    np.ascontiguousarray(capture()).view(np.float32).tofile(path)
+    assert cli.main(["-f", str(path)] + ARGS) == 0
+    plain = capfd.readouterr()
+    raw = [x.split(" ")[3:] for x in plain.out.splitlines()]
+    assert len(raw) >= 2
+    res = _cli_on_stdin(path.read_bytes(),
+                        ["--format", "cf32", "--mesh", "2"] + ARGS)
+    assert res.returncode == 0, res.stderr.decode()[-2000:]
+    assert [x.split(" ")[3:] for x in res.stdout.decode().splitlines()] \
+        == raw
+
+
+def test_mesh_cli_empty_stdin_ends():
+    """An empty stdin on the mesh: every rank stops after rank 0's end
+    flag, exit 0, no lines."""
+    res = _cli_on_stdin(b"", ["--format", "cf32", "--mesh", "2"] + ARGS)
+    assert res.returncode == 0, res.stderr.decode()[-2000:]
+    assert res.stdout == b""
+    assert b"tagged 0 bursts total" in res.stderr

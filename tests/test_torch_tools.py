@@ -67,15 +67,17 @@ def test_scan_inputs_at_a_small_shape():
 
 def test_scan_configs_per_fft_size():
     """`exp_scan --fft F` times the derived configuration that gives F:
-    the 10 MHz production one at 8192, 25 and 50 MHz (the kernel's
-    clusters of 2 and 4) at 32768 and 65536. The cluster edge rows need
-    a cluster edge."""
-    for fft, frames in ((8192, 2048), (32768, 1024), (65536, 1024)):
+    the 10 MHz production one at 8192, 20, 25, 50, 100 and 200 MHz (the
+    kernel's clusters of 2, 4, 8 and 16 blocks) at 16384 to 262144. The
+    cluster edge rows need a cluster edge."""
+    for fft, frames in ((8192, 2048), (16384, 1024), (32768, 1024),
+                        (65536, 1024), (131072, 1024), (262144, 1024)):
         p = exp_scan.production_params(fft)
         assert (p.fft_size, p.frames_per_block) == (fft, frames)
         assert detect_scan.supports(p)
-    assert [detect_scan.clusters(f) for f in (8192, 16384, 32768, 65536)
-            ] == [1, 1, 2, 4]
+    assert [detect_scan.clusters(f) for f in (8192, 16384, 32768, 65536,
+                                              131072, 262144)
+            ] == [1, 2, 4, 8, 16, 16]
     with pytest.raises(ValueError):
         exp_scan.cluster_edge_spectrogram(exp_scan.production_params(), 1)
 
