@@ -12,10 +12,11 @@ Phases, each printing one line:
      blocks: synthetic, noise-only after priming, dense; the fused
      front-end at the three burst classes' batches of the 10 MHz group
      program, within max |err| 1e-5; the window gather at the 1 MHz
-     small-normal batch and the 25 MHz small-normal and large batches,
-     with fine shifts up to the decimation; the block gather single-call
-     and chained, at R = 64, 128, 256; the demod loop at the three 10 MHz
-     class batches in both modes, through `tools/exp_demod.py`, beside
+     small-normal batch, the 25 MHz small-normal and large batches and
+     the 400 MHz decode's three, with fine shifts up to the decimation;
+     the block gather single-call and chained, at R = 64, 128, 256; the
+     demod loop at the three 10 MHz class batches and the 400 MHz
+     decode's three in both modes, through `tools/exp_demod.py`, beside
      the plain loop eager and captured as a CUDA graph);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
@@ -77,6 +78,14 @@ Phases, each printing one line:
      as a cluster of 4 blocks and launches, decimation 100 takes the window
      gather, every injected payload comes back bit-exact, realtime as
      measured;
+  9b. `wideband_400mhz`: a 400 MHz capture (F = 524288, 2.8 s, 12 bursts
+     from -150 to +170 MHz) written as ci8 chunk by chunk, through
+     `Pipeline.run_file` at one block a group, one job a class and 16
+     bursts a batch (the default batches run out of device memory at 400
+     MHz), after a warm-up decode: the scan resolves to
+     the kernel's grid of 4 clusters of 16 blocks, which launches,
+     decimation 1,600 takes the window gather, every payload comes back
+     bit-exact; wall, realtime, stages, peak device memory;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
@@ -87,15 +96,16 @@ Phases, each printing one line:
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
 at the shapes the Pallas scan's chunk rules refuse (frames_per_block 100
 and 1000, history_size 16), at sizes its layout pads or splits unevenly
-(1,152, 12,288, 16,384 and 20,480 bins) and at the 25, 50, 100 and 200
-MHz blocks (1,024 x 32,768 to 1,024 x 262,144, the kernel as a cluster of
-4, 8 and 16 blocks), each timed with its layout (in the `kernels`
-line's `detail.per_shape`), with `ptxas -v`'s registers and spill bytes
-per instantiation (`detail.ptxas`), and
-`detect_fast_card` holds detect_fast (one production block) and the exact
-scan (one small block) on the card to the same functions on the CPU, and
-counts detect_fast's device launches at the 25 MHz block; their launches
-are comparisons and are not counted.
+(1,152, 12,288, 16,384, 20,480 and 393,216 bins) and at the 25, 50, 100,
+200, 400 and 800 MHz blocks (1,024 x 32,768 to 1,024 x 1,048,576, the
+kernel as a cluster of 4, 8 and 16 blocks and, from 400 MHz, as a grid of
+4 clusters of 16), each timed with its layout (in the `kernels` line's
+`detail.per_shape`), with `ptxas -v`'s registers and spill bytes per
+instantiation (`detail.ptxas`), and `detect_fast_card` holds detect_fast
+(one production block) and the exact scan (one small block) on the card
+to the same functions on the CPU, counts detect_fast's device launches at
+the 25 MHz block and times it on the 400 MHz block, which the kernel's
+grid now serves; their launches are comparisons and are not counted.
 Every printed number names the card (`card`: nvidia-smi's name and
 power limit). The last line is the JSON result. Any failed check exits
 non-zero; with no CUDA device, or without the port's package beside this
@@ -266,22 +276,28 @@ def check_fused(dev, card: str) -> dict:
 def check_gather(dev, card: str) -> dict:
     """The window gather at the class batches of the group programs that
     gather (decimations with no fused front-end): the 1 MHz small-normal
-    batch (the row) and the 25 MHz small-normal and large batches, each
-    from random planes of a 4-block group's length with random starts
-    [tile, r < decimation] (`tools/exp_window_gather.py`). Each is
-    bit-equal to the plain gather and timed beside it and advanced
-    indexing; `detail.per_shape` has all three."""
+    batch (the row), the 25 MHz small-normal and large batches, and the
+    400 MHz decode's three (at WIDE_400_RUN: decimation 1,600, windows of
+    7.6 M and 45 M samples), each from random planes of a group's length
+    with random starts [tile, r < decimation]
+    (`tools/exp_window_gather.py`). Each is bit-equal to the plain gather
+    and timed beside it and advanced indexing; `detail.per_shape` has all
+    six."""
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.tools import exp_window_gather as tool
 
-    shapes = {(s["rate_mhz"], s["shape"]): s
-              for s in tool.class_shapes((1.0, 25.0))}
-    per_shape = [tool.run_shape(shapes[key], dev,
-                                [("package", _kernels.WINDOW_GATHER)])[0]
-                 for key in ((1.0, "small_normal"), (25.0, "small_normal"),
-                             (25.0, "large"))]
-    torch.cuda.empty_cache()    # the 25 MHz plain gather's ~20 GB
+    shapes = [s for s in tool.class_shapes((1.0, 25.0))
+              if (s["rate_mhz"], s["shape"]) in (
+                  (1.0, "small_normal"), (25.0, "small_normal"),
+                  (25.0, "large"))]
+    shapes += tool.class_shapes((400.0,), **WIDE_400_RUN)
+    per_shape = []
+    for sh in shapes:
+        torch.cuda.empty_cache()    # the plain gather's ~35 GB at 400 MHz
+        per_shape += tool.run_shape(sh, dev,
+                                    [("package", _kernels.WINDOW_GATHER)])
+    torch.cuda.empty_cache()
     row = per_shape[0]
     return dict(name="window_gather", route="cuda",
                 source="iridium_tpu_torch/csrc/window_gather.cu",
@@ -346,14 +362,16 @@ def check_block_gather(dev, card: str) -> dict:
 
 def check_demod(dev, card: str) -> dict:
     """The demod loop kernel at the three class batches of the 10 MHz group
-    program (1,024 x 1,918 x 205; 96 and 48 x 4,440 x 471), both modes, on
+    program (1,024 x 1,918 x 205; 96 and 48 x 4,440 x 471) and of the 400
+    MHz decode's (at WIDE_400_RUN), both modes, on
     `tools/exp_demod.py`'s bursts (random lengths, 0, 1, 3, 4 and L among
     them; residual CFO; noise): held to `loop_plain` and, through
     `Demod.decide`, the demodulator's fields to those on `loop_plain`'s
     output (`exp_demod.compare_loop`, `compare_demod`); timed single-call
     and chained beside the plain loop eager and, in Gardner mode, the plain
-    loop captured as a CUDA graph (nodes, capture s, replay ms). The row
-    reports the small-normal batch in Gardner mode, `detail` all six."""
+    loop captured as a CUDA graph (nodes, capture s, replay ms; 10 MHz
+    only). The row reports the 10 MHz small-normal batch in Gardner mode,
+    `detail` all twelve."""
     import torch
     from iridium_tpu_torch.tools import exp_demod as tool
 
@@ -361,6 +379,8 @@ def check_demod(dev, card: str) -> dict:
     for sh in tool.class_shapes():
         per_shape += tool.run_shape(sh, dev)
         torch.cuda.empty_cache()
+    for sh in tool.class_shapes(400.0, **WIDE_400_RUN):
+        per_shape += tool.run_shape(sh, dev, graphs=False)
     row = per_shape[0]
     return dict(name="demod_loop", route="cuda",
                 source="iridium_tpu_torch/csrc/demod_loop.cu",
@@ -1222,14 +1242,17 @@ SCAN_SHAPES = (dict(frames_per_block=100, history_size=32),
 
 # the derived configurations above 16,384 bins: 1,024 frames of 32,768,
 # 65,536, 131,072 and 262,144 bins, clusters of 4, 8 and 16 blocks of
-# 8,192 bins and 16 blocks of 16,384 (the wide path)
-WIDE_RATES = (25_000_000, 50_000_000, 100_000_000, 200_000_000)
+# 8,192 bins and 16 blocks of 16,384 (the wide path); 524,288 and
+# 1,048,576, grids of 4 clusters of 16 blocks of 8,192 and 16,384
+WIDE_RATES = (25_000_000, 50_000_000, 100_000_000, 200_000_000,
+              400_000_000, 800_000_000)
 # (sample rate, fft_size) of shapes whose layout pads or splits unevenly:
 # 1,152 (one block of 576 threads of 2 bins), 12,288 and 20,480 (clusters
-# of 2 and 4 blocks of 6,144 and 5,120 bins on 768 and 640 threads), and
-# 16,384 (2 blocks of 8,192: 20 MHz)
+# of 2 and 4 blocks of 6,144 and 5,120 bins on 768 and 640 threads),
+# 16,384 (2 blocks of 8,192: 20 MHz) and 393,216 (a grid of 3 clusters of
+# 16 blocks of 8,192, no power of two)
 ODD_SHAPES = ((1_000_000, 1152), (12_000_000, 12288), (20_000_000, 16384),
-              (20_000_000, 20480))
+              (20_000_000, 20480), (300_000_000, 393216))
 
 
 def check_odd_shape(rate: int, F: int, dev) -> dict:
@@ -1272,13 +1295,15 @@ def check_odd_shape(rate: int, F: int, dev) -> dict:
 def check_cluster_shape(rate: int, dev) -> dict:
     """The scan kernel at the derived configuration of `rate` (1,024 frames
     of 32,768 to 262,144 bins, which it runs as a cluster of 4 to 16
-    blocks) against the plain scan: `tools/exp_scan.py`'s synthetic block
+    blocks, and of 524,288 and 1,048,576, a grid of 4 clusters of 16)
+    against the plain scan: `tools/exp_scan.py`'s synthetic block
     from a fresh state (its first 512 frames prime the history; bursts, a
     long burst), timed, then its cluster edge block from the state that
     block left (bursts beside the DC notch on a block edge, ties and
     dilations across the other edges, a comb). Bit-equal, dB fields
     within rtol 1e-5. Also how many such clusters the card holds at once
-    (`max_active_clusters`: a cluster of 16 is a non-portable size)."""
+    (`max_active_clusters`: a cluster of 16 is a non-portable size; a
+    grid's clusters must all fit)."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect_scan, state as st
@@ -1308,6 +1333,7 @@ def check_cluster_shape(rate: int, dev) -> dict:
     b_ms, b_by = scan_bound(p)
     return dict(shape=[p.frames_per_block, p.fft_size],
                 sample_rate=rate, clusters=detect_scan.clusters(p.fft_size),
+                grid_clusters=detect_scan.grid_clusters(p.fft_size),
                 layout=list(detect_scan.layout(p.fft_size)),
                 max_active_clusters=detect_scan.max_active_clusters(
                     p.fft_size),
@@ -1326,9 +1352,10 @@ def scan_shapes_phase(dev, spills: dict) -> dict:
     1000; history_size 16), on `tools/exp_scan.py`'s edge block (bursts
     across thread edges, an exact tie, a squelch blast): bit-equal, timed,
     with the scan each shape resolves to; then at the odd sizes of
-    ODD_SHAPES (`check_odd_shape`) and at 25, 50, 100 and 200 MHz (F =
-    32768 to 262144), which must resolve to the kernel, as its cluster of
-    4, 8 and 16 blocks (`check_cluster_shape`). `spills`: `ptxas -v`'s
+    ODD_SHAPES (`check_odd_shape`) and at 25, 50, 100, 200, 400 and 800
+    MHz (F = 32768 to 1048576), which must resolve to the kernel, as its
+    cluster of 4, 8 and 16 blocks or its grid of clusters, all of which
+    the card holds at once (`check_cluster_shape`). `spills`: `ptxas -v`'s
     registers and spill bytes per instantiation of the kernel."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
@@ -1361,7 +1388,7 @@ def scan_shapes_phase(dev, spills: dict) -> dict:
                              f"kernel: {odd}")
     wide = [check_cluster_shape(rate, dev) for rate in WIDE_RATES]
     if any(w["resolves"] != "scan" or w["clusters"] < 2
-           or w["max_active_clusters"] < 1 for w in wide):
+           or w["max_active_clusters"] < w["grid_clusters"] for w in wide):
         raise AssertionError(f"a wideband shape does not resolve to the "
                              f"cluster kernel: {wide}")
     return dict(phase="scan_shapes", shapes=shapes, odd=odd, wide=wide,
@@ -1385,7 +1412,9 @@ def detect_fast_card_phase(dev) -> dict:
     the same way. Last, detect_fast on the card alone at the 25 MHz block
     (1,024 x 32,768, the synthetic block), which the scan kernel now
     serves: its seconds, and its device launches a block counted by
-    torch.profiler."""
+    torch.profiler; and at the 400 MHz block (1,024 x 524,288, the
+    synthetic block), which ran detect_fast before the kernel's grid
+    took it: its seconds."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect, detect_fast, state as st
@@ -1444,8 +1473,20 @@ def detect_fast_card_phase(dev) -> dict:
     wide_launches = sum(e.count for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CUDA)
     wb_ms, wb_by = scan_bound(pw)
+    del mw
+    p4 = DetectorConfig(sample_rate=400_000_000).derived()
+    gen.manual_seed(SEED)
+    m4 = exp_scan.synthetic_spectrogram(p4, gen)
+    run_4 = detect_fast.make_scan_fast(p4)
+    w400_ms = host_ms(lambda: run_4(m4, st.init_state(p4, dev),
+                                    p4.block_samples), reps=1)
+    del m4
+    b4_ms, b4_by = scan_bound(p4)
     return dict(phase="detect_fast_card", block=[p.frames_per_block,
                                                  p.fft_size],
+                w400_block=[p4.frames_per_block, p4.fft_size],
+                w400_fast_card_ms=w400_ms, w400_bound_ms=b4_ms,
+                w400_bound_by=b4_by,
                 wide_block=[pw.frames_per_block, pw.fft_size],
                 wide_fast_card_ms=wide_ms,
                 wide_device_launches=wide_launches,
@@ -1541,6 +1582,93 @@ def wideband_phase(dev, tmp) -> dict:
     del pipe, frames
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ---- wideband_400mhz: F = 524288, the scan kernel as a grid of clusters ----
+
+# the 400 MHz decode's batches: every burst at 400 MHz takes the large
+# class (its window, pre + post + burst, is longer than the small classes'
+# 120,000 samples beyond pre + post), 24 windows of 45 M samples a round;
+# one block a group, one job a class
+WIDE_400_RUN = dict(burst_batch=16, agg_blocks=1, group_jobs=1)
+
+
+def wideband_400_capture(dev, path: str) -> tuple[float, list, float]:
+    """`captures.wideband_400mhz_plan` written to `path` as ci8, chunk by
+    chunk (a 400 MHz block is 537 M samples). Returns the capture's
+    seconds, the injected (start, offset Hz, payload bits) and the
+    seconds it took to make."""
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.tools import captures
+    t = time.perf_counter()
+    p = DetectorConfig(**captures.WIDE_400).derived()
+    n, plan = captures.wideband_400mhz_plan(SEED + 12, p.block_samples)
+    captures.write_ci8(path, n, plan, SEED + 12, dev)
+    return (n / p.sample_rate, [(s, o, b) for s, o, b, _, _ in plan],
+            time.perf_counter() - t)
+
+
+def wideband_400_phase(dev, tmp) -> dict:
+    """A 400 MHz capture (F = 524288, 1,024 frames a block, decimation
+    1,600) through `Pipeline.run_file` on the card at WIDE_400_RUN (the
+    default batches run out of device memory at 400 MHz), after a warm-up
+    decode that captures the group graphs: the scan
+    resolves to the kernel's grid of 4 clusters of 16 blocks, which
+    launches, decimation 1,600 takes the window gather and not the fused
+    front-end, and every injected payload comes back bit-exact. Wall,
+    realtime factor, stages, peak device memory and launches."""
+    import gc
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools import captures
+
+    path = os.path.join(tmp, "capture_400mhz.ci8")
+    seconds, bursts, make_s = wideband_400_capture(dev, path)
+    det = DetectorConfig(**captures.WIDE_400)
+    pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
+                    want_llr=False, **WIDE_400_RUN)
+    if pipe.detect_impl != "scan":
+        raise AssertionError(f"400 MHz resolved to {pipe.detect_impl}")
+    t = time.perf_counter()
+    list(pipe.run_file(path))
+    warmup_s = time.perf_counter() - t
+    pipe.reset(T0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if (counts["window_gather"] == 0 or counts["detect_scan"] == 0
+            or counts["fused_frontend"] != 0):
+        raise AssertionError(f"400 MHz decode launches: {counts}")
+    missing = missing_payloads(frames, bursts, det)
+    st, timing = pipe.stats, dict(pipe.timing)
+    res = dict(phase="wideband_400mhz", fft_size=pipe.p.fft_size,
+               layout=list(detect_scan.layout(pipe.p.fft_size)),
+               detect_impl=pipe.detect_impl, decimation=pipe.dmp.decimation,
+               args=WIDE_400_RUN, classes=[[c.batch, c.l_win]
+                                           for c in pipe.classes],
+               capture_s=seconds, make_s=make_s, warmup_s=warmup_s,
+               wall_s=wall, realtime_x=seconds / wall,
+               peak_device_gb=peak,
+               injected=len(bursts), missing=missing,
+               payloads_bit_exact=len(bursts) - len(missing),
+               detected=st.n_detected, ok=st.n_ok, raw_lines=len(frames),
+               stages=timing, launches=counts)
+    del pipe, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    if missing:
+        raise AssertionError(f"400 MHz payloads not decoded bit-exact: "
+                             f"{missing} ({res})")
     return res
 
 
@@ -1672,7 +1800,8 @@ def main() -> int:
         ing = emit(ingest_phase(dev, **ctx))
         del ctx
         wide = emit(wideband_phase(dev, tmp))
-    paths = (dec, gat, mesh, par, tool, den, ing, wide)
+        w400 = emit(wideband_400_phase(dev, tmp))
+    paths = (dec, gat, mesh, par, tool, den, ing, wide, w400)
     for r in rows:
         by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}
         r["launches"] = sum(by_path.values())

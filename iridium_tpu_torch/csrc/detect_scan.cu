@@ -11,16 +11,21 @@
 // f + 1 depends on the state that frame f leaves, so the frames run one
 // after another and the time goes to per-frame latency, not to bytes.
 //
-// Layout: the caller hands the kernel (C, FB, T, BPT) (dsp/detect_scan.py
-// `layout`, the one place it is decided): C blocks (1, or a cluster of 2,
-// 4, 8 or 16), block r owning the FB bins [r FB, min((r + 1) FB, F)), T
-// threads a block of BPT contiguous bins each. Every multiple of 128 bins
-// up to 262144 has one:
+// Layout: the caller hands the kernel (C, FB, T, BPT, N) (dsp/detect_scan.py
+// `layout`, the one place it is decided): N clusters (1, or a grid of
+// several) of C blocks (1, or a cluster of 2, 4, 8 or 16), block r
+// (counted across the grid) owning the FB bins [r FB, min((r + 1) FB, F)),
+// T threads a block of BPT contiguous bins each. Every multiple of 128
+// bins up to MAX_FFT (1,835,008) has one:
 //   - F <= 8192: one block, BPT = F / 1024 rounded up to a power of two;
 //   - F <= 131072: a cluster of the least power of two of blocks of at
 //     most 8192 bins, 8 a thread (16,384 bins: 2 blocks; 131,072: 16);
 //   - F <= 262144: a cluster of 16 blocks of at most 16384 bins, 16 a
-//     thread (the wide path).
+//     thread (the wide path);
+//   - F <= 917504: a grid of 3-7 clusters of 16 blocks of at most 8192
+//     bins (524,288, 400 MHz: 4 clusters of 16 x 8,192);
+//   - above: a grid of 4-7 clusters of 16 wide blocks (1,048,576, 800
+//     MHz: 4 clusters of 16 x 16,384).
 // Sizes that no power-of-two BPT splits into whole warps (1152 = 576 x 2
 // does; 4224 = 528 x 8 does not) are padded: T is rounded up to whole
 // warps and the threads past the block's last bin are idle. Padding keeps
@@ -111,6 +116,40 @@
 // C = 16 is above the portable cluster size and is launched with
 // cudaFuncAttributeNonPortableClusterSizeAllowed.
 //
+// A grid of clusters (F > 262144: more bins than one cluster of 16 SMs
+// holds) keeps all of the above inside each cluster, and meets between
+// clusters in device memory (`Grid`, a scratch the wrapper zeroes before
+// each launch):
+//   - each cluster barrier of a single cluster becomes a grid barrier: the
+//     cluster barrier, then thread 0 of the cluster's rank-0 block adds
+//     one to an arrival counter (red.release.gpu) and warp 0 of every
+//     block spins on it (ld.acquire.gpu) until every cluster has arrived
+//     as many times as this block has; the counter only grows, so it
+//     needs no reset between barriers. Every branch around one depends
+//     only on grid-reduced values, as in a cluster;
+//   - the frame's reduction: after the cluster's (DSMEM), the rank-0 block
+//     publishes the cluster's key, count and flag in a slot of the
+//     barrier's parity before it arrives; warp 0 of every block reads the
+//     N slots (lane q: cluster q) and reduces them, the count's prefix
+//     adding the counts of the lower clusters (ascending bin is cluster,
+//     then block, order). A slot is written again two barriers later,
+//     which no cluster reaches before every block has read it;
+//   - the mask release: the blocks at a cluster's edges also write their
+//     gone lists and counts to device memory, and a thread whose +-half_bw
+//     window reaches into the next cluster reads them there after the
+//     grid barrier (L2 loads, __ldcg);
+//   - the halo words and the history rows already meet in device memory;
+//     the barriers that order them become grid barriers;
+//   - block 0 of the grid writes the scalars.
+// The spin needs every cluster resident at once: a grid of more clusters
+// than cudaOccupancyMaxActiveClusters places is refused
+// (cudaErrorCooperativeLaunchTooLarge) before anything runs, and a grid
+// is a cooperative launch (cudaLaunchAttributeCooperative beside the
+// cluster dimension, which CUDA 12.8 on the H100 accepts), which refuses
+// a grid of more blocks than the card holds. A wait longer than kSpinCycles traps: the launch fails,
+// the card does not hang. A single cluster's instantiations carry none of this code
+// (kGrid is a template parameter).
+//
 // Semantics follow the Pallas kernel exactly: frames past n_valid leave
 // the state alone; candidates come from the carried mask and the
 // frame-start relative magnitude; deletions emit in ascending bin order,
@@ -134,12 +173,16 @@ constexpr size_t kMaxShared = 227 * 1024;  // a block's most on sm_90
 constexpr int kESq = 16;
 constexpr int kStages = 3;
 constexpr unsigned kFull = 0xffffffffu;
+// a grid barrier's longest wait, ~17 s at the H100's 1.98 GHz: far above
+// any frame's, and a fault instead of a hang where a cluster never arrives
+constexpr long long kSpinCycles = 1ll << 35;
 
 struct Params {
   int F, n_frames, H, G, n_valid, half_bw, k_create, max_bursts,
       max_burst_len, post_len, pre_len;
   float threshold, hist_f, enbw, f2, bin_width;
   int block_bins;  // FB: the bins of a block (the last block: the rest)
+  int n_clusters;  // N: clusters of the grid (1: one cluster or block)
 };
 
 struct State {
@@ -163,8 +206,28 @@ struct State {
   int* sc;    // hist_idx, primed, burst_id, squelch_count, n_tagged,
               // burst_dropped, create_waits, g_count
   float* scf;  // peak_signal_db
-  float* halo;  // a cluster's [C][2][H] halo words of the history rows
-                // stored during the launch (the edge threads' own)
+  float* halo;  // [blocks][2][H] halo words of the history rows stored
+                // during the launch (the edge threads' own)
+  unsigned* grid;  // a grid's scratch (`Grid`): zeroed by the wrapper
+};
+
+// One cluster's share of a grid reduction
+struct Slot {
+  unsigned long long key;
+  int cnt, flag;
+};
+
+// A grid launch's scratch in device memory (dsp/detect_scan.py
+// `grid_words`): the arrival counter on a line of its own, two parities
+// of one slot a cluster, then each block's gone count and gone list (FB
+// local bins); the lists of the blocks at a cluster's edges are read by
+// the next cluster.
+struct Grid {
+  unsigned* count;
+  Slot* slots;  // [2][N]
+  int* ngone;   // [N C]
+  unsigned short* gone;  // [N C][FB]
+  unsigned gen;  // grid barriers passed, as warp 0 (the waiters) counts
 };
 
 __device__ __forceinline__ int warp_incl_scan(int v) {
@@ -190,6 +253,20 @@ __device__ __forceinline__ unsigned long long warp_max64(
   return v;
 }
 
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // This block's rank in its cluster
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
@@ -212,6 +289,43 @@ __device__ __forceinline__ void phase_sync() {
     __syncthreads();
   else
     cluster_sync();
+}
+
+// The grid's barrier, after the cluster's: the rank-0 block's thread 0
+// arrives for the cluster (its release carries what the cluster barrier
+// ordered before it: `slot`, where given, and every thread's stores), and
+// warp 0 of each block waits until every cluster has arrived gen + 1
+// times; the caller's block barrier hands that on.
+__device__ __forceinline__ void grid_arrive_wait(Grid& g, int n_clusters,
+                                                 int rank, Slot* slot,
+                                                 const Slot& mine) {
+  const int tid = threadIdx.x;
+  if (rank == 0 && tid == 0) {
+    if (slot) *slot = mine;
+    red_release(g.count, 1u);
+  }
+  ++g.gen;
+  if (tid < 32) {
+    const unsigned want = g.gen * (unsigned)n_clusters;
+    const long long t0 = clock64();
+    while (ld_acquire(g.count) < want) {
+      // a cluster that never arrives fails the launch instead of hanging
+      // the card
+      if (clock64() - t0 > kSpinCycles) __trap();
+    }
+  }
+}
+
+// Every thread of every block of the launch: the cluster's barrier, and a
+// grid's
+template <int C, bool kGrid>
+__device__ __forceinline__ void all_sync(Grid& g, int n_clusters,
+                                         int rank) {
+  phase_sync<C>();
+  if constexpr (kGrid) {
+    grid_arrive_wait(g, n_clusters, rank, nullptr, Slot{});
+    __syncthreads();
+  }
 }
 
 // *p in the shared memory of cluster block `rank` (a generic address)
@@ -259,9 +373,13 @@ struct Reduced {
   bool any;
 };
 
-template <int C>
+// In a grid (kGrid) the cluster's result then meets the other clusters'
+// through device memory (`grid_arrive_wait`): the key is their max, the
+// count's prefix adds the lower clusters' totals, the flag is the OR.
+template <int C, bool kGrid>
 __device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
-                                Red* r) {
+                                Red* r, Grid& g, int n_clusters,
+                                int cluster) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   int incl = 0;
@@ -301,6 +419,34 @@ __device__ Reduced block_reduce(unsigned long long key, int cnt, bool flag,
         fl = __any_sync(kFull, fl);
         lo = warp_sum(lo);
         all = warp_sum(all);
+      }
+      if constexpr (kGrid) {
+        // lane q reads cluster q's slot of this barrier's parity (L2
+        // loads: the slot was written on another SM)
+        Slot* slots = g.slots + (g.gen & 1u) * n_clusters;
+        grid_arrive_wait(g, n_clusters, me, slots + cluster,
+                         Slot{k, all, fl ? 1 : 0});
+        unsigned long long gk = 0ull;
+        int glo = 0, gall = 0;
+        bool gfl = false;
+        if (lane < n_clusters) {
+          const Slot* e = slots + lane;
+          gk = __ldcg(&e->key);
+          const int c = __ldcg(&e->cnt);
+          gfl = __ldcg(&e->flag) != 0;
+          gall = c;
+          if (lane < cluster) glo = c;
+        }
+        if (__any_sync(kFull, gall != 0 || gk != 0ull || gfl)) {
+          gk = warp_max64(gk);
+          gfl = __any_sync(kFull, gfl);
+          glo = warp_sum(glo);
+          gall = warp_sum(gall);
+        }
+        k = gk;
+        fl = gfl;
+        lo += glo;
+        all = gall;
       }
       if (lane == 0) {
         r->cl_key = k;
@@ -401,11 +547,12 @@ __device__ __forceinline__ void store_bins(float* p, const float (&v)[BPT]) {
 // block `rank` owns bins [lo_bin, hi_bin) (`layout`). Bins (b0, a key's
 // bin, mask windows, the DC notch) are global; the shared-memory rows hold
 // the block's own words (bin g at [g - lo_bin]).
-template <int BPT, int C>
+template <int BPT, int C, bool kGrid>
 __global__ void __launch_bounds__(1024)
     detect_scan_kernel(State st, Params p) {
   static_assert(C == 1 || BPT >= 8, "a cluster block holds 8 bins a thread "
                                      "or more");
+  static_assert(!kGrid || C == 16, "a grid is of clusters of 16");
   // the wide path (16 bins a thread): two ring stages of kMaxBins words,
   // a_last / a_start in device memory
   constexpr bool kWide = BPT == 16;
@@ -418,8 +565,23 @@ __global__ void __launch_bounds__(1024)
   // a row's words and the bin slots in shared memory
   const int RW = kWide ? kMaxBins : FB, NB = kWide ? kMaxBins : T * BPT;
   const int rank = C == 1 ? 0 : cluster_rank();
+  // the cluster in the grid, and the block across it
+  const int cluster = kGrid ? (int)blockIdx.x / C : 0;
+  const int gb = cluster * C + rank;
+  const int NC = kGrid ? p.n_clusters : 1;
+  Grid grid{};
+  if constexpr (kGrid) {
+    grid.count = st.grid;
+    grid.slots = reinterpret_cast<Slot*>(st.grid + 32);
+    grid.ngone = reinterpret_cast<int*>(grid.slots + 2 * NC);
+    grid.gone = reinterpret_cast<unsigned short*>(grid.ngone + NC * C);
+  }
+  // a cluster's edge blocks in a grid: their gone lists meet the next
+  // cluster's in device memory
+  const bool x_lo = kGrid && rank == 0 && cluster > 0;
+  const bool x_hi = kGrid && rank == C - 1 && cluster < NC - 1;
   const float thr = p.threshold;
-  const int lo_bin = rank * FB, hi_bin = min(lo_bin + FB, F);
+  const int lo_bin = gb * FB, hi_bin = min(lo_bin + FB, F);
   const unsigned row_bytes = (unsigned)(hi_bin - lo_bin) * 4u;
   float* s_ring = reinterpret_cast<float*>(smem_raw);  // kStages x RW
   float* s_ev = s_ring + kStages * RW;                 // RW
@@ -555,7 +717,7 @@ __global__ void __launch_bounds__(1024)
   // before the barrier that orders the neighbour's next store of the row
   auto load_halo = [&]() {
     if constexpr (C > 1) {
-      const float* ring = st.halo + (size_t)rank * 2 * H;
+      const float* ring = st.halo + (size_t)gb * 2 * H;
       const float* row = st.hist + (size_t)hidx * F;
       if (edge_l)
         s_ev_halo[0] = n_upd >= H ? ring[hidx] : __ldcg(row + b0 - 1);
@@ -579,7 +741,9 @@ __global__ void __launch_bounds__(1024)
   }
   load_evicted();
   load_halo();
-  int n_act = block_reduce<C>(0ull, __popc(valid), false, red_buf()).total;
+  int n_act = block_reduce<C, kGrid>(0ull, __popc(valid), false, red_buf(),
+                                     grid, NC, cluster)
+                  .total;
   // phase: begin
 
   auto noise_update = [&](const float* row, int f) {
@@ -614,7 +778,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
       for (int i = 0; i < BPT; ++i) bsum[i] = bsum[i] + m[i];
     }
-    float* ring = st.halo + (size_t)rank * 2 * H;
+    float* ring = st.halo + (size_t)gb * 2 * H;
     if (has_l) {
       const float x = word_l(row, f);
       bsum_l = (bsum_l - (gate ? e_l : 0.0f)) + x;
@@ -714,7 +878,8 @@ __global__ void __launch_bounds__(1024)
 
     // phase: reduce
     const Reduced r =
-        block_reduce<C>(key0, __popc(gone), longb, red_buf());
+        block_reduce<C, kGrid>(key0, __popc(gone), longb, red_buf(), grid,
+                               NC, cluster);
     if constexpr (kWide) {
       // every thread is past frame f - 1, and the history stores have
       // read its stage: refill it with frame f + 1
@@ -742,18 +907,22 @@ __global__ void __launch_bounds__(1024)
         if (e < kEDel)
           emit(emitted + e, b0 + i, idx, last_of(i), start_of(i));
         s_gone[e - r.lo] = (unsigned short)(b0 + i - lo_bin);
+        if (x_lo || x_hi)
+          grid.gone[(size_t)gb * FB + e - r.lo] =
+              (unsigned short)(b0 + i - lo_bin);
       }
       emitted += min(n_del, kEDel);
       if (C > 1 && tid == 0) *s_ngone = r.own;
-      phase_sync<C>();
+      if ((x_lo || x_hi) && tid == 0) grid.ngone[gb] = r.own;
+      all_sync<C, kGrid>(grid, NC, rank);
       // release the +-half_bw mask of every gone bin, emitted or not
       if (live) {
         int dec[BPT] = {};
-        auto release = [&](int gb) {
-          if (gb + hb < b0 || gb - hb >= b0 + BPT) return false;
+        auto release = [&](int bin) {
+          if (bin + hb < b0 || bin - hb >= b0 + BPT) return false;
 #pragma unroll
           for (int i = 0; i < BPT; ++i)
-            if (abs(b0 + i - gb) <= hb) ++dec[i];
+            if (abs(b0 + i - bin) <= hb) ++dec[i];
           return true;
         };
         for (int k = 0; k < r.own; ++k) release(lo_bin + s_gone[k]);
@@ -772,6 +941,20 @@ __global__ void __launch_bounds__(1024)
             const int n = *peer(s_ngone, rank + 1);
             for (int k = 0; k < n; ++k)
               if (!release(hi_bin + g[k])) break;
+          }
+          // across a cluster edge: the neighbour block's list in device
+          // memory
+          if (x_lo && b0 - hb < lo_bin) {
+            const unsigned short* g = grid.gone + (size_t)(gb - 1) * FB;
+            const int base = lo_bin - FB;
+            for (int k = __ldcg(grid.ngone + gb - 1) - 1; k >= 0; --k)
+              if (!release(base + __ldcg(g + k))) break;
+          }
+          if (x_hi && b0 + BPT + hb > hi_bin) {
+            const unsigned short* g = grid.gone + (size_t)(gb + 1) * FB;
+            const int n = __ldcg(grid.ngone + gb + 1);
+            for (int k = 0; k < n; ++k)
+              if (!release(hi_bin + __ldcg(g + k))) break;
           }
         }
 #pragma unroll
@@ -793,7 +976,9 @@ __global__ void __launch_bounds__(1024)
     unsigned long long key = r.key;
     for (int j = 0; j < p.k_create; ++j) {
       if (j > 0)
-        key = block_reduce<C>(best_key(), 0, false, red_buf()).key;
+        key = block_reduce<C, kGrid>(best_key(), 0, false, red_buf(), grid,
+                                     NC, cluster)
+                  .key;
       const float m = __uint_as_float((unsigned)(key >> 32));
       if (!(m > thr)) break;
       const int b = (int)(kFull - (unsigned)(key & kFull));
@@ -837,7 +1022,9 @@ __global__ void __launch_bounds__(1024)
       }
     }
     if (n_acc == p.k_create &&
-        block_reduce<C>(0ull, 0, cand != 0u, red_buf()).any &&
+        block_reduce<C, kGrid>(0ull, 0, cand != 0u, red_buf(), grid, NC,
+                               cluster)
+            .any &&
         tid == 0)
       ++s_tally->waits;
     if constexpr (!kWide) {
@@ -856,7 +1043,7 @@ __global__ void __launch_bounds__(1024)
     // overwrite s_ev.
     if (forced) {
       noise_update(row, f);
-      phase_sync<C>();
+      all_sync<C, kGrid>(grid, NC, rank);
       load_evicted();
     }
 
@@ -866,7 +1053,8 @@ __global__ void __launch_bounds__(1024)
     if (squelch) {
       const unsigned sq = valid & ~crt;
       const Reduced q =
-          block_reduce<C>(0ull, __popc(sq), false, red_buf());
+          block_reduce<C, kGrid>(0ull, __popc(sq), false, red_buf(), grid,
+                                 NC, cluster);
       if (tid == 0) {
         s_tally->n_tagged += q.total;
         s_tally->dropped += max(q.total - kESq, 0);
@@ -921,7 +1109,7 @@ __global__ void __launch_bounds__(1024)
       }
     }
   }
-  if (tid == 0 && rank == 0) {
+  if (tid == 0 && gb == 0) {
     st.sc[0] = hidx;
     st.sc[1] = prim;
     st.sc[2] = burst_id;
@@ -950,27 +1138,27 @@ size_t shared_bytes(int FB, int T, int BPT) {
 
 // The instantiation's attributes: its dynamic shared memory and, for a
 // cluster above the portable 8 blocks, the non-portable size
-template <int BPT, int C>
+template <int BPT, int C, bool kGrid>
 cudaError_t set_attributes(size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      detect_scan_kernel<BPT, C>,
+      detect_scan_kernel<BPT, C, kGrid>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(detect_scan_kernel<BPT, C>,
+    err = cudaFuncSetAttribute(detect_scan_kernel<BPT, C, kGrid>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
 }
 
-template <int BPT, int C>
-cudaLaunchConfig_t cluster_config(int T, size_t smem, cudaStream_t stream,
+cudaLaunchConfig_t cluster_config(int C, int N, int T, size_t smem,
+                                  cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
+  cfg.gridDim = dim3(C * N, 1, 1);
   cfg.blockDim = dim3(T, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -979,19 +1167,47 @@ cudaLaunchConfig_t cluster_config(int T, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-template <int BPT, int C>
+// How many clusters of the instantiation the card can hold at once
+// (cudaOccupancyMaxActiveClusters, after the launch's attributes are set)
+template <int BPT, int C, bool kGrid>
+cudaError_t max_clusters(const Params& p, int T, int* n) {
+  const size_t smem = shared_bytes(p.block_bins, T, BPT);
+  cudaError_t err = set_attributes<BPT, C, kGrid>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(C, 1, T, smem, 0, attr);
+  return cudaOccupancyMaxActiveClusters(
+      n, detect_scan_kernel<BPT, C, kGrid>, &cfg);
+}
+
+template <int BPT, int C, bool kGrid>
 cudaError_t launch(const State& st, const Params& p, int T,
                    cudaStream_t stream) {
   const size_t smem = shared_bytes(p.block_bins, T, BPT);
-  cudaError_t err = set_attributes<BPT, C>(smem);
+  cudaError_t err = set_attributes<BPT, C, kGrid>(smem);
   if (err != cudaSuccess) return err;
   if constexpr (C == 1) {
-    detect_scan_kernel<BPT, C><<<1, T, smem, stream>>>(st, p);
+    detect_scan_kernel<BPT, C, kGrid><<<1, T, smem, stream>>>(st, p);
   } else {
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg =
-        cluster_config<BPT, C>(T, smem, stream, attr);
-    err = cudaLaunchKernelEx(&cfg, detect_scan_kernel<BPT, C>, st, p);
+    cudaLaunchAttribute attr[2];
+    cudaLaunchConfig_t cfg =
+        cluster_config(C, p.n_clusters, T, smem, stream, attr);
+    if constexpr (kGrid) {
+      // the grid barrier spins, so every cluster must be resident at once:
+      // a grid of more clusters than the card places is refused here (the
+      // cooperative launch counts blocks, not where clusters fit), and the
+      // launch is cooperative besides
+      int fit = 0;
+      err = cudaOccupancyMaxActiveClusters(
+          &fit, detect_scan_kernel<BPT, C, kGrid>, &cfg);
+      if (err != cudaSuccess) return err;
+      if (fit < p.n_clusters) return cudaErrorCooperativeLaunchTooLarge;
+      attr[1].id = cudaLaunchAttributeCooperative;
+      attr[1].val.cooperative = 1;
+      cfg.numAttrs = 2;
+    }
+    err = cudaLaunchKernelEx(&cfg, detect_scan_kernel<BPT, C, kGrid>, st,
+                             p);
     if (err != cudaSuccess) {
       cudaGetLastError();  // a refused launch leaves nothing behind
       return err;
@@ -1000,96 +1216,96 @@ cudaError_t launch(const State& st, const Params& p, int T,
   return cudaGetLastError();
 }
 
-// How many clusters of the instantiation the card can hold at once
-// (cudaOccupancyMaxActiveClusters, after the launch's attributes are set)
-template <int BPT, int C>
-cudaError_t max_clusters(const Params& p, int T, int* n) {
-  const size_t smem = shared_bytes(p.block_bins, T, BPT);
-  cudaError_t err = set_attributes<BPT, C>(smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config<BPT, C>(T, smem, 0, attr);
-  return cudaOccupancyMaxActiveClusters(n, detect_scan_kernel<BPT, C>, &cfg);
-}
-
-// Whether (clusters, block_bins, threads, bins_per_thread) is a layout the
-// kernel runs at F bins: every bin one thread's, whole warps of at most
-// 1024 threads and kMaxBins bin slots, shared memory within a block's
-// kMaxShared, an instantiation for the bins a thread and the cluster (the
-// wide path only in clusters of 16)
-bool valid_layout(int F, int C, int FB, int T, int BPT) {
+// Whether (clusters, block_bins, threads, bins_per_thread, grid clusters)
+// is a layout the kernel runs at F bins: every bin one thread's, whole
+// warps of at most 1024 threads and kMaxBins bin slots, shared memory
+// within a block's kMaxShared, an instantiation for the bins a thread and
+// the cluster (the wide path only in clusters of 16; a grid only of
+// clusters of 16, of 8 or 16 bins a thread)
+bool valid_layout(int F, int C, int FB, int T, int BPT, int N) {
   if (F <= 0 || F % 128 != 0 || T < 32 || T > 1024 || T % 32 != 0 ||
       BPT <= 0 || (long long)T * BPT > kMaxBins || FB <= 0 ||
       FB % BPT != 0 || FB > T * BPT || FB - T * BPT <= -32 * BPT ||
-      shared_bytes(FB, T, BPT) > kMaxShared)
+      shared_bytes(FB, T, BPT) > kMaxShared || N < 1)
     return false;
-  if ((long long)C * FB < F || (long long)(C - 1) * FB >= F) return false;
+  const long long B = (long long)C * N;
+  if (B * FB < F || (B - 1) * FB >= F) return false;
   if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return false;
+  if (N > 1) return C == 16 && (BPT == 8 || BPT == 16);
   if (C == 1) return BPT == 1 || BPT == 2 || BPT == 4 || BPT == 8;
   return BPT == 8 || (BPT == 16 && C == 16);
 }
 
-// fn<BPT, C>() for the layout's instantiation (valid_layout holds)
-template <template <int, int> class Fn, typename... Args>
-cudaError_t dispatch(int C, int BPT, Args&&... args) {
+// fn<BPT, C, grid>() for the layout's instantiation (valid_layout holds)
+template <template <int, int, bool> class Fn, typename... Args>
+cudaError_t dispatch(int C, int BPT, int N, Args&&... args) {
+  if (N > 1)
+    return BPT == 8 ? Fn<8, 16, true>::run(args...)
+                    : Fn<16, 16, true>::run(args...);
   switch (C * 64 + BPT) {
-    case 64 + 1: return Fn<1, 1>::run(args...);
-    case 64 + 2: return Fn<2, 1>::run(args...);
-    case 64 + 4: return Fn<4, 1>::run(args...);
-    case 64 + 8: return Fn<8, 1>::run(args...);
-    case 128 + 8: return Fn<8, 2>::run(args...);
-    case 256 + 8: return Fn<8, 4>::run(args...);
-    case 512 + 8: return Fn<8, 8>::run(args...);
-    case 1024 + 8: return Fn<8, 16>::run(args...);
-    default: return Fn<16, 16>::run(args...);
+    case 64 + 1: return Fn<1, 1, false>::run(args...);
+    case 64 + 2: return Fn<2, 1, false>::run(args...);
+    case 64 + 4: return Fn<4, 1, false>::run(args...);
+    case 64 + 8: return Fn<8, 1, false>::run(args...);
+    case 128 + 8: return Fn<8, 2, false>::run(args...);
+    case 256 + 8: return Fn<8, 4, false>::run(args...);
+    case 512 + 8: return Fn<8, 8, false>::run(args...);
+    case 1024 + 8: return Fn<8, 16, false>::run(args...);
+    default: return Fn<16, 16, false>::run(args...);
   }
 }
 
-template <int BPT, int C>
+template <int BPT, int C, bool kGrid>
 struct Launch {
   static cudaError_t run(const State& st, const Params& p, int T,
                          cudaStream_t stream) {
-    return launch<BPT, C>(st, p, T, stream);
+    return launch<BPT, C, kGrid>(st, p, T, stream);
   }
 };
 
-template <int BPT, int C>
+template <int BPT, int C, bool kGrid>
 struct MaxClusters {
   static cudaError_t run(const Params& p, int T, int* n) {
     if constexpr (C == 1) {
       return cudaErrorInvalidValue;
     } else {
-      return max_clusters<BPT, C>(p, T, n);
+      return max_clusters<BPT, C, kGrid>(p, T, n);
     }
   }
 };
 
 }  // namespace
 
-// The layout is dsp/detect_scan.py's `layout(F)`: `clusters` blocks of
-// `threads` threads, `block_bins` bins a block, `bins_per_thread` a thread.
-// `halo`: scratch of clusters x 2 x H floats (unused by one block).
+// The layout is dsp/detect_scan.py's `layout(F)`: `grid_clusters` clusters
+// of `clusters` blocks of `threads` threads, `block_bins` bins a block,
+// `bins_per_thread` a thread. `halo`: scratch of blocks x 2 x H floats
+// (unused by one block); `grid`: a grid's scratch (`Grid`, `grid_words`
+// 32-bit words, zeroed; unused by one cluster). A grid the card cannot
+// hold at once is refused (cudaErrorCooperativeLaunchTooLarge, 720)
+// before anything runs.
 extern "C" int detect_scan(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
     int* mask_count, int* g_id, int* g_start, int* g_stop, int* g_last,
     int* g_bin, float* g_mag, float* g_noise, int* sc, float* scf,
-    float* halo, int F, int n_frames, int H, int G, int n_valid,
+    float* halo, unsigned* grid, int F, int n_frames, int H, int G,
+    int n_valid,
     int half_bw, int k_create, int max_bursts, int max_burst_len,
     int post_len, int pre_len, float threshold, float hist_f, float enbw,
     float f2, float bin_width, int clusters, int block_bins, int threads,
-    int bins_per_thread, cudaStream_t stream) {
+    int bins_per_thread, int grid_clusters, cudaStream_t stream) {
   const State st{mag2,  hist,   bsum,    a_valid, a_id,   a_start, a_last,
                  a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
-                 g_bin, g_mag,  g_noise, sc,      scf,    halo};
+                 g_bin, g_mag,  g_noise, sc,      scf,    halo,   grid};
   const Params p{F,          n_frames, H,        G,        n_valid,
                  half_bw,    k_create, max_bursts, max_burst_len, post_len,
                  pre_len,    threshold, hist_f,  enbw,     f2,
-                 bin_width,  block_bins};
-  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread))
+                 bin_width,  block_bins, grid_clusters};
+  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread,
+                    grid_clusters))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Launch>(clusters, bins_per_thread, st, p, threads,
-                               stream);
+  return (int)dispatch<Launch>(clusters, bins_per_thread, grid_clusters, st,
+                               p, threads, stream);
 }
 
 // The clusters of the F-bin layout that the card can hold at once, into
@@ -1097,15 +1313,17 @@ extern "C" int detect_scan(
 // so a cluster of 16 is asked for as the launch asks for it
 extern "C" int detect_scan_max_clusters(int F, int clusters, int block_bins,
                                         int threads, int bins_per_thread,
-                                        int* n) {
+                                        int grid_clusters, int* n) {
   Params p{};
   p.F = F;
   p.block_bins = block_bins;
-  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread) ||
+  p.n_clusters = grid_clusters;
+  if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread,
+                    grid_clusters) ||
       clusters < 2)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<MaxClusters>(clusters, bins_per_thread, p, threads,
-                                    n);
+  return (int)dispatch<MaxClusters>(clusters, bins_per_thread,
+                                    grid_clusters, p, threads, n);
 }
 
 extern "C" const char* detect_scan_error_string(int code) {

@@ -22,37 +22,56 @@ from ..config import DetectorParams
 from ..ops import windows
 from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
 
-# The kernel's layout (csrc/detect_scan.cu): one thread block, or a
-# thread-block cluster of C blocks, walks the frames; block r owns the FB
-# bins [r FB, min((r + 1) FB, F)) and thread t of it the BPT bins from
+# The kernel's layout (csrc/detect_scan.cu): one thread block, a
+# thread-block cluster of C blocks, or a grid of N clusters of C blocks,
+# walks the frames; block r (counted across the grid) owns the FB bins
+# [r FB, min((r + 1) FB, F)) and thread t of it the BPT bins from
 # r FB + t BPT. A block of the ring path holds at most RING_BINS bins (1024
 # threads of 8 and its |X|^2 ring); a cluster has at most 16 blocks (H100's
 # largest, a non-portable size above 8), so above 16 x RING_BINS the
-# blocks take BLOCK_BINS bins (1024 threads of 16: the wide path). The
-# C entry refuses a layout whose shared memory a block cannot hold.
+# blocks take BLOCK_BINS bins (1024 threads of 16: the wide path). Above
+# one cluster of 16 wide blocks the kernel runs as a grid of clusters of
+# 16 that meet through device memory behind a grid-wide barrier, which
+# needs every cluster resident at once: of ring blocks up to MAX_GRID
+# clusters, then of wide blocks. MAX_GRID is the number of clusters of 16
+# blocks (one an SM, 227 KB of shared memory each) that an H100 SXM holds
+# at once (`max_active_clusters`, measured 7 for both kinds of block); the
+# C entry refuses a grid of more clusters than the card places, before
+# anything runs, and a layout whose shared memory a block cannot hold.
 RING_BINS = 8192
 BLOCK_BINS = 16384
 MAX_THREADS = 1024
 MAX_CLUSTER = 16
-MAX_FFT = MAX_CLUSTER * BLOCK_BINS
+MAX_GRID = 7
+MAX_FFT = MAX_GRID * MAX_CLUSTER * BLOCK_BINS
 
 
-def layout(F: int) -> tuple[int, int, int, int]:
-    """(C, FB, T, BPT): blocks of the cluster, bins a block owns, threads
-    a block and bins a thread. Up to RING_BINS bins one block, each thread
-    with the fewest bins that 1024 threads hold (power-of-two F from 1024:
-    1024 threads); then the least power-of-two cluster of blocks of at most
-    RING_BINS bins, 8 a thread; above 16 such blocks (F > 131072) 16
-    blocks of 16 bins a thread. T is rounded up to whole warps: the
-    threads past the last bin hold no bin (F = 4224: 544 threads of 8
-    bins, the last 16 idle); every bin is one thread's."""
+def layout(F: int) -> tuple[int, int, int, int, int]:
+    """(C, FB, T, BPT, N): blocks of a cluster, bins a block owns, threads
+    a block, bins a thread and clusters of the grid. Up to RING_BINS bins
+    one block, each thread with the fewest bins that 1024 threads hold
+    (power-of-two F from 1024: 1024 threads); then the least power-of-two
+    cluster of blocks of at most RING_BINS bins, 8 a thread; above 16 such
+    blocks (F > 131072) 16 blocks of 16 bins a thread; above one such
+    cluster (F > 262144) the least grid of clusters of 16 ring blocks, up
+    to MAX_GRID clusters (F <= 917504), then of 16 wide blocks, up to
+    MAX_FFT. The bins are split evenly over the N C blocks. T is rounded
+    up to whole warps: the threads past the last bin hold no bin (F =
+    4224: 544 threads of 8 bins, the last 16 idle); every bin is one
+    thread's."""
     if F <= 0 or F % 128 or F > MAX_FFT:
         raise ValueError(f"F = {F}: the scan kernel takes a multiple of "
                          f"128 bins up to {MAX_FFT}")
-    C = 1
+    C, N = 1, 1
     while C * RING_BINS < F and C < MAX_CLUSTER:
         C *= 2
-    if C * RING_BINS < F:
+    if C * BLOCK_BINS < F:
+        N = -(-F // (C * RING_BINS))
+        BPT = 8
+        if N > MAX_GRID:
+            N = -(-F // (C * BLOCK_BINS))
+            BPT = 16
+    elif C * RING_BINS < F:
         BPT = 16
     elif C > 1:
         BPT = 8
@@ -60,10 +79,10 @@ def layout(F: int) -> tuple[int, int, int, int]:
         BPT = 1
         while BPT * MAX_THREADS < F:
             BPT *= 2
-    FB = -(-F // C)
+    FB = -(-F // (N * C))
     FB = -(-FB // BPT) * BPT
     T = -(-FB // BPT)
-    return C, FB, -(-T // 32) * 32, BPT
+    return C, FB, -(-T // 32) * 32, BPT, N
 
 
 def clusters(F: int) -> int:
@@ -71,10 +90,27 @@ def clusters(F: int) -> int:
     return layout(F)[0]
 
 
+def grid_clusters(F: int) -> int:
+    """Clusters of the kernel's grid at F bins (`layout`): 1 up to 262144."""
+    return layout(F)[4]
+
+
 def block_edges(F: int) -> list[int]:
-    """The first bin of every cluster block but the first."""
-    C, FB, _, _ = layout(F)
-    return [r * FB for r in range(1, C)]
+    """The first bin of every block but the first (across the grid)."""
+    C, FB, _, _, N = layout(F)
+    return [r * FB for r in range(1, N * C)]
+
+
+def grid_words(lay: tuple) -> int:
+    """32-bit words of a grid launch's scratch (csrc/detect_scan.cu
+    `Grid`): the arrival counter and its line, two frames' parity of N
+    cluster partials (4 words each), each block's gone count, and each
+    block's gone list (FB 16-bit entries); 1 for a single cluster."""
+    C, FB, _, _, N = lay
+    if N == 1:
+        return 1
+    B = N * C
+    return 32 + 8 * N + B + (B * FB + 1) // 2
 
 
 def supports(p: DetectorParams) -> bool:
@@ -82,10 +118,12 @@ def supports(p: DetectorParams) -> bool:
     (`layout`); a history of two rows or more (the row a noise update
     evicts was stored two or more updates before, so that bulk store has
     completed when the row is copied back into shared memory); a gone
-    table the
-    per-frame emission caps can fill (detect_fast's own rule). It is the
-    JAX package's Pallas `supports` (detect_pallas.py:72-79) without the
-    chunk rules: the kernel walks the frames one by one."""
+    table the per-frame emission caps can fill (detect_fast's own rule).
+    It is the JAX package's Pallas `supports` (detect_pallas.py:72-79)
+    without the chunk rules (the kernel walks the frames one by one) and
+    with an upper bound the Pallas scan lacks: MAX_FFT, the most bins a
+    grid of clusters the card holds at once can own (800 MHz, F =
+    1048576, is below it)."""
     F = p.fft_size
     return (F % 128 == 0 and 0 < F <= MAX_FFT
             and p.history_size >= 2
@@ -127,8 +165,9 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
          p: DetectorParams) -> ScanState:
     """New state after the block of fftshifted |X|^2 rows `mag2`
     (frames_per_block, F) f32. The input state is left as it was. The
-    kernel runs in the `layout(F)` it is handed (above 16384 bins a
-    cluster); a launch the card refuses raises."""
+    kernel runs in the `layout(F)` it is handed (above 8192 bins a
+    cluster, above 262144 a grid of clusters); a launch the card refuses,
+    and a grid it cannot hold at once, raise before anything runs."""
     if mag2.device.type == "cpu":
         return scan_plain(mag2, state, n_valid, p)
     if not supports(p):
@@ -152,9 +191,12 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
         _kernels.check(getattr(out, name), name, dtype, dev, shape)
     c = _consts(p)
     lay = layout(F)
-    # a cluster's edge threads keep the halo words they add (C x 2 x H)
-    halo = torch.empty(lay[0] * 2 * H if lay[0] > 1 else 1,
+    blocks = lay[0] * lay[4]
+    # the edge threads of a cluster's blocks keep the halo words they add
+    # (2 x H a block); a grid meets in a zeroed scratch (`grid_words`)
+    halo = torch.empty(blocks * 2 * H if blocks > 1 else 1,
                        dtype=torch.float32, device=dev)
+    grid = torch.zeros(grid_words(lay), dtype=torch.int32, device=dev)
     k = _kernels
     k.DETECT_SCAN.launch(
         dev, k.ptr(mag2), k.ptr(out.baseline_hist), k.ptr(out.baseline_sum),
@@ -162,7 +204,7 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
         k.ptr(out.a_last), k.ptr(out.a_mag), k.ptr(out.a_noise),
         k.ptr(out.mask_count),
         *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
-        k.ptr(out.ints), k.ptr(out.floats), k.ptr(halo),
+        k.ptr(out.ints), k.ptr(out.floats), k.ptr(halo), k.ptr(grid),
         F, p.frames_per_block, H, G, int(n_valid), p.burst_width_bins // 2,
         c["k_create"], int(p.max_bursts), int(p.max_burst_len),
         int(p.burst_post_len), int(p.burst_pre_len),
@@ -175,11 +217,12 @@ def max_active_clusters(F: int) -> int:
     """Clusters of the kernel's `layout(F)` (2 or more blocks) that the
     current card can hold at once, asked with the launch's own attributes
     (a cluster of 16 is a non-portable size): 0 means the card cannot
-    launch one. Needs the card and the built kernel."""
+    launch one; a grid of N clusters launches only where this is N or
+    more. Needs the card and the built kernel."""
     import ctypes
     lib = ctypes.CDLL(str(_kernels.DETECT_SCAN.build()))
     fn = lib.detect_scan_max_clusters
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     code = fn(F, *layout(F), ctypes.byref(n))

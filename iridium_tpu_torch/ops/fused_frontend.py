@@ -45,13 +45,34 @@ def rotate_decimate(x_re: torch.Tensor, x_im: torch.Tensor,
                     taps: torch.Tensor, decim: int, n_out: int):
     """Rotate (B, L) windows by their exact-integer-phase ramps and run
     the valid strided FIR: (B, n_out) f32 real and imaginary outputs,
-    out[m] = sum_u taps[u] * y[m * decim + u]."""
+    out[m] = sum_u taps[u] * y[m * decim + u].
+
+    The ramp index (k n) mod F repeats every F samples: it is built for
+    one period, (B, min(L, F)), and broadcast over the window's whole
+    periods and its remainder, and each product goes straight into the
+    FIR's input, so the rotation holds one (B, L) temporary beside its
+    input and output (a 400 MHz large-class batch, 24 windows of 45 M
+    samples, is 4.3 GB a plane). The products and their sums are the
+    elementwise x_re c - x_im s and x_re s + x_im c, rounded as ever."""
     B, L = x_re.shape
     F = ramp.shape[1]
-    n = torch.arange(L, device=x_re.device) % F
+    n = torch.arange(min(L, F), device=x_re.device)
     mm = (ks.long()[:, None] % F) * n[None, :] % F
     c, s = ramp[0][mm], ramp[1][mm]
-    y = torch.stack([x_re * c - x_im * s, x_re * s + x_im * c])
+    y = torch.empty((2, B, L), dtype=x_re.dtype, device=x_re.device)
+    P, R = divmod(L, F)
+    # the whole periods as (B, P, F) views, then the remainder as (B, 1,
+    # R), each against (B, 1, width) ramps
+    for a, n_p, w in ((0, P, F), (P * F, 1, R)):
+        if n_p * w == 0:
+            continue
+        xr, xi, y0, y1 = (t[..., a:a + n_p * w].view(*t.shape[:-1], n_p, w)
+                          for t in (x_re, x_im, y[0], y[1]))
+        cc, ss = c[:, None, :w], s[:, None, :w]
+        torch.mul(xr, cc, out=y0)
+        y0.sub_(xi * ss)
+        torch.mul(xr, ss, out=y1)
+        y1.add_(xi * cc)
     out = torch.nn.functional.conv1d(y.reshape(2 * B, 1, L),
                                      taps.reshape(1, 1, -1), stride=decim)
     out = out.reshape(2, B, -1)[:, :, :n_out]

@@ -6,6 +6,9 @@
   dense_capture        8 blocks at 10 MHz, ~250 bursts/s
   capture_1mhz         one burst at 1 MHz (the window-gather path)
   write_cf32           a capture as an interleaved cf32 file
+  WIDE_400             the 400 MHz detector keywords
+  wideband_400mhz_plan the 400 MHz capture's bursts
+  write_ci8            a capture made and written chunk by chunk as ci8
 """
 
 from __future__ import annotations
@@ -98,3 +101,66 @@ def capture_1mhz(seed: int):
 
 def write_cf32(path: str, cap) -> None:
     np.ascontiguousarray(cap, np.complex64).view(np.float32).tofile(path)
+
+
+WIDE_400 = dict(sample_rate=400_000_000)
+
+
+def wideband_400mhz_plan(seed: int, block: int):
+    """Twelve DL bursts for a 400 MHz capture of blocks of `block` samples
+    (F = 524,288: a block of 1,024 frames is 1.342 s) and part of a third:
+    after the detector's priming (the first 512 frames), 25 ms or more
+    apart, one across the first block boundary, two 500-bit frames in the
+    simplex band, the rest 300-bit, within the 10 MHz band and beyond it
+    (-150 to +170 MHz), 12-20 dB a sample (the 801-tap input filter and
+    the decimation by 1,600 add ~25 dB). Returns the capture's length and
+    [(start, offset Hz, payload bits, waveform, amplitude)]."""
+    rng = np.random.default_rng(seed)
+    fs = WIDE_400["sample_rate"]
+    offsets = [137_000.0, -2_310_000.0, 4_300_000.0, -9_100_000.0,
+               1_020_000.0, 4_150_000.0, -4_400_000.0, 60_000_000.0,
+               -120_000_000.0, 170_000_000.0, -150_000_000.0,
+               3_050_000.0]
+    starts = [290_000_000 + 40_000_000 * i for i in range(6)]
+    starts[3] = block - 600_000
+    starts += [block + 30_000_000 + 40_000_000 * i for i in range(6)]
+    out = []
+    for start, off in zip(starts, offsets):
+        n_bits = 500 if 4e6 < off < 4.5e6 else 300
+        bits = rng.integers(0, 2, n_bits + 8).astype(np.uint8)
+        amp = 0.01 * 10.0 ** (rng.uniform(12.0, 20.0) / 20.0)
+        out.append((start, off, bits[:n_bits],
+                    synth.burst_waveform(bits, fs, off), amp))
+    return 2 * block + 40_000_000, out
+
+
+# write_ci8's gain before rounding (so that the noise spans a few quanta)
+# and the samples it makes and writes at a time
+CI8_SCALE = 4.0
+CI8_CHUNK = 1 << 25
+
+
+def write_ci8(path: str, n_samples: int, bursts, seed: int,
+              device) -> None:
+    """A capture of `n_samples` written as ci8 (int8 I, Q; the readers
+    divide by 128) CI8_CHUNK samples at a time, never whole in memory:
+    complex white noise of sigma 0.01 made on `device` from `seed`, plus
+    each burst (start, ..., waveform, amplitude) of `bursts` where it
+    overlaps the chunk, all times CI8_SCALE and rounded, clipped to
+    +-127."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sigma = 0.01 / np.sqrt(2.0)
+    with open(path, "wb") as f:
+        for i0 in range(0, n_samples, CI8_CHUNK):
+            n = min(CI8_CHUNK, n_samples - i0)
+            x = torch.randn((n, 2), generator=gen, device=device) * sigma
+            xc = torch.view_as_complex(x)
+            for start, _, _, w, amp in bursts:
+                a, b = max(start, i0), min(start + len(w), i0 + n)
+                if a < b:
+                    xc[a - i0:b - i0] += torch.from_numpy(
+                        w[a - start:b - start] * np.float32(amp)).to(device)
+            q = torch.clamp(torch.round(x * (128.0 * CI8_SCALE)), -127, 127)
+            f.write(q.to(torch.int8).cpu().numpy().tobytes())

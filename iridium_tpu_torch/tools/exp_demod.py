@@ -77,13 +77,15 @@ OPS_PER_STEP = {True: 150, False: 110}
 FP32_FLOP_PER_S = 67e12
 
 
-def class_shapes() -> list[dict]:
-    """The three class batches of the production 10 MHz group program."""
+def class_shapes(rate_mhz: float = 10.0, **pipe_kw) -> list[dict]:
+    """The three class batches of the group program at `rate_mhz` (the
+    production 10 MHz one by default; the Pipeline's arguments
+    `pipe_kw`)."""
     from ..runtime.pipeline import Pipeline
-    pipe = Pipeline(det_cfg=DetectorConfig(sample_rate=10_000_000),
-                    device="cpu")
-    return [dict(shape=name, B=c.batch, L=c.downmix.max_frame_cap,
-                 S=c.demod.S, sps=c.demod.sps)
+    pipe = Pipeline(det_cfg=DetectorConfig(
+        sample_rate=int(round(rate_mhz * 1e6))), device="cpu", **pipe_kw)
+    return [dict(rate_mhz=rate_mhz, shape=name, B=c.batch,
+                 L=c.downmix.max_frame_cap, S=c.demod.S, sps=c.demod.sps)
             for name, c in zip(CLASS_NAMES, pipe.classes)]
 
 
@@ -216,7 +218,8 @@ def run_shape(sh: dict, dev: torch.device, graphs: bool = True,
         args = (x, n, sps, S, use_gardner)
         got = demod.loop(*args)
         want = demod.loop_plain(*args)
-        res = dict(shape=sh["shape"], B=B, L=L, S=S, sps=sps,
+        res = dict(rate_mhz=sh.get("rate_mhz"), shape=sh["shape"], B=B,
+                   L=L, S=S, sps=sps,
                    mode="gardner" if use_gardner else "no_gardner")
         res.update(compare_loop(got, want))
         res.update(compare_demod(dm.decide(*got, direction),

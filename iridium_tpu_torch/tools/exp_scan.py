@@ -6,8 +6,9 @@ Three |X|^2 blocks at the production shape (2,048 frames x 8,192 bins,
 10 MHz; with `--fft 16384`, `32768`, `65536`, `131072` or `262144` the
 derived 20, 25, 50, 100 or 200 MHz configuration, 1,024 frames, which the
 kernel runs as a cluster of 2, 4, 8 or 16 blocks of 8,192 bins, and at
-262,144 of 16 blocks of 16,384: `detect_scan.layout`), each with the
-state it starts from:
+262,144 of 16 blocks of 16,384; with `--fft 524288` or `1048576` the 400
+or 800 MHz one, a grid of 4 clusters of 16 blocks of 8,192 or 16,384
+bins: `detect_scan.layout`), each with the state it starts from:
   - `synthetic`: tone bursts (one longer than max_burst_len) and a comb
     blast that trips the squelch, from a fresh state (its first 512
     frames prime the noise history);
@@ -23,8 +24,8 @@ the three inputs and prints, per input, the kernel's uninstrumented
 microseconds per frame and the share of thread 0's cycles spent in each
 phase, with the build's `ptxas -v` register and spill report (`spills`,
 per instantiation). The committed kernel carries no probe. A `--source`
-must have the package's `detect_scan` entry point (the layout and the
-halo scratch) and take the layout `detect_scan.layout` gives.
+must have the package's `detect_scan` entry point (the layout, the halo
+and the grid scratch) and take the layout `detect_scan.layout` gives.
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ CONFIGS = {8192: PROD, 16384: dict(sample_rate=20_000_000),
            32768: dict(sample_rate=25_000_000),
            65536: dict(sample_rate=50_000_000),
            131072: dict(sample_rate=100_000_000),
-           262144: dict(sample_rate=200_000_000)}
+           262144: dict(sample_rate=200_000_000),
+           524288: dict(sample_rate=400_000_000),
+           1048576: dict(sample_rate=800_000_000)}
 
 PROBES = """
 __device__ unsigned long long g_phase_cycles[16];
@@ -207,7 +210,7 @@ def shape_edge_spectrogram(p, seed: int) -> np.ndarray:
     thread edge at 4 BPT (the lower bin wins), kept alive through the
     dilation across it; a 3-bin burst over the last eligible bins (beside
     the idle threads of a padded layout); then the squelch comb."""
-    C, _, _, bpt = detect_scan.layout(p.fft_size)
+    C, _, _, bpt, _ = detect_scan.layout(p.fft_size)
     if C > 1:
         return cluster_edge_spectrogram(p, seed)
     F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
@@ -328,19 +331,22 @@ def ptxas_report(kernel: _kernels.Kernel) -> list[str]:
             or "Function properties" in ln]
 
 
-INSTANCE = re.compile(r"detect_scan_kernelILi(\d+)ELi(\d+)E")
+INSTANCE = re.compile(r"detect_scan_kernelILi(\d+)ELi(\d+)ELb([01])E")
 SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 REGISTERS = re.compile(r"Used (\d+) registers")
 
 
 def spill_table(lines: list[str]) -> dict:
     """`ptxas_report` lines -> {"BPT=b,C=c": dict(registers, spill_stores,
-    spill_loads)} per instantiation of the scan kernel."""
+    spill_loads)} per instantiation of the scan kernel ("BPT=b,C=c,grid"
+    for a grid of clusters)."""
     out, cur = {}, None
     for ln in lines:
         m = INSTANCE.search(ln)
         if m:
-            cur = out.setdefault(f"BPT={m.group(1)},C={m.group(2)}", {})
+            grid = ",grid" if m.group(3) == "1" else ""
+            cur = out.setdefault(f"BPT={m.group(1)},C={m.group(2)}{grid}",
+                                 {})
             continue
         if cur is None:
             continue

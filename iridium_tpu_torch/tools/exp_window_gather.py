@@ -62,14 +62,15 @@ SMALL = (dict(rate_mhz=0.0, shape="small", B=4, l_win=2 * wg.ALIGN,
 FLUSH_BYTES = 256 << 20
 
 
-def class_shapes(rates_mhz=RATES_MHZ) -> list[dict]:
-    """The three class batches of each rate's group program, with the
-    decimation and the group stream's length."""
+def class_shapes(rates_mhz=RATES_MHZ, **pipe_kw) -> list[dict]:
+    """The three class batches of each rate's group program (the
+    Pipeline's arguments `pipe_kw`, its defaults where none are given),
+    with the decimation and the group stream's length."""
     from ..runtime.pipeline import Pipeline
     out = []
     for mhz in rates_mhz:
         pipe = Pipeline(det_cfg=DetectorConfig(
-            sample_rate=int(round(mhz * 1e6))), device="cpu")
+            sample_rate=int(round(mhz * 1e6))), device="cpu", **pipe_kw)
         for name, c in zip(CLASS_NAMES, pipe.classes):
             out.append(dict(rate_mhz=mhz, shape=name, B=c.batch,
                             l_win=c.l_win, decim=c.decim,

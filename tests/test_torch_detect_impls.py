@@ -5,8 +5,9 @@
   the burst table, the mask and the counters exact; dB fields rtol 1e-5;
   baseline sums and history rows rtol 1e-6;
 - `detect_scan.resolve_impl` and `Pipeline(detect_impl=...)`: the kernel
-  where it takes the shape, detect_fast otherwise, and every detector
-  configuration the JAX Pipeline accepts builds;
+  where it takes the shape (up to MAX_FFT, 800 MHz included), detect_fast
+  otherwise, and every detector configuration the JAX Pipeline accepts
+  builds;
 - the port's Pipeline with detect_fast against the JAX Pipeline on the CPU
   (which resolves to detect_fast) on a capture whose bursts make
   same-frame secondary creations: the RAW lines equal field for field,
@@ -202,14 +203,23 @@ def test_scan_wherever_jax_runs_its_pallas_scan(cfg):
 
 
 def test_scan_refuses_above_a_cluster_of_16():
-    """400 MHz (F = 524288) is the one shape the JAX package's Pallas scan
-    takes and the kernel does not (one cluster holds 262144 bins): `auto`
-    resolves it to detect_fast and asking for the kernel raises."""
-    cfg = dict(sample_rate=400_000_000)
-    jp = JaxDetConfig(**cfg).derived()
-    pp = DetectorConfig(**cfg).derived()
-    assert pp.fft_size == jp.fft_size == 524288 and detect_pallas.supports(jp)
-    assert not detect_scan.supports(pp)
+    """Above one cluster of 16 blocks (F > 262144) the kernel runs as a
+    grid of clusters up to MAX_FFT: 400 and 800 MHz (F = 524288 and
+    1048576), which the JAX package runs through its Pallas scan, resolve
+    to the kernel. 1.6 GHz (F = 2097152), which the Pallas scan takes too,
+    is above MAX_FFT: `auto` resolves it to detect_fast and asking for the
+    kernel raises."""
+    for rate, F in ((400_000_000, 524288), (800_000_000, 1048576)):
+        jp = JaxDetConfig(sample_rate=rate).derived()
+        pp = DetectorConfig(sample_rate=rate).derived()
+        assert pp.fft_size == jp.fft_size == F and detect_pallas.supports(jp)
+        assert detect_scan.supports(pp)
+        assert detect_scan.resolve_impl(pp) == "scan"
+        assert detect_scan.resolve_impl(pp, "scan") == "scan"
+    jp = JaxDetConfig(sample_rate=1_600_000_000).derived()
+    pp = DetectorConfig(sample_rate=1_600_000_000).derived()
+    assert pp.fft_size == jp.fft_size > detect_scan.MAX_FFT
+    assert detect_pallas.supports(jp) and not detect_scan.supports(pp)
     assert detect_scan.resolve_impl(pp) == "fast"
     with pytest.raises(ValueError):
         detect_scan.resolve_impl(pp, "scan")

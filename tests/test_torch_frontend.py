@@ -138,3 +138,29 @@ def test_ramp_table_matches_jax():
     m = (ks.astype(np.int64)[:, None] * np.arange(F)) % F
     got = np.stack([ramp[0][m], ramp[1][m]], 1).reshape(want.shape)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("F,L", [(64, 40), (64, 64), (64, 200),
+                                 (128, 1000)])
+def test_rotate_decimate_by_ramp_period(F, L):
+    """`rotate_decimate` builds the ramp index for one period of F samples
+    and broadcasts it (so that a 400 MHz batch of 45 M-sample windows
+    needs no (B, L) int64 index): bit-equal to the rotation indexed
+    sample by sample, for windows shorter than, equal to and longer than
+    a period, with and without a remainder, and for negative bins."""
+    rng = np.random.default_rng(3)
+    B, decim = 5, 8
+    x_re = torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32))
+    x_im = torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32))
+    ks = torch.tensor([0, 1, -3, F // 2 - 1, 2 * F + 5], dtype=torch.int32)
+    ramp = ff.ramp_table(F, torch.device("cpu"))
+    taps = torch.from_numpy(rng.standard_normal(7).astype(np.float32))
+    n_out = (L - 7) // decim + 1
+    got = ff.rotate_decimate(x_re, x_im, ks, ramp, taps, decim, n_out)
+    mm = (ks.long()[:, None] % F) * (torch.arange(L) % F)[None, :] % F
+    c, s = ramp[0][mm], ramp[1][mm]
+    y = torch.stack([x_re * c - x_im * s, x_re * s + x_im * c])
+    want = torch.nn.functional.conv1d(
+        y.reshape(2 * B, 1, L), taps.reshape(1, 1, -1),
+        stride=decim).reshape(2, B, -1)[:, :, :n_out]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -384,10 +384,15 @@ def test_detect_scan_cluster_matches_plain(dev, rate):
 # and 20,480 (clusters of 2 and 4 blocks of 6,144 and 5,120 bins on 768
 # and 640 threads), 16,384 (2 blocks of 8,192), 131,072 (16 blocks of
 # 8,192, 100 MHz) and 262,144 (16 blocks of 16,384 bins, 16 a thread: the
-# wide path, 200 MHz)
+# wide path, 200 MHz); then the grids of clusters of 16: 393,216 (3
+# clusters of 8,192-bin blocks), 524,288 (400 MHz: 4 of them), 917,632 (4
+# clusters of wide blocks of 14,352 bins on 928 threads, the last 31
+# idle) and 1,048,576 (800 MHz: 4 clusters of wide blocks of 16,384)
 NEW_SHAPES = [(1_000_000, 1152), (12_000_000, 12288), (20_000_000, 16384),
               (20_000_000, 20480), (100_000_000, 131072),
-              (200_000_000, 262144)]
+              (200_000_000, 262144), (300_000_000, 393216),
+              (400_000_000, 524288), (700_000_000, 917632),
+              (800_000_000, 1048576)]
 
 
 @pytest.mark.parametrize("rate,F", NEW_SHAPES,
@@ -422,35 +427,59 @@ def test_detect_scan_cluster_of_16_launch_attribute(dev):
     """A cluster of 16 blocks is above the portable size of 8: the launch
     sets cudaFuncAttributeNonPortableClusterSizeAllowed, with which the
     card holds at least one such cluster of the kernel's blocks (227 KB of
-    shared memory each, one an SM); so do clusters of 2 to 8."""
+    shared memory each, one an SM); so do clusters of 2 to 8. At 400 and
+    800 MHz it holds every cluster of the kernel's grid at once."""
     for F in (32768, 65536, 131072, 262144):
         assert detect_scan.max_active_clusters(F) >= 1, F
     assert detect_scan.layout(262144)[0] == 16
+    for F in (524288, 1048576):
+        assert detect_scan.max_active_clusters(F) >= \
+            detect_scan.grid_clusters(F) == 4, F
 
 
 def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
-    """F = 524288 (400 MHz) is above the kernel's cluster of 16: `scan`
-    raises and `auto` resolves to detect_fast. A layout the C side
-    refuses (a cluster of 32) raises too, and nothing runs in its
-    place."""
-    p = DetectorConfig(sample_rate=400_000_000, history_size=16,
-                       frames_per_block=16, gone_capacity=64).derived()
-    assert p.fft_size == 524288 and not detect_scan.supports(p)
-    assert detect_scan.resolve_impl(p) == "fast"
+    """400 and 800 MHz (F = 524288 and 1048576) run on the kernel's grid of
+    clusters. Above MAX_FFT (1.6 GHz, F = 2097152) `scan` raises and
+    `auto` resolves to detect_fast. A grid the card cannot hold at once (9
+    clusters of 16 blocks of one SM each: 144 SMs; 8 clusters of 16 ring
+    blocks: 128 blocks, which fit the SM count but not the placement of
+    clusters) and a layout the C side refuses (a cluster of 32) raise
+    before anything runs, and nothing runs in their place."""
+    for rate in (400_000_000, 800_000_000):
+        p = DetectorConfig(sample_rate=rate, history_size=16,
+                           frames_per_block=16, gone_capacity=64).derived()
+        assert detect_scan.supports(p)
+        assert detect_scan.resolve_impl(p) == "scan"
+        assert detect_scan.resolve_impl(p, "scan") == "scan"
+    big = DetectorConfig(sample_rate=1_600_000_000, history_size=16,
+                         frames_per_block=16, gone_capacity=64).derived()
+    assert big.fft_size > detect_scan.MAX_FFT
+    assert not detect_scan.supports(big)
+    assert detect_scan.resolve_impl(big) == "fast"
     with pytest.raises(ValueError):
-        detect_scan.resolve_impl(p, "scan")
-    mag2 = torch.ones((16, p.fft_size), device=dev)
+        detect_scan.resolve_impl(big, "scan")
     with pytest.raises(ValueError):
-        detect_scan.scan(mag2, st.init_state(p, dev), p.block_samples, p)
-    q = DetectorConfig(sample_rate=50_000_000, history_size=16,
-                       frames_per_block=16, gone_capacity=64).derived()
-    s0 = st.init_state(q, dev)
+        detect_scan.scan(torch.ones((16, big.fft_size), device=dev),
+                         st.init_state(big, dev), big.block_samples, big)
     before = _kernels.DETECT_SCAN.launches
+    q = DetectorConfig(sample_rate=800_000_000, history_size=16,
+                       frames_per_block=16, gone_capacity=64).derived()
+    F = q.fft_size
+    # cudaErrorCooperativeLaunchTooLarge, by block count and by placement
+    for lay in ((16, 7296, 480, 16, 9), (16, 8192, 1024, 8, 8)):
+        monkeypatch.setattr(detect_scan, "layout", lambda F, lay=lay: lay)
+        assert detect_scan.max_active_clusters(F) < lay[4], lay
+        with pytest.raises(RuntimeError, match="CUDA error 720:"):
+            detect_scan.scan(torch.ones((16, F), device=dev),
+                             st.init_state(q, dev), q.block_samples, q)
+    r = DetectorConfig(sample_rate=50_000_000, history_size=16,
+                       frames_per_block=16, gone_capacity=64).derived()
     monkeypatch.setattr(detect_scan, "layout",
-                        lambda F: (32, F // 32, 128, 16))
+                        lambda F: (32, F // 32, 128, 16, 1))
     with pytest.raises(RuntimeError):
-        detect_scan.scan(torch.ones((16, q.fft_size), device=dev), s0,
-                         q.block_samples, q)
+        detect_scan.scan(torch.ones((16, r.fft_size), device=dev),
+                         st.init_state(r, dev), r.block_samples, r)
+    torch.cuda.synchronize()
     assert _kernels.DETECT_SCAN.launches == before
 
 

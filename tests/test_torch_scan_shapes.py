@@ -3,8 +3,9 @@
 hold the kernel to bit for bit) against the JAX package's Pallas scan in
 interpret mode at the shapes the kernel took up last: 1,152 in one block
 (576 threads of 2 bins), 12,288 and 20,480 as clusters of 2 and 4 blocks
-of 6,144 and 5,120 bins (768 and 640 threads of 8), and 131,072 (100
-MHz) as a cluster of 16 blocks of 8,192.
+of 6,144 and 5,120 bins (768 and 640 threads of 8), 131,072 (100 MHz) as
+a cluster of 16 blocks of 8,192, and 524,288 (400 MHz) as a grid of 4
+such clusters.
 
 Both scans get the same |X|^2 rows, so the comparison isolates the state
 machine; the tolerances are `check_states`' (test_torch_detect_scan.py).
@@ -30,10 +31,11 @@ POW2 = {1 << k for k in range(7, 19)}
 
 def owners(F: int) -> np.ndarray:
     """(F, 2) [block, thread] of every bin under `layout(F)`, walked from
-    the threads' side: each thread of each block lists its BPT bins."""
-    C, FB, T, BPT = detect_scan.layout(F)
+    the threads' side: each thread of each block (of every cluster of the
+    grid) lists its BPT bins."""
+    C, FB, T, BPT, N = detect_scan.layout(F)
     own = np.full((F, 2), -1)
-    for r in range(C):
+    for r in range(N * C):
         lo, hi = r * FB, min((r + 1) * FB, F)
         for t in range(T):
             b0 = lo + t * BPT
@@ -46,31 +48,37 @@ def owners(F: int) -> np.ndarray:
 
 
 def test_layout_at_every_multiple_of_128():
-    """Every F = 128 k up to 262,144: C in {1, 2, 4, 8, 16} (a cluster
-    only above 8,192 bins: blocks of at most 8,192 bins, 8 a thread, up to
-    131,072; above it 16 blocks of 16 bins a thread), whole warps of at
-    most 1,024 threads, fewer than a warp of them idle, and the blocks'
-    bins covering [0, F) with none left empty. (Whether a block's shared
-    memory fits is the C entry's check; the card tests launch the largest
-    layouts.)"""
+    """Every F = 128 k up to MAX_FFT (1,835,008): C in {1, 2, 4, 8, 16} (a
+    cluster only above 8,192 bins: blocks of at most 8,192 bins, 8 a
+    thread, up to 131,072; above it 16 blocks of 16 bins a thread; above
+    262,144 a grid of N = 3-7 clusters of 16 blocks, of 8 bins a thread up
+    to 917,504 and of 16 above), whole warps of at most 1,024 threads,
+    fewer than a warp of them idle, and the blocks' bins covering [0, F)
+    with none left empty. (Whether a block's shared memory fits is the C
+    entry's check; the card tests launch the largest layouts.)"""
     for F in range(128, detect_scan.MAX_FFT + 1, 128):
-        C, FB, T, BPT = detect_scan.layout(F)
+        C, FB, T, BPT, N = detect_scan.layout(F)
         assert C in (1, 2, 4, 8, 16) and (C == 1) == (F <= 8192), F
+        assert (N > 1) == (F > 262144) and N <= detect_scan.MAX_GRID, F
+        assert N == 1 or C == 16, F
         assert BPT in (1, 2, 4, 8, 16), F
-        assert C == 1 or BPT == (8 if F <= 131072 else 16), F
+        assert C == 1 or BPT == (8 if F <= 131072 or 262144 < F <= 917504
+                                 else 16), F
         assert BPT == 16 or FB <= detect_scan.RING_BINS, F
         assert T % 32 == 0 and 32 <= T <= 1024, F
         assert FB % BPT == 0 and FB <= T * BPT < FB + 32 * BPT, F
-        assert C * FB >= F > (C - 1) * FB, F
+        assert N * C * FB >= F > (N * C - 1) * FB, F
         if F in POW2 and 1024 <= F <= 8192:
             # the power-of-two sizes keep 1,024 threads (10 MHz: 8 bins)
             assert (C, T, BPT) == (1, 1024, F // 1024)
-    assert detect_scan.layout(16384) == (2, 8192, 1024, 8)
-    assert detect_scan.layout(32768) == (4, 8192, 1024, 8)
-    assert detect_scan.layout(65536) == (8, 8192, 1024, 8)
-    assert detect_scan.layout(131072) == (16, 8192, 1024, 8)
-    assert detect_scan.layout(262144) == (16, 16384, 1024, 16)
-    for F in (0, 100, 1000, 524288):
+    assert detect_scan.layout(16384) == (2, 8192, 1024, 8, 1)
+    assert detect_scan.layout(32768) == (4, 8192, 1024, 8, 1)
+    assert detect_scan.layout(65536) == (8, 8192, 1024, 8, 1)
+    assert detect_scan.layout(131072) == (16, 8192, 1024, 8, 1)
+    assert detect_scan.layout(262144) == (16, 16384, 1024, 16, 1)
+    assert detect_scan.layout(524288) == (16, 8192, 1024, 8, 4)
+    assert detect_scan.layout(1048576) == (16, 16384, 1024, 16, 4)
+    for F in (0, 100, 1000, detect_scan.MAX_FFT + 128):
         with pytest.raises(ValueError):
             detect_scan.layout(F)
 
@@ -85,23 +93,31 @@ def test_layout_gives_every_bin_one_thread(F):
     16,256)."""
     own = owners(F)
     assert (own >= 0).all()
-    C, FB, T, BPT = detect_scan.layout(F)
+    C, FB, T, BPT, N = detect_scan.layout(F)
+    assert N == 1
     assert detect_scan.block_edges(F) == [r * FB for r in range(1, C)]
     assert sorted(set(own[:, 0])) == list(range(C))
 
 
 @pytest.mark.parametrize("rate,F,frames", [
     (1_000_000, 1152, 128), (12_000_000, 12288, 128),
-    (20_000_000, 20480, 128), (100_000_000, 131072, 128)])
+    (20_000_000, 20480, 128), (100_000_000, 131072, 128),
+    (400_000_000, 524288, 128)])
 def test_new_shapes_match_pallas(rate, F, frames):
     """The plain scan against the Pallas scan on
     `exp_scan.shape_edge_spectrogram`'s rows: bursts beside the DC notch
     (the mask of one holds the other back until its release), a tie and a
     dilation across a thread edge or, in a cluster, across every block
-    edge, a burst by the last eligible bins, and a squelch comb with
-    emission drops (the plain scan and the Pallas scan drop the same)."""
+    edge (at 524,288 the DC edge and two others are cluster edges of the
+    grid), a burst by the last eligible bins, and a squelch comb with
+    emission drops (the plain scan and the Pallas scan drop the same).
+    (128 frames: the rows need 80 after the 32-row history is primed. A
+    grid's 63 block edges hold 65 bursts at once, which max_bursts 20
+    would squelch before the DC pair is emitted: there it is 100, which
+    the comb still trips.)"""
     jp, pp = params(sample_rate=rate, fft_size=F, history_size=32,
-                    frames_per_block=frames, max_bursts=20)
+                    frames_per_block=frames,
+                    max_bursts=20 if F <= 262144 else 100)
     assert pp.fft_size == jp.fft_size == F and detect_scan.supports(pp)
     assert detect_scan.resolve_impl(pp) == "scan"
     mag2 = exp_scan.shape_edge_spectrogram(pp, seed=11)
