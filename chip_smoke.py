@@ -85,7 +85,23 @@ Phases, each printing one line:
      MHz), after a warm-up decode: the scan resolves to
      the kernel's grid of 4 clusters of 16 blocks, which launches,
      decimation 1,600 takes the window gather, every payload comes back
-     bit-exact; wall, realtime, stages, peak device memory;
+     bit-exact; wall, realtime, stages, peak device memory; then, in a
+     process of its own, whether the decode fits at the Pipeline's
+     default batches (a measurement: its peak and its payloads, or the
+     allocation that failed; any other failure fails the run);
+  9c. `wideband_1600mhz`: a 1.6 GHz capture (F = 2,097,152, 256 frames a
+     block, six blocks, 2.01 s, 12 bursts from -700 to +700 MHz, one
+     across sample 2^31) written as ci8 chunk by chunk, through
+     `Pipeline.run_file` at the 400 MHz decode's batches, after a warm-up
+     decode: the scan resolves to the kernel's tiled grid (7 clusters of
+     16 blocks of 2 tiles), which launches, decimation 6,400 takes the
+     window gather (the large class two windows at a time), every payload
+     comes back bit-exact; wall, realtime, stages, peak device memory,
+     class shapes; then the scan kernel on one of the warm-up decode's
+     own blocks (256 x 2,097,152, its primed state), the window gather at
+     the large class's window length (4 windows of 180 M samples) and the
+     demod loop at the decode's batches, held to their plain versions (in
+     the `kernels` line);
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
@@ -99,9 +115,13 @@ and 1000, history_size 16), at sizes its layout pads or splits unevenly
 (1,152, 12,288, 16,384, 20,480 and 393,216 bins) and at the 25, 50, 100,
 200, 400 and 800 MHz blocks (1,024 x 32,768 to 1,024 x 1,048,576, the
 kernel as a cluster of 4, 8 and 16 blocks and, from 400 MHz, as a grid of
-4 clusters of 16), each timed with its layout (in the `kernels` line's
-`detail.per_shape`), with `ptxas -v`'s registers and spill bytes per
-instantiation (`detail.ptxas`), and `detect_fast_card` holds detect_fast
+4 clusters of 16) and above the largest resident grid, tiled (1,835,136,
+2,097,152 and 4,194,304 bins: 7 clusters of 16 blocks of 2, 2 and 3
+tiles, from a state the plain scan primed, on the cluster edge block with
+bursts across every tile and block edge), each timed with its layout (in
+the `kernels` line's `detail.per_shape`), with `ptxas -v`'s registers and
+spill bytes per instantiation (`detail.ptxas`), and `detect_fast_card`
+holds detect_fast
 (one production block) and the exact scan (one small block) on the card
 to the same functions on the CPU, counts detect_fast's device launches at
 the 25 MHz block and times it on the 400 MHz block, which the kernel's
@@ -168,6 +188,16 @@ def host_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return statistics.median(times)
+
+
+def once_ms(fn) -> float:
+    """Host-clock time of one call that ends in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
 
 
 def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
@@ -1346,6 +1376,66 @@ def check_cluster_shape(rate: int, dev) -> dict:
                 edge_dropped=int(got_e.burst_dropped))
 
 
+# shapes above the largest resident grid (MAX_RESIDENT, 1,835,008 bins),
+# which the kernel runs tiled: (sample rate, fft_size, frames a block) of
+# the first F above it (2 tiles a block), 1.6 GHz (2 tiles) and 3.2 GHz (3
+# tiles); the frames keep a block under 2^31 samples (int32 positions)
+TILED_SHAPES = ((1_400_000_000, 1835136, 1024),
+                (1_600_000_000, 2097152, 512),
+                (3_200_000_000, 4194304, 256))
+
+
+def check_tiled_shape(rate: int, F: int, frames: int, dev) -> dict:
+    """The scan kernel at F bins above MAX_RESIDENT (history 512,
+    max_bursts 20, `frames` a block), which it runs as its tiled grid:
+    from a state the plain scan primed on noise blocks, against the plain
+    scan on `tools/exp_scan.py`'s cluster edge block drawn on the card
+    (ties, dilations and bursts across every tile and block edge, the DC
+    pair, the squelch comb with drops): bit-equal, dB fields within rtol
+    1e-5; timed with its layout, tiles and `max_active_clusters`."""
+    import torch
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan, state as st
+    from iridium_tpu_torch.tools import exp_scan
+
+    p = DetectorConfig(sample_rate=rate, fft_size=F, frames_per_block=frames,
+                       max_bursts=20).derived()
+    nv = p.block_samples
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    s0 = st.init_state(p, dev)
+    while int(s0.ints[1]) < p.history_size:
+        noise = torch.empty((frames, F), device=dev).exponential_(
+            generator=gen)
+        s0 = detect_scan.scan_plain(noise, s0, nv, p)
+        st.rebase_(s0, nv)
+        del noise
+    edge = exp_scan.cluster_edge_spectrogram(p, seed=11, gen=gen, t0=8)
+    got = detect_scan.scan(edge, s0, nv, p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = detect_scan.scan_plain(edge, s0, nv, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = exp_scan.compare(got, want)
+    if int(got.burst_dropped) < 1:
+        raise AssertionError(f"scan at F = {F}: no squelch drops")
+    res = dict(gone=int(got.g_count), tagged=int(got.n_tagged),
+               dropped=int(got.burst_dropped))
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: detect_scan.scan(edge, s0, nv, p))
+    b_ms, b_by = scan_bound(p)
+    lay = detect_scan.layout(F)
+    return dict(shape=[frames, F], sample_rate=rate, layout=list(lay),
+                tiles=lay[5], grid_clusters=lay[4],
+                max_active_clusters=detect_scan.max_active_clusters(F),
+                resolves=detect_scan.resolve_impl(p), ms=ms,
+                us_per_frame=ms * 1e3 / frames, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                max_abs_err=err, **res)
+
+
 def scan_shapes_phase(dev, spills: dict) -> dict:
     """The scan kernel against the plain scan at 10 MHz (F = 8192) at the
     shapes the Pallas scan's chunk rules refuse (frames_per_block 100 and
@@ -1391,8 +1481,17 @@ def scan_shapes_phase(dev, spills: dict) -> dict:
            or w["max_active_clusters"] < w["grid_clusters"] for w in wide):
         raise AssertionError(f"a wideband shape does not resolve to the "
                              f"cluster kernel: {wide}")
+    torch.cuda.empty_cache()
+    tiled = []
+    for rate, F, frames in TILED_SHAPES:
+        tiled.append(check_tiled_shape(rate, F, frames, dev))
+        torch.cuda.empty_cache()
+    if any(t["resolves"] != "scan" or t["tiles"] < 2
+           or t["max_active_clusters"] < t["grid_clusters"] for t in tiled):
+        raise AssertionError(f"a shape above the resident grid does not "
+                             f"resolve to the tiled kernel: {tiled}")
     return dict(phase="scan_shapes", shapes=shapes, odd=odd, wide=wide,
-                ptxas=spills)
+                tiled=tiled, ptxas=spills)
 
 
 # ---- detect_fast_card: the other scans on the card against the CPU ----
@@ -1464,8 +1563,10 @@ def detect_fast_card_phase(dev) -> dict:
     gen.manual_seed(SEED)
     mw = exp_scan.synthetic_spectrogram(pw, gen)
     run_w = detect_fast.make_scan_fast(pw)
-    wide_ms = host_ms(lambda: run_w(mw, st.init_state(pw, dev),
-                                    pw.block_samples), reps=1)
+    # one call each at 25 and 400 MHz (seconds a call: a warm-up would
+    # double them; the production block above warmed the code)
+    wide_ms = once_ms(lambda: run_w(mw, st.init_state(pw, dev),
+                                    pw.block_samples))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run_w(mw, st.init_state(pw, dev), pw.block_samples)
@@ -1478,8 +1579,8 @@ def detect_fast_card_phase(dev) -> dict:
     gen.manual_seed(SEED)
     m4 = exp_scan.synthetic_spectrogram(p4, gen)
     run_4 = detect_fast.make_scan_fast(p4)
-    w400_ms = host_ms(lambda: run_4(m4, st.init_state(p4, dev),
-                                    p4.block_samples), reps=1)
+    w400_ms = once_ms(lambda: run_4(m4, st.init_state(p4, dev),
+                                    p4.block_samples))
     del m4
     b4_ms, b4_by = scan_bound(p4)
     return dict(phase="detect_fast_card", block=[p.frames_per_block,
@@ -1609,10 +1710,63 @@ def wideband_400_capture(dev, path: str) -> tuple[float, list, float]:
             time.perf_counter() - t)
 
 
+# a decode of the 400 MHz capture at the Pipeline's default batches, in a
+# process of its own (an allocation that fails inside a graph capture
+# leaves the process's stream unusable): its frames' frequencies and bits
+# and its peak device memory, or the allocation that failed
+DEFAULTS_DECODE = """
+import json, sys, numpy as np, torch
+sys.path.insert(0, {here!r})
+from iridium_tpu_torch.config import DetectorConfig
+from iridium_tpu_torch.runtime.pipeline import Pipeline
+from iridium_tpu_torch.tools import captures
+pipe = Pipeline(det_cfg=DetectorConfig(**captures.WIDE_400), device="cuda",
+                want_llr=False, start_time_ns=0)
+try:
+    frames = [dict(frequency=float(f["frequency"]),
+                   bits="".join(map(str, np.asarray(f["bits"]).tolist())))
+              for f in pipe.run_file({path!r})]
+    out = dict(fits=True, raw_lines=len(frames), frames=frames)
+except torch.OutOfMemoryError as e:
+    out = dict(fits=False, error=str(e).splitlines()[0][:300])
+out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+print(json.dumps(out))
+"""
+
+
+def defaults_fit(path: str, bursts, det) -> dict:
+    """Whether the 400 MHz decode fits the card at the Pipeline's default
+    batches (burst_batch 128, agg_blocks 4, group_jobs 8): a measurement,
+    not a check, of which only running out of device memory is an
+    answer. Any other failure of the decode raises, and so does a decode
+    that fits and misses one of `bursts`' payloads."""
+    res = subprocess.run(
+        [sys.executable, "-c", DEFAULTS_DECODE.format(here=HERE, path=path)],
+        capture_output=True, text=True, timeout=300)
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    try:
+        out = json.loads(last)
+    except json.JSONDecodeError:
+        out = None
+    if res.returncode != 0 or not isinstance(out, dict):
+        raise AssertionError(f"400 MHz decode at the default batches "
+                             f"failed (rc {res.returncode}): "
+                             f"{res.stderr.strip()[-600:]}")
+    if out["fits"]:
+        frames = [dict(frequency=f["frequency"],
+                       bits=[int(c) for c in f["bits"]])
+                  for f in out.pop("frames")]
+        out["missing"] = missing_payloads(frames, bursts, det)
+        if out["missing"]:
+            raise AssertionError(f"400 MHz decode at the default batches: "
+                                 f"payloads not bit-exact: {out}")
+    return out
+
+
 def wideband_400_phase(dev, tmp) -> dict:
     """A 400 MHz capture (F = 524288, 1,024 frames a block, decimation
     1,600) through `Pipeline.run_file` on the card at WIDE_400_RUN (the
-    default batches run out of device memory at 400 MHz), after a warm-up
+    default batches are measured apart, `defaults_fit`), after a warm-up
     decode that captures the group graphs: the scan
     resolves to the kernel's grid of 4 clusters of 16 blocks, which
     launches, decimation 1,600 takes the window gather and not the fused
@@ -1669,6 +1823,166 @@ def wideband_400_phase(dev, tmp) -> dict:
     if missing:
         raise AssertionError(f"400 MHz payloads not decoded bit-exact: "
                              f"{missing} ({res})")
+    res["defaults"] = defaults_fit(path, bursts, det)
+    os.remove(path)
+    return res
+
+
+WIDE_1600_RUN = WIDE_400_RUN
+# windows of the 1.6 GHz large class held to the plain gather (its index
+# and output are ~3x the windows' bytes: 4 windows of 180 M samples)
+WIDE_1600_GATHER_WINDOWS = 4
+# the block of the 1.6 GHz warm-up decode whose scan inputs are kept and
+# held to the plain scan: the fourth, the first two having primed the
+# history, in which two bursts end and the one across sample 2^31 begins
+WIDE_1600_CHECK_BLOCK = 3
+
+
+def check_decode_block(kept: dict, p, dev) -> dict:
+    """The scan kernel on the 1.6 GHz decode's own block (its |X|^2 rows,
+    256 x 2,097,152, and the primed state the decode handed the scan,
+    kept on the host), against the plain scan on the same inputs:
+    bit-equal, dB fields within rtol 1e-5; timed with its bound."""
+    import torch
+    from iridium_tpu_torch.dsp import detect_scan
+    from iridium_tpu_torch.tools import exp_scan
+
+    mag2, s0, nv = kept["mag2"].to(dev), _to(kept["state"], dev), \
+        kept["n_valid"]
+    if int(s0.ints[1]) < p.history_size:
+        raise AssertionError("1.6 GHz decode block: the history is not "
+                             "primed")
+    got = detect_scan.scan(mag2, s0, nv, p)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = detect_scan.scan_plain(mag2, s0, nv, p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = exp_scan.compare(got, want)
+    res = dict(gone=int(got.g_count), tagged=int(got.n_tagged),
+               active=int(got.a_valid.sum()))
+    if res["gone"] + res["active"] < 1:
+        raise AssertionError(f"1.6 GHz decode block: no burst in it {res}")
+    del got, want
+    ms = time_ms(lambda: detect_scan.scan(mag2, s0, nv, p))
+    b_ms, b_by = scan_bound(p)
+    lay = detect_scan.layout(p.fft_size)
+    return dict(input=f"wideband_1600mhz decode, block "
+                      f"{WIDE_1600_CHECK_BLOCK}",
+                shape=[p.frames_per_block, p.fft_size], layout=list(lay),
+                tiles=lay[5], history_size=p.history_size, n_valid=nv,
+                ms=ms, us_per_frame=ms * 1e3 / p.frames_per_block,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms, max_abs_err=err, **res)
+
+
+def wideband_1600_phase(dev, tmp) -> dict:
+    """A 1.6 GHz capture (F = 2,097,152, 256 frames a block, decimation
+    6,400; six blocks, 2.01 s) written as ci8 chunk by chunk, through
+    `Pipeline.run_file` on the card at WIDE_1600_RUN, after a warm-up
+    decode: the scan resolves to the kernel's tiled grid (7 clusters of 16
+    blocks of 2 tiles), which launches, decimation 6,400 takes the window
+    gather (the large class in slices of windows) and not the fused
+    front-end, and every injected payload comes back bit-exact. Wall,
+    realtime factor, stages, peak device memory, class shapes and
+    launches. Then the scan kernel on the warm-up decode's block
+    WIDE_1600_CHECK_BLOCK (`check_decode_block`), the window gather at
+    the large class's window length
+    (WIDE_1600_GATHER_WINDOWS windows of the group's stream) and the demod
+    loop at the decode's three class batches, held to their plain
+    versions (in the `kernels` line)."""
+    import gc
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.dsp import detect_scan
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools import captures, exp_demod
+    from iridium_tpu_torch.tools import exp_window_gather as wg_tool
+
+    path = os.path.join(tmp, "capture_1600mhz.ci8")
+    t = time.perf_counter()
+    det = DetectorConfig(**captures.WIDE_1600)
+    p = det.derived()
+    n, plan = captures.wideband_1600mhz_plan(SEED + 16, p.block_samples)
+    captures.write_ci8(path, n, plan, SEED + 16, dev)
+    bursts = [(s0, o, b) for s0, o, b, _, _ in plan]
+    del plan
+    make_s, seconds = time.perf_counter() - t, n / p.sample_rate
+    pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
+                    want_llr=False, **WIDE_1600_RUN)
+    if pipe.detect_impl != "scan" or detect_scan.tiles(p.fft_size) < 2:
+        raise AssertionError(f"1.6 GHz resolved to {pipe.detect_impl}, "
+                             f"layout {detect_scan.layout(p.fft_size)}")
+    # the warm-up keeps one block's scan inputs on the host
+    kept, calls, scan = {}, [0], detect_scan.scan
+
+    def keep(mag2, state, n_valid, p_):
+        if calls[0] == WIDE_1600_CHECK_BLOCK:
+            kept.update(mag2=mag2.cpu(), state=_to(state, "cpu"),
+                        n_valid=int(n_valid))
+        calls[0] += 1
+        return scan(mag2, state, n_valid, p_)
+
+    detect_scan.scan = keep
+    try:
+        t = time.perf_counter()
+        list(pipe.run_file(path))
+        warmup_s = time.perf_counter() - t
+    finally:
+        detect_scan.scan = scan
+    if not kept:
+        raise AssertionError(f"1.6 GHz warm-up: {calls[0]} scans")
+    pipe.reset(T0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    os.remove(path)
+    if (counts["window_gather"] == 0 or counts["detect_scan"] == 0
+            or counts["fused_frontend"] != 0):
+        raise AssertionError(f"1.6 GHz decode launches: {counts}")
+    missing = missing_payloads(frames, bursts, det)
+    stats, timing = pipe.stats, dict(pipe.timing)
+    large = pipe.classes[2]
+    gather_shape = dict(rate_mhz=1600.0, shape="large",
+                        B=WIDE_1600_GATHER_WINDOWS, l_win=large.l_win,
+                        decim=large.decim, n_stream=pipe.stream_len,
+                        fused=False)
+    demod_shapes = [dict(rate_mhz=1600.0, shape=name, B=c.batch,
+                         L=c.downmix.max_frame_cap, S=c.demod.S,
+                         sps=c.demod.sps)
+                    for name, c in zip(exp_demod.CLASS_NAMES, pipe.classes)]
+    res = dict(phase="wideband_1600mhz", fft_size=p.fft_size,
+               layout=list(detect_scan.layout(p.fft_size)),
+               detect_impl=pipe.detect_impl, decimation=pipe.dmp.decimation,
+               args=WIDE_1600_RUN, classes=[[c.batch, c.l_win]
+                                            for c in pipe.classes],
+               capture_s=seconds, make_s=make_s, warmup_s=warmup_s,
+               wall_s=wall, realtime_x=seconds / wall,
+               peak_device_gb=peak,
+               injected=len(bursts), missing=missing,
+               payloads_bit_exact=len(bursts) - len(missing),
+               detected=stats.n_detected, ok=stats.n_ok,
+               raw_lines=len(frames), stages=timing, launches=counts)
+    del pipe, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    if missing:
+        raise AssertionError(f"1.6 GHz payloads not decoded bit-exact: "
+                             f"{missing} ({res})")
+    res["kernel_rows"] = dict(
+        detect_scan=[check_decode_block(kept, p, dev)],
+        window_gather=wg_tool.run_shape(
+            gather_shape, dev, [("package", _kernels.WINDOW_GATHER)]),
+        demod_loop=[r for sh in demod_shapes
+                    for r in exp_demod.run_shape(sh, dev, graphs=False)])
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1775,11 +2089,11 @@ def main() -> int:
     # the scan's `ptxas -v` report, kept by its build
     shp = emit(scan_shapes_phase(dev, exp_scan.spill_table(
         exp_scan.ptxas_report(_kernels.DETECT_SCAN))))
-    rows[0]["detail"]["per_shape"] += shp["odd"] + shp["wide"]
+    shapes = shp["odd"] + shp["wide"] + shp["tiled"]
+    rows[0]["detail"]["per_shape"] += shapes
     rows[0]["detail"]["ptxas"] = shp["ptxas"]
     rows[0]["max_abs_err"] = max([rows[0]["max_abs_err"]]
-                                 + [w["max_abs_err"]
-                                    for w in shp["odd"] + shp["wide"]])
+                                 + [w["max_abs_err"] for w in shapes])
     emit(detect_fast_card_phase(dev))
     with tempfile.TemporaryDirectory() as tmp:
         dec, ctx = decode_phase(dev, tmp)
@@ -1801,7 +2115,19 @@ def main() -> int:
         del ctx
         wide = emit(wideband_phase(dev, tmp))
         w400 = emit(wideband_400_phase(dev, tmp))
-    paths = (dec, gat, mesh, par, tool, den, ing, wide, w400)
+        w1600 = emit(wideband_1600_phase(dev, tmp))
+    # the 1.6 GHz decode's scan, gather and demod-loop checks join the
+    # kernels'
+    for r in rows:
+        extra = w1600["kernel_rows"].get(r["name"])
+        if extra:
+            r["detail"]["per_shape"] += extra
+        if r["name"] in ("demod_loop", "detect_scan") and extra:
+            key = ("out_max_abs_err" if r["name"] == "demod_loop"
+                   else "max_abs_err")
+            r["max_abs_err"] = max([r["max_abs_err"]]
+                                   + [e[key] for e in extra])
+    paths = (dec, gat, mesh, par, tool, den, ing, wide, w400, w1600)
     for r in rows:
         by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}
         r["launches"] = sum(by_path.values())

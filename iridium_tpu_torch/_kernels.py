@@ -137,10 +137,10 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 DETECT_SCAN = Kernel(
     "detect_scan",
-    # the state's 19 planes, the halo and grid scratch, ..., the layout
-    # (clusters, block_bins, threads, bins_per_thread, grid_clusters), the
-    # stream
-    [P] * 21 + [I] * 11 + [F32] * 5 + [I] * 5 + [P],
+    # the state's 19 planes, the halo, grid and tile scratch, ..., the
+    # layout (clusters, block_bins, threads, bins_per_thread,
+    # grid_clusters, tiles), the stream
+    [P] * 22 + [I] * 11 + [F32] * 5 + [I] * 6 + [P],
     # keep the noise-sum and relative-magnitude arithmetic free of fused
     # multiply-adds, so baseline_sum stays bit-equal to the plain scan
     extra_flags=("--fmad=false",))

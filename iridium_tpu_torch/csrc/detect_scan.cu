@@ -11,12 +11,13 @@
 // f + 1 depends on the state that frame f leaves, so the frames run one
 // after another and the time goes to per-frame latency, not to bytes.
 //
-// Layout: the caller hands the kernel (C, FB, T, BPT, N) (dsp/detect_scan.py
-// `layout`, the one place it is decided): N clusters (1, or a grid of
-// several) of C blocks (1, or a cluster of 2, 4, 8 or 16), block r
-// (counted across the grid) owning the FB bins [r FB, min((r + 1) FB, F)),
-// T threads a block of BPT contiguous bins each. Every multiple of 128
-// bins up to MAX_FFT (1,835,008) has one:
+// Layout: the caller hands the kernel (C, FB, T, BPT, N, K)
+// (dsp/detect_scan.py `layout`, the one place it is decided): N clusters
+// (1, or a grid of several) of C blocks (1, or a cluster of 2, 4, 8 or
+// 16), block r (counted across the grid) owning K tiles of FB bins, tile t
+// the bins [t FB, min((t + 1) FB, F)), T threads a block of BPT contiguous
+// bins of each tile. Every multiple of 128 bins has one; up to
+// MAX_RESIDENT (1,835,008) K = 1 and FB is the block's bins:
 //   - F <= 8192: one block, BPT = F / 1024 rounded up to a power of two;
 //   - F <= 131072: a cluster of the least power of two of blocks of at
 //     most 8192 bins, 8 a thread (16,384 bins: 2 blocks; 131,072: 16);
@@ -24,8 +25,11 @@
 //     thread (the wide path);
 //   - F <= 917504: a grid of 3-7 clusters of 16 blocks of at most 8192
 //     bins (524,288, 400 MHz: 4 clusters of 16 x 8,192);
-//   - above: a grid of 4-7 clusters of 16 wide blocks (1,048,576, 800
-//     MHz: 4 clusters of 16 x 16,384).
+//   - up to MAX_RESIDENT: a grid of 4-7 clusters of 16 wide blocks
+//     (1,048,576, 800 MHz: 4 clusters of 16 x 16,384);
+//   - above: the tiled grid (`detect_scan_tiled`, below), 7 clusters of
+//     16 blocks of K >= 2 tiles of at most 16,384 bins, 16 a thread
+//     (2,097,152, 1.6 GHz: 2 tiles of 9,376).
 // Sizes that no power-of-two BPT splits into whole warps (1152 = 576 x 2
 // does; 4224 = 528 x 8 does not) are padded: T is rounded up to whole
 // warps and the threads past the block's last bin are idle. Padding keeps
@@ -1124,6 +1128,535 @@ __global__ void __launch_bounds__(1024)
   if constexpr (C > 1) cluster_sync();
 }
 
+// The tiled grid (F above MAX_RESIDENT, 1,835,008 on the H100): more
+// bins than blocks that keep their bins' state on chip cover, since the
+// grid barrier needs every block resident at once (7 clusters of 16 one-SM
+// blocks). The grid stays 7 clusters of 16, and each block owns K
+// contiguous tiles of at most kMaxBins bins (`layout`: tile t of the grid,
+// block t / K, owns [t FB, min((t + 1) FB, F)); thread i of a block the 16
+// bins from t FB + 16 i of each of its tiles). Each phase of a frame walks
+// the block's tiles in ascending bin order, and what a thread keeps of a
+// tile between the block's turns on it waits in device memory (L2):
+//   - baseline_sum stays in its plane (each thread reads and writes only
+//     its own bins' words), a_last / a_start and mask_count too, as on the
+//     wide path;
+//   - the valid, unmasked, candidate and gone (then created) bits and the
+//     two halo sums go to `Turn`, one 16-byte word a thread a tile;
+//   - the |X|^2 row and the history words are read from device memory
+//     where they are used (16-byte loads; the row is read-only, so the
+//     halo words need no exchange);
+//   - a noise update reads the row it evicts (own and halo words) and
+//     writes the new row only after the next barrier (`flush`): by then
+//     every thread has read its words of the evicted row, and the next
+//     update evicts another row (H >= 2), so no thread reads a word that
+//     another has overwritten, and the halo sums need no private ring;
+//   - a reduction (`tiled_reduce`) sums each tile's warp counts into
+//     shared memory and carries each warp's key max and flag OR over the
+//     tiles, then combines the blocks as a grid of clusters does
+//     (`block_reduce`); a tile's count prefix adds, in bin order, the
+//     lower blocks' counts (the reduction's), the block's lower tiles' and
+//     the tile's lower warps' (`tile_prefix`), so emissions keep ascending
+//     bin order;
+//   - the gone lists are per tile in device memory (`Grid`, FB local bins
+//     a tile: every bin the grid owns), and a mask release reads the lists
+//     of every tile its window reaches, in this block or another.
+// Every branch around a barrier depends only on grid-reduced values, and
+// the tile loops hold no barrier (the warp shuffles inside them run on
+// every lane). Its bound is bytes: a frame reads each bin's |X|^2 word,
+// baseline_sum and Turn word, and a noise update also reads and writes
+// baseline_sum and reads the evicted and writes the new history row (~25
+// MB a frame at 2,097,152 bins, ~7.5 us at 3.35 TB/s). It runs several
+// times that (tools/exp_scan.py): a block's tile turns are a chain of
+// device-memory round trips. A noise update issues all of a tile's loads
+// before its stores, since the compiler cannot tell the history from
+// baseline_sum. Its per-bin state machine is detect_scan_kernel's, written
+// over tiles: a change to the one is made to the other, and both are held
+// to scan_plain.
+constexpr int kTileBins = 16;     // a thread's bins of a tile
+constexpr int kTileCluster = 16;  // blocks of a tiled grid's cluster
+
+__global__ void __launch_bounds__(1024)
+    detect_scan_tiled(State st, Params p, int K, uint4* turns) {
+  constexpr int BPT = kTileBins, C = kTileCluster;
+  constexpr unsigned kAll = (1u << BPT) - 1u;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int F = p.F, H = p.H, hb = p.half_bw, dc = F / 2;
+  const int FB = p.block_bins;  // the bins of a tile
+  const int NC = p.n_clusters, NT = NC * C * K;
+  const int rank = cluster_rank();
+  const int cluster = (int)blockIdx.x / C;
+  const int gb = cluster * C + rank;
+  const float thr = p.threshold;
+  Grid grid{};
+  grid.count = st.grid;
+  grid.slots = reinterpret_cast<Slot*>(st.grid + 32);
+  grid.ngone = reinterpret_cast<int*>(grid.slots + 2 * NC);
+  grid.gone = reinterpret_cast<unsigned short*>(grid.ngone + NT);
+  Red* s_red = reinterpret_cast<Red*>(smem_raw);     // 2
+  int* s_cnt = reinterpret_cast<int*>(s_red + 2);    // [2][K][32]
+  Tally* s_tally = reinterpret_cast<Tally*>(s_cnt + 2 * K * 32);
+
+  struct Tile {
+    int t, lo, b0;
+    bool live, has_l, has_r;
+  };
+  auto tile = [&](int j) {
+    Tile x;
+    x.t = gb * K + j;
+    x.lo = x.t * FB;
+    x.b0 = x.lo + tid * BPT;
+    x.live = x.b0 < min(x.lo + FB, F);
+    x.has_l = x.live && x.b0 > 0;
+    x.has_r = x.live && x.b0 + BPT < F;
+    return x;
+  };
+  // the thread's Turn word of a tile: x valid | unmasked << 16; y
+  // candidates | (gone, after the deletions created) << 16; z, w the halo
+  // sums of bins b0 - 1 and b0 + 16
+  auto turn = [&](const Tile& x) -> uint4& {
+    return turns[(size_t)x.t * T + tid];
+  };
+  auto mag_row = [&](int f) { return st.mag2 + (size_t)f * F; };
+  auto hist_row = [&](int r) { return st.hist + (size_t)r * F; };
+  auto eligible = [&](const Tile& x) {
+    unsigned e = 0;
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const int g = x.b0 + i;
+      if (x.live && g >= hb && g < F - hb && !(g >= dc - 3 && g <= dc + 3))
+        e |= 1u << i;
+    }
+    return e;
+  };
+  auto key_of = [&](float rel, int g) {
+    return ((unsigned long long)__float_as_uint(rel) << 32) |
+           (kFull - (unsigned)g);
+  };
+  bool red_odd = false;
+  // One reduction over the grid's tiles: of_tile(x, key, cnt, flag) gives
+  // the thread's values of tile x (zero-initialised); each tile's warp
+  // counts stay in s_cnt for tile_prefix
+  auto tiled_reduce = [&](auto&& of_tile) -> Reduced {
+    red_odd = !red_odd;
+    int* cnt_w = s_cnt + (red_odd ? K * 32 : 0);
+    unsigned long long wk = 0ull;
+    int wc = 0;
+    bool wf = false;
+    for (int j = 0; j < K; ++j) {
+      unsigned long long key = 0ull;
+      int cnt = 0;
+      bool flag = false;
+      of_tile(tile(j), key, cnt, flag);
+      int c = 0;
+      if (__any_sync(kFull, cnt != 0 || key != 0ull || flag)) {
+        c = warp_sum(cnt);
+        const unsigned long long k = warp_max64(key);
+        wk = k > wk ? k : wk;
+        wf |= __any_sync(kFull, flag);
+      }
+      if (lane == 0) cnt_w[j * 32 + warp] = c;
+      wc += c;
+    }
+    // lane 31 carries the warp's count over the tiles
+    return block_reduce<C, true>(wk, lane == 31 ? wc : 0, wf,
+                                 s_red + (red_odd ? 1 : 0), grid, NC,
+                                 cluster);
+  };
+  // of the last reduction: the count of tile j's bins below this thread's
+  // (whose own count is cnt), and the tile's count
+  auto tile_prefix = [&](int j, int cnt, int& before, int& total) {
+    const int* cnt_w = s_cnt + (red_odd ? K * 32 : 0) + j * 32;
+    const int c = lane < nw ? cnt_w[lane] : 0;
+    const int wi = warp_incl_scan(c);
+    total = __shfl_sync(kFull, wi, 31);
+    before = __shfl_sync(kFull, wi - c, warp) + warp_incl_scan(cnt) - cnt;
+  };
+
+  if (tid == 0) *s_tally = Tally{st.sc[4], st.sc[5], st.sc[6], st.scf[0]};
+  for (int j = 0; j < K; ++j) {
+    const Tile x = tile(j);
+    unsigned valid = 0, unmasked = x.live ? 0u : kAll;
+    float bl = 0.0f, br = 0.0f;
+    if (x.live) {
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        const int g = x.b0 + i;
+        if (st.a_valid[g]) valid |= 1u << i;
+        if (st.mask_count[g] == 0) unmasked |= 1u << i;
+      }
+      if (x.has_l) bl = st.bsum[x.b0 - 1];
+      if (x.has_r) br = st.bsum[x.b0 + BPT];
+    }
+    turn(x) = make_uint4(valid | unmasked << 16, 0u, __float_as_uint(bl),
+                         __float_as_uint(br));
+  }
+  int hidx = st.sc[0], prim = st.sc[1], burst_id = st.sc[2];
+  int sq_count = st.sc[3];
+  int emitted = 0;
+  // the last noise update's history row (hist row pend_row := |X|^2 row
+  // pend_f), written after the next barrier; pend_f < 0: none
+  int pend_f = -1, pend_row = 0;
+  auto flush = [&]() {
+    if (pend_f < 0) return;
+    const float4* src = reinterpret_cast<const float4*>(mag_row(pend_f));
+    float4* dst = reinterpret_cast<float4*>(hist_row(pend_row));
+    for (int j = 0; j < K; ++j) {
+      const Tile x = tile(j);
+      if (!x.live) continue;
+      float4 v[BPT / 4];
+#pragma unroll
+      for (int c = 0; c < BPT / 4; ++c) v[c] = __ldg(src + x.b0 / 4 + c);
+#pragma unroll
+      for (int c = 0; c < BPT / 4; ++c) dst[x.b0 / 4 + c] = v[c];
+    }
+    pend_f = -1;
+  };
+  int n_act = tiled_reduce([&](const Tile& x, unsigned long long&, int& cnt,
+                               bool&) { cnt = __popc(turn(x).x & kAll); })
+                  .total;
+  // phase: begin
+
+  auto noise_update = [&](int f) {
+    // burst_detect.c:438-454; the order (sum - evicted) + mag is kept
+    // (x - 0.0f is x, so an ungated update is a plain add)
+    const bool gate = prim >= H;
+    const float* row = mag_row(f);
+    const float* ev = hist_row(hidx);
+    for (int j = 0; j < K; ++j) {
+      const Tile x = tile(j);
+      if (!x.live) continue;
+      const float4* m4 = reinterpret_cast<const float4*>(row + x.b0);
+      const float4* e4 = reinterpret_cast<const float4*>(ev + x.b0);
+      float4* s4 = reinterpret_cast<float4*>(st.bsum + x.b0);
+      // every load before the first store; an ungated update subtracts
+      // 0, and x - 0.0f is x
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 m[BPT / 4], e[BPT / 4], s[BPT / 4];
+#pragma unroll
+      for (int c = 0; c < BPT / 4; ++c) {
+        m[c] = __ldg(m4 + c);
+        e[c] = gate ? __ldcg(e4 + c) : z;
+        s[c] = s4[c];
+      }
+      uint4 u = turn(x);
+      const float ml = x.has_l ? __ldg(row + x.b0 - 1) : 0.0f;
+      const float mr = x.has_r ? __ldg(row + x.b0 + BPT) : 0.0f;
+      const float el = x.has_l && gate ? __ldcg(ev + x.b0 - 1) : 0.0f;
+      const float er = x.has_r && gate ? __ldcg(ev + x.b0 + BPT) : 0.0f;
+#pragma unroll
+      for (int c = 0; c < BPT / 4; ++c)
+        s4[c] = make_float4((s[c].x - e[c].x) + m[c].x,
+                            (s[c].y - e[c].y) + m[c].y,
+                            (s[c].z - e[c].z) + m[c].z,
+                            (s[c].w - e[c].w) + m[c].w);
+      if (x.has_l) u.z = __float_as_uint((__uint_as_float(u.z) - el) + ml);
+      if (x.has_r) u.w = __float_as_uint((__uint_as_float(u.w) - er) + mr);
+      turn(x) = u;
+    }
+    prim = min(prim + 1, H);
+    pend_f = f;
+    pend_row = hidx;
+    hidx = hidx + 1 == H ? 0 : hidx + 1;
+  };
+  auto emit = [&](int pos, int g, int stop) {
+    if (pos >= p.G) return;
+    st.g_id[pos] = st.a_id[g];
+    st.g_start[pos] = st.a_start[g];
+    st.g_stop[pos] = stop;
+    st.g_last[pos] = st.a_last[g];
+    st.g_bin[pos] = g;
+    st.g_mag[pos] = st.a_mag[g];
+    st.g_noise[pos] = st.a_noise[g];
+  };
+
+  for (int f = 0; f < p.n_frames; ++f) {
+    // phase: scan
+    const int idx = f * F;
+    const bool act = idx + F <= p.n_valid;
+    const bool primed = prim >= H && act;
+    const bool track = primed && n_act > 0;
+    const float* row = mag_row(f);
+    // each tile: the bins above threshold and, from the carried mask, the
+    // candidates and their best key (burst_detect.c:679-699); then
+    // update_bursts: a_last on the +-1-bin dilation, the gone bursts
+    // (:458-469, :490-518)
+    const Reduced r = tiled_reduce([&](const Tile& x, unsigned long long& key,
+                                       int& cnt, bool& longb) {
+      if (!x.live) return;
+      const uint4 u = turn(x);
+      const unsigned valid = u.x & kAll, pool = (u.x >> 16) & eligible(x);
+      const float4* m4 = reinterpret_cast<const float4*>(row + x.b0);
+      const float4* s4 = reinterpret_cast<const float4*>(st.bsum + x.b0);
+      unsigned ab = 0, cand = 0;
+#pragma unroll
+      for (int c = 0; c < BPT / 4; ++c) {
+        const float4 m4c = __ldg(m4 + c), s4c = s4[c];
+        const float m[4] = {m4c.x, m4c.y, m4c.z, m4c.w};
+        const float s[4] = {s4c.x, s4c.y, s4c.z, s4c.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * c + q;
+          if (!above(m[q], s[q], thr)) continue;
+          ab |= 1u << i;
+          if (!((pool >> i) & 1u)) continue;
+          cand |= 1u << i;
+          if (primed) {
+            const unsigned long long k = key_of(rel_of(m[q], s[q]),
+                                                x.b0 + i);
+            key = k > key ? k : key;
+          }
+        }
+      }
+      unsigned gone = 0;
+      if (track && valid) {
+        const bool al = x.has_l && above(__ldg(row + x.b0 - 1),
+                                         __uint_as_float(u.z), thr);
+        const bool ar = x.has_r && above(__ldg(row + x.b0 + BPT),
+                                         __uint_as_float(u.w), thr);
+        const unsigned dil = ab | (ab << 1) | (ab >> 1) | (al ? 1u : 0u) |
+                             (ar ? 1u << (BPT - 1) : 0u);
+        for (unsigned v = valid; v; v &= v - 1) {
+          const int i = __ffs(v) - 1, g = x.b0 + i;
+          int last = st.a_last[g];
+          if ((dil >> i) & 1u) {
+            last = idx;
+            st.a_last[g] = idx;
+          }
+          const bool lb = (last - st.a_start[g]) > p.max_burst_len;
+          longb |= lb;
+          if (last + p.post_len <= idx || lb) gone |= 1u << i;
+        }
+      }
+      turn(x).y = cand | gone << 16;
+      cnt = __popc(gone);
+    });
+    flush();
+
+    // phase: delete
+    const int n_del = r.total;
+    const bool forced = n_del > 0 && r.any;
+    if (n_del > 0) {
+      if (tid == 0) {
+        s_tally->n_tagged += n_del;
+        s_tally->dropped += max(n_del - kEDel, 0);
+      }
+      // emission ranks and each tile's gone list, in ascending bin order
+      int below = r.lo;
+      for (int j = 0; j < K; ++j) {
+        const Tile x = tile(j);
+        const unsigned gone = x.live ? turn(x).y >> 16 : 0u;
+        int before, total;
+        tile_prefix(j, __popc(gone), before, total);
+        unsigned short* list = grid.gone + (size_t)x.t * FB;
+        int e = below + before;
+        for (unsigned v = gone; v; v &= v - 1, ++e, ++before) {
+          const int i = __ffs(v) - 1;
+          if (e < kEDel) emit(emitted + e, x.b0 + i, idx);
+          list[before] = (unsigned short)(x.b0 + i - x.lo);
+        }
+        if (tid == 0) grid.ngone[x.t] = total;
+        below += total;
+      }
+      emitted += min(n_del, kEDel);
+      all_sync<C, true>(grid, NC, rank);
+      // release the +-half_bw mask of every gone bin, emitted or not: the
+      // tile's own list, then those of the tiles below and above (of this
+      // block or another) that the thread's windows reach
+      for (int j = 0; j < K; ++j) {
+        const Tile x = tile(j);
+        if (!x.live) continue;
+        uint4& u = turn(x);
+        int dec[BPT] = {};
+        auto release = [&](int bin) {
+          if (bin + hb < x.b0 || bin - hb >= x.b0 + BPT) return false;
+#pragma unroll
+          for (int i = 0; i < BPT; ++i)
+            if (abs(x.b0 + i - bin) <= hb) ++dec[i];
+          return true;
+        };
+        auto list = [&](int t) { return grid.gone + (size_t)t * FB; };
+        for (int k = 0, n = __ldcg(grid.ngone + x.t); k < n; ++k)
+          release(x.lo + __ldcg(list(x.t) + k));
+        for (int t = x.t - 1; t >= 0 && x.b0 - hb < (t + 1) * FB; --t)
+          for (int k = __ldcg(grid.ngone + t) - 1; k >= 0; --k)
+            if (!release(t * FB + __ldcg(list(t) + k))) break;
+        for (int t = x.t + 1; t < NT && x.b0 + BPT + hb > t * FB; ++t)
+          for (int k = 0, n = __ldcg(grid.ngone + t); k < n; ++k)
+            if (!release(t * FB + __ldcg(list(t) + k))) break;
+        unsigned unmasked = u.x >> 16;
+#pragma unroll
+        for (int i = 0; i < BPT; ++i) {
+          if (dec[i] == 0) continue;
+          const int m = st.mask_count[x.b0 + i] - dec[i];
+          st.mask_count[x.b0 + i] = m;
+          if (m == 0) unmasked |= 1u << i;
+        }
+        const unsigned gone = u.y >> 16;
+        u.x = (u.x & kAll & ~gone) | unmasked << 16;
+        u.y &= kAll;  // the high half holds the created bits next
+      }
+      n_act -= n_del;
+    }
+
+    // phase: create
+    // create_new_bursts: greedy argmax-and-mask (burst_detect.c:556-632)
+    int n_acc = 0;
+    unsigned long long key = r.key;
+    for (int jc = 0; jc < p.k_create; ++jc) {
+      if (jc > 0)
+        key = tiled_reduce([&](const Tile& x, unsigned long long& k, int&,
+                               bool&) {
+                if (!x.live) return;
+                for (unsigned v = turn(x).y & kAll; v; v &= v - 1) {
+                  const int g = x.b0 + __ffs(v) - 1;
+                  const unsigned long long c =
+                      key_of(rel_of(__ldg(row + g), st.bsum[g]), g);
+                  k = c > k ? c : k;
+                }
+              }).key;
+      const float m = __uint_as_float((unsigned)(key >> 32));
+      if (!(m > thr)) break;
+      const int b = (int)(kFull - (unsigned)(key & kFull));
+      const float mag_db =
+          10.0f * log10f(fmaxf(m * p.hist_f * p.enbw, 1e-30f));
+      for (int j = 0; j < K; ++j) {
+        const Tile x = tile(j);
+        if (!x.live || b + hb < x.b0 || b - hb >= x.b0 + BPT) continue;
+        uint4& u = turn(x);
+        unsigned valid = u.x & kAll, unmasked = u.x >> 16;
+        unsigned cand = u.y & kAll, crt = u.y >> 16;
+        if ((unsigned)(b - x.b0) < (unsigned)BPT) {
+          float base_at = st.bsum[b];
+          // the sum after the forced noise update, which runs below
+          if (forced)
+            base_at = (base_at - (prim >= H ? __ldcg(hist_row(hidx) + b)
+                                            : 0.0f)) +
+                      __ldg(row + b);
+          const float noise_db = 10.0f * log10f(fmaxf(
+              base_at / p.hist_f / p.f2 / p.enbw / p.bin_width, 1e-30f));
+          st.a_id[b] = burst_id;
+          st.a_start[b] = idx - p.pre_len;
+          st.a_mag[b] = mag_db;
+          st.a_noise[b] = noise_db;
+          st.a_last[b] = idx - p.pre_len;
+          valid |= 1u << (b - x.b0);
+          crt |= 1u << (b - x.b0);
+        }
+#pragma unroll
+        for (int i = 0; i < BPT; ++i) {
+          if (abs(x.b0 + i - b) <= hb) {
+            st.mask_count[x.b0 + i] += 1;
+            unmasked &= ~(1u << i);
+            cand &= ~(1u << i);
+          }
+        }
+        u.x = valid | unmasked << 16;
+        u.y = cand | crt << 16;
+      }
+      burst_id += 10;
+      ++n_acc;
+      ++n_act;
+      if (tid == 0) s_tally->peak = fmaxf(s_tally->peak, mag_db);
+    }
+    if (n_acc == p.k_create &&
+        tiled_reduce([&](const Tile& x, unsigned long long&, int&,
+                         bool& any) {
+          any = x.live && (turn(x).y & kAll) != 0u;
+        }).any &&
+        tid == 0)
+      ++s_tally->waits;
+    // the forced noise update on a long-burst deletion
+    // (burst_detect.c:516); its history row is written after the barrier
+    if (forced) {
+      noise_update(f);
+      all_sync<C, true>(grid, NC, rank);
+      flush();
+    }
+
+    // phase: squelch
+    // squelch (burst_detect.c:594-631)
+    const bool squelch = p.max_bursts > 0 && primed && n_act > p.max_bursts;
+    if (squelch) {
+      const Reduced q = tiled_reduce([&](const Tile& x, unsigned long long&,
+                                         int& cnt, bool&) {
+        if (x.live) cnt = __popc(turn(x).x & kAll & ~(turn(x).y >> 16));
+      });
+      if (tid == 0) {
+        s_tally->n_tagged += q.total;
+        s_tally->dropped += max(q.total - kESq, 0);
+      }
+      int below = q.lo;
+      for (int j = 0; j < K; ++j) {
+        const Tile x = tile(j);
+        const uint4 u = x.live ? turn(x) : make_uint4(0u, 0u, 0u, 0u);
+        const unsigned sq = u.x & kAll & ~(u.y >> 16);
+        int before, total;
+        tile_prefix(j, __popc(sq), before, total);
+        int e = below + before;
+        for (unsigned v = sq; v; v &= v - 1, ++e)
+          if (e < kESq) emit(emitted + e, x.b0 + __ffs(v) - 1, idx);
+        below += total;
+        if (x.live) {
+#pragma unroll
+          for (int i = 0; i < BPT; ++i)
+            if (!((u.x >> (16 + i)) & 1u)) st.mask_count[x.b0 + i] = 0;
+          turn(x).x = kAll << 16;
+        }
+      }
+      emitted += min(q.total, kESq);
+      n_act = 0;
+      sq_count += 3;
+    } else if (act) {
+      sq_count = max(sq_count - 1, 0);
+    }
+    // noise-estimate reset after repeated squelch
+    if (act && sq_count >= 10) {
+      for (int j = 0; j < K; ++j) {
+        const Tile x = tile(j);
+        if (!x.live) continue;
+        float4* s4 = reinterpret_cast<float4*>(st.bsum + x.b0);
+#pragma unroll
+        for (int c = 0; c < BPT / 4; ++c)
+          s4[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        turn(x).z = 0u;
+        turn(x).w = 0u;
+      }
+      prim = 0;
+      sq_count = 0;
+    }
+    // phase: noise
+    // final noise update if no burst is active (burst_detect.c:698)
+    if (act && n_act == 0) noise_update(f);
+  }
+  // phase: end
+
+  // every thread has read its words of the row the last update evicted
+  all_sync<C, true>(grid, NC, rank);
+  flush();
+  for (int j = 0; j < K; ++j) {
+    const Tile x = tile(j);
+    if (!x.live) continue;
+    const unsigned valid = turn(x).x;
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) st.a_valid[x.b0 + i] = (valid >> i) & 1u;
+  }
+  if (tid == 0 && gb == 0) {
+    st.sc[0] = hidx;
+    st.sc[1] = prim;
+    st.sc[2] = burst_id;
+    st.sc[3] = sq_count;
+    st.sc[4] = s_tally->n_tagged;
+    st.sc[5] = s_tally->dropped;
+    st.sc[6] = s_tally->waits;
+    st.sc[7] = min(emitted, p.G);
+    st.scf[0] = s_tally->peak;
+  }
+  // no block leaves while another may still read its shared memory
+  cluster_sync();
+}
+
 // The dynamic shared memory of a block of T threads of BPT bins, FB bins
 // a block, as the kernel carves it up
 size_t shared_bytes(int FB, int T, int BPT) {
@@ -1136,17 +1669,21 @@ size_t shared_bytes(int FB, int T, int BPT) {
          2 * sizeof(Red) + (stages + 6) * sizeof(unsigned long long);
 }
 
-// The instantiation's attributes: its dynamic shared memory and, for a
-// cluster above the portable 8 blocks, the non-portable size
-template <int BPT, int C, bool kGrid>
-cudaError_t set_attributes(size_t smem) {
+// The tiled kernel's dynamic shared memory: the reduction buffers, each
+// tile's warp counts of two reductions, the tally
+size_t tiled_shared_bytes(int K) {
+  return 2 * sizeof(Red) + 2 * (size_t)K * 32 * sizeof(int) + sizeof(Tally);
+}
+
+// A kernel's attributes: its dynamic shared memory and, for a cluster
+// above the portable 8 blocks, the non-portable size
+template <typename Kern>
+cudaError_t set_attributes(Kern kern, int C, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      detect_scan_kernel<BPT, C, kGrid>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && C > 8)
-    err = cudaFuncSetAttribute(detect_scan_kernel<BPT, C, kGrid>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
 
@@ -1167,68 +1704,82 @@ cudaLaunchConfig_t cluster_config(int C, int N, int T, size_t smem,
   return cfg;
 }
 
-// How many clusters of the instantiation the card can hold at once
+// How many clusters of C blocks of the kernel the card can hold at once
 // (cudaOccupancyMaxActiveClusters, after the launch's attributes are set)
-template <int BPT, int C, bool kGrid>
-cudaError_t max_clusters(const Params& p, int T, int* n) {
-  const size_t smem = shared_bytes(p.block_bins, T, BPT);
-  cudaError_t err = set_attributes<BPT, C, kGrid>(smem);
+template <typename Kern>
+cudaError_t max_clusters(Kern kern, int C, int T, size_t smem, int* n) {
+  cudaError_t err = set_attributes(kern, C, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(C, 1, T, smem, 0, attr);
-  return cudaOccupancyMaxActiveClusters(
-      n, detect_scan_kernel<BPT, C, kGrid>, &cfg);
+  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+}
+
+// A launch of N clusters of C blocks. A grid (kGrid) spins at its
+// barriers, so every cluster must be resident at once: a grid of more
+// clusters than the card places is refused here (the cooperative launch
+// counts blocks, not where clusters fit), and the launch is cooperative
+// besides
+template <typename Kern, typename... Args>
+cudaError_t launch_clusters(Kern kern, bool grid, int C, int N, int T,
+                            size_t smem, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err = set_attributes(kern, C, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = cluster_config(C, N, T, smem, stream, attr);
+  if (grid) {
+    int fit = 0;
+    err = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fit < N) return cudaErrorCooperativeLaunchTooLarge;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.numAttrs = 2;
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves nothing behind
+    return err;
+  }
+  return cudaGetLastError();
 }
 
 template <int BPT, int C, bool kGrid>
 cudaError_t launch(const State& st, const Params& p, int T,
                    cudaStream_t stream) {
   const size_t smem = shared_bytes(p.block_bins, T, BPT);
-  cudaError_t err = set_attributes<BPT, C, kGrid>(smem);
-  if (err != cudaSuccess) return err;
   if constexpr (C == 1) {
+    const cudaError_t err =
+        set_attributes(detect_scan_kernel<BPT, C, kGrid>, C, smem);
+    if (err != cudaSuccess) return err;
     detect_scan_kernel<BPT, C, kGrid><<<1, T, smem, stream>>>(st, p);
+    return cudaGetLastError();
   } else {
-    cudaLaunchAttribute attr[2];
-    cudaLaunchConfig_t cfg =
-        cluster_config(C, p.n_clusters, T, smem, stream, attr);
-    if constexpr (kGrid) {
-      // the grid barrier spins, so every cluster must be resident at once:
-      // a grid of more clusters than the card places is refused here (the
-      // cooperative launch counts blocks, not where clusters fit), and the
-      // launch is cooperative besides
-      int fit = 0;
-      err = cudaOccupancyMaxActiveClusters(
-          &fit, detect_scan_kernel<BPT, C, kGrid>, &cfg);
-      if (err != cudaSuccess) return err;
-      if (fit < p.n_clusters) return cudaErrorCooperativeLaunchTooLarge;
-      attr[1].id = cudaLaunchAttributeCooperative;
-      attr[1].val.cooperative = 1;
-      cfg.numAttrs = 2;
-    }
-    err = cudaLaunchKernelEx(&cfg, detect_scan_kernel<BPT, C, kGrid>, st,
-                             p);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // a refused launch leaves nothing behind
-      return err;
-    }
+    return launch_clusters(detect_scan_kernel<BPT, C, kGrid>, kGrid, C,
+                           p.n_clusters, T, smem, stream, st, p);
   }
-  return cudaGetLastError();
 }
 
-// Whether (clusters, block_bins, threads, bins_per_thread, grid clusters)
-// is a layout the kernel runs at F bins: every bin one thread's, whole
-// warps of at most 1024 threads and kMaxBins bin slots, shared memory
-// within a block's kMaxShared, an instantiation for the bins a thread and
-// the cluster (the wide path only in clusters of 16; a grid only of
-// clusters of 16, of 8 or 16 bins a thread)
-bool valid_layout(int F, int C, int FB, int T, int BPT, int N) {
+// Whether (clusters, block_bins, threads, bins_per_thread, grid clusters,
+// tiles) is a layout the kernel runs at F bins: every bin one thread's,
+// whole warps of at most 1024 threads and kMaxBins bin slots, shared
+// memory within a block's kMaxShared, an instantiation for the bins a
+// thread and the cluster (the wide path only in clusters of 16; a grid
+// only of clusters of 16, of 8 or 16 bins a thread; tiles only in clusters
+// of 16, of 16 bins a thread, the last block holding bins)
+bool valid_layout(int F, int C, int FB, int T, int BPT, int N, int K) {
   if (F <= 0 || F % 128 != 0 || T < 32 || T > 1024 || T % 32 != 0 ||
       BPT <= 0 || (long long)T * BPT > kMaxBins || FB <= 0 ||
-      FB % BPT != 0 || FB > T * BPT || FB - T * BPT <= -32 * BPT ||
-      shared_bytes(FB, T, BPT) > kMaxShared || N < 1)
+      FB % BPT != 0 || FB > T * BPT || FB - T * BPT <= -32 * BPT || N < 1 ||
+      K < 1)
     return false;
   const long long B = (long long)C * N;
+  if (K > 1)
+    return C == 16 && BPT == kTileBins &&
+           tiled_shared_bytes(K) <= kMaxShared && B * K * FB >= F &&
+           (B - 1) * K * FB < F;
+  if (shared_bytes(FB, T, BPT) > kMaxShared) return false;
   if (B * FB < F || (B - 1) * FB >= F) return false;
   if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return false;
   if (N > 1) return C == 16 && (BPT == 8 || BPT == 16);
@@ -1269,7 +1820,8 @@ struct MaxClusters {
     if constexpr (C == 1) {
       return cudaErrorInvalidValue;
     } else {
-      return max_clusters<BPT, C, kGrid>(p, T, n);
+      return max_clusters(detect_scan_kernel<BPT, C, kGrid>, C, T,
+                          shared_bytes(p.block_bins, T, BPT), n);
     }
   }
 };
@@ -1277,23 +1829,25 @@ struct MaxClusters {
 }  // namespace
 
 // The layout is dsp/detect_scan.py's `layout(F)`: `grid_clusters` clusters
-// of `clusters` blocks of `threads` threads, `block_bins` bins a block,
-// `bins_per_thread` a thread. `halo`: scratch of blocks x 2 x H floats
-// (unused by one block); `grid`: a grid's scratch (`Grid`, `grid_words`
-// 32-bit words, zeroed; unused by one cluster). A grid the card cannot
-// hold at once is refused (cudaErrorCooperativeLaunchTooLarge, 720)
-// before anything runs.
+// of `clusters` blocks of `threads` threads, `tiles` tiles of `block_bins`
+// bins a block, `bins_per_thread` a thread. `halo`: scratch of blocks x 2 x
+// H floats (unused by one block and by tiles); `grid`: a grid's scratch
+// (`Grid`, `grid_words` 32-bit words, zeroed; unused by one cluster);
+// `turns`: the tiled kernel's (`tile_words` 32-bit words; unused without
+// tiles). A grid the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge, 720) before anything runs.
 extern "C" int detect_scan(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
     int* mask_count, int* g_id, int* g_start, int* g_stop, int* g_last,
     int* g_bin, float* g_mag, float* g_noise, int* sc, float* scf,
-    float* halo, unsigned* grid, int F, int n_frames, int H, int G,
-    int n_valid,
+    float* halo, unsigned* grid, uint4* turns, int F, int n_frames, int H,
+    int G, int n_valid,
     int half_bw, int k_create, int max_bursts, int max_burst_len,
     int post_len, int pre_len, float threshold, float hist_f, float enbw,
     float f2, float bin_width, int clusters, int block_bins, int threads,
-    int bins_per_thread, int grid_clusters, cudaStream_t stream) {
+    int bins_per_thread, int grid_clusters, int tiles,
+    cudaStream_t stream) {
   const State st{mag2,  hist,   bsum,    a_valid, a_id,   a_start, a_last,
                  a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
                  g_bin, g_mag,  g_noise, sc,      scf,    halo,   grid};
@@ -1302,8 +1856,13 @@ extern "C" int detect_scan(
                  pre_len,    threshold, hist_f,  enbw,     f2,
                  bin_width,  block_bins, grid_clusters};
   if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread,
-                    grid_clusters))
+                    grid_clusters, tiles))
     return (int)cudaErrorInvalidValue;
+  if (tiles > 1)
+    return (int)launch_clusters(detect_scan_tiled, true, kTileCluster,
+                                grid_clusters, threads,
+                                tiled_shared_bytes(tiles), stream, st, p,
+                                tiles, turns);
   return (int)dispatch<Launch>(clusters, bins_per_thread, grid_clusters, st,
                                p, threads, stream);
 }
@@ -1313,15 +1872,19 @@ extern "C" int detect_scan(
 // so a cluster of 16 is asked for as the launch asks for it
 extern "C" int detect_scan_max_clusters(int F, int clusters, int block_bins,
                                         int threads, int bins_per_thread,
-                                        int grid_clusters, int* n) {
+                                        int grid_clusters, int tiles,
+                                        int* n) {
   Params p{};
   p.F = F;
   p.block_bins = block_bins;
   p.n_clusters = grid_clusters;
   if (!valid_layout(F, clusters, block_bins, threads, bins_per_thread,
-                    grid_clusters) ||
+                    grid_clusters, tiles) ||
       clusters < 2)
     return (int)cudaErrorInvalidValue;
+  if (tiles > 1)
+    return (int)max_clusters(detect_scan_tiled, kTileCluster, threads,
+                             tiled_shared_bytes(tiles), n);
   return (int)dispatch<MaxClusters>(clusters, bins_per_thread,
                                     grid_clusters, p, threads, n);
 }

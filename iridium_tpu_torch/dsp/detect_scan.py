@@ -24,48 +24,63 @@ from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
 
 # The kernel's layout (csrc/detect_scan.cu): one thread block, a
 # thread-block cluster of C blocks, or a grid of N clusters of C blocks,
-# walks the frames; block r (counted across the grid) owns the FB bins
-# [r FB, min((r + 1) FB, F)) and thread t of it the BPT bins from
-# r FB + t BPT. A block of the ring path holds at most RING_BINS bins (1024
-# threads of 8 and its |X|^2 ring); a cluster has at most 16 blocks (H100's
-# largest, a non-portable size above 8), so above 16 x RING_BINS the
-# blocks take BLOCK_BINS bins (1024 threads of 16: the wide path). Above
-# one cluster of 16 wide blocks the kernel runs as a grid of clusters of
-# 16 that meet through device memory behind a grid-wide barrier, which
-# needs every cluster resident at once: of ring blocks up to MAX_GRID
-# clusters, then of wide blocks. MAX_GRID is the number of clusters of 16
-# blocks (one an SM, 227 KB of shared memory each) that an H100 SXM holds
-# at once (`max_active_clusters`, measured 7 for both kinds of block); the
-# C entry refuses a grid of more clusters than the card places, before
-# anything runs, and a layout whose shared memory a block cannot hold.
+# walks the frames; each block owns K contiguous tiles of FB bins, tile t
+# (counted across the grid, block r holding tiles r K ... r K + K - 1) the
+# bins [t FB, min((t + 1) FB, F)), and thread i of a block the BPT bins
+# from t FB + i BPT of each of its tiles. A block of the ring path holds
+# at most RING_BINS bins (1024 threads of 8 and its |X|^2 ring); a
+# cluster has at most 16 blocks (H100's largest, a non-portable size
+# above 8), so above 16 x RING_BINS the blocks take BLOCK_BINS bins (1024
+# threads of 16: the wide path). Above one cluster of 16 wide blocks the
+# kernel runs as a grid of clusters of 16 that meet through device memory
+# behind a grid-wide barrier, which needs every cluster resident at once:
+# of ring blocks up to MAX_GRID clusters, then of wide blocks, up to
+# MAX_RESIDENT bins, the most that blocks holding their bins' state on
+# chip cover. Above it the grid stays MAX_GRID clusters and each block
+# walks K = 2 or more tiles of at most BLOCK_BINS bins, whose state waits
+# in device memory between the block's turns on them (the tiled kernel).
+# MAX_GRID is the number of clusters of 16 blocks (one an SM) that an
+# H100 SXM holds at once (`max_active_clusters`, measured 7 for every
+# kind of block); the C entry asks the card before each grid launch and
+# refuses a grid of more clusters than it places, before anything runs,
+# and a layout whose shared memory a block cannot hold.
 RING_BINS = 8192
 BLOCK_BINS = 16384
 MAX_THREADS = 1024
 MAX_CLUSTER = 16
 MAX_GRID = 7
-MAX_FFT = MAX_GRID * MAX_CLUSTER * BLOCK_BINS
+MAX_RESIDENT = MAX_GRID * MAX_CLUSTER * BLOCK_BINS
+# the kernel's sample positions (n_valid, a frame's end) are int32: a
+# block holds fewer than 2^31 samples
+MAX_BLOCK_SAMPLES = 2**31 - 1
 
 
-def layout(F: int) -> tuple[int, int, int, int, int]:
-    """(C, FB, T, BPT, N): blocks of a cluster, bins a block owns, threads
-    a block, bins a thread and clusters of the grid. Up to RING_BINS bins
-    one block, each thread with the fewest bins that 1024 threads hold
-    (power-of-two F from 1024: 1024 threads); then the least power-of-two
-    cluster of blocks of at most RING_BINS bins, 8 a thread; above 16 such
-    blocks (F > 131072) 16 blocks of 16 bins a thread; above one such
-    cluster (F > 262144) the least grid of clusters of 16 ring blocks, up
-    to MAX_GRID clusters (F <= 917504), then of 16 wide blocks, up to
-    MAX_FFT. The bins are split evenly over the N C blocks. T is rounded
-    up to whole warps: the threads past the last bin hold no bin (F =
-    4224: 544 threads of 8 bins, the last 16 idle); every bin is one
-    thread's."""
-    if F <= 0 or F % 128 or F > MAX_FFT:
+def layout(F: int) -> tuple[int, int, int, int, int, int]:
+    """(C, FB, T, BPT, N, K): blocks of a cluster, bins a tile, threads a
+    block, bins a thread, clusters of the grid and tiles a block. Up to
+    RING_BINS bins one block, each thread with the fewest bins that 1024
+    threads hold (power-of-two F from 1024: 1024 threads); then the least
+    power-of-two cluster of blocks of at most RING_BINS bins, 8 a thread;
+    above 16 such blocks (F > 131072) 16 blocks of 16 bins a thread; above
+    one such cluster (F > 262144) the least grid of clusters of 16 ring
+    blocks, up to MAX_GRID clusters (F <= 917504), then of 16 wide blocks,
+    up to MAX_RESIDENT; so far one tile a block (K = 1, FB the block's
+    bins). Above MAX_RESIDENT: MAX_GRID clusters of 16 blocks of K =
+    ceil(F / MAX_RESIDENT) tiles of at most BLOCK_BINS bins, 16 a thread
+    (1.6 GHz, F = 2097152: 2 tiles of 9,376 bins a block). The bins are
+    split evenly over the N C K tiles. T is rounded up to whole warps:
+    the threads past a tile's last bin hold no bin of it (F = 4224: 544
+    threads of 8, the last 16 idle); every bin is one thread's."""
+    if F <= 0 or F % 128:
         raise ValueError(f"F = {F}: the scan kernel takes a multiple of "
-                         f"128 bins up to {MAX_FFT}")
-    C, N = 1, 1
+                         f"128 bins")
+    C, N, K = 1, 1, 1
     while C * RING_BINS < F and C < MAX_CLUSTER:
         C *= 2
-    if C * BLOCK_BINS < F:
+    if F > MAX_RESIDENT:
+        N, BPT = MAX_GRID, 16
+        K = -(-F // MAX_RESIDENT)
+    elif C * BLOCK_BINS < F:
         N = -(-F // (C * RING_BINS))
         BPT = 8
         if N > MAX_GRID:
@@ -79,10 +94,10 @@ def layout(F: int) -> tuple[int, int, int, int, int]:
         BPT = 1
         while BPT * MAX_THREADS < F:
             BPT *= 2
-    FB = -(-F // (N * C))
+    FB = -(-F // (N * C * K))
     FB = -(-FB // BPT) * BPT
     T = -(-FB // BPT)
-    return C, FB, -(-T // 32) * 32, BPT, N
+    return C, FB, -(-T // 32) * 32, BPT, N, K
 
 
 def clusters(F: int) -> int:
@@ -95,39 +110,58 @@ def grid_clusters(F: int) -> int:
     return layout(F)[4]
 
 
+def tiles(F: int) -> int:
+    """Tiles a block of the kernel walks at F bins (`layout`): 1 up to
+    MAX_RESIDENT."""
+    return layout(F)[5]
+
+
 def block_edges(F: int) -> list[int]:
-    """The first bin of every block but the first (across the grid)."""
-    C, FB, _, _, N = layout(F)
-    return [r * FB for r in range(1, N * C)]
+    """The first bin of every tile but the first (across the grid): the
+    block edges, and inside a tiled block its tiles' edges."""
+    C, FB, _, _, N, K = layout(F)
+    return [t * FB for t in range(1, N * C * K) if t * FB < F]
 
 
 def grid_words(lay: tuple) -> int:
     """32-bit words of a grid launch's scratch (csrc/detect_scan.cu
     `Grid`): the arrival counter and its line, two frames' parity of N
-    cluster partials (4 words each), each block's gone count, and each
-    block's gone list (FB 16-bit entries); 1 for a single cluster."""
-    C, FB, _, _, N = lay
-    if N == 1:
+    cluster partials (4 words each), each tile's gone count, and each
+    tile's gone list (FB 16-bit entries: every bin the grid owns); 1 for a
+    single cluster without tiles."""
+    C, FB, _, _, N, K = lay
+    if N == K == 1:
         return 1
-    B = N * C
-    return 32 + 8 * N + B + (B * FB + 1) // 2
+    n_tiles = N * C * K
+    return 32 + 8 * N + n_tiles + (n_tiles * FB + 1) // 2
+
+
+def tile_words(lay: tuple) -> int:
+    """32-bit words of the tiled kernel's scratch (csrc/detect_scan.cu
+    `Turn`): four for each thread of each tile, the thread's bits and
+    halo sums between the block's turns on the tile; 1 without tiles."""
+    C, _, T, _, N, K = lay
+    return 4 * N * C * K * T if K > 1 else 1
 
 
 def supports(p: DetectorParams) -> bool:
-    """Shapes the kernel handles: every multiple of 128 bins up to MAX_FFT
-    (`layout`); a history of two rows or more (the row a noise update
-    evicts was stored two or more updates before, so that bulk store has
-    completed when the row is copied back into shared memory); a gone
-    table the per-frame emission caps can fill (detect_fast's own rule).
-    It is the JAX package's Pallas `supports` (detect_pallas.py:72-79)
-    without the chunk rules (the kernel walks the frames one by one) and
-    with an upper bound the Pallas scan lacks: MAX_FFT, the most bins a
-    grid of clusters the card holds at once can own (800 MHz, F =
-    1048576, is below it)."""
+    """Shapes the kernel handles: every multiple of 128 bins (`layout`:
+    above MAX_RESIDENT, tiled); a history of two rows or more (the row a
+    noise update evicts was stored two or more updates before, so that
+    store has completed when the row is read back); a gone table the
+    per-frame emission caps can fill (detect_fast's own rule); a block of
+    fewer than 2^31 samples (MAX_BLOCK_SAMPLES: 1.6 GHz at its default
+    1,024 frames is 2^31, and goes to detect_fast, which counts a block's
+    valid frames in Python ints). It is the JAX package's Pallas `supports`
+    (detect_pallas.py:72-79) without the chunk rules (the kernel walks the
+    frames one by one) and with that block limit. Any F is taken: a shape
+    is refused otherwise only by the device memory its state and block
+    need, and the allocation raises."""
     F = p.fft_size
-    return (F % 128 == 0 and 0 < F <= MAX_FFT
+    return (F % 128 == 0 and F > 0
             and p.history_size >= 2
-            and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ))
+            and p.gone_capacity <= p.frames_per_block * (E_DEL + E_SQ)
+            and p.block_samples <= MAX_BLOCK_SAMPLES)
 
 
 IMPLS = ("scan", "fast", "exact")
@@ -166,8 +200,10 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
     """New state after the block of fftshifted |X|^2 rows `mag2`
     (frames_per_block, F) f32. The input state is left as it was. The
     kernel runs in the `layout(F)` it is handed (above 8192 bins a
-    cluster, above 262144 a grid of clusters); a launch the card refuses,
-    and a grid it cannot hold at once, raise before anything runs."""
+    cluster, above 262144 a grid of clusters, above MAX_RESIDENT a grid of
+    tiled blocks); a shape it does not support (`supports`), a launch the
+    card refuses, and a grid it cannot hold at once, raise before anything
+    runs."""
     if mag2.device.type == "cpu":
         return scan_plain(mag2, state, n_valid, p)
     if not supports(p):
@@ -192,11 +228,14 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
     c = _consts(p)
     lay = layout(F)
     blocks = lay[0] * lay[4]
-    # the edge threads of a cluster's blocks keep the halo words they add
-    # (2 x H a block); a grid meets in a zeroed scratch (`grid_words`)
-    halo = torch.empty(blocks * 2 * H if blocks > 1 else 1,
+    # the edge threads of a resident cluster's blocks keep the halo words
+    # they add (2 x H a block); a grid meets in a zeroed scratch
+    # (`grid_words`); a tiled block keeps its threads' words of each tile
+    # between its turns on it (`tile_words`)
+    halo = torch.empty(blocks * 2 * H if blocks > 1 and lay[5] == 1 else 1,
                        dtype=torch.float32, device=dev)
     grid = torch.zeros(grid_words(lay), dtype=torch.int32, device=dev)
+    turns = torch.empty(tile_words(lay), dtype=torch.int32, device=dev)
     k = _kernels
     k.DETECT_SCAN.launch(
         dev, k.ptr(mag2), k.ptr(out.baseline_hist), k.ptr(out.baseline_sum),
@@ -205,6 +244,7 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
         k.ptr(out.mask_count),
         *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
         k.ptr(out.ints), k.ptr(out.floats), k.ptr(halo), k.ptr(grid),
+        k.ptr(turns),
         F, p.frames_per_block, H, G, int(n_valid), p.burst_width_bins // 2,
         c["k_create"], int(p.max_bursts), int(p.max_burst_len),
         int(p.burst_post_len), int(p.burst_pre_len),
@@ -222,7 +262,7 @@ def max_active_clusters(F: int) -> int:
     import ctypes
     lib = ctypes.CDLL(str(_kernels.DETECT_SCAN.build()))
     fn = lib.detect_scan_max_clusters
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = ctypes.c_int(0)
     code = fn(F, *layout(F), ctypes.byref(n))

@@ -221,6 +221,10 @@ class PipelineStats:
     q_peak: int = 0
 
 
+# the most bytes of gathered windows a class batch holds at once
+GATHER_BYTES = 1 << 32
+
+
 class BurstClass:
     """One burst class: window length, decimated length, the bursts it
     runs at once (`batch` = jobs x bursts per job) and its symbol cap, with
@@ -260,12 +264,35 @@ class BurstClass:
                                           self.decim)
             re, im = re[:, :self.dec_cap], im[:, :self.dec_cap]
         else:
-            xr, xi = window_gather.gather(planes, starts2, self.l_win)
-            re, im = fused_frontend.rotate_decimate(
-                xr, xi, ks, self.ramp, self.taps, self.decim, self.dec_cap)
+            re, im = self._gather_rotate(planes, starts2, ks)
         dm = self.downmix(torch.complex(re, im), params[2], bins,
                           params[4])
         return dm, self.demod(dm.samples, dm.n_samples, dm.direction)
+
+    def _gather_rotate(self, planes: torch.Tensor, starts2: torch.Tensor,
+                       ks: torch.Tensor):
+        """The gather path's front-end: the windows gathered, rotated and
+        filtered (B, dec_cap), in slices of windows whose gathered planes
+        hold at most GATHER_BYTES (a 1.6 GHz large-class batch, 24 windows
+        of 180 M samples, would gather 34.6 GB at once); the rotation's
+        (2, B, L) temporary is the size of a slice's planes."""
+        B = starts2.shape[0]
+        n = max(1, GATHER_BYTES // (8 * self.l_win))
+        if B <= n:
+            xr, xi = window_gather.gather(planes, starts2, self.l_win)
+            return fused_frontend.rotate_decimate(
+                xr, xi, ks, self.ramp, self.taps, self.decim, self.dec_cap)
+        re = torch.empty((B, self.dec_cap), dtype=torch.float32,
+                         device=planes.device)
+        im = torch.empty_like(re)
+        for w0 in range(0, B, n):
+            xr, xi = window_gather.gather(planes, starts2[w0:w0 + n],
+                                          self.l_win)
+            re[w0:w0 + n], im[w0:w0 + n] = fused_frontend.rotate_decimate(
+                xr, xi, ks[w0:w0 + n], self.ramp, self.taps, self.decim,
+                self.dec_cap)
+            del xr, xi
+        return re, im
 
     def run(self, planes: torch.Tensor, params: torch.Tensor
             ) -> torch.Tensor:

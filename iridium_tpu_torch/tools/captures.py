@@ -13,6 +13,8 @@
 
 from __future__ import annotations
 
+import concurrent.futures
+
 import numpy as np
 
 from .. import iridium
@@ -124,14 +126,53 @@ def wideband_400mhz_plan(seed: int, block: int):
     starts = [290_000_000 + 40_000_000 * i for i in range(6)]
     starts[3] = block - 600_000
     starts += [block + 30_000_000 + 40_000_000 * i for i in range(6)]
-    out = []
+    drawn = []
     for start, off in zip(starts, offsets):
         n_bits = 500 if 4e6 < off < 4.5e6 else 300
         bits = rng.integers(0, 2, n_bits + 8).astype(np.uint8)
         amp = 0.01 * 10.0 ** (rng.uniform(12.0, 20.0) / 20.0)
-        out.append((start, off, bits[:n_bits],
-                    synth.burst_waveform(bits, fs, off), amp))
-    return 2 * block + 40_000_000, out
+        drawn.append((start, off, bits, n_bits, amp))
+    return 2 * block + 40_000_000, _with_waveforms(drawn, fs)
+
+
+def _with_waveforms(drawn, fs: int) -> list:
+    """[(start, offset, payload bits, waveform, amplitude)] of drawn
+    [(start, offset, bits, payload bit count, amplitude)], the waveforms
+    made on threads (resampling to ~10 M samples a burst takes about a
+    second each)."""
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        waves = list(pool.map(lambda d: synth.burst_waveform(d[2], fs, d[1]),
+                              drawn))
+    return [(start, off, bits[:n], w, amp)
+            for (start, off, bits, n, amp), w in zip(drawn, waves)]
+
+
+# 1.6 GHz (F = 2,097,152, decimation 6,400), blocks of 256 frames: a
+# block of 536,870,912 samples, as many as a 400 MHz block of 1,024 frames
+WIDE_1600 = dict(sample_rate=1_600_000_000, frames_per_block=256)
+
+
+def wideband_1600mhz_plan(seed: int, block: int):
+    """Twelve DL bursts of 100-bit payloads for a 1.6 GHz capture of six
+    blocks of `block` samples (F = 2,097,152; 256 frames, 0.336 s a
+    block): after the detector's priming (the first 512 frames, two
+    blocks), ~0.1 s apart, from -700 to +700 MHz, one across the boundary
+    of blocks 4 and 5, which is sample 2^31 (a 32-bit sample position
+    wraps there), 12-20 dB a sample (the 801-tap input filter and the
+    decimation by 6,400 add ~31 dB). Returns the capture's length and
+    [(start, offset Hz, payload bits, waveform, amplitude)]."""
+    rng = np.random.default_rng(seed)
+    fs = WIDE_1600["sample_rate"]
+    offsets = [137_000.0, -700_000_000.0, 2_310_000.0, 700_000_000.0,
+               -9_100_000.0, 350_000_000.0, -480_000_000.0,
+               1_020_000.0, 120_000_000.0, -250_000_000.0, 560_000_000.0,
+               -3_050_000.0]
+    starts = [2 * block + 40_000_000 + 150_000_000 * i for i in range(12)]
+    starts[5] = 4 * block - 3_000_000
+    drawn = [(start, off, rng.integers(0, 2, 108).astype(np.uint8), 100,
+              0.01 * 10.0 ** (rng.uniform(12.0, 20.0) / 20.0))
+             for start, off in zip(starts, offsets)]
+    return 6 * block, _with_waveforms(drawn, fs)
 
 
 # write_ci8's gain before rounding (so that the noise spans a few quanta)

@@ -8,11 +8,14 @@ derived 20, 25, 50, 100 or 200 MHz configuration, 1,024 frames, which the
 kernel runs as a cluster of 2, 4, 8 or 16 blocks of 8,192 bins, and at
 262,144 of 16 blocks of 16,384; with `--fft 524288` or `1048576` the 400
 or 800 MHz one, a grid of 4 clusters of 16 blocks of 8,192 or 16,384
-bins: `detect_scan.layout`), each with the state it starts from:
+bins; with `--fft 2097152` or `4194304` the 1.6 or 3.2 GHz one at 512
+or 256 frames, the tiled grid of 7 clusters of 16 blocks of 2 or 3 tiles:
+`detect_scan.layout`, printed), each with the state it starts from:
   - `synthetic`: tone bursts (one longer than max_burst_len) and a comb
-    blast that trips the squelch, from a fresh state (its first 512
-    frames prime the noise history);
-  - `noise`: exponential noise only, after a primed noise block;
+    blast that trips the squelch, from frame 600, from a fresh state (its
+    first 512 frames prime the noise history; at 512 frames or fewer the
+    block is noise that primes it);
+  - `noise`: exponential noise only, after primed noise blocks;
   - `dense`: noise with ~0.21 burst creations per frame (~430 bursts of
     8-14 frames at random bins, as a 10 MHz band at ~260 detections/s
     gives), after the same primed block, so ~6 bursts are active at once.
@@ -57,7 +60,11 @@ CONFIGS = {8192: PROD, 16384: dict(sample_rate=20_000_000),
            131072: dict(sample_rate=100_000_000),
            262144: dict(sample_rate=200_000_000),
            524288: dict(sample_rate=400_000_000),
-           1048576: dict(sample_rate=800_000_000)}
+           1048576: dict(sample_rate=800_000_000),
+           # tiled (2 and 3 tiles a block); fewer frames keep a block
+           # under 2^31 samples
+           2097152: dict(sample_rate=1_600_000_000, frames_per_block=512),
+           4194304: dict(sample_rate=3_200_000_000, frames_per_block=256)}
 
 PROBES = """
 __device__ unsigned long long g_phase_cycles[16];
@@ -166,25 +173,33 @@ def edge_spectrogram(p, seed: int, squelch: bool = True) -> np.ndarray:
     return mag2
 
 
-def cluster_edge_spectrogram(p, seed: int) -> np.ndarray:
+def cluster_edge_spectrogram(p, seed: int, gen=None, t0: int | None = None):
     """(frames_per_block, F) f32 |X|^2 (numpy) for a shape the kernel runs
-    as a cluster (`detect_scan.block_edges`: every FB bins) that works the
-    edges between its blocks, from 8 frames after the history is primed.
-    At the DC edge (F / 2, an edge whenever the cluster has 2 blocks or F
-    splits evenly): a burst just below the +-3-bin notch, and one just
-    above it that the first one's mask holds back until its release (read
-    from the other block's gone list). At every other edge e, on a flat
-    noise floor: two candidates of exactly equal magnitude at e - 1 and e
-    (the lower must win), then e alone, which keeps the burst at e - 1
-    alive through the +-1-bin dilation across the edge; later a 3-bin
-    burst across e. Then a comb of peaks every 40 bins that trips the
-    squelch (with max_bursts 20, more than E_SQ emissions: drops)."""
-    F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
+    as a cluster (`detect_scan.block_edges`: every FB bins: the block
+    edges and, tiled, the tile edges) that works the edges between its
+    blocks and tiles, from t0 (default: 8 frames after the history is
+    primed). At the DC edge (F / 2, an edge whenever the cluster has 2
+    blocks or F splits evenly): a burst just below the +-3-bin notch, and
+    one just above it that the first one's mask holds back until its
+    release (read from the other block's gone list). At every other edge
+    e, on a flat noise floor: two candidates of exactly equal magnitude at
+    e - 1 and e (the lower must win), then e alone, which keeps the burst
+    at e - 1 alive through the +-1-bin dilation across the edge; later a
+    3-bin burst across e. Then a comb of peaks every 40 bins that trips
+    the squelch (with max_bursts 20, more than E_SQ emissions: drops).
+    With `gen` (a torch.Generator) a tensor on its device, the noise drawn
+    there (a block of a tiled shape is gigabytes)."""
+    F, n = p.fft_size, p.frames_per_block
+    t0 = p.history_size + 8 if t0 is None else t0
     edges = detect_scan.block_edges(F) if F % 128 == 0 else []
     if not edges or t0 + 80 > n:
         raise ValueError(f"F {F}, {n} frames: no cluster edges to work")
-    rng = np.random.default_rng(seed)
-    mag2 = rng.exponential(size=(n, F)).astype(np.float32)
+    if gen is None:
+        rng = np.random.default_rng(seed)
+        mag2 = rng.exponential(size=(n, F)).astype(np.float32)
+    else:
+        mag2 = torch.empty((n, F), device=gen.device).exponential_(
+            generator=gen)
     dc = F // 2
     for e in edges:
         if e == dc:
@@ -197,6 +212,8 @@ def cluster_edge_spectrogram(p, seed: int) -> np.ndarray:
         mag2[t0 + 40:t0 + 52, e - 1:e + 2] += 300.0
     comb = np.arange(40, F - 40, 40)
     comb = comb[np.abs(comb - dc) > 8]
+    if gen is not None:
+        comb = torch.from_numpy(comb).to(gen.device)
     mag2[t0 + 60:t0 + 80, comb] += 800.0
     return mag2
 
@@ -210,7 +227,7 @@ def shape_edge_spectrogram(p, seed: int) -> np.ndarray:
     thread edge at 4 BPT (the lower bin wins), kept alive through the
     dilation across it; a 3-bin burst over the last eligible bins (beside
     the idle threads of a padded layout); then the squelch comb."""
-    C, _, _, bpt, _ = detect_scan.layout(p.fft_size)
+    C, _, _, bpt, _, _ = detect_scan.layout(p.fft_size)
     if C > 1:
         return cluster_edge_spectrogram(p, seed)
     F, n, t0 = p.fft_size, p.frames_per_block, p.history_size + 8
@@ -250,16 +267,20 @@ def long_burst_spectrogram(p, seed: int) -> np.ndarray:
 
 def inputs(p, dev) -> list[tuple[str, torch.Tensor, st.ScanState]]:
     """[(name, mag2, start state)] of the three inputs. The primed state
-    is the plain scan's after one noise block, rebased for the next block,
-    so that every comparison with the kernel starts from a state the
-    kernel did not make."""
+    is the plain scan's after noise blocks that fill the history (one, or
+    two where a block has fewer frames than the history has rows),
+    rebased for the next block, so that every comparison with the kernel
+    starts from a state the kernel did not make."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     fresh = st.init_state(p, dev)
     synth = synthetic_spectrogram(p, gen)
-    prime = torch.empty_like(synth).exponential_(generator=gen)
-    primed = detect_scan.scan_plain(prime, fresh, p.block_samples, p)
-    st.rebase_(primed, p.block_samples)
+    primed = fresh
+    while int(primed.ints[1]) < p.history_size:
+        prime = torch.empty_like(synth).exponential_(generator=gen)
+        primed = detect_scan.scan_plain(prime, primed, p.block_samples, p)
+        st.rebase_(primed, p.block_samples)
+        del prime
     noise = torch.empty_like(synth).exponential_(generator=gen)
     dense = dense_spectrogram(p, gen)
     return [("synthetic", synth, fresh), ("noise", noise, primed),
@@ -332,6 +353,7 @@ def ptxas_report(kernel: _kernels.Kernel) -> list[str]:
 
 
 INSTANCE = re.compile(r"detect_scan_kernelILi(\d+)ELi(\d+)ELb([01])E")
+TILED = re.compile(r"\d+detect_scan_tiledE")
 SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 REGISTERS = re.compile(r"Used (\d+) registers")
 
@@ -339,7 +361,7 @@ REGISTERS = re.compile(r"Used (\d+) registers")
 def spill_table(lines: list[str]) -> dict:
     """`ptxas_report` lines -> {"BPT=b,C=c": dict(registers, spill_stores,
     spill_loads)} per instantiation of the scan kernel ("BPT=b,C=c,grid"
-    for a grid of clusters)."""
+    for a grid of clusters, "BPT=16,C=16,tiled" for the tiled grid)."""
     out, cur = {}, None
     for ln in lines:
         m = INSTANCE.search(ln)
@@ -347,6 +369,9 @@ def spill_table(lines: list[str]) -> dict:
             grid = ",grid" if m.group(3) == "1" else ""
             cur = out.setdefault(f"BPT={m.group(1)},C={m.group(2)}{grid}",
                                  {})
+            continue
+        if TILED.search(ln):
+            cur = out.setdefault("BPT=16,C=16,tiled", {})
             continue
         if cur is None:
             continue

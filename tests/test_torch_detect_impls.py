@@ -5,9 +5,9 @@
   the burst table, the mask and the counters exact; dB fields rtol 1e-5;
   baseline sums and history rows rtol 1e-6;
 - `detect_scan.resolve_impl` and `Pipeline(detect_impl=...)`: the kernel
-  where it takes the shape (up to MAX_FFT, 800 MHz included), detect_fast
-  otherwise, and every detector configuration the JAX Pipeline accepts
-  builds;
+  where it takes the shape (every F the Pallas scan takes, tiled above
+  MAX_RESIDENT: 1.6 and 3.2 GHz included), detect_fast otherwise, and
+  every detector configuration the JAX Pipeline accepts builds;
 - the port's Pipeline with detect_fast against the JAX Pipeline on the CPU
   (which resolves to detect_fast) on a capture whose bursts make
   same-frame secondary creations: the RAW lines equal field for field,
@@ -204,25 +204,66 @@ def test_scan_wherever_jax_runs_its_pallas_scan(cfg):
 
 def test_scan_refuses_above_a_cluster_of_16():
     """Above one cluster of 16 blocks (F > 262144) the kernel runs as a
-    grid of clusters up to MAX_FFT: 400 and 800 MHz (F = 524288 and
-    1048576), which the JAX package runs through its Pallas scan, resolve
-    to the kernel. 1.6 GHz (F = 2097152), which the Pallas scan takes too,
-    is above MAX_FFT: `auto` resolves it to detect_fast and asking for the
-    kernel raises."""
-    for rate, F in ((400_000_000, 524288), (800_000_000, 1048576)):
-        jp = JaxDetConfig(sample_rate=rate).derived()
-        pp = DetectorConfig(sample_rate=rate).derived()
+    grid of clusters up to MAX_RESIDENT (400 and 800 MHz: F = 524288 and
+    1048576) and above it as a grid of tiled blocks (1.6 GHz: F = 2097152,
+    2 tiles a block; 3.2 GHz: F = 4194304, 3): every one of them, which
+    the JAX package runs through its Pallas scan, resolves to the kernel,
+    and so does asking for it, at 1,024 frames a block and at 1.6 and 3.2
+    GHz at 256. At their default 1,024 frames those two are blocks of 2^31
+    and 2^32 samples, past the kernel's int32 positions: `auto` gives
+    detect_fast there, and asking for the kernel raises."""
+    for rate, F, tiles, frames in ((400_000_000, 524288, 1, 1024),
+                                   (800_000_000, 1048576, 1, 1024),
+                                   (1_600_000_000, 2097152, 2, 256),
+                                   (3_200_000_000, 4194304, 3, 256)):
+        jp = JaxDetConfig(sample_rate=rate, frames_per_block=frames).derived()
+        pp = DetectorConfig(sample_rate=rate,
+                            frames_per_block=frames).derived()
         assert pp.fft_size == jp.fft_size == F and detect_pallas.supports(jp)
-        assert detect_scan.supports(pp)
+        assert detect_scan.supports(pp) and detect_scan.tiles(F) == tiles
         assert detect_scan.resolve_impl(pp) == "scan"
         assert detect_scan.resolve_impl(pp, "scan") == "scan"
-    jp = JaxDetConfig(sample_rate=1_600_000_000).derived()
-    pp = DetectorConfig(sample_rate=1_600_000_000).derived()
-    assert pp.fft_size == jp.fft_size > detect_scan.MAX_FFT
-    assert detect_pallas.supports(jp) and not detect_scan.supports(pp)
-    assert detect_scan.resolve_impl(pp) == "fast"
-    with pytest.raises(ValueError):
-        detect_scan.resolve_impl(pp, "scan")
+        if frames < 1024:
+            dflt = DetectorConfig(sample_rate=rate).derived()
+            assert dflt.block_samples >= 2**31
+            assert not detect_scan.supports(dflt)
+            assert detect_scan.resolve_impl(dflt) == "fast"
+            with pytest.raises(ValueError):
+                detect_scan.resolve_impl(dflt, "scan")
+
+
+@pytest.mark.parametrize("rate", [1_600_000_000, 3_200_000_000])
+@pytest.mark.parametrize("cfg", [
+    dict(), dict(frames_per_block=256), dict(frames_per_block=16,
+                                             history_size=16),
+    dict(frames_per_block=100), dict(history_size=2, frames_per_block=64),
+    dict(frames_per_block=16, gone_capacity=16 * 24 + 1),
+    dict(frames_per_block=16, history_size=1)])
+def test_resolve_agrees_with_pallas_above_the_resident_grid(rate, cfg):
+    """At 1.6 and 3.2 GHz (tiled) `resolve_impl("auto")` takes the kernel
+    wherever `detect_pallas.supports` takes the shape, and also where only
+    its chunk rules refuse it (frames_per_block 100, a history of 2, as at
+    every F); a gone table larger than the emission caps can fill, or a
+    history of one row, goes to detect_fast on both sides. The one shape
+    the Pallas scan takes and the kernel does not is a block of 2^31
+    samples or more (the default 1,024 frames: 2^31 and 2^32 samples),
+    past the kernel's int32 positions: it goes to detect_fast, and asking
+    for the kernel raises, so that a Pipeline refuses it when it is
+    made."""
+    jp = JaxDetConfig(sample_rate=rate, **cfg).derived()
+    pp = DetectorConfig(sample_rate=rate, **cfg).derived()
+    assert pp.fft_size == jp.fft_size > detect_scan.MAX_RESIDENT
+    pallas = detect_pallas.supports(jp)
+    fits = pp.block_samples < 2**31
+    kernel = (pp.history_size >= 2 and fits
+              and pp.gone_capacity <= pp.frames_per_block * (8 + 16))
+    assert detect_scan.supports(pp) == kernel
+    assert not pallas or detect_scan.supports(pp) or not fits
+    assert fits == bool(cfg)
+    assert detect_scan.resolve_impl(pp) == ("scan" if kernel else "fast")
+    if not kernel:
+        with pytest.raises(ValueError):
+            detect_scan.resolve_impl(pp, "scan")
 
 
 def test_fast_pipeline_matches_jax_pipeline():

@@ -164,3 +164,30 @@ def test_rotate_decimate_by_ramp_period(F, L):
         y.reshape(2 * B, 1, L), taps.reshape(1, 1, -1),
         stride=decim).reshape(2, B, -1)[:, :, :n_out]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("per_slice", [1, 3, 4])
+def test_class_gathers_windows_in_slices(monkeypatch, per_slice):
+    """A class batch of the gather path whose windows would gather more
+    than GATHER_BYTES at once runs in slices of windows (the 1.6 GHz large
+    class: 24 windows of 180 M samples), each gathered, rotated and
+    filtered alone, so that the rotation's temporaries are bounded too:
+    bit-equal to the batch at once, in slices of one window, and of
+    several windows that do and do not divide the batch."""
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.runtime import pipeline as pl
+    pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
+                       device="cpu", burst_batch=8)
+    cls = pipe.classes[0]
+    assert not cls.fused and cls.batch >= 8
+    rng = np.random.default_rng(5)
+    n = 4 * cls.l_win
+    planes = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32))
+    starts2 = torch.from_numpy(np.stack([
+        rng.integers(0, (n - cls.l_win) // wg.ALIGN, cls.batch),
+        rng.integers(0, cls.decim, cls.batch)], 1).astype(np.int32))
+    ks = torch.from_numpy(rng.integers(-500, 500, cls.batch).astype(np.int32))
+    whole = cls._gather_rotate(planes, starts2, ks)
+    monkeypatch.setattr(pl, "GATHER_BYTES", per_slice * 8 * cls.l_win)
+    sliced = cls._gather_rotate(planes, starts2, ks)
+    assert torch.equal(sliced[0], whole[0]) and torch.equal(sliced[1], whole[1])

@@ -95,6 +95,37 @@ def test_window_gather_bit_exact(dev, n, starts, l_win):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("per_slice", [1, 3])
+def test_class_gather_in_slices_matches_whole_batch(dev, monkeypatch,
+                                                    per_slice):
+    """A gather-path class batch gathered, rotated and filtered in slices
+    of windows (`pipeline.GATHER_BYTES`, which bounds the rotation's
+    temporaries) on the card: one window-gather launch a slice, and within
+    1e-5 of the whole batch at once (the convolution may pick another
+    algorithm for another batch size)."""
+    from iridium_tpu_torch.runtime import pipeline as pl
+    pipe = pl.Pipeline(det_cfg=DetectorConfig(sample_rate=1_000_000),
+                       device=dev, burst_batch=8)
+    cls = pipe.classes[0]
+    assert not cls.fused and cls.batch >= 8
+    rng = np.random.default_rng(5)
+    n = 4 * cls.l_win
+    planes = _planes(n, 5, dev)
+    starts2 = torch.from_numpy(np.stack([
+        rng.integers(0, (n - cls.l_win) // wg.ALIGN, cls.batch),
+        rng.integers(0, cls.decim, cls.batch)], 1).astype(np.int32)).to(dev)
+    ks = torch.from_numpy(rng.integers(-500, 500, cls.batch).astype(
+        np.int32)).to(dev)
+    whole = cls._gather_rotate(planes, starts2, ks)
+    monkeypatch.setattr(pl, "GATHER_BYTES", per_slice * 8 * cls.l_win)
+    before = _kernels.WINDOW_GATHER.launches
+    sliced = cls._gather_rotate(planes, starts2, ks)
+    assert _kernels.WINDOW_GATHER.launches - before == \
+        -(-cls.batch // per_slice)
+    for a, b in zip(sliced, whole):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
 def test_fused_frontend_matches_plain(dev):
     F, D, l_win = 512, 8, 2 * wg.ALIGN
     planes = _planes(l_win + 4 * wg.ALIGN, 2, dev)
@@ -428,45 +459,113 @@ def test_detect_scan_cluster_of_16_launch_attribute(dev):
     sets cudaFuncAttributeNonPortableClusterSizeAllowed, with which the
     card holds at least one such cluster of the kernel's blocks (227 KB of
     shared memory each, one an SM); so do clusters of 2 to 8. At 400 and
-    800 MHz it holds every cluster of the kernel's grid at once."""
+    800 MHz it holds every cluster of the kernel's grid at once, and at 1.6
+    and 3.2 GHz every cluster of the tiled grid (7 clusters of 16)."""
     for F in (32768, 65536, 131072, 262144):
         assert detect_scan.max_active_clusters(F) >= 1, F
     assert detect_scan.layout(262144)[0] == 16
     for F in (524288, 1048576):
         assert detect_scan.max_active_clusters(F) >= \
             detect_scan.grid_clusters(F) == 4, F
+    for F in (2097152, 4194304):
+        assert detect_scan.tiles(F) > 1
+        assert detect_scan.max_active_clusters(F) >= \
+            detect_scan.grid_clusters(F) == detect_scan.MAX_GRID, F
+
+
+# tiled layouts (C, FB, T, BPT, N, K) at 131,072 bins, in place of the
+# resident one: one cluster of 16 blocks of 2 tiles of 4,096 bins; 2
+# clusters of 2 tiles of 2,048; 3 tiles of 2,816 bins a block, the last
+# tile of the grid empty and the one before it short; 512 tiles of 16 bins
+# (one live thread a tile), so that a mask window (half_bw 26 bins)
+# reaches over more than one tile on either side
+TILED_AT_131072 = [(16, 4096, 256, 16, 1, 2), (16, 2048, 128, 16, 2, 2),
+                   (16, 2816, 192, 16, 1, 3), (16, 16, 32, 16, 1, 512)]
+
+
+@pytest.mark.parametrize("lay", TILED_AT_131072,
+                         ids=[f"N{n}K{k}FB{fb}"
+                              for _, fb, _, _, n, k in TILED_AT_131072])
+def test_detect_scan_tiled_matches_plain(dev, monkeypatch, lay):
+    """The tiled kernel (the layout of every F above MAX_RESIDENT) at 100
+    MHz with the layout forced to tiles: bit-equal to the plain scan on
+    `exp_scan.cluster_edge_spectrogram`'s rows (a tie and a dilation
+    across every tile edge, bursts beside the DC notch, the squelch comb)
+    from a fresh state, then on a bursty block (a long burst: the forced
+    noise update) from the state the first left."""
+    p = DetectorConfig(sample_rate=100_000_000, history_size=16,
+                       frames_per_block=128, max_bursts=20).derived()
+    assert p.fft_size == 131072
+    monkeypatch.setattr(detect_scan, "layout", lambda F: lay)
+    nv = p.block_samples
+    s = st.init_state(p, dev)
+    edge = torch.from_numpy(exp_scan.cluster_edge_spectrogram(p, seed=11))
+    for k, mag2 in enumerate((edge.to(dev), _bursty_spectrogram(p, dev, 3))):
+        before = _kernels.DETECT_SCAN.launches
+        got = detect_scan.scan(mag2, s, nv, p)
+        assert _kernels.DETECT_SCAN.launches == before + 1
+        want = detect_scan.scan_plain(mag2, s, nv, p)
+        exp_scan.compare(got, want)
+        if k == 0:
+            assert int(got.burst_dropped) > 0
+        s = want
+        st.rebase_(s, nv)
+    assert int(s.n_tagged) > 40
 
 
 def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
     """400 and 800 MHz (F = 524288 and 1048576) run on the kernel's grid of
-    clusters. Above MAX_FFT (1.6 GHz, F = 2097152) `scan` raises and
-    `auto` resolves to detect_fast. A grid the card cannot hold at once (9
-    clusters of 16 blocks of one SM each: 144 SMs; 8 clusters of 16 ring
-    blocks: 128 blocks, which fit the SM count but not the placement of
-    clusters) and a layout the C side refuses (a cluster of 32) raise
-    before anything runs, and nothing runs in their place."""
-    for rate in (400_000_000, 800_000_000):
+    clusters, 1.6 GHz (F = 2097152) on its tiled grid: `auto` resolves
+    each to the kernel, and at 1.6 GHz (16 frames, history 16) the kernel
+    is bit-equal to the plain scan. A block of 2^31 samples (1.6 GHz at
+    1,024 frames), past the kernel's int32 positions, resolves to
+    detect_fast, and the kernel raises on it. A grid the card
+    cannot hold at once (9 clusters of 16 blocks of one SM each: 144 SMs;
+    8 clusters of 16 ring blocks: 128 blocks, which fit the SM count but
+    not the placement of clusters) and a layout the C side refuses (a
+    cluster of 32) raise before anything runs, and nothing runs in their
+    place."""
+    for rate in (400_000_000, 800_000_000, 1_600_000_000):
         p = DetectorConfig(sample_rate=rate, history_size=16,
                            frames_per_block=16, gone_capacity=64).derived()
         assert detect_scan.supports(p)
         assert detect_scan.resolve_impl(p) == "scan"
         assert detect_scan.resolve_impl(p, "scan") == "scan"
-    big = DetectorConfig(sample_rate=1_600_000_000, history_size=16,
-                         frames_per_block=16, gone_capacity=64).derived()
-    assert big.fft_size > detect_scan.MAX_FFT
-    assert not detect_scan.supports(big)
-    assert detect_scan.resolve_impl(big) == "fast"
-    with pytest.raises(ValueError):
-        detect_scan.resolve_impl(big, "scan")
-    with pytest.raises(ValueError):
-        detect_scan.scan(torch.ones((16, big.fft_size), device=dev),
-                         st.init_state(big, dev), big.block_samples, big)
+    big = p
+    assert big.fft_size == 2097152 and detect_scan.tiles(big.fft_size) == 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    s = st.init_state(big, dev)
     before = _kernels.DETECT_SCAN.launches
+    # a noise block that primes the history, then 3-bin bursts across the
+    # first tile edge and the first block edge
+    for k in range(2):
+        mag2 = torch.empty((16, big.fft_size), device=dev).exponential_(
+            generator=gen)
+        if k:
+            mag2[2:9, 9375:9378] += 500.0
+            mag2[4:12, 2 * 9376 - 2:2 * 9376 + 1] += 500.0
+        got = detect_scan.scan(mag2, s, big.block_samples, big)
+        want = detect_scan.scan_plain(mag2, s, big.block_samples, big)
+        exp_scan.compare(got, want)
+        s = want
+        st.rebase_(s, big.block_samples)
+    assert _kernels.DETECT_SCAN.launches == before + 2
+    assert int(got.n_tagged) + int(got.a_valid.sum()) >= 2
+    del mag2, got, want, s
+    wide = DetectorConfig(sample_rate=1_600_000_000, history_size=16,
+                          gone_capacity=64).derived()
+    assert wide.block_samples == 2**31 and not detect_scan.supports(wide)
+    assert detect_scan.resolve_impl(wide) == "fast"
+    before = _kernels.DETECT_SCAN.launches
+    with pytest.raises(ValueError):
+        detect_scan.scan(torch.ones((1, 1), device=dev),
+                         st.init_state(big, dev), wide.block_samples, wide)
     q = DetectorConfig(sample_rate=800_000_000, history_size=16,
                        frames_per_block=16, gone_capacity=64).derived()
     F = q.fft_size
     # cudaErrorCooperativeLaunchTooLarge, by block count and by placement
-    for lay in ((16, 7296, 480, 16, 9), (16, 8192, 1024, 8, 8)):
+    for lay in ((16, 7296, 480, 16, 9, 1), (16, 8192, 1024, 8, 8, 1)):
         monkeypatch.setattr(detect_scan, "layout", lambda F, lay=lay: lay)
         assert detect_scan.max_active_clusters(F) < lay[4], lay
         with pytest.raises(RuntimeError, match="CUDA error 720:"):
@@ -475,7 +574,7 @@ def test_detect_scan_refuses_what_it_cannot_take(dev, monkeypatch):
     r = DetectorConfig(sample_rate=50_000_000, history_size=16,
                        frames_per_block=16, gone_capacity=64).derived()
     monkeypatch.setattr(detect_scan, "layout",
-                        lambda F: (32, F // 32, 128, 16, 1))
+                        lambda F: (32, F // 32, 128, 16, 1, 1))
     with pytest.raises(RuntimeError):
         detect_scan.scan(torch.ones((16, r.fft_size), device=dev),
                          st.init_state(r, dev), r.block_samples, r)

@@ -1,6 +1,7 @@
-"""The scan kernel's grid of clusters (F > 262,144: 400-800 MHz) on the
-CPU: its layout (`detect_scan.layout`'s fifth field, N clusters of 16
-blocks) owns every bin once, and the port's 400 MHz Pipeline, whose scan
+"""The scan kernel's grid of clusters (F > 262,144: 400-800 MHz) and its
+tiled grid (F > 1,835,008: 1.6 GHz and up) on the CPU: its layout
+(`detect_scan.layout`'s fifth and sixth fields, N clusters of 16 blocks
+of K tiles) owns every bin once, and the port's 400 MHz Pipeline, whose scan
 resolves to the kernel (`scan_plain` on the CPU), gives the JAX
 Pipeline's RAW lines.
 
@@ -41,38 +42,57 @@ WIDE = dict(sample_rate=400_000_000, frames_per_block=16, history_size=16,
 
 
 @pytest.mark.parametrize("F", [262272, 270336, 393216, 524288, 917504,
-                               917632, 1048576, 1835008])
+                               917632, 1048576, 1835008, 1835136, 2097152,
+                               3000064, 4194304])
 def test_grid_layout_gives_every_bin_one_thread(F):
     """Above one cluster: N clusters of 16 blocks, of at most 8,192 bins
     (8 a thread) up to 7 clusters (917,504), of at most 16,384 (16 a
-    thread) above, up to MAX_FFT; walked thread by thread, every bin is
-    one thread's, every block holds bins, and the block edges fall where
-    the layout says."""
-    C, FB, T, BPT, N = detect_scan.layout(F)
+    thread) above, up to MAX_RESIDENT; above it (1,835,136: the first F
+    above; 1.6 GHz; 3,000,064; 3.2 GHz) 7 clusters of 16 blocks of K >= 2
+    tiles of at most 16,384 bins, 16 a thread. Walked thread by thread,
+    every bin is one thread's, every block and every tile holds bins, a
+    block's tiles are contiguous and ascending, and the tiles' edges fall
+    where the layout says."""
+    C, FB, T, BPT, N, K = detect_scan.layout(F)
     assert C == 16 and 3 <= N <= detect_scan.MAX_GRID
-    assert (BPT, FB <= 8192) == ((8, True) if F <= 917504 else (16, False))
+    assert (K > 1) == (F > detect_scan.MAX_RESIDENT)
+    assert K == 1 or (N == detect_scan.MAX_GRID and BPT == 16
+                      and FB <= detect_scan.BLOCK_BINS
+                      and K == -(-F // detect_scan.MAX_RESIDENT))
+    if K == 1:
+        assert (BPT, FB <= 8192) == ((8, True) if F <= 917504
+                                     else (16, False))
     assert T % 32 == 0 and FB <= T * BPT < FB + 32 * BPT
     own = owners(F)
     assert (own >= 0).all()
     assert sorted(set(own[:, 0])) == list(range(N * C))
-    assert detect_scan.block_edges(F) == [r * FB for r in range(1, N * C)]
-    assert detect_scan.grid_clusters(F) == N
+    assert sorted(set(own[:, 2])) == list(range(N * C * K))
+    # bins ascend with the tile, and a block's tiles are its K in a row
+    assert (np.diff(own[:, 2]) >= 0).all()
+    assert (own[:, 2] // K == own[:, 0]).all()
+    assert detect_scan.block_edges(F) == [t * FB for t in range(1, N * C * K)]
+    assert detect_scan.grid_clusters(F) == N and detect_scan.tiles(F) == K
     assert detect_scan.grid_words(detect_scan.layout(F)) == \
-        32 + 8 * N + N * C + (N * C * FB + 1) // 2
+        32 + 8 * N + N * C * K + (N * C * K * FB + 1) // 2
+    assert detect_scan.tile_words(detect_scan.layout(F)) == \
+        (4 * N * C * K * T if K > 1 else 1)
 
 
 def test_grid_layouts_at_400_and_800_mhz():
     """400 MHz: 4 clusters of 16 ring blocks of 8,192 bins; 800 MHz: 4
-    clusters of 16 wide blocks of 16,384; one cluster below; nothing above
-    MAX_FFT (7 clusters of 16 wide blocks)."""
-    assert detect_scan.layout(524288) == (16, 8192, 1024, 8, 4)
-    assert detect_scan.layout(1048576) == (16, 16384, 1024, 16, 4)
-    assert detect_scan.layout(262144) == (16, 16384, 1024, 16, 1)
-    assert detect_scan.MAX_FFT == 7 * 16 * 16384
+    clusters of 16 wide blocks of 16,384; one cluster below; above
+    MAX_RESIDENT (7 clusters of 16 wide blocks) the tiled grid: 1.6 GHz 7
+    clusters of 16 blocks of 2 tiles of 9,376 bins (608 threads), 3.2 GHz
+    of 3 tiles of 12,496 (800 threads)."""
+    assert detect_scan.layout(524288) == (16, 8192, 1024, 8, 4, 1)
+    assert detect_scan.layout(1048576) == (16, 16384, 1024, 16, 4, 1)
+    assert detect_scan.layout(262144) == (16, 16384, 1024, 16, 1, 1)
+    assert detect_scan.MAX_RESIDENT == 7 * 16 * 16384
     assert detect_scan.grid_words(detect_scan.layout(262144)) == 1
-    for F in (detect_scan.MAX_FFT + 128, 2097152):
-        with pytest.raises(ValueError):
-            detect_scan.layout(F)
+    assert detect_scan.layout(detect_scan.MAX_RESIDENT) == \
+        (16, 16384, 1024, 16, 7, 1)
+    assert detect_scan.layout(2097152) == (16, 9376, 608, 16, 7, 2)
+    assert detect_scan.layout(4194304) == (16, 12496, 800, 16, 7, 3)
 
 
 def wideband_capture(p, seed=5):
@@ -125,3 +145,4 @@ def test_400mhz_pipeline_matches_jax():
                    for f in frames)
     assert pipe.stats.n_detected == jpipe.stats.n_detected
     assert pipe.stats.n_ok == jpipe.stats.n_ok
+

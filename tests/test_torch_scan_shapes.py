@@ -30,25 +30,27 @@ POW2 = {1 << k for k in range(7, 19)}
 
 
 def owners(F: int) -> np.ndarray:
-    """(F, 2) [block, thread] of every bin under `layout(F)`, walked from
-    the threads' side: each thread of each block (of every cluster of the
-    grid) lists its BPT bins."""
-    C, FB, T, BPT, N = detect_scan.layout(F)
-    own = np.full((F, 2), -1)
+    """(F, 3) [block, thread, tile] of every bin under `layout(F)`, walked
+    from the threads' side: each thread of each block (of every cluster
+    of the grid) lists its BPT bins of each of the block's K tiles (tile
+    counted across the grid)."""
+    C, FB, T, BPT, N, K = detect_scan.layout(F)
+    own = np.full((F, 3), -1)
     for r in range(N * C):
-        lo, hi = r * FB, min((r + 1) * FB, F)
-        for t in range(T):
-            b0 = lo + t * BPT
-            if b0 >= hi:
-                continue
-            assert b0 + BPT <= hi, (F, r, t)
-            assert (own[b0:b0 + BPT] == -1).all(), (F, r, t)
-            own[b0:b0 + BPT] = (r, t)
+        for t in range(r * K, (r + 1) * K):
+            lo, hi = t * FB, min((t + 1) * FB, F)
+            for i in range(T):
+                b0 = lo + i * BPT
+                if b0 >= hi:
+                    continue
+                assert b0 + BPT <= hi, (F, r, t, i)
+                assert (own[b0:b0 + BPT] == -1).all(), (F, r, t, i)
+                own[b0:b0 + BPT] = (r, i, t)
     return own
 
 
 def test_layout_at_every_multiple_of_128():
-    """Every F = 128 k up to MAX_FFT (1,835,008): C in {1, 2, 4, 8, 16} (a
+    """Every F = 128 k up to MAX_RESIDENT (1,835,008): C in {1, 2, 4, 8, 16} (a
     cluster only above 8,192 bins: blocks of at most 8,192 bins, 8 a
     thread, up to 131,072; above it 16 blocks of 16 bins a thread; above
     262,144 a grid of N = 3-7 clusters of 16 blocks, of 8 bins a thread up
@@ -56,8 +58,9 @@ def test_layout_at_every_multiple_of_128():
     fewer than a warp of them idle, and the blocks' bins covering [0, F)
     with none left empty. (Whether a block's shared memory fits is the C
     entry's check; the card tests launch the largest layouts.)"""
-    for F in range(128, detect_scan.MAX_FFT + 1, 128):
-        C, FB, T, BPT, N = detect_scan.layout(F)
+    for F in range(128, detect_scan.MAX_RESIDENT + 1, 128):
+        C, FB, T, BPT, N, K = detect_scan.layout(F)
+        assert K == 1, F
         assert C in (1, 2, 4, 8, 16) and (C == 1) == (F <= 8192), F
         assert (N > 1) == (F > 262144) and N <= detect_scan.MAX_GRID, F
         assert N == 1 or C == 16, F
@@ -71,14 +74,15 @@ def test_layout_at_every_multiple_of_128():
         if F in POW2 and 1024 <= F <= 8192:
             # the power-of-two sizes keep 1,024 threads (10 MHz: 8 bins)
             assert (C, T, BPT) == (1, 1024, F // 1024)
-    assert detect_scan.layout(16384) == (2, 8192, 1024, 8, 1)
-    assert detect_scan.layout(32768) == (4, 8192, 1024, 8, 1)
-    assert detect_scan.layout(65536) == (8, 8192, 1024, 8, 1)
-    assert detect_scan.layout(131072) == (16, 8192, 1024, 8, 1)
-    assert detect_scan.layout(262144) == (16, 16384, 1024, 16, 1)
-    assert detect_scan.layout(524288) == (16, 8192, 1024, 8, 4)
-    assert detect_scan.layout(1048576) == (16, 16384, 1024, 16, 4)
-    for F in (0, 100, 1000, detect_scan.MAX_FFT + 128):
+    assert detect_scan.layout(16384) == (2, 8192, 1024, 8, 1, 1)
+    assert detect_scan.layout(32768) == (4, 8192, 1024, 8, 1, 1)
+    assert detect_scan.layout(65536) == (8, 8192, 1024, 8, 1, 1)
+    assert detect_scan.layout(131072) == (16, 8192, 1024, 8, 1, 1)
+    assert detect_scan.layout(262144) == (16, 16384, 1024, 16, 1, 1)
+    assert detect_scan.layout(524288) == (16, 8192, 1024, 8, 4, 1)
+    assert detect_scan.layout(1048576) == (16, 16384, 1024, 16, 4, 1)
+    assert detect_scan.tiles(detect_scan.MAX_RESIDENT + 128) == 2
+    for F in (0, 100, 1000, detect_scan.MAX_RESIDENT + 64):
         with pytest.raises(ValueError):
             detect_scan.layout(F)
 
@@ -93,8 +97,8 @@ def test_layout_gives_every_bin_one_thread(F):
     16,256)."""
     own = owners(F)
     assert (own >= 0).all()
-    C, FB, T, BPT, N = detect_scan.layout(F)
-    assert N == 1
+    C, FB, T, BPT, N, K = detect_scan.layout(F)
+    assert N == K == 1
     assert detect_scan.block_edges(F) == [r * FB for r in range(1, C)]
     assert sorted(set(own[:, 0])) == list(range(C))
 

@@ -42,7 +42,8 @@ def test_probed_source_turns_every_marker_into_a_probe():
     assert "// phase:" not in probed
     for i in range(1, len(names)):
         assert f"PHASE_PROBE({i});" in probed
-    assert probed.count("long long pt_ = clock64();") == 1
+    # one `begin` a kernel: the resident scan and the tiled one
+    assert probed.count("long long pt_ = clock64();") == 2
     assert 'extern "C" int detect_scan_phases(' in probed
 
 
@@ -80,6 +81,34 @@ def test_scan_configs_per_fft_size():
             ] == [1, 2, 4, 8, 16, 16]
     with pytest.raises(ValueError):
         exp_scan.cluster_edge_spectrogram(exp_scan.production_params(), 1)
+
+
+def test_spill_table_names_every_instantiation():
+    """`exp_scan.spill_table` keys `ptxas -v`'s lines by the kernel they
+    follow: the resident kernel's instantiations by their template
+    arguments, the tiled kernel (no template) by its own name, and no
+    kernel's figures land under the one before it."""
+    ns = "_ZN12_GLOBAL__N_1"
+    lines = [
+        f"ptxas info    : Compiling entry function '{ns}18detect_scan_kernel"
+        f"ILi8ELi16ELb1EEEvNS_5StateENS_6ParamsEi' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ns}18detect_scan_kernel"
+        f"ILi8ELi16ELb1EEEvNS_5StateENS_6ParamsEi",
+        "    112 bytes stack frame, 112 bytes spill stores, 120 bytes spill "
+        "loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{ns}17detect_scan_tiled"
+        f"ENS_5StateENS_6ParamsEiP5uint4' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ns}17detect_scan_tiled"
+        f"ENS_5StateENS_6ParamsEiP5uint4",
+        "    148 bytes stack frame, 148 bytes spill stores, 104 bytes spill "
+        "loads",
+        "ptxas info    : Used 64 registers, used 1 barriers"]
+    assert exp_scan.spill_table(lines) == {
+        "BPT=8,C=16,grid": dict(spill_stores=112, spill_loads=120,
+                                registers=64),
+        "BPT=16,C=16,tiled": dict(spill_stores=148, spill_loads=104,
+                                  registers=64)}
 
 
 def test_probed_source_of_the_fused_frontend():
