@@ -15,9 +15,11 @@ Phases, each printing one line:
      small-normal batch, the 25 MHz small-normal and large batches and
      the 400 MHz decode's three, with fine shifts up to the decimation;
      the block gather single-call and chained, at R = 64, 128, 256; the
-     demod loop at the three 10 MHz class batches and the 400 MHz
-     decode's three in both modes, through `tools/exp_demod.py`, beside
-     the plain loop eager and captured as a CUDA graph);
+     demod loop at the three 10 MHz class batches and the 400 MHz and
+     1.6 GHz decodes' three in both modes, through `tools/exp_demod.py`,
+     bit-equal or not with the first symbol that parts, ns a symbol step
+     beside the chain bound (`tools/sass_chain.py`), beside the plain
+     loop eager and captured as a CUDA graph);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
      reader; no LLRs) and
@@ -98,10 +100,10 @@ Phases, each printing one line:
      window gather (the large class two windows at a time), every payload
      comes back bit-exact; wall, realtime, stages, peak device memory,
      class shapes; then the scan kernel on one of the warm-up decode's
-     own blocks (256 x 2,097,152, its primed state), the window gather at
-     the large class's window length (4 windows of 180 M samples) and the
-     demod loop at the decode's batches, held to their plain versions (in
-     the `kernels` line);
+     own blocks (256 x 2,097,152, its primed state) and the window gather
+     at the large class's window length (4 windows of 180 M samples),
+     held to their plain versions (in the `kernels` line); the decode's
+     demod loop batches must be those phase 2 held;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
@@ -392,25 +394,34 @@ def check_block_gather(dev, card: str) -> dict:
 
 def check_demod(dev, card: str) -> dict:
     """The demod loop kernel at the three class batches of the 10 MHz group
-    program (1,024 x 1,918 x 205; 96 and 48 x 4,440 x 471) and of the 400
-    MHz decode's (at WIDE_400_RUN), both modes, on
+    program (1,024 x 1,918 x 205; 96 and 48 x 4,440 x 471), of the 400
+    MHz decode's (at WIDE_400_RUN) and of the 1.6 GHz decode's (256 frames
+    a block, WIDE_1600_RUN), both modes, on
     `tools/exp_demod.py`'s bursts (random lengths, 0, 1, 3, 4 and L among
     them; residual CFO; noise): held to `loop_plain` and, through
     `Demod.decide`, the demodulator's fields to those on `loop_plain`'s
-    output (`exp_demod.compare_loop`, `compare_demod`); timed single-call
-    and chained beside the plain loop eager and, in Gardner mode, the plain
-    loop captured as a CUDA graph (nodes, capture s, replay ms; 10 MHz
-    only). The row reports the 10 MHz small-normal batch in Gardner mode,
-    `detail` all twelve."""
+    output (`exp_demod.compare_loop`, `compare_demod`), each row with
+    `bit_equal` and the first symbol where a burst parts (`first_diff`,
+    -1 when none does); timed single-call and chained (`ns_per_step`)
+    beside the chain bound of a symbol step (`chain_ns`, `chain_bound_ms`:
+    `tools/sass_chain.py`), the plain loop eager and, in Gardner mode, the
+    plain loop captured as a CUDA graph (nodes, capture s, replay ms; 10
+    MHz only). The row reports the 10 MHz small-normal batch in Gardner
+    mode, `detail` all eighteen, with the build's `ptxas -v` registers,
+    stack frame and spills per kernel function (`detail.ptxas`)."""
     import torch
+    from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.tools import exp_demod as tool
+    from iridium_tpu_torch.tools import sass_chain
 
+    lat = sass_chain.latencies(dev)
     per_shape = []
     for sh in tool.class_shapes():
-        per_shape += tool.run_shape(sh, dev)
+        per_shape += tool.run_shape(sh, dev, lat=lat)
         torch.cuda.empty_cache()
-    for sh in tool.class_shapes(400.0, **WIDE_400_RUN):
-        per_shape += tool.run_shape(sh, dev, graphs=False)
+    for sh in (tool.class_shapes(400.0, **WIDE_400_RUN)
+               + tool.class_shapes(1600.0, 256, **WIDE_1600_RUN)):
+        per_shape += tool.run_shape(sh, dev, graphs=False, lat=lat)
     row = per_shape[0]
     return dict(name="demod_loop", route="cuda",
                 source="iridium_tpu_torch/csrc/demod_loop.cu",
@@ -420,6 +431,9 @@ def check_demod(dev, card: str) -> dict:
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=None,
                 detail=dict(card=card, per_shape=per_shape,
+                            bit_equal=all(r["bit_equal"] for r in per_shape),
+                            latencies=lat,
+                            ptxas=tool.ptxas_summary(_kernels.DEMOD_LOOP),
                             products=tool.product_forms(dev)))
 
 
@@ -1885,19 +1899,19 @@ def wideband_1600_phase(dev, tmp) -> dict:
     gather (the large class in slices of windows) and not the fused
     front-end, and every injected payload comes back bit-exact. Wall,
     realtime factor, stages, peak device memory, class shapes and
-    launches. Then the scan kernel on the warm-up decode's block
-    WIDE_1600_CHECK_BLOCK (`check_decode_block`), the window gather at
-    the large class's window length
-    (WIDE_1600_GATHER_WINDOWS windows of the group's stream) and the demod
-    loop at the decode's three class batches, held to their plain
-    versions (in the `kernels` line)."""
+    launches, and the class batches of its demod loop (which `check_demod`
+    holds at the same batches). Then the scan kernel on the warm-up
+    decode's block WIDE_1600_CHECK_BLOCK (`check_decode_block`) and the
+    window gather at the large class's window length
+    (WIDE_1600_GATHER_WINDOWS windows of the group's stream), held to
+    their plain versions (in the `kernels` line)."""
     import gc
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect_scan
     from iridium_tpu_torch.runtime.pipeline import Pipeline
-    from iridium_tpu_torch.tools import captures, exp_demod
+    from iridium_tpu_torch.tools import captures
     from iridium_tpu_torch.tools import exp_window_gather as wg_tool
 
     path = os.path.join(tmp, "capture_1600mhz.ci8")
@@ -1954,10 +1968,8 @@ def wideband_1600_phase(dev, tmp) -> dict:
                         B=WIDE_1600_GATHER_WINDOWS, l_win=large.l_win,
                         decim=large.decim, n_stream=pipe.stream_len,
                         fused=False)
-    demod_shapes = [dict(rate_mhz=1600.0, shape=name, B=c.batch,
-                         L=c.downmix.max_frame_cap, S=c.demod.S,
-                         sps=c.demod.sps)
-                    for name, c in zip(exp_demod.CLASS_NAMES, pipe.classes)]
+    demod_batches = [[c.batch, c.downmix.max_frame_cap, c.demod.S]
+                     for c in pipe.classes]
     res = dict(phase="wideband_1600mhz", fft_size=p.fft_size,
                layout=list(detect_scan.layout(p.fft_size)),
                detect_impl=pipe.detect_impl, decimation=pipe.dmp.decimation,
@@ -1969,7 +1981,8 @@ def wideband_1600_phase(dev, tmp) -> dict:
                injected=len(bursts), missing=missing,
                payloads_bit_exact=len(bursts) - len(missing),
                detected=stats.n_detected, ok=stats.n_ok,
-               raw_lines=len(frames), stages=timing, launches=counts)
+               raw_lines=len(frames), stages=timing, launches=counts,
+               demod_batches=demod_batches)
     del pipe, frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -1979,9 +1992,7 @@ def wideband_1600_phase(dev, tmp) -> dict:
     res["kernel_rows"] = dict(
         detect_scan=[check_decode_block(kept, p, dev)],
         window_gather=wg_tool.run_shape(
-            gather_shape, dev, [("package", _kernels.WINDOW_GATHER)]),
-        demod_loop=[r for sh in demod_shapes
-                    for r in exp_demod.run_shape(sh, dev, graphs=False)])
+            gather_shape, dev, [("package", _kernels.WINDOW_GATHER)]))
     torch.cuda.empty_cache()
     return res
 
@@ -2116,17 +2127,21 @@ def main() -> int:
         wide = emit(wideband_phase(dev, tmp))
         w400 = emit(wideband_400_phase(dev, tmp))
         w1600 = emit(wideband_1600_phase(dev, tmp))
-    # the 1.6 GHz decode's scan, gather and demod-loop checks join the
-    # kernels'
+    # the 1.6 GHz decode's scan and gather checks join the kernels'; its
+    # demod loop batches are those check_demod held
+    dm_row = next(r for r in rows if r["name"] == "demod_loop")
+    held = {(r["B"], r["L"], r["S"]) for r in dm_row["detail"]["per_shape"]
+            if r["rate_mhz"] == 1600.0}
+    if {tuple(b) for b in w1600["demod_batches"]} != held:
+        return fail(f"the 1.6 GHz decode's demod batches "
+                    f"{w1600['demod_batches']} are not those held: {held}")
     for r in rows:
         extra = w1600["kernel_rows"].get(r["name"])
         if extra:
             r["detail"]["per_shape"] += extra
-        if r["name"] in ("demod_loop", "detect_scan") and extra:
-            key = ("out_max_abs_err" if r["name"] == "demod_loop"
-                   else "max_abs_err")
+        if r["name"] == "detect_scan" and extra:
             r["max_abs_err"] = max([r["max_abs_err"]]
-                                   + [e[key] for e in extra])
+                                   + [e["max_abs_err"] for e in extra])
     paths = (dec, gat, mesh, par, tool, den, ing, wide, w400, w1600)
     for r in rows:
         by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}

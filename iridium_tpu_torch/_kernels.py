@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -65,6 +65,8 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.h")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS + self.extra_flags).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -98,6 +100,15 @@ class Kernel:
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            # a source's one-time set-up (kernel attributes), run at load,
+            # before any graph capture
+            init = getattr(lib, f"{self.name}_init", None)
+            if init is not None:
+                init.restype = ctypes.c_int
+                code = init()
+                if code != 0:
+                    raise RuntimeError(f"{self.name}_init: CUDA error "
+                                       f"{code}: {err(code).decode()}")
             self._err, self._fn = err, fn
         return self._fn
 
@@ -156,7 +167,8 @@ BLOCK_GATHER = Kernel(
 
 DEMOD_LOOP = Kernel(
     "demod_loop",
-    [P, LL, P, I, I, F32, F32, I, I, P, P, P, P],
+    # ..., the plan (bursts, ring, chunk, threads), the outputs, the stream
+    [P, LL, P, I, I, F32, F32, I, I, I, I, I, I, P, P, P, P],
     # every product and sum rounded on its own, as the plain loop's
     # separate tensor operations round them
     extra_flags=("--fmad=false",))

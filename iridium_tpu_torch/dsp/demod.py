@@ -11,9 +11,9 @@ The two per-symbol loops (Gardner position tracking and the PLL), which
 the JAX package runs as one compiled `lax.scan` with (batch,) carries
 (`gardner_pll` :142-171, `gardner_pll_win` :193-230, `pll_only`
 :238-247), are `loop`: on a CUDA tensor one launch of
-csrc/demod_loop.cu (a thread per burst walks the symbols with its carry
-in registers), on a CPU tensor `loop_plain`, a Python loop over symbols on
-(B,) tensors. The sample reads are plain indexing (the JAX package's
+csrc/demod_loop.cu (a block of `plan`'s bursts: a warp walks the timing
+chain over rows staged in shared memory, a second warp the PLL), on a
+CPU tensor `loop_plain`, a Python loop over symbols on (B,) tensors. The sample reads are plain indexing (the JAX package's
 "gather" form); its static-window form existed only to avoid dynamic
 addressing on the TPU and gives the same values for every valid symbol.
 The rest of the demodulator (`Demod.decide`) is plain tensor code.
@@ -155,10 +155,65 @@ def loop_plain(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
     return _simple_pll(x, n_samp, sps, S)
 
 
+# the kernel's plan: csrc/demod_plan.h, whose constants these are
+SMEM_BYTES = 232_448     # the H100's shared memory a block can take
+SMS = 132                # the H100's SMs
+STEPS = 32               # symbol steps a handover chunk
+CHUNK = 512              # samples a bulk copy (a ring slot)
+MAX_RING = 8192          # samples of a burst's row ring
+MIN_RING = 2048          # the smallest ring: 4 slots
+THREADS = 64             # a producer warp and a PLL warp
+MAX_BURSTS = 32          # a lane of each warp a burst
+
+
+class Plan(NamedTuple):
+    bursts: int     # bursts a block
+    ring: int       # samples of each burst's row ring (0: --no-gardner)
+    chunk: int      # samples a bulk copy
+    threads: int
+    smem: int       # dynamic shared memory bytes
+
+
+def shared_bytes(bursts: int, ring: int, chunk: int) -> int:
+    """The rows' rings, two buffers of STEPS steps' symbols (8 bytes) and
+    flags (1) at a lane stride of bursts | 1, an mbarrier a ring slot."""
+    pad = bursts | 1
+    slots = ring // chunk if ring else 0
+    return 8 * bursts * ring + 2 * STEPS * pad * 9 + 8 * bursts * slots
+
+
+def plan(B: int, L: int, S: int, use_gardner: bool) -> Plan:
+    """The demod loop kernel's plan for B bursts of L samples and S
+    symbols, which its C entry checks (csrc/demod_plan.h computes the
+    same): a lane of each warp a burst, ceil(B / SMS) bursts a block (at
+    most 32), so that a batch spreads over the SMs; in Gardner mode each
+    burst's row in a ring of the least power of two samples that holds it,
+    at most MAX_RING (a longer row is walked through the ring, refilled
+    ahead), loaded in bulk copies of CHUNK samples; rings halved down to
+    MIN_RING, then bursts halved, while the block's shared memory is over
+    SMEM_BYTES."""
+    if L < 4 or L >= 2 ** 31:
+        raise ValueError(f"the demod loop kernel takes 4 <= L < 2^31 "
+                         f"samples (int32 positions), got L = {L}")
+    bursts = min(MAX_BURSTS, max(1, -(-B // SMS)))
+    ring = chunk = 0
+    if use_gardner:
+        ring = min(1 << (L - 1).bit_length(), MAX_RING)
+        chunk = min(CHUNK, ring)
+    while shared_bytes(bursts, ring, chunk) > SMEM_BYTES:
+        if ring > MIN_RING:
+            ring //= 2
+        else:
+            bursts //= 2
+    return Plan(bursts, ring, chunk, THREADS,
+                shared_bytes(bursts, ring, chunk))
+
+
 def loop(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
          use_gardner: bool):
     """`loop_plain`'s function: on a CPU tensor `loop_plain`, on a CUDA
-    tensor one launch of csrc/demod_loop.cu (or a raise)."""
+    tensor one launch of csrc/demod_loop.cu at `plan`'s plan (or a
+    raise)."""
     if x.device.type == "cpu":
         return loop_plain(x, n_samp, sps, S, use_gardner)
     dev = x.device
@@ -169,6 +224,13 @@ def loop(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
         raise ValueError(f"x must be (B, L) with L >= 4, got "
                          f"{tuple(x.shape)}")
     L = x.shape[1]
+    p = plan(B, L, S, use_gardner)
+    if S * (sps + 1.0) >= 2 ** 31:
+        raise ValueError(f"S = {S} symbols of {sps} samples: past the "
+                         "kernel's int32 positions")
+    if use_gardner and p.ring < L and not sps * 0.5 + 8 < p.chunk:
+        raise ValueError(f"sps = {sps}: a Gardner step reads past one ring "
+                         f"slot of {p.chunk} samples")
     out = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
     valid = torch.empty((B, S), dtype=torch.uint8, device=dev)
     total = torch.empty(B, dtype=torch.float32, device=dev)
@@ -176,7 +238,8 @@ def loop(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
         k = _kernels
         k.DEMOD_LOOP.launch(dev, k.ptr(x), L, k.ptr(n_samp), B, S,
                             float(sps), float(sps * 0.5), int(round(sps)),
-                            int(use_gardner), k.ptr(out), k.ptr(valid),
+                            int(use_gardner), p.bursts, p.ring, p.chunk,
+                            p.threads, k.ptr(out), k.ptr(valid),
                             k.ptr(total))
     return torch.view_as_complex(out), valid.view(torch.bool), total
 

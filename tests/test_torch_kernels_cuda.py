@@ -733,3 +733,94 @@ def test_demod_on_card_launches_the_kernel_only(dev, monkeypatch):
         demod.loop(x[:, ::2], n, 10.0, 205, True)
     with pytest.raises(ValueError):
         demod.loop(x, n.int(), 10.0, 205, True)
+
+
+def _bit_equal(got, want) -> dict:
+    res = exp_demod.compare_loop(got, want)
+    assert res["bit_equal"], res
+    return res
+
+
+# (B, L, S): odd L (rows not 16-byte aligned), a row of exactly one ring and
+# one just over (walked through a ring of 8,192 samples), a batch whose
+# rings shrink to 2,048 samples (7 bursts a block, rows of 4,441 refilled
+# slot by slot), B not a multiple of the plan's bursts a block, walks that
+# end long before S
+DEMOD_EDGES = [(37, 1917, 205), (5, 4441, 471), (3, demod.MAX_RING, 900),
+               (3, demod.MAX_RING + 1, 900), (4000, 4441, 471),
+               (133, 401, 40), (1030, 1918, 205), (9, 400, 200),
+               (1, 4, 8)]
+
+
+@pytest.mark.parametrize("use_gardner", [True, False],
+                         ids=["gardner", "no_gardner"])
+@pytest.mark.parametrize("B, L, S", DEMOD_EDGES)
+def test_demod_loop_bit_equal_at_edges(dev, use_gardner, B, L, S):
+    """The kernel bit-equal to `loop_plain` (output, flags, corrections)
+    at its plan's edges; `exp_demod.inputs` gives lengths 0, 3, 4, L and
+    1 to the first five bursts and the rest lengths in [L/4, L]."""
+    x, n, _ = _demod_inputs(dev, B=B, L=L, seed=B + L)
+    if B == 1:
+        n[0] = L
+    want = demod.loop_plain(x, n, 10.0, S, use_gardner)
+    before = _kernels.DEMOD_LOOP.launches
+    got = demod.loop(x, n, 10.0, S, use_gardner)
+    torch.cuda.synchronize()
+    assert _kernels.DEMOD_LOOP.launches == before + 1
+    _bit_equal(got, want)
+
+
+def test_demod_loop_unaligned_rows_and_lengths(dev):
+    """Rows that start 8 bytes past a 16-byte boundary (a view one sample
+    into its storage) and lengths 0, 1, 3, 4 and L on every burst, in
+    both modes, bit-equal."""
+    B, L, S = 40, 1001, 120
+    x, n, _ = _demod_inputs(dev, B=B + 1, L=L, seed=7)
+    flat = x.reshape(-1)[1:1 + B * L]
+    xs = flat.view(B, L)
+    assert xs.data_ptr() % 16 == 8
+    ns = torch.tensor([0, 1, 3, 4, L] * (B // 5), device=dev)
+    for use_gardner in (True, False):
+        _bit_equal(demod.loop(xs, ns, 10.0, S, use_gardner),
+                   demod.loop_plain(xs, ns, 10.0, S, use_gardner))
+
+
+@pytest.mark.parametrize("use_gardner", [True, False],
+                         ids=["gardner", "no_gardner"])
+def test_demod_loop_in_a_cuda_graph(dev, use_gardner):
+    """The kernel captured into a CUDA graph, one node, replayed twice on
+    new inputs copied into the captured ones: bit-equal each time."""
+    B, L, S = 37, 1918, 205
+    x, n, _ = _demod_inputs(dev, B=B, L=L, seed=3)
+    demod.loop(x, n, 10.0, S, use_gardner)        # loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        got = demod.loop(x, n, 10.0, S, use_gardner)
+    # one node: the kernel
+    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 1
+    g.instantiate()
+    for seed in (11, 12):
+        x2, n2, _ = _demod_inputs(dev, B=B, L=L, seed=seed)
+        x.copy_(x2)
+        n.copy_(n2)
+        g.replay()
+        torch.cuda.synchronize()
+        _bit_equal(got, demod.loop_plain(x, n, 10.0, S, use_gardner))
+
+
+def test_demod_loop_refuses_another_plan(dev):
+    """The C entry refuses any plan but `demod.plan`'s."""
+    x, n, _ = _demod_inputs(dev, B=5)
+    p = demod.plan(5, x.shape[1], 205, True)
+    out = torch.empty((5, 205, 2), device=dev)
+    valid = torch.empty((5, 205), dtype=torch.uint8, device=dev)
+    total = torch.empty(5, device=dev)
+    k = _kernels
+    for bad in (p._replace(bursts=p.bursts + 1), p._replace(ring=p.ring // 2),
+                p._replace(chunk=p.chunk // 2), p._replace(threads=32)):
+        with pytest.raises(RuntimeError):
+            k.DEMOD_LOOP.launch(dev, k.ptr(x), x.shape[1], k.ptr(n), 5, 205,
+                                10.0, 5.0, 10, 1, bad.bursts, bad.ring,
+                                bad.chunk, bad.threads, k.ptr(out),
+                                k.ptr(valid), k.ptr(total))

@@ -4,8 +4,9 @@ builds kernel variants (`tools/variants.py`), the phase probes of
 front-end tool `tools/exp_frontend.py` and the window-gather tool
 `tools/exp_window_gather.py` at their small CPU shapes, and the latter's
 shape table; the demod-loop tool `tools/exp_demod.py` at its small CPU
-shape, its shape table, inputs, checks and bound; the line comparison of
-the mesh tool `tools/exp_mesh.py`.
+shape, its shape table, inputs, checks, bound, adapter and `ptxas`
+summary; the SASS chain walk of `tools/sass_chain.py` on a made-up
+listing; the line comparison of the mesh tool `tools/exp_mesh.py`.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -295,3 +296,148 @@ def test_exp_demod_checks_catch_a_parting_burst():
     assert exp_demod.compare_demod(d, d)["llr_max_abs_err"] == 0.0
     with pytest.raises(AssertionError, match="bits"):
         exp_demod.compare_demod(d._replace(bits=1 - d.bits), d)
+
+
+def test_exp_demod_reports_bit_equality_and_first_diff():
+    """compare_loop's `bit_equal` and `first_diff` (the first symbol where
+    any burst parts), and the wideband decodes' batches."""
+    from iridium_tpu_torch.dsp import demod
+    x, n, _ = (torch.from_numpy(v) for v in
+               exp_demod.inputs(6, 400, 10.0, seed=8))
+    want = demod.loop_plain(x, n, 10.0, 40, True)
+    res = exp_demod.compare_loop(want, want)
+    assert res["bit_equal"] and res["first_diff"] == -1
+    out = torch.view_as_real(want[0].clone())
+    for b, t in ((5, 30), (1, 12)):       # one ulp of a real part
+        out[b, t, 0] = torch.nextafter(out[b, t, 0], torch.tensor(np.inf))
+    out = torch.view_as_complex(out)
+    res = exp_demod.compare_loop((out, want[1], want[2]), want)
+    assert not res["bit_equal"] and res["first_diff"] == 12
+    assert res["parted"] == [[1, 12], [5, 30]]
+    total = want[2].clone()
+    total[0] += 1e-7
+    assert not exp_demod.compare_loop((want[0], want[1], total),
+                                      want)["bit_equal"]
+    # a probe's output is compared, not held to the limits
+    out[1, 12] += 1.0
+    assert exp_demod.compare_loop((out, want[1], want[2]), want,
+                                  check=False)["n_parted"] == 2
+    assert exp_demod.decode_shapes(10.0) == exp_demod.class_shapes()
+
+
+ONE_THREAD_ENTRY = '''extern "C" int demod_loop(const float2* x, long long L,
+                          const long long* n_samp, int B, int S, float sps,
+                          float half, int isps, int gardner, float2* out,
+                          unsigned char* valid, float* total,
+                          cudaStream_t stream) {
+  return 0;
+}
+'''
+
+
+def test_exp_demod_adapts_an_unplanned_entry():
+    """A source whose entry takes no plan (the one-thread design) gets an
+    entry
+    with the package's argument list that drops it; the package's own
+    source is left as it is, and the probes refuse a source that is not
+    the one-thread design."""
+    got = exp_demod.adapted(ONE_THREAD_ENTRY)
+    assert 'extern "C" int demod_loop_unplanned(' in got
+    head = got[got.index('extern "C" int demod_loop(const'):]
+    assert "int ring, int chunk, int threads" in head
+    assert "demod_loop_unplanned(x, L, n_samp, B, S, sps, half" in head
+    package = _kernels.DEMOD_LOOP.source.read_text()
+    assert exp_demod.adapted(package) == package
+    for name, edit in exp_demod.PROBES.items():
+        with pytest.raises(ValueError, match="one-thread"):
+            edit(package)
+
+
+PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112demod_kernelILb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112demod_kernelILb1EEEvNS_4ArgsE
+    32 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 48 registers, used 16 barriers, 32 bytes cumulative stack size
+ptxas info    : Function properties for __internal_trig_reduction_slowpathd
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114gardner_kernelEPK6float2xPKxiiffPS0_PhPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 44 registers, 416 bytes cmem[0]
+"""
+
+
+def test_exp_demod_ptxas_summary(tmp_path):
+    class Built:
+        def ptxas_path(self):
+            path = tmp_path / "k.ptxas"
+            path.write_text(PTXAS)
+            return path
+    got = exp_demod.ptxas_summary(Built())
+    assert got == {
+        "demod_kernel<1>": dict(stack_frame=32, spill_stores=4,
+                                spill_loads=8, registers=48),
+        "gardner_kernel": dict(stack_frame=0, spill_stores=0,
+                               spill_loads=0, registers=44)}
+
+
+def _sass(body: str, name: str) -> str:
+    lines = [f"\t\tFunction : {name}"]
+    for i, ins in enumerate(body.strip().splitlines()):
+        lines.append(f"        /*{16 * i:04x}*/  {ins.strip()} ;"
+                     "   /* 0x000000000000000000 */")
+    return "\n".join(lines) + "\n"
+
+
+# a PLL-like loop: a special-function op, a short slow path around a call
+# (taken: skipped), and a timing-like loop with a conversion
+PLL_LOOP = """
+MOV R9, RZ
+FMUL R2, R9, R3
+MUFU.RCP R4, R2
+FCHK P0, R2, R3
+@!P0 BRA 0x0080
+MOV R20, 0x70
+CALL.REL.NOINC 0x0200
+MOV R4, R23
+FFMA R9, R4, R9, R2
+ISETP.NE.AND P1, PT, R7, RZ, PT
+@P1 BRA 0x0010
+EXIT
+"""
+TIMING_LOOP = """
+MOV R5, RZ
+F2I.NTZ R6, R5
+I2FP.F32.S32 R7, R6
+LDS.64 R10, [R6]
+FADD R5, R10, R7
+@P2 BRA 0x0010
+EXIT
+"""
+
+
+def test_sass_chain_walks_the_loop_chains():
+    """The SASS parser finds each loop, skips a short slow path around a
+    call, and counts the loop-carried chain with the given latencies; the
+    demod loop's step loops are named by their MUFU and F2I."""
+    from iridium_tpu_torch.tools import sass_chain
+    lat = dict(fadd=4.0, fmul=4.0, ffma=4.0, fmnmx=4.0, fsetp_fsel=4.0,
+               mufu=16.0, f2i_i2f=12.0, iadd=2.0, imad=4.0, lop=4.0,
+               shf=4.0, imnmx=4.0, isetp_sel=4.0, lds=24.0, ldg=32.0,
+               clock_ghz=2.0)
+    sass = (_sass(PLL_LOOP, "_ZN12_GLOBAL__N_112demod_kernelILb0EEEvv")
+            + _sass(TIMING_LOOP,
+                    "_ZN12_GLOBAL__N_114timing_kernelEv"))
+    fns = sass_chain.functions(sass)
+    pll = next(v for k, v in fns.items() if "demod" in k)
+    assert pll[4]["op"] == "BRA" and pll[4]["guard"] == "@!P0"
+    assert sass_chain.loops(pll) == [(1, 10)]
+    dests, srcs = sass_chain.operands(pll[3])
+    assert dests == ["P0"] and srcs == ["R2", "R3"]
+    # R9 -> FMUL -> MUFU -> FFMA -> R9: 4 + 16 + 4 cycles, the call
+    # skipped (else R4 would come from the MOV)
+    assert sass_chain.chain_cycles(pll, 1, 10, lat) == pytest.approx(24.0)
+    got = sass_chain.step_chains(sass, lat)
+    assert got["demod_kernel<0>"]["pll"] == pytest.approx(24.0)
+    assert got["demod_kernel<0>"]["step_ns"] == pytest.approx(12.0)
+    # R5 -> F2I -> I2F -> FADD, and LDS from the F2I: 12 + 24 + 4
+    assert got["timing_kernel"]["timing"] == pytest.approx(40.0)
+    assert "pll" not in got["timing_kernel"]
