@@ -19,7 +19,11 @@ Phases, each printing one line:
      1.6 GHz decodes' three in both modes, through `tools/exp_demod.py`,
      bit-equal or not with the first symbol that parts, ns a symbol step
      beside the chain bound (`tools/sass_chain.py`), beside the plain
-     loop eager and captured as a CUDA graph);
+     loop eager and captured as a CUDA graph; the downmix FIRs' two
+     launches (noise LPF + box filter, RRC) at the three class batches of
+     the 10 MHz, 400 MHz and 1.6 GHz decodes, through
+     `tools/exp_downmix.py`, bit-equal to their plain versions, beside
+     them and three conv1d calls);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
      reader; no LLRs) and
@@ -34,7 +38,8 @@ Phases, each printing one line:
      the group program through its graphs is bit-equal to the same
      program run eagerly;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose gathers and demod loops captured into its graphs are held to
+     whose gathers, downmix FIRs and demod loops captured into its graphs
+     are held to
      their plain versions after every replay (`ReplayCheck`), its burst
      detected and its wall taken on the captured graphs; then the
      demodulator alone at a 256-burst batch (`demod_loop`: the kernel and
@@ -50,7 +55,8 @@ Phases, each printing one line:
      same lines, and the RAW capture through the CLI from its file and,
      with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
      block): the same lines. The
-     front-end, gather and demod-loop calls in the sharded graphs (the
+     front-end, gather, downmix-FIR and demod-loop calls in the sharded
+     graphs (the
      sharded capacities' batches, 256 and 48 bursts) are held to their
      plain versions after every replay of the warm-up runs
      (`ReplayCheck`); the class graphs' nodes as in phase 3.
@@ -103,12 +109,13 @@ Phases, each printing one line:
      own blocks (256 x 2,097,152, its primed state) and the window gather
      at the large class's window length (4 windows of 180 M samples),
      held to their plain versions (in the `kernels` line); the decode's
-     demod loop batches must be those phase 2 held;
+     demod loop and downmix FIR batches must be those phase 2 held;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
-     in `detail.launches_by_path`; the demod loop must launch on every
-     decode path), its times and its bound; `detail.path_checks` has the
+     in `detail.launches_by_path`; the downmix FIRs and the demod loop
+     must launch on every decode path), its times and its bound;
+     `detail.path_checks` has the
      calls `ReplayCheck` held in phases 4 and 4b, and `max_abs_err`
      covers them.
 Before the decodes, `scan_shapes` holds the scan kernel to the plain scan
@@ -437,6 +444,43 @@ def check_demod(dev, card: str) -> dict:
                             products=tool.product_forms(dev)))
 
 
+def check_downmix(dev, card: str) -> dict:
+    """The downmix FIR kernel's two launches (`downmix.noise_box`,
+    `downmix.rrc`) at the three class batches (batch x dec_cap) of the 10
+    MHz group program (1,024 and 96 x 8,172; 48 x 28,140), of the 400 MHz
+    decode's and of the 1.6 GHz decode's (256 frames a block), at
+    WIDE_RUN, on `tools/exp_downmix.py`'s rows (lengths 0, 1, 19, 20, 24,
+    25, 26 and L among them, shift_dec > 0 and past dec_len): bit-equal to
+    `noise_box_plain` and `rrc_plain` (the tool raises where they part),
+    each row timed single-call (each launch and both), chained and as a
+    CUDA graph, beside the plain versions, three conv1d calls (TF32 off)
+    and the bound (bytes
+    and FP32 operations, none fused, at the card's top SM clock). The row
+    reports the 10 MHz small-normal batch, `detail` all nine, with the
+    build's `ptxas -v` registers and spills per kernel function."""
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_demod
+    from iridium_tpu_torch.tools import exp_downmix as tool
+
+    clock = tool.sm_clock_hz(dev)
+    per_shape = [tool.run_shape(sh, dev, clock_hz=clock)
+                 for rate in (10.0, 400.0, 1600.0)
+                 for sh in tool.class_shapes(rate)]
+    row = per_shape[0]
+    return dict(name="downmix_fir", route="cuda",
+                source="iridium_tpu_torch/csrc/downmix_fir.cu",
+                replaces="iridium_tpu/dsp/downmix.py:132",
+                max_abs_err=max(r["max_abs_err"] for r in per_shape),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"],
+                detail=dict(card=card, per_shape=per_shape,
+                            bit_equal=all(r["bit_equal"] for r in per_shape),
+                            library=row["library"],
+                            ptxas=exp_demod.ptxas_summary(
+                                _kernels.DOWNMIX_FIR)))
+
+
 def kernel_phase(dev, card: str) -> list[dict]:
     from iridium_tpu_torch.config import DetectorConfig
 
@@ -446,7 +490,8 @@ def kernel_phase(dev, card: str) -> list[dict]:
             check_fused(dev, card),
             check_gather(dev, card),
             check_block_gather(dev, card),
-            check_demod(dev, card)]
+            check_demod(dev, card),
+            check_downmix(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
     return rows
@@ -641,7 +686,9 @@ class ReplayCheck:
     `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
     kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
     its decisions on `loop_plain`'s (`compare_demod`; counted under
-    `demod_loop` as `decide_calls`). A graph reads
+    `demod_loop` as `decide_calls`), and the downmix FIRs' two launches
+    (`downmix.noise_box`, `downmix.rrc`) bit-equal to their plain versions
+    (counted under `downmix_fir`). A graph reads
     static buffers and rewrites its other tensors at each replay, so after
     a replay the recorded inputs and outputs are that replay's. Used as a
     context around a decode that captures its graphs; `summary` has, per
@@ -654,7 +701,7 @@ class ReplayCheck:
 
     def __enter__(self):
         import torch
-        from iridium_tpu_torch.dsp import demod
+        from iridium_tpu_torch.dsp import demod, downmix
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
@@ -664,8 +711,9 @@ class ReplayCheck:
         self._cur = None
         saved = self._saved = (ff.fused, wg.gather, demod.loop,
                                demod.Demod.decide, pl.Captured._capture,
-                               pl.Captured.replay)
-        fused, gather, loop, decide, capture, replay = saved
+                               pl.Captured.replay, downmix.noise_box,
+                               downmix.rrc)
+        fused, gather, loop, decide, capture, replay, noise_box, rrc = saved
 
         def record(name, fn):
             def wrapped(*args):
@@ -693,27 +741,45 @@ class ReplayCheck:
         wg.gather = record("window_gather", gather)
         demod.loop = record("demod_loop", loop)
         demod.Demod.decide = record("demod_decide", decide)
+        downmix.noise_box = record("downmix_noise_box", noise_box)
+        downmix.rrc = record("downmix_rrc", rrc)
         pl.Captured._capture = capturing
         pl.Captured.replay = replaying
         return self
 
     def __exit__(self, *exc):
-        from iridium_tpu_torch.dsp import demod
+        from iridium_tpu_torch.dsp import demod, downmix
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
         (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
-         pl.Captured._capture, pl.Captured.replay) = self._saved
+         pl.Captured._capture, pl.Captured.replay, downmix.noise_box,
+         downmix.rrc) = self._saved
         self.calls.clear()
         self._plain.clear()
         return False
 
     def _check(self, name: str, args, got) -> None:
         import torch
-        from iridium_tpu_torch.dsp import demod
+        from iridium_tpu_torch.dsp import demod, downmix
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.tools import exp_demod
+        if name in ("downmix_noise_box", "downmix_rrc"):
+            if name == "downmix_noise_box":
+                want = downmix.noise_box_plain(*args)
+            else:
+                got, want = (got,), (downmix.rrc_plain(*args),)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = 0.0 if same else max(float((a - b).abs().max())
+                                       for a, b in zip(got, want))
+            shape = list(args[0].shape)
+            if not same:
+                raise AssertionError(f"{name} {shape} in a graph replay: "
+                                     f"max |err| {err} against its plain "
+                                     "version")
+            self._tally("downmix_fir", shape, err)["bit_equal"] = True
+            return
         if name == "demod_loop":
             want = demod.loop_plain(*args)
             try:
@@ -800,9 +866,10 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError("1 MHz decode took the fused path")
     if "window_gather" not in chk.summary:
         raise AssertionError("no gather was captured into a group graph")
-    if "demod_loop" not in chk.summary:
-        raise AssertionError("no demod loop was captured into a group "
-                             "graph")
+    for name in ("demod_loop", "downmix_fir"):
+        if name not in chk.summary:
+            raise AssertionError(f"no {name} call was captured into a "
+                                 "group graph")
     if pipe.stats.n_detected < 1 or not frames:
         raise AssertionError("1 MHz decode: the burst was not detected")
     seconds = len(cap) / 1_000_000
@@ -939,11 +1006,12 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         for name in ("detect_scan", "fused_frontend"):
             if rep[name] == 0:
                 raise AssertionError(f"mesh replicated never launched {name}")
-        for name in ("fused_frontend", "demod_loop"):
+        for name in ("fused_frontend", "demod_loop", "downmix_fir"):
             if name not in chk.summary:
                 raise AssertionError(f"mesh replicated: no {name} call was "
                                      "checked")
         demod_calls = chk.summary["demod_loop"]["calls"]
+        fir_calls = chk.summary["downmix_fir"]["calls"]
         seconds = single["capture_s"]
         res["replicated_10mhz"] = dict(
             detect_impl=sp.detect_impl, lines=len(lines),
@@ -975,9 +1043,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         if binc["window_gather"] == 0 or binc["detect_scan"] != 0:
             raise AssertionError(f"mesh binshard 1 MHz launches: {binc}")
         if ("window_gather" not in chk.summary
-                or chk.summary["demod_loop"]["calls"] == demod_calls):
-            raise AssertionError("mesh binshard: no gather or no demod loop "
-                                 "was checked")
+                or chk.summary["demod_loop"]["calls"] == demod_calls
+                or chk.summary["downmix_fir"]["calls"] == fir_calls):
+            raise AssertionError("mesh binshard: no gather, demod loop or "
+                                 "downmix FIR was checked")
         seconds1 = os.path.getsize(path1) / 8 / 1_000_000
         res["binshard_1mhz"] = dict(
             detect_impl=sb.detect_impl, lines=len(got),
@@ -1970,6 +2039,7 @@ def wideband_1600_phase(dev, tmp) -> dict:
                         fused=False)
     demod_batches = [[c.batch, c.downmix.max_frame_cap, c.demod.S]
                      for c in pipe.classes]
+    downmix_batches = [[c.batch, c.dec_cap] for c in pipe.classes]
     res = dict(phase="wideband_1600mhz", fft_size=p.fft_size,
                layout=list(detect_scan.layout(p.fft_size)),
                detect_impl=pipe.detect_impl, decimation=pipe.dmp.decimation,
@@ -1982,7 +2052,7 @@ def wideband_1600_phase(dev, tmp) -> dict:
                payloads_bit_exact=len(bursts) - len(missing),
                detected=stats.n_detected, ok=stats.n_ok,
                raw_lines=len(frames), stages=timing, launches=counts,
-               demod_batches=demod_batches)
+               demod_batches=demod_batches, downmix_batches=downmix_batches)
     del pipe, frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -2135,6 +2205,12 @@ def main() -> int:
     if {tuple(b) for b in w1600["demod_batches"]} != held:
         return fail(f"the 1.6 GHz decode's demod batches "
                     f"{w1600['demod_batches']} are not those held: {held}")
+    fir_row = next(r for r in rows if r["name"] == "downmix_fir")
+    held = {(r["B"], r["L"]) for r in fir_row["detail"]["per_shape"]
+            if r["rate_mhz"] == 1600.0}
+    if {tuple(b) for b in w1600["downmix_batches"]} != held:
+        return fail(f"the 1.6 GHz decode's downmix batches "
+                    f"{w1600['downmix_batches']} are not those held: {held}")
     for r in rows:
         extra = w1600["kernel_rows"].get(r["name"])
         if extra:
@@ -2149,10 +2225,10 @@ def main() -> int:
         r["detail"]["launches_by_path"] = by_path
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
-        # the demodulator runs on every decode path
-        if r["name"] == "demod_loop" and not all(
+        # the downmix and the demodulator run on every decode path
+        if r["name"] in ("demod_loop", "downmix_fir") and not all(
                 n for ph, n in by_path.items() if ph != tool["phase"]):
-            return fail(f"demod_loop was not launched on every decode "
+            return fail(f"{r['name']} was not launched on every decode "
                         f"path: {by_path}")
         # the calls checked inside the decodes' graphs (ReplayCheck)
         for ph in paths:

@@ -173,8 +173,17 @@ DEMOD_LOOP = Kernel(
     # separate tensor operations round them
     extra_flags=("--fmad=false",))
 
+DOWNMIX_FIR = Kernel(
+    "downmix_fir",
+    # stage, x, B, L, the lengths, the two FIRs' taps and counts, the
+    # outputs, the stream
+    [I, P, I, LL, P, P, P, I, P, I, P, P, P],
+    # every product and sum rounded on its own, as the plain FIRs'
+    # separate tensor operations round them
+    extra_flags=("--fmad=false",))
+
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
-           DEMOD_LOOP)
+           DEMOD_LOOP, DOWNMIX_FIR)
 
 
 def build_all() -> None:

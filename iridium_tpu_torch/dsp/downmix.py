@@ -9,8 +9,13 @@ are plain indexing here and give the same values. Reference sources
 :482-535, RRC :723-734, sync correlation :539-639, phase align and
 extraction :749-793.
 
-The three small FIRs (25, 20 and 51 taps) are shifted adds with the JAX
-package's sequential f32 accumulation order.
+The three small FIRs (25, 20 and 51 taps) with their masks are
+`noise_box` (the noise LPF, the re-zeroing, |x|^2 and the box filter) and
+`rrc` (the RRC matched filter): on a CUDA tensor a launch each of
+csrc/downmix_fir.cu, on a CPU tensor their plain versions `noise_box_plain`
+and `rrc_plain`, shifted adds (`fir_valid_small`) with the JAX package's
+sequential f32 accumulation order (`_fir_valid_small`, `_fir_same_c`
+:132-164).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import iridium
+from .. import _kernels, iridium
 from ..config import DetectorParams, DownmixParams
 from ..ops import filters, windows
 
@@ -30,6 +35,7 @@ RRC_ALPHA = 0.4
 START_THRESHOLD = 0.45
 DIR_DL = 0
 DIR_UL = 1
+MAX_TAPS = 64       # csrc/downmix_fir.cu's limit, the JAX _SMALL_FIR_MAX
 
 
 class DownmixConsts(NamedTuple):
@@ -96,19 +102,20 @@ def make_consts(dmp: DownmixParams) -> DownmixConsts:
                          dl_fft, ul_fft, dl_len, ul_len)
 
 
-def fir_valid_small(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def fir_valid_small(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Valid correlation FIR along dim 1, out[i] = sum_k taps[k] x[i+k],
-    as shifted f32 adds in tap order. x is real, (B, L) or (B, L, 2)."""
-    t = np.asarray(taps, np.float32)
-    n_out = x.shape[1] - len(t) + 1
+    as shifted f32 adds in tap order. x is real, (B, L) or (B, L, 2); taps
+    (T,) f32 on x's device (a tap is a 0-d tensor: nothing is copied from
+    the host, so the FIR can be captured into a CUDA graph)."""
+    n_out = x.shape[1] - len(taps) + 1
     acc = None
-    for k, c in enumerate(t.tolist()):
+    for k, c in enumerate(taps):
         term = c * x[:, k:k + n_out]
         acc = term if acc is None else acc + term
     return acc
 
 
-def fir_same_c(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def fir_same_c(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Centred same-length FIR of complex (B, L) rows (the reference pads
     with zeros and runs valid: burst_downmix.c:686-693)."""
     t = len(taps)
@@ -118,6 +125,97 @@ def fir_same_c(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     xp = torch.cat([xr.new_zeros((B, half, 2)), xr,
                     xr.new_zeros((B, t - 1 - half, 2))], dim=1)
     return torch.view_as_complex(fir_valid_small(xp, taps).contiguous())
+
+
+def noise_box_plain(x: torch.Tensor, dec_len: torch.Tensor,
+                    shift_dec: torch.Tensor, noise_taps: torch.Tensor,
+                    box_taps: torch.Tensor):
+    """The decimated rows x (B, L) c64 kept where shift_dec <= i < dec_len
+    ((B,) i64), through the noise LPF ("same"; skipped for very short
+    bursts, burst_downmix.c:684-697), re-zeroed outside the kept samples
+    (the LPF smears burst energy into the alignment lead) -> xd (B, L)
+    c64; and the box filter over |xd|^2 padded with zeros (the burst
+    start's energy, burst_downmix.c:441-478) -> filt (B, L) f32."""
+    dev = x.device
+    B, L = x.shape
+    iota = torch.arange(L, device=dev)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=dev)
+    keep = (iota < dec_len[:, None]) & (iota >= shift_dec[:, None])
+    x = torch.where(keep, x, zero_c)
+    nl = fir_same_c(x, noise_taps)
+    xd = torch.where((dec_len - len(noise_taps) + 1 > 0)[:, None], nl, x)
+    xd = torch.where(keep, xd, zero_c)
+    mag2 = xd.abs() ** 2
+    filt = fir_valid_small(
+        torch.cat([mag2, mag2.new_zeros((B, len(box_taps) - 1))], 1),
+        box_taps)
+    return xd, filt
+
+
+def rrc_plain(xf: torch.Tensor, frame_len: torch.Tensor,
+              rrc_taps: torch.Tensor) -> torch.Tensor:
+    """The frames xf (B, L) c64 below frame_len ((B,) i64) through the RRC
+    matched filter ("same") -> (B, L) c64."""
+    iota = torch.arange(xf.shape[1], device=xf.device)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=xf.device)
+    xf = torch.where(iota < frame_len[:, None], xf, zero_c)
+    return fir_same_c(xf, rrc_taps)
+
+
+def _check_rows(x: torch.Tensor, lengths: dict, taps: dict) -> None:
+    """Raise unless x is a contiguous (B, L) c64 tensor, each of
+    `lengths` a (B,) i64 and each of `taps` a (1..MAX_TAPS,) f32 tensor on
+    its device."""
+    dev = x.device
+    _kernels.check(x, "x", torch.complex64, dev)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, L), got {tuple(x.shape)}")
+    for name, t in lengths.items():
+        _kernels.check(t, name, torch.int64, dev, (x.shape[0],))
+    for name, t in taps.items():
+        _kernels.check(t, name, torch.float32, dev)
+        if t.dim() != 1 or not 1 <= t.shape[0] <= MAX_TAPS:
+            raise ValueError(f"{name}: the kernel takes 1 to {MAX_TAPS} "
+                             f"taps, got shape {tuple(t.shape)}")
+
+
+def noise_box(x: torch.Tensor, dec_len: torch.Tensor,
+              shift_dec: torch.Tensor, noise_taps: torch.Tensor,
+              box_taps: torch.Tensor):
+    """`noise_box_plain`'s function: on a CPU tensor `noise_box_plain`, on
+    a CUDA tensor one launch of csrc/downmix_fir.cu (stage 0), or a
+    raise."""
+    if x.device.type == "cpu":
+        return noise_box_plain(x, dec_len, shift_dec, noise_taps, box_taps)
+    _check_rows(x, dict(dec_len=dec_len, shift_dec=shift_dec),
+                dict(noise_taps=noise_taps, box_taps=box_taps))
+    B, L = x.shape
+    xd = torch.empty_like(x)
+    filt = torch.empty((B, L), dtype=torch.float32, device=x.device)
+    if xd.numel():
+        k = _kernels
+        k.DOWNMIX_FIR.launch(x.device, 0, k.ptr(x), B, L, k.ptr(dec_len),
+                             k.ptr(shift_dec), k.ptr(noise_taps),
+                             noise_taps.shape[0], k.ptr(box_taps),
+                             box_taps.shape[0], k.ptr(xd), k.ptr(filt))
+    return xd, filt
+
+
+def rrc(xf: torch.Tensor, frame_len: torch.Tensor,
+        rrc_taps: torch.Tensor) -> torch.Tensor:
+    """`rrc_plain`'s function: on a CPU tensor `rrc_plain`, on a CUDA
+    tensor one launch of csrc/downmix_fir.cu (stage 1), or a raise."""
+    if xf.device.type == "cpu":
+        return rrc_plain(xf, frame_len, rrc_taps)
+    _check_rows(xf, dict(frame_len=frame_len), dict(rrc_taps=rrc_taps))
+    B, L = xf.shape
+    xr = torch.empty_like(xf)
+    if xr.numel():
+        k = _kernels
+        k.DOWNMIX_FIR.launch(xf.device, 1, k.ptr(xf), B, L,
+                             k.ptr(frame_len), None, k.ptr(rrc_taps),
+                             rrc_taps.shape[0], None, 0, k.ptr(xr), None)
+    return xr
 
 
 def shift_take(x: torch.Tensor, start: torch.Tensor,
@@ -188,6 +286,9 @@ class Downmix(torch.nn.Module):
                         int(iridium.MAX_FRAME_LENGTH_NORMAL * sps))
         self.min_len = (int(iridium.MIN_FRAME_LENGTH_SIMPLEX * sps),
                         int(iridium.MIN_FRAME_LENGTH_NORMAL * sps))
+        self.register_buffer("noise_taps", torch.from_numpy(c.noise_taps))
+        self.register_buffer("box_taps", torch.from_numpy(c.box_taps))
+        self.register_buffer("rrc_taps", torch.from_numpy(c.rrc_taps))
         self.register_buffer("cfo_win", torch.from_numpy(c.cfo_window))
         self.register_buffer("dl_fft", torch.from_numpy(c.dl_sync_fft))
         self.register_buffer("ul_fft", torch.from_numpy(c.ul_sync_fft))
@@ -210,23 +311,13 @@ class Downmix(torch.nn.Module):
         dec_len = torch.clamp((ext_len - self.in_ntaps + 1) // decim, 0,
                               self.dec_cap)
         ok &= dec_len - shift_dec >= 100
-        keep = (iota < dec_len[:, None]) & (iota >= shift_dec[:, None])
-        dec_full = torch.where(keep, dec_full, zero_c)
-
-        # noise LPF ("same"; skipped for very short bursts,
-        # burst_downmix.c:684-697), then re-zero the alignment lead
-        noise_ntaps = len(c.noise_taps)
-        nl = fir_same_c(dec_full, c.noise_taps)
-        xd = torch.where((dec_len - noise_ntaps + 1 > 0)[:, None], nl,
-                         dec_full)
-        xd = torch.where(keep, xd, zero_c)
+        # the noise LPF, re-zeroing and box filter; `noise_box` by its
+        # module global, so that a caller can wrap it
+        xd, filt = noise_box(dec_full, dec_len, shift_dec, self.noise_taps,
+                             self.box_taps)
 
         # burst start
         box_ntaps = len(c.box_taps)
-        mag2 = xd.abs() ** 2
-        filt = fir_valid_small(
-            torch.cat([mag2, mag2.new_zeros((B, box_ntaps - 1))], 1),
-            c.box_taps)
         flen = torch.clamp(dec_len - box_ntaps + 1, min=0)
         fmask = iota < flen[:, None]
         filt_m = torch.where(fmask, filt, -torch.inf)
@@ -270,9 +361,9 @@ class Downmix(torch.nn.Module):
         angf = float(np.float32(-2.0 * np.pi)) * (mfine / two_total + frac)
         xf = xf * torch.complex(torch.cos(angf), torch.sin(angf))
 
-        # RRC matched filter ("same")
-        xf = torch.where(iota < frame_len[:, None], xf, zero_c)
-        xr = fir_same_c(xf, c.rrc_taps)
+        # RRC matched filter ("same") on the frame; `rrc` by its module
+        # global
+        xr = rrc(xf, frame_len, self.rrc_taps)
 
         # sync-word correlation
         search_cap, corr_n = self.search_cap, self.corr_n

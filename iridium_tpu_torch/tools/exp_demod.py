@@ -50,8 +50,9 @@ as the package runs it and once with `loop_plain` in the kernel's place
 graph's nodes, capture and instantiate seconds and replay ms, and each
 decode's wall (its first, which captures the graphs, and a second on
 them, with its group stages): the class graphs before and after the
-kernel, in one process. With the kernel it also lists the device
-operations that take the small-normal replay's time (torch.profiler).
+kernel, in one process. Both ways it also lists the device operations
+that take the small-normal replay's time (torch.profiler) and times that
+batch's stages each as a graph of its own (`stage_graphs`).
 
 On the CPU (`--small`: 9 bursts of 400 samples, 40 symbols) `loop` is
 `loop_plain`, and times are the host clock's.
@@ -102,14 +103,16 @@ def class_shapes(rate_mhz: float = 10.0, frames_per_block: int | None = None,
                  **pipe_kw) -> list[dict]:
     """The three class batches of the group program at `rate_mhz` (the
     production 10 MHz one by default; `frames_per_block` where given, the
-    Pipeline's arguments `pipe_kw`)."""
+    Pipeline's arguments `pipe_kw`): the demodulator's (B, L, S, sps) and
+    the downmix's decimated length `dec_cap`."""
     from ..runtime.pipeline import Pipeline
     det = dict(sample_rate=int(round(rate_mhz * 1e6)))
     if frames_per_block is not None:
         det["frames_per_block"] = frames_per_block
     pipe = Pipeline(det_cfg=DetectorConfig(**det), device="cpu", **pipe_kw)
     return [dict(rate_mhz=rate_mhz, shape=name, B=c.batch,
-                 L=c.downmix.max_frame_cap, S=c.demod.S, sps=c.demod.sps)
+                 L=c.downmix.max_frame_cap, S=c.demod.S, sps=c.demod.sps,
+                 dec_cap=c.dec_cap)
             for name, c in zip(CLASS_NAMES, pipe.classes)]
 
 
@@ -506,10 +509,11 @@ def plain_in_place():
         demod.loop = saved
 
 
-def replay_top(c, dev: torch.device, reps: int = 3, top: int = 8) -> list:
+def replay_top(c, dev: torch.device, reps: int = 3, top: int = 8
+               ) -> tuple[list, float]:
     """torch.profiler over `reps` replays of a captured graph: its device
     operations with the most device time, as (name, ms a replay, launches
-    a replay)."""
+    a replay), and the device ms of all its operations a replay."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -518,18 +522,63 @@ def replay_top(c, dev: torch.device, reps: int = 3, top: int = 8) -> list:
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     ops.sort(key=lambda e: -e.self_device_time_total)
-    return [(e.key[:70], e.self_device_time_total / 1e3 / reps,
-             e.count / reps) for e in ops[:top]]
+    return ([(e.key[:70], e.self_device_time_total / 1e3 / reps,
+              e.count / reps) for e in ops[:top]],
+            sum(e.self_device_time_total for e in ops) / 1e3 / reps)
 
 
-def class_graphs(dev: torch.device) -> dict:
+def stage_graphs(pipe, g, dev: torch.device) -> dict:
+    """Each stage of the small-normal class batch as a CUDA graph of its
+    own, on the inputs it had in one eager run of the group program on the
+    graph `g`'s buffers (the first call of each stage is that class's):
+    the front-end, the downmix (with its FIR launches, `noise_box` and
+    `rrc`, also alone), the demod loop and its tail (`Demod.decide`), the
+    packing; per stage its nodes and replay ms (median of 5)."""
+    from ..dsp import downmix
+    from ..ops import fused_frontend
+    from ..runtime import pipeline
+    targets = {"frontend": (fused_frontend, "fused"),
+               "downmix": (downmix.Downmix, "forward"),
+               "noise_box": (downmix, "noise_box"), "rrc": (downmix, "rrc"),
+               "demod_loop": (demod, "loop"),
+               "demod_tail": (demod.Demod, "decide"),
+               "pack": (pipeline, "pack_outputs")}
+    saved = {k: getattr(obj, name) for k, (obj, name) in targets.items()}
+    first = {}
+
+    def keep(k, fn):
+        def wrapped(*args, **kw):
+            first.setdefault(k, (args, kw))
+            return fn(*args, **kw)
+        return wrapped
+    try:
+        for k, (obj, name) in targets.items():
+            setattr(obj, name, keep(k, saved[k]))
+        pipe.group_program(g.planes, g.tables, g.scal, g.scal[1:].tolist())
+        torch.cuda.synchronize(dev)
+    finally:
+        for k, (obj, name) in targets.items():
+            setattr(obj, name, saved[k])
+    out = {}
+    for k, (args, kw) in first.items():
+        c = pipeline.Captured()
+        c.replay(lambda fn=saved[k], args=args, kw=kw: fn(*args, **kw))
+        out[k] = dict(nodes=c.nodes, replay_ms=statistics.median(
+            samples_ms(c.graph.replay, dev, 5)))
+        del c
+    return out
+
+
+def class_graphs(dev: torch.device, swap=plain_in_place) -> dict:
     """The production 10 MHz pipeline's class graphs of a 4-block group
-    (the dense capture's first), captured with the kernel and with
-    `loop_plain` in its place: per class its nodes, capture and
-    instantiate seconds, replay ms; each decode's wall, the first
-    (captures included) and a second on the captured graphs, with the
-    second's group stages; and, with the kernel, the device operations
-    that take the small-normal replay's time."""
+    (the dense capture's first), captured as the package runs them
+    ("kernel") and under the context `swap` ("plain": `loop_plain` in the
+    loop kernel's place by default; tools/exp_downmix.py passes its own):
+    per class its nodes, capture and instantiate seconds, replay ms; each
+    decode's wall, the first (captures included) and a second on the
+    captured graphs, with the second's group stages; the device
+    operations that take the small-normal replay's time; and the
+    small-normal batch's stages as graphs of their own (`stage_graphs`)."""
     from ..runtime.pipeline import Pipeline
     from .captures import PROD, dense_capture
     cap, _ = dense_capture(SEED)
@@ -537,7 +586,7 @@ def class_graphs(dev: torch.device) -> dict:
     del cap
     res = {}
     for name, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", plain_in_place)):
+                      ("plain", swap)):
         pipe = Pipeline(det_cfg=DetectorConfig(**PROD), device=dev,
                         want_llr=False)
         with ctx():
@@ -550,14 +599,15 @@ def class_graphs(dev: torch.device) -> dict:
             again = sum(1 for _ in pipe.run_array(group))
             torch.cuda.synchronize()
             warm = time.perf_counter() - t
+            g = pipe.graphs[4]
+            g.scal[1:] = 0              # the first round: every class runs
+            by_stage = stage_graphs(pipe, g, dev)
         if again != lines:
             raise AssertionError(f"{name}: {again} lines on the captured "
                                  f"graphs against {lines}")
         stages = {k: pipe.timing[k] for k in (
             "step_dispatch", "group_dispatch", "result_fetch_wait",
             "n_overflow_rounds")}
-        g = pipe.graphs[4]
-        g.scal[1:] = 0                  # the first round: every class runs
         parts = {}
         for cname, c in zip(("route",) + CLASS_NAMES, g.parts):
             if c.graph is None:
@@ -567,10 +617,12 @@ def class_graphs(dev: torch.device) -> dict:
                 instantiate_s=c.instantiate_s,
                 replay_ms=statistics.median(samples_ms(c.graph.replay, dev,
                                                        5)))
+        top, device_ms = replay_top(g.parts[1], dev)
         res[name] = dict(lines=lines, first_decode_s=wall,
-                         warm_decode_s=warm, warm_stages=stages, parts=parts)
-        if name == "kernel":
-            res[name]["small_normal_top"] = replay_top(g.parts[1], dev)
+                         warm_decode_s=warm, warm_stages=stages, parts=parts,
+                         small_normal_top=top,
+                         small_normal_device_ms=device_ms,
+                         small_normal_stages=by_stage)
         del pipe, g, c
         gc.collect()
         torch.cuda.empty_cache()

@@ -17,13 +17,13 @@ torch = pytest.importorskip("torch")
 from iridium_tpu_torch import device as device_mod  # noqa: E402
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch import _kernels  # noqa: E402
-from iridium_tpu_torch.dsp import demod  # noqa: E402
+from iridium_tpu_torch.dsp import demod, downmix  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan, state as st  # noqa: E402
 from iridium_tpu_torch.ops import block_gather as bg  # noqa: E402
 from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
-from iridium_tpu_torch.tools import exp_demod  # noqa: E402
+from iridium_tpu_torch.tools import exp_demod, exp_downmix  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -824,3 +824,136 @@ def test_demod_loop_refuses_another_plan(dev):
                                 10.0, 5.0, 10, 1, bad.bursts, bad.ring,
                                 bad.chunk, bad.threads, k.ptr(out),
                                 k.ptr(valid), k.ptr(total))
+
+
+def _downmix_inputs(dev, B, L, seed):
+    """`exp_downmix.inputs` on the card, with the downmix's taps."""
+    x, xf, dl, sd, fl = (torch.from_numpy(v).to(dev)
+                         for v in exp_downmix.inputs(B, L, seed))
+    return x, xf, dl, sd, fl, exp_downmix.taps(dev)
+
+
+def _downmix_both(x, xf, dl, sd, fl, t, fns):
+    """(xd, filt, xr) of `fns` = (noise_box, rrc) or their plain versions."""
+    return fns[0](x, dl, sd, t["noise"], t["box"]) + (
+        fns[1](xf, fl, t["rrc"]),)
+
+
+KERNEL_FNS = (downmix.noise_box, downmix.rrc)
+PLAIN_FNS = (downmix.noise_box_plain, downmix.rrc_plain)
+
+
+# (B, L): the 10 MHz small-normal class (1,024 x 8,172), B = 1, B not a
+# multiple of anything the grid uses, L odd (rows not 16-byte aligned), L
+# under one tile, one tile exactly and one sample over, L shorter than the
+# LPF and the box filter
+DOWNMIX_EDGES = [(1024, 8172), (1, 8172), (37, 3001), (5, 1024), (3, 1025),
+                 (7, 300), (4, 19), (3, 1)]
+
+
+@pytest.mark.parametrize("B, L", DOWNMIX_EDGES)
+def test_downmix_fir_bit_equal_to_plain(dev, B, L):
+    """Both launches bit-equal to `noise_box_plain` and `rrc_plain` (xd,
+    filt, xr; torch.equal), on `exp_downmix.inputs`: lengths 0, 1, 19, 20,
+    24, 25, 26 and L among dec_len and frame_len, shift_dec > 0 and past
+    dec_len. Two launches."""
+    args = _downmix_inputs(dev, B, L, seed=B + L)
+    want = _downmix_both(*args, PLAIN_FNS)
+    before = _kernels.DOWNMIX_FIR.launches
+    got = _downmix_both(*args, KERNEL_FNS)
+    torch.cuda.synchronize()
+    assert _kernels.DOWNMIX_FIR.launches == before + 2
+    res = exp_downmix.compare(got, want)
+    assert res["bit_equal"], res
+
+
+def test_downmix_fir_in_a_cuda_graph(dev):
+    """Both launches captured into a CUDA graph (two nodes), replayed on
+    new inputs copied into the captured ones: bit-equal each time."""
+    B, L = 37, 3001
+    args = _downmix_inputs(dev, B, L, seed=1)
+    _downmix_both(*args, KERNEL_FNS)               # loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        got = _downmix_both(*args, KERNEL_FNS)
+    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 2
+    g.instantiate()
+    for seed in (2, 3):
+        for a, b in zip(args[:5], _downmix_inputs(dev, B, L, seed)[:5]):
+            a.copy_(b)
+        g.replay()
+        torch.cuda.synchronize()
+        res = exp_downmix.compare(got, _downmix_both(*args, PLAIN_FNS))
+        assert res["bit_equal"], res
+
+
+def test_downmix_on_card_launches_the_kernel_only(dev, monkeypatch):
+    """`Downmix` on CUDA tensors launches the kernel twice a call and never
+    runs the plain versions or `fir_valid_small`, and gives the values it
+    gives with them."""
+    from iridium_tpu_torch.config import DownmixConfig
+    p = DetectorConfig(sample_rate=10_000_000).derived()
+    dm = downmix.Downmix(p, DownmixConfig().derived(p), 8172, 1918, dev)
+    B = 6
+    x, _, _, sd, _, _ = _downmix_inputs(dev, B, 8172, seed=5)
+    ext = torch.tensor([0, 900, 4_000, 120_000, 200_000, 327_680],
+                       dtype=torch.int32, device=dev)
+    bins = torch.full((B,), p.fft_size // 2, dtype=torch.int32, device=dev)
+    with monkeypatch.context() as m:
+        for name in ("noise_box_plain", "rrc_plain", "fir_valid_small"):
+            m.setattr(downmix, name, _refuse(name))
+        before = _kernels.DOWNMIX_FIR.launches
+        got = dm(x, ext, bins, sd.int())
+        torch.cuda.synchronize()
+        assert _kernels.DOWNMIX_FIR.launches == before + 2
+    with monkeypatch.context() as m:
+        m.setattr(downmix, "noise_box", downmix.noise_box_plain)
+        m.setattr(downmix, "rrc", downmix.rrc_plain)
+        want = dm(x, ext, bins, sd.int())
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+def _refuse(name):
+    def refuse(*args):
+        raise AssertionError(f"{name} ran on the card")
+    return refuse
+
+
+def test_downmix_fir_refuses_what_it_cannot_take(dev):
+    """The wrappers raise on a wrong dtype, device, shape or contiguity,
+    and on more than 64 taps (the C entry refuses them too)."""
+    x, xf, dl, sd, fl, t = _downmix_inputs(dev, 5, 300, seed=9)
+    nb = lambda *a: downmix.noise_box(*a)  # noqa: E731
+    good = (x, dl, sd, t["noise"], t["box"])
+    bad = [
+        (x.to(torch.complex128),) + good[1:],
+        (x[:, ::2],) + good[1:],
+        (x[None],) + good[1:],
+        (x, dl.int(), sd, t["noise"], t["box"]),
+        (x, dl[:4], sd, t["noise"], t["box"]),
+        (x, dl.cpu(), sd, t["noise"], t["box"]),
+        (x, dl, sd, t["noise"].double(), t["box"]),
+        (x, dl, sd, t["noise"], torch.ones(65, device=dev)),
+        (x, dl, sd, t["noise"][:0], t["box"]),
+        (x, dl, sd, t["noise"], torch.ones(2, 4, device=dev)),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            nb(*args)
+    for args in [(xf.real.contiguous(), fl, t["rrc"]),
+                 (xf, fl.float(), t["rrc"]),
+                 (xf, fl, torch.ones(65, device=dev)),
+                 (xf, fl, t["rrc"][::2])]:
+        with pytest.raises(ValueError):
+            downmix.rrc(*args)
+    out = torch.empty_like(x)
+    k = _kernels
+    many = torch.ones(65, device=dev)
+    for stage, n_a, n_b in ((0, 65, 20), (0, 25, 65), (1, 65, 0), (2, 25, 0),
+                            (0, 0, 20)):
+        with pytest.raises(RuntimeError):
+            k.DOWNMIX_FIR.launch(dev, stage, k.ptr(x), 5, 300, k.ptr(dl),
+                                 k.ptr(sd), k.ptr(many), n_a, k.ptr(many),
+                                 n_b, k.ptr(out), k.ptr(out))

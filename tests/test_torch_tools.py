@@ -5,8 +5,10 @@ front-end tool `tools/exp_frontend.py` and the window-gather tool
 `tools/exp_window_gather.py` at their small CPU shapes, and the latter's
 shape table; the demod-loop tool `tools/exp_demod.py` at its small CPU
 shape, its shape table, inputs, checks, bound, adapter and `ptxas`
-summary; the SASS chain walk of `tools/sass_chain.py` on a made-up
-listing; the line comparison of the mesh tool `tools/exp_mesh.py`.
+summary; the downmix-FIR tool `tools/exp_downmix.py` at its small CPU
+shape, its shape table, inputs, bound and comparison; the SASS chain walk
+of `tools/sass_chain.py` on a made-up listing; the line comparison of the
+mesh tool `tools/exp_mesh.py`.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -20,7 +22,7 @@ from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
-from iridium_tpu_torch.tools import exp_demod, exp_mesh  # noqa: E402
+from iridium_tpu_torch.tools import exp_demod, exp_downmix, exp_mesh  # noqa: E402,E501
 from iridium_tpu_torch.tools import exp_window_gather  # noqa: E402
 
 
@@ -245,6 +247,70 @@ def test_exp_demod_small_on_cpu(capsys):
     assert out.count('"out_bit_equal": true') == 2
     with pytest.raises(SystemExit):
         exp_demod.main(["--device", "cpu", "--small", "--classes"])
+
+
+def test_exp_downmix_small_on_cpu(capsys):
+    assert exp_downmix.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "small 9 x 301:" in out and '"bit_equal": true' in out
+    # on the CPU the wrappers are the plain versions: no launch
+    assert '"launches": 0' in out
+    with pytest.raises(SystemExit):
+        exp_downmix.main(["--device", "cpu", "--small", "--classes"])
+
+
+def test_exp_downmix_shapes_follow_the_pipeline():
+    """The 10 MHz class batches are (batch, dec_cap) of the pipeline's
+    classes: 1,024 and 96 rows of 8,172 decimated samples, 48 of 28,140."""
+    got = [(s["shape"], s["B"], s["L"]) for s in exp_downmix.class_shapes()]
+    assert got == [("small_normal", 1024, 8172), ("small_simplex", 96, 8172),
+                   ("large", 48, 28140)]
+
+
+def test_exp_downmix_inputs_have_the_edges():
+    x, xf, dl, sd, fl = exp_downmix.inputs(20, 300, seed=2)
+    assert x.shape == xf.shape == (20, 300) and x.dtype == np.complex64
+    edges = [0, 1, 19, 20, 24, 25, 26, 300]
+    assert list(dl[:8]) == edges and list(fl[:8]) == edges
+    assert not sd[:8].any()
+    assert (dl[8], sd[8]) == (300, 30) and sd[9] > dl[9]
+    assert (fl >= 0).all() and (fl <= dl).all() and (dl <= 300).all()
+
+
+def test_exp_downmix_bound_counts_the_work():
+    """Bytes: the kept samples and the frame read once, three lengths a
+    row, the taps, 20 bytes a sample written; operations: the noise FIR
+    (98) at each kept sample of a row whose LPF runs, a square, the box
+    FIR (39) from 19 before the kept samples to their end, the RRC (202)
+    up to 25 past the frame."""
+    dl, sd, fl = np.array([50, 10, 0]), np.array([10, 0, 0]), np.array(
+        [30, 0, 100])
+    b = exp_downmix.bound(dl, sd, fl, 100, 25, 20, 51, 2e9)
+    kept = 40 + 10
+    assert b["bound_bytes"] == (8 * kept + 8 * (30 + 100) + 24 * 3
+                                + 4 * 96 + 20 * 3 * 100)
+    assert b["bound_ops"] == (98 * 40 + kept + 39 * (50 + 10) + 202 * 55
+                              + 202 * 100)
+    assert b["ops_ms"] == pytest.approx(
+        b["bound_ops"] / (132 * 128 * 2e9) * 1e3)
+    assert b["bound_ms"] == max(b["ops_ms"], b["bytes_ms"])
+
+
+def test_exp_downmix_compare_names_the_first_difference():
+    x = torch.zeros((3, 10), dtype=torch.complex64)
+    f = torch.zeros((3, 10))
+    want = (x, f, x.clone())
+    assert exp_downmix.compare(want, want) == dict(
+        bit_equal=True, max_abs_err=0.0, first_diff=None)
+    # a zero's sign is no difference
+    assert exp_downmix.compare((x, -f, x), want)["bit_equal"]
+    xr = x.clone()
+    xr[2, 7] = 1e-3j
+    xr[1, 9] = 2.0
+    res = exp_downmix.compare((x, f, xr), want)
+    assert not res["bit_equal"] and res["first_diff"] == ["xr", 1, 9]
+    assert res["max_abs_err"] == 2.0
 
 
 def test_exp_demod_shapes_inputs_and_bound():
