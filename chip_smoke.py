@@ -23,7 +23,11 @@ Phases, each printing one line:
      launches (noise LPF + box filter, RRC) at the three class batches of
      the 10 MHz, 400 MHz and 1.6 GHz decodes, through
      `tools/exp_downmix.py`, bit-equal to their plain versions, beside
-     them and three conv1d calls);
+     them and three conv1d calls; the detect_fast kernel, one launch a
+     block, on the production block (2,048 x 8,192, squelch and emission
+     drops reached), bit-equal to `scan_fast_plain` on the card on every
+     field of the state, through `tools/exp_fast.py`, beside the twin's
+     time, with the device operations a block);
   3. the offline RAW decode at the production 10 MHz configuration: a
      synthetic capture file through `Pipeline.run_file` (the native
      reader; no LLRs) and
@@ -37,6 +41,11 @@ Phases, each printing one line:
      same capture through the host-routed flow gives the same lines, and
      the group program through its graphs is bit-equal to the same
      program run eagerly;
+  3b. `decode_fast_10mhz`: the same capture through
+     `Pipeline(detect_impl="fast")` on the card (the detect_fast kernel
+     once a block, the scan kernel never), warm, every payload bit-exact,
+     and through the same Pipeline on the CPU (the plain twin): the same
+     RAW lines but for the frequency (±1 Hz) and the level's last digit;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
      whose gathers, downmix FIRs and demod loops captured into its graphs
      are held to
@@ -48,9 +57,10 @@ Phases, each printing one line:
      process at world size 1 over NCCL: the RAW 10 MHz capture in
      replicated mode (lines with ids equal to phase 3's, every payload
      bit-exact, the scan and the fused front-end launched), the 1 MHz
-     capture in binshard mode (detect_fast with its per-frame all_reduce;
-     lines, ids masked, equal to the single card's detect_fast decode;
-     the window gather launched), the CLI with and without `--mesh 1`
+     capture in binshard mode (detect_fast's twin loop with its per-frame
+     all_reduce, no detect_fast launch; lines, ids masked, equal to the
+     single card's detect_fast decode, which launches the kernel; the
+     window gather launched), the CLI with and without `--mesh 1`
      (one spawned rank), each its own process, on the 1 MHz capture: the
      same lines, and the RAW capture through the CLI from its file and,
      with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
@@ -130,11 +140,15 @@ tiles, from a state the plain scan primed, on the cluster edge block with
 bursts across every tile and block edge), each timed with its layout (in
 the `kernels` line's `detail.per_shape`), with `ptxas -v`'s registers and
 spill bytes per instantiation (`detail.ptxas`), and `detect_fast_card`
-holds detect_fast
-(one production block) and the exact scan (one small block) on the card
-to the same functions on the CPU, counts detect_fast's device launches at
-the 25 MHz block and times it on the 400 MHz block, which the kernel's
-grid now serves; their launches are comparisons and are not counted.
+holds the detect_fast kernel to `scan_fast_plain` on the card, bit for
+bit, at the edge block (256 x 8,192, n_valid ending mid-block), 1,024 x
+32,768, 1,024 x 524,288, 1,024 x 2,097,152 with n_valid = 2^31 (the 1.6
+GHz block the scan kernel refuses) and a local bin range (ownership,
+id_stride 4, identity coupling), each timed beside the twin with the
+bound and the device operations a block (the `detect_fast` row's
+`detail.per_shape`), then the kernel against the twin on the CPU on the
+production block and the exact scan (one small block) on the card
+against the CPU; their launches are comparisons and are not counted.
 Every printed number names the card (`card`: nvidia-smi's name and
 power limit). The last line is the JSON result. Any failed check exits
 non-zero; with no CUDA device, or without the port's package beside this
@@ -481,6 +495,40 @@ def check_downmix(dev, card: str) -> dict:
                                 _kernels.DOWNMIX_FIR)))
 
 
+def check_fast(dev, card: str) -> dict:
+    """The detect_fast kernel (one launch a block) on the production block
+    (2,048 x 8,192, exp_scan's synthetic block from a fresh state: bursts, a
+    long burst, a squelch blast with emission drops), held to
+    `scan_fast_plain` on the card bit for bit on every field of the state
+    and timed beside it (`tools/exp_fast.py` `run_case`: single-call and
+    chained ms, the twin's ms, the bound, the device operations a block);
+    the block must reach the squelch and drop paths. `detect_fast_card`
+    adds the other shapes to `detail.per_shape`. `detail.scalar_division`:
+    the share of PyTorch's divisions by a Python scalar on the card that
+    are the product with the f32 reciprocal, which the kernel's noise dB
+    copies."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_demod, exp_fast
+
+    r = exp_fast.run_case(exp_fast.case("10mhz", dev), dev)
+    if r["gone"] < 20 or r["dropped"] < 1:
+        raise AssertionError(f"detect_fast: the synthetic block did not "
+                             f"reach the squelch and drop paths: {r}")
+    torch.cuda.empty_cache()
+    return dict(name="detect_fast", route="cuda",
+                source="iridium_tpu_torch/csrc/detect_fast.cu",
+                replaces="iridium_tpu/dsp/detect_fast.py:604",
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None,
+                detail=dict(card=card, per_shape=[r],
+                            bit_equal=r["bit_equal"],
+                            ptxas=exp_demod.ptxas_summary(
+                                _kernels.DETECT_FAST),
+                            scalar_division=exp_fast.scalar_division(dev)))
+
+
 def kernel_phase(dev, card: str) -> list[dict]:
     from iridium_tpu_torch.config import DetectorConfig
 
@@ -491,7 +539,8 @@ def kernel_phase(dev, card: str) -> list[dict]:
             check_gather(dev, card),
             check_block_gather(dev, card),
             check_demod(dev, card),
-            check_downmix(dev, card)]
+            check_downmix(dev, card),
+            check_fast(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
     return rows
@@ -676,6 +725,81 @@ def group_oracle_phase(pipe, path: str, lines: list) -> dict:
                 f"{eager.numel()} words differ from the eager program")
         res[f"arity_{nb}_words_bit_equal"] = eager.numel()
     return res
+
+
+def raw_parity(got: list, want: list) -> dict:
+    """Two decodes' RAW lines of one capture, field for field, but for the
+    frequency within ±1 Hz and the level within its last digit (ROADMAP,
+    "RAW parity at bench scale"): raises on any other difference; counts
+    the lines whose frequency, or level, differ."""
+    import re
+    pat = re.compile(r"^(RAW: \S+ \S+) (\d+) (N:\S+ I:\d+ +\d+%) (\S+) "
+                     r"(.*)$")
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{len(got)} lines against {len(want)}")
+    n_freq = n_level = 0
+    for g, w in zip(got, want):
+        a, b = pat.match(g), pat.match(w)
+        if not (a and b and a[1] == b[1] and a[3] == b[3] and a[5] == b[5]
+                and abs(int(a[2]) - int(b[2])) <= 1
+                and abs(float(a[4]) - float(b[4])) < 1.5e-5):
+            raise AssertionError(f"RAW lines differ:\n{g}\n{w}")
+        n_freq += a[2] != b[2]
+        n_level += a[4] != b[4]
+    return dict(lines=len(want), freq_1hz=n_freq, level_last_digit=n_level)
+
+
+def decode_fast_phase(dev, single: dict) -> dict:
+    """The RAW 10 MHz capture through `Pipeline(detect_impl="fast")` on the
+    card (the detect_fast kernel, one launch a block), after a warm-up
+    decode, and through the same Pipeline on the CPU (the plain twin): the
+    same RAW lines but for the frequency (±1 Hz) and the level's last digit
+    (`raw_parity`), every injected payload bit-exact, detect_fast launched
+    once a block and the scan kernel never."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.config import DetectorConfig
+    from iridium_tpu_torch.output.raw import RawPrinter
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    from iridium_tpu_torch.tools.captures import PROD
+
+    path = single["path"]
+    det = DetectorConfig(**PROD)
+    pipe = Pipeline(det_cfg=det, start_time_ns=T0, device=dev,
+                    want_llr=False, detect_impl="fast")
+    list(pipe.run_file(path))
+    pipe.reset(T0)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t = time.perf_counter()
+    frames = list(pipe.run_file(path))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {k.name: k.launches for k in _kernels.KERNELS}
+    printer = RawPrinter()
+    lines = [printer.format(f) for f in frames]
+    n_blocks = -(-os.path.getsize(path) // (8 * det.derived().block_samples))
+    if counts["detect_fast"] != n_blocks or counts["detect_scan"] != 0:
+        raise AssertionError(f"detect_impl='fast' decode launches: {counts}")
+    missing = missing_payloads(frames, single["bursts"], det)
+    if missing:
+        raise AssertionError(f"detect_impl='fast' decode: payloads not "
+                             f"decoded bit-exact: {missing}")
+    stages = dict(pipe.timing)
+    del pipe, frames
+    cpu = Pipeline(det_cfg=det, start_time_ns=T0, device="cpu",
+                   want_llr=False, detect_impl="fast")
+    t = time.perf_counter()
+    printer = RawPrinter()
+    want = [printer.format(f) for f in cpu.run_file(path)]
+    cpu_s = time.perf_counter() - t
+    parity = raw_parity(lines, want)
+    return dict(phase="decode_fast_10mhz", detect_impl="fast",
+                capture_s=single["capture_s"], wall_s=wall,
+                realtime_x=single["capture_s"] / wall, raw_lines=len(lines),
+                payloads_bit_exact=len(single["bursts"]),
+                cpu_wall_s=cpu_s, cpu_parity=parity, stages=stages,
+                launches=counts)
 
 
 class ReplayCheck:
@@ -1031,7 +1155,7 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         det1 = DetectorConfig(sample_rate=1_000_000)
         one = Pipeline(det_cfg=det1, start_time_ns=T0, device=dev,
                        want_llr=False, detect_impl="fast")
-        want, _, wall1, _ = timed(one, path1)
+        want, _, wall1, one_c = timed(one, path1)
         del one
         sb = ShardedPipeline(det1, mesh=mesh, start_time_ns=T0,
                              want_llr=False, burst_batch=128,
@@ -1040,8 +1164,12 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         if not want or list(map(strip_id, got)) != list(map(strip_id, want)):
             raise AssertionError(f"mesh binshard 1 MHz: {len(got)} lines "
                                  f"against {len(want)}")
-        if binc["window_gather"] == 0 or binc["detect_scan"] != 0:
-            raise AssertionError(f"mesh binshard 1 MHz launches: {binc}")
+        # binshard keeps detect_fast's loop (its coupling is an
+        # all_reduce a frame); the single card runs the kernel
+        if (binc["window_gather"] == 0 or binc["detect_scan"] != 0
+                or binc["detect_fast"] != 0 or one_c["detect_fast"] == 0):
+            raise AssertionError(f"mesh binshard 1 MHz launches: {binc}, "
+                                 f"the single card's: {one_c}")
         if ("window_gather" not in chk.summary
                 or chk.summary["demod_loop"]["calls"] == demod_calls
                 or chk.summary["downmix_fir"]["calls"] == fir_calls):
@@ -1056,6 +1184,7 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             collectives_ms=1e3 * sb.timing["collectives"],
             n_collectives=sb.timing["n_collectives"],
             stages=dict(sb.timing), launches=binc,
+            single_fast_launches=one_c,
             graphs=graph_info({"block": sb._graph}))
         check_class_nodes(res["binshard_1mhz"]["graphs"], sb.classes,
                           "mesh binshard")
@@ -1081,7 +1210,7 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     res["cli_stdin_10mhz"] = dict(lines=len(raw_file),
                                   mesh_1_stdin_lines_equal=True)
     res["cli_processes_s"] = time.perf_counter() - t
-    res["launches"] = {k: rep[k] + binc[k] for k in rep}
+    res["launches"] = {k: rep[k] + binc[k] + one_c[k] for k in rep}
     res["kernel_checks"] = chk.summary
     return res
 
@@ -1585,39 +1714,45 @@ def _to(state, dev):
 
 
 def detect_fast_card_phase(dev) -> dict:
-    """detect_fast on the card against detect_fast on the CPU on the same
-    |X|^2 rows of one production block (2048 x 8192, exp_scan's synthetic
-    block: bursts, a long burst, a squelch blast with emission drops):
-    integer fields, baseline sums and history bit-equal, dB fields within
-    rtol 1e-5; each run timed. Then the exact scan (detect.py) on the card
-    against the CPU on one small block (256 x 8192, the edge block), held
-    the same way. Last, detect_fast on the card alone at the 25 MHz block
-    (1,024 x 32,768, the synthetic block), which the scan kernel now
-    serves: its seconds, and its device launches a block counted by
-    torch.profiler; and at the 400 MHz block (1,024 x 524,288, the
-    synthetic block), which ran detect_fast before the kernel's grid
-    took it: its seconds."""
+    """The detect_fast kernel held to `scan_fast_plain` on the card bit for
+    bit on every field of the state, at the shapes after the production
+    block (`tools/exp_fast.py`, its doc): the edge block (256 x 8,192,
+    n_valid ending mid-block), 1,024 x 32,768 (a grid of 32 blocks),
+    1,024 x 524,288 (128), 1,024 x 2,097,152 with n_valid = 2^31 (the
+    1.6 GHz block the scan kernel refuses; 128 blocks of 16 bins a
+    thread), and a local bin range (rank 1 of 4 at 10 MHz, ownership,
+    id_stride 4, identity coupling), each timed with the twin's ms, the
+    bound and the device operations a block (in the `kernels` line's
+    `detail.per_shape`). Then the kernel on the card against the twin on
+    the CPU on the production block (integer fields, baseline sums and
+    history bit-equal, dB fields within rtol 1e-5: the CPU's log10 and
+    division differ in the last ulp); and the exact scan (detect.py) on
+    the card against the CPU on the edge block, held the same way."""
     import torch
     from iridium_tpu_torch.config import DetectorConfig
     from iridium_tpu_torch.dsp import detect, detect_fast, state as st
-    from iridium_tpu_torch.tools import exp_scan
+    from iridium_tpu_torch.tools import exp_fast, exp_scan
 
-    p = exp_scan.production_params()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    mag2 = exp_scan.synthetic_spectrogram(p, gen)
+    per_shape = []
+    for name in exp_fast.SHAPES[1:]:
+        per_shape.append(exp_fast.run_case(exp_fast.case(name, dev), dev))
+        torch.cuda.empty_cache()
+    by = {r["case"]: r for r in per_shape}
+    if by["1600mhz"]["n_act"] != 1024 or by["1600mhz"]["n_valid"] != 2**31:
+        raise AssertionError("the 1.6 GHz block did not run 2^31 samples")
+    if by["edge"]["gone"] < 20 or by["edge"]["dropped"] < 1:
+        raise AssertionError(f"detect_fast: the edge block did not reach "
+                             f"the squelch and drop paths: {by['edge']}")
+
+    c = exp_fast.case("10mhz", dev)
+    p = c.p
     run = detect_fast.make_scan_fast(p)
-    card_ms = host_ms(lambda: run(mag2, st.init_state(p, dev),
-                                  p.block_samples), reps=1)
-    got = run(mag2, st.init_state(p, dev), p.block_samples)
+    got = run(c.mag2, c.state, p.block_samples)
     t = time.perf_counter()
-    want = run(mag2.cpu(), st.init_state(p, "cpu"), p.block_samples)
+    want = run(c.mag2.cpu(), st.init_state(p, "cpu"), p.block_samples)
     cpu_ms = (time.perf_counter() - t) * 1e3
     err = exp_scan.compare(got, _to(want, dev))
-    g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
-    if g["g_count"] < 20 or g["burst_dropped"] < 1:
-        raise AssertionError(f"detect_fast: the synthetic block did not "
-                             f"reach the squelch and drop paths: {g}")
+    del c, got, want
 
     pe = DetectorConfig(sample_rate=10_000_000, history_size=64,
                         frames_per_block=256, max_new_per_frame=8,
@@ -1642,42 +1777,9 @@ def detect_fast_card_phase(dev) -> dict:
     for name in ("g_mag", "g_noise", "a_mag", "a_noise", "floats"):
         torch.testing.assert_close(getattr(ge, name), getattr(we, name),
                                    rtol=1e-5, atol=0)
-    pw = DetectorConfig(sample_rate=25_000_000).derived()
-    gen.manual_seed(SEED)
-    mw = exp_scan.synthetic_spectrogram(pw, gen)
-    run_w = detect_fast.make_scan_fast(pw)
-    # one call each at 25 and 400 MHz (seconds a call: a warm-up would
-    # double them; the production block above warmed the code)
-    wide_ms = once_ms(lambda: run_w(mw, st.init_state(pw, dev),
-                                    pw.block_samples))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run_w(mw, st.init_state(pw, dev), pw.block_samples)
-        torch.cuda.synchronize()
-    wide_launches = sum(e.count for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
-    wb_ms, wb_by = scan_bound(pw)
-    del mw
-    p4 = DetectorConfig(sample_rate=400_000_000).derived()
-    gen.manual_seed(SEED)
-    m4 = exp_scan.synthetic_spectrogram(p4, gen)
-    run_4 = detect_fast.make_scan_fast(p4)
-    w400_ms = once_ms(lambda: run_4(m4, st.init_state(p4, dev),
-                                    p4.block_samples))
-    del m4
-    b4_ms, b4_by = scan_bound(p4)
-    return dict(phase="detect_fast_card", block=[p.frames_per_block,
-                                                 p.fft_size],
-                w400_block=[p4.frames_per_block, p4.fft_size],
-                w400_fast_card_ms=w400_ms, w400_bound_ms=b4_ms,
-                w400_bound_by=b4_by,
-                wide_block=[pw.frames_per_block, pw.fft_size],
-                wide_fast_card_ms=wide_ms,
-                wide_device_launches=wide_launches,
-                wide_bound_ms=wb_ms, wide_bound_by=wb_by,
-                fast_card_ms=card_ms, fast_cpu_ms=cpu_ms, max_db_err=err,
-                gone=g["g_count"], tagged=g["n_tagged"],
-                dropped=g["burst_dropped"],
+    return dict(phase="detect_fast_card", per_shape=per_shape,
+                block=[p.frames_per_block, p.fft_size],
+                fast_cpu_ms=cpu_ms, cpu_max_db_err=err,
                 exact_block=[pe.frames_per_block, pe.fft_size],
                 exact_card_ms=exact_ms, exact_gone=int(ge.g_count))
 
@@ -2175,7 +2277,13 @@ def main() -> int:
     rows[0]["detail"]["ptxas"] = shp["ptxas"]
     rows[0]["max_abs_err"] = max([rows[0]["max_abs_err"]]
                                  + [w["max_abs_err"] for w in shapes])
-    emit(detect_fast_card_phase(dev))
+    fc = emit(detect_fast_card_phase(dev))
+    fast_row = next(r for r in rows if r["name"] == "detect_fast")
+    fast_row["detail"]["per_shape"] += fc["per_shape"]
+    fast_row["detail"]["bit_equal"] = all(
+        r["bit_equal"] for r in fast_row["detail"]["per_shape"])
+    fast_row["max_abs_err"] = max(r["max_abs_err"]
+                                  for r in fast_row["detail"]["per_shape"])
     with tempfile.TemporaryDirectory() as tmp:
         dec, ctx = decode_phase(dev, tmp)
         emit(dec)
@@ -2185,6 +2293,7 @@ def main() -> int:
                       bursts=ctx["bursts"], wall_s=dec["wall_s"],
                       capture_s=dec["capture_s"])
         del ctx
+        fast = emit(decode_fast_phase(dev, single))
         gat = emit(gather_phase(dev, tmp))
         mesh = emit(mesh_phase(dev, tmp, single))
         emit(demod_phase(dev))
@@ -2218,7 +2327,7 @@ def main() -> int:
         if r["name"] == "detect_scan" and extra:
             r["max_abs_err"] = max([r["max_abs_err"]]
                                    + [e["max_abs_err"] for e in extra])
-    paths = (dec, gat, mesh, par, tool, den, ing, wide, w400, w1600)
+    paths = (dec, fast, gat, mesh, par, tool, den, ing, wide, w400, w1600)
     for r in rows:
         by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}
         r["launches"] = sum(by_path.values())

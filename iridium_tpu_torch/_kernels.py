@@ -182,8 +182,20 @@ DOWNMIX_FIR = Kernel(
     # separate tensor operations round them
     extra_flags=("--fmad=false",))
 
+DETECT_FAST = Kernel(
+    "detect_fast",
+    # |X|^2, the state's 9 planes, 7 gone fields and 2 scalar tensors,
+    # the scratch, 15 shape and detector integers, 5 float constants, the
+    # plan (blocks, block bins, threads, bins a thread, bins a segment),
+    # the stream
+    [P] * 20 + [I] * 15 + [F32] * 5 + [I] * 5 + [P],
+    # the noise sums, relative magnitudes and dB values rounded as the
+    # plain twin's separate tensor operations round them (no fused
+    # multiply-add; IEEE division is nvcc's default)
+    extra_flags=("--fmad=false",))
+
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
-           DEMOD_LOOP, DOWNMIX_FIR)
+           DEMOD_LOOP, DOWNMIX_FIR, DETECT_FAST)
 
 
 def build_all() -> None:

@@ -2,20 +2,28 @@
 iridium_tpu/dsp/detect_fast.py (the JAX package's XLA scan).
 
 The pipeline runs it for the detector shapes the scan kernel
-(csrc/detect_scan.cu) refuses, such as F = 131072 at sample rates above
-about 92.7 MHz (`detect_scan.resolve_impl`), or where it is asked for
-(`detect_impl="fast"`); the sharded pipeline's bin-split mode runs it
-sharded, as the JAX package's does. It is plain tensor ops on the state's
-device, frame by frame, with no host read inside a block, so on the card
-the host only enqueues.
+(csrc/detect_scan.cu) refuses, such as blocks of 2^31 samples or more
+(1.6 GHz at its default 1,024 frames, `detect_scan.resolve_impl`), or
+where it is asked for (`detect_impl="fast"`); the sharded pipeline's
+bin-split mode runs it sharded, as the JAX package's does.
 
-Its results depend on how it is built, and the tests hold it to the JAX
-function row for row, so it keeps that function's structure:
+`make_scan_fast` builds the scan. On a CUDA state with one bin range (no
+`coupling_sum`) it launches the hand-written kernel (csrc/detect_fast.cu,
+one launch a block, in the layout `plan` gives); on a CPU state it runs
+`scan_fast_plain`, the same state machine as tensor ops, frame by frame,
+which the tests hold to the JAX function row for row and the card holds
+the kernel to bit for bit. With a `coupling_sum` (binshard: the
+per-frame pair summed over the ranks by `all_reduce`) it runs
+`scan_fast_plain` on the card too: cutting the kernel at that seam is
+the next slice of the port.
+
+`scan_fast_plain` keeps the JAX function's structure, since its results
+depend on it:
   - the frames go in chunks of CHUNK (at most H / 2 and at most 32, a
     divisor of frames_per_block): a chunk reads the 2 * CHUNK history rows
     its noise updates can evict when it starts and writes the rows it
     updated when it ends (at most two updates a frame, so a chunk never
-    evicts a row it wrote);
+    evicts a row it wrote; the kernel's live ring gives the same rows);
   - creation candidates are the K_TOP = 2 * K_CREATE largest segment
     maxima of the masked relative magnitude (segments of up to 16 bins, no
     wider than half the burst width), walked greedily: a candidate within
@@ -31,24 +39,27 @@ function row for row, so it keeps that function's structure:
     released for every deleted burst), and the stale history row after two
     noise resets in one chunk.
 
-`make_scan_fast` keeps the JAX function's local bin range (`n_bins`,
-`bin_lo`, `own_lo`, `own_hi`: bursts centred outside [own_lo, own_hi) are
-tracked but not emitted) and its one per-frame coupling sum, the
-[any long-burst deletion, active count] pair that the JAX package sums
-over shards with `psum` (:369-383). Here `coupling_sum` is that hook and
-defaults to the identity.
+Both keep the JAX function's local bin range (`n_bins`, `bin_lo`,
+`own_lo`, `own_hi`: bursts centred outside [own_lo, own_hi) are tracked
+but not emitted) and its one per-frame coupling sum, the [any long-burst
+deletion, active count] pair that the JAX package sums over shards with
+`psum` (:369-383). Here `coupling_sum` is that hook and defaults to the
+identity.
 """
 
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..config import DetectorParams
 from . import detect_scan
-from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
+from . import state as state_mod
+from .state import E_DEL, E_SQ, GONE_FIELDS, PLANE_FIELDS, ScanState
 from .state import init_state  # noqa: F401  (this module's state)
 
 E_TOT = E_DEL + E_SQ
@@ -86,13 +97,26 @@ def _window_sums(x: torch.Tensor, hb: int) -> torch.Tensor:
     return cs[2 * hb + 1:] - cs[:n]
 
 
-def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
-                   coupling_sum=None, id_stride: int = 1):
-    """Build run(mag2, state, n_valid, bin_lo=0, own_lo=0, own_hi=F) ->
-    new ScanState over a block of fftshifted |X|^2 rows (frames_per_block,
-    n_bins) f32; the input state is left as it was. `coupling_sum` maps the
-    frame's (2,) int64 [any long-burst deletion, owned active count] to
-    its sum over every bin range (identity: this range is all of them)."""
+def _segments(hb: int, FL: int) -> tuple[int, int]:
+    """(SEG, NS): the candidate pool's segments (detect_fast.py:214-241),
+    the largest power of two up to min(half_bw, 16) that divides FL, and
+    their number; under 4 bins every bin is its own segment (NS = FL)."""
+    SEG = 1
+    while SEG * 2 <= min(max(hb, 1), 16) and FL % (SEG * 2) == 0:
+        SEG *= 2
+    return SEG, (FL // SEG if SEG >= 4 else FL)
+
+
+def scan_fast_plain(mag2: torch.Tensor, state: ScanState, n_valid: int,
+                    p: DetectorParams, n_bins: int | None = None,
+                    coupling_sum=None, id_stride: int = 1, bin_lo=0,
+                    own_lo=0, own_hi=None) -> ScanState:
+    """The new ScanState after the block of fftshifted |X|^2 rows `mag2`
+    (frames_per_block, n_bins) f32, as tensor ops on mag2's device, frame
+    by frame (the kernel's plain twin); the input state is left as it
+    was. `coupling_sum` maps the frame's (2,) int64 [any long-burst
+    deletion, owned active count] to its sum over every bin range
+    (identity: this range is all of them)."""
     F = p.fft_size
     FL = n_bins if n_bins is not None else F
     G, H = p.gone_capacity, p.history_size
@@ -102,8 +126,6 @@ def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
     hist_f, enbw = float(c["hist_f"]), float(c["enbw"])
     f2, bin_width = float(c["f2"]), float(c["bin_width"])
     K_CREATE = c["k_create"]
-    if p.max_new_per_frame > K_CREATE:
-        _warn_clamp_once(p.max_new_per_frame, K_CREATE)
     K_TOP = 2 * K_CREATE
     n_frames = p.frames_per_block
     CHUNK = chunk_frames(p)
@@ -111,239 +133,383 @@ def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
     if G > n_frames * E_TOT:
         raise ValueError(f"gone_capacity {G} above the {n_frames * E_TOT} "
                          "emissions a block can make")
-    # segment maxima as the candidate pool (detect_fast.py:214-241)
-    SEG = 1
-    while SEG * 2 <= min(max(hb, 1), 16) and FL % (SEG * 2) == 0:
-        SEG *= 2
-    NS = FL // SEG if SEG >= 4 else FL
+    # segment maxima as the candidate pool
+    SEG, NS = _segments(hb, FL)
     gsum = coupling_sum or (lambda x: x)
     # earlier[j, k]: candidate k comes before candidate j
     earlier = np.tril(np.ones((K_TOP, K_TOP), bool), -1)
     dc = F // 2
 
+    own_hi = F if own_hi is None else own_hi
+    dev = mag2.device
+    i32, i64 = torch.int32, torch.int64
+    iota = torch.arange(FL, device=dev)
+    gbins = bin_lo + iota
+    # edge and DC-notch exclusion and ownership, in global bins
+    eligible = ((gbins >= hb) & (gbins < F - hb)
+                & ~((gbins >= dc - 3) & (gbins <= dc + 3))).float()
+    owned = (gbins >= own_lo) & (gbins < own_hi)
+    gbin_i = gbins.to(i32)
+    ones_i = torch.ones(FL, dtype=i32, device=dev)
+    zero_f = torch.zeros((), device=dev)
+    pool_rev = NS - 1 - torch.arange(NS, device=dev)
+    tri = torch.from_numpy(earlier).to(dev)
+    ar2 = torch.arange(C2, device=dev)
+    del_rows = torch.arange(1, E_DEL + 1, dtype=i32, device=dev)
+    sq_rows = torch.arange(1, E_SQ + 1, dtype=i32, device=dev)
+
+    s = state.clone()
+    hist = s.baseline_hist
+    bsum = s.baseline_sum
+    a_valid, a_id, a_start, a_last = s.a_valid, s.a_id, s.a_start, s.a_last
+    a_mag, a_noise, mask = s.a_mag, s.a_noise, s.mask_count
+    sc = s.ints.to(i64)
+    hidx, prim, burst_id, sq_count = sc[0], sc[1], sc[2], sc[3]
+    n_tagged, dropped, waits = sc[4], sc[5], sc[6]
+    peak = s.floats[0]
+    ems = torch.zeros((n_frames, E_TOT, 8), dtype=i32, device=dev)
+
+    def top_pool(relm):
+        """(values, bins) of the K_TOP largest segment maxima, in
+        descending order, the lower bin first among equal values (as
+        lax.top_k): the keys are unique, so any top-k gives them."""
+        if SEG >= 4:
+            segmax, segarg = relm.view(NS, SEG).max(1)
+        else:
+            segmax, segarg = relm, None
+        # relm >= +0.0, so its bits order as its values
+        key = (segmax.view(i32).to(i64) << 32) | pool_rev
+        si = torch.topk(key, K_TOP).indices
+        if segarg is None:
+            return segmax[si], si
+        return segmax[si], si * SEG + segarg[si]
+
+    n_act_frames = active_frames(p, n_valid)
+    for c0 in range(0, n_act_frames, CHUNK):
+        pos = (hidx + ar2) % H
+        pre = hist[pos]
+        upd_k = torch.zeros((), dtype=i64, device=dev)
+        k0s, d0s, k1s, d1s = [], [], [], []
+        for f in range(c0, min(c0 + CHUNK, n_act_frames)):
+            idx = f * F
+            mag = mag2[f]
+            primed = prim >= H
+            ev = pre.index_select(0, torch.stack([upd_k, upd_k + 1]))
+            evict_a, evict_b = ev[0], ev[1]
+            rel = torch.where(bsum > 0, mag / bsum, zero_f)
+
+            # extend last_active (burst_detect.c:458-469)
+            th = rel > thr
+            dil = th.clone()
+            dil[:-1] |= th[1:]
+            dil[1:] |= th[:-1]
+            a_last = torch.where(a_valid & dil & primed, idx, a_last)
+
+            # peaks under the carried mask
+            relm = rel * (mask == 0) * eligible
+            relm = torch.where(relm > thr, relm, zero_f)
+
+            # gone bursts (burst_detect.c:490-518)
+            long_b = a_valid & ((a_last - a_start) > p.max_burst_len)
+            gone = a_valid & (((a_last + p.burst_post_len) <= idx)
+                              | long_b)
+            flags = gone & primed
+            any_long = long_b.any().to(i64)
+            emit = flags & owned
+            vals8 = torch.stack(
+                [a_id, a_start, torch.full_like(a_id, idx), a_last,
+                 gbin_i, a_mag.view(i32), a_noise.view(i32), ones_i], 1)
+            a_valid = a_valid & ~flags
+
+            # creation (burst_detect.c:556-632): the descending
+            # candidates, each skipped within half_bw of an accepted one
+            topv, topi = top_pool(relm)
+            above = primed & (topv > thr)
+            near = ((topi[:, None] - topi[None, :]).abs() <= hb) & tri
+            acc = torch.zeros(K_TOP, dtype=torch.bool, device=dev)
+            for j in range(K_TOP):
+                acc[j] = above[j] & ~(acc & near[j]).any()
+            acc_i = acc.to(i64)
+            rank = torch.cumsum(acc_i, 0) - acc_i
+            take = acc & (rank < K_CREATE)
+            n_acc = take.sum()
+            ids_k = burst_id + 10 * id_stride * rank
+            at_any = torch.zeros(FL, dtype=torch.bool,
+                                 device=dev).scatter(0, topi, take)
+
+            # the per-frame coupling: [any long-burst deletion (forced
+            # noise update, :516), post-creation active count]
+            n_own_post = ((a_valid | at_any) & owned).sum()
+            cpl = gsum(torch.stack([any_long, n_own_post]))
+            force = (cpl[0] > 0) & primed
+            n_active = cpl[1]
+
+            # the created bursts' noise reads see the forced update at
+            # their bin, in the same float order
+            base_at, mag_at, ev_at = bsum[topi], mag[topi], evict_a[topi]
+            old_at = ev_at * (prim >= H)
+            base_eff = torch.where(force, (base_at - old_at) + mag_at,
+                                   base_at)
+            mag_db = 10.0 * torch.log10(
+                torch.clamp(topv * hist_f * enbw, min=1e-30))
+            noise_db = 10.0 * torch.log10(torch.clamp(
+                base_eff / hist_f / f2 / enbw / bin_width, min=1e-30))
+
+            # forced noise update (long-burst deletion)
+            did0, k0 = force, upd_k
+            old = evict_a * (prim >= H)
+            bsum = torch.where(force, (bsum - old) + mag, bsum)
+            prim = torch.clamp(prim + force.to(i64), max=H)
+            upd_k = upd_k + force.to(i64)
+
+            start = idx - p.burst_pre_len
+            a_valid = a_valid | at_any
+            a_id = a_id.scatter(0, topi, torch.where(
+                take, ids_k.to(i32), a_id[topi]))
+            a_start = torch.where(at_any, start, a_start)
+            a_last = torch.where(at_any, start, a_last)
+            a_mag = a_mag.scatter(0, topi, torch.where(
+                take, mag_db, a_mag[topi]))
+            a_noise = a_noise.scatter(0, topi, torch.where(
+                take, noise_db, a_noise[topi]))
+            # one mask update: add the creations, release the deletions
+            mask = mask + _window_sums(at_any.to(i32) - flags.to(i32), hb)
+            burst_id = burst_id + 10 * id_stride * n_acc
+            peak = torch.maximum(peak, torch.where(
+                take, mag_db, float("-inf")).max())
+            more = (n_acc == K_CREATE) & (acc & (rank >= K_CREATE)).any()
+            waits = waits + more.to(i64)
+
+            # squelch (burst_detect.c:594-631) on the coupled count
+            if p.max_bursts > 0:
+                squelch = primed & (n_active > p.max_bursts)
+            else:
+                squelch = torch.zeros((), dtype=torch.bool, device=dev)
+            sq_flags = squelch & a_valid & ~at_any
+
+            # the frame's emissions: deletion rows first (ascending
+            # bin), then squelch rows, each set ranked by one cumsum
+            fi_d = emit.to(i32)
+            fi_s = (sq_flags & owned).to(i32)
+            cs = torch.cumsum(fi_d + (fi_s << 16), 0, dtype=i32)
+            cs_d, cs_s = cs & 0xFFFF, cs >> 16
+            n_del, n_sq = cs_d[-1].to(i64), cs_s[-1].to(i64)
+            rows = torch.cat([torch.searchsorted(cs_d, del_rows),
+                              torch.searchsorted(cs_s, sq_rows)])
+            ems[f] = torch.where((rows < FL)[:, None],
+                                 vals8[rows.clamp(max=FL - 1)], 0)
+            n_tagged = n_tagged + n_del + n_sq
+            dropped = (dropped + torch.clamp(n_del - E_DEL, min=0)
+                       + torch.clamp(n_sq - E_SQ, min=0))
+
+            a_valid = a_valid & ~squelch
+            mask = torch.where(squelch, 0, mask)
+            sq_count = torch.where(squelch, sq_count + 3,
+                                   torch.clamp(sq_count - 1, min=0))
+            # noise-estimate reset after repeated squelch; the history
+            # slots continue
+            reset = sq_count >= 10
+            bsum = torch.where(reset, zero_f, bsum)
+            prim = torch.where(reset, 0, prim)
+            sq_count = torch.where(reset, 0, sq_count)
+
+            # final noise update when no burst is active (:698)
+            evict2 = torch.where(did0, evict_b, evict_a)
+            k1 = upd_k
+            do1 = torch.where(squelch, 0, n_active) == 0
+            old = evict2 * (prim >= H)
+            bsum = torch.where(do1, (bsum - old) + mag, bsum)
+            prim = torch.clamp(prim + do1.to(i64), max=H)
+            upd_k = upd_k + do1.to(i64)
+            k0s.append(k0)
+            d0s.append(did0)
+            k1s.append(k1)
+            d1s.append(do1)
+
+        # the chunk's written rows: update k stores the |X|^2 row of the
+        # frame that made it; the rest keep what was read
+        nf = len(k0s)
+        frame_of = torch.full((C2 + 1,), c0, dtype=i64, device=dev)
+        local = torch.arange(c0, c0 + nf, device=dev)
+        frame_of.scatter_(0, torch.where(torch.stack(d0s),
+                                         torch.stack(k0s), C2), local)
+        frame_of.scatter_(0, torch.where(torch.stack(d1s),
+                                         torch.stack(k1s), C2), local)
+        hist[pos] = torch.where((ar2 < upd_k)[:, None],
+                                mag2[frame_of[:C2]], pre)
+        hidx = (hidx + upd_k) % H
+
+    # the gone table: the emission rows in frame order, first G kept
+    em = ems.reshape(-1, 8)
+    cs = torch.cumsum((em[:, 7] > 0).to(i32), 0, dtype=i32)
+    src = torch.searchsorted(
+        cs, torch.arange(1, G + 1, dtype=i32, device=dev))
+    table = torch.where((src < em.shape[0])[:, None],
+                        em[src.clamp(max=em.shape[0] - 1)], 0)
+    # the row's columns are the gone fields, in order, then the flag
+    for k, name in enumerate(GONE_FIELDS):
+        col = table[:, k]
+        if name in ("g_mag", "g_noise"):
+            col = col.view(torch.float32)
+        getattr(s, name).copy_(col)
+    s.baseline_sum, s.a_valid, s.a_id = bsum, a_valid, a_id
+    s.a_start, s.a_last, s.a_mag, s.a_noise = (a_start, a_last, a_mag,
+                                               a_noise)
+    s.mask_count = mask
+    s.ints = torch.stack([hidx, prim, burst_id, sq_count, n_tagged,
+                          dropped, waits,
+                          torch.clamp(cs[-1].to(i64), max=G)]).to(i32)
+    s.floats = peak.reshape(1)
+    return s
+
+
+# The kernel's layout (csrc/detect_fast.cu). Thread t of block b owns the
+# BPT contiguous local bins from (b T + t) BPT, so a block owns T BPT bins
+# and bin k's deletion flag is a bit of scratch word k // BPT. Up to
+# ONE_BLOCK_BINS bins one block, whose barriers are __syncthreads (the 10
+# MHz block, binshard's ranks); above, a cooperative grid of 1024-thread
+# blocks, one an SM, that meet at grid barriers in device memory: at most
+# MAX_BLOCKS of them (the H100 SXM's SMs; the C entry asks the card how
+# many it holds at once and refuses a larger grid before anything runs),
+# each thread with the fewest bins (a power of two up to MAX_BPT) that
+# this many blocks cover.
+ONE_BLOCK_BINS = 8192
+MAX_THREADS = 1024
+MAX_BLOCKS = 132
+MAX_BPT = 32
+MAX_BINS = MAX_BLOCKS * MAX_THREADS * MAX_BPT
+# scratch (32-bit words): the grid barrier's arrival counter on a line of
+# its own, one `Partial` a block (8 candidate keys of 64 bits, 4 counts),
+# one flag word a thread
+LINE_WORDS = 32
+PARTIAL_WORDS = 2 * 8 + 4
+
+
+class Plan(NamedTuple):
+    blocks: int        # thread blocks of the launch
+    block_bins: int    # bins a block: threads x bpt (the last: the rest)
+    threads: int       # T, whole warps
+    bpt: int           # bins a thread, a power of two
+    seg: int           # the twin's SEG (`_segments`)
+    ns: int            # the twin's NS; FL // ns bins a kernel segment
+    scratch_words: int
+    grid: bool         # a cooperative grid (else one block)
+
+
+def plan(p: DetectorParams, n_bins: int | None = None) -> Plan:
+    """The kernel's launch over n_bins local bins (all fft_size bins by
+    default): the one place its layout is decided (the C entry checks it
+    and refuses any other). Raises ValueError on what the kernel does not
+    take: more than MAX_BINS bins; a history under 2 rows (a chunk's
+    evictions would reach a row the chunk wrote, where the twin reads the
+    row from before the chunk and the kernel's live ring the new one);
+    frame positions past int32; a gone table larger than the emission caps
+    fill; fewer segments than candidates (the twin's top-k raises)."""
+    F = p.fft_size
+    FL = n_bins if n_bins is not None else F
+    SEG, NS = _segments(p.burst_width_bins // 2, FL)
+    k_top = 2 * detect_scan._consts(p)["k_create"]
+    if FL <= 0 or FL > MAX_BINS:
+        raise ValueError(f"detect_fast kernel: {FL} bins, it takes 1 to "
+                         f"{MAX_BINS}")
+    if p.history_size < 2:
+        raise ValueError("detect_fast kernel: a history of 2 rows or more")
+    if (p.frames_per_block - 1) * F > 2**31 - 1:
+        raise ValueError("detect_fast kernel: frame positions past int32")
+    _check_gone(p)
+    if NS < k_top:
+        raise ValueError(f"detect_fast kernel: {NS} segments, fewer than "
+                         f"the {k_top} candidates")
+    bpt = 1
+    if FL <= ONE_BLOCK_BINS:
+        while bpt * MAX_THREADS < FL:
+            bpt *= 2
+        T = -(-FL // (32 * bpt)) * 32
+        blocks = 1
+    else:
+        while -(-FL // (MAX_THREADS * bpt)) > MAX_BLOCKS:
+            bpt *= 2
+        T = MAX_THREADS
+        blocks = -(-FL // (T * bpt))
+    words = LINE_WORDS + PARTIAL_WORDS * blocks + blocks * T
+    return Plan(blocks, T * bpt, T, bpt, SEG, NS, words, blocks > 1)
+
+
+def _check_gone(p: DetectorParams) -> None:
+    if p.gone_capacity > p.frames_per_block * E_TOT:
+        raise ValueError(f"gone_capacity {p.gone_capacity} above the "
+                         f"{p.frames_per_block * E_TOT} emissions a block "
+                         "can make")
+
+
+def active_frames(p: DetectorParams, n_valid: int) -> int:
+    """The frames of the block that n_valid samples fill (the twin's)."""
+    F = p.fft_size
+    return min(max((int(n_valid) - F) // F + 1, 0), p.frames_per_block)
+
+
+def scan_fast_kernel(mag2: torch.Tensor, state: ScanState, n_valid: int,
+                     p: DetectorParams, n_bins: int | None = None,
+                     id_stride: int = 1, bin_lo=0, own_lo=0,
+                     own_hi=None) -> ScanState:
+    """`scan_fast_plain` with the identity coupling, as one launch of the
+    kernel on mag2's CUDA device in the layout `plan` gives; the input
+    state is left as it was. Raises on a shape `plan` refuses, on tensors
+    the kernel does not take and on a launch the card refuses."""
+    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+    FL = n_bins if n_bins is not None else F
+    own_hi = F if own_hi is None else own_hi
+    lay = plan(p, FL)
+    dev = mag2.device
+    _kernels.check(mag2, "mag2", torch.float32, dev,
+                   (p.frames_per_block, FL))
+    out = state.clone()
+    for name in GONE_FIELDS:
+        getattr(out, name).zero_()
+    state_mod.check(out, p, dev, FL)
+    c = detect_scan._consts(p)
+    scratch = torch.zeros(lay.scratch_words, dtype=torch.int32, device=dev)
+    k = _kernels
+    k.DETECT_FAST.launch(
+        dev, k.ptr(mag2),
+        *[k.ptr(getattr(out, name)) for name in PLANE_FIELDS],
+        *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
+        k.ptr(out.ints), k.ptr(out.floats), k.ptr(scratch),
+        F, FL, active_frames(p, n_valid), H, G, p.burst_width_bins // 2,
+        c["k_create"], int(p.max_bursts), int(p.max_burst_len),
+        int(p.burst_post_len), int(p.burst_pre_len), int(id_stride),
+        int(bin_lo), int(own_lo), int(own_hi),
+        float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
+        float(c["f2"]), float(c["bin_width"]),
+        lay.blocks, lay.block_bins, lay.threads, lay.bpt, FL // lay.ns)
+    return out
+
+
+def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
+                   coupling_sum=None, id_stride: int = 1):
+    """Build run(mag2, state, n_valid, bin_lo=0, own_lo=0, own_hi=F) ->
+    new ScanState over a block of fftshifted |X|^2 rows (frames_per_block,
+    n_bins) f32; the input state is left as it was. `coupling_sum` maps the
+    frame's (2,) int64 [any long-burst deletion, owned active count] to
+    its sum over every bin range (identity: this range is all of them).
+    On a CPU tensor `run` is `scan_fast_plain`. On a CUDA tensor it
+    launches the kernel (`scan_fast_kernel`), which raises where it cannot
+    build or launch; with a `coupling_sum` (binshard) it is
+    `scan_fast_plain` on the card too, chosen by the mode alone: splitting
+    the kernel at the coupling seam is the next slice of the port."""
+    K_CREATE = detect_scan._consts(p)["k_create"]
+    if p.max_new_per_frame > K_CREATE:
+        _warn_clamp_once(p.max_new_per_frame, K_CREATE)
+    _check_gone(p)
+
     def run(mag2: torch.Tensor, state: ScanState, n_valid: int,
             bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
-        own_hi = F if own_hi is None else own_hi
-        dev = mag2.device
-        i32, i64 = torch.int32, torch.int64
-        iota = torch.arange(FL, device=dev)
-        gbins = bin_lo + iota
-        # edge and DC-notch exclusion and ownership, in global bins
-        eligible = ((gbins >= hb) & (gbins < F - hb)
-                    & ~((gbins >= dc - 3) & (gbins <= dc + 3))).float()
-        owned = (gbins >= own_lo) & (gbins < own_hi)
-        gbin_i = gbins.to(i32)
-        ones_i = torch.ones(FL, dtype=i32, device=dev)
-        zero_f = torch.zeros((), device=dev)
-        pool_rev = NS - 1 - torch.arange(NS, device=dev)
-        tri = torch.from_numpy(earlier).to(dev)
-        ar2 = torch.arange(C2, device=dev)
-        del_rows = torch.arange(1, E_DEL + 1, dtype=i32, device=dev)
-        sq_rows = torch.arange(1, E_SQ + 1, dtype=i32, device=dev)
-
-        s = state.clone()
-        hist = s.baseline_hist
-        bsum = s.baseline_sum
-        a_valid, a_id, a_start, a_last = s.a_valid, s.a_id, s.a_start, s.a_last
-        a_mag, a_noise, mask = s.a_mag, s.a_noise, s.mask_count
-        sc = s.ints.to(i64)
-        hidx, prim, burst_id, sq_count = sc[0], sc[1], sc[2], sc[3]
-        n_tagged, dropped, waits = sc[4], sc[5], sc[6]
-        peak = s.floats[0]
-        ems = torch.zeros((n_frames, E_TOT, 8), dtype=i32, device=dev)
-
-        def top_pool(relm):
-            """(values, bins) of the K_TOP largest segment maxima, in
-            descending order, the lower bin first among equal values (as
-            lax.top_k): the keys are unique, so any top-k gives them."""
-            if SEG >= 4:
-                segmax, segarg = relm.view(NS, SEG).max(1)
-            else:
-                segmax, segarg = relm, None
-            # relm >= +0.0, so its bits order as its values
-            key = (segmax.view(i32).to(i64) << 32) | pool_rev
-            si = torch.topk(key, K_TOP).indices
-            if segarg is None:
-                return segmax[si], si
-            return segmax[si], si * SEG + segarg[si]
-
-        n_act_frames = min(max((n_valid - F) // F + 1, 0), n_frames)
-        for c0 in range(0, n_act_frames, CHUNK):
-            pos = (hidx + ar2) % H
-            pre = hist[pos]
-            upd_k = torch.zeros((), dtype=i64, device=dev)
-            k0s, d0s, k1s, d1s = [], [], [], []
-            for f in range(c0, min(c0 + CHUNK, n_act_frames)):
-                idx = f * F
-                mag = mag2[f]
-                primed = prim >= H
-                ev = pre.index_select(0, torch.stack([upd_k, upd_k + 1]))
-                evict_a, evict_b = ev[0], ev[1]
-                rel = torch.where(bsum > 0, mag / bsum, zero_f)
-
-                # extend last_active (burst_detect.c:458-469)
-                th = rel > thr
-                dil = th.clone()
-                dil[:-1] |= th[1:]
-                dil[1:] |= th[:-1]
-                a_last = torch.where(a_valid & dil & primed, idx, a_last)
-
-                # peaks under the carried mask
-                relm = rel * (mask == 0) * eligible
-                relm = torch.where(relm > thr, relm, zero_f)
-
-                # gone bursts (burst_detect.c:490-518)
-                long_b = a_valid & ((a_last - a_start) > p.max_burst_len)
-                gone = a_valid & (((a_last + p.burst_post_len) <= idx)
-                                  | long_b)
-                flags = gone & primed
-                any_long = long_b.any().to(i64)
-                emit = flags & owned
-                vals8 = torch.stack(
-                    [a_id, a_start, torch.full_like(a_id, idx), a_last,
-                     gbin_i, a_mag.view(i32), a_noise.view(i32), ones_i], 1)
-                a_valid = a_valid & ~flags
-
-                # creation (burst_detect.c:556-632): the descending
-                # candidates, each skipped within half_bw of an accepted one
-                topv, topi = top_pool(relm)
-                above = primed & (topv > thr)
-                near = ((topi[:, None] - topi[None, :]).abs() <= hb) & tri
-                acc = torch.zeros(K_TOP, dtype=torch.bool, device=dev)
-                for j in range(K_TOP):
-                    acc[j] = above[j] & ~(acc & near[j]).any()
-                acc_i = acc.to(i64)
-                rank = torch.cumsum(acc_i, 0) - acc_i
-                take = acc & (rank < K_CREATE)
-                n_acc = take.sum()
-                ids_k = burst_id + 10 * id_stride * rank
-                at_any = torch.zeros(FL, dtype=torch.bool,
-                                     device=dev).scatter(0, topi, take)
-
-                # the per-frame coupling: [any long-burst deletion (forced
-                # noise update, :516), post-creation active count]
-                n_own_post = ((a_valid | at_any) & owned).sum()
-                cpl = gsum(torch.stack([any_long, n_own_post]))
-                force = (cpl[0] > 0) & primed
-                n_active = cpl[1]
-
-                # the created bursts' noise reads see the forced update at
-                # their bin, in the same float order
-                base_at, mag_at, ev_at = bsum[topi], mag[topi], evict_a[topi]
-                old_at = ev_at * (prim >= H)
-                base_eff = torch.where(force, (base_at - old_at) + mag_at,
-                                       base_at)
-                mag_db = 10.0 * torch.log10(
-                    torch.clamp(topv * hist_f * enbw, min=1e-30))
-                noise_db = 10.0 * torch.log10(torch.clamp(
-                    base_eff / hist_f / f2 / enbw / bin_width, min=1e-30))
-
-                # forced noise update (long-burst deletion)
-                did0, k0 = force, upd_k
-                old = evict_a * (prim >= H)
-                bsum = torch.where(force, (bsum - old) + mag, bsum)
-                prim = torch.clamp(prim + force.to(i64), max=H)
-                upd_k = upd_k + force.to(i64)
-
-                start = idx - p.burst_pre_len
-                a_valid = a_valid | at_any
-                a_id = a_id.scatter(0, topi, torch.where(
-                    take, ids_k.to(i32), a_id[topi]))
-                a_start = torch.where(at_any, start, a_start)
-                a_last = torch.where(at_any, start, a_last)
-                a_mag = a_mag.scatter(0, topi, torch.where(
-                    take, mag_db, a_mag[topi]))
-                a_noise = a_noise.scatter(0, topi, torch.where(
-                    take, noise_db, a_noise[topi]))
-                # one mask update: add the creations, release the deletions
-                mask = mask + _window_sums(at_any.to(i32) - flags.to(i32), hb)
-                burst_id = burst_id + 10 * id_stride * n_acc
-                peak = torch.maximum(peak, torch.where(
-                    take, mag_db, float("-inf")).max())
-                more = (n_acc == K_CREATE) & (acc & (rank >= K_CREATE)).any()
-                waits = waits + more.to(i64)
-
-                # squelch (burst_detect.c:594-631) on the coupled count
-                if p.max_bursts > 0:
-                    squelch = primed & (n_active > p.max_bursts)
-                else:
-                    squelch = torch.zeros((), dtype=torch.bool, device=dev)
-                sq_flags = squelch & a_valid & ~at_any
-
-                # the frame's emissions: deletion rows first (ascending
-                # bin), then squelch rows, each set ranked by one cumsum
-                fi_d = emit.to(i32)
-                fi_s = (sq_flags & owned).to(i32)
-                cs = torch.cumsum(fi_d + (fi_s << 16), 0, dtype=i32)
-                cs_d, cs_s = cs & 0xFFFF, cs >> 16
-                n_del, n_sq = cs_d[-1].to(i64), cs_s[-1].to(i64)
-                rows = torch.cat([torch.searchsorted(cs_d, del_rows),
-                                  torch.searchsorted(cs_s, sq_rows)])
-                ems[f] = torch.where((rows < FL)[:, None],
-                                     vals8[rows.clamp(max=FL - 1)], 0)
-                n_tagged = n_tagged + n_del + n_sq
-                dropped = (dropped + torch.clamp(n_del - E_DEL, min=0)
-                           + torch.clamp(n_sq - E_SQ, min=0))
-
-                a_valid = a_valid & ~squelch
-                mask = torch.where(squelch, 0, mask)
-                sq_count = torch.where(squelch, sq_count + 3,
-                                       torch.clamp(sq_count - 1, min=0))
-                # noise-estimate reset after repeated squelch; the history
-                # slots continue
-                reset = sq_count >= 10
-                bsum = torch.where(reset, zero_f, bsum)
-                prim = torch.where(reset, 0, prim)
-                sq_count = torch.where(reset, 0, sq_count)
-
-                # final noise update when no burst is active (:698)
-                evict2 = torch.where(did0, evict_b, evict_a)
-                k1 = upd_k
-                do1 = torch.where(squelch, 0, n_active) == 0
-                old = evict2 * (prim >= H)
-                bsum = torch.where(do1, (bsum - old) + mag, bsum)
-                prim = torch.clamp(prim + do1.to(i64), max=H)
-                upd_k = upd_k + do1.to(i64)
-                k0s.append(k0)
-                d0s.append(did0)
-                k1s.append(k1)
-                d1s.append(do1)
-
-            # the chunk's written rows: update k stores the |X|^2 row of the
-            # frame that made it; the rest keep what was read
-            nf = len(k0s)
-            frame_of = torch.full((C2 + 1,), c0, dtype=i64, device=dev)
-            local = torch.arange(c0, c0 + nf, device=dev)
-            frame_of.scatter_(0, torch.where(torch.stack(d0s),
-                                             torch.stack(k0s), C2), local)
-            frame_of.scatter_(0, torch.where(torch.stack(d1s),
-                                             torch.stack(k1s), C2), local)
-            hist[pos] = torch.where((ar2 < upd_k)[:, None],
-                                    mag2[frame_of[:C2]], pre)
-            hidx = (hidx + upd_k) % H
-
-        # the gone table: the emission rows in frame order, first G kept
-        em = ems.reshape(-1, 8)
-        cs = torch.cumsum((em[:, 7] > 0).to(i32), 0, dtype=i32)
-        src = torch.searchsorted(
-            cs, torch.arange(1, G + 1, dtype=i32, device=dev))
-        table = torch.where((src < em.shape[0])[:, None],
-                            em[src.clamp(max=em.shape[0] - 1)], 0)
-        # the row's columns are the gone fields, in order, then the flag
-        for k, name in enumerate(GONE_FIELDS):
-            col = table[:, k]
-            if name in ("g_mag", "g_noise"):
-                col = col.view(torch.float32)
-            getattr(s, name).copy_(col)
-        s.baseline_sum, s.a_valid, s.a_id = bsum, a_valid, a_id
-        s.a_start, s.a_last, s.a_mag, s.a_noise = (a_start, a_last, a_mag,
-                                                   a_noise)
-        s.mask_count = mask
-        s.ints = torch.stack([hidx, prim, burst_id, sq_count, n_tagged,
-                              dropped, waits,
-                              torch.clamp(cs[-1].to(i64), max=G)]).to(i32)
-        s.floats = peak.reshape(1)
-        return s
+        rng = dict(n_bins=n_bins, id_stride=id_stride, bin_lo=bin_lo,
+                   own_lo=own_lo, own_hi=own_hi)
+        if mag2.device.type == "cpu" or coupling_sum is not None:
+            return scan_fast_plain(mag2, state, n_valid, p,
+                                   coupling_sum=coupling_sum, **rng)
+        return scan_fast_kernel(mag2, state, n_valid, p, **rng)
 
     return run
 

@@ -20,6 +20,7 @@ import torch
 from .. import _kernels
 from ..config import DetectorParams
 from ..ops import windows
+from . import state as state_mod
 from .state import E_DEL, E_SQ, GONE_FIELDS, ScanState
 
 # The kernel's layout (csrc/detect_scan.cu): one thread block, a
@@ -215,16 +216,7 @@ def scan(mag2: torch.Tensor, state: ScanState, n_valid: int,
     out = state.clone()
     for name in GONE_FIELDS:
         getattr(out, name).zero_()
-    for name, dtype, shape in (
-            ("baseline_hist", torch.float32, (H, F)),
-            ("baseline_sum", torch.float32, (F,)),
-            ("a_valid", torch.bool, (F,)),
-            ("a_id", torch.int32, (F,)), ("a_start", torch.int32, (F,)),
-            ("a_last", torch.int32, (F,)), ("a_mag", torch.float32, (F,)),
-            ("a_noise", torch.float32, (F,)),
-            ("mask_count", torch.int32, (F,)),
-            ("ints", torch.int32, (8,)), ("floats", torch.float32, (1,))):
-        _kernels.check(getattr(out, name), name, dtype, dev, shape)
+    state_mod.check(out, p, dev)
     c = _consts(p)
     lay = layout(F)
     blocks = lay[0] * lay[4]

@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from .. import _kernels
 from ..config import DetectorParams
 
 E_DEL = 8          # natural-deletion emissions per frame
@@ -27,6 +28,9 @@ PLANE_FIELDS = ("baseline_hist", "baseline_sum", "a_valid", "a_id",
                 "a_start", "a_last", "a_mag", "a_noise", "mask_count")
 GONE_FIELDS = ("g_id", "g_start", "g_stop", "g_last", "g_bin", "g_mag",
                "g_noise")
+# the f32 tensors (a_valid is bool, the rest int32)
+FLOAT_PLANES = ("baseline_hist", "baseline_sum", "a_mag", "a_noise",
+                "g_mag", "g_noise", "floats")
 
 
 @dataclasses.dataclass
@@ -92,6 +96,26 @@ def init_state(p: DetectorParams, device: torch.device,
         g_id=zi(G), g_start=zi(G), g_stop=zi(G), g_last=zi(G), g_bin=zi(G),
         g_mag=zf(G), g_noise=zf(G),
         ints=ints, floats=zf(len(FLOAT_FIELDS)))
+
+
+def check(state: ScanState, p: DetectorParams, device: torch.device,
+          n_bins: int | None = None) -> None:
+    """Raise unless every tensor of `state` is contiguous on `device` in
+    the dtype and shape `init_state` gives them (a kernel's C entry takes
+    their pointers)."""
+    F = n_bins if n_bins is not None else p.fft_size
+    H, G = p.history_size, p.gone_capacity
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        if f.name == "baseline_hist":
+            shape = (H, F)
+        elif f.name in ("ints", "floats"):
+            shape = (len(INT_FIELDS if f.name == "ints" else FLOAT_FIELDS),)
+        else:
+            shape = (G,) if f.name in GONE_FIELDS else (F,)
+        dtype = (torch.bool if f.name == "a_valid" else torch.float32
+                 if f.name in FLOAT_PLANES else torch.int32)
+        _kernels.check(t, f.name, dtype, device, shape)
 
 
 def rebase_(state, block_samples: int) -> None:

@@ -10,14 +10,18 @@ block_samples / n) and, per block, enqueues:
            - replicated (default, :328-351): `all_gather` of the slices'
              |X|^2 into the block's (frames_per_block, F) rows, and the
              scan `detect_scan.resolve_impl` picks (the scan kernel where
-             it takes the shape, else detect_fast; "exact" is detect.py)
-             over all of them, the same on every rank: the gone table and
-             the burst ids are the single card's;
+             it takes the shape, else detect_fast, whose kernel runs on
+             the card; "exact" is detect.py) over all of them, the same
+             on every rank: the gone table and the burst ids are the
+             single card's;
            - binshard (:353-398): `all_to_all_single` from time slices to
              bin slices (bins [r own, (r + 1) own)), a ring exchange of
              `halo` bins each way, and detect_fast over the rank's bins
              with its per-frame coupling pair summed over the ranks by
-             `all_reduce` (detect.py's frame step with "exact"); ids are
+             `all_reduce` (detect.py's frame step with "exact"); with the
+             coupling, detect_fast runs its plain twin's loop on the card
+             too (its kernel covers one bin range; cutting it at the
+             coupling seam is the next slice of the port); ids are
              offset by the rank and strided by n. The rank tables are
              gathered with `all_gather`.
   stream   its slice with the l_ext samples before it, [left | slice |

@@ -1,0 +1,328 @@
+"""detect_fast's kernel against its plain twin, per shape.
+
+    python -m iridium_tpu_torch.tools.exp_fast [--shapes 10mhz,edge,...]
+        [--source PATH ...] [--reps N]
+    python -m iridium_tpu_torch.tools.exp_fast --device cpu --small
+
+Each shape is a block of |X|^2 rows and the state it starts from:
+  - `10mhz`: the production block (2,048 x 8,192, exp_scan's synthetic
+    block: bursts, a long burst, a squelch blast with emission drops),
+    from a fresh state: one thread block;
+  - `edge`: exp_scan's edge block (256 x 8,192, history 64, gone table of
+    64: ties across segment edges, bursts across thread edges, a squelch
+    comb), n_valid ending 3.5 frames before the block's end;
+  - `25mhz`, `400mhz`: the 1,024 x 32,768 and 1,024 x 524,288 synthetic
+    blocks: grids of 32 and 128 blocks;
+  - `1600mhz`: the 1,024 x 2,097,152 synthetic block with n_valid = 2^31,
+    the block `resolve_impl` gives detect_fast at 1.6 GHz (the scan
+    kernel's positions stop below 2^31): 128 blocks of 16 bins a thread;
+  - `local`: rank 1 of 4 of a 10 MHz bin split (2,114 local bins from
+    global bin 2,015, owning [2,048, 4,096), id_stride 4) on the
+    production block's columns, under the identity coupling.
+Per shape the kernel (`make_scan_fast`: one launch a block) is held to
+`scan_fast_plain` on the same device bit for bit on every field of the
+state (`first_diff`: the first field and index that part), and timed:
+single-call and chained ms (CUDA events), µs a frame, the twin's ms,
+the bound (the rows of the active frames read once, the state read and
+written once, at 3.35 TB/s; the division and compare a bin a frame at
+67 TFLOP/s FP32), the kernel's launches and the device operations a
+block (torch.profiler: the state's clone, the gone table's zeroing, the
+scratch and the kernel). `--source x.cu` (card only, repeatable) builds
+another source with the same C entry point and times it beside the
+package's kernel, held to the twin the same way. On the CPU (`--small`)
+the wrapper is the twin: the tool's own run at a small shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from .. import device as device_mod
+from ..config import DetectorConfig
+from ..dsp import detect_fast, state as st
+from . import exp_demod, exp_scan, variants
+from .exp_block_gather import single_ms
+
+SEED = 1234
+SHAPES = ("10mhz", "edge", "25mhz", "400mhz", "1600mhz", "local")
+WIDE_RATES = {"25mhz": 25_000_000, "400mhz": 400_000_000,
+              "1600mhz": 1_600_000_000}
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+DB_FIELDS = ("g_mag", "g_noise", "a_mag", "a_noise", "floats")
+
+
+@dataclasses.dataclass
+class Case:
+    name: str
+    p: object
+    mag2: torch.Tensor
+    state: st.ScanState
+    n_valid: int
+    n_bins: int | None = None
+    id_stride: int = 1
+    rng: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def FL(self) -> int:
+        return self.n_bins if self.n_bins is not None else self.p.fft_size
+
+
+def _synthetic(p, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    return exp_scan.synthetic_spectrogram(p, gen)
+
+
+def case(name: str, dev: torch.device) -> Case:
+    """The shape's block, start state and range on `dev`."""
+    if name == "10mhz":
+        p = exp_scan.production_params()
+        return Case(name, p, _synthetic(p, dev), st.init_state(p, dev),
+                    p.block_samples)
+    if name == "edge":
+        p = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                           frames_per_block=256, max_new_per_frame=8,
+                           gone_capacity=64, max_bursts=20).derived()
+        m = torch.from_numpy(exp_scan.edge_spectrogram(p, seed=11)).to(dev)
+        return Case(name, p, m, st.init_state(p, dev),
+                    p.block_samples - 7 * p.fft_size // 2)
+    if name in WIDE_RATES:
+        p = DetectorConfig(sample_rate=WIDE_RATES[name]).derived()
+        return Case(name, p, _synthetic(p, dev), st.init_state(p, dev),
+                    p.block_samples)
+    if name == "local":
+        p = exp_scan.production_params()
+        n, r = 4, 1
+        F = p.fft_size
+        own, halo = F // n, 2 * (p.burst_width_bins // 2) + 1
+        FL = own + 2 * halo
+        bin_lo = r * own - halo
+        cols = torch.from_numpy((np.arange(FL) + bin_lo) % F).to(dev)
+        mag2 = _synthetic(p, dev)[:, cols].contiguous()
+        return Case(name, p, mag2,
+                    st.init_state(p, dev, id_offset=r, n_bins=FL),
+                    p.block_samples, n_bins=FL, id_stride=n,
+                    rng=dict(bin_lo=bin_lo, own_lo=r * own,
+                             own_hi=(r + 1) * own))
+    if name == "small":
+        p = DetectorConfig(sample_rate=1_000_000, history_size=16,
+                           frames_per_block=64, gone_capacity=64,
+                           max_bursts=4).derived()
+        rng = np.random.default_rng(SEED)
+        m = rng.exponential(size=(64, p.fft_size)).astype(np.float32)
+        m[20:30, 300:303] += 400.0
+        m[24:60, 600:602] += 400.0
+        m[40:46, 100:900:40] += 900.0
+        return Case(name, p, torch.from_numpy(m).to(dev),
+                    st.init_state(p, dev), p.block_samples)
+    raise ValueError(f"unknown shape {name!r}")
+
+
+def bound(c: Case) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the active frames' rows read once,
+    the state (history, the 8 per-bin planes, the gone table and the
+    scalars) read and written once; a division and a compare a bin a
+    frame."""
+    p, FL = c.p, c.FL
+    n_act = detect_fast.active_frames(p, c.n_valid)
+    state = (4 * p.history_size * FL + 29 * FL + 28 * p.gone_capacity
+             + 36)
+    t_b = (4 * n_act * FL + 2 * state) / HBM_BYTES_PER_S * 1e3
+    t_o = 2 * n_act * FL / FP32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def compare_bits(got: st.ScanState, want: st.ScanState) -> dict:
+    """Raise unless every field but the dB ones is bit-equal to the
+    twin's (floats compared as bits) and the dB ones are within rtol
+    1e-5; `bit_equal` says whether every field is, `first_diff` the first
+    field and flat index that part (None when none does)."""
+    first, db_equal, err = None, True, 0.0
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        ai, bi = ((a.view(torch.int32), b.view(torch.int32))
+                  if a.dtype == torch.float32 else (a, b))
+        if torch.equal(ai, bi):
+            continue
+        at = int(torch.nonzero(ai.flatten() != bi.flatten())[0])
+        if first is None:
+            first = [f.name, at]
+        if f.name not in DB_FIELDS:
+            raise AssertionError(f"detect_fast kernel: {f.name} differs "
+                                 f"from the twin's at {at}: "
+                                 f"{ai.flatten()[at]} against "
+                                 f"{bi.flatten()[at]}")
+        db_equal = False
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        err = max(err, float((a - b).abs().max()))
+    return dict(bit_equal=first is None, db_bit_equal=db_equal,
+                first_diff=first, max_abs_err=err)
+
+
+def scalar_division(dev: torch.device, n: int = 1 << 20) -> dict:
+    """What the kernel's noise dB assumes of PyTorch on `dev`, on n random
+    f32 values and the detector's divisors (hist_f, f2, enbw, bin_width of
+    the production configuration): the share of `x / d` with a Python
+    float d that equals x times d's f32 reciprocal, and the share that
+    equals the IEEE quotient (x divided by d as a tensor)."""
+    from ..dsp import detect_scan
+    c = detect_scan._consts(exp_scan.production_params())
+    x = torch.from_numpy(np.random.default_rng(SEED).exponential(
+        size=n).astype(np.float32)).to(dev)
+    recip = quot = 0.0
+    names = ("hist_f", "f2", "enbw", "bin_width")
+    for name in names:
+        d = float(c[name])
+        got = x / d
+        inv = float(np.float32(1.0) / np.float32(d))
+        recip += float((got == x * inv).float().mean()) / len(names)
+        quot += float((got == x / torch.tensor(d, device=dev)).float()
+                      .mean()) / len(names)
+    return dict(reciprocal_share=recip, quotient_share=quot)
+
+
+def _ms(fn, dev, reps: int) -> float:
+    if dev.type == "cuda":
+        return single_ms(fn, reps)
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def _chained_ms(fn, dev, reps: int) -> float:
+    if dev.type != "cuda":
+        return _ms(fn, dev, reps)
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call, by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def run_case(c: Case, dev: torch.device, reps: int = 3,
+             cands=None) -> dict:
+    """The case through the kernel and the twin on `dev`: equality and
+    times (see the module's doc). `cands`: [(name, Kernel)] to run in the
+    package kernel's place too (`variants.candidates`)."""
+    p = c.p
+    run = detect_fast.make_scan_fast(p, c.n_bins, id_stride=c.id_stride)
+
+    def kernel():
+        return run(c.mag2, c.state, c.n_valid, **c.rng)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    before = _kernels.DETECT_FAST.launches
+    got = kernel()
+    sync()
+    launches = _kernels.DETECT_FAST.launches - before
+    t = time.perf_counter()
+    want = detect_fast.scan_fast_plain(c.mag2, c.state, c.n_valid, p,
+                                       n_bins=c.n_bins,
+                                       id_stride=c.id_stride, **c.rng)
+    sync()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cmp = compare_bits(got, want)
+    g = dict(zip(st.INT_FIELDS, got.ints.tolist()))
+    del got
+    lay = detect_fast.plan(p, c.n_bins)
+    n_act = detect_fast.active_frames(p, c.n_valid)
+    b_ms, b_by = bound(c)
+    ms = _ms(kernel, dev, reps)
+    res = dict(shape=[p.frames_per_block, c.FL], case=c.name,
+               n_valid=int(c.n_valid), n_act=n_act,
+               layout=dict(blocks=lay.blocks, threads=lay.threads,
+                           bins_per_thread=lay.bpt,
+                           segment=c.FL // lay.ns),
+               ms=ms, chained_ms=_chained_ms(kernel, dev, reps),
+               us_per_frame=ms * 1e3 / max(n_act, 1), plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, kernel_launches=launches,
+               gone=g["g_count"], tagged=g["n_tagged"],
+               dropped=g["burst_dropped"], **cmp)
+    if dev.type == "cuda":
+        res["device_ops"] = device_ops(kernel)
+    for name, k in cands or []:
+        if k is _kernels.DETECT_FAST:
+            continue
+        with variants.swapped("DETECT_FAST", k):
+            other = compare_bits(kernel(), want)
+            res.setdefault("sources", {})[name] = dict(
+                ms=_ms(kernel, dev, reps),
+                chained_ms=_chained_ms(kernel, dev, reps), **other)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="exp_fast",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    ap.add_argument("--small", action="store_true",
+                    help="a small shape for the CPU")
+    ap.add_argument("--shapes", default=",".join(SHAPES),
+                    help="comma-separated shapes: " + ", ".join(SHAPES))
+    ap.add_argument("--source", action="append", default=[],
+                    help="time another kernel source with the package's C "
+                    "entry point beside it, repeatable (card only)")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="calls a time is the median (or mean) of")
+    args = ap.parse_args(argv)
+    names = ["small"] if args.small else args.shapes.split(",")
+    for name in names:
+        if name not in SHAPES + ("small",):
+            ap.error(f"unknown shape {name!r}")
+    if args.reps < 1:
+        ap.error("--reps must be 1 or more")
+    dev = device_mod.resolve(args.device)
+    if args.source and dev.type != "cuda":
+        ap.error("--source needs the card")
+    print("device: " + (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"), flush=True)
+    cands = None
+    if dev.type == "cuda":
+        cands = variants.candidates(_kernels.DETECT_FAST, args.source)
+        for cname, k in cands:
+            print(f"ptxas {cname} " + json.dumps(exp_demod.ptxas_summary(k)),
+                  flush=True)
+    for name in names:
+        r = run_case(case(name, dev), dev, args.reps, cands)
+        print(f"{name} {r['shape'][0]} x {r['shape'][1]}: {r['ms']:.4f} ms "
+              f"(chained {r['chained_ms']:.4f}), bit-equal "
+              f"{r['bit_equal']}, twin {r['plain_ms']:.2f}, bound "
+              f"{r['bound_ms']:.5f} " + json.dumps(r), flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

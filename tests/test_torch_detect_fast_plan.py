@@ -1,0 +1,540 @@
+"""The detect_fast kernel's layout and decomposition on the CPU.
+
+`plan` (iridium_tpu_torch/dsp/detect_fast.py) at every shape the card
+runs and at binshard's local widths; the dispatch of `make_scan_fast`
+(the CPU runs the plain twin, a CUDA tensor the kernel, binshard's
+coupled loop the twin); and `kernel_model`, the kernel's decomposition
+(csrc/detect_fast.cu) written as tensor ops: bins split into blocks, each
+block's 8 largest candidate keys merged into the same 8, per-block
+emission counts with their exclusive prefix, the mask release across
+block edges only where the blocks' deletion counts say a deletion is
+near, and the live history ring. The model is held bit-equal to
+`scan_fast_plain` on every field of the state over
+test_torch_detect_fast.py's scenarios, at 1, 2, 3 and 7 blocks and with
+blocks narrower than half the burst width.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
+from iridium_tpu_torch.dsp import detect_fast, detect_scan  # noqa: E402
+from iridium_tpu_torch.dsp import state as st  # noqa: E402
+
+from test_detect import tone_capture  # noqa: E402
+from test_torch_detect_fast import SCENARIOS  # noqa: E402
+from test_torch_detect_scan import CPU, params, spectrogram  # noqa: E402
+
+K_LIST = 8
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The model's tensors hold a few thousand elements: one intra-op
+    thread runs its thousands of small operations as fast as eight, and
+    leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _i32(x: int) -> int:
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def _f32_of_key(k: int) -> float:
+    return float(np.uint32(k >> 32).view(np.float32))
+
+
+def _window_sums(x: torch.Tensor, hb: int) -> torch.Tensor:
+    n = x.shape[0]
+    cs = torch.cumsum(torch.nn.functional.pad(x, (hb + 1, hb)), 0,
+                      dtype=torch.int32)
+    return cs[2 * hb + 1:] - cs[:n]
+
+
+def kernel_model(mag2, state, n_valid, p, block_bins, n_bins=None,
+                 id_stride=1, bin_lo=0, own_lo=0, own_hi=None):
+    """The kernel's algorithm over blocks of `block_bins` bins (a multiple
+    of its segment), on the CPU: the new ScanState."""
+    F, H, G = p.fft_size, p.history_size, p.gone_capacity
+    FL = n_bins if n_bins is not None else F
+    own_hi = F if own_hi is None else own_hi
+    hb = p.burst_width_bins // 2
+    c = detect_scan._consts(p)
+    thr, hist_f, enbw = (float(c["threshold"]), float(c["hist_f"]),
+                         float(c["enbw"]))
+    f2, bin_width = float(c["f2"]), float(c["bin_width"])
+    k_create = c["k_create"]
+    k_top = 2 * k_create
+    _, NS = detect_fast._segments(hb, FL)
+    segk, BB = FL // NS, block_bins
+    assert BB % segk == 0
+    nb = -(-FL // BB)
+    i32, i64 = torch.int32, torch.int64
+    s = state.clone()
+    for name in st.GONE_FIELDS:
+        getattr(s, name).zero_()
+    hist, bsum, mask = s.baseline_hist, s.baseline_sum, s.mask_count
+    hidx, prim, burst_id, sq, tagged, dropped, waits, _ = s.ints.tolist()
+    peak = s.floats[0].clone()
+    g_run = 0
+    iota = torch.arange(FL)
+    gbin = bin_lo + iota
+    dc = F // 2
+    elig = (gbin >= hb) & (gbin < F - hb) & ~((gbin >= dc - 3)
+                                              & (gbin <= dc + 3))
+    owned = (gbin >= own_lo) & (gbin < own_hi)
+    blk = iota // BB
+    rev = (0x7FFFFFFF - iota) << 1
+    zero = torch.zeros(())
+    spb = BB // segk                   # segments a block
+    lo_b = torch.arange(nb) * BB
+    hi_b = torch.clamp(lo_b + BB, max=FL)
+    near_lo = torch.clamp(lo_b - hb, min=0) // BB
+    near_hi = torch.clamp(hi_b - 1 + hb, max=FL - 1) // BB
+
+    def by_block(x):
+        return torch.bincount(blk[x], minlength=nb)
+
+    def exclusive(x):
+        return (torch.cumsum(x, 0) - x).tolist()
+
+    def rows(bits, counts, pre, cap, base, idx):
+        """Each block's rows: ascending bins after its lower blocks'."""
+        for b in range(nb):
+            if counts[b] == 0 or pre[b] >= cap or base + pre[b] >= G:
+                continue
+            sel = torch.nonzero(bits & (blk == b)).flatten().tolist()
+            for r, i in enumerate(sel, start=pre[b]):
+                pos = base + r
+                if r < cap and pos < G:
+                    for name, v in (("g_id", s.a_id[i]),
+                                    ("g_start", s.a_start[i]),
+                                    ("g_stop", idx), ("g_last", s.a_last[i]),
+                                    ("g_bin", bin_lo + i),
+                                    ("g_mag", s.a_mag[i]),
+                                    ("g_noise", s.a_noise[i])):
+                        getattr(s, name)[pos] = v
+
+    for f in range(detect_fast.active_frames(p, n_valid)):
+        idx = f * F
+        mag = mag2[f]
+        primed = prim >= H
+        valid = s.a_valid
+        # ---- phase A
+        rel = torch.where(bsum > 0, mag / bsum, zero)
+        th = rel > thr
+        nbr = torch.zeros(FL, dtype=torch.bool)
+        nbr[1:] |= th[:-1]
+        nbr[:-1] |= th[1:]
+        if primed:
+            s.a_last[valid & (th | nbr)] = idx
+        lng = valid & ((s.a_last - s.a_start) > p.max_burst_len)
+        gone = valid & (((s.a_last + p.burst_post_len) <= idx) | lng)
+        flags = gone & primed
+        emit = flags & owned
+        valid &= ~flags
+        cand = (rel > thr) & (mask == 0) & elig
+        key = torch.where(cand, (rel.view(i32).to(i64) << 32) | rev
+                          | valid.to(i64), 0)
+        segkey = key.view(NS, segk).max(1).values
+        per = torch.zeros(nb * spb, dtype=i64)
+        per[:NS] = segkey
+        per = per.view(nb, spb)
+        lists = torch.zeros(nb, K_LIST, dtype=i64)
+        kk = min(K_LIST, spb)
+        lists[:, :kk] = per.topk(kk, 1).values
+        top = lists.flatten().topk(min(K_LIST, nb * K_LIST)).values.tolist()
+        top += [0] * (K_LIST - len(top))
+        n_emit, n_flags = by_block(emit), by_block(flags)
+        n_own = by_block(valid & owned)
+        any_long = bool(lng.any())
+
+        # ---- the seam
+        bins = [0x7FFFFFFF - ((k & 0xFFFFFFFF) >> 1) for k in top]
+        acc, takes, n_accepted = [], [], 0
+        for j in range(K_LIST):
+            a = (j < k_top and primed and top[j] != 0
+                 and _f32_of_key(top[j]) > thr)
+            for k in range(j):
+                if acc[k] and abs(bins[j] - bins[k]) <= hb:
+                    a = False
+            acc.append(a)
+            if a:
+                if n_accepted < k_create:
+                    takes.append((bins[j], top[j]))
+                n_accepted += 1
+        adj = torch.zeros(nb, dtype=i64)
+        for b, k in takes:
+            if k & 1 and owned[b]:
+                adj[b // BB] += 1
+        n_sq_b = n_own - adj
+        n_post = int(n_own.sum()) + sum(1 for b, k in takes
+                                        if not k & 1 and owned[b])
+        near = [int(n_flags[int(near_lo[b]):int(near_hi[b]) + 1].sum()) > 0
+                for b in range(nb)]
+        # the coupling: identity
+        force = any_long and primed
+        n_active = n_post
+        squelch = p.max_bursts > 0 and primed and n_active > p.max_bursts
+
+        # ---- phase B
+        n_del = int(n_emit.sum())
+        n_del_rows = min(n_del, st.E_DEL)
+        rows(emit, n_emit.tolist(), exclusive(n_emit), st.E_DEL, g_run, idx)
+        row = hist[hidx]
+        live = 1.0 if prim >= H else 0.0
+        start = idx - p.burst_pre_len
+        if takes:
+            # the dB values as the twin forms them: over K_TOP candidates
+            tb = torch.tensor([b for b, _ in takes]
+                              + [0] * (k_top - len(takes)))
+            tv = torch.from_numpy(np.array(
+                [k >> 32 for _, k in takes] + [0] * (k_top - len(takes)),
+                np.uint32).view(np.float32))
+            base_at = bsum[tb]
+            old_at = row[tb] * live
+            base_eff = (base_at - old_at) + mag[tb] if force else base_at
+            mag_db = 10.0 * torch.log10(torch.clamp(tv * hist_f * enbw,
+                                                    min=1e-30))
+            noise_db = 10.0 * torch.log10(torch.clamp(
+                base_eff / hist_f / f2 / enbw / bin_width, min=1e-30))
+            for k, (b, _) in enumerate(takes):
+                s.a_id[b] = _i32(burst_id + 10 * id_stride * k)
+                s.a_start[b] = start
+                s.a_last[b] = start
+                s.a_mag[b] = mag_db[k]
+                s.a_noise[b] = noise_db[k]
+                valid[b] = True
+                peak = torch.maximum(peak, mag_db[k])
+        if force:
+            bsum.copy_((bsum - row * live) + mag)
+            hist[hidx] = mag
+            prim = min(prim + 1, H)
+            hidx = (hidx + 1) % H
+        if not squelch:
+            d = torch.zeros(FL, dtype=i32)
+            for b, _ in takes:
+                d += ((iota - b).abs() <= hb).to(i32)
+            released = _window_sums(flags.to(i32), hb)
+            d -= torch.where(torch.tensor(near)[blk], released, 0)
+            mask += d
+        burst_id += 10 * id_stride * len(takes)
+        waits += int(n_accepted > k_create)
+        n_sq = int(n_sq_b.sum()) if squelch else 0
+        if squelch:
+            created = torch.zeros(FL, dtype=torch.bool)
+            created[[b for b, _ in takes]] = True
+            bits = valid & ~created & owned
+            assert torch.equal(by_block(bits), n_sq_b)
+            rows(bits, n_sq_b.tolist(), exclusive(n_sq_b), st.E_SQ,
+                 g_run + n_del_rows, idx)
+            valid.zero_()
+            mask.zero_()
+        g_run += n_del_rows + min(n_sq, st.E_SQ)
+        tagged += n_del + n_sq
+        dropped += max(n_del - st.E_DEL, 0) + max(n_sq - st.E_SQ, 0)
+        sq = sq + 3 if squelch else max(sq - 1, 0)
+        reset = sq >= 10
+        if reset:
+            prim, sq = 0, 0
+        do1 = (0 if squelch else n_active) == 0
+        if reset or do1:
+            v = torch.zeros(FL) if reset else bsum.clone()
+            if do1:
+                live2 = 1.0 if prim >= H else 0.0
+                v = (v - hist[hidx] * live2) + mag
+                hist[hidx] = mag
+                prim = min(prim + 1, H)
+                hidx = (hidx + 1) % H
+            bsum.copy_(v)
+    s.ints = torch.tensor([hidx, prim, _i32(burst_id), sq, _i32(tagged),
+                           _i32(dropped), _i32(waits), min(g_run, G)],
+                          dtype=torch.int32)
+    s.floats = peak.reshape(1)
+    return s
+
+
+def assert_states_equal(got, want):
+    """Every field of the state bit-equal (floats compared as bits)."""
+    for field in dataclasses.fields(want):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (
+            field.name, torch.nonzero(a != b).flatten()[:5].tolist())
+
+
+def _segment(p, FL=None):
+    FL = p.fft_size if FL is None else FL
+    _, NS = detect_fast._segments(p.burst_width_bins // 2, FL)
+    return FL // NS
+
+
+def block_widths(p, FL=None):
+    """Bins a block for 1, 2, 3 and 7 blocks (whole segments), and a width
+    narrower than half the burst width."""
+    FL = p.fft_size if FL is None else FL
+    seg = _segment(p, FL)
+    out = []
+    for n in (1, 2, 3, 7):
+        w = -(-FL // n)
+        out.append(-(-w // seg) * seg)
+    narrow = seg
+    while narrow * 2 < p.burst_width_bins // 2:
+        narrow *= 2
+    assert narrow < p.burst_width_bins // 2
+    return out + [narrow]
+
+
+@pytest.mark.parametrize("name,kw,make,n_blocks,at_least", SCENARIOS,
+                         ids=[s[0] for s in SCENARIOS])
+def test_kernel_model_bit_equal_to_twin(name, kw, make, n_blocks,
+                                        at_least):
+    """The model at 1, 2, 3 and 7 blocks and at blocks narrower than
+    half_bw gives the twin's state bit for bit, block after block."""
+    jp, pp = params(**kw)
+    x = make(jp)
+    widths = block_widths(pp)
+    assert [-(-pp.fft_size // w) for w in widths[:4]] == [1, 2, 3, 7]
+    s_twin = st.init_state(pp, CPU)
+    s_model = {w: st.init_state(pp, CPU) for w in widths}
+    tagged = 0
+    for k in range(n_blocks):
+        block = x[k * jp.block_samples:(k + 1) * jp.block_samples]
+        mag2 = torch.from_numpy(spectrogram(jp, block))
+        s_twin = detect_fast.scan_fast_plain(mag2, s_twin, len(block), pp)
+        for w in widths:
+            s_model[w] = kernel_model(mag2, s_model[w], len(block), pp, w)
+            assert_states_equal(s_model[w], s_twin)
+            st.rebase_(s_model[w], pp.block_samples)
+        tagged += int(s_twin.n_tagged)
+        st.rebase_(s_twin, pp.block_samples)
+    assert tagged >= at_least
+
+
+def test_kernel_model_partial_chunk_and_short_history():
+    """n_valid ending mid-block (a partial last chunk, a frame cut short)
+    and histories of 2 and 4 rows (chunks of 1 and 2 frames, whose two
+    updates a frame evict every row of the ring): the live ring gives the
+    twin's rows."""
+    for H in (64, 4, 2):
+        jp, pp = params(history_size=H)
+        x = tone_capture(jp, [(0.02, 0.15, 50_000.0, 0.05),
+                              (0.05, 0.01, -120_000.0, 0.06)])
+        mag2 = torch.from_numpy(spectrogram(jp, x[:jp.block_samples]))
+        n_valid = 100 * pp.fft_size + 17
+        assert detect_fast.active_frames(pp, n_valid) == 100
+        want = detect_fast.scan_fast_plain(mag2, st.init_state(pp, CPU),
+                                           n_valid, pp)
+        assert int(want.primed) == H
+        for w in block_widths(pp)[::2]:
+            got = kernel_model(mag2, st.init_state(pp, CPU), n_valid, pp, w)
+            assert_states_equal(got, want)
+
+
+def test_kernel_model_local_range_with_ownership():
+    """A local bin range (bin_lo, own_lo, own_hi, id_stride 4) under the
+    identity coupling, narrow blocks included: the twin's state."""
+    jp, pp = params(max_bursts=4)
+    x = tone_capture(jp, [(0.08, 0.010, 100_000.0, 0.05),
+                          (0.085, 0.030, -200_000.0, 0.08),
+                          (0.12, 0.008, 300_000.0, 0.04),
+                          (0.13, 0.015, 99_000.0, 0.06),
+                          (0.16, 0.01, 150_000.0, 0.06),
+                          (0.161, 0.01, -50_000.0, 0.06),
+                          (0.162, 0.01, 250_000.0, 0.06)])
+    mag2 = torch.from_numpy(spectrogram(jp, x[:jp.block_samples]))
+    F = pp.fft_size
+    halo = 2 * (pp.burst_width_bins // 2) + 1
+    own = F // 2
+    FL = own + 2 * halo
+    for me in (0, 1):
+        bin_lo = me * own - halo
+        cols = torch.from_numpy((np.arange(FL) + bin_lo) % F)
+        kw = dict(bin_lo=bin_lo, own_lo=me * own, own_hi=(me + 1) * own)
+        s0 = st.init_state(pp, CPU, id_offset=me, n_bins=FL)
+        want = detect_fast.scan_fast_plain(mag2[:, cols], s0, F * 256, pp,
+                                           n_bins=FL, id_stride=4, **kw)
+        assert int(want.n_tagged) > 0
+        for w in block_widths(pp, FL):
+            got = kernel_model(mag2[:, cols], s0, F * 256, pp, w,
+                               n_bins=FL, id_stride=4, **kw)
+            assert_states_equal(got, want)
+
+
+# ---- plan ----
+
+def _rate(rate, **kw):
+    return DetectorConfig(sample_rate=rate, **kw).derived()
+
+
+# (name, params, local bins or None): the shapes chip_smoke.py runs
+PLAN_SHAPES = [
+    ("10mhz_2048x8192", _rate(10_000_000, frames_per_block=2048,
+                              gone_capacity=2048), None),
+    ("edge_256x8192", _rate(10_000_000, history_size=64,
+                            frames_per_block=256, max_new_per_frame=8,
+                            gone_capacity=64, max_bursts=20), None),
+    ("25mhz_1024x32768", _rate(25_000_000), None),
+    ("400mhz_1024x524288", _rate(400_000_000), None),
+    ("1600mhz_1024x2097152", _rate(1_600_000_000), None),
+] + [
+    # parallel/stream.py: own_bins + 2 halo, halo = 2 (width // 2) + 1
+    (f"binshard_1mhz_world{n}", _rate(1_000_000),
+     _rate(1_000_000).fft_size // n
+     + 2 * (2 * (_rate(1_000_000).burst_width_bins // 2) + 1))
+    for n in (1, 2, 3, 4)
+]
+
+
+@pytest.mark.parametrize("name,p,n_bins", PLAN_SHAPES,
+                         ids=[s[0] for s in PLAN_SHAPES])
+def test_plan_covers_the_bins(name, p, n_bins):
+    FL = p.fft_size if n_bins is None else n_bins
+    lay = detect_fast.plan(p, n_bins)
+    assert lay.block_bins == lay.threads * lay.bpt
+    assert lay.threads % 32 == 0 and 32 <= lay.threads <= 1024
+    assert lay.bpt in (1, 2, 4, 8, 16, 32)
+    # every bin one thread's, no block without one
+    assert (lay.blocks - 1) * lay.block_bins < FL <= lay.blocks * lay.block_bins
+    assert lay.grid == (lay.blocks > 1) == (FL > detect_fast.ONE_BLOCK_BINS)
+    assert lay.blocks <= detect_fast.MAX_BLOCKS
+    if lay.grid:
+        assert lay.threads == 1024
+    # the twin's segments, whole in a block
+    SEG, NS = detect_fast._segments(p.burst_width_bins // 2, FL)
+    assert (lay.seg, lay.ns) == (SEG, NS)
+    seg = FL // lay.ns
+    assert seg in (1, 4, 8, 16) and FL % seg == 0
+    assert lay.block_bins % seg == 0
+    # the scratch: the line, the Partials, a flag word a thread; a few MB
+    assert lay.scratch_words == (detect_fast.LINE_WORDS
+                                 + detect_fast.PARTIAL_WORDS * lay.blocks
+                                 + lay.blocks * lay.threads)
+    assert lay.scratch_words * 4 < 1 << 20
+    # a flag word holds a thread's bins
+    assert lay.bpt <= 32
+
+
+def test_plan_layouts_at_the_card_shapes():
+    assert detect_fast.plan(_rate(10_000_000))[:4] == (1, 8192, 1024, 8)
+    assert detect_fast.plan(_rate(25_000_000))[:4] == (32, 1024, 1024, 1)
+    assert detect_fast.plan(_rate(400_000_000))[:4] == (128, 4096, 1024, 4)
+    lay = detect_fast.plan(_rate(1_600_000_000))
+    assert lay[:4] == (128, 16384, 1024, 16)
+    # the 1.6 GHz block at its default 1,024 frames is 2^31 samples: the
+    # scan kernel refuses it, detect_fast takes it
+    p = _rate(1_600_000_000)
+    assert p.block_samples == 2**31 and not detect_scan.supports(p)
+    assert detect_fast.active_frames(p, 2**31) == 1024
+    # binshard at 1 MHz over 4 ranks: 338 bins, segments of 1 (SEG = 2)
+    lay = detect_fast.plan(_rate(1_000_000), 338)
+    assert lay[:4] == (1, 352, 352, 1) and lay.ns == 338
+
+
+def test_plan_refuses_what_it_cannot_launch():
+    p = _rate(1_000_000)
+    with pytest.raises(ValueError, match="bins"):
+        detect_fast.plan(p, detect_fast.MAX_BINS + 1)
+    with pytest.raises(ValueError, match="bins"):
+        detect_fast.plan(p, 0)
+    with pytest.raises(ValueError, match="history"):
+        detect_fast.plan(_rate(1_000_000, history_size=1))
+    # 3.2 GHz at 1,024 frames: frame positions past int32
+    with pytest.raises(ValueError, match="int32"):
+        detect_fast.plan(_rate(3_200_000_000))
+    with pytest.raises(ValueError, match="gone_capacity"):
+        detect_fast.plan(_rate(1_000_000, frames_per_block=16,
+                               gone_capacity=1024))
+    with pytest.raises(ValueError, match="segments"):
+        detect_fast.plan(p, 6)
+
+
+# ---- dispatch ----
+
+def test_dispatch_cpu_runs_the_twin(monkeypatch):
+    """On the CPU `run` is scan_fast_plain; the kernel wrapper is never
+    called."""
+    jp, pp = params()
+    x = tone_capture(jp, [(0.08, 0.010, 100_000.0, 0.05)])
+    mag2 = torch.from_numpy(spectrogram(jp, x[:jp.block_samples]))
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the kernel was called on the CPU")
+    monkeypatch.setattr(detect_fast, "scan_fast_kernel", no_kernel)
+    got = detect_fast.make_scan_fast(pp)(mag2, st.init_state(pp, CPU),
+                                         pp.block_samples)
+    want = detect_fast.scan_fast_plain(mag2, st.init_state(pp, CPU),
+                                       pp.block_samples, pp)
+    assert_states_equal(got, want)
+
+
+def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
+        monkeypatch):
+    """Off the CPU (a meta tensor stands in for the card's) `run` calls the
+    kernel wrapper with the range, and nothing else; with a coupling_sum
+    (binshard) it calls the twin with the coupling, and never the
+    kernel."""
+    pp = params()[1]
+    calls = []
+    monkeypatch.setattr(detect_fast, "scan_fast_kernel",
+                        lambda *a, **k: calls.append(("kernel", k)))
+    monkeypatch.setattr(detect_fast, "scan_fast_plain",
+                        lambda *a, **k: calls.append(("plain", k)))
+    mag2 = torch.empty((pp.frames_per_block, 40), device="meta")
+    detect_fast.make_scan_fast(pp, 40, id_stride=2)(
+        mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
+    assert calls == [("kernel", dict(n_bins=40, id_stride=2, bin_lo=3,
+                                     own_lo=4, own_hi=30))]
+    calls.clear()
+    csum = lambda x: x  # noqa: E731
+    detect_fast.make_scan_fast(pp, 40, coupling_sum=csum, id_stride=2)(
+        mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
+    assert calls == [("plain", dict(coupling_sum=csum, n_bins=40,
+                                    id_stride=2, bin_lo=3, own_lo=4,
+                                    own_hi=30))]
+
+
+def test_binshard_builds_the_coupled_loop():
+    """The sharded pipeline's bin-split mode hands detect_fast its
+    all_reduce as `coupling_sum`, so it keeps the twin's loop; the
+    replicated mode builds it without one (the kernel on the card)."""
+    import inspect
+    from iridium_tpu_torch.parallel import stream
+    src = inspect.getsource(stream.ShardedPipeline._build_detect)
+    assert "make_scan_fast(p)" in src
+    assert "coupling_sum=self._all_sum" in src
+
+
+def test_state_check_takes_what_init_state_makes():
+    """`state.check`, which both kernel wrappers run before a launch: it
+    takes init_state's tensors (local widths too) and refuses a wrong
+    dtype, shape or layout."""
+    p = _rate(1_000_000)
+    st.check(st.init_state(p, CPU), p, CPU)
+    st.check(st.init_state(p, CPU, n_bins=338), p, CPU, 338)
+    with pytest.raises(ValueError, match="baseline_hist"):
+        st.check(st.init_state(p, CPU, n_bins=338), p, CPU)
+    bad = st.init_state(p, CPU)
+    bad.a_valid = bad.a_valid.to(torch.int32)
+    with pytest.raises(ValueError, match="a_valid: dtype"):
+        st.check(bad, p, CPU)
+    bad = st.init_state(p, CPU)
+    bad.g_mag = bad.g_mag.to(torch.int32)
+    with pytest.raises(ValueError, match="g_mag: dtype"):
+        st.check(bad, p, CPU)
+    bad = st.init_state(p, CPU)
+    bad.baseline_hist = bad.baseline_hist.t().contiguous().t()
+    with pytest.raises(ValueError, match="not contiguous"):
+        st.check(bad, p, CPU)
+    bad = st.init_state(p, CPU)
+    bad.ints = bad.ints[:7]
+    with pytest.raises(ValueError, match="ints: shape"):
+        st.check(bad, p, CPU)

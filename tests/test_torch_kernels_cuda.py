@@ -607,6 +607,121 @@ def test_detect_fast_on_card_matches_cpu(dev):
     assert int(s_card.n_tagged) >= 3 and int(s_card.burst_dropped) >= 1
 
 
+def _fast_both(p, mag2, s, n_valid, n_bins=None, id_stride=1, **rng):
+    """The detect_fast kernel (one launch) and scan_fast_plain on the same
+    inputs on the card: every field of the state bit-equal
+    (`exp_fast.compare_bits`). Returns the kernel's state."""
+    from iridium_tpu_torch.dsp import detect_fast
+    from iridium_tpu_torch.tools import exp_fast
+    before = _kernels.DETECT_FAST.launches
+    got = detect_fast.make_scan_fast(p, n_bins, id_stride=id_stride)(
+        mag2, s, n_valid, **rng)
+    want = detect_fast.scan_fast_plain(mag2, s, n_valid, p, n_bins=n_bins,
+                                       id_stride=id_stride, **rng)
+    torch.cuda.synchronize()
+    assert _kernels.DETECT_FAST.launches == before + 1
+    cmp = exp_fast.compare_bits(got, want)
+    assert cmp["bit_equal"], cmp
+    return got
+
+
+_FAST_1MHZ = dict(sample_rate=1_000_000, history_size=64,
+                  frames_per_block=256, max_bursts=20)
+FAST_CASES = [
+    # id, config, valid frames of each block (None: all), grid
+    ("one_block_clamp", dict(_FAST_1MHZ, max_new_per_frame=8), None,
+     False),
+    ("grid_25mhz", dict(sample_rate=25_000_000, history_size=32,
+                        frames_per_block=128, max_bursts=20), None, True),
+    ("grid_200mhz_bpt2", dict(sample_rate=200_000_000, history_size=16,
+                              frames_per_block=64, max_bursts=20), None,
+     True),
+    ("grid_800mhz_bpt8", dict(sample_rate=800_000_000, history_size=4,
+                              frames_per_block=16, gone_capacity=64,
+                              max_bursts=20), None,
+     True),
+    ("grid_3200mhz_bpt32", dict(sample_rate=3_200_000_000, history_size=4,
+                                frames_per_block=16, gone_capacity=64,
+                                max_bursts=20), None,
+     True),
+    ("partial_block", _FAST_1MHZ, 150.5, False),
+    ("max_bursts_0", dict(_FAST_1MHZ, max_bursts=0), None, False),
+    ("small_gone_table", dict(_FAST_1MHZ, gone_capacity=8), None, False),
+]
+
+
+@pytest.mark.parametrize("cfg,frames,grid",
+                         [c[1:] for c in FAST_CASES],
+                         ids=[c[0] for c in FAST_CASES])
+def test_detect_fast_kernel_bit_equal_to_twin(dev, cfg, frames, grid):
+    """The detect_fast kernel against its twin on the card, bit for bit,
+    on two blocks in a row with `rebase_` between them: one block and grid
+    layouts (a grid of 2 bins a thread at 262,144), n_valid ending
+    mid-block, max_new_per_frame above 4 (clamped), max_bursts 0 (no
+    squelch), a gone table of 8 rows that fills; grids of 8 and 32 bins a
+    thread (1,048,576 and 4,194,304 bins, 16 frames)."""
+    from iridium_tpu_torch.dsp import detect_fast
+    p = DetectorConfig(**cfg).derived()
+    assert detect_fast.plan(p).grid == grid
+    F = p.fft_size
+    n_valid = (p.block_samples if frames is None else int(frames * F))
+    s, gone = st.init_state(p, dev), []
+    for seed in (1, 2):
+        s = _fast_both(p, _bursty_spectrogram(p, dev, seed), s, n_valid)
+        gone.append(int(s.g_count))
+        st.rebase_(s, p.block_samples)
+    assert int(s.n_tagged) >= 3
+    if cfg.get("gone_capacity") == 8:
+        assert int(s.n_tagged) > 8 and max(gone) == 8
+    if cfg.get("max_bursts") == 0:
+        assert int(s.squelch_count) == 0
+
+
+def test_detect_fast_kernel_local_range(dev):
+    """Rank 1 of a 4-way 10 MHz bin split (ownership, halos, id_stride 4)
+    under the identity coupling, two blocks: the twin's state bit for bit;
+    the grid's range too (rank 0 of 2 at 25 MHz, from global bin -53)."""
+    for rate, n, r in ((10_000_000, 4, 1), (25_000_000, 2, 0)):
+        p = DetectorConfig(sample_rate=rate, history_size=32,
+                           frames_per_block=128, max_bursts=20).derived()
+        F = p.fft_size
+        own, halo = F // n, 2 * (p.burst_width_bins // 2) + 1
+        FL = own + 2 * halo
+        bin_lo = r * own - halo
+        cols = torch.from_numpy((np.arange(FL) + bin_lo) % F).to(dev)
+        s = st.init_state(p, dev, id_offset=r, n_bins=FL)
+        for seed in (1, 2):
+            mag2 = _bursty_spectrogram(p, dev, seed)[:, cols].contiguous()
+            s = _fast_both(p, mag2, s, p.block_samples, n_bins=FL,
+                           id_stride=n, bin_lo=bin_lo, own_lo=r * own,
+                           own_hi=(r + 1) * own)
+            st.rebase_(s, p.block_samples)
+        assert int(s.n_tagged) >= 1
+
+
+def test_detect_fast_binshard_keeps_the_loop_and_refusals_raise(
+        dev, monkeypatch):
+    """With a coupling_sum (binshard) `run` is the twin on the card, with no
+    launch; a plan the C entry refuses raises before anything runs."""
+    from iridium_tpu_torch.dsp import detect_fast
+    p = DetectorConfig(**_FAST_1MHZ).derived()
+    mag2 = _bursty_spectrogram(p, dev, 1)
+    s = st.init_state(p, dev)
+    before = _kernels.DETECT_FAST.launches
+    got = detect_fast.make_scan_fast(p, coupling_sum=lambda x: x)(
+        mag2, s, p.block_samples)
+    want = detect_fast.scan_fast_plain(mag2, s, p.block_samples, p)
+    assert _kernels.DETECT_FAST.launches == before
+    exp_scan.compare(got, want)
+    good = detect_fast.plan(p)
+    monkeypatch.setattr(detect_fast, "plan",
+                        lambda *a: good._replace(threads=good.threads + 32))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        detect_fast.make_scan_fast(p)(mag2, s, p.block_samples)
+    torch.cuda.synchronize()
+    assert _kernels.DETECT_FAST.launches == before
+
+
 def test_native_ring_reused_across_blocks(dev, tmp_path):
     """Nine blocks through the reader's ring of N_BUFFERS (3) pinned
     buffers, each copied to the card behind a device delay: a buffer

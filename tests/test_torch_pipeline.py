@@ -121,8 +121,8 @@ def test_pipeline_without_device_needs_cuda():
 
 
 def test_package_imports_no_jax(tmp_path):
-    """Every module of the port (detect_fast, detect, the native reader and
-    the sharded pipeline among them), and the CLI run with every decoder flag (sockets on
+    """Every module of the port (detect_fast, its tool, detect, the native
+    reader and the sharded pipeline among them), and the CLI run with every decoder flag (sockets on
     localhost, pyzmq hidden as on the card's machine), import nothing of
     JAX; the CLI reads the file through the port's own native library,
     not the JAX package's libhostio.so."""
@@ -147,7 +147,7 @@ def test_package_imports_no_jax(tmp_path):
         "for m in ('dsp.detect_fast', 'dsp.detect', 'io.native',\n"
         "          'parallel.stream', 'parallel.distributed',\n"
         "          'tools.exp_mesh', 'tools.captures', 'tools.exp_demod',\n"
-        "          'tools.exp_downmix'):\n"
+        "          'tools.exp_downmix', 'tools.exp_fast'):\n"
         "    assert 'iridium_tpu_torch.' + m in sys.modules, m\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'libhostio-' in maps and '_native/libhostio' not in maps\n"

@@ -8,7 +8,8 @@ shape, its shape table, inputs, checks, bound, adapter and `ptxas`
 summary; the downmix-FIR tool `tools/exp_downmix.py` at its small CPU
 shape, its shape table, inputs, bound and comparison; the SASS chain walk
 of `tools/sass_chain.py` on a made-up listing; the line comparison of the
-mesh tool `tools/exp_mesh.py`.
+mesh tool `tools/exp_mesh.py`; the detect_fast tool `tools/exp_fast.py` at
+its small CPU shape, its argument handling, cases, bound and comparison.
 (Building and timing the variants needs the card; chip_smoke.py and the
 tools' own runs do that.)"""
 
@@ -23,7 +24,7 @@ from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
 from iridium_tpu_torch.tools import exp_demod, exp_downmix, exp_mesh  # noqa: E402,E501
-from iridium_tpu_torch.tools import exp_window_gather  # noqa: E402
+from iridium_tpu_torch.tools import exp_fast, exp_window_gather  # noqa: E402,E501
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -507,3 +508,49 @@ def test_sass_chain_walks_the_loop_chains():
     # R5 -> F2I -> I2F -> FADD, and LDS from the F2I: 12 + 24 + 4
     assert got["timing_kernel"]["timing"] == pytest.approx(40.0)
     assert "pll" not in got["timing_kernel"]
+
+
+def test_exp_fast_small_on_cpu(capsys):
+    assert exp_fast.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "small 64 x 1024:" in out and '"bit_equal": true' in out
+    # on the CPU the wrapper is the twin: no launch
+    assert '"kernel_launches": 0' in out
+    for bad in (["--small", "--source", "x.cu"], ["--shapes", "10mhz,nope"],
+                ["--small", "--reps", "0"]):
+        with pytest.raises(SystemExit):
+            exp_fast.main(["--device", "cpu"] + bad)
+
+
+def test_exp_fast_cases_bound_and_comparison():
+    from iridium_tpu_torch.dsp import detect_fast
+    from iridium_tpu_torch.dsp import state as st
+    cpu = torch.device("cpu")
+    edge = exp_fast.case("edge", cpu)
+    assert tuple(edge.mag2.shape) == (256, 8192)
+    assert detect_fast.active_frames(edge.p, edge.n_valid) == 252
+    local = exp_fast.case("local", cpu)
+    assert local.FL == 2114 == local.mag2.shape[1]
+    assert local.rng == dict(bin_lo=2015, own_lo=2048, own_hi=4096)
+    assert local.id_stride == 4 and int(local.state.burst_id) == 10
+    # bytes bound: 252 rows, the state read and written once
+    p = edge.p
+    state = 4 * 64 * 8192 + 29 * 8192 + 28 * 64 + 36
+    ms, by = exp_fast.bound(edge)
+    assert by == "bytes"
+    assert ms == pytest.approx((4 * 252 * 8192 + 2 * state) / 3.35e12 * 1e3)
+    with pytest.raises(ValueError):
+        exp_fast.case("nope", cpu)
+    # the comparison: bit-equal, a dB ulp reported, anything else raised
+    a = st.init_state(p, cpu)
+    a.a_noise.fill_(-120.0)
+    assert exp_fast.compare_bits(a, a.clone())["first_diff"] is None
+    b = a.clone()
+    b.a_noise[5] = torch.nextafter(b.a_noise[5], torch.tensor(0.0))
+    r = exp_fast.compare_bits(a, b)
+    assert r["first_diff"] == ["a_noise", 5] and not r["db_bit_equal"]
+    b = a.clone()
+    b.mask_count[7] = 1
+    with pytest.raises(AssertionError, match="mask_count"):
+        exp_fast.compare_bits(b, a)
