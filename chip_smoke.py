@@ -57,10 +57,12 @@ Phases, each printing one line:
      process at world size 1 over NCCL: the RAW 10 MHz capture in
      replicated mode (lines with ids equal to phase 3's, every payload
      bit-exact, the scan and the fused front-end launched), the 1 MHz
-     capture in binshard mode (detect_fast's twin loop with its per-frame
-     all_reduce, no detect_fast launch; lines, ids masked, equal to the
-     single card's detect_fast decode, which launches the kernel; the
-     window gather launched), the CLI with and without `--mesh 1`
+     capture in binshard mode (detect_fast's kernel split around its
+     per-frame all_reduce, launched; lines, ids masked, equal to the
+     single card's detect_fast decode; the window gather launched), the
+     RAW 10 MHz capture in binshard mode (the split's grid of 9 blocks:
+     every payload bit-exact, lines, ids masked, equal to phase 3b's),
+     the CLI with and without `--mesh 1`
      (one spawned rank), each its own process, on the 1 MHz capture: the
      same lines, and the RAW capture through the CLI from its file and,
      with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
@@ -146,7 +148,12 @@ bit, at the edge block (256 x 8,192, n_valid ending mid-block), 1,024 x
 GHz block the scan kernel refuses) and a local bin range (ownership,
 id_stride 4, identity coupling), each timed beside the twin with the
 bound and the device operations a block (the `detect_fast` row's
-`detail.per_shape`), then the kernel against the twin on the CPU on the
+`detail.per_shape`), binshard's split (two launches a frame around the
+coupling) at 10 MHz world size 1 (a grid), the local range and 1 MHz
+world size 1 (one block of 2 bins a thread), bit-equal to the twin and
+to the one launch, and over 4 ranges of a 1 MHz block in
+lockstep against 4 threaded twins coupled by a barrier sum, whose summed
+count squelches, then the kernel against the twin on the CPU on the
 production block and the exact scan (one small block) on the card
 against the CPU; their launches are comparisons and are not counted.
 Every printed number names the card (`card`: nvidia-smi's name and
@@ -786,6 +793,8 @@ def decode_fast_phase(dev, single: dict) -> dict:
         raise AssertionError(f"detect_impl='fast' decode: payloads not "
                              f"decoded bit-exact: {missing}")
     stages = dict(pipe.timing)
+    # the mesh phase's binshard decode of the capture is held to these
+    single["fast_lines"], single["fast_wall_s"] = lines, wall
     del pipe, frames
     cpu = Pipeline(det_cfg=det, start_time_ns=T0, device="cpu",
                    want_llr=False, detect_impl="fast")
@@ -1069,10 +1078,14 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     size 1 over NCCL: (1) replicated detect on the RAW 10 MHz capture file
     (the scan kernel, the fused front-end), warm (graphs captured by a
     first run): the single card's lines, ids included, and every payload
-    bit-exact; (2) binshard detect on the 1 MHz capture (detect_fast with
-    its per-frame all_reduce of the coupling pair, the window gather),
-    warm: the lines of the single card's Pipeline(detect_impl="fast") with
-    the ids masked; (3) the CLI with `--mesh 1` (one spawned rank) and
+    bit-exact; (2) binshard detect on the 1 MHz capture (detect_fast's
+    kernel cut at the coupling seam: launch A, the all_reduce of the
+    pair, launch B, a frame; the window gather), warm: the lines of the
+    single card's Pipeline(detect_impl="fast") with the ids masked; (2b)
+    binshard detect on the RAW 10 MHz capture (the split's grid of 9
+    blocks, the fused front-end), warm: every payload bit-exact, the lines
+    of phase 3b's Pipeline(detect_impl="fast") with the ids masked; (3)
+    the CLI with `--mesh 1` (one spawned rank) and
     without it, each its own process, on the 1 MHz capture: the same
     lines; (4) the CLI on the RAW 10 MHz capture as a file, and from
     stdin with `--mesh 1` (rank 0 reads it and broadcasts each block): the
@@ -1164,10 +1177,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         if not want or list(map(strip_id, got)) != list(map(strip_id, want)):
             raise AssertionError(f"mesh binshard 1 MHz: {len(got)} lines "
                                  f"against {len(want)}")
-        # binshard keeps detect_fast's loop (its coupling is an
-        # all_reduce a frame); the single card runs the kernel
+        # binshard runs detect_fast's kernel split around its all_reduce
+        # a frame (two launches a frame); the single card the one launch
         if (binc["window_gather"] == 0 or binc["detect_scan"] != 0
-                or binc["detect_fast"] != 0 or one_c["detect_fast"] == 0):
+                or binc["detect_fast"] == 0 or one_c["detect_fast"] == 0):
             raise AssertionError(f"mesh binshard 1 MHz launches: {binc}, "
                                  f"the single card's: {one_c}")
         if ("window_gather" not in chk.summary
@@ -1188,6 +1201,33 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             graphs=graph_info({"block": sb._graph}))
         check_class_nodes(res["binshard_1mhz"]["graphs"], sb.classes,
                           "mesh binshard")
+        del sb
+
+        # the split's grid end to end: binshard on the RAW 10 MHz capture
+        sb = ShardedPipeline(det, mesh=mesh, start_time_ns=T0,
+                             want_llr=False, burst_batch=128,
+                             detect_mode="binshard")
+        got10, frames10, wall10, b10c = timed(sb, single["path"])
+        want10 = single["fast_lines"]
+        if list(map(strip_id, got10)) != list(map(strip_id, want10)):
+            raise AssertionError(f"mesh binshard 10 MHz: {len(got10)} lines "
+                                 f"against the fast decode's {len(want10)}")
+        missing = missing_payloads(frames10, single["bursts"], det)
+        if missing:
+            raise AssertionError(f"mesh binshard 10 MHz: payloads not "
+                                 f"decoded bit-exact: {missing}")
+        if (b10c["detect_fast"] == 0 or b10c["detect_scan"] != 0
+                or b10c["fused_frontend"] == 0):
+            raise AssertionError(f"mesh binshard 10 MHz launches: {b10c}")
+        res["binshard_10mhz"] = dict(
+            detect_impl=sb.detect_impl, lines=len(got10),
+            lines_equal_ids_masked=True,
+            payloads_bit_exact=len(single["bursts"]), wall_s=wall10,
+            realtime_x=seconds / wall10,
+            single_fast_wall_s=single["fast_wall_s"],
+            collectives_ms=1e3 * sb.timing["collectives"],
+            n_collectives=sb.timing["n_collectives"],
+            stages=dict(sb.timing), launches=b10c)
         del sb
     finally:
         if made:
@@ -1210,7 +1250,11 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     res["cli_stdin_10mhz"] = dict(lines=len(raw_file),
                                   mesh_1_stdin_lines_equal=True)
     res["cli_processes_s"] = time.perf_counter() - t
-    res["launches"] = {k: rep[k] + binc[k] + one_c[k] for k in rep}
+    res["launches"] = {k: rep[k] + binc[k] + one_c[k] + b10c[k]
+                       for k in rep}
+    # detect_fast's launches by the split (binshard) on this path
+    res["split_launches"] = {"binshard_1mhz": binc["detect_fast"],
+                             "binshard_10mhz": b10c["detect_fast"]}
     res["kernel_checks"] = chk.summary
     return res
 
@@ -1743,6 +1787,23 @@ def detect_fast_card_phase(dev) -> dict:
     if by["edge"]["gone"] < 20 or by["edge"]["dropped"] < 1:
         raise AssertionError(f"detect_fast: the edge block did not reach "
                              f"the squelch and drop paths: {by['edge']}")
+    # binshard's split: bit-equal to the twins (exp_fast.compare_bits
+    # raises on any field but the dB ones) and to the one launch
+    for name in exp_fast.SPLIT_SHAPES:
+        r = by[name] = exp_fast.run_split_case(
+            exp_fast.split_case(name, dev), dev)
+        per_shape.append(r)
+        torch.cuda.empty_cache()
+        if (not r["bit_equal"] or r["one_launch_bit_equal"] is False
+                or r["kernel_launches"] != 2 * r["n_act"] * r["ranges"]):
+            raise AssertionError(f"detect_fast split {name}: {r}")
+    if by["split1_1mhz"]["layout"]["bins_per_thread"] != 2:
+        raise AssertionError("detect_fast split split1_1mhz: not the 2 "
+                             "bins a thread binshard's 1 MHz range runs")
+    for name in ("split1_1mhz", "lockstep4"):
+        if by[name]["squelch_rows"] < 1:
+            raise AssertionError(f"detect_fast split {name}: the "
+                                 f"(summed) count squelched nothing")
 
     c = exp_fast.case("10mhz", dev)
     p = c.p
@@ -2328,6 +2389,8 @@ def main() -> int:
             r["max_abs_err"] = max([r["max_abs_err"]]
                                    + [e["max_abs_err"] for e in extra])
     paths = (dec, fast, gat, mesh, par, tool, den, ing, wide, w400, w1600)
+    fast_row["detail"]["split_launches_by_path"] = {
+        mesh["phase"]: mesh["split_launches"]}
     for r in rows:
         by_path = {ph["phase"]: ph["launches"][r["name"]] for ph in paths}
         r["launches"] = sum(by_path.values())

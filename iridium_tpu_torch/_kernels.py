@@ -9,7 +9,9 @@ this module needs no compiler: nothing is built until a kernel is
 launched on a CUDA tensor, or `build_all()` is called.
 
 Every launch goes through `Kernel.launch`, which raises on a non-zero
-`cudaError_t` from the C side and counts the launch in `Kernel.launches`.
+`cudaError_t` from the C side and counts the launch in `Kernel.launches`;
+a source may also export helpers that launch nothing (`entries`, called
+through `Kernel.call`).
 A launch recorded into a CUDA graph is counted at each of the graph's
 replays instead (runtime/pipeline.py, `GroupGraph`).
 """
@@ -49,14 +51,19 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One CUDA source, its C entry point and its launch count."""
+    """One CUDA source, its C entry point (`name`, taking `argtypes`), the
+    helpers it exports that launch nothing ({symbol: argtypes}) and its
+    launch count."""
 
-    def __init__(self, name: str, argtypes: list, extra_flags=()):
+    def __init__(self, name: str, argtypes: list, extra_flags=(),
+                 entries=None):
         self.name = name
         self.argtypes = argtypes
         self.extra_flags = tuple(extra_flags)
+        self.entries = dict(entries or {})
         self.launches = 0
         self._fn = None
+        self._fns = {}
         self._err = None
 
     @property
@@ -94,6 +101,11 @@ class Kernel:
     def _bind(self):
         if self._fn is None:
             lib = ctypes.CDLL(str(self.build()))
+            for symbol, argtypes in self.entries.items():
+                other = getattr(lib, symbol)
+                other.argtypes = argtypes
+                other.restype = ctypes.c_int
+                self._fns[symbol] = other
             fn = getattr(lib, self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -121,10 +133,19 @@ class Kernel:
         else:
             with torch.cuda.device(device):
                 code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        if code != 0:
-            raise RuntimeError(f"{self.name}: CUDA error {code}: "
-                               f"{self._err(code).decode()}")
+        self._raise(code, self.name)
         self.launches += 1
+
+    def call(self, entry: str, *args) -> None:
+        """Call the source's entry point `entry`, which launches nothing
+        (no stream, no count); raise on a non-zero `cudaError_t`."""
+        self._bind()
+        self._raise(self._fns[entry](*args), entry)
+
+    def _raise(self, code: int, entry: str) -> None:
+        if code != 0:
+            raise RuntimeError(f"{entry}: CUDA error {code}: "
+                               f"{self._err(code).decode()}")
 
 
 def ptr(t: torch.Tensor) -> int:
@@ -184,15 +205,20 @@ DOWNMIX_FIR = Kernel(
 
 DETECT_FAST = Kernel(
     "detect_fast",
-    # |X|^2, the state's 9 planes, 7 gone fields and 2 scalar tensors,
-    # the scratch, 15 shape and detector integers, 5 float constants, the
-    # plan (blocks, block bins, threads, bins a thread, bins a segment),
-    # the stream
-    [P] * 20 + [I] * 15 + [F32] * 5 + [I] * 5 + [P],
+    # a launch from a block's packed arguments: the packing, the mode (the
+    # whole block, or the split's launch A or B), the frame, the stream
+    [P, I, I, P],
     # the noise sums, relative magnitudes and dB values rounded as the
     # plain twin's separate tensor operations round them (no fused
     # multiply-add; IEEE division is nvcc's default)
-    extra_flags=("--fmad=false",))
+    extra_flags=("--fmad=false",),
+    # the block's arguments checked and packed once: |X|^2, the state's 9
+    # planes, 7 gone fields and 2 scalar tensors, the scratch, 15 shape and
+    # detector integers, 5 float constants, the plan (blocks, block bins,
+    # threads, bins a thread, bins a segment), the scratch's words, the
+    # split flag, the buffer and its size
+    entries={"detect_fast_args": [P] * 20 + [I] * 15 + [F32] * 5 + [I] * 5
+             + [LL, I, P, I]})
 
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
            DEMOD_LOOP, DOWNMIX_FIR, DETECT_FAST)

@@ -1,5 +1,7 @@
 // detect_fast: the branchless chunked burst detector over one block of
-// fftshifted |X|^2 frames, one launch a block.
+// fftshifted |X|^2 frames: one launch a block over one bin range, or, for
+// binshard's bin ranges coupled by an all_reduce a frame, two launches a
+// frame cut at the coupling seam (the split, below).
 //
 // Replaces: the compiled scan of iridium_tpu/dsp/detect_fast.py
 // `make_scan_fast` (:169): its chunk body's `lax.scan` (:604) over the
@@ -69,7 +71,8 @@
 //     block the emission ranks of the lower blocks (the exclusive prefix
 //     of their owned deletions, and of their owned active bins that the
 //     squelch would emit, which the taken candidates' flags give);
-//     binshard's all_reduce of the pair goes at this seam (`couple`);
+//     binshard's all_reduce of the pair goes at this seam (`couple`: the
+//     identity in the one launch, the cut in the split);
 //   - phase B: each thread updates its own bins; a frame's rows go
 //     straight into the gone table at the running count (ascending bin:
 //     block prefix, then a block scan of the threads' counts); the mask
@@ -83,6 +86,44 @@
 // table), the grid's meeting place in a scratch the wrapper zeroes per
 // launch.
 //
+// The split (dsp/detect_fast.py `SplitScan`, binshard): frame f of the
+// block is two launches of the same plan around the caller's all_reduce,
+// on one stream, over one scratch the wrapper zeroes once a block:
+//   - launch A (`detect_fast_a`): phase A, barrier 1 (in a grid the
+//     cooperative grid barrier, whose arrival counter counts on across the
+//     frames), the seam; each block stores its Seam in the scratch, and
+//     thread 0 of block 0 the frame's pair [any_long, n_own_post] as two
+//     int64 (every block computes the same pair);
+//   - the caller sums the pair over the bin ranges in place (`all_reduce`;
+//     one range: leaves it);
+//   - launch B (`detect_fast_b`): each block loads its Seam, reads the
+//     summed pair where `couple` sits in the one launch, forms force and
+//     squelch from it, and runs phase B. The end of B is the frame's
+//     barrier 2.
+// The seam runs in A after a grid barrier, not in a one-warp launch of its
+// own with B recomputing every block's Seam from the Partials: that is a
+// third launch a frame on the host's path between the all_reduce and B,
+// where this takes a store and a load of 23 words a block. Binshard's
+// ranges are one block at every width but 10 MHz at world size 1 (8,258
+// bins), so the grid barrier runs on that shape alone.
+// What a launch does not carry to the next, and how the split handles it:
+//   - the scalar chain: in the one launch every thread reads it once
+//     before frame 0 and block 0 writes it after the last frame, and each
+//     frame's barriers keep that safe. Across launches a block of B that
+//     starts after block 0 has finished would read scalars block 0 had
+//     already advanced. So `Scalars` cross frames in two slots of the
+//     scratch: frame f's launches read slot f % 2 (A of frame 0 reads the
+//     state's scalars and block 0 stores them in slot 0), and block 0 of B
+//     writes slot (f + 1) % 2, which no block of frame f reads; B of the
+//     last frame writes the state's scalars, which only A of frame 0 read;
+//   - a thread's deletion bits for the emissions (phase A's `emit_bits`, a
+//     register): B recomputes them from its flag word and the ownership of
+//     its bins;
+//   - the Partials and flag words: A of frame f + 1 rewrites what B of
+//     frame f reads (the flag words; A's seam read the Partials), and
+//     launch order on the stream alone keeps it from starting before B of
+//     frame f has ended. The same holds for the Seams and the pair.
+//
 // Built with --fmad=false and nvcc's default IEEE division, so every sum,
 // product and quotient rounds as the twin's tensor operations do on the
 // card: a tensor divided by a tensor is an IEEE quotient; a tensor divided
@@ -95,6 +136,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -105,6 +147,12 @@ constexpr int kMaxCreate = 4;
 constexpr int kMaxThreads = 1024;
 constexpr int kLineWords = 32;     // the arrival counter's line
 constexpr int kPartialWords = 20;  // sizeof(Partial) / 4
+constexpr int kPairWords = 4;      // the split's pair: two int64
+constexpr int kScalarWords = 9;    // sizeof(Scalars) / 4
+constexpr int kSeamWords = 23;     // sizeof(Seam) / 4
+// `detect_fast`'s modes: the whole block in one launch; launch A or B of
+// one frame of the split
+constexpr int kModeWhole = 0, kModeA = 1, kModeB = 2;
 constexpr unsigned kFull = 0xffffffffu;
 // a grid barrier's longest wait, ~17 s at the H100's 1.98 GHz: far above
 // any frame's, and a fault instead of a hang where a block never arrives
@@ -138,7 +186,8 @@ struct State {
   int* sc;     // hist_idx, primed, burst_id, squelch_count, n_tagged,
                // burst_dropped, create_waits, g_count
   float* scf;  // peak_signal_db
-  unsigned* scratch;  // [line | Partial x blocks | flag word x threads]
+  unsigned* scratch;  // [line | Partial x blocks | flag word x threads],
+                      // the split's after it (`split_of`)
 };
 
 // A block's share of a frame, published for the seam
@@ -163,6 +212,7 @@ struct Seam {
   int my_sq, sq_pre, n_sq;      // squelch rows, the same
   int flags_near;  // deletions within half_bw of this block's bins
 };
+static_assert(sizeof(Seam) == 4 * kSeamWords, "Seam layout");
 
 struct Shared {
   unsigned long long wl[32][kList];  // each warp's keys
@@ -177,6 +227,69 @@ struct Scalars {
   unsigned burst_id, n_tagged, dropped, waits;
   float peak;
 };
+static_assert(sizeof(Scalars) == 4 * kScalarWords, "Scalars layout");
+
+// The scalars at the start of the block (the gone table starts empty)
+__device__ __forceinline__ Scalars load_scalars(const State& st) {
+  Scalars sc;
+  sc.hidx = st.sc[0];
+  sc.prim = st.sc[1];
+  sc.burst_id = (unsigned)st.sc[2];
+  sc.sq_count = st.sc[3];
+  sc.n_tagged = (unsigned)st.sc[4];
+  sc.dropped = (unsigned)st.sc[5];
+  sc.waits = (unsigned)st.sc[6];
+  sc.g_run = 0;
+  sc.peak = st.scf[0];
+  return sc;
+}
+
+// The state's scalars after the last frame (one thread)
+__device__ __forceinline__ void store_scalars(const State& st,
+                                              const Scalars& sc, int G) {
+  st.sc[0] = sc.hidx;
+  st.sc[1] = sc.prim;
+  st.sc[2] = (int)sc.burst_id;
+  st.sc[3] = sc.sq_count;
+  st.sc[4] = (int)sc.n_tagged;
+  st.sc[5] = (int)sc.dropped;
+  st.sc[6] = (int)sc.waits;
+  st.sc[7] = min(sc.g_run, G);
+  st.scf[0] = sc.peak;
+}
+
+// Scratch words of the one launch: [line | Partial x blocks | flag word x
+// thread]; the split's follow: [pair | Scalars x 2 | Seam x blocks]. The
+// one launch's count is even (32 + 20 blocks + blocks x whole warps), so
+// the pair's int64 are aligned.
+__host__ __device__ __forceinline__ long long one_words(int blocks,
+                                                        int threads) {
+  return kLineWords + (long long)kPartialWords * blocks +
+         (long long)blocks * threads;
+}
+
+__host__ __device__ __forceinline__ long long split_words(int blocks,
+                                                          int threads) {
+  return one_words(blocks, threads) + kPairWords + 2 * kScalarWords +
+         (long long)kSeamWords * blocks;
+}
+
+// The split's part of the scratch
+struct Split {
+  long long* pair;  // [any_long, n_own_post]: this range's, then summed
+  Scalars* slot;    // [2]: the scalars at the start of frame f in f % 2
+  Seam* seams;      // [blocks]
+};
+
+__device__ __forceinline__ Split split_of(unsigned* scratch,
+                                          const Params& p) {
+  unsigned* base = scratch + one_words(p.blocks, p.threads);
+  Split s;
+  s.pair = reinterpret_cast<long long*>(base);
+  s.slot = reinterpret_cast<Scalars*>(base + kPairWords);
+  s.seams = reinterpret_cast<Seam*>(base + kPairWords + 2 * kScalarWords);
+  return s;
+}
 
 __device__ __forceinline__ int warp_incl_scan(int v) {
   const int lane = threadIdx.x & 31;
@@ -554,9 +667,9 @@ __device__ void seam(const Params& p, const Scalars& sc, const Partial* part,
   __syncthreads();
 }
 
-// The coupling of the frame's pair over every bin range: this launch's
-// range is all of them. Binshard's all_reduce goes here (the next slice
-// ends the launch at phase A's barrier and starts phase B after it).
+// The coupling of the frame's pair over every bin range: the one launch's
+// range is all of them. Binshard's all_reduce goes here: the split ends
+// launch A after the seam and reads the summed pair at the start of B.
 __device__ __forceinline__ void couple(int& /*any_long*/,
                                        int& /*n_active*/) {}
 
@@ -761,16 +874,7 @@ template <int BPT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     detect_fast_kernel(const State st, const Params p) {
   __shared__ Shared sh;
-  Scalars sc;
-  sc.hidx = st.sc[0];
-  sc.prim = st.sc[1];
-  sc.burst_id = (unsigned)st.sc[2];
-  sc.sq_count = st.sc[3];
-  sc.n_tagged = (unsigned)st.sc[4];
-  sc.dropped = (unsigned)st.sc[5];
-  sc.waits = (unsigned)st.sc[6];
-  sc.g_run = 0;
-  sc.peak = st.scf[0];
+  Scalars sc = load_scalars(st);
   unsigned* count = st.scratch;
   Partial* part = reinterpret_cast<Partial*>(st.scratch + kLineWords);
   unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
@@ -794,16 +898,67 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                  squelch);
     all_sync(count, p.blocks, gen);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    st.sc[0] = sc.hidx;
-    st.sc[1] = sc.prim;
-    st.sc[2] = (int)sc.burst_id;
-    st.sc[3] = sc.sq_count;
-    st.sc[4] = (int)sc.n_tagged;
-    st.sc[5] = (int)sc.dropped;
-    st.sc[6] = (int)sc.waits;
-    st.sc[7] = min(sc.g_run, p.G);
-    st.scf[0] = sc.peak;
+  if (blockIdx.x == 0 && threadIdx.x == 0) store_scalars(st, sc, p.G);
+}
+
+// ---- the split: launch A of frame f (phase A, barrier 1, the seam) ----
+template <int BPT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    detect_fast_a(const State st, const Params p, int f) {
+  __shared__ Shared sh;
+  const Split sp = split_of(st.scratch, p);
+  // the scalar chain at frame f (the file's header: two slots)
+  const Scalars sc = f == 0 ? load_scalars(st) : sp.slot[f & 1];
+  if (f == 0 && blockIdx.x == 0 && threadIdx.x == 0) sp.slot[0] = sc;
+  unsigned* count = st.scratch;
+  Partial* part = reinterpret_cast<Partial*>(st.scratch + kLineWords);
+  unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
+  unsigned emit_bits;  // dies with the launch: B recomputes it
+  phase_a<BPT>(st, p, sc, f * p.F, st.mag2 + (size_t)f * p.FL, part, flagw,
+               sh, emit_bits);
+  // the counter counts every A launch of the block's frames: this is the
+  // grid's (f + 1)-th arrival
+  unsigned gen = (unsigned)f;
+  all_sync(count, p.blocks, gen);
+  seam(p, sc, part, sh);
+  if (threadIdx.x == 0) {
+    sp.seams[blockIdx.x] = sh.seam;
+    if (blockIdx.x == 0) {
+      sp.pair[0] = sh.seam.any_long;
+      sp.pair[1] = sh.seam.n_own_post;
+    }
+  }
+}
+
+// ---- the split: launch B of frame f (the summed pair, phase B) ----
+template <int BPT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    detect_fast_b(const State st, const Params p, int f) {
+  __shared__ Shared sh;
+  const Split sp = split_of(st.scratch, p);
+  Scalars sc = sp.slot[f & 1];
+  const unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
+  const int tid = threadIdx.x;
+  if (tid == 0) sh.seam = sp.seams[blockIdx.x];
+  // phase A's emit_bits: the thread's deleted bins that it owns
+  const int b0 = blockIdx.x * p.block_bins + tid * BPT;
+  const unsigned flag_bits = flagw[blockIdx.x * blockDim.x + tid];
+  unsigned emit_bits = 0;
+#pragma unroll
+  for (int j = 0; j < BPT; ++j)
+    if (((flag_bits >> j) & 1u) && owned(p.bin_lo + b0 + j, p))
+      emit_bits |= 1u << j;
+  // the pair as the caller's sum over the bin ranges left it (`couple`)
+  const long long any_long = sp.pair[0], n_active = sp.pair[1];
+  __syncthreads();
+  const bool primed = sc.prim >= p.H;
+  const bool force = any_long > 0 && primed;
+  const bool squelch = p.max_bursts > 0 && primed && n_active > p.max_bursts;
+  phase_b<BPT>(st, p, sc, f * p.F, st.mag2 + (size_t)f * p.FL, flagw, sh,
+               emit_bits, force, (int)n_active, squelch);
+  if (blockIdx.x == 0 && tid == 0) {
+    sp.slot[(f + 1) & 1] = sc;
+    if (f == p.n_act - 1) store_scalars(st, sc, p.G);
   }
 }
 
@@ -824,29 +979,56 @@ bool valid_plan(const Params& p) {
   return p.n_act == 0 || (long long)(p.n_act - 1) * p.F <= INT_MAX;
 }
 
-template <int BPT>
-cudaError_t launch(const State& st, const Params& p, cudaStream_t stream) {
-  void (*kern)(State, Params) = detect_fast_kernel<BPT>;
-  if (p.blocks == 1) {
-    detect_fast_kernel<BPT><<<1, p.threads, 0, stream>>>(st, p);
-    return cudaGetLastError();
-  }
-  // the grid spins at its barriers: every block must be resident at once
-  int dev = 0, sms = 0, per_sm = 0;
+// Blocks of `threads` threads of `kern` the card holds at once, asked once
+// per (device, kernel, threads) and kept: the split asks before every
+// launch A of a grid, once a frame
+cudaError_t resident_blocks(const void* kern, int threads, long long* fit) {
+  struct Entry {
+    const void* kern;
+    int dev, threads;
+    long long fit;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int n_cache = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cache; ++i) {
+    if (cache[i].kern == kern && cache[i].dev == dev &&
+        cache[i].threads == threads) {
+      *fit = cache[i].fit;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        p.threads, 0);
+                                                        threads, 0);
   if (err != cudaSuccess) return err;
-  if ((long long)per_sm * sms < p.blocks)
-    return cudaErrorCooperativeLaunchTooLarge;
-  State s = st;
-  Params q = p;
-  void* args[] = {&s, &q};
-  err = cudaLaunchCooperativeKernel((const void*)kern, p.blocks, p.threads,
-                                    args, 0, stream);
+  *fit = (long long)per_sm * sms;
+  if (n_cache < 64) cache[n_cache++] = Entry{kern, dev, threads, *fit};
+  return cudaSuccess;
+}
+
+// A launch of `kern` in the plan's layout; a grid spins at its barriers,
+// so every block must be resident at once: a cooperative launch after the
+// occupancy check
+cudaError_t launch_grid(const void* kern, const Params& p, void** args,
+                        bool barriers, cudaStream_t stream) {
+  cudaError_t err;
+  if (p.blocks > 1 && barriers) {
+    long long fit = 0;
+    err = resident_blocks(kern, p.threads, &fit);
+    if (err != cudaSuccess) return err;
+    if (fit < p.blocks) return cudaErrorCooperativeLaunchTooLarge;
+    err = cudaLaunchCooperativeKernel(kern, p.blocks, p.threads, args, 0,
+                                      stream);
+  } else {
+    err = cudaLaunchKernel(kern, p.blocks, p.threads, args, 0, stream);
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves nothing behind
     return err;
@@ -854,19 +1036,64 @@ cudaError_t launch(const State& st, const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int BPT>
+cudaError_t launch(const State& st, const Params& p, int mode, int frame,
+                   cudaStream_t stream) {
+  State s = st;
+  Params q = p;
+  int f = frame;
+  void* args[] = {&s, &q, &f};
+  switch (mode) {
+    case kModeA:
+      return launch_grid((const void*)detect_fast_a<BPT>, p, args, true,
+                         stream);
+    case kModeB:  // no barrier across blocks: a plain launch
+      return launch_grid((const void*)detect_fast_b<BPT>, p, args, false,
+                         stream);
+    default:
+      return launch_grid((const void*)detect_fast_kernel<BPT>, p, args, true,
+                         stream);
+  }
+}
+
+cudaError_t launch_mode(const State& st, const Params& p, int mode,
+                        int frame, cudaStream_t stream) {
+  switch (p.bpt) {
+    case 1: return launch<1>(st, p, mode, frame, stream);
+    case 2: return launch<2>(st, p, mode, frame, stream);
+    case 4: return launch<4>(st, p, mode, frame, stream);
+    case 8: return launch<8>(st, p, mode, frame, stream);
+    case 16: return launch<16>(st, p, mode, frame, stream);
+    default: return launch<32>(st, p, mode, frame, stream);
+  }
+}
+
+// A block's arguments, as `detect_fast_args` packs them for
+// `detect_fast`: a launch then costs a call of four arguments, the
+// split's two a frame too
+struct Packed {
+  State st;
+  Params p;
+  bool split;  // the split's scratch (else the one launch's)
+};
+constexpr int kPackedBytes = 512;  // dsp/detect_fast.py PACKED_BYTES
+static_assert(sizeof(Packed) <= kPackedBytes, "Packed layout");
+
 }  // namespace
 
 // One block of `n_frames` frames of FL local bins (global bins bin_lo +
 // i; bursts centred outside [own_lo, own_hi) are tracked, not emitted),
 // of which the first n_act run (dsp/detect_fast.py `active_frames`), on
 // the output state's tensors (the wrapper's clone of the input state,
-// gone table zeroed). `scratch`: dsp/detect_fast.py `Plan.scratch_words`
-// 32-bit words, zeroed. The plan: `blocks` blocks of `threads` threads,
-// `block_bins` = threads x `bins_per_thread` bins a block, segments of
-// `seg` bins (1: every bin). A plan the kernel does not run is refused
-// (cudaErrorInvalidValue), a grid the card cannot hold at once too
-// (cudaErrorCooperativeLaunchTooLarge, 720), before anything runs.
-extern "C" int detect_fast(
+// gone table zeroed), checked and packed into `out` (`out_bytes` >=
+// kPackedBytes) for `detect_fast`. `scratch`: `scratch_words` 32-bit
+// words, zeroed: the one launch's (dsp/detect_fast.py
+// `Plan.scratch_words`) or, with `split`, the split's (`Plan.split_words`).
+// The plan: `blocks` blocks of `threads` threads, `block_bins` = threads
+// x `bins_per_thread` bins a block, segments of `seg` bins (1: every
+// bin). A plan the kernel does not run, or a scratch of another size, is
+// refused (cudaErrorInvalidValue) before anything runs.
+extern "C" int detect_fast_args(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
     int* mask_count, int* g_id, int* g_start, int* g_stop, int* g_last,
@@ -876,24 +1103,41 @@ extern "C" int detect_fast(
     int pre_len, int id_stride, int bin_lo, int own_lo, int own_hi,
     float threshold, float hist_f, float enbw, float f2, float bin_width,
     int blocks, int block_bins, int threads, int bins_per_thread, int seg,
-    cudaStream_t stream) {
-  const State st{mag2,  hist,  bsum,   a_valid, a_id,    a_start, a_last,
-                 a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
-                 g_bin, g_mag, g_noise, sc, scf, scratch};
-  const Params p{F,         FL,        n_act,      H,         G,
-                 half_bw,   k_create,  max_bursts, max_burst_len, post_len,
-                 pre_len,   id_stride, bin_lo,     own_lo,    own_hi,
-                 threshold, hist_f,    enbw,       f2,        bin_width,
-                 blocks,    block_bins, threads,   bins_per_thread, seg};
-  if (!valid_plan(p)) return (int)cudaErrorInvalidValue;
-  switch (bins_per_thread) {
-    case 1: return (int)launch<1>(st, p, stream);
-    case 2: return (int)launch<2>(st, p, stream);
-    case 4: return (int)launch<4>(st, p, stream);
-    case 8: return (int)launch<8>(st, p, stream);
-    case 16: return (int)launch<16>(st, p, stream);
-    default: return (int)launch<32>(st, p, stream);
-  }
+    long long scratch_words, int split, void* out, int out_bytes) {
+  if (out_bytes < kPackedBytes) return (int)cudaErrorInvalidValue;
+  Packed a;
+  a.st = State{mag2,  hist,  bsum,   a_valid, a_id,    a_start, a_last,
+               a_mag, a_noise, mask_count, g_id, g_start, g_stop, g_last,
+               g_bin, g_mag, g_noise, sc, scf, scratch};
+  a.p = Params{F,         FL,        n_act,      H,         G,
+               half_bw,   k_create,  max_bursts, max_burst_len, post_len,
+               pre_len,   id_stride, bin_lo,     own_lo,    own_hi,
+               threshold, hist_f,    enbw,       f2,        bin_width,
+               blocks,    block_bins, threads,   bins_per_thread, seg};
+  a.split = split != 0;
+  const long long words =
+      a.split ? split_words(blocks, threads) : one_words(blocks, threads);
+  if (!valid_plan(a.p) || scratch_words != words)
+    return (int)cudaErrorInvalidValue;
+  *static_cast<Packed*>(out) = a;
+  return (int)cudaSuccess;
+}
+
+// A launch from `detect_fast_args`' packing: the whole block (`mode` 0,
+// `frame` 0; a one-launch packing), or launch A (1) or B (2) of frame
+// `frame` < n_act of the split (the file's header; a split packing).
+// Anything else is refused (cudaErrorInvalidValue), a grid the card cannot
+// hold at once too (cudaErrorCooperativeLaunchTooLarge, 720), before
+// anything runs.
+extern "C" int detect_fast(const void* args, int mode, int frame,
+                           cudaStream_t stream) {
+  const Packed& a = *static_cast<const Packed*>(args);
+  const bool ok =
+      a.split ? (mode == kModeA || mode == kModeB) && frame >= 0 &&
+                    frame < a.p.n_act
+              : mode == kModeWhole && frame == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)launch_mode(a.st, a.p, mode, frame, stream);
 }
 
 extern "C" const char* detect_fast_error_string(int code) {

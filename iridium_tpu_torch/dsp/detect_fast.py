@@ -7,15 +7,16 @@ The pipeline runs it for the detector shapes the scan kernel
 where it is asked for (`detect_impl="fast"`); the sharded pipeline's
 bin-split mode runs it sharded, as the JAX package's does.
 
-`make_scan_fast` builds the scan. On a CUDA state with one bin range (no
-`coupling_sum`) it launches the hand-written kernel (csrc/detect_fast.cu,
-one launch a block, in the layout `plan` gives); on a CPU state it runs
-`scan_fast_plain`, the same state machine as tensor ops, frame by frame,
-which the tests hold to the JAX function row for row and the card holds
-the kernel to bit for bit. With a `coupling_sum` (binshard: the
-per-frame pair summed over the ranks by `all_reduce`) it runs
-`scan_fast_plain` on the card too: cutting the kernel at that seam is
-the next slice of the port.
+`make_scan_fast` builds the scan. On a CUDA state it launches the
+hand-written kernel (csrc/detect_fast.cu, in the layout `plan` gives):
+with one bin range (no `coupling_sum`) one launch a block
+(`scan_fast_kernel`); with a `coupling_sum` (binshard: the per-frame pair
+summed over the ranks by `all_reduce`) two launches a frame cut at the
+coupling seam, the pair summed between them (`scan_fast_split`). On a CPU
+state it runs `scan_fast_plain`, the same state machine as tensor ops,
+frame by frame, which the tests hold to the JAX function row for row and
+the card holds both forms of the kernel to bit for bit. No path runs the
+twin on the card.
 
 `scan_fast_plain` keeps the JAX function's structure, since its results
 depend on it:
@@ -49,6 +50,7 @@ identity.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import NamedTuple
 
@@ -380,9 +382,15 @@ MAX_BPT = 32
 MAX_BINS = MAX_BLOCKS * MAX_THREADS * MAX_BPT
 # scratch (32-bit words): the grid barrier's arrival counter on a line of
 # its own, one `Partial` a block (8 candidate keys of 64 bits, 4 counts),
-# one flag word a thread
+# one flag word a thread; the split's after them: the frame's pair (2
+# int64, at an even word), the scalars in two slots (`Scalars`: 8 ints and
+# the peak), one `Seam` a block (the taken candidates' 4 bins, values and
+# flags, 13 counts)
 LINE_WORDS = 32
 PARTIAL_WORDS = 2 * 8 + 4
+PAIR_WORDS = 4
+SCALAR_WORDS = 9
+SEAM_WORDS = 3 * 4 + 11
 
 
 class Plan(NamedTuple):
@@ -392,8 +400,9 @@ class Plan(NamedTuple):
     bpt: int           # bins a thread, a power of two
     seg: int           # the twin's SEG (`_segments`)
     ns: int            # the twin's NS; FL // ns bins a kernel segment
-    scratch_words: int
+    scratch_words: int  # the one launch's; the split's pair starts there
     grid: bool         # a cooperative grid (else one block)
+    split_words: int   # the split's scratch
 
 
 def plan(p: DetectorParams, n_bins: int | None = None) -> Plan:
@@ -432,7 +441,8 @@ def plan(p: DetectorParams, n_bins: int | None = None) -> Plan:
         T = MAX_THREADS
         blocks = -(-FL // (T * bpt))
     words = LINE_WORDS + PARTIAL_WORDS * blocks + blocks * T
-    return Plan(blocks, T * bpt, T, bpt, SEG, NS, words, blocks > 1)
+    split = words + PAIR_WORDS + 2 * SCALAR_WORDS + SEAM_WORDS * blocks
+    return Plan(blocks, T * bpt, T, bpt, SEG, NS, words, blocks > 1, split)
 
 
 def _check_gone(p: DetectorParams) -> None:
@@ -448,6 +458,60 @@ def active_frames(p: DetectorParams, n_valid: int) -> int:
     return min(max((int(n_valid) - F) // F + 1, 0), p.frames_per_block)
 
 
+# the kernel's launches (its C entry `detect_fast`): the whole block, or
+# the split's launch A or B of a frame
+MODE_WHOLE, MODE_A, MODE_B = 0, 1, 2
+# a block's arguments as `detect_fast_args` packs them
+PACKED_BYTES = 512
+
+
+class _Launch:
+    """The kernel's arguments for one block: the output state (the input
+    state's clone, gone table zeroed) and its scratch, zeroed (the one
+    launch's, or with `split` the split's), which the C side checks and
+    packs once; raises on a shape `plan` refuses and on tensors the
+    kernel does not take."""
+
+    def __init__(self, mag2, state, n_valid, p, n_bins, id_stride, bin_lo,
+                 own_lo, own_hi, split: bool):
+        F, H, G = p.fft_size, p.history_size, p.gone_capacity
+        FL = n_bins if n_bins is not None else F
+        own_hi = F if own_hi is None else own_hi
+        lay = self.lay = plan(p, FL)
+        dev = self.dev = mag2.device
+        _kernels.check(mag2, "mag2", torch.float32, dev,
+                       (p.frames_per_block, FL))
+        self.mag2 = mag2  # its pointer is in the arguments
+        out = self.out = state.clone()
+        for name in GONE_FIELDS:
+            getattr(out, name).zero_()
+        state_mod.check(out, p, dev, FL)
+        words = lay.split_words if split else lay.scratch_words
+        self.scratch = torch.zeros(words, dtype=torch.int32, device=dev)
+        self.n_act = active_frames(p, n_valid)
+        c = detect_scan._consts(p)
+        k = _kernels
+        self.packed = ctypes.create_string_buffer(PACKED_BYTES)
+        k.DETECT_FAST.call(
+            "detect_fast_args", k.ptr(mag2),
+            *[k.ptr(getattr(out, name)) for name in PLANE_FIELDS],
+            *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
+            k.ptr(out.ints), k.ptr(out.floats), k.ptr(self.scratch),
+            F, FL, self.n_act, H, G, p.burst_width_bins // 2,
+            c["k_create"], int(p.max_bursts), int(p.max_burst_len),
+            int(p.burst_post_len), int(p.burst_pre_len), int(id_stride),
+            int(bin_lo), int(own_lo), int(own_hi),
+            float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
+            float(c["f2"]), float(c["bin_width"]),
+            lay.blocks, lay.block_bins, lay.threads, lay.bpt, FL // lay.ns,
+            words, int(split), self.packed, PACKED_BYTES)
+
+    def step(self, mode: int, frame: int = 0) -> None:
+        """The one launch over every active frame (MODE_WHOLE), or the
+        split's launch A or B of `frame`."""
+        _kernels.DETECT_FAST.launch(self.dev, self.packed, mode, frame)
+
+
 def scan_fast_kernel(mag2: torch.Tensor, state: ScanState, n_valid: int,
                      p: DetectorParams, n_bins: int | None = None,
                      id_stride: int = 1, bin_lo=0, own_lo=0,
@@ -456,33 +520,66 @@ def scan_fast_kernel(mag2: torch.Tensor, state: ScanState, n_valid: int,
     kernel on mag2's CUDA device in the layout `plan` gives; the input
     state is left as it was. Raises on a shape `plan` refuses, on tensors
     the kernel does not take and on a launch the card refuses."""
-    F, H, G = p.fft_size, p.history_size, p.gone_capacity
-    FL = n_bins if n_bins is not None else F
-    own_hi = F if own_hi is None else own_hi
-    lay = plan(p, FL)
-    dev = mag2.device
-    _kernels.check(mag2, "mag2", torch.float32, dev,
-                   (p.frames_per_block, FL))
-    out = state.clone()
-    for name in GONE_FIELDS:
-        getattr(out, name).zero_()
-    state_mod.check(out, p, dev, FL)
-    c = detect_scan._consts(p)
-    scratch = torch.zeros(lay.scratch_words, dtype=torch.int32, device=dev)
-    k = _kernels
-    k.DETECT_FAST.launch(
-        dev, k.ptr(mag2),
-        *[k.ptr(getattr(out, name)) for name in PLANE_FIELDS],
-        *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
-        k.ptr(out.ints), k.ptr(out.floats), k.ptr(scratch),
-        F, FL, active_frames(p, n_valid), H, G, p.burst_width_bins // 2,
-        c["k_create"], int(p.max_bursts), int(p.max_burst_len),
-        int(p.burst_post_len), int(p.burst_pre_len), int(id_stride),
-        int(bin_lo), int(own_lo), int(own_hi),
-        float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
-        float(c["f2"]), float(c["bin_width"]),
-        lay.blocks, lay.block_bins, lay.threads, lay.bpt, FL // lay.ns)
-    return out
+    run = _Launch(mag2, state, n_valid, p, n_bins, id_stride, bin_lo,
+                  own_lo, own_hi, split=False)
+    run.step(MODE_WHOLE)
+    return run.out
+
+
+class SplitScan:
+    """`scan_fast_plain` with a coupling, as the kernel's split on mag2's
+    CUDA device, a step at a time (csrc/detect_fast.cu, its header). Made
+    with the block (the begin: the input state's clone, gone table zeroed,
+    checked; the split's scratch zeroed); then for each of the `n_act`
+    active frames in order, `a(f)` launches phase A and the seam and
+    returns the frame's pair `pair`, (2,) int64 [any long-burst deletion,
+    owned active count] in the scratch; the caller sums it over every bin
+    range in place; `b(f)` launches phase B, which reads it; `end()`
+    returns the new ScanState. Several ranges can run in lockstep on one
+    card, their pairs summed between the steps. Raises as
+    `scan_fast_kernel` does."""
+
+    def __init__(self, mag2: torch.Tensor, state: ScanState, n_valid: int,
+                 p: DetectorParams, n_bins: int | None = None,
+                 id_stride: int = 1, bin_lo=0, own_lo=0, own_hi=None):
+        self._run = _Launch(mag2, state, n_valid, p, n_bins, id_stride,
+                            bin_lo, own_lo, own_hi, split=True)
+        self.n_act = self._run.n_act
+        w = self._run.lay.scratch_words
+        self.pair = self._run.scratch[w:w + PAIR_WORDS].view(torch.int64)
+
+    def a(self, f: int) -> torch.Tensor:
+        self._run.step(MODE_A, f)
+        return self.pair
+
+    def b(self, f: int) -> None:
+        self._run.step(MODE_B, f)
+
+    def end(self) -> ScanState:
+        out = self._run.out
+        if self.n_act == 0:
+            # the last launch B writes the gone count; with none, no row
+            out.g_count.zero_()
+        return out
+
+
+def scan_fast_split(mag2: torch.Tensor, state: ScanState, n_valid: int,
+                    p: DetectorParams, coupling_sum,
+                    n_bins: int | None = None, id_stride: int = 1,
+                    bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
+    """`scan_fast_plain(..., coupling_sum=coupling_sum)` on mag2's CUDA
+    device: per active frame the kernel's launch A, `coupling_sum` of its
+    pair, launch B (`SplitScan`). binshard's `all_reduce` sums the pair in
+    place and returns it, and copying a tensor onto itself does nothing;
+    a sum returned in another tensor is copied into the pair. The input
+    state is left as it was. Raises where the kernel cannot build or
+    launch."""
+    s = SplitScan(mag2, state, n_valid, p, n_bins, id_stride, bin_lo,
+                  own_lo, own_hi)
+    for f in range(s.n_act):
+        s.pair.copy_(coupling_sum(s.a(f)))
+        s.b(f)
+    return s.end()
 
 
 def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
@@ -493,10 +590,10 @@ def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
     frame's (2,) int64 [any long-burst deletion, owned active count] to
     its sum over every bin range (identity: this range is all of them).
     On a CPU tensor `run` is `scan_fast_plain`. On a CUDA tensor it
-    launches the kernel (`scan_fast_kernel`), which raises where it cannot
-    build or launch; with a `coupling_sum` (binshard) it is
-    `scan_fast_plain` on the card too, chosen by the mode alone: splitting
-    the kernel at the coupling seam is the next slice of the port."""
+    launches the kernel, which raises where it cannot build or launch:
+    one launch a block (`scan_fast_kernel`), or with a `coupling_sum`
+    (binshard) two a frame around the coupling (`scan_fast_split`).
+    No path falls back to the twin on the card."""
     K_CREATE = detect_scan._consts(p)["k_create"]
     if p.max_new_per_frame > K_CREATE:
         _warn_clamp_once(p.max_new_per_frame, K_CREATE)
@@ -506,10 +603,12 @@ def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
             bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
         rng = dict(n_bins=n_bins, id_stride=id_stride, bin_lo=bin_lo,
                    own_lo=own_lo, own_hi=own_hi)
-        if mag2.device.type == "cpu" or coupling_sum is not None:
+        if mag2.device.type == "cpu":
             return scan_fast_plain(mag2, state, n_valid, p,
                                    coupling_sum=coupling_sum, **rng)
-        return scan_fast_kernel(mag2, state, n_valid, p, **rng)
+        if coupling_sum is None:
+            return scan_fast_kernel(mag2, state, n_valid, p, **rng)
+        return scan_fast_split(mag2, state, n_valid, p, coupling_sum, **rng)
 
     return run
 

@@ -18,12 +18,12 @@ block_samples / n) and, per block, enqueues:
              bin slices (bins [r own, (r + 1) own)), a ring exchange of
              `halo` bins each way, and detect_fast over the rank's bins
              with its per-frame coupling pair summed over the ranks by
-             `all_reduce` (detect.py's frame step with "exact"); with the
-             coupling, detect_fast runs its plain twin's loop on the card
-             too (its kernel covers one bin range; cutting it at the
-             coupling seam is the next slice of the port); ids are
-             offset by the rank and strided by n. The rank tables are
-             gathered with `all_gather`.
+             `all_reduce` (detect.py's frame step with "exact"): on the
+             card detect_fast's kernel, each frame two launches around
+             the `all_reduce` of the pair in the kernel's scratch
+             (`detect_fast.scan_fast_split`); ids are offset by the rank
+             and strided by n. The rank tables are gathered with
+             `all_gather`.
   stream   its slice with the l_ext samples before it, [left | slice |
            zeros(l_ext)], the left part by a ring of k_hops shifts (k_hops
            <= 2, :489-502) or from an `all_gather` of the block (:503-507),
@@ -194,6 +194,8 @@ class ShardedPipeline(pl.BurstDecoder):
             self.detect_impl = "exact"
             return scan, lambda: detect.init_state(p, dev, n_bins=FL,
                                                    id_offset=r)
+        # the kernel's split on the card (two launches a frame around the
+        # pair's all_reduce), the twin on the CPU
         run = detect_fast.make_scan_fast(p, FL, coupling_sum=self._all_sum,
                                          id_stride=n)
         self.detect_impl = "fast"
@@ -252,8 +254,14 @@ class ShardedPipeline(pl.BurstDecoder):
         return out
 
     def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of x over the ranks: the detectors' coupling hook."""
-        t = x.to(self.device, torch.int64, copy=True)
+        """The sum of x over the ranks: the detectors' coupling hook. An
+        int64 tensor on the device (detect_fast's pair in its kernel's
+        scratch) is summed in place and returned; anything else is summed
+        in an int64 copy on the device."""
+        t = x
+        if (x.device.type != self.device.type or x.dtype != torch.int64
+                or not x.is_contiguous()):
+            t = x.to(self.device, torch.int64, copy=True)
         self._coll(dist.all_reduce, t)
         return t
 

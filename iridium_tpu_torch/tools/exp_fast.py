@@ -2,6 +2,7 @@
 
     python -m iridium_tpu_torch.tools.exp_fast [--shapes 10mhz,edge,...]
         [--source PATH ...] [--reps N]
+    python -m iridium_tpu_torch.tools.exp_fast --shapes split1,split_local,split1_1mhz,lockstep4
     python -m iridium_tpu_torch.tools.exp_fast --device cpu --small
 
 Each shape is a block of |X|^2 rows and the state it starts from:
@@ -19,6 +20,25 @@ Each shape is a block of |X|^2 rows and the state it starts from:
   - `local`: rank 1 of 4 of a 10 MHz bin split (2,114 local bins from
     global bin 2,015, owning [2,048, 4,096), id_stride 4) on the
     production block's columns, under the identity coupling.
+The split's shapes (card only), binshard's two launches a frame around
+the coupling (`scan_fast_split`, `SplitScan`):
+  - `split1`: binshard's range at 10 MHz and world size 1 (8,258 bins from
+    global bin -33, the spectrum's own edges as halos) on the production
+    block, identity coupling: a grid of 9 blocks;
+  - `split_local`: the `local` range (2,114 bins, one block), identity
+    coupling;
+  - `split1_1mhz`: binshard's range at 1 MHz and world size 1 (1,106 bins
+    from global bin -41: one block of 2 bins a thread) on `lockstep4`'s
+    block, whose comb the one range squelches, identity coupling;
+  - `lockstep4`: a 1 MHz block (1,024 x 1,024: bursts, a long burst, a
+    comb that only the 4 ranges' summed count squelches) over binshard's 4
+    ranges of 338 bins, their splits driven in lockstep on one card with
+    each frame's pairs summed by a tensor add, held to 4 twins in 4
+    threads coupled by a barrier sum (`barrier_twins`).
+Each is held bit for bit to the twins and, with one range, to the
+one-launch kernel (`one_launch_bit_equal`), and timed beside the one
+launch at the same width: ms, µs a frame, the launches a frame, the
+device operations a block.
 Per shape the kernel (`make_scan_fast`: one launch a block) is held to
 `scan_fast_plain` on the same device bit for bit on every field of the
 state (`first_diff`: the first field and index that part), and timed:
@@ -39,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import threading
 import time
 
 import numpy as np
@@ -53,6 +74,7 @@ from .exp_block_gather import single_ms
 
 SEED = 1234
 SHAPES = ("10mhz", "edge", "25mhz", "400mhz", "1600mhz", "local")
+SPLIT_SHAPES = ("split1", "split_local", "split1_1mhz", "lockstep4")
 WIDE_RATES = {"25mhz": 25_000_000, "400mhz": 400_000_000,
               "1600mhz": 1_600_000_000}
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +104,106 @@ def _synthetic(p, dev):
     return exp_scan.synthetic_spectrogram(p, gen)
 
 
+def bin_ranges(p, mag2: torch.Tensor, n: int, ranks=None) -> list:
+    """binshard's bin ranges of the block (parallel/stream.py): for each
+    rank r of n (all by default), (its columns of mag2 with `halo` bins
+    each side, wrapped at the spectrum's edges; its fresh state; its range
+    (bin_lo, own_lo, own_hi)), over n_bins = F / n + 2 halo bins."""
+    F = p.fft_size
+    own, halo = F // n, 2 * (p.burst_width_bins // 2) + 1
+    FL = own + 2 * halo
+    out = []
+    for r in range(n) if ranks is None else ranks:
+        bin_lo = r * own - halo
+        cols = torch.from_numpy((np.arange(FL) + bin_lo) % F).to(mag2.device)
+        out.append((mag2[:, cols].contiguous(),
+                    st.init_state(p, mag2.device, id_offset=r, n_bins=FL),
+                    dict(bin_lo=bin_lo, own_lo=r * own, own_hi=(r + 1) * own)))
+    return out
+
+
+def coupled_spectrogram(p, gen):
+    """(frames, F) |X|^2 for binshard's ranges: exponential noise; once the
+    history is primed, 3-bin bursts a range apart, one longer than
+    max_burst_len, whose deletion forces every range's noise update
+    through the coupling; after it, a comb with one peak every 2 half_bw
+    + 2 bins, more than max_bursts over the band but fewer in any quarter
+    of it, so that only the summed count squelches."""
+    F, n = p.fft_size, p.frames_per_block
+    t0 = p.history_size + 8
+    long_frames = p.max_burst_len // F + 8
+    t_comb = t0 + 3 + long_frames + 10
+    if t_comb + 20 > n:
+        raise ValueError(f"{n} frames a block: too few for the bursts")
+    mag2 = torch.empty((n, F), device=gen.device).exponential_(generator=gen)
+    for f0, nf, b in [(t0, 20, F // 5), (t0 + 3, long_frames, F // 3),
+                      (t0 + 6, 4, F // 2 + 40), (t0 + 12, 30, 3 * F // 4)]:
+        mag2[f0:f0 + nf, b - 1:b + 2] += 500.0
+    step = p.burst_width_bins + 2
+    comb = torch.arange(p.burst_width_bins, F - p.burst_width_bins, step,
+                        device=gen.device)
+    comb = comb[(comb - F // 2).abs() > 8]
+    mag2[t_comb:t_comb + 20, comb] += 800.0
+    return mag2
+
+
+def summed(pairs: list) -> list:
+    """Each range's coupled pair: the sum of every range's."""
+    return [torch.stack(pairs).sum(0)] * len(pairs)
+
+
+def lockstep(p, ranges: list, n_valid: int, n_bins: int, id_stride: int,
+             mix=summed) -> list:
+    """`detect_fast.SplitScan` over the ranges [(mag2, state, range)] on
+    one card, in lockstep: each frame launch A on every range, the pairs
+    combined (`mix(pairs)` -> the pair each range takes, written into its
+    scratch), launch B on every range. The new ScanStates."""
+    scans = [detect_fast.SplitScan(m, s, n_valid, p, n_bins, id_stride,
+                                   **r) for m, s, r in ranges]
+    for f in range(scans[0].n_act):
+        for s, pair in zip(scans, mix([s.a(f) for s in scans])):
+            s.pair.copy_(pair)
+        for s in scans:
+            s.b(f)
+    return [s.end() for s in scans]
+
+
+def barrier_twins(p, ranges: list, n_valid: int, n_bins: int,
+                  id_stride: int, mix=summed) -> list:
+    """`scan_fast_plain` over each range [(mag2, state, range)] in a
+    thread of its own, each frame's pairs combined across the threads at a
+    barrier (`mix`, as `lockstep`'s). The new ScanStates. A thread that
+    fails breaks the barrier for the others, and the failure is raised."""
+    n = len(ranges)
+    # far above any frame's wait: a broken run fails instead of hanging
+    barrier = threading.Barrier(n, timeout=600)
+    vals, outs, errs = [None] * n, [None] * n, []
+
+    def run(k):
+        def coupling(x):
+            vals[k] = x.clone()
+            barrier.wait()
+            pair = mix(vals)[k]
+            barrier.wait()
+            return pair
+        m, s, r = ranges[k]
+        try:
+            outs[k] = detect_fast.scan_fast_plain(
+                m, s, n_valid, p, n_bins, coupling, id_stride, **r)
+        except Exception as e:  # noqa: BLE001  (raised below)
+            errs.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return outs
+
+
 def case(name: str, dev: torch.device) -> Case:
     """The shape's block, start state and range on `dev`."""
     if name == "10mhz":
@@ -101,18 +223,9 @@ def case(name: str, dev: torch.device) -> Case:
                     p.block_samples)
     if name == "local":
         p = exp_scan.production_params()
-        n, r = 4, 1
-        F = p.fft_size
-        own, halo = F // n, 2 * (p.burst_width_bins // 2) + 1
-        FL = own + 2 * halo
-        bin_lo = r * own - halo
-        cols = torch.from_numpy((np.arange(FL) + bin_lo) % F).to(dev)
-        mag2 = _synthetic(p, dev)[:, cols].contiguous()
-        return Case(name, p, mag2,
-                    st.init_state(p, dev, id_offset=r, n_bins=FL),
-                    p.block_samples, n_bins=FL, id_stride=n,
-                    rng=dict(bin_lo=bin_lo, own_lo=r * own,
-                             own_hi=(r + 1) * own))
+        (mag2, s, rng), = bin_ranges(p, _synthetic(p, dev), 4, ranks=[1])
+        return Case(name, p, mag2, s, p.block_samples, n_bins=mag2.shape[1],
+                    id_stride=4, rng=rng)
     if name == "small":
         p = DetectorConfig(sample_rate=1_000_000, history_size=16,
                            frames_per_block=64, gone_capacity=64,
@@ -127,17 +240,66 @@ def case(name: str, dev: torch.device) -> Case:
     raise ValueError(f"unknown shape {name!r}")
 
 
-def bound(c: Case) -> tuple[float, str]:
+def squelch_rows(states: list, p) -> int:
+    """Gone rows of bursts still active when they went, over the states: a
+    squelch's (a natural deletion comes burst_post_len or more samples
+    after the burst's last activity, a long burst's after max_burst_len)."""
+    n = 0
+    for s in states:
+        k = int(s.g_count)
+        gap = s.g_stop[:k] - s.g_last[:k]
+        span = s.g_last[:k] - s.g_start[:k]
+        n += int(((gap < p.burst_post_len) & (span <= p.max_burst_len))
+                 .sum())
+    return n
+
+
+@dataclasses.dataclass
+class SplitCase:
+    """A split shape: binshard's ranges of one block, [(mag2, state,
+    range)], over n_bins local bins each."""
+    name: str
+    p: object
+    ranges: list
+    n_valid: int
+    n_bins: int
+    id_stride: int
+
+    @property
+    def FL(self) -> int:
+        return self.n_bins
+
+
+def split_case(name: str, dev: torch.device) -> SplitCase:
+    """The split shape's block, ranges and start states on `dev`."""
+    if name in ("split1", "split_local"):
+        p = exp_scan.production_params()
+        n, ranks = (1, None) if name == "split1" else (4, [1])
+        ranges = bin_ranges(p, _synthetic(p, dev), n, ranks)
+    elif name in ("split1_1mhz", "lockstep4"):
+        p = DetectorConfig(sample_rate=1_000_000).derived()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        n = 1 if name == "split1_1mhz" else 4
+        ranges = bin_ranges(p, coupled_spectrogram(p, gen), n)
+    else:
+        raise ValueError(f"unknown split shape {name!r}")
+    return SplitCase(name, p, ranges, p.block_samples,
+                     ranges[0][0].shape[1], n)
+
+
+def bound(c) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the active frames' rows read once,
     the state (history, the 8 per-bin planes, the gone table and the
     scalars) read and written once; a division and a compare a bin a
-    frame."""
+    frame. A split case's: every range's."""
     p, FL = c.p, c.FL
+    k = len(c.ranges) if isinstance(c, SplitCase) else 1
     n_act = detect_fast.active_frames(p, c.n_valid)
     state = (4 * p.history_size * FL + 29 * FL + 28 * p.gone_capacity
              + 36)
-    t_b = (4 * n_act * FL + 2 * state) / HBM_BYTES_PER_S * 1e3
-    t_o = 2 * n_act * FL / FP32_FLOP_PER_S * 1e3
+    t_b = k * (4 * n_act * FL + 2 * state) / HBM_BYTES_PER_S * 1e3
+    t_o = k * 2 * n_act * FL / FP32_FLOP_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -281,6 +443,64 @@ def run_case(c: Case, dev: torch.device, reps: int = 3,
     return res
 
 
+def run_split_case(c: SplitCase, dev: torch.device, reps: int = 3) -> dict:
+    """The split case through the kernel's split and the twins on the
+    card: equality and times (see the module's doc)."""
+    p, FL, k = c.p, c.FL, len(c.ranges)
+    args = (p, c.ranges, c.n_valid, FL, c.id_stride)
+
+    def split():
+        if k == 1:
+            (m, s, r), = c.ranges
+            return [detect_fast.scan_fast_split(
+                m, s, c.n_valid, p, lambda x: x, FL, c.id_stride, **r)]
+        return lockstep(*args)
+
+    def one_launch():
+        m, s, r = c.ranges[0]
+        return detect_fast.scan_fast_kernel(m, s, c.n_valid, p, FL,
+                                            c.id_stride, **r)
+
+    before = _kernels.DETECT_FAST.launches
+    got = split()
+    torch.cuda.synchronize()
+    launches = _kernels.DETECT_FAST.launches - before
+    t = time.perf_counter()
+    want = barrier_twins(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    cmps = [compare_bits(g, w) for g, w in zip(got, want)]
+    first = next((x["first_diff"] for x in cmps if x["first_diff"]), None)
+    one = compare_bits(got[0], one_launch()) if k == 1 else None
+    heads = [dict(zip(st.INT_FIELDS, g.ints.tolist())) for g in got]
+    n_sq = squelch_rows(got, p)
+    del got, want
+    n_act = detect_fast.active_frames(p, c.n_valid)
+    lay = detect_fast.plan(p, FL)
+    b_ms, b_by = bound(c)
+    ms = _ms(split, dev, reps)
+    one_ms = _ms(one_launch, dev, reps)
+    return dict(
+        shape=[p.frames_per_block, FL], case=c.name, ranges=k,
+        n_valid=int(c.n_valid), n_act=n_act,
+        layout=dict(blocks=lay.blocks, threads=lay.threads,
+                    bins_per_thread=lay.bpt, segment=FL // lay.ns),
+        ms=ms, us_per_frame=ms * 1e3 / max(n_act, 1),
+        one_launch_ms=one_ms,
+        one_launch_us_per_frame=one_ms * 1e3 / max(n_act, 1),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        kernel_launches=launches,
+        launches_per_frame=launches / max(n_act, 1),
+        device_ops=device_ops(split),
+        gone=sum(h["g_count"] for h in heads),
+        tagged=sum(h["n_tagged"] for h in heads),
+        dropped=sum(h["burst_dropped"] for h in heads),
+        squelch_rows=n_sq,
+        bit_equal=all(x["bit_equal"] for x in cmps), first_diff=first,
+        max_abs_err=max(x["max_abs_err"] for x in cmps),
+        one_launch_bit_equal=None if one is None else one["bit_equal"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="exp_fast",
                                  description=__doc__.split("\n\n")[0])
@@ -288,8 +508,9 @@ def main(argv=None) -> int:
                     help="torch device (default: the current CUDA device)")
     ap.add_argument("--small", action="store_true",
                     help="a small shape for the CPU")
-    ap.add_argument("--shapes", default=",".join(SHAPES),
-                    help="comma-separated shapes: " + ", ".join(SHAPES))
+    ap.add_argument("--shapes", default=",".join(SHAPES + SPLIT_SHAPES),
+                    help="comma-separated shapes: "
+                    + ", ".join(SHAPES + SPLIT_SHAPES))
     ap.add_argument("--source", action="append", default=[],
                     help="time another kernel source with the package's C "
                     "entry point beside it, repeatable (card only)")
@@ -298,13 +519,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     names = ["small"] if args.small else args.shapes.split(",")
     for name in names:
-        if name not in SHAPES + ("small",):
+        if name not in SHAPES + SPLIT_SHAPES + ("small",):
             ap.error(f"unknown shape {name!r}")
     if args.reps < 1:
         ap.error("--reps must be 1 or more")
     dev = device_mod.resolve(args.device)
     if args.source and dev.type != "cuda":
         ap.error("--source needs the card")
+    if dev.type != "cuda" and set(names) & set(SPLIT_SHAPES):
+        ap.error("the split's shapes need the card")
     print("device: " + (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"), flush=True)
     cands = None
@@ -314,11 +537,20 @@ def main(argv=None) -> int:
             print(f"ptxas {cname} " + json.dumps(exp_demod.ptxas_summary(k)),
                   flush=True)
     for name in names:
-        r = run_case(case(name, dev), dev, args.reps, cands)
-        print(f"{name} {r['shape'][0]} x {r['shape'][1]}: {r['ms']:.4f} ms "
-              f"(chained {r['chained_ms']:.4f}), bit-equal "
-              f"{r['bit_equal']}, twin {r['plain_ms']:.2f}, bound "
-              f"{r['bound_ms']:.5f} " + json.dumps(r), flush=True)
+        if name in SPLIT_SHAPES:
+            r = run_split_case(split_case(name, dev), dev, args.reps)
+            print(f"{name} {r['ranges']} x {r['shape'][0]} x "
+                  f"{r['shape'][1]}: {r['ms']:.4f} ms "
+                  f"({r['us_per_frame']:.2f} us a frame; one launch "
+                  f"{r['one_launch_us_per_frame']:.2f}), bit-equal "
+                  f"{r['bit_equal']}, twins {r['plain_ms']:.2f} "
+                  + json.dumps(r), flush=True)
+        else:
+            r = run_case(case(name, dev), dev, args.reps, cands)
+            print(f"{name} {r['shape'][0]} x {r['shape'][1]}: "
+                  f"{r['ms']:.4f} ms (chained {r['chained_ms']:.4f}), "
+                  f"bit-equal {r['bit_equal']}, twin {r['plain_ms']:.2f}, "
+                  f"bound {r['bound_ms']:.5f} " + json.dumps(r), flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return 0

@@ -1,11 +1,15 @@
 """The sharded pipeline over N cards against one card.
 
     python -m iridium_tpu_torch.tools.exp_mesh [--ranks N]
+        [--jobs raw_10mhz,binshard_1mhz,...] [--no-grouping]
 
-Three captures (`tools/captures.py`) decode through `ShardedPipeline` in
-N spawned ranks, one card each over NCCL (`distributed.spawn`; N is every
-card by default): the RAW and dense 10 MHz captures in replicated mode
-and the 1 MHz capture in binshard mode. Each also decodes on card 0
+Captures (`tools/captures.py`) decode through `ShardedPipeline` in N
+spawned ranks, one card each over NCCL (`distributed.spawn`; N is every
+card by default), as four jobs (`--jobs` picks some): the RAW and dense
+10 MHz captures in replicated mode (`raw_10mhz`, `dense_10mhz`), the 1
+MHz capture and the RAW 10 MHz one in binshard mode (`binshard_1mhz`,
+`binshard_10mhz`: detect_fast's kernel split around the all_reduce of
+each frame's pair). Each also decodes on card 0
 through the single card's `Pipeline` (detect_fast for the binshard
 capture, whose ids differ by design) at its default grouping of 4 blocks
 and at one block a group. Every decode runs twice and the second run is
@@ -20,7 +24,8 @@ frequency and the level differs. Then every rank's wall, the realtime
 factor of the slowest, the collectives' device ms and the kernel
 launches summed over the ranks.
 
-`grouping` asks why one card's lines move with the grouping: the dense
+`grouping` (left out with `--no-grouping`) asks why one card's lines
+move with the grouping: the dense
 capture decodes on card 0 through the host-routed flow (eager class
 batches) at 4 blocks and at 1 block a group, once with the fused
 front-end kernel and once with its plain version (`fused_plain`) in the
@@ -43,6 +48,7 @@ import time
 
 import torch
 
+from ..output.raw import RawPrinter
 from . import captures
 
 T0 = 1_700_000_000_000_000_000
@@ -57,6 +63,17 @@ LOOSE = ("frequency", "level")
 
 def strip_id(line: str) -> str:
     return re.sub(r"I:\d{11}", "I:-----------", line)
+
+
+def raw_lines(frames) -> list:
+    """RAW lines of a decode's frames in time order (then frequency): a
+    printer takes its time base and file name from the first frame it
+    prints, and binshard yields a block's frames in the order of its ids,
+    which are strided by rank, so each decode is printed from its
+    earliest frame."""
+    printer = RawPrinter()
+    return [printer.format(f) for f in sorted(
+        frames, key=lambda f: (f["timestamp_ns"], f["frequency"]))]
 
 
 def compare_lines(got: list, want: list, masked: bool) -> dict:
@@ -96,7 +113,6 @@ def mesh_rank(jobs: list) -> dict:
     import torch.distributed as dist
     from .. import _kernels
     from ..config import DetectorConfig
-    from ..output.raw import RawPrinter
     from ..parallel import distributed
     from ..parallel.stream import ShardedPipeline
 
@@ -112,11 +128,11 @@ def mesh_rank(jobs: list) -> dict:
         dist.barrier()
         _kernels.reset_counts()
         t = time.perf_counter()
-        printer = RawPrinter()
-        lines = [printer.format(f) for f in sp.run_file(path)]
+        frames = list(sp.run_file(path))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        out[name] = dict(lines=lines, wall_s=wall, k_hops=sp.k_hops,
+        out[name] = dict(lines=raw_lines(frames), wall_s=wall,
+                         k_hops=sp.k_hops,
                          collectives_ms=1e3 * sp.timing["collectives"],
                          n_collectives=sp.timing["n_collectives"],
                          stages=dict(sp.timing),
@@ -132,7 +148,6 @@ def single_card(path: str, det_kw: dict, mode: str, agg: int,
     """(lines, wall) of the single-card decode on card 0, timed after a
     warm-up decode when `warm`."""
     from ..config import DetectorConfig
-    from ..output.raw import RawPrinter
     from ..runtime.pipeline import Pipeline
 
     pipe = Pipeline(det_cfg=DetectorConfig(**det_kw), start_time_ns=T0,
@@ -144,10 +159,10 @@ def single_card(path: str, det_kw: dict, mode: str, agg: int,
         pipe.reset(T0)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    printer = RawPrinter()
-    lines = [printer.format(f) for f in pipe.run_file(path)]
+    frames = list(pipe.run_file(path))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    lines = raw_lines(frames)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -192,17 +207,25 @@ def witness(a: list, b: list) -> dict:
     return out
 
 
-def run(n: int, tmp: str) -> dict:
+# name -> (capture, detector keywords, detect mode)
+JOBS = {
+    "raw_10mhz": (lambda: captures.production_capture(SEED)[0],
+                  captures.PROD, "replicated"),
+    "dense_10mhz": (lambda: captures.dense_capture(SEED + 8)[0],
+                    captures.PROD, "replicated"),
+    "binshard_1mhz": (lambda: captures.capture_1mhz(SEED + 3),
+                      dict(sample_rate=1_000_000), "binshard"),
+    "binshard_10mhz": (lambda: captures.production_capture(SEED)[0],
+                       captures.PROD, "binshard"),
+}
+
+
+def run(n: int, tmp: str, names=tuple(JOBS), with_grouping=True) -> dict:
     from ..parallel import distributed
 
     jobs, seconds = [], {}
-    for name, make, det_kw, mode in (
-            ("raw_10mhz", lambda: captures.production_capture(SEED)[0],
-             captures.PROD, "replicated"),
-            ("dense_10mhz", lambda: captures.dense_capture(SEED + 8)[0],
-             captures.PROD, "replicated"),
-            ("binshard_1mhz", lambda: captures.capture_1mhz(SEED + 3),
-             dict(sample_rate=1_000_000), "binshard")):
+    for name in names:
+        make, det_kw, mode = JOBS[name]
         cap = make()
         path = os.path.join(tmp, name + ".cf32")
         captures.write_cf32(path, cap)
@@ -211,7 +234,12 @@ def run(n: int, tmp: str) -> dict:
         del cap
     single = {(name, agg): single_card(path, det_kw, mode, agg)
               for name, path, det_kw, mode in jobs for agg in (4, 1)}
-    res = dict(ranks=n, grouping=grouping(jobs[1][1]))
+    res = dict(ranks=n)
+    if with_grouping:
+        path = os.path.join(tmp, "dense_10mhz.cf32")
+        if "dense_10mhz" not in names:
+            captures.write_cf32(path, JOBS["dense_10mhz"][0]())
+        res["grouping"] = grouping(path)
     ranks = distributed.spawn(mesh_rank, n, None, jobs, timeout=1000)
     for name, path, det_kw, mode in jobs:
         (want, wall1), (want1, _) = single[name, 4], single[name, 1]
@@ -246,7 +274,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=None, metavar="N",
                     help="ranks, one card each (default: every card)")
+    ap.add_argument("--jobs", default=",".join(JOBS),
+                    help="comma-separated jobs: " + ", ".join(JOBS))
+    ap.add_argument("--no-grouping", action="store_true",
+                    help="leave out the single card's grouping study")
     args = ap.parse_args(argv)
+    names = args.jobs.split(",")
+    for name in names:
+        if name not in JOBS:
+            ap.error(f"unknown job {name!r}")
     if not torch.cuda.is_available():
         raise SystemExit("exp_mesh runs on the card: no CUDA device")
     n = args.ranks or torch.cuda.device_count()
@@ -259,7 +295,7 @@ def main(argv=None) -> int:
     ).stdout.strip()
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        res = run(n, tmp)
+        res = run(n, tmp, names, not args.no_grouping)
     print(json.dumps(dict(res, card=card, seconds=time.perf_counter() - t)))
     return 0
 

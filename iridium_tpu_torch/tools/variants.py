@@ -20,7 +20,8 @@ from .. import _kernels
 
 class Variant(_kernels.Kernel):
     def __init__(self, base: _kernels.Kernel, text: str):
-        super().__init__(base.name, base.argtypes, base.extra_flags)
+        super().__init__(base.name, base.argtypes, base.extra_flags,
+                         base.entries)
         self.text = text
 
     @property

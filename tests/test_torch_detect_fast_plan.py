@@ -1,17 +1,21 @@
 """The detect_fast kernel's layout and decomposition on the CPU.
 
 `plan` (iridium_tpu_torch/dsp/detect_fast.py) at every shape the card
-runs and at binshard's local widths; the dispatch of `make_scan_fast`
-(the CPU runs the plain twin, a CUDA tensor the kernel, binshard's
-coupled loop the twin); and `kernel_model`, the kernel's decomposition
-(csrc/detect_fast.cu) written as tensor ops: bins split into blocks, each
-block's 8 largest candidate keys merged into the same 8, per-block
+runs and at binshard's local widths, the split's scratch included; the
+dispatch of `make_scan_fast` (the CPU runs the plain twin, a CUDA tensor
+the kernel: one launch a block, or with binshard's coupling the split's
+launch A, the coupling and launch B a frame); and `kernel_steps`, the
+kernel's decomposition (csrc/detect_fast.cu) written as tensor ops and
+cut at the coupling seam as the split cuts it: bins split into blocks,
+each block's 8 largest candidate keys merged into the same 8, per-block
 emission counts with their exclusive prefix, the mask release across
 block edges only where the blocks' deletion counts say a deletion is
-near, and the live history ring. The model is held bit-equal to
-`scan_fast_plain` on every field of the state over
-test_torch_detect_fast.py's scenarios, at 1, 2, 3 and 7 blocks and with
-blocks narrower than half the burst width.
+near, and the live history ring. Under the identity coupling
+(`kernel_model`) it is held bit-equal to `scan_fast_plain` on every field
+of the state over test_torch_detect_fast.py's scenarios, at 1, 2, 3 and 7
+blocks and with blocks narrower than half the burst width; over 2 and 4
+bin ranges in lockstep (`split_model`) to the twin run over the same
+ranges in threads whose `coupling_sum` is a barrier sum.
 """
 
 import dataclasses
@@ -24,6 +28,7 @@ torch = pytest.importorskip("torch")
 from iridium_tpu_torch.config import DetectorConfig  # noqa: E402
 from iridium_tpu_torch.dsp import detect_fast, detect_scan  # noqa: E402
 from iridium_tpu_torch.dsp import state as st  # noqa: E402
+from iridium_tpu_torch.tools import exp_fast  # noqa: E402
 
 from test_detect import tone_capture  # noqa: E402
 from test_torch_detect_fast import SCENARIOS  # noqa: E402
@@ -58,10 +63,14 @@ def _window_sums(x: torch.Tensor, hb: int) -> torch.Tensor:
     return cs[2 * hb + 1:] - cs[:n]
 
 
-def kernel_model(mag2, state, n_valid, p, block_bins, n_bins=None,
+def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
                  id_stride=1, bin_lo=0, own_lo=0, own_hi=None):
     """The kernel's algorithm over blocks of `block_bins` bins (a multiple
-    of its segment), on the CPU: the new ScanState."""
+    of its segment), on the CPU, cut at the coupling seam as the split
+    cuts it: a generator that yields each active frame's pair (any_long,
+    n_own_post) after phase A and the seam, takes the pair summed over
+    the bin ranges by `send`, runs phase B, and returns the new
+    ScanState."""
     F, H, G = p.fft_size, p.history_size, p.gone_capacity
     FL = n_bins if n_bins is not None else F
     own_hi = F if own_hi is None else own_hi
@@ -179,9 +188,9 @@ def kernel_model(mag2, state, n_valid, p, block_bins, n_bins=None,
                                         if not k & 1 and owned[b])
         near = [int(n_flags[int(near_lo[b]):int(near_hi[b]) + 1].sum()) > 0
                 for b in range(nb)]
-        # the coupling: identity
-        force = any_long and primed
-        n_active = n_post
+        # the coupling: the pair out, its sum over the ranges back
+        long_sum, n_active = yield (int(any_long), n_post)
+        force = long_sum > 0 and primed
         squelch = p.max_bursts > 0 and primed and n_active > p.max_bursts
 
         # ---- phase B
@@ -259,6 +268,30 @@ def kernel_model(mag2, state, n_valid, p, block_bins, n_bins=None,
                           dtype=torch.int32)
     s.floats = peak.reshape(1)
     return s
+
+
+def split_model(ranges):
+    """`kernel_steps` over several bin ranges in lockstep, each frame's
+    pairs summed: [(mag2, state, n_valid, p, block_bins, range kwargs)] ->
+    the new ScanStates."""
+    steps = [kernel_steps(*r[:5], **r[5]) for r in ranges]
+    total = None
+    while True:
+        pairs, outs = [], []
+        for g in steps:
+            try:
+                pairs.append(g.send(total))
+            except StopIteration as stop:
+                outs.append(stop.value)
+        if outs:
+            assert not pairs, "the ranges ran apart"
+            return outs
+        total = tuple(int(sum(v)) for v in zip(*pairs))
+
+
+def kernel_model(*args, **kw):
+    """`kernel_steps` under the identity coupling: the new ScanState."""
+    return split_model([args + (kw,)])[0]
 
 
 def assert_states_equal(got, want):
@@ -369,6 +402,62 @@ def test_kernel_model_local_range_with_ownership():
             assert_states_equal(got, want)
 
 
+# bursts one to a range of 4 (and two to a range of 2) at once, after the
+# 64-frame priming: 4 active bursts, a squelch under max_bursts 3 only
+# when the ranges' counts are summed; then two bursts that end naturally
+QUAD = [(0.09, 0.03, -300_000.0, 0.05), (0.091, 0.03, -100_000.0, 0.05),
+        (0.092, 0.03, 100_000.0, 0.05), (0.093, 0.03, 300_000.0, 0.05),
+        (0.16, 0.01, 200_000.0, 0.05), (0.17, 0.01, -200_000.0, 0.05)]
+SPLIT_CASES = [
+    # id, ranges, config, events, valid frames (None: the block), a
+    # squelch that only the summed counts reach
+    ("2_ranges_mid_block_h2", 2, dict(history_size=2),
+     [(0.02, 0.15, 50_000.0, 0.05), (0.05, 0.01, -120_000.0, 0.06),
+      (0.09, 0.01, 120_000.0, 0.06)], 150.5, False),
+    ("4_ranges", 4, {}, SCENARIOS[0][2], None, False),
+    ("2_ranges_coupled_squelch", 2, dict(max_bursts=3), QUAD, None, True),
+    ("4_ranges_coupled_squelch", 4, dict(max_bursts=3), QUAD, None, True),
+]
+
+
+@pytest.mark.parametrize("n,kw,events,frames,squelch",
+                         [c[1:] for c in SPLIT_CASES],
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_split_model_bit_equal_to_coupled_twins(n, kw, events, frames,
+                                                squelch):
+    """The kernel's decomposition cut at the seam, over n bin ranges in
+    lockstep with the frame's pairs summed, at the whole range in one
+    block and at blocks narrower than half_bw, gives the twins' states
+    bit for bit, the twins run over the same ranges in threads coupled by
+    a barrier sum. In the squelch cases the coupling changes the result:
+    a range's state differs from its identity-coupled one, and squelch
+    rows appear that no range alone makes."""
+    jp, pp = params(**kw)
+    x = events(jp) if callable(events) else tone_capture(jp, events)
+    mag2 = torch.from_numpy(spectrogram(jp, x[:jp.block_samples]))
+    n_valid = (pp.block_samples if frames is None
+               else int(frames * pp.fft_size))
+    ranges = exp_fast.bin_ranges(pp, mag2, n)
+    FL = ranges[0][0].shape[1]
+    want = exp_fast.barrier_twins(pp, ranges, n_valid, FL, n)
+    widths = block_widths(pp, FL)
+    for w in (widths[0], widths[-1]):
+        got = split_model([(m, s0, n_valid, pp, w,
+                            dict(r, n_bins=FL, id_stride=n))
+                           for m, s0, r in ranges])
+        for g, wt in zip(got, want):
+            assert_states_equal(g, wt)
+    assert sum(int(s.n_tagged) for s in want) >= 2
+    if squelch:
+        alone = [kernel_model(m, s0, n_valid, pp, widths[0], n_bins=FL,
+                              id_stride=n, **r) for m, s0, r in ranges]
+        assert any(not torch.equal(a.ints, g.ints)
+                   or not torch.equal(a.a_valid, g.a_valid)
+                   for a, g in zip(alone, want))
+        assert exp_fast.squelch_rows(want, pp) > 0
+        assert exp_fast.squelch_rows(alone, pp) == 0
+
+
 # ---- plan ----
 
 def _rate(rate, **kw):
@@ -391,6 +480,11 @@ PLAN_SHAPES = [
      _rate(1_000_000).fft_size // n
      + 2 * (2 * (_rate(1_000_000).burst_width_bins // 2) + 1))
     for n in (1, 2, 3, 4)
+] + [
+    (f"binshard_10mhz_world{n}", _rate(10_000_000),
+     _rate(10_000_000).fft_size // n
+     + 2 * (2 * (_rate(10_000_000).burst_width_bins // 2) + 1))
+    for n in (1, 2, 4)
 ]
 
 
@@ -419,6 +513,12 @@ def test_plan_covers_the_bins(name, p, n_bins):
                                  + detect_fast.PARTIAL_WORDS * lay.blocks
                                  + lay.blocks * lay.threads)
     assert lay.scratch_words * 4 < 1 << 20
+    # the split's after it: the pair (two int64 at an even word), the
+    # scalars in two slots, a Seam a block
+    assert lay.scratch_words % 2 == 0
+    assert lay.split_words == (lay.scratch_words + detect_fast.PAIR_WORDS
+                               + 2 * detect_fast.SCALAR_WORDS
+                               + detect_fast.SEAM_WORDS * lay.blocks)
     # a flag word holds a thread's bins
     assert lay.bpt <= 32
 
@@ -437,6 +537,15 @@ def test_plan_layouts_at_the_card_shapes():
     # binshard at 1 MHz over 4 ranks: 338 bins, segments of 1 (SEG = 2)
     lay = detect_fast.plan(_rate(1_000_000), 338)
     assert lay[:4] == (1, 352, 352, 1) and lay.ns == 338
+    assert (lay.scratch_words, lay.split_words) == (404, 449)
+    # binshard at 10 MHz: world size 1 is the split's one grid (9 blocks of
+    # 1,024 bins), world size 4 one block of 544 threads of 4 bins
+    lay = detect_fast.plan(_rate(10_000_000), 8258)
+    assert lay[:4] == (9, 1024, 1024, 1) and lay.grid
+    assert (lay.scratch_words, lay.split_words) == (9428, 9657)
+    lay = detect_fast.plan(_rate(10_000_000), 2114)
+    assert lay[:4] == (1, 2176, 544, 4) and not lay.grid
+    assert (lay.scratch_words, lay.split_words) == (596, 641)
 
 
 def test_plan_refuses_what_it_cannot_launch():
@@ -480,14 +589,18 @@ def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
         monkeypatch):
     """Off the CPU (a meta tensor stands in for the card's) `run` calls the
     kernel wrapper with the range, and nothing else; with a coupling_sum
-    (binshard) it calls the twin with the coupling, and never the
-    kernel."""
+    (binshard) it no longer runs the twin's loop, whatever this test's
+    name says (kept from when it did): it calls the kernel's split
+    (`scan_fast_split`) with the coupling and the range, and never the
+    twin or the one launch."""
     pp = params()[1]
     calls = []
     monkeypatch.setattr(detect_fast, "scan_fast_kernel",
                         lambda *a, **k: calls.append(("kernel", k)))
     monkeypatch.setattr(detect_fast, "scan_fast_plain",
                         lambda *a, **k: calls.append(("plain", k)))
+    monkeypatch.setattr(detect_fast, "scan_fast_split",
+                        lambda *a, **k: calls.append(("split", a[4:], k)))
     mag2 = torch.empty((pp.frames_per_block, 40), device="meta")
     detect_fast.make_scan_fast(pp, 40, id_stride=2)(
         mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
@@ -497,15 +610,64 @@ def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
     csum = lambda x: x  # noqa: E731
     detect_fast.make_scan_fast(pp, 40, coupling_sum=csum, id_stride=2)(
         mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
-    assert calls == [("plain", dict(coupling_sum=csum, n_bins=40,
-                                    id_stride=2, bin_lo=3, own_lo=4,
-                                    own_hi=30))]
+    assert calls == [("split", (csum,), dict(n_bins=40, id_stride=2,
+                                             bin_lo=3, own_lo=4,
+                                             own_hi=30))]
+
+
+@pytest.mark.parametrize("frames", [0, 3])
+def test_split_issues_a_coupling_b_per_frame(monkeypatch, frames):
+    """`scan_fast_split` on meta tensors (the card's stand-in), the
+    kernel's entry points recorded: the block's arguments packed once,
+    with the split's scratch words; then per active frame launch A, the
+    coupling of the pair A returned, launch B, in that order, from the
+    packing; nothing for zero active frames, whose gone count is
+    zeroed."""
+    pp = params()[1]
+    F, FL = pp.fft_size, 338
+    lay = detect_fast.plan(pp, FL)
+    calls, packed = [], []
+    k = detect_fast._kernels.DETECT_FAST
+
+    def call(entry, *args):
+        assert entry == "detect_fast_args"
+        # ..., the plan's 5 integers and the scratch's words, the split
+        # flag, the buffer
+        assert args[-9:-2] == (lay.blocks, lay.block_bins, lay.threads,
+                               lay.bpt, FL // lay.ns, lay.split_words, 1)
+        assert args[-1] == detect_fast.PACKED_BYTES
+        packed.append(args[-2])
+        calls.append(("pack", None))
+
+    def launch(dev, buf, mode, frame):
+        assert buf is packed[0]
+        calls.append(({1: "A", 2: "B"}[mode], frame))
+    monkeypatch.setattr(k, "call", call)
+    monkeypatch.setattr(k, "launch", launch)
+    pairs = []
+
+    def csum(x):
+        assert x.dtype == torch.int64 and tuple(x.shape) == (2,)
+        pairs.append(x)
+        calls.append(("sum", len(pairs) - 1))
+        return x
+    mag2 = torch.empty((pp.frames_per_block, FL), device="meta")
+    s0 = st.init_state(pp, "meta", n_bins=FL)
+    out = detect_fast.scan_fast_split(mag2, s0, frames * F, pp, csum,
+                                      n_bins=FL, id_stride=4, bin_lo=-41,
+                                      own_lo=0, own_hi=256)
+    assert calls == [("pack", None)] + [(step, f) for f in range(frames)
+                                        for step in ("A", "sum", "B")]
+    # the pair is one buffer of the scratch, summed in place each frame
+    assert len({p.data_ptr() for p in pairs}) <= 1
+    assert out.g_count.device.type == "meta"
 
 
 def test_binshard_builds_the_coupled_loop():
     """The sharded pipeline's bin-split mode hands detect_fast its
-    all_reduce as `coupling_sum`, so it keeps the twin's loop; the
-    replicated mode builds it without one (the kernel on the card)."""
+    all_reduce as `coupling_sum`, so on the card it runs the kernel's
+    split (the twin on the CPU); the replicated mode builds it without
+    one (the one launch a block on the card)."""
     import inspect
     from iridium_tpu_torch.parallel import stream
     src = inspect.getsource(stream.ShardedPipeline._build_detect)

@@ -701,25 +701,143 @@ def test_detect_fast_kernel_local_range(dev):
 
 def test_detect_fast_binshard_keeps_the_loop_and_refusals_raise(
         dev, monkeypatch):
-    """With a coupling_sum (binshard) `run` is the twin on the card, with no
-    launch; a plan the C entry refuses raises before anything runs."""
+    """With a coupling_sum (binshard) `run` no longer keeps the twin's
+    loop on the card, whatever this test's name says (kept from when it
+    did): it is the kernel's split, per active frame launch A, the
+    coupling of its pair, launch B, bit-equal to the twin under the same
+    coupling; a plan the C side refuses raises before anything runs, for
+    the one launch and for the split."""
     from iridium_tpu_torch.dsp import detect_fast
+    from iridium_tpu_torch.tools import exp_fast
     p = DetectorConfig(**_FAST_1MHZ).derived()
     mag2 = _bursty_spectrogram(p, dev, 1)
     s = st.init_state(p, dev)
+    n_act = detect_fast.active_frames(p, p.block_samples)
+    sums = []
+
+    def coupling(x):
+        sums.append(_kernels.DETECT_FAST.launches)
+        return x
     before = _kernels.DETECT_FAST.launches
-    got = detect_fast.make_scan_fast(p, coupling_sum=lambda x: x)(
+    got = detect_fast.make_scan_fast(p, coupling_sum=coupling)(
         mag2, s, p.block_samples)
-    want = detect_fast.scan_fast_plain(mag2, s, p.block_samples, p)
-    assert _kernels.DETECT_FAST.launches == before
-    exp_scan.compare(got, want)
+    torch.cuda.synchronize()
+    assert _kernels.DETECT_FAST.launches == before + 2 * n_act
+    # each coupling after the frame's launch A, before its launch B
+    assert sums == [before + 2 * f + 1 for f in range(n_act)]
+    want = detect_fast.scan_fast_plain(mag2, s, p.block_samples, p,
+                                       coupling_sum=lambda x: x)
+    cmp = exp_fast.compare_bits(got, want)
+    assert cmp["bit_equal"], cmp
     good = detect_fast.plan(p)
     monkeypatch.setattr(detect_fast, "plan",
                         lambda *a: good._replace(threads=good.threads + 32))
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        detect_fast.make_scan_fast(p)(mag2, s, p.block_samples)
+    before = _kernels.DETECT_FAST.launches
+    for kw in ({}, dict(coupling_sum=lambda x: x)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            detect_fast.make_scan_fast(p, **kw)(mag2, s, p.block_samples)
     torch.cuda.synchronize()
     assert _kernels.DETECT_FAST.launches == before
+
+
+SPLIT_IDENTITY_CASES = [
+    # id, config, binshard's world size (None: the whole band, no halos),
+    # bins a thread
+    ("one_block_clamp", FAST_CASES[0][1], None, 1),
+    ("grid_25mhz", FAST_CASES[1][1], None, 1),
+    ("grid_200mhz_bpt2", FAST_CASES[2][1], None, 2),
+    ("range_1mhz_bpt2", _FAST_1MHZ, 1, 2),
+]
+
+
+@pytest.mark.parametrize("cfg,n,bpt", [c[1:] for c in SPLIT_IDENTITY_CASES],
+                         ids=[c[0] for c in SPLIT_IDENTITY_CASES])
+def test_detect_fast_split_identity_equals_one_launch(dev, cfg, n, bpt):
+    """The split under the identity coupling against the one-launch
+    kernel, bit for bit, on two blocks in a row with `rebase_` between
+    them: one block (1 MHz), grids (25 MHz, 32 blocks; 200 MHz, 2 bins a
+    thread; launch A cooperative), and binshard's 1 MHz range at world
+    size 1 (1,106 bins with its halos: one block of 2 bins a thread)."""
+    from iridium_tpu_torch.dsp import detect_fast
+    from iridium_tpu_torch.tools import exp_fast
+    p = DetectorConfig(**cfg).derived()
+    n_act = detect_fast.active_frames(p, p.block_samples)
+    s, FL, rng = st.init_state(p, dev), None, {}
+    for seed in (1, 2):
+        mag2 = _bursty_spectrogram(p, dev, seed)
+        if n is not None:
+            (mag2, s0, rng), = exp_fast.bin_ranges(p, mag2, n)
+            if FL is None:
+                s, FL = s0, mag2.shape[1]
+        assert detect_fast.plan(p, FL).bpt == bpt
+        split = detect_fast.make_scan_fast(p, FL, coupling_sum=lambda x: x,
+                                           id_stride=n or 1)
+        one = detect_fast.make_scan_fast(p, FL, id_stride=n or 1)
+        before = _kernels.DETECT_FAST.launches
+        got = split(mag2, s, p.block_samples, **rng)
+        torch.cuda.synchronize()
+        assert _kernels.DETECT_FAST.launches == before + 2 * n_act
+        cmp = exp_fast.compare_bits(got, one(mag2, s, p.block_samples,
+                                             **rng))
+        assert cmp["bit_equal"], cmp
+        s = got
+        st.rebase_(s, p.block_samples)
+    assert int(s.n_tagged) >= 3
+
+
+def _coupled_ranges(dev, n=4):
+    """binshard's n ranges of a 1 MHz block of 256 frames whose summed
+    count squelches and whose long burst (range 1 of 4) forces the others'
+    noise update through the coupling (`exp_fast.coupled_spectrogram`)."""
+    from iridium_tpu_torch.tools import exp_fast
+    p = DetectorConfig(**_FAST_1MHZ).derived()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    ranges = exp_fast.bin_ranges(p, exp_fast.coupled_spectrogram(p, gen), n)
+    return p, ranges, (p, ranges, p.block_samples, ranges[0][0].shape[1], n)
+
+
+def test_detect_fast_split_lockstep_matches_threaded_twins(dev):
+    """4 ranges of 338 bins, their splits in lockstep on the card with the
+    pairs summed by a tensor add, against 4 twins in 4 threads coupled by
+    a barrier sum: every range's state bit for bit."""
+    from iridium_tpu_torch.tools import exp_fast
+    p, ranges, args = _coupled_ranges(dev)
+    got = exp_fast.lockstep(*args)
+    want = exp_fast.barrier_twins(*args)
+    for g, w in zip(got, want):
+        cmp = exp_fast.compare_bits(g, w)
+        assert cmp["bit_equal"], cmp
+    assert sum(int(g.n_tagged) for g in got) >= 8
+
+
+def test_detect_fast_split_squelch_and_force_through_the_coupling(dev):
+    """The coupling reaches the kernel's phase B: with the ranges' counts
+    summed, squelch rows appear that no range alone makes; with the long
+    burst's flag summed too, the ranges without one take its forced noise
+    update (their noise sums differ from a coupling of the counts alone).
+    Each coupling is held to the threaded twins under the same one."""
+    from iridium_tpu_torch.tools import exp_fast
+    p, ranges, args = _coupled_ranges(dev)
+
+    def counts_only(pairs):
+        return [torch.stack([q[0], t[1]])
+                for q, t in zip(pairs, exp_fast.summed(pairs))]
+    res = {}
+    for name, mix in (("alone", list), ("counts", counts_only),
+                      ("summed", exp_fast.summed)):
+        got = exp_fast.lockstep(*args, mix=mix)
+        for g, w in zip(got, exp_fast.barrier_twins(*args, mix=mix)):
+            cmp = exp_fast.compare_bits(g, w)
+            assert cmp["bit_equal"], (name, cmp)
+        res[name] = got
+    assert exp_fast.squelch_rows(res["alone"], p) == 0
+    assert exp_fast.squelch_rows(res["summed"], p) > 0
+    assert exp_fast.squelch_rows(res["counts"], p) > 0
+    # range 1 holds the long burst; the others see it only when summed
+    for r in (0, 2, 3):
+        assert not torch.equal(res["counts"][r].baseline_sum,
+                               res["summed"][r].baseline_sum), r
 
 
 def test_native_ring_reused_across_blocks(dev, tmp_path):
@@ -751,8 +869,9 @@ def test_sharded_world_size_1_over_nccl_matches_single_card(dev, tmp_path):
     """The sharded pipeline in this process at world size 1 over NCCL, on a
     10 MHz capture with two bursts (blocks of 64 frames): replicated detect
     (the scan kernel, the fused front-end) gives the single card's lines,
-    ids included; binshard detect (detect_fast with its per-frame
-    all_reduce) gives Pipeline(detect_impl="fast")'s with the ids masked.
+    ids included; binshard detect (detect_fast's kernel split around its
+    per-frame all_reduce) gives Pipeline(detect_impl="fast")'s with the ids
+    masked.
     Then `--mesh` with more ranks than cards exits 2."""
     import re
     from iridium_tpu_torch import _kernels, cli
@@ -792,8 +911,11 @@ def test_sharded_world_size_1_over_nccl_matches_single_card(dev, tmp_path):
         assert _kernels.FUSED_FRONTEND.launches > 0
         assert sp.timing["collectives"] > 0
         sb = ShardedPipeline(cfg, mesh=mesh, detect_mode="binshard", **kw)
+        before = _kernels.DETECT_FAST.launches
         assert strip(lines(sb)) == strip(fast)
         assert sb.timing["n_collectives"] > cfg.frames_per_block
+        # binshard's detect_fast is the kernel's split, two launches a frame
+        assert _kernels.DETECT_FAST.launches > before
     finally:
         if made:
             distributed.shutdown()

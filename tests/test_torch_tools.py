@@ -24,7 +24,7 @@ from iridium_tpu_torch.dsp import detect_scan  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
 from iridium_tpu_torch.tools import exp_demod, exp_downmix, exp_mesh  # noqa: E402,E501
-from iridium_tpu_torch.tools import exp_fast, exp_window_gather  # noqa: E402,E501
+from iridium_tpu_torch.tools import captures, exp_fast, exp_window_gather  # noqa: E402,E501
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -216,6 +216,29 @@ def test_exp_window_gather_adapts_an_unordered_entry():
                                       "window_gather_unordered(", 1))
     assert "const int* starts2, int* order, int B," in new
     assert new.count('extern "C" int window_gather(') == 1
+
+
+def test_exp_mesh_jobs_and_line_order():
+    """The mesh tool's jobs: both binshard captures beside the replicated
+    ones; an unknown job is refused before anything runs. A decode's
+    lines do not depend on the order its frames come in (binshard's
+    follow its rank-strided ids): the printer's time base is the earliest
+    frame's second."""
+    assert exp_mesh.JOBS["binshard_10mhz"][1:] == (captures.PROD,
+                                                   "binshard")
+    assert exp_mesh.JOBS["binshard_1mhz"][2] == "binshard"
+    with pytest.raises(SystemExit):
+        exp_mesh.main(["--jobs", "raw_10mhz,nope"])
+    frames = [dict(timestamp_ns=exp_mesh.T0 + t, frequency=f, magnitude=1.0,
+                   noise=-1.0, id=i, confidence=90, level=0.1,
+                   n_symbols=20, bits=[1, 0])
+              for t, f, i in ((1_500_000_000, 5.0, 3), (600_000_000, 7.0, 1),
+                              (600_000_000, 6.0, 2))]
+    lines = exp_mesh.raw_lines(frames)
+    assert lines == exp_mesh.raw_lines(frames[::-1])
+    assert [x.split()[2:4] for x in lines] == [
+        ["0000600.0000", "0000000006"], ["0000600.0000", "0000000007"],
+        ["0001500.0000", "0000000005"]]
 
 
 def test_exp_mesh_compare_lines():
@@ -542,6 +565,32 @@ def test_exp_fast_cases_bound_and_comparison():
     assert ms == pytest.approx((4 * 252 * 8192 + 2 * state) / 3.35e12 * 1e3)
     with pytest.raises(ValueError):
         exp_fast.case("nope", cpu)
+    # the split's shapes: binshard's ranges of the block
+    c = exp_fast.split_case("split_local", cpu)
+    (m, s0, rng), = c.ranges
+    assert torch.equal(m, local.mag2) and rng == local.rng
+    assert (c.FL, c.id_stride, int(s0.burst_id)) == (2114, 4, 10)
+    c = exp_fast.split_case("split1", cpu)
+    assert c.FL == 8258 and c.ranges[0][2] == dict(bin_lo=-33, own_lo=0,
+                                                   own_hi=8192)
+    assert detect_fast.plan(c.p, c.FL).blocks == 9
+    c = exp_fast.split_case("split1_1mhz", cpu)
+    assert c.FL == 1106 and c.ranges[0][2] == dict(bin_lo=-41, own_lo=0,
+                                                   own_hi=1024)
+    lay = detect_fast.plan(c.p, c.FL)
+    assert (lay.blocks, lay.bpt, c.id_stride) == (1, 2, 1)
+    c = exp_fast.split_case("lockstep4", cpu)
+    assert [r for _, _, r in c.ranges] == [
+        dict(bin_lo=256 * k - 41, own_lo=256 * k, own_hi=256 * (k + 1))
+        for k in range(4)]
+    assert c.FL == 338 and c.n_valid == c.p.block_samples
+    assert exp_fast.bound(c)[0] == pytest.approx(
+        4 * exp_fast.bound(exp_fast.Case("one", c.p, *c.ranges[0][:2],
+                                         c.n_valid, c.FL))[0])
+    with pytest.raises(ValueError):
+        exp_fast.split_case("nope", cpu)
+    with pytest.raises(SystemExit):
+        exp_fast.main(["--device", "cpu", "--shapes", "lockstep4"])
     # the comparison: bit-equal, a dB ulp reported, anything else raised
     a = st.init_state(p, cpu)
     a.a_noise.fill_(-120.0)
