@@ -58,10 +58,11 @@ Phases, each printing one line:
      replicated mode (lines with ids equal to phase 3's, every payload
      bit-exact, the scan and the fused front-end launched), the 1 MHz
      capture in binshard mode (detect_fast's kernel split around its
-     per-frame all_reduce, launched; lines, ids masked, equal to the
-     single card's detect_fast decode; the window gather launched), the
-     RAW 10 MHz capture in binshard mode (the split's grid of 9 blocks:
-     every payload bit-exact, lines, ids masked, equal to phase 3b's),
+     per-frame all_reduce, a block's frames replayed as one CUDA graph,
+     launched; lines, ids masked, equal to the single card's detect_fast
+     decode; the window gather launched), the RAW 10 MHz capture in
+     binshard mode (the split's cluster of 2 blocks: every payload
+     bit-exact, lines, ids masked, equal to phase 3b's),
      the CLI with and without `--mesh 1`
      (one spawned rank), each its own process, on the 1 MHz capture: the
      same lines, and the RAW capture through the CLI from its file and,
@@ -144,16 +145,23 @@ the `kernels` line's `detail.per_shape`), with `ptxas -v`'s registers and
 spill bytes per instantiation (`detail.ptxas`), and `detect_fast_card`
 holds the detect_fast kernel to `scan_fast_plain` on the card, bit for
 bit, at the edge block (256 x 8,192, n_valid ending mid-block), 1,024 x
-32,768, 1,024 x 524,288, 1,024 x 2,097,152 with n_valid = 2^31 (the 1.6
-GHz block the scan kernel refuses) and a local bin range (ownership,
-id_stride 4, identity coupling), each timed beside the twin with the
-bound and the device operations a block (the `detect_fast` row's
-`detail.per_shape`), binshard's split (two launches a frame around the
-coupling) at 10 MHz world size 1 (a grid), the local range and 1 MHz
-world size 1 (one block of 2 bins a thread), bit-equal to the twin and
-to the one launch, and over 4 ranges of a 1 MHz block in
-lockstep against 4 threaded twins coupled by a barrier sum, whose summed
-count squelches, then the kernel against the twin on the CPU on the
+32,768, x 65,536 and x 262,144 (one cluster of 4, 8 and 16 blocks),
+1,024 x 524,288 (a grid of 4 clusters of 16), 1,024 x 2,097,152 with
+n_valid = 2^31 (the 1.6 GHz block the scan kernel refuses; 64 clusters
+of 2) and a local bin range (ownership, id_stride 4, identity
+coupling), each timed beside the twin with the bound, the device
+operations a block and `ptxas -v`'s registers and spills (the
+`detect_fast` row's `detail.per_shape`; with DETECT_FAST_OLD_SOURCE
+naming the design before clusters, `git show
+9568349:iridium_tpu_torch/csrc/detect_fast.cu`, that design's µs a frame
+beside each), binshard's split (two launches a frame around the
+coupling, a block's frames replayed as one CUDA graph) at 10 MHz world
+size 1 (a cluster of 2), the local range and 1 MHz world size 1 (one
+block of 2 bins a thread), bit-equal to the twin, to its eager steps and
+to the one launch, and over 4 ranges of a 1 MHz block in lockstep
+(eagerly and as one graph) against 4 threaded twins coupled by a
+barrier sum, whose summed count squelches, then the kernel against the
+twin on the CPU on the
 production block and the exact scan (one small block) on the card
 against the CPU; their launches are comparisons and are not counted.
 Every printed number names the card (`card`: nvidia-smi's name and
@@ -516,9 +524,10 @@ def check_fast(dev, card: str) -> dict:
     copies."""
     import torch
     from iridium_tpu_torch import _kernels
-    from iridium_tpu_torch.tools import exp_demod, exp_fast
+    from iridium_tpu_torch.tools import exp_fast
 
-    r = exp_fast.run_case(exp_fast.case("10mhz", dev), dev)
+    r = exp_fast.run_case(exp_fast.case("10mhz", dev), dev,
+                          cands=old_fast_design())
     if r["gone"] < 20 or r["dropped"] < 1:
         raise AssertionError(f"detect_fast: the synthetic block did not "
                              f"reach the squelch and drop paths: {r}")
@@ -529,11 +538,33 @@ def check_fast(dev, card: str) -> dict:
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=None,
-                detail=dict(card=card, per_shape=[r],
+                detail=dict(card=card, per_shape=[old_design(r)],
                             bit_equal=r["bit_equal"],
-                            ptxas=exp_demod.ptxas_summary(
-                                _kernels.DETECT_FAST),
+                            ptxas=exp_fast.ptxas_table(_kernels.DETECT_FAST),
                             scalar_division=exp_fast.scalar_division(dev)))
+
+
+def old_fast_design():
+    """The design of detect_fast before clusters, to time beside the
+    kernel in the same run, where DETECT_FAST_OLD_SOURCE names its source
+    (`git show 9568349:iridium_tpu_torch/csrc/detect_fast.cu`): the
+    candidates `tools/exp_fast.py` runs (None without it)."""
+    path = os.environ.get("DETECT_FAST_OLD_SOURCE")
+    if not path:
+        return None
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_fast, variants
+    return variants.candidates(_kernels.DETECT_FAST, [path], exp_fast.adapted)
+
+
+def old_design(r: dict) -> dict:
+    """A detect_fast shape's row with the old design's µs a frame, ptxas
+    and bit-equality beside the kernel's (None: not measured)."""
+    old = next(iter(r.get("sources", {}).values()), {})
+    return dict(r, old_us_per_frame=old.get("us_per_frame"),
+                old_eager_us_per_frame=old.get("eager_us_per_frame"),
+                old_bit_equal=old.get("bit_equal"),
+                old_ptxas=old.get("ptxas"))
 
 
 def kernel_phase(dev, card: str) -> list[dict]:
@@ -1080,9 +1111,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     first run): the single card's lines, ids included, and every payload
     bit-exact; (2) binshard detect on the 1 MHz capture (detect_fast's
     kernel cut at the coupling seam: launch A, the all_reduce of the
-    pair, launch B, a frame; the window gather), warm: the lines of the
+    pair, launch B, a frame, a block's frames replayed as one CUDA graph
+    captured by the first run; the window gather), warm: the lines of the
     single card's Pipeline(detect_impl="fast") with the ids masked; (2b)
-    binshard detect on the RAW 10 MHz capture (the split's grid of 9
+    binshard detect on the RAW 10 MHz capture (the split's cluster of 2
     blocks, the fused front-end), warm: every payload bit-exact, the lines
     of phase 3b's Pipeline(detect_impl="fast") with the ids masked; (3)
     the CLI with `--mesh 1` (one spawned rank) and
@@ -1106,21 +1138,52 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
     from iridium_tpu_torch.runtime.pipeline import Pipeline
     from iridium_tpu_torch.tools.captures import PROD
 
+    reduces = [0]
+    all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*a, **k):
+        reduces[0] += 1
+        return all_reduce(*a, **k)
+
     def timed(pipe, path, check=None):
         """A warm-up decode (under `check`, where given), then a counted
-        one: (lines, frames, wall, launches)."""
+        one: (lines, frames, wall, launches), and in `reduces` the counted
+        decode's calls of `dist.all_reduce` from the host."""
         with check or contextlib.nullcontext():
             list(pipe.run_file(path))
         pipe.reset(T0)
         torch.cuda.synchronize()
         _kernels.reset_counts()
-        t = time.perf_counter()
-        frames = list(pipe.run_file(path))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        reduces[0] = 0
+        dist.all_reduce = counted_all_reduce
+        try:
+            t = time.perf_counter()
+            frames = list(pipe.run_file(path))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            dist.all_reduce = all_reduce
         printer = RawPrinter()
         return ([printer.format(f) for f in frames], frames, wall,
                 {k.name: k.launches for k in _kernels.KERNELS})
+
+    def graph_loop(sb, launches: dict, name: str) -> dict:
+        """Binshard's detect ran as one graph replay a block: a replay a
+        block of the counted decode, 2 detect_fast launches an active
+        frame counted by the replays, no all_reduce called from the
+        host."""
+        g = sb.split_graphs
+        blocks = sb.timing["n_blocks"]  # the counted decode's (the warm-up
+        # decode replayed as many)
+        if (reduces[0] != 0 or g.replays != 2 * blocks
+                or launches["detect_fast"] % 2
+                or sb.timing["detect_graph"] <= 0):
+            raise AssertionError(f"mesh {name}: the frame loop did not run "
+                                 f"as one graph a block: {reduces[0]} host "
+                                 f"all_reduces, {g.replays} replays")
+        return dict(graph_replays=g.replays, host_all_reduces=reduces[0],
+                    graphs_captured=len(g._graphs),
+                    detect_graph_ms=1e3 * sb.timing["detect_graph"])
 
     made = distributed.initialize(device="cuda")
     try:
@@ -1189,8 +1252,9 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             raise AssertionError("mesh binshard: no gather, demod loop or "
                                  "downmix FIR was checked")
         seconds1 = os.path.getsize(path1) / 8 / 1_000_000
+        loop1 = graph_loop(sb, binc, "binshard 1 MHz")
         res["binshard_1mhz"] = dict(
-            detect_impl=sb.detect_impl, lines=len(got),
+            graph_loop=loop1, detect_impl=sb.detect_impl, lines=len(got),
             lines_equal_ids_masked=True, wall_s=wall_b,
             realtime_x=seconds1 / wall_b, single_fast_wall_s=wall1,
             single_fast_realtime_x=seconds1 / wall1,
@@ -1203,7 +1267,7 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
                           "mesh binshard")
         del sb
 
-        # the split's grid end to end: binshard on the RAW 10 MHz capture
+        # the split's cluster end to end: binshard on the RAW 10 MHz capture
         sb = ShardedPipeline(det, mesh=mesh, start_time_ns=T0,
                              want_llr=False, burst_batch=128,
                              detect_mode="binshard")
@@ -1219,7 +1283,9 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         if (b10c["detect_fast"] == 0 or b10c["detect_scan"] != 0
                 or b10c["fused_frontend"] == 0):
             raise AssertionError(f"mesh binshard 10 MHz launches: {b10c}")
+        loop10 = graph_loop(sb, b10c, "binshard 10 MHz")
         res["binshard_10mhz"] = dict(
+            graph_loop=loop10,
             detect_impl=sb.detect_impl, lines=len(got10),
             lines_equal_ids_masked=True,
             payloads_bit_exact=len(single["bursts"]), wall_s=wall10,
@@ -1761,12 +1827,18 @@ def detect_fast_card_phase(dev) -> dict:
     """The detect_fast kernel held to `scan_fast_plain` on the card bit for
     bit on every field of the state, at the shapes after the production
     block (`tools/exp_fast.py`, its doc): the edge block (256 x 8,192,
-    n_valid ending mid-block), 1,024 x 32,768 (a grid of 32 blocks),
-    1,024 x 524,288 (128), 1,024 x 2,097,152 with n_valid = 2^31 (the
-    1.6 GHz block the scan kernel refuses; 128 blocks of 16 bins a
-    thread), and a local bin range (rank 1 of 4 at 10 MHz, ownership,
-    id_stride 4, identity coupling), each timed with the twin's ms, the
-    bound and the device operations a block (in the `kernels` line's
+    n_valid ending mid-block), 1,024 x 32,768, x 65,536 and x 262,144
+    (one cluster of 4, 8 and 16 blocks: each cluster size the layout
+    uses, 2 being split1's), 1,024 x 524,288 (a grid of 4 clusters of
+    16), 1,024 x 2,097,152 with n_valid = 2^31 (the 1.6 GHz block the
+    scan kernel refuses; 64 clusters of 2 blocks of 16 bins a thread),
+    and a local bin range (rank 1 of 4 at 10 MHz, ownership, id_stride 4,
+    identity coupling), each timed with the twin's ms, the bound, the
+    device operations a block and its instantiation's registers and
+    spills, and beside the old design where DETECT_FAST_OLD_SOURCE names
+    its source (`old_fast_design`); then binshard's split shapes, a
+    block's frames replayed as one CUDA graph, held to the twins, to the
+    eager steps and to the one launch (in the `kernels` line's
     `detail.per_shape`). Then the kernel on the card against the twin on
     the CPU on the production block (integer fields, baseline sums and
     history bit-equal, dB fields within rtol 1e-5: the CPU's log10 and
@@ -1777,9 +1849,11 @@ def detect_fast_card_phase(dev) -> dict:
     from iridium_tpu_torch.dsp import detect, detect_fast, state as st
     from iridium_tpu_torch.tools import exp_fast, exp_scan
 
+    cands = old_fast_design()
     per_shape = []
     for name in exp_fast.SHAPES[1:]:
-        per_shape.append(exp_fast.run_case(exp_fast.case(name, dev), dev))
+        per_shape.append(old_design(exp_fast.run_case(
+            exp_fast.case(name, dev), dev, cands=cands)))
         torch.cuda.empty_cache()
     by = {r["case"]: r for r in per_shape}
     if by["1600mhz"]["n_act"] != 1024 or by["1600mhz"]["n_valid"] != 2**31:
@@ -1787,16 +1861,28 @@ def detect_fast_card_phase(dev) -> dict:
     if by["edge"]["gone"] < 20 or by["edge"]["dropped"] < 1:
         raise AssertionError(f"detect_fast: the edge block did not reach "
                              f"the squelch and drop paths: {by['edge']}")
-    # binshard's split: bit-equal to the twins (exp_fast.compare_bits
-    # raises on any field but the dB ones) and to the one launch
+    for r in per_shape:
+        if r["old_bit_equal"] is False:
+            raise AssertionError(f"detect_fast's old design: {r}")
+    # one cluster of each size the layout uses (2 is split1's)
+    sizes = {r["case"]: r["layout"]["clusters"] for r in per_shape}
+    if (sizes["25mhz"], sizes["50mhz"], sizes["200mhz"]) != (4, 8, 16):
+        raise AssertionError(f"detect_fast cluster shapes: {sizes}")
+    # binshard's split, its frames replayed as one CUDA graph: bit-equal to
+    # the twins (exp_fast.compare_bits raises on any field but the dB
+    # ones), to its eager steps and to the one launch
     for name in exp_fast.SPLIT_SHAPES:
-        r = by[name] = exp_fast.run_split_case(
-            exp_fast.split_case(name, dev), dev)
+        r = by[name] = old_design(exp_fast.run_split_case(
+            exp_fast.split_case(name, dev), dev, cands=cands))
         per_shape.append(r)
         torch.cuda.empty_cache()
-        if (not r["bit_equal"] or r["one_launch_bit_equal"] is False
+        if (not r["bit_equal"] or not r["eager_bit_equal"]
+                or r["one_launch_bit_equal"] is False
+                or r["old_bit_equal"] is False
                 or r["kernel_launches"] != 2 * r["n_act"] * r["ranges"]):
             raise AssertionError(f"detect_fast split {name}: {r}")
+    if by["split1"]["layout"]["clusters"] != 2:
+        raise AssertionError("detect_fast split split1: not a cluster of 2")
     if by["split1_1mhz"]["layout"]["bins_per_thread"] != 2:
         raise AssertionError("detect_fast split split1_1mhz: not the 2 "
                              "bins a thread binshard's 1 MHz range runs")

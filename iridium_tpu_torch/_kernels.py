@@ -214,10 +214,10 @@ DETECT_FAST = Kernel(
     extra_flags=("--fmad=false",),
     # the block's arguments checked and packed once: |X|^2, the state's 9
     # planes, 7 gone fields and 2 scalar tensors, the scratch, 15 shape and
-    # detector integers, 5 float constants, the plan (blocks, block bins,
-    # threads, bins a thread, bins a segment), the scratch's words, the
-    # split flag, the buffer and its size
-    entries={"detect_fast_args": [P] * 20 + [I] * 15 + [F32] * 5 + [I] * 5
+    # detector integers, 5 float constants, the plan (blocks, blocks a
+    # cluster, block bins, threads, bins a thread, bins a segment), the
+    # scratch's words, the split flag, the buffer and its size
+    entries={"detect_fast_args": [P] * 20 + [I] * 15 + [F32] * 5 + [I] * 6
              + [LL, I, P, I]})
 
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,

@@ -11,12 +11,12 @@
 // twin that this kernel is held to bit for bit).
 //
 // Bound on the H100: the |X|^2 rows are read once (n_frames x FL x 4
-// bytes: 134 MB for a 1,024 x 32,768 block, 40 us at 3.35 TB/s) and the
+// bytes: 67 MB for a 2,048 x 8,192 block, 20 us at 3.35 TB/s) and the
 // state is read and written once; but frame f + 1 depends on the state
-// frame f leaves, and every frame couples all bins twice (the creation
-// candidates and the active count are band-wide), so the frames run one
-// after another and the time goes to each frame's barriers and chain of
-// dependent steps, not to bytes.
+// frame f leaves, and every frame couples all bins (the creation
+// candidates, the deletion ranks and the active count are band-wide), so
+// the frames run one after another and the time goes to each frame's
+// chain of dependent steps and barriers, not to bytes.
 //
 // Semantics are the twin's (and so the JAX function's), frame by frame:
 //   phase A, per bin: the relative magnitude, the +-1-bin dilation that
@@ -49,80 +49,124 @@
 // low 32 bits. Positions are int32 (idx = f F <= 2^31 - F, plan()).
 //
 // Layout (dsp/detect_fast.py `plan`, the one place it is decided; the C
-// entry refuses any other): `blocks` blocks of `threads` threads, thread
-// t of block b owning the BPT contiguous local bins from (b T + t) BPT
-// (bins past FL idle), one block up to 8,192 bins, else a cooperative
-// grid of 1024-thread blocks (at most one an SM). A frame has two
-// barriers: the block's __syncthreads, and in a grid an arrival counter
-// in device memory besides (red.release / ld.acquire at gpu scope; a wait
-// over ~17 s traps instead of hanging the card). Every branch around a
-// barrier depends only on values every block computes alike.
-//   - phase A: each thread walks its bins; a candidate is a 64-bit key
-//     (bits of relm, then the bin reversed, then the bin's active flag
-//     after deletion; keys are unique), each segment's largest key goes
-//     into the thread's sorted list of 8; the warp merges its lanes'
-//     lists, the block its warps', and publishes its 8 keys with its
-//     counts (owned deletions, all deletions, owned active bins, any
-//     long burst) in its `Partial`; each thread writes its deletion flags
-//     as one word (bit j: its bin j);
-//   - barrier 1; the seam: warp 0 of every block merges every block's 8
-//     keys into the same 8 (exact: the keys are unique), walks the greedy
-//     acceptance, and sums the counts: the coupling pair, and for its own
-//     block the emission ranks of the lower blocks (the exclusive prefix
-//     of their owned deletions, and of their owned active bins that the
-//     squelch would emit, which the taken candidates' flags give);
-//     binshard's all_reduce of the pair goes at this seam (`couple`: the
-//     identity in the one launch, the cut in the split);
-//   - phase B: each thread updates its own bins; a frame's rows go
-//     straight into the gone table at the running count (ascending bin:
-//     block prefix, then a block scan of the threads' counts); the mask
-//     release counts the flag bits within +-half_bw (words of other
-//     blocks read from L2), only in blocks that a deletion is near;
-//   - barrier 2.
-// The scalar chain (hist_idx, primed, burst_id, squelch_count, the
-// counters, the peak, the gone count) is computed alike by every thread;
-// thread 0 of block 0 writes it at the end. The state lives in the output
-// state's tensors (the wrapper clones the input state and zeroes the gone
-// table), the grid's meeting place in a scratch the wrapper zeroes per
-// launch.
+// entry refuses any other): `blocks` blocks of `threads` threads in
+// clusters of `clusters` blocks, block b owning the local bins [b FB,
+// min((b + 1) FB, FL)) (FB = threads x BPT), thread t of it the BPT from
+// b FB + t BPT (bins past FL idle):
+//   - up to 8,192 bins one block, BPT the fewest of 1, 2, 4, 8 that 1,024
+//     threads hold (its barrier: __syncthreads);
+//   - up to 131,072 bins one cluster of 2-16 blocks of at most 8,192 bins,
+//     8 a thread, up to 262,144 of 16 blocks of 16 a thread (the wide
+//     path); the blocks meet through distributed shared memory (`mapa`)
+//     after a cluster barrier (barrier.cluster.arrive.release /
+//     wait.acquire);
+//   - above, a grid of clusters that meet in device memory only between
+//     clusters (an arrival counter, red.release / ld.acquire at gpu scope,
+//     a wait over ~17 s traps instead of hanging the card): up to 7
+//     clusters of 16 blocks of 8 then 16 bins a thread, then clusters of 2
+//     wide blocks, one an SM, to 2,162,688 bins, then clusters of 2 deep
+//     blocks of 32 bins a thread (the deep path: 3.2 GHz), to 4,325,376.
+//     Every cluster must be resident at once: the packing asks the card
+//     and refuses a grid it cannot place
+//     (cudaErrorCooperativeLaunchTooLarge), and the launch is cooperative.
+// Every branch around a barrier depends only on values every block
+// computes alike.
+//
+// Design of a block: the frames form one chain, so what a frame waits on
+// is kept off it and the common frame is short:
+//   - the block's |X|^2 words of each row stream through a ring of two
+//     stages in shared memory, one TMA bulk copy a row (`cp.async.bulk`,
+//     completing on the stage's mbarrier), issued by thread 0 a frame
+//     ahead (on the deep path, whose 32,768-bin rows leave no room for two
+//     stages beside the evicted row, the threads read their row words from
+//     device memory). A local width of 2 mod 4 bins (binshard's ranges)
+//     starts every other row 8 bytes past a 16-byte boundary, which a bulk
+//     copy needs: the copy starts at the boundary below the row (`mis` words
+//     early; the wrapper checks that |X|^2 starts on one) and ends at the
+//     one above, and the readers skip `mis` words;
+//   - the noise history stays a ring in device memory. The same
+//     misalignment rules out bulk copies of history rows (the frame's row
+//     and the history row start at different offsets from a boundary), so
+//     each thread moves its own words, as 16-byte vectors where the row
+//     allows: the row that the next update evicts is copied into shared
+//     memory right after the update before, with `cp.async` (each thread
+//     waits for its own words before the frame's barrier), and an update
+//     stores the frame's words from the ring stage;
+//   - baseline_sum stays in registers; each thread also carries the sums
+//     of the two bins beside its range (updated with the same arithmetic,
+//     so bit-equal to the owner's), so the +-1-bin dilation needs no
+//     exchange. The evicted history words of those two bins are the
+//     neighbours' words of the evicted-row buffer, which alternates
+//     between two by update (a thread loads the next row's words into one
+//     while its neighbours may still read the other); the block's edge
+//     threads, and on the wide path (one buffer) every thread, read them
+//     from the history right after each update, before the barrier that
+//     orders their owner's next store of that row (a frame has a barrier
+//     before every update);
+//   - at most 1,024 threads of 64 registers; the state a thread keeps
+//     across frames and phase B's rarer work spill (`ptxas -v`), and the
+//     spills land in L2, since the shared memory leaves ~28 KB of L1
+//     (tools/exp_fast.py --phases splits a frame between the phases);
+//   - a_valid and "mask_count is zero" are bitmasks; a_last and a_start
+//     live in shared memory (the wide path keeps them in device memory,
+//     read only where a burst is active); mask_count, a_id, a_mag and
+//     a_noise are touched in device memory only at a creation, a release
+//     or an emission; the state is read once at the start of a launch and
+//     written once at its end;
+//   - the relative magnitude is divided out only where it can exceed the
+//     threshold: mag <= RD(threshold * sum) proves mag / sum <= threshold,
+//     so the common bin costs a multiply and a compare (the division stays
+//     IEEE, --fmad=false);
+//   - a frame makes ONE reduction: each warp's 8 largest candidate keys
+//     (a key: relm's bits, the bin reversed, the bin's active flag after
+//     the deletions; keys are unique, so a merge of any grouping is
+//     exact), its owned deletions (an inclusive scan: the emission ranks)
+//     and the OR of its deletion and long-burst flags, published in shared
+//     memory on alternating buffers. One block: every warp reads the 32
+//     warps' headers after the barrier, and a frame with no candidate,
+//     deletion or long burst ends there; a frame with candidates adds a
+//     barrier, after warp 0 merges the keys and walks the acceptance. A
+//     cluster: after the cluster barrier warp 0 of every block reads every
+//     block's headers through distributed shared memory (lane l: warp l of
+//     each block) and hands the result to its block at a block barrier; a
+//     grid adds the clusters' results in device memory between the two; a
+//     warp's keys are extracted largest first (one warp max a key, each
+//     lane's segment maxima below the last key recomputed), and merged by
+//     the same walk over the lists' heads, so no lane holds a list;
+//   - the owned active count is kept as a scalar (less the frame's owned
+//     deletions, plus the creations at inactive owned bins, 0 after a
+//     squelch), so the common frame's reduction is all zeros and its
+//     votes skip the shuffles; a squelch adds one reduction (its rows'
+//     ranks); a noise update right after a forced one adds a barrier;
+//   - the mask release reads each deleted bin's flag from the flag words
+//     (a word a thread: bit j, its bin j) within +-half_bw: the block's in
+//     shared memory, other blocks' in device memory, both on alternating
+//     buffers.
 //
 // The split (dsp/detect_fast.py `SplitScan`, binshard): frame f of the
 // block is two launches of the same plan around the caller's all_reduce,
 // on one stream, over one scratch the wrapper zeroes once a block:
-//   - launch A (`detect_fast_a`): phase A, barrier 1 (in a grid the
-//     cooperative grid barrier, whose arrival counter counts on across the
-//     frames), the seam; each block stores its Seam in the scratch, and
-//     thread 0 of block 0 the frame's pair [any_long, n_own_post] as two
-//     int64 (every block computes the same pair);
+//   - launch A: phase A, the reduction, the seam; it stores the frame's
+//     Seam (the taken candidates, the counts) and, from block 0, the pair
+//     [any_long, n_own_post] as two int64 (the reduction's second count
+//     gives the owned active count; every block computes the same pair),
+//     and each thread's flag word and first emission rank; it writes back
+//     a_valid and a_last;
 //   - the caller sums the pair over the bin ranges in place (`all_reduce`;
 //     one range: leaves it);
-//   - launch B (`detect_fast_b`): each block loads its Seam, reads the
-//     summed pair where `couple` sits in the one launch, forms force and
-//     squelch from it, and runs phase B. The end of B is the frame's
-//     barrier 2.
-// The seam runs in A after a grid barrier, not in a one-warp launch of its
-// own with B recomputing every block's Seam from the Partials: that is a
-// third launch a frame on the host's path between the all_reduce and B,
-// where this takes a store and a load of 23 words a block. Binshard's
-// ranges are one block at every width but 10 MHz at world size 1 (8,258
-// bins), so the grid barrier runs on that shape alone.
-// What a launch does not carry to the next, and how the split handles it:
-//   - the scalar chain: in the one launch every thread reads it once
-//     before frame 0 and block 0 writes it after the last frame, and each
-//     frame's barriers keep that safe. Across launches a block of B that
-//     starts after block 0 has finished would read scalars block 0 had
-//     already advanced. So `Scalars` cross frames in two slots of the
-//     scratch: frame f's launches read slot f % 2 (A of frame 0 reads the
-//     state's scalars and block 0 stores them in slot 0), and block 0 of B
-//     writes slot (f + 1) % 2, which no block of frame f reads; B of the
-//     last frame writes the state's scalars, which only A of frame 0 read;
-//   - a thread's deletion bits for the emissions (phase A's `emit_bits`, a
-//     register): B recomputes them from its flag word and the ownership of
-//     its bins;
-//   - the Partials and flag words: A of frame f + 1 rewrites what B of
-//     frame f reads (the flag words; A's seam read the Partials), and
-//     launch order on the stream alone keeps it from starting before B of
-//     frame f has ended. The same holds for the Seams and the pair.
+//   - launch B: loads the Seam, reads the summed pair, forms force and
+//     squelch from it, and runs phase B; it writes back the state.
+// A launch carries nothing to the next but device memory: the per-bin
+// state is read at its start and written at its end (binshard's ranges
+// are small enough for L2, and keeping a second copy in the scratch would
+// save nothing); the scalar chain crosses frames in two slots of the
+// scratch (frame f's launches read slot f % 2, A of frame 0 reads the
+// state's scalars and block 0 stores them in slot 0, block 0 of B writes
+// slot (f + 1) % 2, which no block of frame f reads; B of the last frame
+// writes the state's scalars); each launch kind has its own arrival
+// counter, which block 0 zeroes for the other kind (its last launch has
+// ended, its next has not begun). The dilation's halo sums are read from
+// baseline_sum at each launch A.
 //
 // Built with --fmad=false and nvcc's default IEEE division, so every sum,
 // product and quotient rounds as the twin's tensor operations do on the
@@ -145,24 +189,28 @@ constexpr int kESq = 16;   // squelch rows a frame
 constexpr int kList = 8;   // candidate keys kept (the most K_TOP there is)
 constexpr int kMaxCreate = 4;
 constexpr int kMaxThreads = 1024;
-constexpr int kLineWords = 32;     // the arrival counter's line
-constexpr int kPartialWords = 20;  // sizeof(Partial) / 4
+constexpr int kRingBins = 8192;    // a ring block's most bins (BPT <= 8)
+constexpr int kWideBins = 16384;   // a wide block's (BPT 16)
+constexpr int kDeepBins = 32768;   // a deep block's (BPT 32, no ring)
+constexpr size_t kMaxShared = 227 * 1024;  // a block's most on sm_90
+constexpr int kLineWords = 32;     // an arrival counter's line (two)
+constexpr int kFrameWords = 20;    // sizeof(Frame) / 4
 constexpr int kPairWords = 4;      // the split's pair: two int64
-constexpr int kScalarWords = 9;    // sizeof(Scalars) / 4
-constexpr int kSeamWords = 23;     // sizeof(Seam) / 4
+constexpr int kScalarWords = 10;   // sizeof(Scalars) / 4
+constexpr int kSeamWords = 16;     // sizeof(Seam) / 4
 // `detect_fast`'s modes: the whole block in one launch; launch A or B of
 // one frame of the split
 constexpr int kModeWhole = 0, kModeA = 1, kModeB = 2;
 constexpr unsigned kFull = 0xffffffffu;
 // a grid barrier's longest wait, ~17 s at the H100's 1.98 GHz: far above
-// any frame's, and a fault instead of a hang where a block never arrives
+// any frame's, and a fault instead of a hang where a cluster never arrives
 constexpr long long kSpinCycles = 1ll << 35;
 
 struct Params {
   int F, FL, n_act, H, G, hb, k_create, max_bursts, max_burst_len, post_len,
       pre_len, id_stride, bin_lo, own_lo, own_hi;
   float thr, hist_f, enbw, f2, bin_width;
-  int blocks, block_bins, threads, bpt, seg;
+  int blocks, clusters, block_bins, threads, bpt, seg;
 };
 
 struct State {
@@ -186,108 +234,102 @@ struct State {
   int* sc;     // hist_idx, primed, burst_id, squelch_count, n_tagged,
                // burst_dropped, create_waits, g_count
   float* scf;  // peak_signal_db
-  unsigned* scratch;  // [line | Partial x blocks | flag word x threads],
-                      // the split's after it (`split_of`)
+  unsigned* scratch;  // `Scratch`
 };
 
-// A block's share of a frame, published for the seam
-struct Partial {
-  unsigned long long keys[kList];  // its largest candidate keys,
-                                   // descending, 0-padded
-  int n_emit;       // owned bins deleted
-  int n_flags;      // bins deleted, owned or not (mask releases)
-  int n_own_valid;  // owned bins active after the deletions
-  int any_long;     // a long burst among its bins
+// A reduction's result: the count's total, the second count's total, the
+// OR of the flags (bit 0: a deletion, bit 1: a long burst, bit 2: keys),
+// the count of the lower blocks, and the largest candidate keys
+// (descending, 0-padded); a cluster's share of a grid reduction (lo
+// unused)
+struct Frame {
+  int n_del, cnt2, bits, lo;
+  unsigned long long keys[kList];
 };
-static_assert(sizeof(Partial) == 4 * kPartialWords, "Partial layout");
+static_assert(sizeof(Frame) == 4 * kFrameWords, "Frame layout");
 
-// The frame's seam, as warp 0 leaves it for its block
+// A warp's share of a reduction, in shared memory
+struct Hdr {
+  int cnt;   // the warp's count (lane 31's inclusive scan)
+  int cnt2;
+  int bits;  // the flags; 4: the warp has keys
+  int pad;
+  unsigned long long keys[kList];  // 0-ended where fewer
+};
+
+// The frame's seam, as warp 0 leaves it for its block (and launch A for
+// launch B)
 struct Seam {
   int take_bin[kMaxCreate];  // the taken candidates, in acceptance order
   float take_val[kMaxCreate];
-  int take_valid[kMaxCreate];  // the bin was active after deletion
+  int take_valid;  // bit k: taken candidate k's bin was active
   int n_acc, more;
-  int any_long, n_own_post;  // the coupling pair, this bin range's
-  int my_emit, del_pre, n_del;  // this block's, the lower blocks', all
-  int my_sq, sq_pre, n_sq;      // squelch rows, the same
-  int flags_near;  // deletions within half_bw of this block's bins
+  int n_del;   // owned deletions, all blocks
+  int bits;    // the reduction's flags
+  int n_post;  // this range's owned active count after the creations
+  int pad[2];
 };
 static_assert(sizeof(Seam) == 4 * kSeamWords, "Seam layout");
 
-struct Shared {
-  unsigned long long wl[32][kList];  // each warp's keys
-  int wc[32][4];                     // each warp's counts
-  int scan[32];
-  Seam seam;
-};
-
-// The scalar chain, alike in every thread
+// The scalar chain of the split, crossing launches
 struct Scalars {
   int hidx, prim, sq_count, g_run;
   unsigned burst_id, n_tagged, dropped, waits;
   float peak;
+  int pad;
 };
 static_assert(sizeof(Scalars) == 4 * kScalarWords, "Scalars layout");
 
-// The scalars at the start of the block (the gone table starts empty)
-__device__ __forceinline__ Scalars load_scalars(const State& st) {
-  Scalars sc;
-  sc.hidx = st.sc[0];
-  sc.prim = st.sc[1];
-  sc.burst_id = (unsigned)st.sc[2];
-  sc.sq_count = st.sc[3];
-  sc.n_tagged = (unsigned)st.sc[4];
-  sc.dropped = (unsigned)st.sc[5];
-  sc.waits = (unsigned)st.sc[6];
-  sc.g_run = 0;
-  sc.peak = st.scf[0];
-  return sc;
-}
-
-// The state's scalars after the last frame (one thread)
-__device__ __forceinline__ void store_scalars(const State& st,
-                                              const Scalars& sc, int G) {
-  st.sc[0] = sc.hidx;
-  st.sc[1] = sc.prim;
-  st.sc[2] = (int)sc.burst_id;
-  st.sc[3] = sc.sq_count;
-  st.sc[4] = (int)sc.n_tagged;
-  st.sc[5] = (int)sc.dropped;
-  st.sc[6] = (int)sc.waits;
-  st.sc[7] = min(sc.g_run, G);
-  st.scf[0] = sc.peak;
-}
-
-// Scratch words of the one launch: [line | Partial x blocks | flag word x
-// thread]; the split's follow: [pair | Scalars x 2 | Seam x blocks]. The
-// one launch's count is even (32 + 20 blocks + blocks x whole warps), so
-// the pair's int64 are aligned.
-__host__ __device__ __forceinline__ long long one_words(int blocks,
-                                                        int threads) {
-  return kLineWords + (long long)kPartialWords * blocks +
-         (long long)blocks * threads;
-}
-
-__host__ __device__ __forceinline__ long long split_words(int blocks,
-                                                          int threads) {
-  return one_words(blocks, threads) + kPairWords + 2 * kScalarWords +
-         (long long)kSeamWords * blocks;
-}
-
-// The split's part of the scratch
-struct Split {
-  long long* pair;  // [any_long, n_own_post]: this range's, then summed
-  Scalars* slot;    // [2]: the scalars at the start of frame f in f % 2
-  Seam* seams;      // [blocks]
+// The counters only the final state reports, kept by thread 0 (every
+// block's alike; block 0's are written)
+struct Tally {
+  unsigned n_tagged, dropped, waits;
+  float peak;
 };
 
-__device__ __forceinline__ Split split_of(unsigned* scratch,
-                                          const Params& p) {
-  unsigned* base = scratch + one_words(p.blocks, p.threads);
-  Split s;
-  s.pair = reinterpret_cast<long long*>(base);
-  s.slot = reinterpret_cast<Scalars*>(base + kPairWords);
-  s.seams = reinterpret_cast<Seam*>(base + kPairWords + 2 * kScalarWords);
+// The scratch (32-bit words, zeroed by the wrapper; dsp/detect_fast.py
+// `scratch_words`): two arrival counters (a line each), a grid's slots
+// (two parities of one Frame a cluster), the flag words (two parities of
+// one a thread); the split's after them: the pair, two Scalars slots, the
+// Seam, each thread's first emission rank
+struct Scratch {
+  unsigned* count;
+  Frame* slots;
+  unsigned* flags;
+  long long* pair;
+  Scalars* slot;
+  Seam* seam;
+  int* rank;
+};
+
+__host__ __device__ __forceinline__ long long one_words(const Params& p) {
+  const long long B = p.blocks, N = p.blocks / p.clusters;
+  return 2 * kLineWords + (N > 1 ? 2 * N * kFrameWords : 0) +
+         2 * B * p.threads;
+}
+
+__host__ __device__ __forceinline__ long long split_words(const Params& p) {
+  return one_words(p) + kPairWords + 2 * kScalarWords + kSeamWords +
+         (long long)p.blocks * p.threads;
+}
+
+__device__ __forceinline__ Scratch scratch_of(unsigned* base,
+                                              const Params& p) {
+  const long long B = p.blocks, N = p.blocks / p.clusters;
+  Scratch s;
+  s.count = base;
+  unsigned* w = base + 2 * kLineWords;
+  s.slots = reinterpret_cast<Frame*>(w);
+  w += N > 1 ? 2 * N * kFrameWords : 0;
+  s.flags = w;
+  w += 2 * B * p.threads;
+  s.pair = reinterpret_cast<long long*>(w);
+  w += kPairWords;
+  s.slot = reinterpret_cast<Scalars*>(w);
+  w += 2 * kScalarWords;
+  s.seam = reinterpret_cast<Seam*>(w);
+  w += kSeamWords;
+  s.rank = reinterpret_cast<int*>(w);
   return s;
 }
 
@@ -328,28 +370,45 @@ __device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
                : "memory");
 }
 
-// Every thread of the launch: what any of them wrote before it is seen by
-// any of them after it. One block: the block's barrier. A grid: thread 0
-// arrives for its block (its release carries what the block barrier
-// ordered before it) and waits until every block has arrived `gen` times.
-__device__ __forceinline__ void all_sync(unsigned* count, int blocks,
-                                         unsigned& gen) {
-  __syncthreads();
-  if (blocks > 1) {
-    ++gen;
-    if (threadIdx.x == 0) {
-      __threadfence();
-      red_release(count, 1u);
-      const unsigned want = gen * (unsigned)blocks;
-      const long long t0 = clock64();
-      while (ld_acquire(count) < want) {
-        // a block that never arrives fails the launch instead of hanging
-        // the card
-        if (clock64() - t0 > kSpinCycles) __trap();
-      }
-      __threadfence();
-    }
-    __syncthreads();
+// This block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of every block of the cluster: what any of them wrote
+// before it (shared or device memory) is seen by any of them after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// *p in the shared memory of cluster block `rank` (a generic address)
+template <typename T>
+__device__ __forceinline__ const T* peer(const T* p, int rank) {
+  unsigned long long a;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(a)
+               : "l"(p), "r"(rank));
+  return reinterpret_cast<const T*>(a);
+}
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok = 0;
+  while (!ok) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
@@ -372,605 +431,1071 @@ __device__ __forceinline__ int key_bin(unsigned long long k) {
   return (int)(0x7fffffffu - ((unsigned)k >> 1));
 }
 
-// k into the descending list l (kept if among its kList largest)
-__device__ __forceinline__ void insert(unsigned long long (&l)[kList],
-                                       unsigned long long k) {
-  if (k <= l[kList - 1]) return;
-#pragma unroll
-  for (int j = 0; j < kList; ++j) {
-    if (k > l[j]) {
-      const unsigned long long t = l[j];
-      l[j] = k;
-      k = t;
-    }
-  }
-}
-
-// The kList largest keys of the warp's lanes' descending lists, into
-// `out` in every lane (0-padded); `l` is consumed
-__device__ __forceinline__ void warp_top(unsigned long long (&l)[kList],
-                                         unsigned long long (&out)[kList]) {
-#pragma unroll
-  for (int r = 0; r < kList; ++r) {
-    const unsigned long long m = warp_max64(l[0]);
-    out[r] = m;
-    if (m != 0 && l[0] == m) {
-#pragma unroll
-      for (int j = 0; j < kList - 1; ++j) l[j] = l[j + 1];
-      l[kList - 1] = 0;
-    }
-  }
-}
-
+// The relative magnitude rel = sum > 0 ? mag / sum : 0, and whether it
+// exceeds thr. For thr >= 0, mag <= RD(thr * sum) proves rel <= thr: if
+// sum > 0, mag / sum <= thr and so RN(mag / sum) <= thr; otherwise rel is
+// 0. So most bins need no division (a negative thr, which no
+// configuration gives, takes the exact test everywhere).
 __device__ __forceinline__ float rel_of(float mag, float sum) {
   return sum > 0.0f ? mag / sum : 0.0f;
 }
-
-// Global bin g clear of the band edges and the DC notch
-__device__ __forceinline__ bool eligible(int g, const Params& p) {
-  const int dc = p.F / 2;
-  return g >= p.hb && g < p.F - p.hb && !(g >= dc - 3 && g <= dc + 3);
+__device__ __forceinline__ bool maybe_above(float mag, float sum,
+                                            float thr) {
+  return thr < 0.0f || mag > __fmul_rd(thr, sum);
 }
-
-__device__ __forceinline__ bool owned(int g, const Params& p) {
-  return g >= p.own_lo && g < p.own_hi;
-}
-
-// rel > threshold at local bin k (false off the range); k may be another
-// thread's or block's bin, whose sum it wrote before the last barrier
-__device__ __forceinline__ bool above_at(const State& st, const Params& p,
-                                         const float* mag, int k) {
-  if (k < 0 || k >= p.FL) return false;
-  return rel_of(mag[k], __ldcg(st.bsum + k)) > p.thr;
+__device__ __forceinline__ bool above(float mag, float sum, float thr) {
+  return maybe_above(mag, sum, thr) && rel_of(mag, sum) > thr;
 }
 
 __device__ __forceinline__ int next_slot(int h, int H) {
   return h + 1 == H ? 0 : h + 1;
 }
 
-// ---- phase A: extension, deletion, candidates; the block's Partial ----
+// The first n of BPT contiguous 32-bit words at p (shared or device
+// memory) into v, as 16- or 8-byte vectors where n = BPT and p allows (a
+// warp then reads whole lines, where word-by-word loads from neighbouring
+// threads' BPT-word runs would hit the same banks), and `put`, the same
+// the other way
+template <int BPT, typename W>
+__device__ __forceinline__ void get(W (&v)[BPT], const W* p, int n) {
+  static_assert(sizeof(W) == 4, "32-bit words");
+  const uintptr_t a = (uintptr_t)p;
+  if (BPT % 4 == 0 && n == BPT && (a & 15u) == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 4) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p + i);
+      const unsigned u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[i + k] = *reinterpret_cast<const W*>(&u[k]);
+    }
+  } else if (BPT % 2 == 0 && n == BPT && (a & 7u) == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 2) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p + i);
+      v[i] = *reinterpret_cast<const W*>(&q.x);
+      v[i + 1] = *reinterpret_cast<const W*>(&q.y);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BPT; ++i)
+      if (i < n) v[i] = p[i];
+  }
+}
+
+// Group q of the thread's words at p (4 words, or BPT where fewer) into
+// v, as one 16-byte vector where `vec` (p on a 16-byte boundary, BPT a
+// multiple of 4), and `put4`, the same the other way: a thread walks its
+// words a group at a time, so that only one group is live at once
 template <int BPT>
-__device__ void phase_a(const State& st, const Params& p, const Scalars& sc,
-                        int idx, const float* mag, Partial* part,
-                        unsigned* flagw, Shared& sh, unsigned& emit_bits) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b0 = blockIdx.x * p.block_bins + tid * BPT;
-  const bool primed = sc.prim >= p.H;
-  unsigned long long l[kList];
+__device__ __forceinline__ void get4(float (&v)[4], const float* p, int q,
+                                     bool vec) {
+  constexpr int G = BPT < 4 ? BPT : 4;
+  if (G == 4 && vec) {
+    const float4 x = *reinterpret_cast<const float4*>(p + 4 * q);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
 #pragma unroll
-  for (int j = 0; j < kList; ++j) l[j] = 0;
-  unsigned long long seg_best = 0;
-  unsigned flag_bits = 0;
-  int n_emit = 0, n_flags = 0, n_own_valid = 0, any_long = 0;
-  emit_bits = 0;
+    for (int k = 0; k < G; ++k) v[k] = p[G * q + k];
+  }
+}
+
+template <int BPT>
+__device__ __forceinline__ void put4(float* p, const float (&v)[4], int q,
+                                     bool vec, int n) {
+  constexpr int G = BPT < 4 ? BPT : 4;
+  if (G == 4 && vec) {
+    *reinterpret_cast<float4*>(p + 4 * q) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+  } else {
 #pragma unroll
-  for (int j = 0; j < BPT; ++j) {
-    const int i = b0 + j;
-    unsigned long long key = 0;
-    if (i < p.FL) {
-      const float rel = rel_of(mag[i], st.bsum[i]);
-      const int g = p.bin_lo + i;
-      const bool own = owned(g, p);
-      bool active = st.a_valid[i] != 0;
-      if (active) {
-        // extend last_active (burst_detect.c:458-469)
-        int last = st.a_last[i];
-        if (primed && (rel > p.thr || above_at(st, p, mag, i - 1) ||
-                       above_at(st, p, mag, i + 1))) {
-          last = idx;
-          st.a_last[i] = idx;
-        }
-        // gone bursts (burst_detect.c:490-518)
-        const bool lng =
-            (int)((unsigned)last - (unsigned)st.a_start[i]) > p.max_burst_len;
-        const bool gone =
-            (int)((unsigned)last + (unsigned)p.post_len) <= idx || lng;
-        any_long |= lng;
-        if (gone && primed) {
-          st.a_valid[i] = 0;
-          active = false;
-          flag_bits |= 1u << j;
-          ++n_flags;
-          if (own) {
-            emit_bits |= 1u << j;
-            ++n_emit;
+    for (int k = 0; k < G; ++k)
+      if (G * q + k < n) p[G * q + k] = v[k];
+  }
+}
+
+template <int BPT, typename W>
+__device__ __forceinline__ void put(W* p, const W (&v)[BPT], int n) {
+  static_assert(sizeof(W) == 4, "32-bit words");
+  const uintptr_t a = (uintptr_t)p;
+  if (BPT % 4 == 0 && n == BPT && (a & 15u) == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 4) {
+      uint4 q;
+      q.x = *reinterpret_cast<const unsigned*>(&v[i]);
+      q.y = *reinterpret_cast<const unsigned*>(&v[i + 1]);
+      q.z = *reinterpret_cast<const unsigned*>(&v[i + 2]);
+      q.w = *reinterpret_cast<const unsigned*>(&v[i + 3]);
+      *reinterpret_cast<uint4*>(p + i) = q;
+    }
+  } else if (BPT % 2 == 0 && n == BPT && (a & 7u) == 0) {
+#pragma unroll
+    for (int i = 0; i < BPT; i += 2) {
+      uint2 q;
+      q.x = *reinterpret_cast<const unsigned*>(&v[i]);
+      q.y = *reinterpret_cast<const unsigned*>(&v[i + 1]);
+      *reinterpret_cast<uint2*>(p + i) = q;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BPT; ++i)
+      if (i < n) p[i] = v[i];
+  }
+}
+
+// Whether this launch's blocks meet through a cluster, and a grid
+template <int BPT, bool kClu, bool kGrid>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    detect_fast_kernel(const State st, const Params p, int mode, int frame) {
+  static_assert(!kGrid || kClu, "a grid is of clusters");
+  static_assert(!kClu || BPT >= 8, "a cluster block holds 8 bins a thread "
+                                    "or more");
+  // two ring stages; off the wide path two evicted-row buffers and a_last /
+  // a_start in shared memory, on it (16 bins a thread) one buffer and
+  // device memory; the deep path (32) as the wide, without the ring
+  constexpr bool kWide = BPT >= 16;
+  constexpr bool kRing = BPT <= 16;
+  constexpr int kStages = kRing ? 2 : 1;
+  constexpr int kEvBufs = kWide ? 1 : 2;
+  constexpr unsigned kAll = BPT == 32 ? kFull : (1u << (BPT & 31)) - 1u;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // phase: begin
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int FL = p.FL, H = p.H, hb = p.hb, FB = p.block_bins;
+  const int C = kClu ? p.clusters : 1;
+  const int NC = kGrid ? p.blocks / p.clusters : 1;
+  const int rank = kClu ? cluster_rank() : 0;
+  const int gb = blockIdx.x;  // the block across the grid
+  const int cluster = gb / C;
+  const float thr = p.thr;
+  const bool whole = mode == kModeWhole, is_a = mode == kModeA,
+             is_b = mode == kModeB;
+  const Scratch sx = scratch_of(st.scratch, p);
+  // a grid's last blocks may hold no bin (`plan` balances the blocks)
+  const int lo_bin = gb * FB, hi_bin = max(min(lo_bin + FB, FL), lo_bin);
+  const int RW = (FB + 7) & ~3;  // a ring stage's words: mis <= 3 more
+
+  // shared memory: the headers (2 x 32), the frame results (2), the seam,
+  // the tally, the mbarriers, then the ring, the evicted row, the flag
+  // words (2 x T) and, off the wide path, a_last and a_start ([i T + tid])
+  Hdr* s_hdr = reinterpret_cast<Hdr*>(smem_raw);
+  Frame* s_fr = reinterpret_cast<Frame*>(s_hdr + 64);
+  Seam* s_seam = reinterpret_cast<Seam*>(s_fr + 2);
+  Tally* s_tally = reinterpret_cast<Tally*>(s_seam + 1);
+  unsigned long long* s_bar =
+      reinterpret_cast<unsigned long long*>(s_tally + 1);
+  float* s_ring = reinterpret_cast<float*>(s_bar + 4);
+  // kEvBufs x T BPT
+  float* s_evs = s_ring + (kRing ? (size_t)kStages * RW : 0);
+  unsigned* s_flag =
+      reinterpret_cast<unsigned*>(s_evs + (size_t)kEvBufs * T * BPT);
+  int* s_last = reinterpret_cast<int*>(s_flag + 2 * T);
+  int* s_start = s_last + (kWide ? 0 : T * BPT);
+
+  const int b0 = lo_bin + tid * BPT;  // the thread's first local bin
+  const bool live = b0 < hi_bin;
+  const int l0 = tid * BPT;           // its first word in a block row
+  const int n_in = live ? min(BPT, hi_bin - b0) : 0;
+  const unsigned inb = n_in >= BPT ? kAll : (1u << n_in) - 1u;
+  const bool has_l = live && b0 > 0, has_r = live && b0 + BPT < FL;
+  // the threads whose halo bin is another block's
+  const bool edge_l = has_l && b0 == lo_bin;
+  const bool edge_r = has_r && b0 + BPT >= hi_bin;
+  // a_last and a_start in shared memory for one launch off the wide path,
+  // else in device memory (the split's launches read a few of them)
+  const bool on_chip = !kWide && whole;
+  auto last_of = [&](int i) -> int& {
+    return on_chip ? s_last[i * T + tid] : st.a_last[b0 + i];
+  };
+  auto start_of = [&](int i) -> int& {
+    return on_chip ? s_start[i * T + tid] : st.a_start[b0 + i];
+  };
+
+  // ---- the rows: thread 0's bulk copies into the ring ----
+  // |X|^2 word k of the block's row of `f` is at stage[mis_of(f) + k]
+  auto mis_of = [&](int f) {
+    return (int)(((uintptr_t)(st.mag2 + (size_t)f * FL + lo_bin) >> 2) &
+                 3u);
+  };
+  auto load_row = [&](int f, int s) {
+    const int mis = mis_of(f);
+    const unsigned bytes = (unsigned)((mis + hi_bin - lo_bin + 3) & ~3) * 4u;
+    const uint32_t bar = smem(s_bar + s);
+    if (hi_bin == lo_bin) {
+      // a block without bins: the stage's phase completes at once
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                   : "memory");
+      return;
+    }
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem(s_ring + (size_t)s * RW)),
+        "l"(st.mag2 + (size_t)f * FL + lo_bin - mis), "r"(bytes), "r"(bar)
+        : "memory");
+  };
+
+  // the halo |X|^2 words of frame f (the edge threads': another block's,
+  // read from device memory)
+  auto x_left = [&](const float* row, int f) {
+    return edge_l ? __ldg(st.mag2 + (size_t)f * FL + b0 - 1) : row[l0 - 1];
+  };
+  auto x_right = [&](const float* row, int f) {
+    return edge_r ? __ldg(st.mag2 + (size_t)f * FL + b0 + BPT)
+                  : row[l0 + BPT];
+  };
+
+  // ---- the history: each thread's own words ----
+  // the row the next update evicts, into the evicted-row buffer `evb`
+  // (the thread's words; off the wide path the buffers alternate by
+  // update, so that a thread reads its neighbours' words of one while they
+  // load the other), and in one launch the halo words the buffer does not
+  // give into registers
+  float ev_l = 0.0f, ev_r = 0.0f;
+  int evb = 0;
+  auto s_ev = [&]() { return s_evs + (size_t)evb * T * BPT; };
+  // the halo words a thread reads from the history: the block's edge
+  // threads', and on the wide path every thread's
+  const bool gl_l = edge_l || (kWide && has_l);
+  const bool gl_r = edge_r || (kWide && has_r);
+  auto load_ev = [&](int h) {
+    if (live) {
+      const float* src = st.hist + (size_t)h * FL + b0;
+      float* dst = s_ev() + l0;
+      if (BPT % 4 == 0 && n_in == BPT && ((uintptr_t)src & 15u) == 0) {
+#pragma unroll
+        for (int j = 0; j < BPT; j += 4)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           smem(dst + j)),
+                       "l"(src + j)
+                       : "memory");
+      } else {
+        for (int j = 0; j < n_in; ++j)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           smem(dst + j)),
+                       "l"(src + j)
+                       : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // the halo words from the history, read before the barrier that
+    // orders their owner's next store of the row
+    if (whole) {
+      const float* row = st.hist + (size_t)h * FL;
+      if (gl_l) ev_l = __ldcg(row + b0 - 1);
+      if (gl_r) ev_r = __ldcg(row + b0 + BPT);
+    }
+  };
+  auto wait_ev = [&]() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  };
+
+  // ---- the per-bin state, read once ----
+  float bsum[BPT];
+  unsigned valid = 0, unmasked = 0;
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) bsum[j] = 0.0f;
+  get(bsum, st.bsum + b0, n_in);
+  {
+    int w[BPT];
+    get(w, st.mask + b0, n_in);
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      if (j >= n_in) continue;
+      if (st.a_valid[b0 + j]) valid |= 1u << j;
+      if (w[j] == 0) unmasked |= 1u << j;
+    }
+    if (on_chip) {
+      get(w, st.a_last + b0, n_in);
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) last_of(j) = w[j];
+      get(w, st.a_start + b0, n_in);
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) start_of(j) = w[j];
+    }
+  }
+  const unsigned valid0 = valid;
+  bool updated = false;  // baseline_sum changed
+  float bsum_l = has_l ? st.bsum[b0 - 1] : 0.0f;
+  float bsum_r = has_r ? st.bsum[b0 + BPT] : 0.0f;
+
+  // ---- the scalar chain ----
+  Scalars sc;
+  if (whole || (is_a && frame == 0)) {
+    sc.hidx = st.sc[0];
+    sc.prim = st.sc[1];
+    sc.burst_id = (unsigned)st.sc[2];
+    sc.sq_count = st.sc[3];
+    sc.n_tagged = (unsigned)st.sc[4];
+    sc.dropped = (unsigned)st.sc[5];
+    sc.waits = (unsigned)st.sc[6];
+    sc.g_run = 0;
+    sc.peak = st.scf[0];
+    sc.pad = 0;
+  } else {
+    sc = sx.slot[frame & 1];
+  }
+  if (tid == 0) {
+    *s_tally = Tally{sc.n_tagged, sc.dropped, sc.waits, sc.peak};
+    if (gb == 0 && !whole) {
+      if (is_a && frame == 0) sx.slot[0] = sc;
+      // the other launch kind's counter, for its next launch
+      sx.count[(is_a ? 1 : 0) * kLineWords] = 0u;
+    }
+  }
+  unsigned* count = sx.count + (is_b ? kLineWords : 0);
+  unsigned gen = 0;  // grid barriers passed (warp 0 counts)
+  int hidx = sc.hidx, prim = sc.prim, sq_count = sc.sq_count;
+  int g_run = sc.g_run;
+  unsigned burst_id = sc.burst_id;
+
+  // the frames this launch walks, and the first's ring stage
+  const int f_lo = whole ? 0 : frame, f_hi = whole ? p.n_act : frame + 1;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem(s_bar + s))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (kRing)
+      for (int f = f_lo; f < f_hi && f < f_lo + kStages; ++f)
+        load_row(f, (f - f_lo) % kStages);
+  }
+  if (!is_a) load_ev(hidx);
+  // no thread waits on an mbarrier before thread 0 has made it
+  __syncthreads();
+
+  // ---- the reduction ----
+  // bins the thread owns, and those a burst may start at (away from the
+  // band edges and the DC notch): computed where needed, not kept
+  auto own_bits = [&]() {
+    unsigned o = 0;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      const int g = p.bin_lo + b0 + j;
+      if (j < n_in && g >= p.own_lo && g < p.own_hi) o |= 1u << j;
+    }
+    return o;
+  };
+  auto elig_bits = [&]() {
+    const int dc = p.F / 2;
+    unsigned e = 0;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      const int g = p.bin_lo + b0 + j;
+      if (j < n_in && g >= hb && g < p.F - hb && !(g >= dc - 3 && g <= dc + 3))
+        e |= 1u << j;
+    }
+    return e;
+  };
+  // the thread's largest segment maximum below `below` (0: none left);
+  // `cand`: its candidate bins of `row`. A segment wider than BPT spans
+  // seg / BPT lanes (every lane takes part)
+  auto seg_below = [&](unsigned cand, const float* row,
+                       unsigned long long below) {
+    unsigned long long best = 0ull, cur = 0ull;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      if ((cand >> j) & 1u) {
+        const unsigned long long k = cand_key(
+            rel_of(row[l0 + j], bsum[j]), b0 + j, (valid >> j) & 1u);
+        cur = k > cur ? k : cur;
+      }
+      if (p.seg <= BPT && ((j + 1) & (p.seg - 1)) == 0) {
+        if (cur < below && cur > best) best = cur;
+        cur = 0ull;
+      }
+    }
+    if (p.seg > BPT) {
+      const int w = p.seg / BPT;
+      for (int o = 1; o < w; o <<= 1) {
+        const unsigned long long t = __shfl_xor_sync(kFull, cur, o);
+        cur = t > cur ? t : cur;
+      }
+      if ((lane & (w - 1)) == 0 && cur < below) best = cur;
+    }
+    return best;
+  };
+  // the greedy acceptance (detect_fast.py:349-361) of the K_TOP largest
+  // keys `top` into s_seam (one thread): a candidate within half_bw of an
+  // accepted one is skipped; the first k_create accepted are taken, the
+  // rest retry next frame
+  auto accept = [&](const unsigned long long* top, bool primed) {
+    int n_acc = 0, n_accepted = 0, tv = 0;
+    unsigned acc = 0;
+    for (int j = 0; j < 2 * p.k_create; ++j) {
+      const unsigned long long kj = top[j];
+      if (kj == 0ull || !primed || !(key_val(kj) > thr)) continue;
+      const int bj = key_bin(kj);
+      bool a = true;
+      for (int k = 0; k < j && a; ++k)
+        if (((acc >> k) & 1u) && abs(bj - key_bin(top[k])) <= hb) a = false;
+      if (!a) continue;
+      acc |= 1u << j;
+      if (n_accepted < p.k_create) {
+        s_seam->take_bin[n_acc] = bj;
+        s_seam->take_val[n_acc] = key_val(kj);
+        if (kj & 1ull) tv |= 1 << n_acc;
+        ++n_acc;
+      }
+      ++n_accepted;
+    }
+    s_seam->take_valid = tv;
+    s_seam->n_acc = n_acc;
+    s_seam->more = n_accepted > p.k_create;
+  };
+  // the kList largest keys of up to 16 descending, 0-ended lists a lane
+  // (`n` lists, list t's key i at at(t, i)), merged over the warp into
+  // `top` (lane 0 writes; 0-padded): one warp max a key
+  auto merge = [&](int n, auto at, unsigned long long* top) {
+    unsigned long long idx = 0ull;  // 4 bits a list: its next key
+    for (int r = 0; r < kList; ++r) {
+      unsigned long long best = 0ull;
+      int bt = 0;
+      for (int t = 0; t < n; ++t) {
+        const unsigned i = (unsigned)(idx >> (4 * t)) & 15u;
+        if (i < kList) {
+          const unsigned long long k = at(t, (int)i);
+          if (k > best) {
+            best = k;
+            bt = t;
           }
         }
       }
-      if (active && own) ++n_own_valid;
-      // peaks under the carried mask
-      if (rel > p.thr && st.mask[i] == 0 && eligible(g, p))
-        key = cand_key(rel, i, active);
+      const unsigned long long m = warp_max64(best);
+      if (lane == 0) top[r] = m;
+      if (m == 0ull) {
+        if (lane == 0)
+          for (int q = r + 1; q < kList; ++q) top[q] = 0ull;
+        break;
+      }
+      if (best == m) idx += 1ull << (4 * bt);
     }
-    seg_best = key > seg_best ? key : seg_best;
-    if (p.seg <= BPT && ((j + 1) & (p.seg - 1)) == 0) {
-      insert(l, seg_best);
-      seg_best = 0;
-    }
-  }
-  if (p.seg > BPT) {
-    // a segment spans seg / BPT lanes
-    const int w = p.seg / BPT;
-    for (int o = 1; o < w; o <<= 1) {
-      const unsigned long long t = __shfl_xor_sync(kFull, seg_best, o);
-      seg_best = t > seg_best ? t : seg_best;
-    }
-    if ((lane & (w - 1)) == 0) insert(l, seg_best);
-  }
-  flagw[blockIdx.x * blockDim.x + tid] = flag_bits;
+  };
 
-  // the warp's 8 keys and counts, then the block's
-  if (__any_sync(kFull, l[0] != 0)) {
-    unsigned long long w[kList];
-    warp_top(l, w);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < kList; ++r) sh.wl[warp][r] = w[r];
-    }
-  } else if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kList; ++r) sh.wl[warp][r] = 0;
-  }
-  n_emit = warp_sum(n_emit);
-  n_flags = warp_sum(n_flags);
-  n_own_valid = warp_sum(n_own_valid);
-  any_long = warp_sum(any_long);
-  if (lane == 0) {
-    sh.wc[warp][0] = n_emit;
-    sh.wc[warp][1] = n_flags;
-    sh.wc[warp][2] = n_own_valid;
-    sh.wc[warp][3] = any_long;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    unsigned long long m[kList], top[kList];
-#pragma unroll
-    for (int r = 0; r < kList; ++r) m[r] = lane < nw ? sh.wl[lane][r] : 0;
-    if (__any_sync(kFull, m[0] != 0)) {
-      warp_top(m, top);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kList; ++r) top[r] = 0;
-    }
-    int c[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) c[q] = warp_sum(lane < nw ? sh.wc[lane][q] : 0);
-    if (lane == 0) {
-      Partial* mine = part + blockIdx.x;
-#pragma unroll
-      for (int r = 0; r < kList; ++r) mine->keys[r] = top[r];
-      mine->n_emit = c[0];
-      mine->n_flags = c[1];
-      mine->n_own_valid = c[2];
-      mine->any_long = c[3] > 0;
-    }
-  }
-}
-
-// ---- the seam: every block's keys and counts, alike in every block ----
-// Warp 0 merges the blocks' keys into the range's K_TOP candidates, walks
-// the greedy acceptance (detect_fast.py:349-361) and sums the counts into
-// the block's Seam; the coupling pair [any_long, n_own_post] is this bin
-// range's.
-__device__ void seam_warp(const Params& p, const Scalars& sc,
-                          const Partial* part, Seam& s) {
-  const int lane = threadIdx.x & 31;
-  unsigned long long l[kList], top[kList];
-#pragma unroll
-  for (int j = 0; j < kList; ++j) l[j] = 0;
-  for (int b = lane; b < p.blocks; b += 32) {
-    for (int r = 0; r < kList; ++r) {
-      const unsigned long long k = __ldcg(&part[b].keys[r]);
-      if (k <= l[kList - 1]) break;  // the block's keys descend
-      insert(l, k);
-    }
-  }
-  if (__any_sync(kFull, l[0] != 0)) {
-    warp_top(l, top);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kList; ++j) top[j] = 0;
-  }
-  if (lane == 0) {
-    // a candidate within half_bw of an accepted one is skipped; the first
-    // k_create accepted are taken, the rest retry next frame
-    const bool primed = sc.prim >= p.H;
-    const int k_top = 2 * p.k_create;
-    int bins[kList];
-    bool acc[kList];
-    int n_acc = 0, n_accepted = 0;
-#pragma unroll
-    for (int j = 0; j < kList; ++j) {
-      bins[j] = key_bin(top[j]);
-      bool a = j < k_top && primed && top[j] != 0 && key_val(top[j]) > p.thr;
-#pragma unroll
-      for (int k = 0; k < j; ++k)
-        if (acc[k] && abs(bins[j] - bins[k]) <= p.hb) a = false;
-      acc[j] = a;
-      if (a) {
-        if (n_accepted < p.k_create) {
-          s.take_bin[n_acc] = bins[j];
-          s.take_val[n_acc] = key_val(top[j]);
-          s.take_valid[n_acc] = (int)(top[j] & 1ull);
-          ++n_acc;
+  // One reduction over the block, cluster or grid (see the file's header)
+  // of per-thread (cnt, cnt2, bits) and, where `cand` has bits, the
+  // thread's segment maxima of `row`. Returns the totals in every thread,
+  // bits 4 if there are keys (then s_seam holds the frame's acceptance),
+  // and `excl`, the thread's exclusive prefix of cnt in bin order, when
+  // the total is not 0.
+  int red_par = 0;
+  struct Red {
+    int n, cnt2, bits, excl;
+  };
+  auto reduce = [&](int cnt, int cnt2, int bits, unsigned cand,
+                    const float* row, bool primed) -> Red {
+    const int par = red_par;
+    red_par ^= 1;
+    Hdr* hd = s_hdr + 32 * par;
+    Frame* fr = s_fr + par;
+    int incl = 0;
+    if (__any_sync(kFull, cnt != 0 || cnt2 != 0 || bits != 0 || cand != 0u)) {
+      incl = warp_incl_scan(cnt);
+      cnt2 = warp_sum(cnt2);
+      bits = (int)__reduce_or_sync(kFull, (unsigned)bits);
+      if (__any_sync(kFull, cand != 0u)) {
+        // the warp's segment maxima, largest first
+        bits |= 4;
+        unsigned long long below = ~0ull;
+        for (int r = 0; r < kList; ++r) {
+          const unsigned long long k = warp_max64(seg_below(cand, row, below));
+          if (lane == 0) hd[warp].keys[r] = k;
+          if (k == 0ull) break;
+          below = k;
         }
-        ++n_accepted;
+      }
+    } else {
+      cnt2 = 0;
+      bits = 0;
+    }
+    if (lane == 31) hd[warp].cnt = incl;
+    if (lane == 0) {
+      hd[warp].cnt2 = cnt2;
+      hd[warp].bits = bits;
+    }
+    Red o{0, 0, 0, 0};
+    // a warp's header: [cnt, cnt2, bits, 0]
+    auto head = [&](const Hdr* h) {
+      return *reinterpret_cast<const int4*>(h);
+    };
+    if constexpr (!kClu) {
+      __syncthreads();
+      // every warp reads the block's headers (lane l: warp l's)
+      const int4 e = lane < nw ? head(hd + lane) : make_int4(0, 0, 0, 0);
+      if (__any_sync(kFull, e.x != 0 || e.y != 0 || e.z != 0)) {
+        const int wi = warp_incl_scan(e.x);
+        o.n = __shfl_sync(kFull, wi, 31);
+        o.excl = __shfl_sync(kFull, wi - e.x, warp) + incl - cnt;
+        o.cnt2 = warp_sum(e.y);
+        o.bits = (int)__reduce_or_sync(kFull, (unsigned)e.z);
+      }
+      if (o.bits & 4) {
+        // warp 0 merges the warps' keys and walks the acceptance
+        if (warp == 0) {
+          const bool has = lane < nw && (e.z & 4);
+          merge(has ? 1 : 0,
+                [&](int, int i) { return hd[lane].keys[i]; }, fr->keys);
+          __syncwarp();
+          if (lane == 0) accept(fr->keys, primed);
+        }
+        __syncthreads();
+      }
+      return o;
+    } else {
+      cluster_sync();
+      if (warp == 0) {
+        // lane l reads warp l's header of every block of the cluster
+        int all = 0, lo = 0, c2 = 0, bt = 0;
+        unsigned has = 0;  // the blocks whose warp l has keys
+        if (lane < nw) {
+          for (int q = 0; q < C; ++q) {
+            const int4 e = head(peer(hd, q) + lane);
+            all += e.x;
+            if (q < rank) lo += e.x;
+            c2 += e.y;
+            bt |= e.z;
+            if (e.z & 4) has |= 1u << q;
+          }
+        }
+        all = warp_sum(all);
+        lo = warp_sum(lo);
+        c2 = warp_sum(c2);
+        bt = (int)__reduce_or_sync(kFull, (unsigned)bt);
+        if (bt & 4) {
+          // the lane's lists: warp l's of the blocks in `has`
+          merge(C, [&](int t, int i) {
+            return (has >> t) & 1u ? peer(hd, t)[lane].keys[i] : 0ull;
+          }, fr->keys);
+          __syncwarp();
+        }
+        if constexpr (kGrid) {
+          // the cluster's result meets the others' in device memory: lane
+          // q reads cluster q's slot of this barrier's parity (L2 loads)
+          Frame* slots = sx.slots + (gen & 1u) * NC;
+          if (rank == 0 && lane == 0) {
+            Frame* mine = slots + cluster;
+            mine->n_del = all;
+            mine->cnt2 = c2;
+            mine->bits = bt;
+            if (bt & 4)
+              for (int r = 0; r < kList; ++r) mine->keys[r] = fr->keys[r];
+            red_release(count, 1u);
+          }
+          ++gen;
+          {
+            const unsigned want = gen * (unsigned)NC;
+            const long long t0 = clock64();
+            while (ld_acquire(count) < want) {
+              // a cluster that never arrives fails the launch instead of
+              // hanging the card
+              if (clock64() - t0 > kSpinCycles) __trap();
+            }
+          }
+          int gall = 0, glo = 0, gc2 = 0, gbt = 0;
+          unsigned ghas = 0;  // lane's slots (t: cluster lane + 32 t) with keys
+          for (int t = 0, q = lane; q < NC; ++t, q += 32) {
+            const int4 e = __ldcg(reinterpret_cast<const int4*>(slots + q));
+            gall += e.x;
+            if (q < cluster) glo += e.x;
+            gc2 += e.y;
+            gbt |= e.z;
+            if (e.z & 4) ghas |= 1u << t;
+          }
+          all = warp_sum(gall);
+          lo += warp_sum(glo);
+          c2 = warp_sum(gc2);
+          bt = (int)__reduce_or_sync(kFull, (unsigned)gbt);
+          if (bt & 4) {
+            merge((NC + 31) / 32, [&](int t, int i) {
+              return (ghas >> t) & 1u ? __ldcg(&slots[lane + 32 * t].keys[i])
+                                      : 0ull;
+            }, fr->keys);
+            __syncwarp();
+          }
+        }
+        if (lane == 0) {
+          fr->n_del = all;
+          fr->cnt2 = c2;
+          fr->bits = bt;
+          fr->lo = lo;
+          if (bt & 4) accept(fr->keys, primed);
+        }
+      }
+      __syncthreads();
+      const int4 e = head(reinterpret_cast<const Hdr*>(fr));
+      o.n = e.x;
+      o.cnt2 = e.y;
+      o.bits = e.z;
+      if (o.n != 0) {
+        // the lower warps of this block, in order
+        const int c = lane < nw ? hd[lane].cnt : 0;
+        const int wi = warp_incl_scan(c);
+        o.excl = e.w + __shfl_sync(kFull, wi - c, warp) + incl - cnt;
+      }
+      return o;
+    }
+  };
+  // every thread of every block of the launch: the block's barrier, the
+  // cluster's, and a grid's arrival counter besides
+  auto all_sync = [&]() {
+    if constexpr (!kClu) {
+      __syncthreads();
+    } else {
+      cluster_sync();
+      if constexpr (kGrid) {
+        if (warp == 0) {
+          if (rank == 0 && lane == 0) red_release(count, 1u);
+          ++gen;
+          const unsigned want = gen * (unsigned)NC;
+          const long long t0 = clock64();
+          while (ld_acquire(count) < want)
+            if (clock64() - t0 > kSpinCycles) __trap();
+        }
+        __syncthreads();
       }
     }
-    s.n_acc = n_acc;
-    s.more = n_accepted > p.k_create;
-  }
-  __syncwarp();
-  // the counts: totals, the lower blocks' prefixes, this block's own
-  const int me = blockIdx.x, BB = p.block_bins, n_acc = s.n_acc;
-  const int lo = me * BB, hi = min(lo + BB, p.FL);
-  const int near_lo = max(lo - p.hb, 0) / BB;
-  const int near_hi = min(hi - 1 + p.hb, p.FL - 1) / BB;
-  int t_emit = 0, pre_emit = 0, my_emit = 0, t_own = 0, t_sq = 0, pre_sq = 0,
-      my_sq = 0, near = 0, lng = 0;
-  for (int b = lane; b < p.blocks; b += 32) {
-    const Partial* q = part + b;
-    const int ne = __ldcg(&q->n_emit), nf = __ldcg(&q->n_flags);
-    const int nv = __ldcg(&q->n_own_valid), al = __ldcg(&q->any_long);
-    // the squelch would emit the block's owned active bins, less those
-    // the frame creates at again
-    int ns = nv;
-    for (int k = 0; k < n_acc; ++k) {
-      const int tb = s.take_bin[k];
-      if (tb / BB == b && s.take_valid[k] && owned(p.bin_lo + tb, p)) --ns;
-    }
-    t_emit += ne;
-    t_own += nv;
-    t_sq += ns;
-    lng |= al;
-    if (b < me) {
-      pre_emit += ne;
-      pre_sq += ns;
-    }
-    if (b == me) {
-      my_emit = ne;
-      my_sq = ns;
-    }
-    if (b >= near_lo && b <= near_hi) near += nf;
-  }
-  t_emit = warp_sum(t_emit);
-  pre_emit = warp_sum(pre_emit);
-  my_emit = warp_sum(my_emit);
-  t_own = warp_sum(t_own);
-  t_sq = warp_sum(t_sq);
-  pre_sq = warp_sum(pre_sq);
-  my_sq = warp_sum(my_sq);
-  near = warp_sum(near);
-  lng = warp_sum(lng);
-  if (lane == 0) {
-    // post-creation owned active count: the active bins, and the taken
-    // bins that were not
-    int n_post = t_own;
-    for (int k = 0; k < n_acc; ++k)
-      if (!s.take_valid[k] && owned(p.bin_lo + s.take_bin[k], p)) ++n_post;
-    s.any_long = lng > 0;
-    s.n_own_post = n_post;
-    s.my_emit = my_emit;
-    s.del_pre = pre_emit;
-    s.n_del = t_emit;
-    s.my_sq = my_sq;
-    s.sq_pre = pre_sq;
-    s.n_sq = t_sq;
-    s.flags_near = near > 0;
-  }
-}
+  };
 
-__device__ void seam(const Params& p, const Scalars& sc, const Partial* part,
-                     Shared& sh) {
-  if (threadIdx.x < 32) seam_warp(p, sc, part, sh.seam);
-  __syncthreads();
-}
+  // the owned active count, kept as a scalar by one launch
+  int n_own = 0;
+  if (whole)
+    n_own = reduce(0, __popc(valid & own_bits()), 0, 0u, nullptr, false).cnt2;
 
-// The coupling of the frame's pair over every bin range: the one launch's
-// range is all of them. Binshard's all_reduce goes here: the split ends
-// launch A after the seam and reads the summed pair at the start of B.
-__device__ __forceinline__ void couple(int& /*any_long*/,
-                                       int& /*n_active*/) {}
-
-// Rows of the gone table for the bins set in `bits` (bit j: the thread's
-// bin b0 + j), ranked in ascending bin order after the `pre` rows of the
-// lower blocks: row rank r goes to base + r while r < cap and base + r < G.
-// A block-wide call (two block barriers).
-template <int BPT>
-__device__ void emit_rows(const State& st, const Params& p, Shared& sh,
-                          unsigned bits, int b0, int idx, int pre, int cap,
-                          int base) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = blockDim.x >> 5;
-  const int cnt = __popc(bits);
-  const int incl = warp_incl_scan(cnt);
-  if (lane == 31) sh.scan[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = lane < nw ? sh.scan[lane] : 0;
-    const int x = warp_incl_scan(v);
-    if (lane < nw) sh.scan[lane] = x - v;
-  }
-  __syncthreads();
-  int r = pre + sh.scan[warp] + incl - cnt;
-  while (bits) {
-    const int j = __ffs(bits) - 1;
-    bits &= bits - 1;
-    const int i = b0 + j, pos = base + r;
-    if (r < cap && pos < p.G) {
+  // the frame's rows of the gone table for the bins set in `bits` (bit j:
+  // the thread's bin j), ranked from `r` in ascending bin order: row rank
+  // r goes to base + r while r < cap and base + r < G
+  auto emit_rows = [&](unsigned bits, int r, int cap, int base, int idx) {
+    for (; bits; bits &= bits - 1, ++r) {
+      const int j = __ffs(bits) - 1, i = b0 + j, pos = base + r;
+      if (r >= cap || pos >= p.G) break;
       st.g_id[pos] = st.a_id[i];
-      st.g_start[pos] = st.a_start[i];
+      st.g_start[pos] = start_of(j);
       st.g_stop[pos] = idx;
-      st.g_last[pos] = st.a_last[i];
+      st.g_last[pos] = last_of(j);
       st.g_bin[pos] = p.bin_lo + i;
       st.g_mag[pos] = st.a_mag[i];
       st.g_noise[pos] = st.a_noise[i];
     }
-    ++r;
-  }
-  __syncthreads();
-}
+  };
 
-// Deleted bins within +-half_bw of local bin i, clipped at the range's
-// edges, from the flag words (bit j of word w: bin w BPT + j)
-template <int BPT>
-__device__ __forceinline__ int flags_near(const Params& p,
-                                          const unsigned* flagw, int i) {
-  const int lo = max(i - p.hb, 0), hi = min(i + p.hb, p.FL - 1);
-  int n = 0;
-  for (int w = lo / BPT; w <= hi / BPT; ++w) {
-    const int a = max(lo - w * BPT, 0), b = min(hi - w * BPT, BPT - 1);
-    const unsigned m = ((2u << b) - 1u) & ~((1u << a) - 1u);
-    n += __popc(__ldcg(flagw + w) & m);
-  }
-  return n;
-}
-
-// ---- phase B: rows, creations, noise, mask, squelch, per bin ----
-template <int BPT>
-__device__ void phase_b(const State& st, const Params& p, Scalars& sc,
-                        int idx, const float* mag, const unsigned* flagw,
-                        Shared& sh, unsigned emit_bits, bool force,
-                        int n_active, bool squelch) {
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * p.block_bins + tid * BPT;
-  const Seam& s = sh.seam;
-  const int n_acc = s.n_acc;
-
-  // the deletion rows, before a creation can overwrite the bin's burst
-  const int n_del_rows = min(s.n_del, kEDel);
-  if (s.my_emit > 0 && s.del_pre < kEDel && sc.g_run + s.del_pre < p.G)
-    emit_rows<BPT>(st, p, sh, emit_bits, b0, idx, s.del_pre, kEDel,
-                   sc.g_run);
-
-  // creations (burst_detect.c:556-632): each from its bin's sum before
-  // the forced noise update, with that update applied in the twin's
-  // float order (detect_fast.py:385-401)
-  float* row = st.hist + (size_t)sc.hidx * p.FL;
-  const float live = sc.prim >= p.H ? 1.0f : 0.0f;
-  const int start = (int)((unsigned)idx - (unsigned)p.pre_len);
-  for (int k = 0; k < n_acc; ++k) {
-    const float mag_db =
-        10.0f * log10f(fmaxf(s.take_val[k] * p.hist_f * p.enbw, 1e-30f));
-    sc.peak = fmaxf(sc.peak, mag_db);
-    const int i = s.take_bin[k];
-    if ((unsigned)(i - b0) < (unsigned)BPT) {
-      const float m = mag[i];
-      const float base_at = st.bsum[i];
-      const float old_at = row[i] * live;
-      const float base_eff = force ? (base_at - old_at) + m : base_at;
-      // the twin divides by Python scalars, which PyTorch's CUDA division
-      // computes as a product with the scalar's f32 reciprocal
-      const float noise_db = 10.0f * log10f(fmaxf(
-          base_eff * (1.0f / p.hist_f) * (1.0f / p.f2) * (1.0f / p.enbw) *
-              (1.0f / p.bin_width),
-          1e-30f));
-      st.a_id[i] =
-          (int)(sc.burst_id + 10u * (unsigned)p.id_stride * (unsigned)k);
-      st.a_start[i] = start;
-      st.a_last[i] = start;
-      st.a_mag[i] = mag_db;
-      st.a_noise[i] = noise_db;
-      st.a_valid[i] = 1;
-    }
-  }
-
-  // the forced noise update (a long-burst deletion, burst_detect.c:516)
-  if (force) {
+  // a noise update with the frame's row (burst_detect.c:438-454; the order
+  // (sum - evicted) + mag is kept): the thread's words of the evicted row
+  // (s_ev), its frame words stored into the history row, then the next
+  // evicted row's words loaded. x - 0.0f is x in IEEE arithmetic, so an
+  // ungated update is a plain add (gate is alike in every thread).
+  auto noise_update = [&](const float* row, int f) {
+    const bool gate = prim >= H;
+    wait_ev();
+    const float* sev = s_ev();
+    float* dst = st.hist + (size_t)hidx * FL + b0;
+    const bool rv = ((uintptr_t)(row + l0) & 15u) == 0;
+    const bool hv = n_in == BPT && ((uintptr_t)dst & 15u) == 0;
+    constexpr int G = BPT < 4 ? BPT : 4;
 #pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      const int i = b0 + j;
-      if (i < p.FL) {
-        const float m = mag[i];
-        st.bsum[i] = (st.bsum[i] - row[i] * live) + m;
-        row[i] = m;
+    for (int q = 0; q < BPT / G; ++q) {
+      float m[4], ev[4];
+      get4<BPT>(m, row + l0, q, rv);
+      get4<BPT>(ev, sev + l0, q, true);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        float& b = bsum[G * q + k];
+        b = gate ? (b - ev[k]) + m[k] : b + m[k];
+      }
+      put4<BPT>(dst, m, q, hv, n_in);
+    }
+    if (whole) {
+      if (has_l) {
+        const float x = x_left(row, f), e = gl_l ? ev_l : sev[l0 - 1];
+        bsum_l = gate ? (bsum_l - e) + x : bsum_l + x;
+      }
+      if (has_r) {
+        const float x = x_right(row, f), e = gl_r ? ev_r : sev[l0 + BPT];
+        bsum_r = gate ? (bsum_r - e) + x : bsum_r + x;
       }
     }
-    sc.prim = min(sc.prim + 1, p.H);
-    sc.hidx = next_slot(sc.hidx, p.H);
-  }
+    prim = min(prim + 1, H);
+    hidx = next_slot(hidx, H);
+    updated = true;
+    evb = (evb + 1) % kEvBufs;
+    load_ev(hidx);
+  };
 
-  // one mask update: the creations added, the deletions released
-  if (!squelch && (n_acc > 0 || s.flags_near)) {
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      const int i = b0 + j;
-      if (i >= p.FL) continue;
-      int d = 0;
-      for (int k = 0; k < n_acc; ++k)
-        if (abs(i - s.take_bin[k]) <= p.hb) ++d;
-      if (s.flags_near) d -= flags_near<BPT>(p, flagw, i);
-      if (d != 0) st.mask[i] += d;
-    }
-  }
-  sc.burst_id += 10u * (unsigned)p.id_stride * (unsigned)n_acc;
-  sc.waits += (unsigned)s.more;
-
-  // squelch (burst_detect.c:594-631) on the coupled count: its rows (the
-  // active owned bins the frame did not create at), then every burst and
-  // the mask cleared
-  const int n_sq = squelch ? s.n_sq : 0;
-  if (squelch && s.my_sq > 0 && s.sq_pre < kESq &&
-      sc.g_run + n_del_rows + s.sq_pre < p.G) {
-    unsigned bits = 0;
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      const int i = b0 + j;
-      if (i >= p.FL || !st.a_valid[i] || !owned(p.bin_lo + i, p)) continue;
-      bool created = false;
-      for (int k = 0; k < n_acc; ++k) created |= s.take_bin[k] == i;
-      if (!created) bits |= 1u << j;
-    }
-    emit_rows<BPT>(st, p, sh, bits, b0, idx, s.sq_pre, kESq,
-                   sc.g_run + n_del_rows);
-  }
-  if (squelch) {
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      const int i = b0 + j;
-      if (i < p.FL) {
-        st.a_valid[i] = 0;
-        st.mask[i] = 0;
-      }
-    }
-  }
-  sc.g_run += n_del_rows + min(n_sq, kESq);
-  sc.n_tagged += (unsigned)(s.n_del + n_sq);
-  sc.dropped += (unsigned)(max(s.n_del - kEDel, 0) + max(n_sq - kESq, 0));
-  sc.sq_count = squelch ? sc.sq_count + 3 : max(sc.sq_count - 1, 0);
-
-  // the noise reset after repeated squelch (the ring's slots continue),
-  // then the final noise update when no burst is active (:698)
-  const bool reset = sc.sq_count >= 10;
-  if (reset) {
-    sc.prim = 0;
-    sc.sq_count = 0;
-  }
-  const bool do1 = (squelch ? 0 : n_active) == 0;
-  if (reset || do1) {
-    float* row2 = st.hist + (size_t)sc.hidx * p.FL;
-    const float live2 = sc.prim >= p.H ? 1.0f : 0.0f;
-#pragma unroll
-    for (int j = 0; j < BPT; ++j) {
-      const int i = b0 + j;
-      if (i >= p.FL) continue;
-      float v = reset ? 0.0f : st.bsum[i];
-      if (do1) {
-        const float m = mag[i];
-        v = (v - row2[i] * live2) + m;
-        row2[i] = m;
-      }
-      st.bsum[i] = v;
-    }
-    if (do1) {
-      sc.prim = min(sc.prim + 1, p.H);
-      sc.hidx = next_slot(sc.hidx, p.H);
-    }
-  }
-}
-
-template <int BPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    detect_fast_kernel(const State st, const Params p) {
-  __shared__ Shared sh;
-  Scalars sc = load_scalars(st);
-  unsigned* count = st.scratch;
-  Partial* part = reinterpret_cast<Partial*>(st.scratch + kLineWords);
-  unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
-  unsigned gen = 0;
-  // every thread reads the scalars before block 0 can write them: each
-  // frame has a barrier, and without a frame nothing changes
-  for (int f = 0; f < p.n_act; ++f) {
+  for (int f = f_lo; f < f_hi; ++f) {
+    // phase: load
     const int idx = f * p.F;
-    const float* mag = st.mag2 + (size_t)f * p.FL;
-    unsigned emit_bits;
-    phase_a<BPT>(st, p, sc, idx, mag, part, flagw, sh, emit_bits);
-    all_sync(count, p.blocks, gen);
-    seam(p, sc, part, sh);
-    int any_long = sh.seam.any_long, n_active = sh.seam.n_own_post;
-    couple(any_long, n_active);
-    const bool primed = sc.prim >= p.H;
+    const int s = (f - f_lo) % kStages;
+    if (kRing) mbar_wait(smem(s_bar + s), ((f - f_lo) / kStages) & 1);
+    // phase: track
+    const float* row = kRing ? s_ring + (size_t)s * RW + mis_of(f)
+                             : st.mag2 + (size_t)f * FL + lo_bin;
+    const bool primed = prim >= H;
+
+    // ---- phase A (a launch B reloads its results) ----
+    unsigned ab = 0, flag = 0, emit = 0;
+    Red r{0, 0, 0, 0};
+    if (!is_b) {
+      // above threshold: a branch-free filter over all bins, then the
+      // exact test only for the few bins that pass it
+      unsigned maybe = 0;
+      {
+        constexpr int G = BPT < 4 ? BPT : 4;
+        const bool rv = ((uintptr_t)(row + l0) & 15u) == 0;
+#pragma unroll
+        for (int q = 0; q < BPT / G; ++q) {
+          float m[4];
+          get4<BPT>(m, row + l0, q, rv);
+#pragma unroll
+          for (int k = 0; k < G; ++k)
+            maybe |= (unsigned)maybe_above(m[k], bsum[G * q + k], thr)
+                     << (G * q + k);
+        }
+        maybe &= inb;
+        if (maybe) {
+#pragma unroll
+          for (int j = 0; j < BPT; ++j)
+            if (((maybe >> j) & 1u) && rel_of(row[l0 + j], bsum[j]) > thr)
+              ab |= 1u << j;
+        }
+      }
+      // extend last_active on the +-1-bin dilation (burst_detect.c:458-
+      // 469); gone bursts (:490-518)
+      bool longb = false;
+      if (valid) {
+        const bool al = has_l && above(x_left(row, f), bsum_l, thr);
+        const bool ar = has_r && above(x_right(row, f), bsum_r, thr);
+        const unsigned dil = ab | (ab << 1) | (ab >> 1) | (al ? 1u : 0u) |
+                             (ar ? 1u << (BPT - 1) : 0u);
+        for (unsigned v = valid; v; v &= v - 1) {
+          const int j = __ffs(v) - 1;
+          int last = last_of(j);
+          if (primed && ((dil >> j) & 1u)) {
+            last = idx;
+            last_of(j) = idx;
+          }
+          const bool lng =
+              (int)((unsigned)last - (unsigned)start_of(j)) > p.max_burst_len;
+          const bool gone =
+              (int)((unsigned)last + (unsigned)p.post_len) <= idx || lng;
+          longb |= lng;
+          if (gone && primed) flag |= 1u << j;
+        }
+      }
+      emit = flag ? flag & own_bits() : 0u;
+      valid &= ~flag;
+      // the flag words of this frame's parity: the block's in shared
+      // memory, and in device memory for the other blocks and launch B
+      s_flag[(f & 1) * T + tid] = flag;
+      if (!whole || kClu)
+        sx.flags[(size_t)(f & 1) * p.blocks * T + (size_t)gb * T + tid] =
+            flag;
+      // candidates: peaks under the carried mask; the reduction takes
+      // each segment's largest key, and warp 0 walks the acceptance
+      const unsigned cand = primed && ab ? ab & unmasked & elig_bits() : 0u;
+      // the evicted row's words are in (the neighbours read them after
+      // the barrier)
+      if (whole) wait_ev();
+      // phase: reduce
+      r = reduce(__popc(emit), is_a ? __popc(valid & own_bits()) : 0,
+                 (flag ? 1 : 0) | (longb ? 2 : 0), cand, row, primed);
+      // every thread is past frame f - 1: refill its stage with frame f - 1
+      // + kStages
+      if (kRing && tid == 0 && f > f_lo && f - 1 + kStages < f_hi)
+        load_row(f - 1 + kStages, (f - 1 - f_lo) % kStages);
+    }
+
+    // phase: seam
+    // ---- the coupling seam ----
+    int n_acc = 0, more = 0, n_del = 0, rbits = 0, excl = 0;
+    long long any_long = 0, n_active = 0;
+    if (!is_b) {
+      const bool keys = r.bits & 4;
+      n_acc = keys ? s_seam->n_acc : 0;
+      more = keys ? s_seam->more : 0;
+      n_del = r.n;
+      rbits = r.bits;
+      excl = r.excl;
+      // the owned active count after the creations: the active bins, and
+      // the taken bins that were not
+      int n_post = is_a ? r.cnt2 : n_own - n_del;
+      for (int k = 0; k < n_acc; ++k) {
+        const int tb = s_seam->take_bin[k], g = p.bin_lo + tb;
+        if (!((s_seam->take_valid >> k) & 1) && g >= p.own_lo &&
+            g < p.own_hi)
+          ++n_post;
+      }
+      any_long = (rbits >> 1) & 1;
+      n_active = n_post;
+      if (is_a) {
+        // launch A ends here: what launch B needs, and the state it
+        // changed (the file's header)
+        sx.rank[(size_t)gb * T + tid] = excl;
+        if (gb == 0 && tid == 0) {
+          Seam sm = *s_seam;
+          sm.n_acc = n_acc;
+          sm.more = more;
+          sm.n_del = n_del;
+          sm.bits = rbits;
+          sm.n_post = n_post;
+          *sx.seam = sm;
+          sx.pair[0] = any_long;
+          sx.pair[1] = n_post;
+        }
+        break;
+      }
+      // `couple`: binshard's all_reduce goes here; the one launch's range
+      // is every range
+    } else {
+      // launch B: the seam and the summed pair, as launch A and the
+      // caller left them
+      const Seam& sm = *sx.seam;
+      if (tid < kSeamWords)
+        reinterpret_cast<int*>(s_seam)[tid] =
+            reinterpret_cast<const int*>(&sm)[tid];
+      n_acc = sm.n_acc;
+      more = sm.more;
+      n_del = sm.n_del;
+      rbits = sm.bits;
+      any_long = sx.pair[0];
+      n_active = sx.pair[1];
+      flag = sx.flags[(size_t)(f & 1) * p.blocks * T + (size_t)gb * T + tid];
+      emit = flag ? flag & own_bits() : 0u;
+      excl = sx.rank[(size_t)gb * T + tid];
+      __syncthreads();
+    }
     const bool force = any_long > 0 && primed;
     const bool squelch =
         p.max_bursts > 0 && primed && n_active > p.max_bursts;
-    phase_b<BPT>(st, p, sc, idx, mag, flagw, sh, emit_bits, force, n_active,
-                 squelch);
-    all_sync(count, p.blocks, gen);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) store_scalars(st, sc, p.G);
-}
+    const bool do1_pre = (squelch ? 0 : n_active) == 0;
 
-// ---- the split: launch A of frame f (phase A, barrier 1, the seam) ----
-template <int BPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    detect_fast_a(const State st, const Params p, int f) {
-  __shared__ Shared sh;
-  const Split sp = split_of(st.scratch, p);
-  // the scalar chain at frame f (the file's header: two slots)
-  const Scalars sc = f == 0 ? load_scalars(st) : sp.slot[f & 1];
-  if (f == 0 && blockIdx.x == 0 && threadIdx.x == 0) sp.slot[0] = sc;
-  unsigned* count = st.scratch;
-  Partial* part = reinterpret_cast<Partial*>(st.scratch + kLineWords);
-  unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
-  unsigned emit_bits;  // dies with the launch: B recomputes it
-  phase_a<BPT>(st, p, sc, f * p.F, st.mag2 + (size_t)f * p.FL, part, flagw,
-               sh, emit_bits);
-  // the counter counts every A launch of the block's frames: this is the
-  // grid's (f + 1)-th arrival
-  unsigned gen = (unsigned)f;
-  all_sync(count, p.blocks, gen);
-  seam(p, sc, part, sh);
-  if (threadIdx.x == 0) {
-    sp.seams[blockIdx.x] = sh.seam;
-    if (blockIdx.x == 0) {
-      sp.pair[0] = sh.seam.any_long;
-      sp.pair[1] = sh.seam.n_own_post;
+    // ---- phase B ----
+    // the deletion rows, before a creation can overwrite the bin's burst
+    if (n_del > 0) emit_rows(emit, excl, kEDel, g_run, idx);
+    const int n_del_rows = min(n_del, kEDel);
+
+    // creations (burst_detect.c:556-632): each from its bin's sum before
+    // the forced noise update, with that update applied in the twin's
+    // float order (detect_fast.py:385-401)
+    unsigned crt = 0;
+    const float live_g = prim >= H ? 1.0f : 0.0f;
+    const int start = (int)((unsigned)idx - (unsigned)p.pre_len);
+    for (int k = 0; k < n_acc; ++k) {
+      const int i = s_seam->take_bin[k];
+      const float mag_db = 10.0f * log10f(fmaxf(
+                               s_seam->take_val[k] * p.hist_f * p.enbw,
+                               1e-30f));
+      if (tid == 0) s_tally->peak = fmaxf(s_tally->peak, mag_db);
+      if ((unsigned)(i - b0) < (unsigned)n_in) {
+        const int j = i - b0;
+        float base_at = 0.0f, m = 0.0f;
+#pragma unroll
+        for (int q = 0; q < BPT; ++q)
+          if (q == j) base_at = bsum[q];
+        m = row[l0 + j];
+        if (force) {
+          wait_ev();
+          base_at = (base_at - s_ev()[l0 + j] * live_g) + m;
+        }
+        // the twin divides by Python scalars, which PyTorch's CUDA division
+        // computes as a product with the scalar's f32 reciprocal
+        const float noise_db = 10.0f * log10f(fmaxf(
+            base_at * (1.0f / p.hist_f) * (1.0f / p.f2) * (1.0f / p.enbw) *
+                (1.0f / p.bin_width),
+            1e-30f));
+        st.a_id[i] =
+            (int)(burst_id + 10u * (unsigned)p.id_stride * (unsigned)k);
+        start_of(j) = start;
+        last_of(j) = start;
+        st.a_mag[i] = mag_db;
+        st.a_noise[i] = noise_db;
+        valid |= 1u << j;
+        crt |= 1u << j;
+      }
     }
-  }
-}
 
-// ---- the split: launch B of frame f (the summed pair, phase B) ----
-template <int BPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    detect_fast_b(const State st, const Params p, int f) {
-  __shared__ Shared sh;
-  const Split sp = split_of(st.scratch, p);
-  Scalars sc = sp.slot[f & 1];
-  const unsigned* flagw = st.scratch + kLineWords + kPartialWords * p.blocks;
-  const int tid = threadIdx.x;
-  if (tid == 0) sh.seam = sp.seams[blockIdx.x];
-  // phase A's emit_bits: the thread's deleted bins that it owns
-  const int b0 = blockIdx.x * p.block_bins + tid * BPT;
-  const unsigned flag_bits = flagw[blockIdx.x * blockDim.x + tid];
-  unsigned emit_bits = 0;
+    // the forced noise update (a long-burst deletion, burst_detect.c:516);
+    // a final update in the same frame waits for every thread to have read
+    // its halo words of the row this one makes the next to evict
+    if (force) {
+      noise_update(row, f);
+      if (whole && do1_pre) {
+        wait_ev();
+        all_sync();
+      }
+    }
+
+    // one mask update: the creations added, the deletions released
+    if (!squelch && (n_acc > 0 || (rbits & 1))) {
+      const unsigned* wl = s_flag + (f & 1) * T;
+      const unsigned* wg = sx.flags + (size_t)(f & 1) * p.blocks * T;
+      // deleted bins within +-half_bw of local bin i, clipped at the
+      // range's edges, from the flag words (bit j of word w: bin w BPT + j)
+      auto released = [&](int i) {
+        const int lo = max(i - hb, 0), hi = min(i + hb, FL - 1);
+        int n = 0;
+        for (int w = lo / BPT; w <= hi / BPT; ++w) {
+          const int a = max(lo - w * BPT, 0), b = min(hi - w * BPT, BPT - 1);
+          const unsigned msk =
+              (b == 31 ? kFull : ((2u << b) - 1u)) & ~((1u << a) - 1u);
+          const int wb = w - gb * T;  // this block's word, where it is
+          const unsigned word =
+              whole && wb >= 0 && wb < T ? wl[wb] : __ldcg(wg + w);
+          n += __popc(word & msk);
+        }
+        return n;
+      };
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) {
+        if (j >= n_in) continue;
+        const int i = b0 + j;
+        int d = 0;
+        for (int k = 0; k < n_acc; ++k)
+          if (abs(i - s_seam->take_bin[k]) <= hb) ++d;
+        if (rbits & 1) d -= released(i);
+        if (d != 0) {
+          const int m = st.mask[i] + d;
+          st.mask[i] = m;
+          if (m == 0)
+            unmasked |= 1u << j;
+          else
+            unmasked &= ~(1u << j);
+        }
+      }
+    }
+    burst_id += 10u * (unsigned)p.id_stride * (unsigned)n_acc;
+
+    // squelch (burst_detect.c:594-631) on the coupled count: its rows (the
+    // active owned bins the frame did not create at), then every burst and
+    // the mask cleared
+    int n_sq = 0;
+    if (squelch) {
+      const unsigned sq = valid & own_bits() & ~crt;
+      const Red q = reduce(__popc(sq), 0, 0, 0u, nullptr, false);
+      n_sq = q.n;
+      if (n_sq > 0) emit_rows(sq, q.excl, kESq, g_run + n_del_rows, idx);
+      valid = 0;
+#pragma unroll
+      for (int j = 0; j < BPT; ++j)
+        if (((inb & ~unmasked) >> j) & 1u) st.mask[b0 + j] = 0;
+      unmasked = inb;
+    }
+    if (tid == 0) {
+      Tally& t = *s_tally;
+      t.waits += (unsigned)more;
+      t.n_tagged += (unsigned)(n_del + n_sq);
+      t.dropped +=
+          (unsigned)(max(n_del - kEDel, 0) + max(n_sq - kESq, 0));
+    }
+    g_run += n_del_rows + min(n_sq, kESq);
+    sq_count = squelch ? sq_count + 3 : max(sq_count - 1, 0);
+
+    // the noise reset after repeated squelch (the ring's slots continue),
+    // then the final noise update when no burst is active (:698)
+    if (sq_count >= 10) {
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) bsum[j] = 0.0f;
+      bsum_l = 0.0f;
+      bsum_r = 0.0f;
+      updated = true;
+      prim = 0;
+      sq_count = 0;
+    }
+    // phase: noise
+    if (do1_pre) noise_update(row, f);
+    if (whole) n_own = squelch ? 0 : (int)n_active;
+  }
+
+  // phase: end
+  // ---- the end of the launch ----
+  // the state written once: what the launch changed
+  wait_ev();
+  const unsigned changed = whole ? inb : valid ^ valid0;
+  if (updated) put(st.bsum + b0, bsum, n_in);
 #pragma unroll
   for (int j = 0; j < BPT; ++j)
-    if (((flag_bits >> j) & 1u) && owned(p.bin_lo + b0 + j, p))
-      emit_bits |= 1u << j;
-  // the pair as the caller's sum over the bin ranges left it (`couple`)
-  const long long any_long = sp.pair[0], n_active = sp.pair[1];
-  __syncthreads();
-  const bool primed = sc.prim >= p.H;
-  const bool force = any_long > 0 && primed;
-  const bool squelch = p.max_bursts > 0 && primed && n_active > p.max_bursts;
-  phase_b<BPT>(st, p, sc, f * p.F, st.mag2 + (size_t)f * p.FL, flagw, sh,
-               emit_bits, force, (int)n_active, squelch);
-  if (blockIdx.x == 0 && tid == 0) {
-    sp.slot[(f + 1) & 1] = sc;
-    if (f == p.n_act - 1) store_scalars(st, sc, p.G);
+    if ((changed >> j) & 1u) st.a_valid[b0 + j] = (valid >> j) & 1u;
+  if (on_chip) {
+    int w[BPT];
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) w[j] = last_of(j);
+    put(st.a_last + b0, w, n_in);
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) w[j] = start_of(j);
+    put(st.a_start + b0, w, n_in);
   }
+  if (gb == 0 && tid == 0 && !is_a) {
+    const Tally& t = *s_tally;
+    Scalars out;
+    out.hidx = hidx;
+    out.prim = prim;
+    out.sq_count = sq_count;
+    out.g_run = g_run;
+    out.burst_id = burst_id;
+    out.n_tagged = t.n_tagged;
+    out.dropped = t.dropped;
+    out.waits = t.waits;
+    out.peak = t.peak;
+    out.pad = 0;
+    if (is_b) sx.slot[(frame + 1) & 1] = out;
+    if (whole || frame == p.n_act - 1) {
+      st.sc[0] = hidx;
+      st.sc[1] = prim;
+      st.sc[2] = (int)burst_id;
+      st.sc[3] = sq_count;
+      st.sc[4] = (int)t.n_tagged;
+      st.sc[5] = (int)t.dropped;
+      st.sc[6] = (int)t.waits;
+      st.sc[7] = min(g_run, p.G);
+      st.scf[0] = t.peak;
+    }
+  }
+  // no block leaves while another may still read its shared memory
+  if constexpr (kClu) cluster_sync();
+}
+
+// ---- the plan ----
+
+// The dynamic shared memory of a block (the kernel's carving)
+size_t shared_bytes(int FB, int T, int BPT) {
+  const bool wide = BPT >= 16;
+  const size_t stages = BPT <= 16 ? 2 : 0, ev_bufs = wide ? 1 : 2;
+  const size_t RW = (size_t)((FB + 7) & ~3);
+  return 64 * sizeof(Hdr) + 2 * sizeof(Frame) + sizeof(Seam) +
+         sizeof(Tally) + 4 * sizeof(unsigned long long) +
+         stages * RW * sizeof(float) +
+         ev_bufs * (size_t)T * BPT * sizeof(float) +
+         2 * (size_t)T * sizeof(unsigned) +
+         (wide ? 0 : 2 * (size_t)T * BPT * sizeof(int));
 }
 
 // Whether the plan is one the kernel runs (dsp/detect_fast.py `plan`)
 bool valid_plan(const Params& p) {
-  const int T = p.threads, B = p.bpt;
-  if (p.FL <= 0 || p.blocks < 1 || T < 32 || T > kMaxThreads || T % 32 ||
-      (B != 1 && B != 2 && B != 4 && B != 8 && B != 16 && B != 32) ||
-      p.block_bins != T * B ||
+  const int T = p.threads, B = p.bpt, C = p.clusters;
+  // every bin a thread's; the first cluster's blocks each hold bins (a
+  // grid's last blocks may not)
+  if (p.FL <= 0 || p.blocks < 1 || C < 1 || T < 32 || T > kMaxThreads ||
+      T % 32 || p.block_bins != T * B ||
       (long long)p.blocks * p.block_bins < p.FL ||
-      (long long)(p.blocks - 1) * p.block_bins >= p.FL)
+      (long long)(C - 1) * p.block_bins >= p.FL)
     return false;
+  if (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) return false;
+  if (p.blocks % C) return false;
+  if (C == 1) {
+    if (p.blocks != 1 || (B != 1 && B != 2 && B != 4 && B != 8))
+      return false;
+  } else if (B != 8 && B != 16 && !(B == 32 && C == 2 && p.blocks > C)) {
+    // 32 bins a thread only in a grid of clusters of 2
+    return false;
+  }
+  if (p.block_bins >
+      (B == 32 ? kDeepBins : B == 16 ? kWideBins : kRingBins))
+    return false;
+  if (shared_bytes(p.block_bins, T, B) > kMaxShared) return false;
   if (p.seg != 1 && p.seg != 4 && p.seg != 8 && p.seg != 16) return false;
   if (p.FL % p.seg || p.block_bins % p.seg) return false;
   if (p.k_create < 1 || p.k_create > kMaxCreate || p.H < 2 || p.G < 0 ||
@@ -979,14 +1504,83 @@ bool valid_plan(const Params& p) {
   return p.n_act == 0 || (long long)(p.n_act - 1) * p.F <= INT_MAX;
 }
 
-// Blocks of `threads` threads of `kern` the card holds at once, asked once
-// per (device, kernel, threads) and kept: the split asks before every
-// launch A of a grid, once a frame
-cudaError_t resident_blocks(const void* kern, int threads, long long* fit) {
+// fn(kernel) for the plan's instantiation (valid_plan holds)
+template <typename Fn>
+cudaError_t dispatch(const Params& p, Fn&& fn) {
+  if (p.clusters == 1) {
+    switch (p.bpt) {
+      case 1: return fn(detect_fast_kernel<1, false, false>);
+      case 2: return fn(detect_fast_kernel<2, false, false>);
+      case 4: return fn(detect_fast_kernel<4, false, false>);
+      default: return fn(detect_fast_kernel<8, false, false>);
+    }
+  }
+  if (p.blocks == p.clusters)
+    return p.bpt == 8 ? fn(detect_fast_kernel<8, true, false>)
+                      : fn(detect_fast_kernel<16, true, false>);
+  switch (p.bpt) {
+    case 8: return fn(detect_fast_kernel<8, true, true>);
+    case 16: return fn(detect_fast_kernel<16, true, true>);
+    default: return fn(detect_fast_kernel<32, true, true>);
+  }
+}
+
+using KernelFn = void (*)(const State, const Params, int, int);
+
+// Every instantiation's attributes: the most dynamic shared memory, and
+// clusters above the portable 8 blocks; set once, before any launch or
+// graph capture (`detect_fast_init`)
+cudaError_t set_attributes(KernelFn kern, bool cluster) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxShared);
+  if (err == cudaSuccess && cluster)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// A plan of `blocks` blocks in clusters of `clusters`, `bpt` bins a
+// thread: enough to pick an instantiation
+Params shape(int blocks, int clusters, int bpt) {
+  Params p{};
+  p.blocks = blocks;
+  p.clusters = clusters;
+  p.bpt = bpt;
+  return p;
+}
+
+cudaLaunchConfig_t launch_config(const Params& p, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr, bool coop) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks, 1, 1);
+  cfg.blockDim = dim3(p.threads, 1, 1);
+  cfg.dynamicSmemBytes = shared_bytes(p.block_bins, p.threads, p.bpt);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 0;
+  if (p.clusters > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.clusters;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.numAttrs = 1;
+  }
+  if (coop) {
+    attr[cfg.numAttrs].id = cudaLaunchAttributeCooperative;
+    attr[cfg.numAttrs].val.cooperative = 1;
+    ++cfg.numAttrs;
+  }
+  return cfg;
+}
+
+// How many clusters of the plan's blocks the card holds at once, asked
+// once per (device, kernel, cluster, threads, shared memory) and kept
+cudaError_t resident_clusters(KernelFn kern, const Params& p, int* fit) {
   struct Entry {
-    const void* kern;
-    int dev, threads;
-    long long fit;
+    KernelFn kern;
+    int dev, clusters, threads;
+    size_t smem;
+    int fit;
   };
   static std::mutex mu;
   static Entry cache[64];
@@ -994,83 +1588,29 @@ cudaError_t resident_blocks(const void* kern, int threads, long long* fit) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const size_t smem = shared_bytes(p.block_bins, p.threads, p.bpt);
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < n_cache; ++i) {
-    if (cache[i].kern == kern && cache[i].dev == dev &&
-        cache[i].threads == threads) {
-      *fit = cache[i].fit;
+    const Entry& e = cache[i];
+    if (e.kern == kern && e.dev == dev && e.clusters == p.clusters &&
+        e.threads == p.threads && e.smem == smem) {
+      *fit = e.fit;
       return cudaSuccess;
     }
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        threads, 0);
+  cudaLaunchAttribute attr[2];
+  Params one = p;
+  one.blocks = p.clusters;
+  const cudaLaunchConfig_t cfg = launch_config(one, 0, attr, false);
+  err = cudaOccupancyMaxActiveClusters(fit, kern, &cfg);
   if (err != cudaSuccess) return err;
-  *fit = (long long)per_sm * sms;
-  if (n_cache < 64) cache[n_cache++] = Entry{kern, dev, threads, *fit};
+  if (n_cache < 64)
+    cache[n_cache++] = Entry{kern, dev, p.clusters, p.threads, smem, *fit};
   return cudaSuccess;
 }
 
-// A launch of `kern` in the plan's layout; a grid spins at its barriers,
-// so every block must be resident at once: a cooperative launch after the
-// occupancy check
-cudaError_t launch_grid(const void* kern, const Params& p, void** args,
-                        bool barriers, cudaStream_t stream) {
-  cudaError_t err;
-  if (p.blocks > 1 && barriers) {
-    long long fit = 0;
-    err = resident_blocks(kern, p.threads, &fit);
-    if (err != cudaSuccess) return err;
-    if (fit < p.blocks) return cudaErrorCooperativeLaunchTooLarge;
-    err = cudaLaunchCooperativeKernel(kern, p.blocks, p.threads, args, 0,
-                                      stream);
-  } else {
-    err = cudaLaunchKernel(kern, p.blocks, p.threads, args, 0, stream);
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch leaves nothing behind
-    return err;
-  }
-  return cudaGetLastError();
-}
-
-template <int BPT>
-cudaError_t launch(const State& st, const Params& p, int mode, int frame,
-                   cudaStream_t stream) {
-  State s = st;
-  Params q = p;
-  int f = frame;
-  void* args[] = {&s, &q, &f};
-  switch (mode) {
-    case kModeA:
-      return launch_grid((const void*)detect_fast_a<BPT>, p, args, true,
-                         stream);
-    case kModeB:  // no barrier across blocks: a plain launch
-      return launch_grid((const void*)detect_fast_b<BPT>, p, args, false,
-                         stream);
-    default:
-      return launch_grid((const void*)detect_fast_kernel<BPT>, p, args, true,
-                         stream);
-  }
-}
-
-cudaError_t launch_mode(const State& st, const Params& p, int mode,
-                        int frame, cudaStream_t stream) {
-  switch (p.bpt) {
-    case 1: return launch<1>(st, p, mode, frame, stream);
-    case 2: return launch<2>(st, p, mode, frame, stream);
-    case 4: return launch<4>(st, p, mode, frame, stream);
-    case 8: return launch<8>(st, p, mode, frame, stream);
-    case 16: return launch<16>(st, p, mode, frame, stream);
-    default: return launch<32>(st, p, mode, frame, stream);
-  }
-}
-
 // A block's arguments, as `detect_fast_args` packs them for
-// `detect_fast`: a launch then costs a call of four arguments, the
-// split's two a frame too
+// `detect_fast`: a launch then costs a call of four arguments
 struct Packed {
   State st;
   Params p;
@@ -1081,6 +1621,21 @@ static_assert(sizeof(Packed) <= kPackedBytes, "Packed layout");
 
 }  // namespace
 
+// Every instantiation's attributes, set when the library is loaded (before
+// any graph capture)
+extern "C" int detect_fast_init() {
+  const Params ps[] = {shape(1, 1, 1), shape(1, 1, 2), shape(1, 1, 4),
+                       shape(1, 1, 8), shape(2, 2, 8), shape(2, 2, 16),
+                       shape(4, 2, 8), shape(4, 2, 16), shape(4, 2, 32)};
+  for (const Params& p : ps) {
+    const cudaError_t err = dispatch(p, [&](KernelFn k) {
+      return set_attributes(k, p.clusters > 1);
+    });
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 // One block of `n_frames` frames of FL local bins (global bins bin_lo +
 // i; bursts centred outside [own_lo, own_hi) are tracked, not emitted),
 // of which the first n_act run (dsp/detect_fast.py `active_frames`), on
@@ -1089,10 +1644,13 @@ static_assert(sizeof(Packed) <= kPackedBytes, "Packed layout");
 // kPackedBytes) for `detect_fast`. `scratch`: `scratch_words` 32-bit
 // words, zeroed: the one launch's (dsp/detect_fast.py
 // `Plan.scratch_words`) or, with `split`, the split's (`Plan.split_words`).
-// The plan: `blocks` blocks of `threads` threads, `block_bins` = threads
-// x `bins_per_thread` bins a block, segments of `seg` bins (1: every
-// bin). A plan the kernel does not run, or a scratch of another size, is
-// refused (cudaErrorInvalidValue) before anything runs.
+// The plan: `blocks` blocks in clusters of `clusters`, of `threads`
+// threads, `block_bins` = threads x `bins_per_thread` bins a block,
+// segments of `seg` bins (1: every bin). A plan the kernel does not run, a
+// scratch of another size, |X|^2 off a 16-byte boundary, or a grid of more
+// clusters than the card holds at once
+// (cudaErrorCooperativeLaunchTooLarge, 720) is refused before anything
+// runs.
 extern "C" int detect_fast_args(
     const float* mag2, float* hist, float* bsum, unsigned char* a_valid,
     int* a_id, int* a_start, int* a_last, float* a_mag, float* a_noise,
@@ -1102,8 +1660,9 @@ extern "C" int detect_fast_args(
     int k_create, int max_bursts, int max_burst_len, int post_len,
     int pre_len, int id_stride, int bin_lo, int own_lo, int own_hi,
     float threshold, float hist_f, float enbw, float f2, float bin_width,
-    int blocks, int block_bins, int threads, int bins_per_thread, int seg,
-    long long scratch_words, int split, void* out, int out_bytes) {
+    int blocks, int clusters, int block_bins, int threads,
+    int bins_per_thread, int seg, long long scratch_words, int split,
+    void* out, int out_bytes) {
   if (out_bytes < kPackedBytes) return (int)cudaErrorInvalidValue;
   Packed a;
   a.st = State{mag2,  hist,  bsum,   a_valid, a_id,    a_start, a_last,
@@ -1113,12 +1672,22 @@ extern "C" int detect_fast_args(
                half_bw,   k_create,  max_bursts, max_burst_len, post_len,
                pre_len,   id_stride, bin_lo,     own_lo,    own_hi,
                threshold, hist_f,    enbw,       f2,        bin_width,
-               blocks,    block_bins, threads,   bins_per_thread, seg};
+               blocks,    clusters,  block_bins, threads,   bins_per_thread,
+               seg};
   a.split = split != 0;
-  const long long words =
-      a.split ? split_words(blocks, threads) : one_words(blocks, threads);
-  if (!valid_plan(a.p) || scratch_words != words)
+  if (!valid_plan(a.p) || ((uintptr_t)mag2 & 15u) ||
+      scratch_words != (a.split ? split_words(a.p) : one_words(a.p)))
     return (int)cudaErrorInvalidValue;
+  if (blocks > clusters) {
+    // a grid spins at its barriers: every cluster resident at once
+    int fit = 0;
+    const cudaError_t err = dispatch(a.p, [&](KernelFn k) {
+      return resident_clusters(k, a.p, &fit);
+    });
+    if (err != cudaSuccess) return (int)err;
+    if (fit < blocks / clusters)
+      return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
   *static_cast<Packed*>(out) = a;
   return (int)cudaSuccess;
 }
@@ -1126,9 +1695,7 @@ extern "C" int detect_fast_args(
 // A launch from `detect_fast_args`' packing: the whole block (`mode` 0,
 // `frame` 0; a one-launch packing), or launch A (1) or B (2) of frame
 // `frame` < n_act of the split (the file's header; a split packing).
-// Anything else is refused (cudaErrorInvalidValue), a grid the card cannot
-// hold at once too (cudaErrorCooperativeLaunchTooLarge, 720), before
-// anything runs.
+// Anything else is refused (cudaErrorInvalidValue) before anything runs.
 extern "C" int detect_fast(const void* args, int mode, int frame,
                            cudaStream_t stream) {
   const Packed& a = *static_cast<const Packed*>(args);
@@ -1137,7 +1704,17 @@ extern "C" int detect_fast(const void* args, int mode, int frame,
                     frame < a.p.n_act
               : mode == kModeWhole && frame == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)launch_mode(a.st, a.p, mode, frame, stream);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg =
+      launch_config(a.p, stream, attr, a.p.blocks > a.p.clusters);
+  const cudaError_t err = dispatch(a.p, [&](KernelFn k) {
+    return cudaLaunchKernelEx(&cfg, k, a.st, a.p, mode, frame);
+  });
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves nothing behind
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* detect_fast_error_string(int code) {

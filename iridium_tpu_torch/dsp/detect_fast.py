@@ -51,6 +51,7 @@ identity.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import sys
 from typing import NamedTuple
 
@@ -365,44 +366,65 @@ def scan_fast_plain(mag2: torch.Tensor, state: ScanState, n_valid: int,
     return s
 
 
-# The kernel's layout (csrc/detect_fast.cu). Thread t of block b owns the
-# BPT contiguous local bins from (b T + t) BPT, so a block owns T BPT bins
-# and bin k's deletion flag is a bit of scratch word k // BPT. Up to
-# ONE_BLOCK_BINS bins one block, whose barriers are __syncthreads (the 10
-# MHz block, binshard's ranks); above, a cooperative grid of 1024-thread
-# blocks, one an SM, that meet at grid barriers in device memory: at most
-# MAX_BLOCKS of them (the H100 SXM's SMs; the C entry asks the card how
-# many it holds at once and refuses a larger grid before anything runs),
-# each thread with the fewest bins (a power of two up to MAX_BPT) that
-# this many blocks cover.
-ONE_BLOCK_BINS = 8192
+# The kernel's layout (csrc/detect_fast.cu). Block b owns the local bins
+# [b FB, (b + 1) FB) (FB = T BPT bins, T <= MAX_THREADS threads of BPT
+# contiguous bins), so bin k's deletion flag is a bit of flag word
+# k // BPT. Up to RING_BINS bins one block, whose barrier is
+# __syncthreads; up to MAX_CLUSTER RING_BINS one cluster of the least
+# power of two of blocks of at most RING_BINS bins, 8 a thread, and up to
+# MAX_CLUSTER WIDE_BINS one cluster of 16 blocks of 16 a thread (the wide
+# path): a cluster's blocks meet through distributed shared memory after
+# a cluster barrier. Above, a grid of clusters that meet in device memory
+# between clusters, which needs every cluster resident at once: up to
+# MAX_GRID clusters of 16 blocks of 8 bins a thread, then of 16, then
+# clusters of 2 wide blocks (one an SM, MAX_PAIRS of them: every SM of an
+# H100 SXM), then of 2 deep blocks of DEEP_BINS, 32 a thread (their rows
+# read from device memory, not staged: 3.2 GHz), up to MAX_BINS. The
+# blocks of a grid share its bins evenly, T rounded up to whole warps, so
+# its last blocks may hold none. The packing asks the card how many
+# clusters it places and refuses a grid of more before anything runs.
+RING_BINS = 8192
+WIDE_BINS = 16384
+DEEP_BINS = 32768
 MAX_THREADS = 1024
-MAX_BLOCKS = 132
-MAX_BPT = 32
-MAX_BINS = MAX_BLOCKS * MAX_THREADS * MAX_BPT
-# scratch (32-bit words): the grid barrier's arrival counter on a line of
-# its own, one `Partial` a block (8 candidate keys of 64 bits, 4 counts),
-# one flag word a thread; the split's after them: the frame's pair (2
-# int64, at an even word), the scalars in two slots (`Scalars`: 8 ints and
-# the peak), one `Seam` a block (the taken candidates' 4 bins, values and
-# flags, 13 counts)
+MAX_CLUSTER = 16
+MAX_GRID = 7
+MAX_PAIRS = 66
+MAX_BINS = 2 * MAX_PAIRS * DEEP_BINS
+# scratch (32-bit words): two arrival counters, a line each; a grid's
+# slots, two parities of one `Frame` a cluster (8 candidate keys of 64
+# bits, 4 counts); the flag words, two parities of one a thread; the
+# split's after them: the frame's pair (2 int64, at an even word), the
+# scalars in two slots (`Scalars`: 8 ints, the peak, a pad word), the
+# frame's `Seam` (the taken candidates' 4 bins and values, 8 counts), and
+# each thread's first emission rank
 LINE_WORDS = 32
-PARTIAL_WORDS = 2 * 8 + 4
+FRAME_WORDS = 2 * 8 + 4
 PAIR_WORDS = 4
-SCALAR_WORDS = 9
-SEAM_WORDS = 3 * 4 + 11
+SCALAR_WORDS = 10
+SEAM_WORDS = 16
 
 
 class Plan(NamedTuple):
     blocks: int        # thread blocks of the launch
-    block_bins: int    # bins a block: threads x bpt (the last: the rest)
+    block_bins: int    # bins a block: threads x bpt
     threads: int       # T, whole warps
     bpt: int           # bins a thread, a power of two
+    clusters: int      # blocks a cluster (1: one block)
     seg: int           # the twin's SEG (`_segments`)
     ns: int            # the twin's NS; FL // ns bins a kernel segment
     scratch_words: int  # the one launch's; the split's pair starts there
-    grid: bool         # a cooperative grid (else one block)
+    grid: bool         # a grid of clusters (else one block or cluster)
     split_words: int   # the split's scratch
+
+
+def scratch_words(blocks: int, clusters: int, threads: int) -> tuple:
+    """(one launch's, the split's) scratch words of a layout."""
+    n = blocks // clusters
+    one = (2 * LINE_WORDS + (2 * n * FRAME_WORDS if n > 1 else 0)
+           + 2 * blocks * threads)
+    return one, (one + PAIR_WORDS + 2 * SCALAR_WORDS + SEAM_WORDS
+                 + blocks * threads)
 
 
 def plan(p: DetectorParams, n_bins: int | None = None) -> Plan:
@@ -429,20 +451,34 @@ def plan(p: DetectorParams, n_bins: int | None = None) -> Plan:
     if NS < k_top:
         raise ValueError(f"detect_fast kernel: {NS} segments, fewer than "
                          f"the {k_top} candidates")
-    bpt = 1
-    if FL <= ONE_BLOCK_BINS:
+    C, N = 1, 1
+    if FL <= RING_BINS:
+        bpt = 1
         while bpt * MAX_THREADS < FL:
             bpt *= 2
-        T = -(-FL // (32 * bpt)) * 32
-        blocks = 1
+    elif FL <= MAX_CLUSTER * RING_BINS:
+        C, bpt = 2, 8
+        while C * RING_BINS < FL:
+            C *= 2
+    elif FL <= MAX_CLUSTER * WIDE_BINS:
+        C, bpt = MAX_CLUSTER, 16
+    elif FL <= MAX_GRID * MAX_CLUSTER * RING_BINS:
+        C, bpt = MAX_CLUSTER, 8
+        N = -(-FL // (C * RING_BINS))
+    elif FL <= MAX_GRID * MAX_CLUSTER * WIDE_BINS:
+        C, bpt = MAX_CLUSTER, 16
+        N = -(-FL // (C * WIDE_BINS))
+    elif FL <= 2 * MAX_PAIRS * WIDE_BINS:
+        C, bpt = 2, 16
+        N = -(-FL // (C * WIDE_BINS))
     else:
-        while -(-FL // (MAX_THREADS * bpt)) > MAX_BLOCKS:
-            bpt *= 2
-        T = MAX_THREADS
-        blocks = -(-FL // (T * bpt))
-    words = LINE_WORDS + PARTIAL_WORDS * blocks + blocks * T
-    split = words + PAIR_WORDS + 2 * SCALAR_WORDS + SEAM_WORDS * blocks
-    return Plan(blocks, T * bpt, T, bpt, SEG, NS, words, blocks > 1, split)
+        C, bpt = 2, 32
+        N = -(-FL // (C * DEEP_BINS))
+    blocks = N * C
+    T = -(-FL // (blocks * bpt))
+    T = -(-T // 32) * 32
+    one, split = scratch_words(blocks, C, T)
+    return Plan(blocks, T * bpt, T, bpt, C, SEG, NS, one, N > 1, split)
 
 
 def _check_gone(p: DetectorParams) -> None:
@@ -466,14 +502,16 @@ PACKED_BYTES = 512
 
 
 class _Launch:
-    """The kernel's arguments for one block: the output state (the input
-    state's clone, gone table zeroed) and its scratch, zeroed (the one
-    launch's, or with `split` the split's), which the C side checks and
-    packs once; raises on a shape `plan` refuses and on tensors the
-    kernel does not take."""
+    """The kernel's arguments for one block, packed once by the C side
+    (which checks them): the |X|^2 rows `mag2`, the state `out` that the
+    kernel updates in place (its gone table zeroed), the scratch (zeroed;
+    the one launch's, or with `split` the split's); raises on a shape
+    `plan` refuses and on tensors the kernel does not take. Without `out`
+    and `scratch` they are made: the input state's clone and a zeroed
+    scratch."""
 
     def __init__(self, mag2, state, n_valid, p, n_bins, id_stride, bin_lo,
-                 own_lo, own_hi, split: bool):
+                 own_lo, own_hi, split: bool, out=None, scratch=None):
         F, H, G = p.fft_size, p.history_size, p.gone_capacity
         FL = n_bins if n_bins is not None else F
         own_hi = F if own_hi is None else own_hi
@@ -482,12 +520,16 @@ class _Launch:
         _kernels.check(mag2, "mag2", torch.float32, dev,
                        (p.frames_per_block, FL))
         self.mag2 = mag2  # its pointer is in the arguments
-        out = self.out = state.clone()
-        for name in GONE_FIELDS:
-            getattr(out, name).zero_()
+        if out is None:
+            out = state.clone()
+            for name in GONE_FIELDS:
+                getattr(out, name).zero_()
+        self.out = out
         state_mod.check(out, p, dev, FL)
         words = lay.split_words if split else lay.scratch_words
-        self.scratch = torch.zeros(words, dtype=torch.int32, device=dev)
+        if scratch is None:
+            scratch = torch.zeros(words, dtype=torch.int32, device=dev)
+        self.scratch = scratch
         self.n_act = active_frames(p, n_valid)
         c = detect_scan._consts(p)
         k = _kernels
@@ -496,15 +538,18 @@ class _Launch:
             "detect_fast_args", k.ptr(mag2),
             *[k.ptr(getattr(out, name)) for name in PLANE_FIELDS],
             *[k.ptr(getattr(out, name)) for name in GONE_FIELDS],
-            k.ptr(out.ints), k.ptr(out.floats), k.ptr(self.scratch),
+            k.ptr(out.ints), k.ptr(out.floats), k.ptr(scratch),
             F, FL, self.n_act, H, G, p.burst_width_bins // 2,
             c["k_create"], int(p.max_bursts), int(p.max_burst_len),
             int(p.burst_post_len), int(p.burst_pre_len), int(id_stride),
             int(bin_lo), int(own_lo), int(own_hi),
             float(c["threshold"]), float(c["hist_f"]), float(c["enbw"]),
             float(c["f2"]), float(c["bin_width"]),
-            lay.blocks, lay.block_bins, lay.threads, lay.bpt, FL // lay.ns,
-            words, int(split), self.packed, PACKED_BYTES)
+            lay.blocks, lay.clusters, lay.block_bins, lay.threads, lay.bpt,
+            FL // lay.ns, words, int(split), self.packed, PACKED_BYTES)
+        w = lay.scratch_words
+        # the split's pair, in the scratch
+        self.pair = scratch[w:w + PAIR_WORDS].view(torch.int64)
 
     def step(self, mode: int, frame: int = 0) -> None:
         """The one launch over every active frame (MODE_WHOLE), or the
@@ -528,8 +573,9 @@ def scan_fast_kernel(mag2: torch.Tensor, state: ScanState, n_valid: int,
 
 class SplitScan:
     """`scan_fast_plain` with a coupling, as the kernel's split on mag2's
-    CUDA device, a step at a time (csrc/detect_fast.cu, its header). Made
-    with the block (the begin: the input state's clone, gone table zeroed,
+    CUDA device, a step at a time, eagerly (csrc/detect_fast.cu, its
+    header): the step API of the tools and the card tests. Made with the
+    block (the begin: the input state's clone, gone table zeroed,
     checked; the split's scratch zeroed); then for each of the `n_act`
     active frames in order, `a(f)` launches phase A and the seam and
     returns the frame's pair `pair`, (2,) int64 [any long-burst deletion,
@@ -545,8 +591,7 @@ class SplitScan:
         self._run = _Launch(mag2, state, n_valid, p, n_bins, id_stride,
                             bin_lo, own_lo, own_hi, split=True)
         self.n_act = self._run.n_act
-        w = self._run.lay.scratch_words
-        self.pair = self._run.scratch[w:w + PAIR_WORDS].view(torch.int64)
+        self.pair = self._run.pair
 
     def a(self, f: int) -> torch.Tensor:
         self._run.step(MODE_A, f)
@@ -563,41 +608,144 @@ class SplitScan:
         return out
 
 
+def _captured():
+    """A CUDA graph captured at its first replay without an eager run
+    first (`pipeline.Captured(warm=False)`): the split's graph updates the
+    state in place, so a run before the capture would advance it; the
+    packing has bound the kernel's library and set its attributes, and
+    binshard's all_reduce has run on its communicator before the block's
+    detect step."""
+    from ..runtime import pipeline  # which imports this module
+    return pipeline.Captured(warm=False)
+
+
+class SplitGraphs:
+    """The split's frame loop (`scan_fast_split`) as one CUDA graph a
+    block: for each active frame launch A, `coupling_sum` of the pair in
+    the scratch (binshard's `all_reduce`, in place), launch B. Its inputs
+    live in fixed buffers: the |X|^2 rows, the scratch and the state,
+    which the kernel updates in place and which is returned, so that the
+    pipeline's next block (`rebase_` updates a state in place) starts from
+    it without a copy; a state from elsewhere is first copied in. A graph
+    is captured once per count of active frames and replayed after; the
+    last MAX_KEPT counts' graphs are kept (a stream's blocks have one
+    count, all frames, but at its end). `replays` counts the blocks
+    run."""
+
+    MAX_KEPT = 2
+
+    def __init__(self):
+        self._cfg = None
+        self._graphs: dict = {}
+        self.replays = 0
+
+    def run(self, mag2, state, n_valid, p, coupling_sum, n_bins=None,
+            id_stride=1, bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
+        FL = n_bins if n_bins is not None else p.fft_size
+        cfg = (FL, id_stride, bin_lo, own_lo, own_hi, p, coupling_sum,
+               tuple(mag2.shape), mag2.device)
+        if cfg != self._cfg:
+            self._graphs.clear()
+            self._cfg = cfg
+            self.mag2 = torch.empty_like(mag2)
+            self.state = state.clone()
+            self.scratch = torch.zeros(plan(p, FL).split_words,
+                                       dtype=torch.int32, device=mag2.device)
+        out = self.state
+        if state.baseline_hist is not out.baseline_hist:
+            for f in dataclasses.fields(state):
+                getattr(out, f.name).copy_(getattr(state, f.name))
+        n_act = active_frames(p, n_valid)
+        if n_act not in self._graphs:
+            if len(self._graphs) >= self.MAX_KEPT:
+                del self._graphs[next(iter(self._graphs))]
+            run = _Launch(self.mag2, None, n_valid, p, n_bins, id_stride,
+                          bin_lo, own_lo, own_hi, split=True, out=out,
+                          scratch=self.scratch)
+
+            def frames():
+                for name in GONE_FIELDS:
+                    getattr(out, name).zero_()
+                out.g_count.zero_()
+                self.scratch.zero_()
+                for f in range(n_act):
+                    run.step(MODE_A, f)
+                    if coupling_sum(run.pair) is not run.pair:
+                        raise ValueError("coupling_sum must sum the pair "
+                                         "in place and return it")
+                    run.step(MODE_B, f)
+            self._graphs[n_act] = (_captured(), frames)
+        self.mag2.copy_(mag2)
+        graph, frames = self._graphs[n_act]
+        graph.replay(frames)
+        self.replays += 1
+        return out
+
+
 def scan_fast_split(mag2: torch.Tensor, state: ScanState, n_valid: int,
                     p: DetectorParams, coupling_sum,
                     n_bins: int | None = None, id_stride: int = 1,
-                    bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
+                    bin_lo=0, own_lo=0, own_hi=None,
+                    graphs: SplitGraphs | None = None) -> ScanState:
     """`scan_fast_plain(..., coupling_sum=coupling_sum)` on mag2's CUDA
-    device: per active frame the kernel's launch A, `coupling_sum` of its
-    pair, launch B (`SplitScan`). binshard's `all_reduce` sums the pair in
-    place and returns it, and copying a tensor onto itself does nothing;
-    a sum returned in another tensor is copied into the pair. The input
-    state is left as it was. Raises where the kernel cannot build or
-    launch."""
+    device: the block's active frames replayed as one CUDA graph of, per
+    frame, the kernel's launch A, `coupling_sum` of its pair, launch B
+    (`SplitGraphs`; `graphs` keeps them across blocks, a fresh one
+    captures anew). `coupling_sum` sums the pair over the bin ranges in
+    place and returns it (binshard's `all_reduce`); the identity leaves
+    it. The result is the graphs' state buffer, which the next call with
+    the same `graphs` updates in place (a state from elsewhere is copied
+    in first, and is left as it was). Raises where the kernel cannot build
+    or launch, and where the capture fails."""
+    graphs = SplitGraphs() if graphs is None else graphs
+    return graphs.run(mag2, state, n_valid, p, coupling_sum, n_bins,
+                      id_stride, bin_lo, own_lo, own_hi)
+
+
+def scan_fast_steps(mag2: torch.Tensor, state: ScanState, n_valid: int,
+                    p: DetectorParams, coupling_sum,
+                    n_bins: int | None = None, id_stride: int = 1,
+                    bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
+    """`scan_fast_split`'s frame loop run eagerly from the host: per active
+    frame the kernel's launch A, `coupling_sum` of its pair (in place),
+    launch B (`SplitScan`). The input state is left as it was. binshard
+    across cards runs this: its graph, whose all_reduces NCCL would run
+    inside the capture, has not been run on more than one card. Raises as
+    `scan_fast_split` does."""
     s = SplitScan(mag2, state, n_valid, p, n_bins, id_stride, bin_lo,
                   own_lo, own_hi)
     for f in range(s.n_act):
-        s.pair.copy_(coupling_sum(s.a(f)))
+        pair = s.a(f)
+        if coupling_sum(pair) is not pair:
+            raise ValueError("coupling_sum must sum the pair in place and "
+                             "return it")
         s.b(f)
     return s.end()
 
 
 def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
-                   coupling_sum=None, id_stride: int = 1):
+                   coupling_sum=None, id_stride: int = 1,
+                   graph: bool = True):
     """Build run(mag2, state, n_valid, bin_lo=0, own_lo=0, own_hi=F) ->
     new ScanState over a block of fftshifted |X|^2 rows (frames_per_block,
-    n_bins) f32; the input state is left as it was. `coupling_sum` maps the
-    frame's (2,) int64 [any long-burst deletion, owned active count] to
-    its sum over every bin range (identity: this range is all of them).
-    On a CPU tensor `run` is `scan_fast_plain`. On a CUDA tensor it
-    launches the kernel, which raises where it cannot build or launch:
-    one launch a block (`scan_fast_kernel`), or with a `coupling_sum`
-    (binshard) two a frame around the coupling (`scan_fast_split`).
-    No path falls back to the twin on the card."""
+    n_bins) f32; the input state is left as it was, but for a state that
+    `run` returned on the card with a `coupling_sum`, which the next call
+    updates in place. `coupling_sum` maps the frame's (2,) int64 [any
+    long-burst deletion, owned active count] to its sum over every bin
+    range (identity: this range is all of them). On a CPU tensor `run` is
+    `scan_fast_plain`. On a CUDA tensor it launches the kernel, which
+    raises where it cannot build or launch: one launch a block
+    (`scan_fast_kernel`), or with a `coupling_sum` (binshard) the split's
+    frame loop replayed as one CUDA graph a block (`scan_fast_split`, its
+    graphs and state buffer kept across calls in `run.graphs`), or with
+    `graph` False run eagerly from the host (`scan_fast_steps`; the input
+    state is left as it was). No path falls back to the twin on the
+    card."""
     K_CREATE = detect_scan._consts(p)["k_create"]
     if p.max_new_per_frame > K_CREATE:
         _warn_clamp_once(p.max_new_per_frame, K_CREATE)
     _check_gone(p)
+    graphs = SplitGraphs() if coupling_sum is not None and graph else None
 
     def run(mag2: torch.Tensor, state: ScanState, n_valid: int,
             bin_lo=0, own_lo=0, own_hi=None) -> ScanState:
@@ -608,8 +756,13 @@ def make_scan_fast(p: DetectorParams, n_bins: int | None = None,
                                    coupling_sum=coupling_sum, **rng)
         if coupling_sum is None:
             return scan_fast_kernel(mag2, state, n_valid, p, **rng)
-        return scan_fast_split(mag2, state, n_valid, p, coupling_sum, **rng)
+        if graphs is None:
+            return scan_fast_steps(mag2, state, n_valid, p, coupling_sum,
+                                   **rng)
+        return scan_fast_split(mag2, state, n_valid, p, coupling_sum,
+                               graphs=graphs, **rng)
 
+    run.graphs = graphs
     return run
 
 

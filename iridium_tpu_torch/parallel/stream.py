@@ -20,10 +20,13 @@ block_samples / n) and, per block, enqueues:
              with its per-frame coupling pair summed over the ranks by
              `all_reduce` (detect.py's frame step with "exact"): on the
              card detect_fast's kernel, each frame two launches around
-             the `all_reduce` of the pair in the kernel's scratch
-             (`detect_fast.scan_fast_split`); ids are offset by the rank
-             and strided by n. The rank tables are gathered with
-             `all_gather`.
+             the `all_reduce` of the pair in the kernel's scratch; at
+             world size 1 the block's frames replayed as one CUDA graph,
+             captured once per count of active frames
+             (`detect_fast.scan_fast_split`, `SplitGraphs`), across cards
+             a frame at a time from the host (`scan_fast_steps`); ids are
+             offset by the rank and strided by n.
+             The rank tables are gathered with `all_gather`.
   stream   its slice with the l_ext samples before it, [left | slice |
            zeros(l_ext)], the left part by a ring of k_hops shifts (k_hops
            <= 2, :489-502) or from an `all_gather` of the block (:503-507),
@@ -42,7 +45,8 @@ and per group of `agg_blocks` blocks, after the detect steps:
            JAX package's sharded capacities (:445-460). On the card the
            routing and each class batch replay as CUDA graphs; a class
            with no member on this rank runs nothing (:587). No collective
-           runs inside a graph.
+           runs inside these graphs (binshard's detect graph at world
+           size 1 holds its frames' all_reduces).
   result   each rank's buffer per block, [head 6 | class counts 3 | meta
            per class | table rows 6 x batch per class | packed rows per
            class], stacked over the group, `all_gather`ed, and copied to
@@ -155,7 +159,8 @@ class ShardedPipeline(pl.BurstDecoder):
         self._scan, self._init_state = self._build_detect(detect_impl)
         self._graph = None            # card only
         self._local = None            # this rank's slice on the card
-        self._events: list = []       # (start, end) around collectives
+        # (start, end, timing key) around collectives and detect graphs
+        self._events: list = []
         self.reset(start_time_ns)
 
     def _build_detect(self, detect_impl: str):
@@ -195,13 +200,30 @@ class ShardedPipeline(pl.BurstDecoder):
             return scan, lambda: detect.init_state(p, dev, n_bins=FL,
                                                    id_offset=r)
         # the kernel's split on the card (two launches a frame around the
-        # pair's all_reduce), the twin on the CPU
+        # pair's all_reduce; at world size 1 a block's frames as one CUDA
+        # graph, across cards from the host until a graph holding NCCL's
+        # all_reduces has run there), the twin on the CPU
+        graph = n == 1
         run = detect_fast.make_scan_fast(p, FL, coupling_sum=self._all_sum,
-                                         id_stride=n)
+                                         id_stride=n, graph=graph)
+        self.split_graphs = run.graphs
         self.detect_impl = "fast"
-        return (lambda m, st, nv: run(m, st, nv, **rng),
-                lambda: state_mod.init_state(p, dev, id_offset=r,
-                                             n_bins=FL))
+
+        def scan(m, st, nv):
+            if dev.type != "cuda" or not graph:
+                return run(m, st, nv, **rng)
+            # the replay is timed as one span; its all_reduces count by
+            # frames
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = run(m, st, nv, **rng)
+            b.record()
+            self._events.append((a, b, "detect_graph"))
+            self.timing["n_collectives"] += detect_fast.active_frames(p, nv)
+            return out
+        return scan, lambda: state_mod.init_state(p, dev, id_offset=r,
+                                                  n_bins=FL)
 
     def reset(self, start_time_ns: int | None = None) -> None:
         """Fresh stream state; CUDA graphs and buffers are kept."""
@@ -218,7 +240,10 @@ class ShardedPipeline(pl.BurstDecoder):
         # host seconds per stage under the single card's keys, and
         # `collectives`: the device seconds (host on the CPU) between the
         # start and the end of every collective, its wait for the slowest
-        # rank included, `n_collectives`, and
+        # rank included, `n_collectives`, `detect_graph`: the device
+        # seconds of binshard's detect graphs on the card at world size 1
+        # (the kernel's launches and the all_reduce of every frame, which
+        # n_collectives counts), and
         # `left_ring` / `left_gather`: the blocks whose left part came by
         # ring shifts or by the gathered block
         self.timing = collections.Counter()
@@ -226,7 +251,12 @@ class ShardedPipeline(pl.BurstDecoder):
     # ---- collectives ----
 
     def _coll(self, fn, *args) -> None:
-        """Run one collective, timed."""
+        """Run one collective, timed; one captured into a CUDA graph is
+        neither timed nor counted here (its graph's replay is)."""
+        if (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            fn(*args)
+            return
         self.timing["n_collectives"] += 1
         if self.device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
@@ -234,17 +264,18 @@ class ShardedPipeline(pl.BurstDecoder):
             a.record()
             fn(*args)
             b.record()
-            self._events.append((a, b))
+            self._events.append((a, b, "collectives"))
         else:
             t0 = time.perf_counter()
             fn(*args)
             self.timing["collectives"] += time.perf_counter() - t0
 
     def _drain_events(self) -> None:
-        """Add the finished collectives' device times to the timing."""
+        """Add the finished collectives' and detect graphs' device times
+        to the timing."""
         while self._events and self._events[0][1].query():
-            a, b = self._events.pop(0)
-            self.timing["collectives"] += a.elapsed_time(b) / 1e3
+            a, b, key = self._events.pop(0)
+            self.timing[key] += a.elapsed_time(b) / 1e3
 
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(n * len(x), ...) : every rank's x in rank order."""

@@ -556,13 +556,15 @@ class _Group:
 
 class Captured:
     """A function of static tensors as a CUDA graph. The first `replay`
-    runs `fn` eagerly on a side stream (cuFFT plans, kernel binding),
-    captures it and instantiates it; capture errors raise. Later replays
-    rerun the captured work on the current stream; `fn` is not kept. Kernel
-    launches made while capturing are taken off the kernels' counts and
-    added back at each replay."""
+    runs `fn` eagerly on a side stream (cuFFT plans, kernel binding; not
+    with `warm` False, where the caller has made sure `fn` needs none, and
+    has run any collective in it once), captures it and instantiates it;
+    capture errors raise. Later replays rerun the captured work on the
+    current stream; `fn` is not kept. Kernel launches made while capturing
+    are taken off the kernels' counts and added back at each replay."""
 
-    def __init__(self):
+    def __init__(self, warm: bool = True):
+        self.warm = warm
         self.graph = None
         self.out = None
         self.launches: dict = {}
@@ -578,12 +580,13 @@ class Captured:
         return self.out
 
     def _capture(self, fn) -> None:
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()
-        cur.wait_stream(side)
+        if self.warm:
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn()
+            cur.wait_stream(side)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         before = {k: k.launches for k in _kernels.KERNELS}

@@ -221,8 +221,12 @@ JOBS = {
 
 
 def run(n: int, tmp: str, names=tuple(JOBS), with_grouping=True) -> dict:
+    from .. import _kernels
     from ..parallel import distributed
 
+    # every kernel built once here, which the ranks then load, rather than
+    # by each rank at its first launch
+    _kernels.build_all()
     jobs, seconds = [], {}
     for name in names:
         make, det_kw, mode = JOBS[name]

@@ -4,18 +4,20 @@
 runs and at binshard's local widths, the split's scratch included; the
 dispatch of `make_scan_fast` (the CPU runs the plain twin, a CUDA tensor
 the kernel: one launch a block, or with binshard's coupling the split's
-launch A, the coupling and launch B a frame); and `kernel_steps`, the
-kernel's decomposition (csrc/detect_fast.cu) written as tensor ops and
-cut at the coupling seam as the split cuts it: bins split into blocks,
-each block's 8 largest candidate keys merged into the same 8, per-block
-emission counts with their exclusive prefix, the mask release across
-block edges only where the blocks' deletion counts say a deletion is
-near, and the live history ring. Under the identity coupling
-(`kernel_model`) it is held bit-equal to `scan_fast_plain` on every field
-of the state over test_torch_detect_fast.py's scenarios, at 1, 2, 3 and 7
-blocks and with blocks narrower than half the burst width; over 2 and 4
-bin ranges in lockstep (`split_model`) to the twin run over the same
-ranges in threads whose `coupling_sum` is a barrier sum.
+frame loop of launch A, the coupling and launch B a frame, replayed as
+one CUDA graph a block); and `kernel_steps`, the kernel's decomposition
+(csrc/detect_fast.cu) written as tensor ops and cut at the coupling seam
+as the split cuts it: bins split into blocks and blocks into clusters,
+each block's 8 largest candidate keys merged into its cluster's 8 and the
+clusters' into the range's 8, per-block emission counts with their
+exclusive prefix over the lower blocks, the owned active count kept as a
+scalar, the mask release wherever the range has a deletion, and the live
+history ring. Under the identity coupling (`kernel_model`) it is held
+bit-equal to `scan_fast_plain` on every field of the state over
+test_torch_detect_fast.py's scenarios, at 1, 2, 3 and 7 blocks (in
+clusters of 1 and 2) and with blocks narrower than half the burst width;
+over 2 and 4 bin ranges in lockstep (`split_model`) to the twin run over
+the same ranges in threads whose `coupling_sum` is a barrier sum.
 """
 
 import dataclasses
@@ -64,13 +66,13 @@ def _window_sums(x: torch.Tensor, hb: int) -> torch.Tensor:
 
 
 def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
-                 id_stride=1, bin_lo=0, own_lo=0, own_hi=None):
+                 id_stride=1, bin_lo=0, own_lo=0, own_hi=None, clusters=1):
     """The kernel's algorithm over blocks of `block_bins` bins (a multiple
-    of its segment), on the CPU, cut at the coupling seam as the split
-    cuts it: a generator that yields each active frame's pair (any_long,
-    n_own_post) after phase A and the seam, takes the pair summed over
-    the bin ranges by `send`, runs phase B, and returns the new
-    ScanState."""
+    of its segment) in clusters of `clusters` blocks, on the CPU, cut at
+    the coupling seam as the split cuts it: a generator that yields each
+    active frame's pair (any_long, n_own_post) after phase A and the
+    seam, takes the pair summed over the bin ranges by `send`, runs phase
+    B, and returns the new ScanState."""
     F, H, G = p.fft_size, p.history_size, p.gone_capacity
     FL = n_bins if n_bins is not None else F
     own_hi = F if own_hi is None else own_hi
@@ -103,10 +105,8 @@ def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
     rev = (0x7FFFFFFF - iota) << 1
     zero = torch.zeros(())
     spb = BB // segk                   # segments a block
-    lo_b = torch.arange(nb) * BB
-    hi_b = torch.clamp(lo_b + BB, max=FL)
-    near_lo = torch.clamp(lo_b - hb, min=0) // BB
-    near_hi = torch.clamp(hi_b - 1 + hb, max=FL - 1) // BB
+    # the owned active count, kept as a scalar
+    n_own_run = int((s.a_valid & owned).sum())
 
     def by_block(x):
         return torch.bincount(blk[x], minlength=nb)
@@ -159,10 +159,19 @@ def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
         lists = torch.zeros(nb, K_LIST, dtype=i64)
         kk = min(K_LIST, spb)
         lists[:, :kk] = per.topk(kk, 1).values
-        top = lists.flatten().topk(min(K_LIST, nb * K_LIST)).values.tolist()
+        # each cluster's 8 from its blocks' 8, then the range's from the
+        # clusters' (the keys are unique, so any grouping gives the same)
+        nc = -(-nb // clusters)
+        cl = torch.zeros(nc * clusters, K_LIST, dtype=i64)
+        cl[:nb] = lists
+        cl = cl.view(nc, clusters * K_LIST).topk(K_LIST, 1).values
+        top = cl.flatten().topk(min(K_LIST, nc * K_LIST)).values.tolist()
         top += [0] * (K_LIST - len(top))
-        n_emit, n_flags = by_block(emit), by_block(flags)
+        n_emit = by_block(emit)
         n_own = by_block(valid & owned)
+        # the scalar less the frame's owned deletions is the count
+        n_own_run -= int(n_emit.sum())
+        assert n_own_run == int(n_own.sum())
         any_long = bool(lng.any())
 
         # ---- the seam
@@ -179,15 +188,8 @@ def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
                 if n_accepted < k_create:
                     takes.append((bins[j], top[j]))
                 n_accepted += 1
-        adj = torch.zeros(nb, dtype=i64)
-        for b, k in takes:
-            if k & 1 and owned[b]:
-                adj[b // BB] += 1
-        n_sq_b = n_own - adj
-        n_post = int(n_own.sum()) + sum(1 for b, k in takes
-                                        if not k & 1 and owned[b])
-        near = [int(n_flags[int(near_lo[b]):int(near_hi[b]) + 1].sum()) > 0
-                for b in range(nb)]
+        n_post = n_own_run + sum(1 for b, k in takes
+                                 if not k & 1 and owned[b])
         # the coupling: the pair out, its sum over the ranges back
         long_sum, n_active = yield (int(any_long), n_post)
         force = long_sum > 0 and primed
@@ -231,21 +233,24 @@ def kernel_steps(mag2, state, n_valid, p, block_bins, n_bins=None,
             d = torch.zeros(FL, dtype=i32)
             for b, _ in takes:
                 d += ((iota - b).abs() <= hb).to(i32)
-            released = _window_sums(flags.to(i32), hb)
-            d -= torch.where(torch.tensor(near)[blk], released, 0)
+            if flags.any():
+                d -= _window_sums(flags.to(i32), hb)
             mask += d
         burst_id += 10 * id_stride * len(takes)
         waits += int(n_accepted > k_create)
-        n_sq = int(n_sq_b.sum()) if squelch else 0
+        n_sq = 0
         if squelch:
+            # the squelch's own reduction: its rows' counts and ranks
             created = torch.zeros(FL, dtype=torch.bool)
             created[[b for b, _ in takes]] = True
             bits = valid & ~created & owned
-            assert torch.equal(by_block(bits), n_sq_b)
+            n_sq_b = by_block(bits)
+            n_sq = int(n_sq_b.sum())
             rows(bits, n_sq_b.tolist(), exclusive(n_sq_b), st.E_SQ,
                  g_run + n_del_rows, idx)
             valid.zero_()
             mask.zero_()
+        n_own_run = 0 if squelch else n_post
         g_run += n_del_rows + min(n_sq, st.E_SQ)
         tagged += n_del + n_sq
         dropped += max(n_del - st.E_DEL, 0) + max(n_sq - st.E_SQ, 0)
@@ -330,12 +335,14 @@ def block_widths(p, FL=None):
                          ids=[s[0] for s in SCENARIOS])
 def test_kernel_model_bit_equal_to_twin(name, kw, make, n_blocks,
                                         at_least):
-    """The model at 1, 2, 3 and 7 blocks and at blocks narrower than
-    half_bw gives the twin's state bit for bit, block after block."""
+    """The model at 1, 2, 3 and 7 blocks (2 and 7 in clusters of 2, 3 in
+    one of 3) and at blocks narrower than half_bw (in clusters of 4)
+    gives the twin's state bit for bit, block after block."""
     jp, pp = params(**kw)
     x = make(jp)
     widths = block_widths(pp)
     assert [-(-pp.fft_size // w) for w in widths[:4]] == [1, 2, 3, 7]
+    clusters = dict(zip(widths, (1, 2, 3, 2, 4)))
     s_twin = st.init_state(pp, CPU)
     s_model = {w: st.init_state(pp, CPU) for w in widths}
     tagged = 0
@@ -344,7 +351,8 @@ def test_kernel_model_bit_equal_to_twin(name, kw, make, n_blocks,
         mag2 = torch.from_numpy(spectrogram(jp, block))
         s_twin = detect_fast.scan_fast_plain(mag2, s_twin, len(block), pp)
         for w in widths:
-            s_model[w] = kernel_model(mag2, s_model[w], len(block), pp, w)
+            s_model[w] = kernel_model(mag2, s_model[w], len(block), pp, w,
+                                      clusters=clusters[w])
             assert_states_equal(s_model[w], s_twin)
             st.rebase_(s_model[w], pp.block_samples)
         tagged += int(s_twin.n_tagged)
@@ -427,11 +435,11 @@ def test_split_model_bit_equal_to_coupled_twins(n, kw, events, frames,
                                                 squelch):
     """The kernel's decomposition cut at the seam, over n bin ranges in
     lockstep with the frame's pairs summed, at the whole range in one
-    block and at blocks narrower than half_bw, gives the twins' states
-    bit for bit, the twins run over the same ranges in threads coupled by
-    a barrier sum. In the squelch cases the coupling changes the result:
-    a range's state differs from its identity-coupled one, and squelch
-    rows appear that no range alone makes."""
+    block and at blocks narrower than half_bw in clusters of 2, gives the
+    twins' states bit for bit, the twins run over the same ranges in
+    threads coupled by a barrier sum. In the squelch cases the coupling
+    changes the result: a range's state differs from its identity-coupled
+    one, and squelch rows appear that no range alone makes."""
     jp, pp = params(**kw)
     x = events(jp) if callable(events) else tone_capture(jp, events)
     mag2 = torch.from_numpy(spectrogram(jp, x[:jp.block_samples]))
@@ -441,9 +449,9 @@ def test_split_model_bit_equal_to_coupled_twins(n, kw, events, frames,
     FL = ranges[0][0].shape[1]
     want = exp_fast.barrier_twins(pp, ranges, n_valid, FL, n)
     widths = block_widths(pp, FL)
-    for w in (widths[0], widths[-1]):
+    for w, c in ((widths[0], 1), (widths[-1], 2)):
         got = split_model([(m, s0, n_valid, pp, w,
-                            dict(r, n_bins=FL, id_stride=n))
+                            dict(r, n_bins=FL, id_stride=n, clusters=c))
                            for m, s0, r in ranges])
         for g, wt in zip(got, want):
             assert_states_equal(g, wt)
@@ -474,6 +482,8 @@ PLAN_SHAPES = [
     ("25mhz_1024x32768", _rate(25_000_000), None),
     ("400mhz_1024x524288", _rate(400_000_000), None),
     ("1600mhz_1024x2097152", _rate(1_600_000_000), None),
+    ("3200mhz_16x4194304", _rate(3_200_000_000, frames_per_block=16,
+                                 gone_capacity=64), None),
 ] + [
     # parallel/stream.py: own_bins + 2 halo, halo = 2 (width // 2) + 1
     (f"binshard_1mhz_world{n}", _rate(1_000_000),
@@ -495,40 +505,66 @@ def test_plan_covers_the_bins(name, p, n_bins):
     lay = detect_fast.plan(p, n_bins)
     assert lay.block_bins == lay.threads * lay.bpt
     assert lay.threads % 32 == 0 and 32 <= lay.threads <= 1024
-    assert lay.bpt in (1, 2, 4, 8, 16, 32)
-    # every bin one thread's, no block without one
-    assert (lay.blocks - 1) * lay.block_bins < FL <= lay.blocks * lay.block_bins
-    assert lay.grid == (lay.blocks > 1) == (FL > detect_fast.ONE_BLOCK_BINS)
-    assert lay.blocks <= detect_fast.MAX_BLOCKS
-    if lay.grid:
-        assert lay.threads == 1024
+    # every bin one thread's; in one block or cluster every block holds
+    # bins, in a grid the last blocks may not
+    C = lay.clusters
+    assert lay.blocks * lay.block_bins >= FL
+    assert (C - 1) * lay.block_bins < FL
+    assert lay.blocks % C == 0 and C in (1, 2, 4, 8, 16)
+    # one block up to 8,192 bins, then one cluster up to 262,144, then a
+    # grid of clusters, each cluster resident (7 of 16, 66 of 2); 32 bins
+    # a thread only in clusters of 2
+    assert (C == 1) == (FL <= detect_fast.RING_BINS)
+    assert lay.grid == (lay.blocks > C) == (FL > 16 * detect_fast.WIDE_BINS)
+    assert lay.blocks // C <= (7 if C == 16 else 66)
+    if C == 1:
+        assert lay.bpt in (1, 2, 4, 8) and lay.block_bins <= 8192
+    else:
+        assert lay.bpt in (8, 16, 32)
+        assert lay.block_bins <= {8: 8192, 16: 16384, 32: 32768}[lay.bpt]
+        assert lay.bpt < 32 or (C == 2 and lay.grid)
     # the twin's segments, whole in a block
     SEG, NS = detect_fast._segments(p.burst_width_bins // 2, FL)
     assert (lay.seg, lay.ns) == (SEG, NS)
     seg = FL // lay.ns
     assert seg in (1, 4, 8, 16) and FL % seg == 0
     assert lay.block_bins % seg == 0
-    # the scratch: the line, the Partials, a flag word a thread; a few MB
-    assert lay.scratch_words == (detect_fast.LINE_WORDS
-                                 + detect_fast.PARTIAL_WORDS * lay.blocks
-                                 + lay.blocks * lay.threads)
-    assert lay.scratch_words * 4 < 1 << 20
+    # the scratch: two counter lines, a grid's slots, two flag words a
+    # thread; a few MB
+    n = lay.blocks // C
+    assert lay.scratch_words == (2 * detect_fast.LINE_WORDS
+                                 + (2 * n * detect_fast.FRAME_WORDS
+                                    if n > 1 else 0)
+                                 + 2 * lay.blocks * lay.threads)
+    assert lay.scratch_words * 4 < 4 << 20
     # the split's after it: the pair (two int64 at an even word), the
-    # scalars in two slots, a Seam a block
+    # scalars in two slots, the seam, a rank a thread
     assert lay.scratch_words % 2 == 0
     assert lay.split_words == (lay.scratch_words + detect_fast.PAIR_WORDS
                                + 2 * detect_fast.SCALAR_WORDS
-                               + detect_fast.SEAM_WORDS * lay.blocks)
+                               + detect_fast.SEAM_WORDS
+                               + lay.blocks * lay.threads)
     # a flag word holds a thread's bins
     assert lay.bpt <= 32
 
 
 def test_plan_layouts_at_the_card_shapes():
-    assert detect_fast.plan(_rate(10_000_000))[:4] == (1, 8192, 1024, 8)
-    assert detect_fast.plan(_rate(25_000_000))[:4] == (32, 1024, 1024, 1)
-    assert detect_fast.plan(_rate(400_000_000))[:4] == (128, 4096, 1024, 4)
+    """(blocks, block bins, threads, bins a thread, clusters) at the card's
+    shapes: 10 MHz one block; 25 MHz a cluster of 4; 400 MHz a grid of 4
+    clusters of 16; 1.6 GHz 64 clusters of 2 wide blocks; 3.2 GHz (16
+    frames) 64 clusters of 2 deep blocks of 32 bins a thread; binshard's 1 MHz
+    range at world size 1 (1,106 bins) one block of 2 bins a thread, its 10
+    MHz ranges at world size 4 (2,114) one block and at 1 (8,258) a cluster
+    of 2."""
+    assert detect_fast.plan(_rate(10_000_000))[:5] == (1, 8192, 1024, 8, 1)
+    assert detect_fast.plan(_rate(25_000_000))[:5] == (4, 8192, 1024, 8, 4)
+    lay = detect_fast.plan(_rate(400_000_000))
+    assert lay[:5] == (64, 8192, 1024, 8, 16) and lay.grid
     lay = detect_fast.plan(_rate(1_600_000_000))
-    assert lay[:4] == (128, 16384, 1024, 16)
+    assert lay[:5] == (128, 16384, 1024, 16, 2) and lay.grid
+    lay = detect_fast.plan(_rate(3_200_000_000, frames_per_block=16,
+                                 gone_capacity=64))
+    assert lay[:5] == (128, 32768, 1024, 32, 2) and lay.grid
     # the 1.6 GHz block at its default 1,024 frames is 2^31 samples: the
     # scan kernel refuses it, detect_fast takes it
     p = _rate(1_600_000_000)
@@ -536,16 +572,16 @@ def test_plan_layouts_at_the_card_shapes():
     assert detect_fast.active_frames(p, 2**31) == 1024
     # binshard at 1 MHz over 4 ranks: 338 bins, segments of 1 (SEG = 2)
     lay = detect_fast.plan(_rate(1_000_000), 338)
-    assert lay[:4] == (1, 352, 352, 1) and lay.ns == 338
-    assert (lay.scratch_words, lay.split_words) == (404, 449)
-    # binshard at 10 MHz: world size 1 is the split's one grid (9 blocks of
-    # 1,024 bins), world size 4 one block of 544 threads of 4 bins
+    assert lay[:5] == (1, 352, 352, 1, 1) and lay.ns == 338
+    assert (lay.scratch_words, lay.split_words) == (768, 1160)
+    lay = detect_fast.plan(_rate(1_000_000), 1106)
+    assert lay[:5] == (1, 1152, 576, 2, 1) and not lay.grid
     lay = detect_fast.plan(_rate(10_000_000), 8258)
-    assert lay[:4] == (9, 1024, 1024, 1) and lay.grid
-    assert (lay.scratch_words, lay.split_words) == (9428, 9657)
+    assert lay[:5] == (2, 4352, 544, 8, 2) and not lay.grid
+    assert (lay.scratch_words, lay.split_words) == (2240, 3368)
     lay = detect_fast.plan(_rate(10_000_000), 2114)
-    assert lay[:4] == (1, 2176, 544, 4) and not lay.grid
-    assert (lay.scratch_words, lay.split_words) == (596, 641)
+    assert lay[:5] == (1, 2176, 544, 4, 1) and not lay.grid
+    assert (lay.scratch_words, lay.split_words) == (1152, 1736)
 
 
 def test_plan_refuses_what_it_cannot_launch():
@@ -556,9 +592,12 @@ def test_plan_refuses_what_it_cannot_launch():
         detect_fast.plan(p, 0)
     with pytest.raises(ValueError, match="history"):
         detect_fast.plan(_rate(1_000_000, history_size=1))
-    # 3.2 GHz at 1,024 frames: frame positions past int32
+    # 3.2 GHz at 1,024 frames and 1.6 GHz at 2,048: frame positions past
+    # int32
     with pytest.raises(ValueError, match="int32"):
         detect_fast.plan(_rate(3_200_000_000))
+    with pytest.raises(ValueError, match="int32"):
+        detect_fast.plan(_rate(1_600_000_000, frames_per_block=2048))
     with pytest.raises(ValueError, match="gone_capacity"):
         detect_fast.plan(_rate(1_000_000, frames_per_block=16,
                                gone_capacity=1024))
@@ -585,14 +624,14 @@ def test_dispatch_cpu_runs_the_twin(monkeypatch):
     assert_states_equal(got, want)
 
 
-def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
+def test_dispatch_device_runs_the_kernel_and_binshard_the_split(
         monkeypatch):
     """Off the CPU (a meta tensor stands in for the card's) `run` calls the
     kernel wrapper with the range, and nothing else; with a coupling_sum
-    (binshard) it no longer runs the twin's loop, whatever this test's
-    name says (kept from when it did): it calls the kernel's split
-    (`scan_fast_split`) with the coupling and the range, and never the
-    twin or the one launch."""
+    (binshard) it calls the kernel's split (`scan_fast_split`) with the
+    coupling, the range and the graphs `run` keeps, and with `graph`
+    False its eager loop (`scan_fast_steps`) with the coupling and the
+    range; never the twin or the one launch."""
     pp = params()[1]
     calls = []
     monkeypatch.setattr(detect_fast, "scan_fast_kernel",
@@ -601,6 +640,8 @@ def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
                         lambda *a, **k: calls.append(("plain", k)))
     monkeypatch.setattr(detect_fast, "scan_fast_split",
                         lambda *a, **k: calls.append(("split", a[4:], k)))
+    monkeypatch.setattr(detect_fast, "scan_fast_steps",
+                        lambda *a, **k: calls.append(("steps", a[4:], k)))
     mag2 = torch.empty((pp.frames_per_block, 40), device="meta")
     detect_fast.make_scan_fast(pp, 40, id_stride=2)(
         mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
@@ -608,43 +649,80 @@ def test_dispatch_device_runs_the_kernel_and_binshard_the_loop(
                                      own_lo=4, own_hi=30))]
     calls.clear()
     csum = lambda x: x  # noqa: E731
-    detect_fast.make_scan_fast(pp, 40, coupling_sum=csum, id_stride=2)(
-        mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
-    assert calls == [("split", (csum,), dict(n_bins=40, id_stride=2,
+    run = detect_fast.make_scan_fast(pp, 40, coupling_sum=csum, id_stride=2)
+    for _ in range(2):
+        run(mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
+    graphs = calls[0][2].pop("graphs")
+    assert isinstance(graphs, detect_fast.SplitGraphs)
+    assert calls[1][2].pop("graphs") is graphs
+    assert calls == 2 * [("split", (csum,), dict(n_bins=40, id_stride=2,
+                                                 bin_lo=3, own_lo=4,
+                                                 own_hi=30))]
+    calls.clear()
+    run = detect_fast.make_scan_fast(pp, 40, coupling_sum=csum, id_stride=2,
+                                     graph=False)
+    run(mag2, None, 5, bin_lo=3, own_lo=4, own_hi=30)
+    assert run.graphs is None
+    assert calls == [("steps", (csum,), dict(n_bins=40, id_stride=2,
                                              bin_lo=3, own_lo=4,
                                              own_hi=30))]
 
 
-@pytest.mark.parametrize("frames", [0, 3])
-def test_split_issues_a_coupling_b_per_frame(monkeypatch, frames):
-    """`scan_fast_split` on meta tensors (the card's stand-in), the
-    kernel's entry points recorded: the block's arguments packed once,
-    with the split's scratch words; then per active frame launch A, the
-    coupling of the pair A returned, launch B, in that order, from the
-    packing; nothing for zero active frames, whose gone count is
-    zeroed."""
-    pp = params()[1]
-    F, FL = pp.fft_size, 338
-    lay = detect_fast.plan(pp, FL)
-    calls, packed = [], []
+class _RecordedGraph:
+    """A CUDA graph (`detect_fast._captured`) off the card: runs `fn` at
+    its first replay, where the card would capture it, and counts the
+    replays."""
+    replays = 0
+
+    def __init__(self):
+        self.captured = False
+
+    def replay(self, fn):
+        if not self.captured:
+            fn()
+            self.captured = True
+        type(self).replays += 1
+
+
+def _record_kernel(monkeypatch, lay, FL, calls):
+    """The kernel's C entries recorded: the packing (checked against the
+    split's plan) and the launches."""
     k = detect_fast._kernels.DETECT_FAST
+    packed = []
 
     def call(entry, *args):
         assert entry == "detect_fast_args"
-        # ..., the plan's 5 integers and the scratch's words, the split
+        # ..., the plan's 6 integers and the scratch's words, the split
         # flag, the buffer
-        assert args[-9:-2] == (lay.blocks, lay.block_bins, lay.threads,
-                               lay.bpt, FL // lay.ns, lay.split_words, 1)
+        assert args[-10:-2] == (lay.blocks, lay.clusters, lay.block_bins,
+                                lay.threads, lay.bpt, FL // lay.ns,
+                                lay.split_words, 1)
         assert args[-1] == detect_fast.PACKED_BYTES
         packed.append(args[-2])
         calls.append(("pack", None))
 
     def launch(dev, buf, mode, frame):
-        assert buf is packed[0]
+        assert buf is packed[-1]
         calls.append(({1: "A", 2: "B"}[mode], frame))
     monkeypatch.setattr(k, "call", call)
     monkeypatch.setattr(k, "launch", launch)
-    pairs = []
+    monkeypatch.setattr(detect_fast, "_captured", _RecordedGraph)
+    _RecordedGraph.replays = 0
+
+
+@pytest.mark.parametrize("frames", [0, 3])
+def test_split_issues_a_coupling_b_per_frame(monkeypatch, frames):
+    """`scan_fast_split` on meta tensors (the card's stand-in), the
+    kernel's entry points recorded and the CUDA graph recorded where the
+    card captures it: the block's arguments packed once, with the split's
+    scratch words; then per active frame launch A, the coupling of the
+    pair A returned, launch B, in that order, from the packing, once, and
+    one replay; nothing for zero active frames."""
+    pp = params()[1]
+    F, FL = pp.fft_size, 338
+    lay = detect_fast.plan(pp, FL)
+    calls, pairs = [], []
+    _record_kernel(monkeypatch, lay, FL, calls)
 
     def csum(x):
         assert x.dtype == torch.int64 and tuple(x.shape) == (2,)
@@ -658,9 +736,98 @@ def test_split_issues_a_coupling_b_per_frame(monkeypatch, frames):
                                       own_lo=0, own_hi=256)
     assert calls == [("pack", None)] + [(step, f) for f in range(frames)
                                         for step in ("A", "sum", "B")]
+    assert _RecordedGraph.replays == 1
     # the pair is one buffer of the scratch, summed in place each frame
     assert len({p.data_ptr() for p in pairs}) <= 1
     assert out.g_count.device.type == "meta"
+
+
+def test_steps_issue_a_coupling_b_per_frame_from_the_host(monkeypatch):
+    """`scan_fast_steps` (binshard across cards) on meta tensors, the
+    kernel's entry points recorded: the block's arguments packed once,
+    then per active frame launch A, the coupling of its pair, launch B,
+    with no graph; each call packs anew and couples anew, and a coupling
+    that returns another tensor than the pair raises."""
+    pp = params()[1]
+    F, FL, n_act = pp.fft_size, 338, 3
+    lay = detect_fast.plan(pp, FL)
+    calls = []
+    _record_kernel(monkeypatch, lay, FL, calls)
+
+    def csum(x):
+        calls.append(("sum", None))
+        return x
+    rng = dict(n_bins=FL, id_stride=4, bin_lo=-41, own_lo=0, own_hi=256)
+    mag2 = torch.empty((pp.frames_per_block, FL), device="meta")
+    s0 = st.init_state(pp, "meta", n_bins=FL)
+    for _ in range(2):
+        out = detect_fast.scan_fast_steps(mag2, s0, n_act * F, pp, csum,
+                                          **rng)
+        assert out is not s0
+    loop = [(step, f) for f in range(n_act) for step in ("A", "sum", "B")]
+    loop = [(c, None if c == "sum" else f) for c, f in loop]
+    assert calls == 2 * ([("pack", None)] + loop)
+    assert _RecordedGraph.replays == 0
+    with pytest.raises(ValueError, match="in place"):
+        detect_fast.scan_fast_steps(mag2, s0, n_act * F, pp,
+                                    lambda x: x.clone(), **rng)
+
+
+def test_graph_split_couples_once_a_frame_and_reuses_its_graphs(
+        monkeypatch):
+    """binshard's `run` (`make_scan_fast` with a coupling) over six blocks
+    on meta tensors, the CUDA graphs recorded where the card captures
+    them: the first block copies its state into the graphs' state buffer
+    and captures the loop (the coupling once a frame, in frame order,
+    between the frame's launches A and B); the next two replay it,
+    updating the buffer they returned in place; a block with another
+    count of active frames captures its own, the last two counts' graphs
+    are kept, so a count seen before the last two captures anew. Every
+    block is one replay, every result the one buffer, and neither the twin
+    nor the one launch runs. A coupling that returns another tensor than
+    the pair raises."""
+    pp = params()[1]
+    F, FL = pp.fft_size, 338
+    lay = detect_fast.plan(pp, FL)
+    calls = []
+    _record_kernel(monkeypatch, lay, FL, calls)
+
+    def never(*a, **k):
+        raise AssertionError("the twin or the one launch ran")
+    monkeypatch.setattr(detect_fast, "scan_fast_plain", never)
+    monkeypatch.setattr(detect_fast, "scan_fast_kernel", never)
+
+    def csum(x):
+        calls.append(("sum", len([c for c in calls if c[0] == "sum"])))
+        return x
+    rng = dict(bin_lo=-41, own_lo=0, own_hi=256)
+    run = detect_fast.make_scan_fast(pp, FL, coupling_sum=csum, id_stride=4)
+    mag2 = torch.empty((pp.frames_per_block, FL), device="meta")
+    s0 = s = st.init_state(pp, "meta", n_bins=FL)
+    outs = []
+    counts = (4, 4, 4, 3, 2, 4)
+    for n_act in counts:
+        s = run(mag2, s, n_act * F, **rng)
+        outs.append(s)
+    captured = (4, 3, 2, 4)
+    want = []
+    for n_act in captured:
+        want += [("pack", None)] + [(step, f) for f in range(n_act)
+                                    for step in ("A", "B")]
+    assert [c for c in calls if c[0] != "sum"] == want
+    sums = [("sum", k) for k in range(sum(captured))]
+    assert [c for c in calls if c[0] == "sum"] == sums
+    assert calls[1:4] == [("A", 0), ("sum", 0), ("B", 0)]
+    assert _RecordedGraph.replays == len(counts)
+    assert len(run.graphs._graphs) == detect_fast.SplitGraphs.MAX_KEPT
+    # every result is the graphs' one state buffer, not the input
+    assert all(o is outs[0] for o in outs) and outs[0] is not s0
+
+    def other(x):
+        return x.clone()
+    with pytest.raises(ValueError, match="in place"):
+        detect_fast.make_scan_fast(pp, FL, coupling_sum=other, id_stride=4)(
+            mag2, st.init_state(pp, "meta", n_bins=FL), 4 * F, **rng)
 
 
 def test_binshard_builds_the_coupled_loop():

@@ -628,41 +628,49 @@ def _fast_both(p, mag2, s, n_valid, n_bins=None, id_stride=1, **rng):
 _FAST_1MHZ = dict(sample_rate=1_000_000, history_size=64,
                   frames_per_block=256, max_bursts=20)
 FAST_CASES = [
-    # id, config, valid frames of each block (None: all), grid
+    # id, config, valid frames of each block (None: all), (clusters, grid)
     ("one_block_clamp", dict(_FAST_1MHZ, max_new_per_frame=8), None,
-     False),
-    ("grid_25mhz", dict(sample_rate=25_000_000, history_size=32,
-                        frames_per_block=128, max_bursts=20), None, True),
-    ("grid_200mhz_bpt2", dict(sample_rate=200_000_000, history_size=16,
-                              frames_per_block=64, max_bursts=20), None,
-     True),
-    ("grid_800mhz_bpt8", dict(sample_rate=800_000_000, history_size=4,
-                              frames_per_block=16, gone_capacity=64,
-                              max_bursts=20), None,
-     True),
+     (1, False)),
+    ("cluster4_25mhz", dict(sample_rate=25_000_000, history_size=32,
+                            frames_per_block=128, max_bursts=20), None,
+     (4, False)),
+    ("cluster16_200mhz_bpt16", dict(sample_rate=200_000_000,
+                                    history_size=16, frames_per_block=64,
+                                    max_bursts=20), None, (16, False)),
+    ("cluster8_50mhz", dict(sample_rate=50_000_000, history_size=16,
+                            frames_per_block=64, max_bursts=20), None,
+     (8, False)),
+    ("grid_800mhz_bpt16", dict(sample_rate=800_000_000, history_size=4,
+                               frames_per_block=16, gone_capacity=64,
+                               max_bursts=20), None, (16, True)),
+    ("grid_1600mhz_pairs", dict(sample_rate=1_600_000_000, history_size=4,
+                                frames_per_block=16, gone_capacity=64,
+                                max_bursts=20), None, (2, True)),
     ("grid_3200mhz_bpt32", dict(sample_rate=3_200_000_000, history_size=4,
                                 frames_per_block=16, gone_capacity=64,
-                                max_bursts=20), None,
-     True),
-    ("partial_block", _FAST_1MHZ, 150.5, False),
-    ("max_bursts_0", dict(_FAST_1MHZ, max_bursts=0), None, False),
-    ("small_gone_table", dict(_FAST_1MHZ, gone_capacity=8), None, False),
+                                max_bursts=20), None, (2, True)),
+    ("partial_block", _FAST_1MHZ, 150.5, (1, False)),
+    ("max_bursts_0", dict(_FAST_1MHZ, max_bursts=0), None, (1, False)),
+    ("small_gone_table", dict(_FAST_1MHZ, gone_capacity=8), None,
+     (1, False)),
 ]
 
 
-@pytest.mark.parametrize("cfg,frames,grid",
+@pytest.mark.parametrize("cfg,frames,layout",
                          [c[1:] for c in FAST_CASES],
                          ids=[c[0] for c in FAST_CASES])
-def test_detect_fast_kernel_bit_equal_to_twin(dev, cfg, frames, grid):
+def test_detect_fast_kernel_bit_equal_to_twin(dev, cfg, frames, layout):
     """The detect_fast kernel against its twin on the card, bit for bit,
-    on two blocks in a row with `rebase_` between them: one block and grid
-    layouts (a grid of 2 bins a thread at 262,144), n_valid ending
+    on two blocks in a row with `rebase_` between them: one block,
+    clusters of 4, 8 and 16 blocks (16 of 16 bins a thread at 262,144),
+    grids of clusters (4 of 16 at 1,048,576 bins; 64 of 2 at 2,097,152
+    and at 4,194,304, 32 bins a thread, 16 frames), n_valid ending
     mid-block, max_new_per_frame above 4 (clamped), max_bursts 0 (no
-    squelch), a gone table of 8 rows that fills; grids of 8 and 32 bins a
-    thread (1,048,576 and 4,194,304 bins, 16 frames)."""
+    squelch), a gone table of 8 rows that fills."""
     from iridium_tpu_torch.dsp import detect_fast
     p = DetectorConfig(**cfg).derived()
-    assert detect_fast.plan(p).grid == grid
+    lay = detect_fast.plan(p)
+    assert (lay.clusters, lay.grid) == layout
     F = p.fft_size
     n_valid = (p.block_samples if frames is None else int(frames * F))
     s, gone = st.init_state(p, dev), []
@@ -680,7 +688,8 @@ def test_detect_fast_kernel_bit_equal_to_twin(dev, cfg, frames, grid):
 def test_detect_fast_kernel_local_range(dev):
     """Rank 1 of a 4-way 10 MHz bin split (ownership, halos, id_stride 4)
     under the identity coupling, two blocks: the twin's state bit for bit;
-    the grid's range too (rank 0 of 2 at 25 MHz, from global bin -53)."""
+    a cluster's range too (rank 0 of 2 at 25 MHz, from global bin -53, a
+    width of 2 mod 4 bins: rows off 16-byte boundaries)."""
     for rate, n, r in ((10_000_000, 4, 1), (25_000_000, 2, 0)):
         p = DetectorConfig(sample_rate=rate, history_size=32,
                            frames_per_block=128, max_bursts=20).derived()
@@ -699,14 +708,14 @@ def test_detect_fast_kernel_local_range(dev):
         assert int(s.n_tagged) >= 1
 
 
-def test_detect_fast_binshard_keeps_the_loop_and_refusals_raise(
+def test_detect_fast_binshard_runs_the_split_and_refusals_raise(
         dev, monkeypatch):
-    """With a coupling_sum (binshard) `run` no longer keeps the twin's
-    loop on the card, whatever this test's name says (kept from when it
-    did): it is the kernel's split, per active frame launch A, the
-    coupling of its pair, launch B, bit-equal to the twin under the same
-    coupling; a plan the C side refuses raises before anything runs, for
-    the one launch and for the split."""
+    """With a coupling_sum (binshard) `run` is the kernel's split replayed
+    as one CUDA graph: per active frame launch A, the coupling of its pair
+    (called while the graph is captured), launch B, each replay counting
+    2 launches a frame, bit-equal to the twin under the same coupling; a
+    plan the C side refuses raises before anything runs, for the one
+    launch and for the split."""
     from iridium_tpu_torch.dsp import detect_fast
     from iridium_tpu_torch.tools import exp_fast
     p = DetectorConfig(**_FAST_1MHZ).derived()
@@ -744,25 +753,29 @@ SPLIT_IDENTITY_CASES = [
     # id, config, binshard's world size (None: the whole band, no halos),
     # bins a thread
     ("one_block_clamp", FAST_CASES[0][1], None, 1),
-    ("grid_25mhz", FAST_CASES[1][1], None, 1),
-    ("grid_200mhz_bpt2", FAST_CASES[2][1], None, 2),
+    ("cluster4_25mhz", FAST_CASES[1][1], None, 8),
+    ("cluster16_200mhz_bpt16", FAST_CASES[2][1], None, 16),
     ("range_1mhz_bpt2", _FAST_1MHZ, 1, 2),
+    ("grid_800mhz_bpt16", FAST_CASES[4][1], None, 16),
 ]
 
 
 @pytest.mark.parametrize("cfg,n,bpt", [c[1:] for c in SPLIT_IDENTITY_CASES],
                          ids=[c[0] for c in SPLIT_IDENTITY_CASES])
 def test_detect_fast_split_identity_equals_one_launch(dev, cfg, n, bpt):
-    """The split under the identity coupling against the one-launch
-    kernel, bit for bit, on two blocks in a row with `rebase_` between
-    them: one block (1 MHz), grids (25 MHz, 32 blocks; 200 MHz, 2 bins a
-    thread; launch A cooperative), and binshard's 1 MHz range at world
-    size 1 (1,106 bins with its halos: one block of 2 bins a thread)."""
+    """The split under the identity coupling, replayed as a CUDA graph,
+    against the one-launch kernel, bit for bit, on two blocks in a row
+    with `rebase_` between them (the second block's replay updates in
+    place the state the first returned): one block (1 MHz), clusters (25
+    MHz, 4 blocks; 200 MHz, 16 of 16 bins a thread), binshard's 1 MHz
+    range at world size 1 (1,106 bins with its halos: one block of 2 bins
+    a thread), and a grid of 4 clusters of 16 (800 MHz; its launches
+    cooperative)."""
     from iridium_tpu_torch.dsp import detect_fast
     from iridium_tpu_torch.tools import exp_fast
     p = DetectorConfig(**cfg).derived()
     n_act = detect_fast.active_frames(p, p.block_samples)
-    s, FL, rng = st.init_state(p, dev), None, {}
+    s, FL, rng, split = st.init_state(p, dev), None, {}, None
     for seed in (1, 2):
         mag2 = _bursty_spectrogram(p, dev, seed)
         if n is not None:
@@ -770,15 +783,17 @@ def test_detect_fast_split_identity_equals_one_launch(dev, cfg, n, bpt):
             if FL is None:
                 s, FL = s0, mag2.shape[1]
         assert detect_fast.plan(p, FL).bpt == bpt
-        split = detect_fast.make_scan_fast(p, FL, coupling_sum=lambda x: x,
-                                           id_stride=n or 1)
-        one = detect_fast.make_scan_fast(p, FL, id_stride=n or 1)
+        if split is None:
+            split = detect_fast.make_scan_fast(
+                p, FL, coupling_sum=exp_fast.identity, id_stride=n or 1)
+        want = detect_fast.make_scan_fast(p, FL, id_stride=n or 1)(
+            mag2, s, p.block_samples, **rng)
         before = _kernels.DETECT_FAST.launches
         got = split(mag2, s, p.block_samples, **rng)
         torch.cuda.synchronize()
         assert _kernels.DETECT_FAST.launches == before + 2 * n_act
-        cmp = exp_fast.compare_bits(got, one(mag2, s, p.block_samples,
-                                             **rng))
+        assert (got is s) == (seed == 2)
+        cmp = exp_fast.compare_bits(got, want)
         assert cmp["bit_equal"], cmp
         s = got
         st.rebase_(s, p.block_samples)
@@ -799,14 +814,18 @@ def _coupled_ranges(dev, n=4):
 
 def test_detect_fast_split_lockstep_matches_threaded_twins(dev):
     """4 ranges of 338 bins, their splits in lockstep on the card with the
-    pairs summed by a tensor add, against 4 twins in 4 threads coupled by
-    a barrier sum: every range's state bit for bit."""
+    pairs summed by a tensor add, eagerly and captured as one CUDA graph,
+    against 4 twins in 4 threads coupled by a barrier sum: every range's
+    state bit for bit."""
     from iridium_tpu_torch.tools import exp_fast
     p, ranges, args = _coupled_ranges(dev)
     got = exp_fast.lockstep(*args)
+    graph = exp_fast.lockstep(*args, graph=True)
     want = exp_fast.barrier_twins(*args)
-    for g, w in zip(got, want):
+    for g, r, w in zip(got, graph, want):
         cmp = exp_fast.compare_bits(g, w)
+        assert cmp["bit_equal"], cmp
+        cmp = exp_fast.compare_bits(r, g)
         assert cmp["bit_equal"], cmp
     assert sum(int(g.n_tagged) for g in got) >= 8
 

@@ -573,7 +573,8 @@ def test_exp_fast_cases_bound_and_comparison():
     c = exp_fast.split_case("split1", cpu)
     assert c.FL == 8258 and c.ranges[0][2] == dict(bin_lo=-33, own_lo=0,
                                                    own_hi=8192)
-    assert detect_fast.plan(c.p, c.FL).blocks == 9
+    lay = detect_fast.plan(c.p, c.FL)
+    assert (lay.blocks, lay.clusters) == (2, 2)
     c = exp_fast.split_case("split1_1mhz", cpu)
     assert c.FL == 1106 and c.ranges[0][2] == dict(bin_lo=-41, own_lo=0,
                                                    own_hi=1024)
