@@ -19,11 +19,15 @@ Phases, each printing one line:
      1.6 GHz decodes' three in both modes, through `tools/exp_demod.py`,
      bit-equal or not with the first symbol that parts, ns a symbol step
      beside the chain bound (`tools/sass_chain.py`), beside the plain
-     loop eager and captured as a CUDA graph; the downmix FIRs' two
-     launches (noise LPF + box filter, RRC) at the three class batches of
-     the 10 MHz, 400 MHz and 1.6 GHz decodes, through
-     `tools/exp_downmix.py`, bit-equal to their plain versions, beside
-     them and three conv1d calls; the detect_fast kernel, one launch a
+     loop eager and captured as a CUDA graph; the downmix FIR kernel's
+     two launches (noise LPF + box filter; frame gather, fine rotation
+     and RRC) at the three class batches of the 10 MHz, 400 MHz and 1.6
+     GHz decodes, through `tools/exp_downmix.py`, bit-equal to their
+     plain versions, beside them, three conv1d calls and the FIRs alone
+     (the rotation taken out; with DOWNMIX_OLD_SOURCE naming the design
+     before the fold, `git show
+     8e9722b:iridium_tpu_torch/csrc/downmix_fir.cu`, that design too);
+     the detect_fast kernel, one launch a
      block, on the production block (2,048 x 8,192, squelch and emission
      drops reached), bit-equal to `scan_fast_plain` on the card on every
      field of the state, through `tools/exp_fast.py`, beside the twin's
@@ -475,24 +479,30 @@ def check_demod(dev, card: str) -> dict:
 
 def check_downmix(dev, card: str) -> dict:
     """The downmix FIR kernel's two launches (`downmix.noise_box`,
-    `downmix.rrc`) at the three class batches (batch x dec_cap) of the 10
-    MHz group program (1,024 and 96 x 8,172; 48 x 28,140), of the 400 MHz
-    decode's and of the 1.6 GHz decode's (256 frames a block), at
+    `downmix.frame_rrc`) at the three class batches (batch x dec_cap) of
+    the 10 MHz group program (1,024 and 96 x 8,172; 48 x 28,140), of the
+    400 MHz decode's and of the 1.6 GHz decode's (256 frames a block), at
     WIDE_RUN, on `tools/exp_downmix.py`'s rows (lengths 0, 1, 19, 20, 24,
-    25, 26 and L among them, shift_dec > 0 and past dec_len): bit-equal to
-    `noise_box_plain` and `rrc_plain` (the tool raises where they part),
-    each row timed single-call (each launch and both), chained and as a
-    CUDA graph, beside the plain versions, three conv1d calls (TF32 off)
-    and the bound (bytes
-    and FP32 operations, none fused, at the card's top SM clock). The row
-    reports the 10 MHz small-normal batch, `detail` all nine, with the
-    build's `ptxas -v` registers and spills per kernel function."""
-    from iridium_tpu_torch import _kernels
+    25, 26 and L among them, shift_dec > 0 and past dec_len, starts past
+    the row, u at -+cfo_total / 2, corr 0): bit-equal to `noise_box_plain`
+    and `frame_rrc_plain` (the tool raises where they part), each row
+    timed single-call (each launch and both), chained and as a CUDA
+    graph, beside the plain versions, three conv1d calls (TF32 off) and
+    the bound (bytes and FP32 operations, none fused, at the card's top SM
+    clock). Beside them in each row's `designs`, the FIRs alone (stage 1
+    from start 0, unturned, bit-equal to `rrc_plain`): the package's
+    source with its rotation taken out (`fir_alone`) and, where
+    DOWNMIX_OLD_SOURCE names it, the design before the fold, each with
+    the bound of that work. The row reports the 10 MHz small-normal
+    batch, `detail` all nine, with the builds' `ptxas -v` registers and
+    spills per kernel function."""
     from iridium_tpu_torch.tools import exp_demod
     from iridium_tpu_torch.tools import exp_downmix as tool
 
     clock = tool.sm_clock_hz(dev)
-    per_shape = [tool.run_shape(sh, dev, clock_hz=clock)
+    old = os.environ.get("DOWNMIX_OLD_SOURCE")
+    cands = tool.candidates([old] if old else [])
+    per_shape = [tool.run_shape(sh, dev, clock_hz=clock, cands=cands)
                  for rate in (10.0, 400.0, 1600.0)
                  for sh in tool.class_shapes(rate)]
     row = per_shape[0]
@@ -506,8 +516,8 @@ def check_downmix(dev, card: str) -> dict:
                 detail=dict(card=card, per_shape=per_shape,
                             bit_equal=all(r["bit_equal"] for r in per_shape),
                             library=row["library"],
-                            ptxas=exp_demod.ptxas_summary(
-                                _kernels.DOWNMIX_FIR)))
+                            ptxas={name: exp_demod.ptxas_summary(k)
+                                   for name, k, _ in cands}))
 
 
 def check_fast(dev, card: str) -> dict:
@@ -850,9 +860,9 @@ class ReplayCheck:
     `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
     kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
     its decisions on `loop_plain`'s (`compare_demod`; counted under
-    `demod_loop` as `decide_calls`), and the downmix FIRs' two launches
-    (`downmix.noise_box`, `downmix.rrc`) bit-equal to their plain versions
-    (counted under `downmix_fir`). A graph reads
+    `demod_loop` as `decide_calls`), and the downmix FIR kernel's two
+    launches (`downmix.noise_box`, `downmix.frame_rrc`) bit-equal to
+    their plain versions (counted under `downmix_fir`). A graph reads
     static buffers and rewrites its other tensors at each replay, so after
     a replay the recorded inputs and outputs are that replay's. Used as a
     context around a decode that captures its graphs; `summary` has, per
@@ -876,8 +886,9 @@ class ReplayCheck:
         saved = self._saved = (ff.fused, wg.gather, demod.loop,
                                demod.Demod.decide, pl.Captured._capture,
                                pl.Captured.replay, downmix.noise_box,
-                               downmix.rrc)
-        fused, gather, loop, decide, capture, replay, noise_box, rrc = saved
+                               downmix.frame_rrc)
+        (fused, gather, loop, decide, capture, replay, noise_box,
+         frame_rrc) = saved
 
         def record(name, fn):
             def wrapped(*args):
@@ -906,7 +917,7 @@ class ReplayCheck:
         demod.loop = record("demod_loop", loop)
         demod.Demod.decide = record("demod_decide", decide)
         downmix.noise_box = record("downmix_noise_box", noise_box)
-        downmix.rrc = record("downmix_rrc", rrc)
+        downmix.frame_rrc = record("downmix_frame_rrc", frame_rrc)
         pl.Captured._capture = capturing
         pl.Captured.replay = replaying
         return self
@@ -918,7 +929,7 @@ class ReplayCheck:
         from iridium_tpu_torch.runtime import pipeline as pl
         (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
          pl.Captured._capture, pl.Captured.replay, downmix.noise_box,
-         downmix.rrc) = self._saved
+         downmix.frame_rrc) = self._saved
         self.calls.clear()
         self._plain.clear()
         return False
@@ -929,11 +940,11 @@ class ReplayCheck:
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.tools import exp_demod
-        if name in ("downmix_noise_box", "downmix_rrc"):
+        if name in ("downmix_noise_box", "downmix_frame_rrc"):
             if name == "downmix_noise_box":
                 want = downmix.noise_box_plain(*args)
             else:
-                got, want = (got,), (downmix.rrc_plain(*args),)
+                got, want = (got,), (downmix.frame_rrc_plain(*args),)
             same = all(torch.equal(a, b) for a, b in zip(got, want))
             err = 0.0 if same else max(float((a - b).abs().max())
                                        for a, b in zip(got, want))

@@ -196,10 +196,10 @@ DEMOD_LOOP = Kernel(
 
 DOWNMIX_FIR = Kernel(
     "downmix_fir",
-    # stage, x, B, L, the lengths, the two FIRs' taps and counts, the
-    # outputs, the stream
-    [I, P, I, LL, P, P, P, I, P, I, P, P, P],
-    # every product and sum rounded on its own, as the plain FIRs'
+    # stage, x, B, L, the lengths, u, corr and 2 cfo_total (stage 1's
+    # rotation), the two FIRs' taps and counts, the outputs, the stream
+    [I, P, I, LL, P, P, P, P, LL, P, I, P, I, P, P, P],
+    # every product and sum rounded on its own, as the plain version's
     # separate tensor operations round them
     extra_flags=("--fmad=false",))
 

@@ -11,11 +11,12 @@ extraction :749-793.
 
 The three small FIRs (25, 20 and 51 taps) with their masks are
 `noise_box` (the noise LPF, the re-zeroing, |x|^2 and the box filter) and
-`rrc` (the RRC matched filter): on a CUDA tensor a launch each of
-csrc/downmix_fir.cu, on a CPU tensor their plain versions `noise_box_plain`
-and `rrc_plain`, shifted adds (`fir_valid_small`) with the JAX package's
-sequential f32 accumulation order (`_fir_valid_small`, `_fir_same_c`
-:132-164).
+`frame_rrc` (the frame gather, its mask, the fine rotation and the RRC
+matched filter): on a CUDA tensor a launch each of csrc/downmix_fir.cu,
+on a CPU tensor their plain versions `noise_box_plain` and
+`frame_rrc_plain`, whose FIRs are shifted adds (`fir_valid_small`) with
+the JAX package's sequential f32 accumulation order (`_fir_valid_small`,
+`_fir_same_c` :132-164).
 """
 
 from __future__ import annotations
@@ -162,6 +163,28 @@ def rrc_plain(xf: torch.Tensor, frame_len: torch.Tensor,
     return fir_same_c(xf, rrc_taps)
 
 
+def frame_rrc_plain(xd: torch.Tensor, start: torch.Tensor,
+                    frame_len: torch.Tensor, u: torch.Tensor,
+                    corr: torch.Tensor, rrc_taps: torch.Tensor,
+                    cfo_total: int) -> torch.Tensor:
+    """The frame of xd (B, L) c64 from start ((B,) i64; 0 past the row),
+    kept below frame_len, turned by the fine CFO (the integer bin u (B,)
+    i64 exact, the fraction corr (B,) f32 in f32, over 2 cfo_total), and
+    through the RRC matched filter (`rrc_plain`) -> (B, L) c64."""
+    iota = torch.arange(xd.shape[1], device=xd.device)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=xd.device)
+    # frame gather: the frame starts at index 0
+    xf = shift_take(xd, start, xd.shape[1])
+    xf = torch.where(iota < frame_len[:, None], xf, zero_c)
+    # fine rotate: integer part exact, fraction in f32
+    two_total = 2 * cfo_total
+    mfine = ((u[:, None] * iota) % two_total).float()
+    frac = (corr[:, None] * iota.float()) / two_total
+    angf = float(np.float32(-2.0 * np.pi)) * (mfine / two_total + frac)
+    xf = xf * torch.complex(torch.cos(angf), torch.sin(angf))
+    return rrc_plain(xf, frame_len, rrc_taps)
+
+
 def _check_rows(x: torch.Tensor, lengths: dict, taps: dict) -> None:
     """Raise unless x is a contiguous (B, L) c64 tensor, each of
     `lengths` a (B,) i64 and each of `taps` a (1..MAX_TAPS,) f32 tensor on
@@ -195,25 +218,37 @@ def noise_box(x: torch.Tensor, dec_len: torch.Tensor,
     if xd.numel():
         k = _kernels
         k.DOWNMIX_FIR.launch(x.device, 0, k.ptr(x), B, L, k.ptr(dec_len),
-                             k.ptr(shift_dec), k.ptr(noise_taps),
+                             k.ptr(shift_dec), None, None, 0,
+                             k.ptr(noise_taps),
                              noise_taps.shape[0], k.ptr(box_taps),
                              box_taps.shape[0], k.ptr(xd), k.ptr(filt))
     return xd, filt
 
 
-def rrc(xf: torch.Tensor, frame_len: torch.Tensor,
-        rrc_taps: torch.Tensor) -> torch.Tensor:
-    """`rrc_plain`'s function: on a CPU tensor `rrc_plain`, on a CUDA
-    tensor one launch of csrc/downmix_fir.cu (stage 1), or a raise."""
-    if xf.device.type == "cpu":
-        return rrc_plain(xf, frame_len, rrc_taps)
-    _check_rows(xf, dict(frame_len=frame_len), dict(rrc_taps=rrc_taps))
-    B, L = xf.shape
-    xr = torch.empty_like(xf)
+def frame_rrc(xd: torch.Tensor, start: torch.Tensor,
+              frame_len: torch.Tensor, u: torch.Tensor, corr: torch.Tensor,
+              rrc_taps: torch.Tensor, cfo_total: int) -> torch.Tensor:
+    """`frame_rrc_plain`'s function: on a CPU tensor `frame_rrc_plain`, on
+    a CUDA tensor one launch of csrc/downmix_fir.cu (stage 1), or a raise.
+    The kernel takes the fine rotation's 2 cfo_total as a power of two up
+    to 2^24 (the downmix's always is)."""
+    if xd.device.type == "cpu":
+        return frame_rrc_plain(xd, start, frame_len, u, corr, rrc_taps,
+                               cfo_total)
+    _check_rows(xd, dict(start=start, frame_len=frame_len, u=u),
+                dict(rrc_taps=rrc_taps))
+    _kernels.check(corr, "corr", torch.float32, xd.device, (xd.shape[0],))
+    two_total = 2 * int(cfo_total)
+    if not 0 < two_total <= 1 << 24 or two_total & (two_total - 1):
+        raise ValueError(f"cfo_total: the kernel takes 2 cfo_total as a "
+                         f"power of two up to 2^24, got {cfo_total}")
+    B, L = xd.shape
+    xr = torch.empty_like(xd)
     if xr.numel():
         k = _kernels
-        k.DOWNMIX_FIR.launch(xf.device, 1, k.ptr(xf), B, L,
-                             k.ptr(frame_len), None, k.ptr(rrc_taps),
+        k.DOWNMIX_FIR.launch(xd.device, 1, k.ptr(xd), B, L,
+                             k.ptr(frame_len), k.ptr(start), k.ptr(u),
+                             k.ptr(corr), two_total, k.ptr(rrc_taps),
                              rrc_taps.shape[0], None, 0, k.ptr(xr), None)
     return xr
 
@@ -333,14 +368,12 @@ class Downmix(torch.nn.Module):
         ok &= start < dec_len - 100
         frame_len = dec_len - start
 
-        # frame gather: the frame starts at index 0
-        xf = shift_take(xd, start, self.dec_cap)
-        xf = torch.where(iota < frame_len[:, None], xf, zero_c)
-
-        # fine CFO: squared signal, x16 zero-padded FFT, quadratic peak
+        # fine CFO: squared signal, x16 zero-padded FFT, quadratic peak,
+        # on the frame's first cfo_n samples (from start; the mask below
+        # keeps those under frame_len)
         cfo_n, cfo_total = self.cfo_n, self.cfo_total
         ncfo = torch.clamp(frame_len, max=cfo_n)
-        z = xf[:, :cfo_n]
+        z = shift_take(xd, start, cfo_n)
         z = torch.where(torch.arange(cfo_n, device=dev) < ncfo[:, None],
                         z * z * self.cfo_win, zero_c)
         p = torch.fft.fft(z, n=cfo_total).abs() ** 2
@@ -354,16 +387,10 @@ class Downmix(torch.nn.Module):
                            torch.zeros_like(a))
         fine_offset = (u.float() + corr) / cfo_total / 2.0
 
-        # fine rotate: integer part exact, fraction in f32
-        two_total = 2 * cfo_total
-        mfine = ((u[:, None] * iota) % two_total).float()
-        frac = (corr[:, None] * iota.float()) / two_total
-        angf = float(np.float32(-2.0 * np.pi)) * (mfine / two_total + frac)
-        xf = xf * torch.complex(torch.cos(angf), torch.sin(angf))
-
-        # RRC matched filter ("same") on the frame; `rrc` by its module
-        # global
-        xr = rrc(xf, frame_len, self.rrc_taps)
+        # the frame gather, the fine rotation and the RRC matched filter
+        # ("same"); `frame_rrc` by its module global
+        xr = frame_rrc(xd, start, frame_len, u, corr, self.rrc_taps,
+                       cfo_total)
 
         # sync-word correlation
         search_cap, corr_n = self.search_cap, self.corr_n

@@ -532,14 +532,16 @@ def stage_graphs(pipe, g, dev: torch.device) -> dict:
     own, on the inputs it had in one eager run of the group program on the
     graph `g`'s buffers (the first call of each stage is that class's):
     the front-end, the downmix (with its FIR launches, `noise_box` and
-    `rrc`, also alone), the demod loop and its tail (`Demod.decide`), the
-    packing; per stage its nodes and replay ms (median of 5)."""
+    `frame_rrc`, also alone), the demod loop and its tail
+    (`Demod.decide`), the packing; per stage its nodes and replay ms
+    (median of 5)."""
     from ..dsp import downmix
     from ..ops import fused_frontend
     from ..runtime import pipeline
     targets = {"frontend": (fused_frontend, "fused"),
                "downmix": (downmix.Downmix, "forward"),
-               "noise_box": (downmix, "noise_box"), "rrc": (downmix, "rrc"),
+               "noise_box": (downmix, "noise_box"),
+               "frame_rrc": (downmix, "frame_rrc"),
                "demod_loop": (demod, "loop"),
                "demod_tail": (demod.Demod, "decide"),
                "pack": (pipeline, "pack_outputs")}

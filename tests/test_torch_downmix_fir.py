@@ -1,6 +1,6 @@
 """The downmix chain's small FIRs with their masks (the port's
-dsp/downmix.py `noise_box_plain` and `rrc_plain`, the plain versions of
-csrc/downmix_fir.cu) against the JAX package's `_fir_same_c`,
+dsp/downmix.py `noise_box_plain` and `rrc_plain`, the FIRs of the plain
+versions of csrc/downmix_fir.cu) against the JAX package's `_fir_same_c`,
 `_fir_valid_f` and the masks of `downmix_from_dec`
 (iridium_tpu/dsp/downmix.py:132-164, :399-412, :459-460) on the same
 numpy rows, bit for bit: both run the FIRs as shifted f32 adds in tap
@@ -11,9 +11,16 @@ filter is held bit-equal to JAX's `_fir_valid_f` over the port's |xd|^2,
 and within rtol 1e-6 of the JAX chain with its own |xd|^2. The rows (odd
 L) cover shift_dec > 0, dec_len < 25 (the LPF skipped), dec_len < 20 (no
 box output), nothing kept, dec_len past the row, and frame_len 0,
-negative, short and full. Then the whole `Downmix` against the JAX
-`from_dec` on bursts behind alignment leads (shift_dec > 0) and short
-windows, with test_torch_downmix_demod.py's tolerances.
+negative, short and full. The kernel's stage 1, `frame_rrc_plain` (the
+frame gather, its mask, the fine rotation, the RRC), against the JAX
+steps of `downmix_from_dec` (:431-460) on the same numpy rows, starts
+(past the row too), bins u (at +-cfo_total / 2 too) and fractions corr
+(0 too): the two frameworks' CPU cos and sin may part in the last bit,
+so within rtol 1e-4 and atol 1e-4 x the rows' peak (the tolerance
+`test_downmix_with_leads_matches_jax` uses for samples). Then the whole
+`Downmix` against the JAX `from_dec` on bursts behind alignment leads
+(shift_dec > 0) and short windows, with test_torch_downmix_demod.py's
+tolerances.
 """
 
 import numpy as np
@@ -165,12 +172,101 @@ def test_rows_exercise_the_masks(rows):
     assert xr[i("box_20")][:26].all() and not xr[i("box_20")][26:].any()
 
 
-def test_cpu_wrappers_are_the_plain_versions(rows):
+def test_cpu_wrappers_are_the_plain_versions(rows, frames):
     xd, filt = downmix.noise_box(*rows["args_nb"])
     assert torch.equal(xd, torch.from_numpy(rows["port"][0]))
     assert torch.equal(filt, torch.from_numpy(rows["port"][1]))
-    xr = downmix.rrc(*rows["args_rrc"])
-    assert torch.equal(xr, torch.from_numpy(rows["port"][2]))
+    xr = downmix.frame_rrc(*frames["args"])
+    assert torch.equal(xr, torch.from_numpy(frames["port"]))
+
+
+# frame rows for stage 1: (name, start, frame_len, u, corr); H is
+# cfo_total / 2, u's ends (downmix: u in [-H, H))
+H = 2048
+FRAME_ROWS = [("full", 0, L, 5, 0.3),
+              ("mid", 700, 1500, -37, -0.41),
+              ("u_plus_half", 100, 2800, H, 0.49),
+              ("u_minus_half", 260, 2700, -H, -0.5),
+              ("corr_0", 50, 2000, 12, 0.0),
+              ("u_0_corr_0", 3, 2990, 0, 0.0),
+              ("frame_past_the_row", 2000, L, 7, 0.1),
+              ("start_past_the_row", L + 50, L, 3, 0.2),
+              ("short", 2990, 11, -1, 0.25),
+              ("empty", 0, 0, 1, 0.5),
+              ("negative_len", 10, -5, 2, -0.2)]
+FRAME_IDS = [r[0] for r in FRAME_ROWS]
+
+
+def _jax_frame_rrc(c, cfo_total):
+    """downmix_from_dec :431-435 (gather, mask), :451-456 (rotate) and
+    :458-460 (mask, RRC), per row."""
+    rrc = np.asarray(c.rrc_taps)
+    iota = jnp.arange(L, dtype=jnp.int32)
+    pad_to = -(-(2 * L + 256) // 128) * 128
+
+    def one(xd, start, frame_len, u, corr):
+        xf = jdownmix._shift_take(jnp.pad(xd, (0, pad_to - L)), start, L)
+        xf = jnp.where(iota < frame_len, xf, 0.0)
+        two_total = 2 * cfo_total
+        mfine = jnp.mod(u * iota, two_total).astype(jnp.float32)
+        frac = (corr * iota.astype(jnp.float32)) / two_total
+        angf = (-2.0 * np.pi) * (mfine / two_total + frac)
+        xf = xf * jax.lax.complex(jnp.cos(angf), jnp.sin(angf))
+        xf = jnp.where(iota < frame_len, xf, 0.0)
+        return jdownmix._fir_same_c(xf, rrc)
+    return jax.vmap(one)
+
+
+@pytest.fixture(scope="module")
+def frames():
+    rng = np.random.default_rng(20)
+    B = len(FRAME_ROWS)
+    xd = (rng.standard_normal((B, L)) + 1j * rng.standard_normal((B, L))
+          ).astype(np.complex64)
+    start, frame_len, u = (np.array([r[i] for r in FRAME_ROWS], np.int64)
+                           for i in (1, 2, 3))
+    corr = np.array([r[4] for r in FRAME_ROWS], np.float32)
+    jdmp = JaxDmConfig().derived(JaxDetConfig(**DET).derived())
+    cfo_total = jdmp.cfo_fft_total
+    assert cfo_total == 2 * H
+    c = jdownmix.make_consts(jdmp)
+    jxr = _jax_frame_rrc(c, cfo_total)(
+        jnp.asarray(xd), jnp.asarray(start, jnp.int32),
+        jnp.asarray(frame_len, jnp.int32), jnp.asarray(u, jnp.int32),
+        jnp.asarray(corr))
+    args = (torch.from_numpy(xd), torch.from_numpy(start),
+            torch.from_numpy(frame_len), torch.from_numpy(u),
+            torch.from_numpy(corr), torch.from_numpy(c.rrc_taps), cfo_total)
+    return dict(jax=np.asarray(jxr),
+                port=downmix.frame_rrc_plain(*args).numpy(), args=args)
+
+
+@pytest.mark.parametrize("i", range(len(FRAME_ROWS)), ids=FRAME_IDS)
+def test_frame_rrc_plain_matches_jax(frames, i):
+    got, want = frames["port"], frames["jax"]
+    assert got.dtype == np.complex64 and got.shape == want.shape
+    np.testing.assert_allclose(got[i], want[i], rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_frame_rows_exercise_the_masks(frames):
+    """Nothing of a frame past its length, past the row or from a start
+    past the row; every sample up to 25 past a frame that the row holds;
+    u = 0 and corr = 0 turn nothing (the frame's RRC is `rrc_plain`'s)."""
+    xr, (xd, start, frame_len, *_, taps, _) = frames["port"], frames["args"]
+    i = FRAME_IDS.index
+    for name in ("start_past_the_row", "empty", "negative_len"):
+        assert not xr[i(name)].any()
+    assert xr[i("short")][:11 + 25].all() and not xr[i("short")][36:].any()
+    # the frame from 2,000 ends at the row's end, 1,001 samples on
+    assert xr[i("frame_past_the_row")][:1001 + 25].all()
+    assert not xr[i("frame_past_the_row")][1001 + 25:].any()
+    b = i("u_0_corr_0")
+    s = int(start[b])
+    shifted = torch.zeros_like(xd[b:b + 1])
+    shifted[0, :L - s] = xd[b, s:]
+    want = downmix.rrc_plain(shifted, frame_len[b:b + 1], taps)
+    assert torch.equal(torch.from_numpy(xr[b:b + 1]), want)
 
 
 # Downmix with alignment leads: (start of the burst in the decimated row,

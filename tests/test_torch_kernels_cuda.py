@@ -1083,20 +1083,21 @@ def test_demod_loop_refuses_another_plan(dev):
 
 
 def _downmix_inputs(dev, B, L, seed):
-    """`exp_downmix.inputs` on the card, with the downmix's taps."""
-    x, xf, dl, sd, fl = (torch.from_numpy(v).to(dev)
-                         for v in exp_downmix.inputs(B, L, seed))
-    return x, xf, dl, sd, fl, exp_downmix.taps(dev)
+    """`exp_downmix.inputs` on the card (x, xf, dec_len, shift_dec,
+    frame_len, start, u, corr), with the downmix's taps."""
+    return tuple(torch.from_numpy(v).to(dev) for v in exp_downmix.inputs(
+        B, L, seed, exp_downmix.cfo_total())) + (exp_downmix.taps(dev),)
 
 
-def _downmix_both(x, xf, dl, sd, fl, t, fns):
-    """(xd, filt, xr) of `fns` = (noise_box, rrc) or their plain versions."""
+def _downmix_both(x, xf, dl, sd, fl, st, u, corr, t, fns):
+    """(xd, filt, xr) of `fns` = (noise_box, frame_rrc) or their plain
+    versions; stage 1 reads xf from start."""
     return fns[0](x, dl, sd, t["noise"], t["box"]) + (
-        fns[1](xf, fl, t["rrc"]),)
+        fns[1](xf, st, fl, u, corr, t["rrc"], exp_downmix.cfo_total()),)
 
 
-KERNEL_FNS = (downmix.noise_box, downmix.rrc)
-PLAIN_FNS = (downmix.noise_box_plain, downmix.rrc_plain)
+KERNEL_FNS = (downmix.noise_box, downmix.frame_rrc)
+PLAIN_FNS = (downmix.noise_box_plain, downmix.frame_rrc_plain)
 
 
 # (B, L): the 10 MHz small-normal class (1,024 x 8,172), B = 1, B not a
@@ -1109,10 +1110,12 @@ DOWNMIX_EDGES = [(1024, 8172), (1, 8172), (37, 3001), (5, 1024), (3, 1025),
 
 @pytest.mark.parametrize("B, L", DOWNMIX_EDGES)
 def test_downmix_fir_bit_equal_to_plain(dev, B, L):
-    """Both launches bit-equal to `noise_box_plain` and `rrc_plain` (xd,
-    filt, xr; torch.equal), on `exp_downmix.inputs`: lengths 0, 1, 19, 20,
-    24, 25, 26 and L among dec_len and frame_len, shift_dec > 0 and past
-    dec_len. Two launches."""
+    """Both launches bit-equal to `noise_box_plain` and `frame_rrc_plain`
+    (xd, filt, xr; torch.equal), on `exp_downmix.inputs`: lengths 0, 1,
+    19, 20, 24, 25, 26 and L among dec_len and frame_len, shift_dec > 0
+    and past dec_len; where the batch has the rows, a start past the row,
+    a frame past the row's end, u at -+cfo_total / 2 and corr 0. Two
+    launches."""
     args = _downmix_inputs(dev, B, L, seed=B + L)
     want = _downmix_both(*args, PLAIN_FNS)
     before = _kernels.DOWNMIX_FIR.launches
@@ -1136,7 +1139,7 @@ def test_downmix_fir_in_a_cuda_graph(dev):
     assert _kernels.graph_nodes(g.raw_cuda_graph()) == 2
     g.instantiate()
     for seed in (2, 3):
-        for a, b in zip(args[:5], _downmix_inputs(dev, B, L, seed)[:5]):
+        for a, b in zip(args[:8], _downmix_inputs(dev, B, L, seed)[:8]):
             a.copy_(b)
         g.replay()
         torch.cuda.synchronize()
@@ -1152,12 +1155,13 @@ def test_downmix_on_card_launches_the_kernel_only(dev, monkeypatch):
     p = DetectorConfig(sample_rate=10_000_000).derived()
     dm = downmix.Downmix(p, DownmixConfig().derived(p), 8172, 1918, dev)
     B = 6
-    x, _, _, sd, _, _ = _downmix_inputs(dev, B, 8172, seed=5)
+    x, sd = (_downmix_inputs(dev, B, 8172, seed=5)[i] for i in (0, 3))
     ext = torch.tensor([0, 900, 4_000, 120_000, 200_000, 327_680],
                        dtype=torch.int32, device=dev)
     bins = torch.full((B,), p.fft_size // 2, dtype=torch.int32, device=dev)
     with monkeypatch.context() as m:
-        for name in ("noise_box_plain", "rrc_plain", "fir_valid_small"):
+        for name in ("noise_box_plain", "frame_rrc_plain", "rrc_plain",
+                     "fir_valid_small"):
             m.setattr(downmix, name, _refuse(name))
         before = _kernels.DOWNMIX_FIR.launches
         got = dm(x, ext, bins, sd.int())
@@ -1165,7 +1169,7 @@ def test_downmix_on_card_launches_the_kernel_only(dev, monkeypatch):
         assert _kernels.DOWNMIX_FIR.launches == before + 2
     with monkeypatch.context() as m:
         m.setattr(downmix, "noise_box", downmix.noise_box_plain)
-        m.setattr(downmix, "rrc", downmix.rrc_plain)
+        m.setattr(downmix, "frame_rrc", downmix.frame_rrc_plain)
         want = dm(x, ext, bins, sd.int())
     for name, a, b in zip(got._fields, got, want):
         assert torch.equal(a, b), name
@@ -1179,8 +1183,9 @@ def _refuse(name):
 
 def test_downmix_fir_refuses_what_it_cannot_take(dev):
     """The wrappers raise on a wrong dtype, device, shape or contiguity,
-    and on more than 64 taps (the C entry refuses them too)."""
-    x, xf, dl, sd, fl, t = _downmix_inputs(dev, 5, 300, seed=9)
+    on more than 64 taps and on a 2 cfo_total that is no power of two up
+    to 2^24 (the C entry refuses them too)."""
+    x, xf, dl, sd, fl, st, u, corr, t = _downmix_inputs(dev, 5, 300, seed=9)
     nb = lambda *a: downmix.noise_box(*a)  # noqa: E731
     good = (x, dl, sd, t["noise"], t["box"])
     bad = [
@@ -1198,18 +1203,23 @@ def test_downmix_fir_refuses_what_it_cannot_take(dev):
     for args in bad:
         with pytest.raises(ValueError):
             nb(*args)
-    for args in [(xf.real.contiguous(), fl, t["rrc"]),
-                 (xf, fl.float(), t["rrc"]),
-                 (xf, fl, torch.ones(65, device=dev)),
-                 (xf, fl, t["rrc"][::2])]:
+    total = exp_downmix.cfo_total()
+    good = (xf, st, fl, u, corr, t["rrc"], total)
+    for i, v in [(0, xf.real.contiguous()), (2, fl.float()),
+                 (1, st.int()), (3, u[:4]), (4, corr.double()),
+                 (4, corr.cpu()), (5, torch.ones(65, device=dev)),
+                 (5, t["rrc"][::2]), (6, 3000), (6, 0), (6, 1 << 24)]:
         with pytest.raises(ValueError):
-            downmix.rrc(*args)
+            downmix.frame_rrc(*good[:i], v, *good[i + 1:])
     out = torch.empty_like(x)
     k = _kernels
     many = torch.ones(65, device=dev)
-    for stage, n_a, n_b in ((0, 65, 20), (0, 25, 65), (1, 65, 0), (2, 25, 0),
-                            (0, 0, 20)):
+    for stage, n_a, n_b, tt in ((0, 65, 20, 0), (0, 25, 65, 0),
+                                (1, 65, 0, 8192), (2, 25, 0, 8192),
+                                (0, 0, 20, 0), (1, 51, 0, 6000),
+                                (1, 51, 0, 0), (1, 51, 0, 1 << 25)):
         with pytest.raises(RuntimeError):
             k.DOWNMIX_FIR.launch(dev, stage, k.ptr(x), 5, 300, k.ptr(dl),
-                                 k.ptr(sd), k.ptr(many), n_a, k.ptr(many),
-                                 n_b, k.ptr(out), k.ptr(out))
+                                 k.ptr(sd), k.ptr(u), k.ptr(corr), tt,
+                                 k.ptr(many), n_a, k.ptr(many), n_b,
+                                 k.ptr(out), k.ptr(out))

@@ -293,13 +293,70 @@ def test_exp_downmix_shapes_follow_the_pipeline():
 
 
 def test_exp_downmix_inputs_have_the_edges():
-    x, xf, dl, sd, fl = exp_downmix.inputs(20, 300, seed=2)
+    x, xf, dl, sd, fl, st, u, corr = exp_downmix.inputs(20, 300, seed=2)
     assert x.shape == xf.shape == (20, 300) and x.dtype == np.complex64
     edges = [0, 1, 19, 20, 24, 25, 26, 300]
     assert list(dl[:8]) == edges and list(fl[:8]) == edges
     assert not sd[:8].any()
     assert (dl[8], sd[8]) == (300, 30) and sd[9] > dl[9]
     assert (fl >= 0).all() and (fl <= dl).all() and (dl <= 300).all()
+    # stage 1: the edge frames from 0, the others inside the row but for
+    # a start past it and a frame past its end; u's ends and corr 0
+    assert not st[:8].any() and (st >= 0).all()
+    assert st[10] > 300 and fl[11] == dl[11] >= 75
+    assert st[11] + fl[11] == 300 + fl[11] // 2 + fl[11] % 2
+    inside = np.ones(20, bool)
+    inside[[10, 11]] = False
+    assert (st + fl <= 300)[inside].all()
+    assert (u[12], u[13], corr[14]) == (-2048, 2048, 0.0)
+    assert (np.abs(u) <= 2048).all() and (np.abs(corr) <= 0.5).all()
+    assert u.dtype == st.dtype == np.int64 and corr.dtype == np.float32
+    assert exp_downmix.cfo_total() == 4096
+
+
+def test_exp_downmix_bound_counts_the_fold():
+    """Stage 1 read from start: the frame's samples the row holds from
+    there (8 bytes each) with the fine rotation's 11 operations each, the
+    RRC up to 25 past them, and start, u and corr (20 bytes a row)."""
+    dl, sd, fl = np.array([50, 10, 0]), np.array([10, 0, 0]), np.array(
+        [30, 0, 100])
+    st = np.array([90, 5, 30])
+    plain = exp_downmix.bound(dl, sd, fl, 100, 25, 20, 51, 2e9)
+    b = exp_downmix.bound(dl, sd, fl, 100, 25, 20, 51, 2e9, start=st,
+                          rotate=True)
+    kept = 40 + 10
+    hf = 10 + 0 + 70
+    assert b["bound_bytes"] == (8 * kept + 8 * hf + 24 * 3 + 4 * 96
+                                + 20 * 3 * 100 + 20 * 3)
+    assert b["bound_ops"] == (98 * 40 + kept + 39 * (50 + 10) + 202 * 35
+                              + 202 * 95 + 11 * hf)
+    assert b["bound_ops"] < plain["bound_ops"]
+    assert exp_downmix.bound(dl, sd, fl, 100, 25, 20, 51, 2e9,
+                             start=0 * st) == plain
+
+
+def test_exp_downmix_designs_edit_the_source():
+    """`fir_alone` takes the one rotation call out of the package's
+    source and `no_taps` the loop over the taps past the first; `adapted`
+    leaves an entry with the rotation arguments alone and puts one in
+    front of an entry without them."""
+    text = _kernels.DOWNMIX_FIR.source.read_text()
+    cut = exp_downmix.probe_no_taps(text)
+    assert exp_downmix.TAPS_LOOP not in cut and len(cut) < len(text) + 8
+    with pytest.raises(ValueError):
+        exp_downmix.probe_no_taps(cut)
+    alone = exp_downmix.probe_fir_alone(text)
+    assert alone.count("turn(") == text.count("turn(") - 1 >= 1
+    with pytest.raises(ValueError):
+        exp_downmix.probe_fir_alone(alone)
+    assert exp_downmix.adapted(text) == text
+    old = text.replace("const long long* u, const float* corr,\n"
+                       "                           long long two_total, ",
+                       "", 1)
+    assert old != text
+    got = exp_downmix.adapted(old)
+    assert got.count('extern "C" int downmix_fir(') == 1
+    assert 'extern "C" int downmix_fir_unfolded(' in got
 
 
 def test_exp_downmix_bound_counts_the_work():
