@@ -27,6 +27,11 @@ Phases, each printing one line:
      (the rotation taken out; with DOWNMIX_OLD_SOURCE naming the design
      before the fold, `git show
      8e9722b:iridium_tpu_torch/csrc/downmix_fir.cu`, that design too);
+     the downmix chain's four launches (burst start, CFO peak, sync
+     products, sync peaks and extraction) at the same nine batches,
+     through `tools/exp_downmix_chain.py`, each bit-equal to its twin on
+     the twins' chain (and the FIR kernel's stage 1 with the sync
+     search's input to its twin), beside the twins' graph and the bound;
      the detect_fast kernel, one launch a
      block, on the production block (2,048 x 8,192, squelch and emission
      drops reached), bit-equal to `scan_fast_plain` on the card on every
@@ -51,8 +56,8 @@ Phases, each printing one line:
      and through the same Pipeline on the CPU (the plain twin): the same
      RAW lines but for the frequency (±1 Hz) and the level's last digit;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose gathers, downmix FIRs and demod loops captured into its graphs
-     are held to
+     whose gathers, downmix FIR and chain launches and demod loops
+     captured into its graphs are held to
      their plain versions after every replay (`ReplayCheck`), its burst
      detected and its wall taken on the captured graphs; then the
      demodulator alone at a 256-burst batch (`demod_loop`: the kernel and
@@ -72,8 +77,8 @@ Phases, each printing one line:
      same lines, and the RAW capture through the CLI from its file and,
      with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
      block): the same lines. The
-     front-end, gather, downmix-FIR and demod-loop calls in the sharded
-     graphs (the
+     front-end, gather, downmix FIR and chain and demod-loop calls in the
+     sharded graphs (the
      sharded capacities' batches, 256 and 48 bursts) are held to their
      plain versions after every replay of the warm-up runs
      (`ReplayCheck`); the class graphs' nodes as in phase 3.
@@ -126,12 +131,14 @@ Phases, each printing one line:
      own blocks (256 x 2,097,152, its primed state) and the window gather
      at the large class's window length (4 windows of 180 M samples),
      held to their plain versions (in the `kernels` line); the decode's
-     demod loop and downmix FIR batches must be those phase 2 held;
+     demod loop and downmix FIR and chain batches must be those phase 2
+     held;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
-     in `detail.launches_by_path`; the downmix FIRs and the demod loop
-     must launch on every decode path), its times and its bound;
+     in `detail.launches_by_path`; the downmix FIRs, the downmix chain
+     and the demod loop must launch on every decode path), its times and
+     its bound;
      `detail.path_checks` has the
      calls `ReplayCheck` held in phases 4 and 4b, and `max_abs_err`
      covers them.
@@ -520,6 +527,48 @@ def check_downmix(dev, card: str) -> dict:
                                    for name, k, _ in cands}))
 
 
+def check_downmix_chain(dev, card: str) -> dict:
+    """The downmix chain's four launches (`downmix.burst_start`,
+    `cfo_peak`, `sync_products`, `sync_extract`) at the nine class batches
+    of `check_downmix`, through `tools/exp_downmix_chain.py`: on the chain
+    its twins run on that tool's rows (edges among them: dec_len 0, 1, 19,
+    20, 21 and L, leads past dec_len and past the row, a window too short,
+    a row of zeros), each launch bit-equal to its twin on the same inputs
+    (the tool raises where one parts, with `first_diff`), and the FIR
+    kernel's stage 1 with the sync search's input (`frame_rrc_sync`) to
+    its twin; each launch timed single-call and as a graph of its own, the
+    four as one CUDA graph (the row's `ms`), beside the twins' tensor code
+    eagerly and as one graph and the bound (bytes, FP32 operations). The
+    row reports the 10 MHz small-normal batch, `detail` all nine, with the
+    build's `ptxas -v` registers and spills per kernel function."""
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_demod
+    from iridium_tpu_torch.tools import exp_downmix
+    from iridium_tpu_torch.tools import exp_downmix_chain as tool
+
+    clock = exp_downmix.sm_clock_hz(dev)
+    per_shape = [tool.run_shape(sh, dev, clock_hz=clock)
+                 for rate in (10.0, 400.0, 1600.0)
+                 for sh in tool.class_shapes(rate)]
+    row = per_shape[0]
+    return dict(name="downmix_chain", route="cuda",
+                source="iridium_tpu_torch/csrc/downmix_chain.cu",
+                replaces="iridium_tpu/dsp/downmix.py:410",
+                max_abs_err=max(r["max_abs_err"] for r in per_shape),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None,
+                detail=dict(card=card, per_shape=per_shape,
+                            bit_equal=all(r["bit_equal"] for r in per_shape),
+                            first_diff=next((r["first_diff"] for r in
+                                             per_shape if r["first_diff"]),
+                                            None),
+                            library="none: no PyTorch call computes these "
+                                    "steps",
+                            ptxas=exp_demod.ptxas_summary(
+                                _kernels.DOWNMIX_CHAIN)))
+
+
 def check_fast(dev, card: str) -> dict:
     """The detect_fast kernel (one launch a block) on the production block
     (2,048 x 8,192, exp_scan's synthetic block from a fresh state: bursts, a
@@ -588,6 +637,7 @@ def kernel_phase(dev, card: str) -> list[dict]:
             check_block_gather(dev, card),
             check_demod(dev, card),
             check_downmix(dev, card),
+            check_downmix_chain(dev, card),
             check_fast(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
@@ -852,6 +902,14 @@ def decode_fast_phase(dev, single: dict) -> dict:
                 launches=counts)
 
 
+# the downmix's wrappers that `ReplayCheck` holds to their twins, with the
+# kernel each launches
+DOWNMIX_WRAPPERS = {
+    "noise_box": "downmix_fir", "frame_rrc_sync": "downmix_fir",
+    "burst_start": "downmix_chain", "cfo_peak": "downmix_chain",
+    "sync_products": "downmix_chain", "sync_extract": "downmix_chain"}
+
+
 class ReplayCheck:
     """Holds every kernel call captured into a pipeline's CUDA graphs to
     its plain version after each replay of that graph: the fused
@@ -860,9 +918,12 @@ class ReplayCheck:
     `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
     kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
     its decisions on `loop_plain`'s (`compare_demod`; counted under
-    `demod_loop` as `decide_calls`), and the downmix FIR kernel's two
-    launches (`downmix.noise_box`, `downmix.frame_rrc`) bit-equal to
-    their plain versions (counted under `downmix_fir`). A graph reads
+    `demod_loop` as `decide_calls`), the downmix FIR kernel's two
+    launches (`downmix.noise_box`, `downmix.frame_rrc_sync`) bit-equal to
+    their plain versions (counted under `downmix_fir`), and the downmix
+    chain's four (`downmix.burst_start`, `cfo_peak`, `sync_products`,
+    `sync_extract`) bit-equal to theirs (under `downmix_chain`, with the
+    calls per launch in `by_launch`). A graph reads
     static buffers and rewrites its other tensors at each replay, so after
     a replay the recorded inputs and outputs are that replay's. Used as a
     context around a decode that captures its graphs; `summary` has, per
@@ -885,10 +946,10 @@ class ReplayCheck:
         self._cur = None
         saved = self._saved = (ff.fused, wg.gather, demod.loop,
                                demod.Demod.decide, pl.Captured._capture,
-                               pl.Captured.replay, downmix.noise_box,
-                               downmix.frame_rrc)
-        (fused, gather, loop, decide, capture, replay, noise_box,
-         frame_rrc) = saved
+                               pl.Captured.replay)
+        (fused, gather, loop, decide, capture, replay) = saved
+        self._downmix = {name: getattr(downmix, name)
+                         for name in DOWNMIX_WRAPPERS}
 
         def record(name, fn):
             def wrapped(*args):
@@ -916,8 +977,8 @@ class ReplayCheck:
         wg.gather = record("window_gather", gather)
         demod.loop = record("demod_loop", loop)
         demod.Demod.decide = record("demod_decide", decide)
-        downmix.noise_box = record("downmix_noise_box", noise_box)
-        downmix.frame_rrc = record("downmix_frame_rrc", frame_rrc)
+        for name, fn in self._downmix.items():
+            setattr(downmix, name, record("downmix." + name, fn))
         pl.Captured._capture = capturing
         pl.Captured.replay = replaying
         return self
@@ -928,8 +989,9 @@ class ReplayCheck:
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
         (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
-         pl.Captured._capture, pl.Captured.replay, downmix.noise_box,
-         downmix.frame_rrc) = self._saved
+         pl.Captured._capture, pl.Captured.replay) = self._saved
+        for name, fn in self._downmix.items():
+            setattr(downmix, name, fn)
         self.calls.clear()
         self._plain.clear()
         return False
@@ -939,21 +1001,19 @@ class ReplayCheck:
         from iridium_tpu_torch.dsp import demod, downmix
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
-        from iridium_tpu_torch.tools import exp_demod
-        if name in ("downmix_noise_box", "downmix_frame_rrc"):
-            if name == "downmix_noise_box":
-                want = downmix.noise_box_plain(*args)
-            else:
-                got, want = (got,), (downmix.frame_rrc_plain(*args),)
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            err = 0.0 if same else max(float((a - b).abs().max())
-                                       for a, b in zip(got, want))
+        from iridium_tpu_torch.tools import exp_demod, exp_downmix_chain
+        if name.startswith("downmix."):
+            fn = name.split(".")[1]
+            res = exp_downmix_chain.compare(
+                got, getattr(downmix, fn + "_plain")(*args))
             shape = list(args[0].shape)
-            if not same:
-                raise AssertionError(f"{name} {shape} in a graph replay: "
-                                     f"max |err| {err} against its plain "
-                                     "version")
-            self._tally("downmix_fir", shape, err)["bit_equal"] = True
+            if not res["bit_equal"]:
+                raise AssertionError(f"{name} {shape} in a graph replay "
+                                     f"against its plain version: {res}")
+            s = self._tally(DOWNMIX_WRAPPERS[fn], shape, 0.0)
+            s["bit_equal"] = True
+            by = s.setdefault("by_launch", {})
+            by[fn] = by.get(fn, 0) + 1
             return
         if name == "demod_loop":
             want = demod.loop_plain(*args)
@@ -1041,7 +1101,7 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError("1 MHz decode took the fused path")
     if "window_gather" not in chk.summary:
         raise AssertionError("no gather was captured into a group graph")
-    for name in ("demod_loop", "downmix_fir"):
+    for name in ("demod_loop", "downmix_fir", "downmix_chain"):
         if name not in chk.summary:
             raise AssertionError(f"no {name} call was captured into a "
                                  "group graph")
@@ -1217,12 +1277,14 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         for name in ("detect_scan", "fused_frontend"):
             if rep[name] == 0:
                 raise AssertionError(f"mesh replicated never launched {name}")
-        for name in ("fused_frontend", "demod_loop", "downmix_fir"):
+        for name in ("fused_frontend", "demod_loop", "downmix_fir",
+                     "downmix_chain"):
             if name not in chk.summary:
                 raise AssertionError(f"mesh replicated: no {name} call was "
                                      "checked")
         demod_calls = chk.summary["demod_loop"]["calls"]
         fir_calls = chk.summary["downmix_fir"]["calls"]
+        chain_calls = chk.summary["downmix_chain"]["calls"]
         seconds = single["capture_s"]
         res["replicated_10mhz"] = dict(
             detect_impl=sp.detect_impl, lines=len(lines),
@@ -1259,9 +1321,10 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
                                  f"the single card's: {one_c}")
         if ("window_gather" not in chk.summary
                 or chk.summary["demod_loop"]["calls"] == demod_calls
-                or chk.summary["downmix_fir"]["calls"] == fir_calls):
-            raise AssertionError("mesh binshard: no gather, demod loop or "
-                                 "downmix FIR was checked")
+                or chk.summary["downmix_fir"]["calls"] == fir_calls
+                or chk.summary["downmix_chain"]["calls"] == chain_calls):
+            raise AssertionError("mesh binshard: no gather, demod loop, "
+                                 "downmix FIR or downmix chain was checked")
         seconds1 = os.path.getsize(path1) / 8 / 1_000_000
         loop1 = graph_loop(sb, binc, "binshard 1 MHz")
         res["binshard_1mhz"] = dict(
@@ -2472,12 +2535,14 @@ def main() -> int:
     if {tuple(b) for b in w1600["demod_batches"]} != held:
         return fail(f"the 1.6 GHz decode's demod batches "
                     f"{w1600['demod_batches']} are not those held: {held}")
-    fir_row = next(r for r in rows if r["name"] == "downmix_fir")
-    held = {(r["B"], r["L"]) for r in fir_row["detail"]["per_shape"]
-            if r["rate_mhz"] == 1600.0}
-    if {tuple(b) for b in w1600["downmix_batches"]} != held:
-        return fail(f"the 1.6 GHz decode's downmix batches "
-                    f"{w1600['downmix_batches']} are not those held: {held}")
+    for name in ("downmix_fir", "downmix_chain"):
+        dm_rows = next(r for r in rows if r["name"] == name)
+        held = {(r["B"], r["L"]) for r in dm_rows["detail"]["per_shape"]
+                if r["rate_mhz"] == 1600.0}
+        if {tuple(b) for b in w1600["downmix_batches"]} != held:
+            return fail(f"the 1.6 GHz decode's downmix batches "
+                        f"{w1600['downmix_batches']} are not those {name} "
+                        f"held: {held}")
     for r in rows:
         extra = w1600["kernel_rows"].get(r["name"])
         if extra:
@@ -2495,7 +2560,8 @@ def main() -> int:
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
         # the downmix and the demodulator run on every decode path
-        if r["name"] in ("demod_loop", "downmix_fir") and not all(
+        if r["name"] in ("demod_loop", "downmix_fir",
+                         "downmix_chain") and not all(
                 n for ph, n in by_path.items() if ph != tool["phase"]):
             return fail(f"{r['name']} was not launched on every decode "
                         f"path: {by_path}")

@@ -197,9 +197,19 @@ DEMOD_LOOP = Kernel(
 DOWNMIX_FIR = Kernel(
     "downmix_fir",
     # stage, x, B, L, the lengths, u, corr and 2 cfo_total (stage 1's
-    # rotation), the two FIRs' taps and counts, the outputs, the stream
-    [I, P, I, LL, P, P, P, P, LL, P, I, P, I, P, P, P],
+    # rotation), the two FIRs' taps and counts, the outputs, the sync
+    # search's input (stage 1's, or null), search_cap and corr_n, the stream
+    [I, P, I, LL, P, P, P, P, LL, P, I, P, I, P, P, P, I, I, P],
     # every product and sum rounded on its own, as the plain version's
+    # separate tensor operations round them
+    extra_flags=("--fmad=false",))
+
+DOWNMIX_CHAIN = Kernel(
+    "downmix_chain",
+    # stage, B, L, the stage's device pointers, ints and floats (host
+    # arrays) with their counts, the stream
+    [I, I, LL, P, I, P, I, P, I, P],
+    # every product and sum rounded on its own, as the plain versions'
     # separate tensor operations round them
     extra_flags=("--fmad=false",))
 
@@ -221,7 +231,7 @@ DETECT_FAST = Kernel(
              + [LL, I, P, I]})
 
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
-           DEMOD_LOOP, DOWNMIX_FIR, DETECT_FAST)
+           DEMOD_LOOP, DOWNMIX_FIR, DOWNMIX_CHAIN, DETECT_FAST)
 
 
 def build_all() -> None:

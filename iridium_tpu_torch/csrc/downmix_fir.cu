@@ -15,16 +15,19 @@
 //     `shift_take` clamps it), kept below frame_len, turned by the fine
 //     CFO angle -2 pi ((u i mod 2 cfo_total) / (2 cfo_total) + corr i /
 //     (2 cfo_total)), through the nt-tap centred RRC, which gives xr (B,
-//     L) c64.
+//     L) c64; given a sync buffer (B, corr_n) c64, also the sync-word
+//     search's input, xr[i] for i < min(frame_len, search_cap), zero up to
+//     corr_n, which the forward FFT of the correlation takes as it is.
 //
 // Replaces: no pl.pallas_call. iridium_tpu/dsp/downmix.py:132-164
 // (`_fir_valid_small`, `_fir_same_c`: shifted f32 adds in tap order) as
 // `downmix_from_dec` runs them at :403-412 (noise LPF, re-zeroing, |x|^2,
 // box filter) and, with the frame gather (:431-435) and the fine rotation
-// (:451-456) before it, at :458-460 (RRC), which XLA fuses into a few
-// elementwise kernels of the jitted group program. The plain version is
-// dsp/downmix.py `noise_box_plain` and `frame_rrc_plain`: a multiply and
-// an add launch a tap, ~240 launches over the batch's rows.
+// (:451-456) before it, at :458-460 (RRC), and the sync search's masked
+// input (:463-464), which XLA fuses into a few elementwise kernels of the
+// jitted group program. The plain version is dsp/downmix.py
+// `noise_box_plain` and `frame_rrc_plain` (with `sync_input_plain`): a
+// multiply and an add launch a tap, ~240 launches over the batch's rows.
 //
 // Bound on the H100, as tools/exp_downmix.py `bound` counts what its rows
 // need at the 10 MHz small-normal batch (1,024 x 8,172): by bytes, each
@@ -311,9 +314,28 @@ struct FrameRrcArgs {
   const float* corr;
   const float* taps;
   float2* xr;
+  float2* sync;     // the sync search's input, or null
   long long two_total;
-  int L, tiles, nt;
+  int L, tiles, nt, search_cap, corr_n;
 };
+
+// With a sync buffer, this tile's positions of it (the last tile's
+// also those past the row, up to corr_n): sync[p] = xr[p] (the tile's
+// outputs on the planes from i0; null planes: zeros) for p below
+// min(frame_len, search_cap), else 0
+__device__ __forceinline__ void write_sync(const FrameRrcArgs& a, int b,
+                                           int i0, int n_out, long long fl,
+                                           const float* sre,
+                                           const float* sim) {
+  if (a.sync == nullptr) return;
+  const long long ns = fl < a.search_cap ? fl : a.search_cap;
+  float2* s = a.sync + (size_t)b * (size_t)a.corr_n;
+  const int end = i0 + n_out >= a.L ? a.corr_n : min(i0 + n_out, a.corr_n);
+  for (int p = i0 + (int)threadIdx.x; p < end; p += kThreads)
+    s[p] = (sre != nullptr && p < ns && p < i0 + n_out)
+               ? make_float2(sre[p - i0], sim[p - i0])
+               : make_float2(0.f, 0.f);
+}
 
 // Stage 1, one tile: kSpan outputs from i0. Shared: the frame's samples
 // from i0 - h (kSpan + nt - 1), turned, then xr; the taps.
@@ -337,6 +359,7 @@ __global__ void __launch_bounds__(kThreads)
   if (hi <= 0 || (long long)i0 - h >= hi) {
     for (int i = tid; i < n_out; i += kThreads)
       a.xr[row + i0 + i] = make_float2(0.f, 0.f);
+    write_sync(a, b, i0, n_out, fl, nullptr, nullptr);
     return;
   }
   const long long u = a.u[b];
@@ -368,24 +391,27 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = tid; i < n_out; i += kThreads)
     a.xr[row + i0 + i] = make_float2(sre[i], sim[i]);
+  write_sync(a, b, i0, n_out, fl, sre, sim);
 }
 
 }  // namespace
 
 // stage 0: x (B, L) c64 as float2, len_a dec_len and len_b shift_dec (B,)
 // i64, taps_a the noise taps (n_a), taps_b the box taps (n_b); out_c xd
-// (B, L) c64, out_f filt (B, L) f32; u, corr and two_total unused.
+// (B, L) c64, out_f filt (B, L) f32; u, corr, two_total and sync unused.
 // stage 1: x xd (B, L), len_a frame_len and len_b start (B,) i64, u (B,)
 // i64, corr (B,) f32, two_total = 2 cfo_total (a power of two, at most
-// 2^24), taps_a the RRC taps (n_a); out_c xr (B, L) c64; taps_b, n_b and
-// out_f unused.
+// 2^24), taps_a the RRC taps (n_a); out_c xr (B, L) c64; sync the sync
+// search's input (B, corr_n) c64 or null, with search_cap <= L and <=
+// corr_n; taps_b, n_b and out_f unused.
 // Each FIR takes 1 to 64 taps; B x tiles blocks must fit an int.
 extern "C" int downmix_fir(int stage, const float2* x, int B, long long L,
                            const long long* len_a, const long long* len_b,
                            const long long* u, const float* corr,
                            long long two_total, const float* taps_a,
                            int n_a, const float* taps_b, int n_b,
-                           float2* out_c, float* out_f, cudaStream_t stream) {
+                           float2* out_c, float* out_f, float2* sync,
+                           int search_cap, int corr_n, cudaStream_t stream) {
   if (B <= 0 || L <= 0) return 0;
   if (L >= (1LL << 31) - kPlane || n_a < 1 || n_a > kMaxTaps)
     return (int)cudaErrorInvalidValue;
@@ -401,10 +427,14 @@ extern "C" int downmix_fir(int stage, const float2* x, int B, long long L,
     if (two_total < 1 || two_total > (1LL << 24) ||
         (two_total & (two_total - 1)) != 0)
       return (int)cudaErrorInvalidValue;
+    if (sync != nullptr &&
+        (search_cap < 0 || search_cap > L || corr_n < search_cap))
+      return (int)cudaErrorInvalidValue;
     const long long tiles = (L + kSpan - 1) / kSpan;
     if ((long long)B * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const FrameRrcArgs a{x,         len_b,  len_a,      u,  corr, taps_a,
-                         out_c,     two_total, (int)L, (int)tiles, n_a};
+    const FrameRrcArgs a{x,         len_b,   len_a,      u,          corr,
+                         taps_a,    out_c,   sync,       two_total,  (int)L,
+                         (int)tiles, n_a,    search_cap, corr_n};
     frame_rrc_kernel<<<(unsigned)(B * tiles), kThreads, 0, stream>>>(a);
   } else {
     return (int)cudaErrorInvalidValue;

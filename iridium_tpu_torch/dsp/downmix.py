@@ -12,15 +12,28 @@ extraction :749-793.
 The three small FIRs (25, 20 and 51 taps) with their masks are
 `noise_box` (the noise LPF, the re-zeroing, |x|^2 and the box filter) and
 `frame_rrc` (the frame gather, its mask, the fine rotation and the RRC
-matched filter): on a CUDA tensor a launch each of csrc/downmix_fir.cu,
-on a CPU tensor their plain versions `noise_box_plain` and
-`frame_rrc_plain`, whose FIRs are shifted adds (`fir_valid_small`) with
+matched filter; `frame_rrc_sync` also writes the sync search's input):
+on a CUDA tensor a launch each of csrc/downmix_fir.cu, on a CPU tensor
+their plain versions `noise_box_plain` and `frame_rrc_plain` (with
+`sync_input_plain`), whose FIRs are shifted adds (`fir_valid_small`) with
 the JAX package's sequential f32 accumulation order (`_fir_valid_small`,
 `_fir_same_c` :132-164).
+
+The steps around the FIRs and the three FFTs (torch.fft, cuFFT on the
+card) are four launches of csrc/downmix_chain.cu on a CUDA tensor:
+`burst_start` (the burst start and the fine CFO estimate's input),
+`cfo_peak` (the fine CFO's peak), `sync_products` (the correlation's
+template products) and `sync_extract` (the sync peaks and the choice,
+phase align, extraction); on a CPU tensor their plain versions, the
+tensor code `Downmix.forward` ran before the kernel (`burst_start_plain`,
+`cfo_peak_plain`, `sync_products_plain`, `sync_extract_plain`).
+`Downmix.forward` calls every wrapper by its module global, so that a
+caller can wrap or swap it.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -221,7 +234,8 @@ def noise_box(x: torch.Tensor, dec_len: torch.Tensor,
                              k.ptr(shift_dec), None, None, 0,
                              k.ptr(noise_taps),
                              noise_taps.shape[0], k.ptr(box_taps),
-                             box_taps.shape[0], k.ptr(xd), k.ptr(filt))
+                             box_taps.shape[0], k.ptr(xd), k.ptr(filt),
+                             None, 0, 0)
     return xd, filt
 
 
@@ -235,6 +249,37 @@ def frame_rrc(xd: torch.Tensor, start: torch.Tensor,
     if xd.device.type == "cpu":
         return frame_rrc_plain(xd, start, frame_len, u, corr, rrc_taps,
                                cfo_total)
+    return _frame_rrc_launch(xd, start, frame_len, u, corr, rrc_taps,
+                             cfo_total)
+
+
+def frame_rrc_sync(xd: torch.Tensor, start: torch.Tensor,
+                   frame_len: torch.Tensor, u: torch.Tensor,
+                   corr: torch.Tensor, rrc_taps: torch.Tensor,
+                   cfo_total: int, search_cap: int, corr_n: int):
+    """`frame_rrc_sync_plain`'s function: on a CPU tensor
+    `frame_rrc_sync_plain`, on a CUDA tensor one launch of
+    csrc/downmix_fir.cu (stage 1, which also writes the sync search's
+    input), or a raise. -> (xr (B, L), fwd_in (B, corr_n)) c64."""
+    if xd.device.type == "cpu":
+        return frame_rrc_sync_plain(xd, start, frame_len, u, corr, rrc_taps,
+                                    cfo_total, search_cap, corr_n)
+    if not 0 <= search_cap <= min(xd.shape[-1], corr_n) or corr_n >= 1 << 30:
+        raise ValueError(f"search_cap {search_cap} must lie in [0, L] and "
+                         f"[0, corr_n {corr_n}]")
+    sync = torch.empty((xd.shape[0], corr_n), dtype=torch.complex64,
+                       device=xd.device)
+    xr = _frame_rrc_launch(xd, start, frame_len, u, corr, rrc_taps,
+                           cfo_total, sync, search_cap)
+    if not xr.numel():
+        sync.zero_()
+    return xr, sync
+
+
+def _frame_rrc_launch(xd, start, frame_len, u, corr, rrc_taps, cfo_total,
+                      sync=None, search_cap: int = 0) -> torch.Tensor:
+    """Check the arguments and launch stage 1 of csrc/downmix_fir.cu,
+    with the sync buffer `sync` (or none): xr."""
     _check_rows(xd, dict(start=start, frame_len=frame_len, u=u),
                 dict(rrc_taps=rrc_taps))
     _kernels.check(corr, "corr", torch.float32, xd.device, (xd.shape[0],))
@@ -249,7 +294,9 @@ def frame_rrc(xd: torch.Tensor, start: torch.Tensor,
         k.DOWNMIX_FIR.launch(xd.device, 1, k.ptr(xd), B, L,
                              k.ptr(frame_len), k.ptr(start), k.ptr(u),
                              k.ptr(corr), two_total, k.ptr(rrc_taps),
-                             rrc_taps.shape[0], None, 0, k.ptr(xr), None)
+                             rrc_taps.shape[0], None, 0, k.ptr(xr), None,
+                             None if sync is None else k.ptr(sync),
+                             search_cap, 0 if sync is None else sync.shape[1])
     return xr
 
 
@@ -275,6 +322,11 @@ def _quad_interp(alpha, beta, gamma):
                        torch.zeros_like(denom))
 
 
+def _pad(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows x (B, m) zero-padded to (B, n), as torch.fft's n= pads them."""
+    return torch.cat([x, x.new_zeros((x.shape[0], n - x.shape[1]))], 1)
+
+
 class DownmixOut(NamedTuple):
     samples: torch.Tensor      # (B, max_frame_cap) c64 from uw_start
     n_samples: torch.Tensor    # (B,) i32 extract length
@@ -283,6 +335,332 @@ class DownmixOut(NamedTuple):
     start_dec: torch.Tensor    # (B,) i32 decimated-domain start
     fine_offset: torch.Tensor  # (B,) f32 fractional CFO (of output rate)
     uw_corr: torch.Tensor      # (B,) f32 sub-sample UW start correction
+
+
+class ChainConsts(NamedTuple):
+    """The downmix chain's scalars (`Downmix.chain`), which
+    csrc/downmix_chain.cu takes by value."""
+    decim: int                 # input samples a decimated sample
+    box_ntaps: int             # the burst start's box filter
+    pre_start: int             # decimated samples kept before the start
+    cfo_total: int             # the fine CFO FFT's padded size
+    search_cap: int            # the sync search's longest span
+    corr_n: int                # the sync correlation's FFT size
+    sync_len: tuple            # (DL, UL) correlation template lengths
+    pre_off: tuple             # (DL, UL) samples from the template's start
+                               # to the unique word
+    max_len: tuple             # (simplex, normal) longest frame, samples
+    min_len: tuple             # (simplex, normal) shortest frame, samples
+    max_frame_cap: int         # the extracted rows' length
+    fft_size: int              # the detector's FFT (center_bin's bins)
+    center_frequency: float
+    in_rate: float
+    out_rate: float
+
+
+# The downmix chain's steps around its FIRs and FFTs, `Downmix.forward`'s
+# tensor code as it ran before csrc/downmix_chain.cu (the twins), and
+# their wrappers: on a CPU tensor the twin, on a CUDA tensor a launch of
+# the kernel, or a raise.
+
+def burst_start_plain(xd: torch.Tensor, filt: torch.Tensor,
+                      ext_len: torch.Tensor, dec_len: torch.Tensor,
+                      shift_dec: torch.Tensor, cfo_win: torch.Tensor,
+                      k: ChainConsts):
+    """The burst start (burst_downmix.c:441-478) from the box filter's
+    energy filt (B, L) f32 of xd (B, L) c64, and the fine CFO estimate's
+    input: ext_len, dec_len, shift_dec (B,) i64 -> start, frame_len (B,)
+    i64; ok (B,) bool (the window and the decimated row long enough
+    behind the lead, the start early enough); z (B, cfo_total) c64, the
+    frame's first len(cfo_win) samples below frame_len squared and
+    windowed, zero-padded."""
+    dev = xd.device
+    iota = torch.arange(filt.shape[1], device=dev)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=dev)
+    ok = ext_len - shift_dec * k.decim >= 100
+    ok &= dec_len - shift_dec >= 100
+    flen = torch.clamp(dec_len - k.box_ntaps + 1, min=0)
+    fmask = iota < flen[:, None]
+    filt_m = torch.where(fmask, filt, -torch.inf)
+    thr = START_THRESHOLD * filt_m.max(1).values
+    hit = fmask & (filt >= thr[:, None])
+    first = torch.where(hit.any(1), hit.int().argmax(1), flen)
+    box_half = (k.box_ntaps - 1) // 2
+    start = torch.where(
+        first > shift_dec,
+        torch.maximum(first + box_half - k.pre_start, shift_dec),
+        shift_dec)
+    start = torch.where(flen > 0, start, shift_dec)
+    ok &= start < dec_len - 100
+    frame_len = dec_len - start
+    # fine CFO: squared signal, x16 zero-padded FFT, quadratic peak, on
+    # the frame's first cfo_n samples (from start, below frame_len)
+    cfo_n = cfo_win.shape[0]
+    ncfo = torch.clamp(frame_len, max=cfo_n)
+    z = shift_take(xd, start, cfo_n)
+    z = torch.where(torch.arange(cfo_n, device=dev) < ncfo[:, None],
+                    z * z * cfo_win, zero_c)
+    return start, frame_len, ok, _pad(z, k.cfo_total)
+
+
+def cfo_peak_plain(spec: torch.Tensor):
+    """The fine CFO from the FFT spec (B, cfo_total) c64 of the squared
+    frame (burst_downmix.c:482-535): its first |spec|^2 peak as the signed
+    bin u (B,) i64, the quadratic interpolation corr (B,) f32 (0 at the
+    ends), fine_offset (B,) f32 = (u + corr) / cfo_total / 2."""
+    B, n = spec.shape
+    rows = torch.arange(B, device=spec.device)
+    p = spec.abs() ** 2
+    idx = p.argmax(1)
+    u = torch.where(idx >= n // 2, idx - n, idx)
+    interior = (idx > 0) & (idx < n - 1)
+    a = p[rows, torch.clamp(idx - 1, 0, n - 1)]
+    b_ = p[rows, idx]
+    g = p[rows, torch.clamp(idx + 1, 0, n - 1)]
+    corr = torch.where(interior, _quad_interp(a, b_, g),
+                       torch.zeros_like(a))
+    fine_offset = (u.float() + corr) / n / 2.0
+    return u, corr, fine_offset
+
+
+def sync_input_plain(xr: torch.Tensor, frame_len: torch.Tensor,
+                     search_cap: int, corr_n: int) -> torch.Tensor:
+    """The sync-word search's input: xr (B, L) c64 below min(frame_len,
+    search_cap), zero-padded to (B, corr_n) (burst_downmix.c:539-560)."""
+    search_len = torch.clamp(frame_len, max=search_cap)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=xr.device)
+    fwd_in = torch.where(
+        torch.arange(search_cap, device=xr.device) < search_len[:, None],
+        xr[:, :search_cap], zero_c)
+    return _pad(fwd_in, corr_n)
+
+
+def frame_rrc_sync_plain(xd, start, frame_len, u, corr, rrc_taps,
+                         cfo_total: int, search_cap: int, corr_n: int):
+    """`frame_rrc_plain`, then `sync_input_plain` of its output."""
+    xr = frame_rrc_plain(xd, start, frame_len, u, corr, rrc_taps, cfo_total)
+    return xr, sync_input_plain(xr, frame_len, search_cap, corr_n)
+
+
+def sync_products_plain(fwd: torch.Tensor, dl_fft: torch.Tensor,
+                        ul_fft: torch.Tensor) -> torch.Tensor:
+    """The search's spectrum fwd (B, corr_n) c64 times each template's
+    (corr_n,) c64 -> (2, B, corr_n) c64, DL then UL, for one inverse FFT."""
+    return torch.stack([fwd * dl_fft, fwd * ul_fft])
+
+
+def sync_extract_plain(cc: torch.Tensor, xr: torch.Tensor,
+                       start: torch.Tensor, frame_len: torch.Tensor,
+                       ok: torch.Tensor, center_bin: torch.Tensor,
+                       fine_offset: torch.Tensor, k: ChainConsts
+                       ) -> DownmixOut:
+    """From the two correlations cc (2, B, corr_n) c64 (DL, UL) and the
+    filtered frames xr (B, L) c64: each one's |cc|^2 peak below
+    min(frame_len, search_cap), DL where its peak is at least UL's, the
+    UW's start and sub-sample correction (burst_downmix.c:539-639); the
+    phase align by the peak's phase and the extraction from the UW's start
+    (:749-793), whose simplex/normal lengths need the absolute frequency
+    (:763-770; f32 as in the JAX package, the printed frequency is rebuilt
+    on the host); start, frame_len, center_bin (B,) i64, ok (B,) bool,
+    fine_offset (B,) f32 -> the DownmixOut."""
+    dev = xr.device
+    B, L = xr.shape
+    corr_n = cc.shape[2]
+    rows = torch.arange(B, device=dev)
+    dl_c, ul_c = cc[0], cc[1]
+    search_len = torch.clamp(frame_len, max=k.search_cap)
+    smask = torch.arange(corr_n, device=dev) < search_len[:, None]
+
+    def peak(c):
+        pm = torch.where(smask, c.abs() ** 2, -1.0)
+        off = pm.argmax(1)
+        return off, pm[rows, off]
+
+    off_dl, max_dl = peak(dl_c)
+    off_ul, max_ul = peak(ul_c)
+    is_dl = max_dl >= max_ul
+    off = torch.where(is_dl, off_dl, off_ul)
+    c = torch.where(is_dl[:, None], dl_c, ul_c)
+    corr_val = c[rows, off]
+    interior = (off > 0) & (off < search_len - 1)
+    pa = c[rows, torch.clamp(off - 1, 0, corr_n - 1)].abs() ** 2
+    pb = corr_val.abs() ** 2
+    pg = c[rows, torch.clamp(off + 1, 0, corr_n - 1)].abs() ** 2
+    uw_corr = torch.where(interior, _quad_interp(pa, pb, pg),
+                          torch.zeros_like(pa))
+    sync_len = torch.where(is_dl, k.sync_len[0], k.sync_len[1])
+    pre_off = torch.where(is_dl, k.pre_off[0], k.pre_off[1])
+    uw_start = off - sync_len + 1 + pre_off
+    ok = ok & (uw_start >= 0) & (uw_start < frame_len)
+
+    # phase align
+    cmag = corr_val.abs()
+    one_c = torch.ones((), dtype=torch.complex64, device=dev)
+    pc = torch.where(cmag > 0, torch.conj(corr_val / cmag), one_c)
+    xa = xr * pc[:, None]
+
+    # extract from uw_start
+    cf = (k.center_frequency
+          + (center_bin - k.fft_size // 2).float() / k.fft_size * k.in_rate
+          + fine_offset * k.out_rate)
+    simplex = cf > iridium.SIMPLEX_FREQUENCY_MIN
+    max_len = torch.where(simplex, k.max_len[0], k.max_len[1])
+    min_len = torch.where(simplex, k.min_len[0], k.min_len[1])
+    available = frame_len - uw_start
+    ok = ok & (available >= min_len)
+    n_samples = torch.minimum(available, max_len)
+    out = shift_take(xa, torch.clamp(uw_start, 0, L), k.max_frame_cap)
+    zero_c = torch.zeros((), dtype=torch.complex64, device=dev)
+    out = torch.where(
+        torch.arange(k.max_frame_cap, device=dev) < n_samples[:, None],
+        out, zero_c)
+    return DownmixOut(
+        samples=out,
+        n_samples=torch.where(ok, n_samples, 0).int(),
+        ok=ok,
+        direction=torch.where(is_dl, DIR_DL, DIR_UL).int(),
+        start_dec=start.int(),
+        fine_offset=fine_offset,
+        uw_corr=uw_corr)
+
+
+def _chain(stage: int, dev: torch.device, B: int, L: int, ptrs: list,
+           ints=(), floats=()) -> None:
+    """One launch of csrc/downmix_chain.cu's `stage` over B rows of L,
+    with its pointers, ints and floats packed as the C entry takes them."""
+    _kernels.DOWNMIX_CHAIN.launch(
+        dev, stage, B, L, (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        (ctypes.c_longlong * len(ints))(*ints), len(ints),
+        (ctypes.c_float * len(floats))(*floats), len(floats))
+
+
+def _check_vectors(B: int, dev: torch.device, **named) -> None:
+    """Raise unless each of `named` is a contiguous (B,) tensor of the
+    dtype its value's second item names, on `dev`."""
+    for name, (t, dtype) in named.items():
+        _kernels.check(t, name, dtype, dev, (B,))
+
+
+def _check_matrix(t: torch.Tensor, name: str, dev: torch.device,
+                  dtype=torch.complex64) -> None:
+    """Raise unless t is a contiguous (B, L) `dtype` tensor on dev, L > 0."""
+    _kernels.check(t, name, dtype, dev)
+    if t.dim() != 2 or t.shape[1] < 1:
+        raise ValueError(f"{name} must be (B, L) with L >= 1, got "
+                         f"{tuple(t.shape)}")
+
+
+I64 = torch.int64
+
+
+def burst_start(xd: torch.Tensor, filt: torch.Tensor, ext_len: torch.Tensor,
+                dec_len: torch.Tensor, shift_dec: torch.Tensor,
+                cfo_win: torch.Tensor, k: ChainConsts):
+    """`burst_start_plain`'s function: on a CPU tensor the twin, on a CUDA
+    tensor one launch of csrc/downmix_chain.cu (stage 0), or a raise."""
+    if xd.device.type == "cpu":
+        return burst_start_plain(xd, filt, ext_len, dec_len, shift_dec,
+                                 cfo_win, k)
+    dev = xd.device
+    _check_matrix(xd, "xd", dev)
+    B, L = xd.shape
+    _kernels.check(filt, "filt", torch.float32, dev, (B, L))
+    _check_vectors(B, dev, ext_len=(ext_len, I64), dec_len=(dec_len, I64),
+                   shift_dec=(shift_dec, I64))
+    _kernels.check(cfo_win, "cfo_win", torch.float32, dev)
+    if (cfo_win.dim() != 1 or not 1 <= cfo_win.shape[0] <= k.cfo_total
+            or k.cfo_total > 1 << 24 or k.box_ntaps < 1):
+        raise ValueError(f"the kernel takes 1 to cfo_total (at most 2^24) "
+                         f"window samples and a box filter: cfo_win "
+                         f"{tuple(cfo_win.shape)}, {k}")
+    start = torch.empty(B, dtype=I64, device=dev)
+    frame_len = torch.empty_like(start)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    z = torch.empty((B, k.cfo_total), dtype=torch.complex64, device=dev)
+    p = _kernels.ptr
+    _chain(0, dev, B, L,
+           [p(xd), p(filt), p(ext_len), p(dec_len), p(shift_dec),
+            p(cfo_win), p(start), p(frame_len), p(ok), p(z)],
+           [k.decim, k.box_ntaps, k.pre_start, cfo_win.shape[0],
+            k.cfo_total], [START_THRESHOLD])
+    return start, frame_len, ok, z
+
+
+def cfo_peak(spec: torch.Tensor):
+    """`cfo_peak_plain`'s function: on a CPU tensor the twin, on a CUDA
+    tensor one launch of csrc/downmix_chain.cu (stage 1), or a raise."""
+    if spec.device.type == "cpu":
+        return cfo_peak_plain(spec)
+    dev = spec.device
+    _check_matrix(spec, "spec", dev)
+    B, n = spec.shape
+    u = torch.empty(B, dtype=I64, device=dev)
+    corr = torch.empty(B, dtype=torch.float32, device=dev)
+    fine_offset = torch.empty_like(corr)
+    p = _kernels.ptr
+    _chain(1, dev, B, n, [p(spec), p(u), p(corr), p(fine_offset)])
+    return u, corr, fine_offset
+
+
+def sync_products(fwd: torch.Tensor, dl_fft: torch.Tensor,
+                  ul_fft: torch.Tensor) -> torch.Tensor:
+    """`sync_products_plain`'s function: on a CPU tensor the twin, on a
+    CUDA tensor one launch of csrc/downmix_chain.cu (stage 2), or a
+    raise."""
+    if fwd.device.type == "cpu":
+        return sync_products_plain(fwd, dl_fft, ul_fft)
+    dev = fwd.device
+    _check_matrix(fwd, "fwd", dev)
+    B, n = fwd.shape
+    _kernels.check(dl_fft, "dl_fft", torch.complex64, dev, (n,))
+    _kernels.check(ul_fft, "ul_fft", torch.complex64, dev, (n,))
+    out = torch.empty((2, B, n), dtype=torch.complex64, device=dev)
+    p = _kernels.ptr
+    _chain(2, dev, B, n, [p(fwd), p(dl_fft), p(ul_fft), p(out)])
+    return out
+
+
+def sync_extract(cc: torch.Tensor, xr: torch.Tensor, start: torch.Tensor,
+                 frame_len: torch.Tensor, ok: torch.Tensor,
+                 center_bin: torch.Tensor, fine_offset: torch.Tensor,
+                 k: ChainConsts) -> DownmixOut:
+    """`sync_extract_plain`'s function: on a CPU tensor the twin, on a CUDA
+    tensor one launch of csrc/downmix_chain.cu (stage 3), or a raise."""
+    if xr.device.type == "cpu":
+        return sync_extract_plain(cc, xr, start, frame_len, ok, center_bin,
+                                  fine_offset, k)
+    dev = xr.device
+    _check_matrix(xr, "xr", dev)
+    B, L = xr.shape
+    _kernels.check(cc, "cc", torch.complex64, dev)
+    if cc.dim() != 3 or cc.shape[:2] != (2, B) or cc.shape[2] < 1:
+        raise ValueError(f"cc must be (2, {B}, corr_n), got "
+                         f"{tuple(cc.shape)}")
+    _check_vectors(B, dev, start=(start, I64), frame_len=(frame_len, I64),
+                   ok=(ok, torch.bool), center_bin=(center_bin, I64),
+                   fine_offset=(fine_offset, torch.float32))
+    if not 1 <= k.max_frame_cap < 1 << 30 or k.fft_size < 1:
+        raise ValueError(f"the kernel takes 1 <= max_frame_cap < 2^30 and "
+                         f"an FFT size: {k}")
+    samples = torch.empty((B, k.max_frame_cap), dtype=torch.complex64,
+                          device=dev)
+    n_samples = torch.empty(B, dtype=torch.int32, device=dev)
+    ok_out = torch.empty_like(ok)
+    direction = torch.empty_like(n_samples)
+    start_dec = torch.empty_like(n_samples)
+    uw_corr = torch.empty_like(fine_offset)
+    p = _kernels.ptr
+    _chain(3, dev, B, L,
+           [p(cc), p(xr), p(start), p(frame_len), p(ok), p(center_bin),
+            p(fine_offset), p(samples), p(n_samples), p(ok_out),
+            p(direction), p(start_dec), p(uw_corr)],
+           [k.search_cap, cc.shape[2], k.max_frame_cap, k.fft_size,
+            *k.sync_len, *k.pre_off, *k.max_len, *k.min_len],
+           [k.center_frequency, k.in_rate, k.out_rate,
+            iridium.SIMPLEX_FREQUENCY_MIN])
+    return DownmixOut(samples=samples, n_samples=n_samples, ok=ok_out,
+                      direction=direction, start_dec=start_dec,
+                      fine_offset=fine_offset, uw_corr=uw_corr)
 
 
 class Downmix(torch.nn.Module):
@@ -299,28 +677,26 @@ class Downmix(torch.nn.Module):
                  device: torch.device):
         super().__init__()
         c = make_consts(dmp)
-        self.c = c
-        self.F = det.fft_size
-        self.in_rate = det.sample_rate
-        self.center_frequency = det.center_frequency
         self.decim = dmp.decimation
-        self.out_rate = dmp.output_sample_rate
         self.in_ntaps = len(c.input_taps)
-        self.cfo_n = dmp.cfo_fft_size
-        self.cfo_total = dmp.cfo_fft_total
-        self.corr_n = dmp.corr_fft_size
-        self.search_cap = dmp.sync_search_len
-        self.pre_start = dmp.pre_start_samples
         self.dec_cap = dec_cap
         self.max_frame_cap = max_frame_cap
-        assert dec_cap >= max(self.cfo_n, self.search_cap, 128)
+        assert dec_cap >= max(dmp.cfo_fft_size, dmp.sync_search_len, 128)
         sps = float(dmp.samples_per_symbol)
-        self.dl_pre_off = int(iridium.PREAMBLE_LENGTH_SHORT * sps)
-        self.ul_pre_off = int(32 * sps)
-        self.max_len = (int(iridium.MAX_FRAME_LENGTH_SIMPLEX * sps),
-                        int(iridium.MAX_FRAME_LENGTH_NORMAL * sps))
-        self.min_len = (int(iridium.MIN_FRAME_LENGTH_SIMPLEX * sps),
-                        int(iridium.MIN_FRAME_LENGTH_NORMAL * sps))
+        self.chain = ChainConsts(
+            decim=dmp.decimation, box_ntaps=len(c.box_taps),
+            pre_start=dmp.pre_start_samples, cfo_total=dmp.cfo_fft_total,
+            search_cap=dmp.sync_search_len, corr_n=dmp.corr_fft_size,
+            sync_len=(c.dl_sync_len, c.ul_sync_len),
+            pre_off=(int(iridium.PREAMBLE_LENGTH_SHORT * sps),
+                     int(32 * sps)),
+            max_len=(int(iridium.MAX_FRAME_LENGTH_SIMPLEX * sps),
+                     int(iridium.MAX_FRAME_LENGTH_NORMAL * sps)),
+            min_len=(int(iridium.MIN_FRAME_LENGTH_SIMPLEX * sps),
+                     int(iridium.MIN_FRAME_LENGTH_NORMAL * sps)),
+            max_frame_cap=max_frame_cap, fft_size=det.fft_size,
+            center_frequency=det.center_frequency,
+            in_rate=det.sample_rate, out_rate=dmp.output_sample_rate)
         self.register_buffer("noise_taps", torch.from_numpy(c.noise_taps))
         self.register_buffer("box_taps", torch.from_numpy(c.box_taps))
         self.register_buffer("rrc_taps", torch.from_numpy(c.rrc_taps))
@@ -331,128 +707,27 @@ class Downmix(torch.nn.Module):
 
     def forward(self, dec_full, ext_len, center_bin, shift_dec
                 ) -> DownmixOut:
-        c = self.c
-        dev = dec_full.device
-        B = dec_full.shape[0]
-        rows = torch.arange(B, device=dev)
+        k = self.chain
         ext_len = ext_len.long()
         shift_dec = shift_dec.long()
-        iota = torch.arange(self.dec_cap, device=dev)
-        zero_c = torch.zeros((), dtype=torch.complex64, device=dev)
-        decim = self.decim
-
-        ok = ext_len - shift_dec * decim >= 100
-        k = center_bin.long() - self.F // 2
-        dec_len = torch.clamp((ext_len - self.in_ntaps + 1) // decim, 0,
+        dec_len = torch.clamp((ext_len - self.in_ntaps + 1) // self.decim, 0,
                               self.dec_cap)
-        ok &= dec_len - shift_dec >= 100
-        # the noise LPF, re-zeroing and box filter; `noise_box` by its
-        # module global, so that a caller can wrap it
+        # each step by its module global, so that a caller can wrap it:
+        # the noise LPF, re-zeroing and box filter
         xd, filt = noise_box(dec_full, dec_len, shift_dec, self.noise_taps,
                              self.box_taps)
-
-        # burst start
-        box_ntaps = len(c.box_taps)
-        flen = torch.clamp(dec_len - box_ntaps + 1, min=0)
-        fmask = iota < flen[:, None]
-        filt_m = torch.where(fmask, filt, -torch.inf)
-        thr = START_THRESHOLD * filt_m.max(1).values
-        hit = fmask & (filt >= thr[:, None])
-        first = torch.where(hit.any(1), hit.int().argmax(1), flen)
-        box_half = (box_ntaps - 1) // 2
-        start = torch.where(
-            first > shift_dec,
-            torch.maximum(first + box_half - self.pre_start, shift_dec),
-            shift_dec)
-        start = torch.where(flen > 0, start, shift_dec)
-        ok &= start < dec_len - 100
-        frame_len = dec_len - start
-
-        # fine CFO: squared signal, x16 zero-padded FFT, quadratic peak,
-        # on the frame's first cfo_n samples (from start; the mask below
-        # keeps those under frame_len)
-        cfo_n, cfo_total = self.cfo_n, self.cfo_total
-        ncfo = torch.clamp(frame_len, max=cfo_n)
-        z = shift_take(xd, start, cfo_n)
-        z = torch.where(torch.arange(cfo_n, device=dev) < ncfo[:, None],
-                        z * z * self.cfo_win, zero_c)
-        p = torch.fft.fft(z, n=cfo_total).abs() ** 2
-        idx = p.argmax(1)
-        u = torch.where(idx >= cfo_total // 2, idx - cfo_total, idx)
-        interior = (idx > 0) & (idx < cfo_total - 1)
-        a = p[rows, torch.clamp(idx - 1, 0, cfo_total - 1)]
-        b_ = p[rows, idx]
-        g = p[rows, torch.clamp(idx + 1, 0, cfo_total - 1)]
-        corr = torch.where(interior, _quad_interp(a, b_, g),
-                           torch.zeros_like(a))
-        fine_offset = (u.float() + corr) / cfo_total / 2.0
-
+        # the burst start and the fine CFO estimate's input
+        start, frame_len, ok, z = burst_start(xd, filt, ext_len, dec_len,
+                                              shift_dec, self.cfo_win, k)
+        u, corr, fine_offset = cfo_peak(torch.fft.fft(z))
         # the frame gather, the fine rotation and the RRC matched filter
-        # ("same"); `frame_rrc` by its module global
-        xr = frame_rrc(xd, start, frame_len, u, corr, self.rrc_taps,
-                       cfo_total)
-
-        # sync-word correlation
-        search_cap, corr_n = self.search_cap, self.corr_n
-        search_len = torch.clamp(frame_len, max=search_cap)
-        fwd_in = torch.where(
-            torch.arange(search_cap, device=dev) < search_len[:, None],
-            xr[:, :search_cap], zero_c)
-        fwd = torch.fft.fft(fwd_in, n=corr_n)
-        dl_c = torch.fft.ifft(fwd * self.dl_fft)
-        ul_c = torch.fft.ifft(fwd * self.ul_fft)
-        smask = torch.arange(corr_n, device=dev) < search_len[:, None]
-
-        def peak(cc):
-            pm = torch.where(smask, cc.abs() ** 2, -1.0)
-            off = pm.argmax(1)
-            return off, pm[rows, off]
-
-        off_dl, max_dl = peak(dl_c)
-        off_ul, max_ul = peak(ul_c)
-        is_dl = max_dl >= max_ul
-        off = torch.where(is_dl, off_dl, off_ul)
-        cc = torch.where(is_dl[:, None], dl_c, ul_c)
-        corr_val = cc[rows, off]
-        interior = (off > 0) & (off < search_len - 1)
-        pa = cc[rows, torch.clamp(off - 1, 0, corr_n - 1)].abs() ** 2
-        pb = corr_val.abs() ** 2
-        pg = cc[rows, torch.clamp(off + 1, 0, corr_n - 1)].abs() ** 2
-        uw_corr = torch.where(interior, _quad_interp(pa, pb, pg),
-                              torch.zeros_like(pa))
-        sync_len = torch.where(is_dl, c.dl_sync_len, c.ul_sync_len)
-        pre_off = torch.where(is_dl, self.dl_pre_off, self.ul_pre_off)
-        uw_start = off - sync_len + 1 + pre_off
-        ok &= (uw_start >= 0) & (uw_start < frame_len)
-
-        # phase align
-        cmag = corr_val.abs()
-        one_c = torch.ones((), dtype=torch.complex64, device=dev)
-        pc = torch.where(cmag > 0, torch.conj(corr_val / cmag), one_c)
-        xa = xr * pc[:, None]
-
-        # extract from uw_start; the simplex/normal split needs the
-        # absolute frequency (reference burst_downmix.c:763-770), f32 as
-        # in the JAX package (the printed frequency is rebuilt on the host)
-        cf = (self.center_frequency + k.float() / self.F * self.in_rate
-              + fine_offset * self.out_rate)
-        simplex = cf > iridium.SIMPLEX_FREQUENCY_MIN
-        max_len = torch.where(simplex, self.max_len[0], self.max_len[1])
-        min_len = torch.where(simplex, self.min_len[0], self.min_len[1])
-        available = frame_len - uw_start
-        ok &= available >= min_len
-        n_samples = torch.minimum(available, max_len)
-        out = shift_take(xa, torch.clamp(uw_start, 0, self.dec_cap),
-                         self.max_frame_cap)
-        out = torch.where(
-            torch.arange(self.max_frame_cap, device=dev)
-            < n_samples[:, None], out, zero_c)
-
-        return DownmixOut(
-            samples=out,
-            n_samples=torch.where(ok, n_samples, 0).int(),
-            ok=ok,
-            direction=torch.where(is_dl, DIR_DL, DIR_UL).int(),
-            start_dec=start.int(),
-            fine_offset=fine_offset,
-            uw_corr=uw_corr)
+        # ("same"), with the sync search's input
+        xr, fwd_in = frame_rrc_sync(xd, start, frame_len, u, corr,
+                                    self.rrc_taps, k.cfo_total,
+                                    k.search_cap, k.corr_n)
+        # the sync-word correlations, one inverse FFT for both templates
+        cc = torch.fft.ifft(sync_products(torch.fft.fft(fwd_in),
+                                          self.dl_fft, self.ul_fft))
+        # the peaks and the choice, phase align and extraction
+        return sync_extract(cc, xr, start, frame_len, ok, center_bin.long(),
+                            fine_offset, k)

@@ -532,16 +532,18 @@ def stage_graphs(pipe, g, dev: torch.device) -> dict:
     own, on the inputs it had in one eager run of the group program on the
     graph `g`'s buffers (the first call of each stage is that class's):
     the front-end, the downmix (with its FIR launches, `noise_box` and
-    `frame_rrc`, also alone), the demod loop and its tail
-    (`Demod.decide`), the packing; per stage its nodes and replay ms
-    (median of 5)."""
+    `frame_rrc_sync`, and its chain's, `burst_start`, `cfo_peak`,
+    `sync_products` and `sync_extract`, also alone), the demod loop and
+    its tail (`Demod.decide`), the packing; per stage its nodes and
+    replay ms (median of 5)."""
     from ..dsp import downmix
     from ..ops import fused_frontend
     from ..runtime import pipeline
     targets = {"frontend": (fused_frontend, "fused"),
                "downmix": (downmix.Downmix, "forward"),
-               "noise_box": (downmix, "noise_box"),
-               "frame_rrc": (downmix, "frame_rrc"),
+               **{name: (downmix, name) for name in (
+                   "noise_box", "burst_start", "cfo_peak", "frame_rrc_sync",
+                   "sync_products", "sync_extract")},
                "demod_loop": (demod, "loop"),
                "demod_tail": (demod.Demod, "decide"),
                "pack": (pipeline, "pack_outputs")}
@@ -571,11 +573,12 @@ def stage_graphs(pipe, g, dev: torch.device) -> dict:
     return out
 
 
-def class_graphs(dev: torch.device, swap=plain_in_place) -> dict:
+def class_graphs(dev: torch.device, swap=plain_in_place, **more) -> dict:
     """The production 10 MHz pipeline's class graphs of a 4-block group
     (the dense capture's first), captured as the package runs them
-    ("kernel") and under the context `swap` ("plain": `loop_plain` in the
-    loop kernel's place by default; tools/exp_downmix.py passes its own):
+    ("kernel"), under the context `swap` ("plain": `loop_plain` in the
+    loop kernel's place by default; tools/exp_downmix.py passes its own)
+    and under each of `more` (name: context function), by name:
     per class its nodes, capture and instantiate seconds, replay ms; each
     decode's wall, the first (captures included) and a second on the
     captured graphs, with the second's group stages; the device
@@ -588,7 +591,7 @@ def class_graphs(dev: torch.device, swap=plain_in_place) -> dict:
     del cap
     res = {}
     for name, ctx in (("kernel", contextlib.nullcontext),
-                      ("plain", swap)):
+                      ("plain", swap), *more.items()):
         pipe = Pipeline(det_cfg=DetectorConfig(**PROD), device=dev,
                         want_llr=False)
         with ctx():

@@ -40,8 +40,10 @@ gather and the rotation (stage 1 from start 0, unturned, held to
 (`fir_bound_ms`): `fir_alone`, the package's source with its rotation
 taken out (`probe_fir_alone`), and each `--source PATH` (repeatable),
 another source of the kernel built under the git-ignored build/
-(`tools/variants.py`; a source whose C entry has no rotation arguments,
-such as the design before the fold, `git show
+(`tools/variants.py`; a source whose C entry has no sync search
+arguments, such as `git show
+a9ef2e1:iridium_tpu_torch/csrc/downmix_fir.cu`, or neither those nor
+the rotation's, such as the design before the fold, `git show
 8e9722b:iridium_tpu_torch/csrc/downmix_fir.cu`, gets an adapter,
 `adapted`). `--probes` adds `no_taps`, the package's source with every
 FIR cut to its first tap (`probe_no_taps`: the launches' loads, masks,
@@ -49,11 +51,15 @@ rotation and stores with one product an output; timed, not checked), and
 the row's `fill_ms` is PyTorch's `fill_` of the outputs' bytes (xd, filt
 and xr, 20 a sample) as a CUDA graph: the card's write rate for them.
 
-`--classes` (card only): `exp_demod.class_graphs` with the plain versions
-swapped in for the kernel (this tool's swap; the package has no switch):
-each class graph's nodes, capture and instantiate seconds and replay ms,
-each decode's wall, and the device operations that take the small-normal
-replay's time, both ways, in one process.
+`--classes` (card only): `exp_demod.class_graphs` as the package runs
+(`kernel`), with the downmix chain's twins swapped in for
+csrc/downmix_chain.cu's launches, the FIR kernel kept (`chain_plain`:
+the downmix before that kernel), and with every downmix twin
+(`plain`: this tool's swaps; the package has no switch): each class
+graph's nodes, capture and instantiate seconds and replay ms, each
+decode's wall, the device operations that take the small-normal replay's
+time and the small-normal batch's stages as graphs of their own, each
+way, in one process.
 
 On the CPU (`--small`: 9 rows of 301 samples) the wrappers are the plain
 versions, and times are the host clock's.
@@ -259,23 +265,29 @@ def probe_fir_alone(text: str) -> str:
 
 
 def adapted(text: str) -> str:
-    """A source whose `downmix_fir` entry takes no rotation arguments (the
-    design before the fold: its stage 1 is the RRC of the rows as given),
-    behind an entry with the package's argument list."""
+    """A source whose `downmix_fir` entry takes no sync search arguments
+    (the design of a9ef2e1) or neither those nor the rotation's (the design
+    before the fold: its stage 1 is the RRC of the rows as given), behind
+    an entry with the package's argument list. Such a design writes no
+    sync buffer: the designs it serves run stage 1 without one."""
     head = text[text.index('extern "C" int downmix_fir('):]
-    if "two_total" in head[:head.index(")")]:
+    params = head[:head.index(")")]
+    if "sync" in params:
         return text
+    rotation = "u, corr, two_total, " if "two_total" in params else ""
     text = text.replace('extern "C" int downmix_fir(',
-                        'extern "C" int downmix_fir_unfolded(', 1)
+                        'extern "C" int downmix_fir_inner(', 1)
     return text + """
 extern "C" int downmix_fir(int stage, const float2* x, int B, long long L,
                            const long long* len_a, const long long* len_b,
                            const long long* u, const float* corr,
                            long long two_total, const float* taps_a,
                            int n_a, const float* taps_b, int n_b,
-                           float2* out_c, float* out_f, cudaStream_t stream) {
-  return downmix_fir_unfolded(stage, x, B, L, len_a, len_b, taps_a, n_a,
-                              taps_b, n_b, out_c, out_f, stream);
+                           float2* out_c, float* out_f, float2* sync,
+                           int search_cap, int corr_n, cudaStream_t stream) {
+  return downmix_fir_inner(stage, x, B, L, len_a, len_b,
+                           """ + rotation + """taps_a, n_a, taps_b, n_b,
+                           out_c, out_f, stream);
 }
 """
 
@@ -405,17 +417,34 @@ def run_shape(sh: dict, dev: torch.device, reps: int = 7,
     return res
 
 
+CHAIN = ("burst_start", "cfo_peak", "sync_products", "sync_extract")
+
+
 @contextlib.contextmanager
-def plain_in_place():
-    """The plain versions wherever the package calls `downmix.noise_box`
-    and `downmix.frame_rrc`."""
-    saved = downmix.noise_box, downmix.frame_rrc
-    downmix.noise_box, downmix.frame_rrc = (downmix.noise_box_plain,
-                                            downmix.frame_rrc_plain)
+def _twins(names):
+    """Each wrapper of dsp/downmix.py in `names` replaced by its twin
+    (`<name>_plain`) wherever the package calls it."""
+    saved = {n: getattr(downmix, n) for n in names}
     try:
+        for n in names:
+            setattr(downmix, n, getattr(downmix, n + "_plain"))
         yield
     finally:
-        downmix.noise_box, downmix.frame_rrc = saved
+        for n, fn in saved.items():
+            setattr(downmix, n, fn)
+
+
+def plain_in_place():
+    """The twins wherever the package calls the downmix's wrappers: the
+    FIRs' (`noise_box`, `frame_rrc_sync`) and the chain's (CHAIN)."""
+    return _twins(("noise_box", "frame_rrc_sync") + CHAIN)
+
+
+def chain_plain_in_place():
+    """The chain's twins (CHAIN) wherever the package calls its wrappers,
+    the FIR kernel kept: the downmix as it ran before
+    csrc/downmix_chain.cu."""
+    return _twins(CHAIN)
 
 
 def main(argv=None) -> int:
@@ -469,7 +498,8 @@ def main(argv=None) -> int:
               + json.dumps(r), flush=True)
     if args.classes:
         print("class_graphs " + json.dumps(exp_demod.class_graphs(
-            dev, plain_in_place)), flush=True)
+            dev, plain_in_place, chain_plain=chain_plain_in_place)),
+            flush=True)
     return 0
 
 

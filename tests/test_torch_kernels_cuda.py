@@ -24,6 +24,7 @@ from iridium_tpu_torch.ops import filters  # noqa: E402
 from iridium_tpu_torch.ops import fused_frontend as ff  # noqa: E402
 from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_demod, exp_downmix  # noqa: E402
+from iridium_tpu_torch.tools import exp_downmix_chain  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -311,8 +312,11 @@ def test_group_graph_replay_matches_eager_program(dev):
     assert sorted(pipe.graphs) == [1, 2]
     small_normal = pipe.graphs[2].parts[1]
     assert small_normal.launches[_kernels.FUSED_FRONTEND] >= 1
-    # the demod loop is one kernel node, not ~130 nodes a symbol
+    # the demod loop is one kernel node, not ~130 nodes a symbol; the
+    # downmix two FIR launches and the chain's four
     assert small_normal.launches[_kernels.DEMOD_LOOP] == 1
+    assert small_normal.launches[_kernels.DOWNMIX_FIR] == 2
+    assert small_normal.launches[_kernels.DOWNMIX_CHAIN] == 4
     assert small_normal.nodes < 2000
     for nb, g in pipe.graphs.items():
         route = g.parts[0]
@@ -1148,9 +1152,10 @@ def test_downmix_fir_in_a_cuda_graph(dev):
 
 
 def test_downmix_on_card_launches_the_kernel_only(dev, monkeypatch):
-    """`Downmix` on CUDA tensors launches the kernel twice a call and never
-    runs the plain versions or `fir_valid_small`, and gives the values it
-    gives with them."""
+    """`Downmix` on CUDA tensors launches the FIR kernel twice a call and
+    the chain's kernel four times, never runs a twin, `fir_valid_small`,
+    `shift_take` or `_quad_interp`, and gives the values it gives with
+    the twins."""
     from iridium_tpu_torch.config import DownmixConfig
     p = DetectorConfig(sample_rate=10_000_000).derived()
     dm = downmix.Downmix(p, DownmixConfig().derived(p), 8172, 1918, dev)
@@ -1160,19 +1165,30 @@ def test_downmix_on_card_launches_the_kernel_only(dev, monkeypatch):
                        dtype=torch.int32, device=dev)
     bins = torch.full((B,), p.fft_size // 2, dtype=torch.int32, device=dev)
     with monkeypatch.context() as m:
-        for name in ("noise_box_plain", "frame_rrc_plain", "rrc_plain",
-                     "fir_valid_small"):
+        for name in DOWNMIX_TWINS + ("frame_rrc_plain", "sync_input_plain",
+                                     "rrc_plain", "fir_valid_small",
+                                     "shift_take", "_quad_interp"):
             m.setattr(downmix, name, _refuse(name))
-        before = _kernels.DOWNMIX_FIR.launches
+        before = (_kernels.DOWNMIX_FIR.launches,
+                  _kernels.DOWNMIX_CHAIN.launches)
         got = dm(x, ext, bins, sd.int())
         torch.cuda.synchronize()
-        assert _kernels.DOWNMIX_FIR.launches == before + 2
+        assert (_kernels.DOWNMIX_FIR.launches,
+                _kernels.DOWNMIX_CHAIN.launches) == (before[0] + 2,
+                                                     before[1] + 4)
     with monkeypatch.context() as m:
-        m.setattr(downmix, "noise_box", downmix.noise_box_plain)
-        m.setattr(downmix, "frame_rrc", downmix.frame_rrc_plain)
+        for name in DOWNMIX_TWINS:
+            m.setattr(downmix, name[:-len("_plain")],
+                      getattr(downmix, name))
         want = dm(x, ext, bins, sd.int())
     for name, a, b in zip(got._fields, got, want):
         assert torch.equal(a, b), name
+
+
+# the twins of the wrappers `Downmix.forward` calls
+DOWNMIX_TWINS = ("noise_box_plain", "frame_rrc_sync_plain",
+                 "burst_start_plain", "cfo_peak_plain",
+                 "sync_products_plain", "sync_extract_plain")
 
 
 def _refuse(name):
@@ -1222,4 +1238,158 @@ def test_downmix_fir_refuses_what_it_cannot_take(dev):
             k.DOWNMIX_FIR.launch(dev, stage, k.ptr(x), 5, 300, k.ptr(dl),
                                  k.ptr(sd), k.ptr(u), k.ptr(corr), tt,
                                  k.ptr(many), n_a, k.ptr(many), n_b,
-                                 k.ptr(out), k.ptr(out))
+                                 k.ptr(out), k.ptr(out), None, 0, 0)
+    # stage 1's sync search: search_cap past the row or past corr_n
+    sync = torch.empty((5, 512), dtype=torch.complex64, device=dev)
+    for cap, n in ((301, 512), (200, 100), (-1, 512)):
+        with pytest.raises(RuntimeError):
+            k.DOWNMIX_FIR.launch(dev, 1, k.ptr(x), 5, 300, k.ptr(fl),
+                                 k.ptr(st), k.ptr(u), k.ptr(corr), 8192,
+                                 k.ptr(t["rrc"]), 51, None, 0, k.ptr(out),
+                                 None, k.ptr(sync), cap, n)
+    good = (xf, st, fl, u, corr, t["rrc"], total, 200, 512)
+    for i, v in [(7, 301), (7, -1), (8, 100)]:
+        with pytest.raises(ValueError):
+            downmix.frame_rrc_sync(*good[:i], v, *good[i + 1:])
+
+
+# (B, L) of the chain's card tests: the 10 MHz small-normal class (1,024 x
+# 8,172), one row, an odd L, L the sync search's span (840)
+CHAIN_EDGES = [(1024, 8172), (1, 8172), (37, 3001), (12, 1024), (11, 840)]
+
+
+def _chain_run(dev, B, L, seed):
+    """`exp_downmix_chain`'s rows on the card through the twins (each
+    stage's arguments and the twin's outputs), with the 10 MHz downmix's
+    constants at dec_cap L."""
+    from iridium_tpu_torch.config import DownmixConfig
+    p = DetectorConfig(sample_rate=10_000_000).derived()
+    dm = downmix.Downmix(p, DownmixConfig().derived(p), L, 1918, dev)
+    t = {n: torch.from_numpy(v).to(dev) for n, v in exp_downmix_chain.inputs(
+        B, L, dm.chain, dm.in_ntaps, seed).items()}
+    return exp_downmix_chain.chain(t, dm)
+
+
+@pytest.mark.parametrize("B, L", CHAIN_EDGES)
+def test_downmix_chain_bit_equal_to_twins(dev, B, L):
+    """Each of the chain's four launches bit-equal to its twin on the same
+    inputs (torch.equal), on `exp_downmix_chain.inputs`' rows (dec_len 0,
+    1, 19, 20, 21 and L, leads past dec_len and past the row, a window
+    too short, a row of zeros), and the FIR kernel's stage 1 with the sync
+    search's input to `frame_rrc_sync_plain`. Four chain launches."""
+    run = _chain_run(dev, B, L, seed=B + L)
+    before = _kernels.DOWNMIX_CHAIN.launches
+    for name in exp_downmix_chain.STAGES:
+        got = getattr(downmix, name)(*run["args"][name])
+        res = exp_downmix_chain.compare(got, run["want"][name])
+        assert res["bit_equal"], (name, res)
+    got = downmix.frame_rrc_sync(*run["args"]["frame_rrc_sync"])
+    res = exp_downmix_chain.compare(got, run["want"]["frame_rrc_sync"])
+    assert res["bit_equal"], ("frame_rrc_sync", res)
+    torch.cuda.synchronize()
+    assert _kernels.DOWNMIX_CHAIN.launches == before + 4
+
+
+def test_downmix_chain_in_a_cuda_graph(dev):
+    """The four launches captured into a CUDA graph (four nodes),
+    replayed on new inputs copied into the captured ones: bit-equal to the
+    twins each time."""
+    B, L = 37, 3001
+    run = _chain_run(dev, B, L, seed=1)
+    a = run["args"]
+
+    def launches():
+        return [getattr(downmix, n)(*a[n])
+                for n in exp_downmix_chain.STAGES]
+    launches()                                     # loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        got = launches()
+    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 4
+    g.instantiate()
+    for seed in (2, 3):
+        new = _chain_run(dev, B, L, seed)["args"]
+        for n in exp_downmix_chain.STAGES:
+            for x, y in zip(a[n], new[n]):
+                if isinstance(x, torch.Tensor):
+                    x.copy_(y)
+        g.replay()
+        torch.cuda.synchronize()
+        for n, out in zip(exp_downmix_chain.STAGES, got):
+            res = exp_downmix_chain.compare(
+                out, getattr(downmix, n + "_plain")(*a[n]))
+            assert res["bit_equal"], (n, seed, res)
+
+
+def test_downmix_graph_nodes(dev):
+    """`Downmix` captured as a CUDA graph: its six kernel launches and the
+    three FFTs among a few tensor operations, under 30 nodes (the twins'
+    tensor code: over 150)."""
+    from iridium_tpu_torch.config import DownmixConfig
+    from iridium_tpu_torch.runtime.pipeline import Captured
+    p = DetectorConfig(sample_rate=10_000_000).derived()
+    dm = downmix.Downmix(p, DownmixConfig().derived(p), 8172, 1918, dev)
+    B = 64
+    x = _downmix_inputs(dev, B, 8172, seed=7)[0]
+    ext = torch.full((B,), 300_000, dtype=torch.int32, device=dev)
+    bins = torch.full((B,), p.fft_size // 2, dtype=torch.int32, device=dev)
+    sd = torch.zeros(B, dtype=torch.int32, device=dev)
+    c = Captured()
+    c.replay(lambda: dm(x, ext, bins, sd))
+    torch.cuda.synchronize()
+    assert c.nodes < 30, c.nodes
+    with pytest.MonkeyPatch.context() as m:
+        for name in DOWNMIX_TWINS:
+            m.setattr(downmix, name[:-len("_plain")],
+                      getattr(downmix, name))
+        plain = Captured()
+        plain.replay(lambda: dm(x, ext, bins, sd))
+        torch.cuda.synchronize()
+    assert plain.nodes > 150, plain.nodes
+
+
+def test_downmix_chain_refuses_what_it_cannot_take(dev):
+    """The chain's wrappers raise on a wrong dtype, device, shape or
+    contiguity and on constants the kernel does not take; its C entry
+    refuses an unknown stage and a wrong count of pointers, ints or
+    floats."""
+    run = _chain_run(dev, 5, 900, seed=9)
+    a = run["args"]
+    xd, filt, ext_len, dec_len, shift_dec, win, k = a["burst_start"]
+    bad = [(0, xd.to(torch.complex128)), (0, xd[:, ::2]), (1, filt[:4]),
+           (1, filt.double()), (2, ext_len.int()), (3, dec_len.cpu()),
+           (4, shift_dec[:4]), (5, win.double()),
+           (5, torch.ones(5000, device=dev)), (6, k._replace(box_ntaps=0))]
+    for i, v in bad:
+        with pytest.raises(ValueError):
+            downmix.burst_start(*a["burst_start"][:i], v,
+                                *a["burst_start"][i + 1:])
+    (spec,) = a["cfo_peak"]
+    for v in (spec.real.contiguous(), spec[:, ::2], spec[0],
+              spec[:, :0]):
+        with pytest.raises(ValueError):
+            downmix.cfo_peak(v)
+    fwd, dl, ul = a["sync_products"]
+    for args in ((fwd.cfloat().real.contiguous(), dl, ul), (fwd, dl[:5], ul),
+                 (fwd, dl, ul.cpu()), (fwd[:, :100], dl, ul)):
+        with pytest.raises(ValueError):
+            downmix.sync_products(*args)
+    cc, xr, start, frame_len, ok, cb, fo, k = a["sync_extract"]
+    bad = [(0, cc[0]), (0, cc[:, :4]), (1, xr[:, ::2]), (2, start.int()),
+           (3, frame_len[:4]), (4, ok.int()), (5, cb.float()),
+           (6, fo.double()), (7, k._replace(max_frame_cap=0))]
+    for i, v in bad:
+        with pytest.raises(ValueError):
+            downmix.sync_extract(*a["sync_extract"][:i], v,
+                                 *a["sync_extract"][i + 1:])
+    import ctypes
+    kn = _kernels.DOWNMIX_CHAIN
+    ptrs = (ctypes.c_void_p * 13)(*([spec.data_ptr()] * 13))
+    ints = (ctypes.c_longlong * 12)(*([1] * 12))
+    flts = (ctypes.c_float * 4)()
+    for stage, n_p, n_i, n_f in ((4, 4, 0, 0), (-1, 4, 0, 0), (1, 3, 0, 0),
+                                 (1, 4, 1, 0), (0, 10, 5, 0), (2, 5, 0, 0),
+                                 (3, 13, 11, 4), (3, 13, 12, 3)):
+        with pytest.raises(RuntimeError):
+            kn.launch(dev, stage, 5, 4096, ptrs, n_p, ints, n_i, flts, n_f)

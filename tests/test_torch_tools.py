@@ -6,7 +6,9 @@ front-end tool `tools/exp_frontend.py` and the window-gather tool
 shape table; the demod-loop tool `tools/exp_demod.py` at its small CPU
 shape, its shape table, inputs, checks, bound, adapter and `ptxas`
 summary; the downmix-FIR tool `tools/exp_downmix.py` at its small CPU
-shape, its shape table, inputs, bound and comparison; the SASS chain walk
+shape, its shape table, inputs, bound and comparison; the downmix-chain
+tool `tools/exp_downmix_chain.py` at its small CPU shape, its shape
+table, inputs, bound and comparison; the SASS chain walk
 of `tools/sass_chain.py` on a made-up listing; the line comparison of the
 mesh tool `tools/exp_mesh.py`; the detect_fast tool `tools/exp_fast.py` at
 its small CPU shape, its argument handling, cases, bound and comparison.
@@ -25,6 +27,7 @@ from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
 from iridium_tpu_torch.tools import exp_demod, exp_downmix, exp_mesh  # noqa: E402,E501
 from iridium_tpu_torch.tools import captures, exp_fast, exp_window_gather  # noqa: E402,E501
+from iridium_tpu_torch.tools import exp_downmix_chain  # noqa: E402
 
 
 def test_variant_source_is_kept_apart(tmp_path, monkeypatch):
@@ -338,8 +341,10 @@ def test_exp_downmix_bound_counts_the_fold():
 def test_exp_downmix_designs_edit_the_source():
     """`fir_alone` takes the one rotation call out of the package's
     source and `no_taps` the loop over the taps past the first; `adapted`
-    leaves an entry with the rotation arguments alone and puts one in
-    front of an entry without them."""
+    leaves an entry with the sync search's arguments alone and puts one in
+    front of an entry without them (a9ef2e1's) or without the rotation's
+    too (the design before the fold), passing the rotation's where the
+    entry takes them."""
     text = _kernels.DOWNMIX_FIR.source.read_text()
     cut = exp_downmix.probe_no_taps(text)
     assert exp_downmix.TAPS_LOOP not in cut and len(cut) < len(text) + 8
@@ -350,13 +355,20 @@ def test_exp_downmix_designs_edit_the_source():
     with pytest.raises(ValueError):
         exp_downmix.probe_fir_alone(alone)
     assert exp_downmix.adapted(text) == text
-    old = text.replace("const long long* u, const float* corr,\n"
-                       "                           long long two_total, ",
-                       "", 1)
-    assert old != text
-    got = exp_downmix.adapted(old)
-    assert got.count('extern "C" int downmix_fir(') == 1
-    assert 'extern "C" int downmix_fir_unfolded(' in got
+    no_sync = text.replace("float* out_f, float2* sync,\n"
+                           "                           int search_cap, "
+                           "int corr_n, cudaStream_t", "float* out_f, "
+                           "cudaStream_t", 1)
+    old = no_sync.replace("const long long* u, const float* corr,\n"
+                          "                           long long two_total, ",
+                          "", 1)
+    assert text != no_sync != old
+    for src, rotation in ((no_sync, True), (old, False)):
+        got = exp_downmix.adapted(src)
+        assert got.count('extern "C" int downmix_fir(') == 1
+        assert 'extern "C" int downmix_fir_inner(' in got
+        call = got[got.index("return downmix_fir_inner("):]
+        assert ("u, corr, two_total" in call[:call.index(";")]) == rotation
 
 
 def test_exp_downmix_bound_counts_the_work():
@@ -392,6 +404,81 @@ def test_exp_downmix_compare_names_the_first_difference():
     res = exp_downmix.compare((x, f, xr), want)
     assert not res["bit_equal"] and res["first_diff"] == ["xr", 1, 9]
     assert res["max_abs_err"] == 2.0
+
+
+def test_exp_downmix_chain_small_on_cpu(capsys):
+    assert exp_downmix_chain.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    assert "small 12 x 1024:" in out and "bit-equal True" in out
+    # on the CPU the wrappers are the twins: no launch
+    assert '"launches": 0' in out and '"library_ms": null' in out
+
+
+def test_exp_downmix_chain_shapes_follow_the_pipeline():
+    """The 10 MHz class batches (batch, dec_cap) with their Downmix's
+    constants: the CFO FFT of 4,096, the sync search of 840 samples in an
+    FFT of 2,048, frames of 1,918 (normal) and 4,440 samples."""
+    got = [(s["shape"], s["B"], s["L"], s["dm"].chain.max_frame_cap)
+           for s in exp_downmix_chain.class_shapes()]
+    assert got == [("small_normal", 1024, 8172, 1918),
+                   ("small_simplex", 96, 8172, 4440),
+                   ("large", 48, 28140, 4440)]
+    k = exp_downmix_chain.class_shapes()[0]["dm"].chain
+    assert (k.cfo_total, k.search_cap, k.corr_n) == (4096, 840, 2048)
+
+
+def test_exp_downmix_chain_inputs_have_the_edges():
+    k = exp_downmix_chain.small_shape()["dm"].chain
+    t = exp_downmix_chain.inputs(12, 300, k, 801, seed=3)
+    dec_len = (t["ext_len"] - 800) // k.decim
+    assert list(dec_len[:6]) == [0, 1, 19, 20, 21, 300]
+    assert t["shift_dec"][6] > dec_len[6] and t["shift_dec"][7] > 300
+    # the short window: ext_len - shift_dec decim below 100
+    assert t["ext_len"][8] - t["shift_dec"][8] * k.decim < 100
+    assert not t["x"][9].any() and t["x"].dtype == np.complex64
+    assert (t["center_bin"] >= 0).all() and (
+        t["center_bin"] < k.fft_size).all()
+
+
+def test_exp_downmix_chain_bound_counts_the_work():
+    """Bytes a stage: filt below flen, the CFO samples read and the window,
+    three lengths, z and the row's fields written; the spectrum read; fwd
+    and the templates read, both products written; cc below the search
+    span, the extracted samples, the row's fields and the samples
+    written. The bound is the larger of bytes and operations, summed."""
+    sh = exp_downmix_chain.small_shape()
+    dm, B, L = sh["dm"], sh["B"], sh["L"]
+    k = dm.chain
+    t = {n: torch.from_numpy(v) for n, v in exp_downmix_chain.inputs(
+        B, L, k, dm.in_ntaps, 5).items()}
+    run = exp_downmix_chain.chain(t, dm)
+    b = exp_downmix_chain.bound(run, 2e9)
+    st = b["stages"]
+    assert st["cfo_peak"]["bytes"] == 8 * B * 4096 + 16 * B
+    assert st["sync_products"]["bytes"] == 24 * B * 2048 + 16 * 2048
+    assert b["bound_bytes"] == sum(v["bytes"] for v in st.values())
+    assert b["bound_ops"] == sum(v["ops"] for v in st.values())
+    fl = run["want"]["burst_start"][1]
+    search = int(torch.clamp(torch.clamp(fl, max=k.search_cap), min=0).sum())
+    n = int(torch.count_nonzero(run["want"]["sync_extract"].samples))
+    assert st["sync_extract"]["bytes"] == (16 * search + 8 * n + 46 * B
+                                           + 8 * B * k.max_frame_cap)
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"])
+    assert b["bound_by"] == "bytes"
+
+
+def test_exp_downmix_chain_compare_names_the_first_difference():
+    x = torch.zeros((2, 3, 10), dtype=torch.complex64)
+    assert exp_downmix_chain.compare(x, x.clone())["bit_equal"]
+    y = x.clone()
+    y[1, 2, 4] = 3.0
+    res = exp_downmix_chain.compare(y, x)
+    # the row of the last dimension: template 1, row 2
+    assert res["first_diff"] == ["0", 5, 4] and res["max_abs_err"] == 3.0
+    ok = torch.tensor([True, False])
+    res = exp_downmix_chain.compare((ok,), (~ok,), ["ok"])
+    assert not res["bit_equal"] and res["first_diff"] == ["ok", 0, 0]
 
 
 def test_exp_demod_shapes_inputs_and_bound():
