@@ -32,6 +32,13 @@ Phases, each printing one line:
      through `tools/exp_downmix_chain.py`, each bit-equal to its twin on
      the twins' chain (and the FIR kernel's stage 1 with the sync
      search's input to its twin), beside the twins' graph and the bound;
+     the demod tail's two launches (the demodulator's decisions after its
+     loop, `Demod.decide`; the packing of the output rows,
+     `pack_outputs`) at the demod loop's eighteen batches, through
+     `tools/exp_demod_tail.py`, each bit-equal to its twin on the loop
+     kernel's output (edge rows among the bursts; `pack` with and without
+     LLRs), beside the twins eager and as a graph and the bound, with
+     `ptxas -v`'s registers and spills;
      the detect_fast kernel, one launch a
      block, on the production block (2,048 x 8,192, squelch and emission
      drops reached), bit-equal to `scan_fast_plain` on the card on every
@@ -42,9 +49,10 @@ Phases, each printing one line:
      reader; no LLRs) and
      `RawPrinter`, every injected payload bit-exact, scan and fused
      front-end launched, the group program replayed as a CUDA graph (after
-     a warm-up decode that captures it), every class graph under 2,000
+     a warm-up decode that captures it), every class graph under 60
      nodes and the large and small-normal ones apart by less than their
-     symbol counts (the demod loop is one kernel node); then the same
+     symbol counts (the demod loop and tail are kernel nodes); then the
+     same
      decode under
      torch.profiler (device time, idle share); then `group_oracle`: the
      same capture through the host-routed flow gives the same lines, and
@@ -56,8 +64,8 @@ Phases, each printing one line:
      and through the same Pipeline on the CPU (the plain twin): the same
      RAW lines but for the frequency (±1 Hz) and the level's last digit;
   4. a short 1 MHz decode (decimation 4, so the window-gather path),
-     whose gathers, downmix FIR and chain launches and demod loops
-     captured into its graphs are held to
+     whose gathers, downmix FIR and chain launches, demod loops and demod
+     tail launches captured into its graphs are held to
      their plain versions after every replay (`ReplayCheck`), its burst
      detected and its wall taken on the captured graphs; then the
      demodulator alone at a 256-burst batch (`demod_loop`: the kernel and
@@ -77,8 +85,8 @@ Phases, each printing one line:
      same lines, and the RAW capture through the CLI from its file and,
      with `--mesh 1`, from stdin (rank 0 reads it and broadcasts each
      block): the same lines. The
-     front-end, gather, downmix FIR and chain and demod-loop calls in the
-     sharded graphs (the
+     front-end, gather, downmix FIR and chain, demod-loop and demod-tail
+     calls in the sharded graphs (the
      sharded capacities' batches, 256 and 48 bursts) are held to their
      plain versions after every replay of the warm-up runs
      (`ReplayCheck`); the class graphs' nodes as in phase 3.
@@ -131,13 +139,14 @@ Phases, each printing one line:
      own blocks (256 x 2,097,152, its primed state) and the window gather
      at the large class's window length (4 windows of 180 M samples),
      held to their plain versions (in the `kernels` line); the decode's
-     demod loop and downmix FIR and chain batches must be those phase 2
-     held;
+     demod loop and tail and downmix FIR and chain batches must be those
+     phase 2 held;
   10. the `kernels` JSON line: every kernel with its launches on the
      decode paths above (counts reset before each path and read after
      it; a graph replay adds the launches its capture recorded; per path
-     in `detail.launches_by_path`; the downmix FIRs, the downmix chain
-     and the demod loop must launch on every decode path), its times and
+     in `detail.launches_by_path`; the downmix FIRs, the downmix chain,
+     the demod loop and the demod tail must launch on every decode path),
+     its times and
      its bound;
      `detail.path_checks` has the
      calls `ReplayCheck` held in phases 4 and 4b, and `max_abs_err`
@@ -569,6 +578,50 @@ def check_downmix_chain(dev, card: str) -> dict:
                                 _kernels.DOWNMIX_CHAIN)))
 
 
+def check_demod_tail(dev, card: str) -> dict:
+    """The demod tail's two launches (`Demod.decide`, `pack_outputs`) at
+    the eighteen batches of `check_demod` (the 10 MHz, 400 MHz and 1.6 GHz
+    decodes' three, both modes), through `tools/exp_demod_tail.py`: on the
+    loop kernel's output of that tool's bursts (edge rows among them: a
+    20x magnitude drop, 8 symbols, noise, a UL and a DL burst, length 0,
+    +-0 components), each launch bit-equal to its twin on the same inputs
+    (`pack` with and without LLRs; the tool raises where one parts, with
+    `first_diff`); each timed single-call and as a graph of its own, the
+    two as one CUDA graph (the row's `ms`), beside the twins eagerly and
+    as one graph and the bound (bytes, FP32 operations). The row reports
+    the 10 MHz small-normal batch in Gardner mode, `detail` all eighteen,
+    with the build's `ptxas -v` registers and spills per kernel
+    function."""
+    import torch
+    from iridium_tpu_torch import _kernels
+    from iridium_tpu_torch.tools import exp_demod
+    from iridium_tpu_torch.tools import exp_demod_tail as tool
+
+    per_shape = []
+    for sh in (exp_demod.class_shapes()
+               + exp_demod.class_shapes(400.0, **WIDE_400_RUN)
+               + exp_demod.class_shapes(1600.0, 256, **WIDE_1600_RUN)):
+        per_shape += tool.run_shape(sh, dev)
+        torch.cuda.empty_cache()
+    row = per_shape[0]
+    return dict(name="demod_tail", route="cuda",
+                source="iridium_tpu_torch/csrc/demod_tail.cu",
+                replaces="iridium_tpu/dsp/demod.py:258",
+                max_abs_err=max(r["max_abs_err"] for r in per_shape),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None,
+                detail=dict(card=card, per_shape=per_shape,
+                            bit_equal=all(r["bit_equal"] for r in per_shape),
+                            first_diff=next((r["first_diff"] for r in
+                                             per_shape if r["first_diff"]),
+                                            None),
+                            library="none: no PyTorch call computes these "
+                                    "steps",
+                            ptxas=exp_demod.ptxas_summary(
+                                _kernels.DEMOD_TAIL)))
+
+
 def check_fast(dev, card: str) -> dict:
     """The detect_fast kernel (one launch a block) on the production block
     (2,048 x 8,192, exp_scan's synthetic block from a fresh state: bursts, a
@@ -638,6 +691,7 @@ def kernel_phase(dev, card: str) -> list[dict]:
             check_demod(dev, card),
             check_downmix(dev, card),
             check_downmix_chain(dev, card),
+            check_demod_tail(dev, card),
             check_fast(dev, card)]
     for r in rows:
         print("kernel_check " + json.dumps(r), flush=True)
@@ -666,9 +720,10 @@ def graph_info(graphs: dict) -> dict:
 
 
 # a class graph held ~130 nodes a symbol while the demod loop was a Python
-# loop (26,877-60,929 at 10 MHz); with its kernel the count must not grow
-# with the symbols
-MAX_CLASS_NODES = 2000
+# loop (26,877-60,929 at 10 MHz), ~200 with the demod tail's tensor code;
+# with every chain a kernel or a cuFFT call it holds 26 (the fused path)
+# to 40 (the gather path), and must not grow with the symbols
+MAX_CLASS_NODES = 60
 
 
 def check_class_nodes(info: dict, classes, where: str) -> None:
@@ -917,8 +972,11 @@ class ReplayCheck:
     bit-equal to `gather_plain`, the demod loop to `loop_plain` within
     `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
     kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
-    its decisions on `loop_plain`'s (`compare_demod`; counted under
-    `demod_loop` as `decide_calls`), the downmix FIR kernel's two
+    its twin's decisions on `loop_plain`'s (`compare_demod`; counted under
+    `demod_loop` as `decide_calls`), the demod tail's two launches
+    (`Demod.decide`, `pack_outputs`) bit-equal to their twins on the same
+    inputs (under `demod_tail`, with the calls per launch in
+    `by_launch`), the downmix FIR kernel's two
     launches (`downmix.noise_box`, `downmix.frame_rrc_sync`) bit-equal to
     their plain versions (counted under `downmix_fir`), and the downmix
     chain's four (`downmix.burst_start`, `cfo_peak`, `sync_products`,
@@ -946,8 +1004,8 @@ class ReplayCheck:
         self._cur = None
         saved = self._saved = (ff.fused, wg.gather, demod.loop,
                                demod.Demod.decide, pl.Captured._capture,
-                               pl.Captured.replay)
-        (fused, gather, loop, decide, capture, replay) = saved
+                               pl.Captured.replay, pl.pack_outputs)
+        (fused, gather, loop, decide, capture, replay, pack) = saved
         self._downmix = {name: getattr(downmix, name)
                          for name in DOWNMIX_WRAPPERS}
 
@@ -977,6 +1035,7 @@ class ReplayCheck:
         wg.gather = record("window_gather", gather)
         demod.loop = record("demod_loop", loop)
         demod.Demod.decide = record("demod_decide", decide)
+        pl.pack_outputs = record("demod_pack", pack)
         for name, fn in self._downmix.items():
             setattr(downmix, name, record("downmix." + name, fn))
         pl.Captured._capture = capturing
@@ -989,7 +1048,8 @@ class ReplayCheck:
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
         (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
-         pl.Captured._capture, pl.Captured.replay) = self._saved
+         pl.Captured._capture, pl.Captured.replay,
+         pl.pack_outputs) = self._saved
         for name, fn in self._downmix.items():
             setattr(downmix, name, fn)
         self.calls.clear()
@@ -1001,6 +1061,7 @@ class ReplayCheck:
         from iridium_tpu_torch.dsp import demod, downmix
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
+        from iridium_tpu_torch.runtime import pipeline as pl
         from iridium_tpu_torch.tools import exp_demod, exp_downmix_chain
         if name.startswith("downmix."):
             fn = name.split(".")[1]
@@ -1029,8 +1090,16 @@ class ReplayCheck:
             return
         if name == "demod_decide":
             dm, pll_out, direction = args[0], args[1], args[4]
-            want = self._saved[3](dm, *self._plain.pop(id(pll_out)),
-                                  direction)
+            # the kernel against its twin on the same inputs, bit for bit
+            res = exp_downmix_chain.compare(got, dm.decide_plain(*args[1:]))
+            if not res["bit_equal"]:
+                raise AssertionError(f"Demod.decide {list(pll_out.shape)} "
+                                     f"in a graph replay against its "
+                                     f"twin: {res}")
+            self._tally_tail("decide", list(pll_out.shape))
+            # the decisions on the loop kernel's output against the twin's
+            # on loop_plain's
+            want = dm.decide_plain(*self._plain.pop(id(pll_out)), direction)
             try:
                 res = exp_demod.compare_demod(got, want)
             except AssertionError as e:
@@ -1039,6 +1108,15 @@ class ReplayCheck:
             s["decide_calls"] = s.get("decide_calls", 0) + 1
             s["decide_max_abs_err"] = max(s.get("decide_max_abs_err", 0.0),
                                           *res.values())
+            return
+        if name == "demod_pack":
+            want = pl.pack_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"pack_outputs {list(got.shape)} in a graph replay: "
+                    f"{int((got != want).sum())} words differ from its "
+                    "twin's")
+            self._tally_tail("pack", list(got.shape))
             return
         if name == "fused_frontend":
             want = ff.fused_plain(*args)
@@ -1056,6 +1134,12 @@ class ReplayCheck:
             raise AssertionError(f"{name} {shape} in a graph replay: max "
                                  f"|err| {err} against its plain version")
         self._tally(name, shape, err)
+
+    def _tally_tail(self, launch: str, shape: list) -> None:
+        s = self._tally("demod_tail", shape, 0.0)
+        s["bit_equal"] = True
+        by = s.setdefault("by_launch", {})
+        by[launch] = by.get(launch, 0) + 1
 
     def _tally(self, name: str, shape: list, err: float) -> dict:
         s = self.summary.setdefault(name, dict(calls=0, shapes=[],
@@ -1101,7 +1185,8 @@ def gather_phase(dev, tmp) -> dict:
         raise AssertionError("1 MHz decode took the fused path")
     if "window_gather" not in chk.summary:
         raise AssertionError("no gather was captured into a group graph")
-    for name in ("demod_loop", "downmix_fir", "downmix_chain"):
+    for name in ("demod_loop", "downmix_fir", "downmix_chain",
+                 "demod_tail"):
         if name not in chk.summary:
             raise AssertionError(f"no {name} call was captured into a "
                                  "group graph")
@@ -1278,13 +1363,14 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
             if rep[name] == 0:
                 raise AssertionError(f"mesh replicated never launched {name}")
         for name in ("fused_frontend", "demod_loop", "downmix_fir",
-                     "downmix_chain"):
+                     "downmix_chain", "demod_tail"):
             if name not in chk.summary:
                 raise AssertionError(f"mesh replicated: no {name} call was "
                                      "checked")
         demod_calls = chk.summary["demod_loop"]["calls"]
         fir_calls = chk.summary["downmix_fir"]["calls"]
         chain_calls = chk.summary["downmix_chain"]["calls"]
+        tail_calls = chk.summary["demod_tail"]["calls"]
         seconds = single["capture_s"]
         res["replicated_10mhz"] = dict(
             detect_impl=sp.detect_impl, lines=len(lines),
@@ -1322,9 +1408,11 @@ def mesh_phase(dev, tmp, single: dict) -> dict:
         if ("window_gather" not in chk.summary
                 or chk.summary["demod_loop"]["calls"] == demod_calls
                 or chk.summary["downmix_fir"]["calls"] == fir_calls
-                or chk.summary["downmix_chain"]["calls"] == chain_calls):
+                or chk.summary["downmix_chain"]["calls"] == chain_calls
+                or chk.summary["demod_tail"]["calls"] == tail_calls):
             raise AssertionError("mesh binshard: no gather, demod loop, "
-                                 "downmix FIR or downmix chain was checked")
+                                 "downmix FIR or chain or demod tail was "
+                                 "checked")
         seconds1 = os.path.getsize(path1) / 8 / 1_000_000
         loop1 = graph_loop(sb, binc, "binshard 1 MHz")
         res["binshard_1mhz"] = dict(
@@ -2529,12 +2617,15 @@ def main() -> int:
         w1600 = emit(wideband_1600_phase(dev, tmp))
     # the 1.6 GHz decode's scan and gather checks join the kernels'; its
     # demod loop batches are those check_demod held
-    dm_row = next(r for r in rows if r["name"] == "demod_loop")
-    held = {(r["B"], r["L"], r["S"]) for r in dm_row["detail"]["per_shape"]
-            if r["rate_mhz"] == 1600.0}
-    if {tuple(b) for b in w1600["demod_batches"]} != held:
-        return fail(f"the 1.6 GHz decode's demod batches "
-                    f"{w1600['demod_batches']} are not those held: {held}")
+    for name in ("demod_loop", "demod_tail"):
+        dm_row = next(r for r in rows if r["name"] == name)
+        held = {(r["B"], r["L"], r["S"])
+                for r in dm_row["detail"]["per_shape"]
+                if r["rate_mhz"] == 1600.0}
+        if {tuple(b) for b in w1600["demod_batches"]} != held:
+            return fail(f"the 1.6 GHz decode's demod batches "
+                        f"{w1600['demod_batches']} are not those {name} "
+                        f"held: {held}")
     for name in ("downmix_fir", "downmix_chain"):
         dm_rows = next(r for r in rows if r["name"] == name)
         held = {(r["B"], r["L"]) for r in dm_rows["detail"]["per_shape"]
@@ -2560,8 +2651,8 @@ def main() -> int:
         if r["launches"] == 0:
             return fail(f"{r['name']} was launched on no path")
         # the downmix and the demodulator run on every decode path
-        if r["name"] in ("demod_loop", "downmix_fir",
-                         "downmix_chain") and not all(
+        if r["name"] in ("demod_loop", "downmix_fir", "downmix_chain",
+                         "demod_tail") and not all(
                 n for ph, n in by_path.items() if ph != tool["phase"]):
             return fail(f"{r['name']} was not launched on every decode "
                         f"path: {by_path}")

@@ -213,6 +213,16 @@ DOWNMIX_CHAIN = Kernel(
     # separate tensor operations round them
     extra_flags=("--fmad=false",))
 
+DEMOD_TAIL = Kernel(
+    "demod_tail",
+    # stage (0 decide, 1 pack), B, the symbols or bits a row, the stage's
+    # device pointers, ints and floats (host arrays) with their counts, the
+    # stream
+    [I, I, LL, P, I, P, I, P, I, P],
+    # every product and sum rounded on its own, as the twins' separate
+    # tensor operations round them
+    extra_flags=("--fmad=false",))
+
 DETECT_FAST = Kernel(
     "detect_fast",
     # a launch from a block's packed arguments: the packing, the mode (the
@@ -231,7 +241,7 @@ DETECT_FAST = Kernel(
              + [LL, I, P, I]})
 
 KERNELS = (DETECT_SCAN, FUSED_FRONTEND, WINDOW_GATHER, BLOCK_GATHER,
-           DEMOD_LOOP, DOWNMIX_FIR, DOWNMIX_CHAIN, DETECT_FAST)
+           DEMOD_LOOP, DOWNMIX_FIR, DOWNMIX_CHAIN, DEMOD_TAIL, DETECT_FAST)
 
 
 def build_all() -> None:

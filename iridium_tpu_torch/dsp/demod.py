@@ -16,11 +16,16 @@ chain over rows staged in shared memory, a second warp the PLL), on a
 CPU tensor `loop_plain`, a Python loop over symbols on (B,) tensors. The sample reads are plain indexing (the JAX package's
 "gather" form); its static-window form existed only to avoid dynamic
 addressing on the TPU and gives the same values for every valid symbol.
-The rest of the demodulator (`Demod.decide`) is plain tensor code.
+The rest of the demodulator (`Demod.decide`: hard decisions, end-of-frame
+trim, confidence, UW checks, bits and LLRs; the JAX package's `demod`
+:258-347) is `decide`'s stage of csrc/demod_tail.cu on a CUDA tensor (a
+warp a burst), its twin `Demod.decide_plain` on a CPU tensor. The twin
+takes its two f32 sums in the kernel's order (`warp_sum`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -244,6 +249,35 @@ def loop(x: torch.Tensor, n_samp: torch.Tensor, sps: float, S: int,
     return torch.view_as_complex(out), valid.view(torch.bool), total
 
 
+def warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of x (B, n) f32 in the order a warp of csrc/demod_tail.cu
+    takes them: the columns zero-padded to whole chunks of 32, each lane's
+    column summed chunk by chunk, then the 32 lanes halved five times
+    (lane l adds lane l + h, as a butterfly shuffle does). Elementwise
+    adds in a fixed order, so the sum is the same on the CPU and the
+    card."""
+    B, n = x.shape
+    C = max(1, -(-n // 32))
+    x = torch.nn.functional.pad(x, (0, 32 * C - n)).reshape(B, C, 32)
+    acc = x[:, 0]
+    for c in range(1, C):
+        acc = acc + x[:, c]
+    for h in (16, 8, 4, 2, 1):
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+def tail(stage: int, dev: torch.device, B: int, n: int, ptrs: list,
+         ints=(), floats=()) -> None:
+    """One launch of csrc/demod_tail.cu's `stage` (0 decide, 1 pack) over
+    B bursts of n symbols (decide) or B rows of n bits (pack), with its
+    pointers, ints and floats packed as the C entry takes them."""
+    _kernels.DEMOD_TAIL.launch(
+        dev, stage, B, n, (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        (ctypes.c_longlong * len(ints))(*ints), len(ints),
+        (ctypes.c_float * len(floats))(*floats), len(floats))
+
+
 class Demod:
     """`demod(x, n_samples, direction)` over a (B, L) burst batch. Its
     constant tables live on `device`, so that a call copies nothing from
@@ -269,8 +303,51 @@ class Demod:
     def decide(self, pll_out: torch.Tensor, valid: torch.Tensor,
                total_phase: torch.Tensor, direction: torch.Tensor
                ) -> DemodOut:
+        """`decide_plain`'s function: on a CPU tensor the twin, on a CUDA
+        tensor one launch of csrc/demod_tail.cu (`decide`), or a raise.
+        On the card it takes the loop kernel's outputs as they stand:
+        pll_out (B, S) c64, valid (B, S) bool, direction (B,) i32."""
+        if pll_out.device.type == "cpu":
+            return self.decide_plain(pll_out, valid, total_phase, direction)
+        dev = pll_out.device
+        S = self.S
+        _kernels.check(pll_out, "pll_out", torch.complex64, dev)
+        if pll_out.dim() != 2 or pll_out.shape[1] != S:
+            raise ValueError(f"pll_out must be (B, {S}), got "
+                             f"{tuple(pll_out.shape)}")
+        B = pll_out.shape[0]
+        _kernels.check(valid, "valid", torch.bool, dev, (B, S))
+        _kernels.check(total_phase, "total_phase", torch.float32, dev, (B,))
+        _kernels.check(direction, "direction", torch.int32, dev, (B,))
+        U = iridium.UW_LENGTH
+        for name, t, n in (("uw_dl", self.uw_dl, U), ("uw_ul", self.uw_ul, U),
+                           ("dqpsk_map", self.dqpsk_map, 4)):
+            _kernels.check(t, name, torch.int64, dev, (n,))
+        if S < U:
+            raise ValueError(f"the UW checks need S >= {U} symbols, got {S}")
+        ok = torch.empty(B, dtype=torch.bool, device=dev)
+        direction_out = torch.empty(B, dtype=torch.int32, device=dev)
+        n_symbols = torch.empty_like(direction_out)
+        confidence = torch.empty_like(direction_out)
+        level = torch.empty(B, dtype=torch.float32, device=dev)
+        bits = torch.empty((B, 2 * S), dtype=torch.int32, device=dev)
+        llr = torch.empty((B, 2 * S), dtype=torch.float32, device=dev)
+        p = _kernels.ptr
+        tail(0, dev, B, S,
+             [p(pll_out), p(valid), p(direction), p(self.uw_dl),
+              p(self.uw_ul), p(self.dqpsk_map), p(ok), p(direction_out),
+              p(n_symbols), p(confidence), p(level), p(bits), p(llr)],
+             [UW_MAX_ERRORS],
+             [MAGNITUDE_DROP, CONFIDENCE_ANGLE, UW_SOFT_THRESHOLD])
+        return DemodOut(ok=ok, direction=direction_out, n_symbols=n_symbols,
+                        confidence=confidence, level=level,
+                        total_phase=total_phase, bits=bits, llr=llr)
+
+    def decide_plain(self, pll_out: torch.Tensor, valid: torch.Tensor,
+                     total_phase: torch.Tensor, direction: torch.Tensor
+                     ) -> DemodOut:
         """The loop's output -> hard decisions, end-of-frame trim,
-        confidence, UW checks, bits and LLRs."""
+        confidence, UW checks, bits and LLRs, as tensor code."""
         S = self.S
         dev = pll_out.device
         n_sym = valid.sum(1)
@@ -299,7 +376,7 @@ class Demod:
         offsets = 45.0 - torch.fmod(phase, 90.0)
         n_ok = (amask & (offsets.abs() <= CONFIDENCE_ANGLE)).sum(1)
         safe_n = torch.clamp(actual, min=1)
-        sum_mag = torch.where(amask, mags, 0.0).sum(1)
+        sum_mag = warp_sum(torch.where(amask, mags, 0.0))
         level = torch.where(actual > 0, sum_mag / safe_n, 0.0)
         confidence = torch.where(actual > 0, (100 * n_ok) // safe_n, 0)
 
@@ -319,7 +396,7 @@ class Demod:
             d = ang - expected
             d = torch.where(d > np.pi, d - 2 * np.pi, d)
             d = torch.where(d < -np.pi, d + 2 * np.pi, d)
-            err = d.abs().sum(1) * (2.0 / np.pi)
+            err = warp_sum(d.abs()) * (2.0 / np.pi)
             return torch.where(actual >= U, err, 999.0)
 
         uw_dl, uw_ul = self.uw_dl.to(dev), self.uw_ul.to(dev)

@@ -88,9 +88,13 @@ _META_WORDS = 11
 
 
 def packed_width(max_symbols: int, want_llr: bool) -> int:
-    s2 = 2 * max_symbols
-    nl = 1 + (s2 + 1) // 2 if want_llr else 0
-    return (s2 + 31) // 32 + nl + _META_WORDS
+    return row_words(2 * max_symbols, want_llr)
+
+
+def row_words(s2_pad: int, want_llr: bool) -> int:
+    """Words of a packed row whose bits and LLRs are padded to s2_pad."""
+    nl = 1 + (s2_pad + 1) // 2 if want_llr else 0
+    return (s2_pad + 31) // 32 + nl + _META_WORDS
 
 
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -100,8 +104,48 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 
 def pack_outputs(dm: downmix.DownmixOut, dd: demod_mod.DemodOut,
                  s2_pad: int, want_llr: bool) -> torch.Tensor:
+    """`pack_plain`'s function: on a CPU tensor the twin, on a CUDA tensor
+    one launch of csrc/demod_tail.cu (`pack`, a warp a row, which writes
+    the (B, W) rows directly), or a raise."""
+    if dd.bits.device.type == "cpu":
+        return pack_plain(dm, dd, s2_pad, want_llr)
+    dev = dd.bits.device
+    _kernels.check(dd.bits, "bits", torch.int32, dev)
+    if dd.bits.dim() != 2 or dd.bits.shape[1] < 1:
+        raise ValueError(f"bits must be (B, S2) with S2 >= 1, got "
+                         f"{tuple(dd.bits.shape)}")
+    B, S2 = dd.bits.shape
+    if not S2 <= s2_pad < 2 ** 30:
+        raise ValueError(f"s2_pad = {s2_pad}: the rows pad {S2} bits "
+                         "up, to under 2^30")
+    _kernels.check(dd.llr, "llr", torch.float32, dev, (B, S2))
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dtype in (
+            ("fine_offset", dm.fine_offset, f32), ("uw_corr", dm.uw_corr, f32),
+            ("dm.ok", dm.ok, torch.bool), ("start_dec", dm.start_dec, i32),
+            ("n_samples", dm.n_samples, i32), ("level", dd.level, f32),
+            ("total_phase", dd.total_phase, f32),
+            ("dd.ok", dd.ok, torch.bool), ("n_symbols", dd.n_symbols, i32),
+            ("confidence", dd.confidence, i32),
+            ("direction", dd.direction, i32)):
+        _kernels.check(t, name, dtype, dev, (B,))
+    W = row_words(s2_pad, want_llr)
+    rows = torch.empty((B, W), dtype=torch.int32, device=dev)
+    p = _kernels.ptr
+    demod_mod.tail(1, dev, B, S2,
+                   [p(dd.bits), p(dd.llr), p(dm.fine_offset), p(dm.uw_corr),
+                    p(dm.ok), p(dm.start_dec), p(dm.n_samples), p(dd.level),
+                    p(dd.total_phase), p(dd.ok), p(dd.n_symbols),
+                    p(dd.confidence), p(dd.direction), p(rows)],
+                   [s2_pad, int(want_llr), W])
+    return rows
+
+
+def pack_plain(dm: downmix.DownmixOut, dd: demod_mod.DemodOut,
+               s2_pad: int, want_llr: bool) -> torch.Tensor:
     """One burst batch's host-bound fields as a (B, W) int32 matrix (see
-    the layout above); `unpack_outputs` is the host-side inverse."""
+    the layout above), as tensor code; `unpack_outputs` is the host-side
+    inverse."""
     B, S2 = dd.bits.shape
     NW = (s2_pad + 31) // 32
     dev = dd.bits.device

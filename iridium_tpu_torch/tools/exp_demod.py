@@ -44,9 +44,11 @@ adapter. `--probes` adds, for each such source, its probed copies
 on a made-up symbol), which are compared but not held to the limits.
 
 `--classes` (card only): the production 10 MHz pipeline decodes the
-first group (4 blocks) of `tools/captures.py`'s dense capture twice, once
-as the package runs it and once with `loop_plain` in the kernel's place
-(this tool's swap; the package has no switch), and prints each class
+first group (4 blocks) of `tools/captures.py`'s dense capture three
+times, as the package runs it, with `loop_plain` in the loop kernel's
+place (this tool's swap; the package has no switch) and with the demod
+tail's twins in its kernel's (`tail_plain`: `Demod.decide_plain`,
+`pack_plain`; tools/exp_demod_tail.py's swap), and prints each class
 graph's nodes, capture and instantiate seconds and replay ms, and each
 decode's wall (its first, which captures the graphs, and a second on
 them, with its group stages): the class graphs before and after the
@@ -651,8 +653,9 @@ def main(argv=None) -> int:
                     help="also time each --source's probed copies (of "
                     "the one-thread design: no_pll, smem_rows, pll_alone)")
     ap.add_argument("--classes", action="store_true",
-                    help="the pipeline's class graphs with the kernel and "
-                    "with the plain loop (card only)")
+                    help="the pipeline's class graphs with the kernels, "
+                    "with the plain loop and with the tail's twins (card "
+                    "only)")
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
     if (args.classes or args.source) and dev.type != "cuda":
@@ -683,7 +686,9 @@ def main(argv=None) -> int:
                   f"{r['plain_ms']:.2f}, bound {r['bound_ms']:.5f} "
                   + json.dumps(r), flush=True)
     if args.classes:
-        print("class_graphs " + json.dumps(class_graphs(dev)), flush=True)
+        from .exp_demod_tail import plain_in_place as tail_plain
+        print("class_graphs " + json.dumps(class_graphs(
+            dev, tail_plain=tail_plain)), flush=True)
     return 0
 
 

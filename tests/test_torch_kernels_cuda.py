@@ -1393,3 +1393,182 @@ def test_downmix_chain_refuses_what_it_cannot_take(dev):
                                  (3, 13, 11, 4), (3, 13, 12, 3)):
         with pytest.raises(RuntimeError):
             kn.launch(dev, stage, 5, 4096, ptrs, n_p, ints, n_i, flts, n_f)
+
+
+# (B, L, S) of the demod tail's card tests: the 10 MHz small-normal class
+# batch, one burst, a batch that does not fill a block (4 bursts a block),
+# the large class's frames, S not a multiple of 32, S = UW_LENGTH
+TAIL_SHAPES = [(1024, 1918, 205), (1, 1918, 205), (7, 1918, 205),
+               (48, 4440, 471), (37, 400, 40), (13, 400, 12)]
+
+
+def _tail_case(dev, B, L, S, use_gardner, seed):
+    from iridium_tpu_torch.tools import exp_demod_tail
+    sh = dict(rate_mhz=10.0, shape="test", B=B, L=L, S=S, sps=10.0)
+    return exp_demod_tail.case(sh, use_gardner, dev, seed)
+
+
+def _tail_bit_equal(c, want_llr=True, s2_pad=None):
+    from iridium_tpu_torch.runtime import pipeline as pl
+    from iridium_tpu_torch.tools import exp_demod_tail
+    dm, args, dmo = c["dm"], c["args"], c["dmo"]
+    got = dm.decide(*args)
+    want = dm.decide_plain(*args)
+    res = exp_demod_tail.compare(got, want)
+    assert res["bit_equal"], ("decide", res)
+    s2 = s2_pad or 2 * dm.S
+    rows = pl.pack_outputs(dmo, want, s2, want_llr)
+    plain = pl.pack_plain(dmo, want, s2, want_llr)
+    assert torch.equal(rows, plain), ("pack", exp_demod_tail.compare(
+        rows, plain, ["rows"]))
+    return want
+
+
+@pytest.mark.parametrize("use_gardner", [True, False],
+                         ids=["gardner", "no_gardner"])
+@pytest.mark.parametrize("B, L, S", TAIL_SHAPES)
+def test_demod_tail_bit_equal_to_twins(dev, use_gardner, B, L, S):
+    """Both launches of csrc/demod_tail.cu bit-equal to their twins on the
+    loop kernel's output of `exp_demod_tail.inputs`' bursts (its edge
+    rows from row 5 on where B holds them), `pack` with and without LLRs
+    and with s2_pad past 2S. Four launches."""
+    c = _tail_case(dev, B, L, S, use_gardner, seed=B + L + S)
+    before = _kernels.DEMOD_TAIL.launches
+    _tail_bit_equal(c, True)
+    _tail_bit_equal(c, False, 2 * S + 70)
+    torch.cuda.synchronize()
+    assert _kernels.DEMOD_TAIL.launches == before + 4
+
+
+@pytest.mark.parametrize("use_gardner", [True, False],
+                         ids=["gardner", "no_gardner"])
+def test_demod_tail_each_edge_row_alone(dev, use_gardner):
+    """Each of `exp_demod_tail.edge_rows` as a batch of one, and all
+    seven in one batch (B = 7), bit-equal."""
+    from iridium_tpu_torch.tools import exp_demod_tail
+    L, S = 1918, 205
+    x, n, direction = exp_demod_tail.edge_rows(L, 10.0, seed=17)
+    dm = demod.Demod(S, 10.0, use_gardner, dev)
+    fields = exp_demod_tail.pack_fields(len(n), dev, seed=18)
+    rows = [[r] for r in range(len(n))] + [list(range(len(n)))]
+    for sel in rows:
+        xt = torch.from_numpy(x[sel]).to(dev)
+        nt = torch.from_numpy(n[sel]).to(dev)
+        dt = torch.from_numpy(direction[sel]).to(dev)
+        dmo = downmix.DownmixOut(
+            samples=xt, n_samples=fields["n_samples"][sel],
+            ok=fields["ok"][sel], direction=dt,
+            start_dec=fields["start_dec"][sel],
+            fine_offset=fields["fine_offset"][sel],
+            uw_corr=fields["uw_corr"][sel])
+        c = dict(dm=dm, args=(*demod.loop(xt, nt, 10.0, S, use_gardner),
+                              dt), dmo=dmo)
+        _tail_bit_equal(c, True)
+
+
+def test_demod_tail_both_hard_checks_keep_the_direction(dev):
+    """With UL's unique word within UW_MAX_ERRORS of DL's (the CPU test's
+    NEAR_UL), clean DL bursts pass both hard checks and keep the
+    direction given: bit-equal, and the directions are the inputs'."""
+    from iridium_tpu_torch.tools import exp_demod_tail
+    L, S = 1918, 205
+    x, n, _ = exp_demod_tail.edge_rows(L, 10.0, seed=19)
+    r = exp_demod_tail.EDGES.index("dl")
+    xt = torch.from_numpy(np.repeat(x[r:r + 1], 2, 0)).to(dev)
+    nt = torch.from_numpy(np.repeat(n[r:r + 1], 2, 0)).to(dev)
+    dt = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    dm = demod.Demod(S, 10.0, True, dev)
+    dm.uw_ul = torch.tensor((1, 2, 2, 2, 2, 0, 0, 0, 2, 0, 0, 1),
+                            device=dev)
+    args = (*demod.loop(xt, nt, 10.0, S, True), dt)
+    got, want = dm.decide(*args), dm.decide_plain(*args)
+    assert exp_demod_tail.compare(got, want)["bit_equal"]
+    assert got.direction.tolist() == [0, 1] and bool(got.ok.all())
+
+
+def test_demod_tail_in_a_cuda_graph(dev):
+    """Both launches captured into a CUDA graph (two nodes), replayed on
+    new loop outputs copied into the captured ones: bit-equal to the
+    twins each time."""
+    from iridium_tpu_torch.runtime import pipeline as pl
+    B, L, S = 37, 1918, 205
+    c = _tail_case(dev, B, L, S, True, seed=1)
+    dm, args, dmo = c["dm"], c["args"], c["dmo"]
+
+    def launches():
+        return pl.pack_outputs(dmo, dm.decide(*args), 2 * S, True)
+    launches()                                     # loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        rows = launches()
+    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 2
+    g.instantiate()
+    for seed in (2, 3):
+        new = _tail_case(dev, B, L, S, seed == 2, seed)["args"]
+        for x, y in zip(args, new):
+            x.copy_(y)
+        g.replay()
+        torch.cuda.synchronize()
+        want = pl.pack_plain(dmo, dm.decide_plain(*args), 2 * S, True)
+        assert torch.equal(rows, want), seed
+
+
+def test_demod_tail_on_card_launches_the_kernel_only(dev, monkeypatch):
+    """On CUDA tensors `Demod.decide` and `pack_outputs` launch the kernel
+    once a call and never run their twins; the pipeline's class batch
+    (`BurstClass.run`) packs through it."""
+    from iridium_tpu_torch.runtime import pipeline as pl
+
+    def refuse(*args):
+        raise AssertionError("a twin ran on the card")
+    c = _tail_case(dev, 9, 1918, 205, True, seed=4)
+    monkeypatch.setattr(demod.Demod, "decide_plain", refuse)
+    monkeypatch.setattr(pl, "pack_plain", refuse)
+    before = _kernels.DEMOD_TAIL.launches
+    dd = c["dm"].decide(*c["args"])
+    rows = pl.pack_outputs(c["dmo"], dd, 410, False)
+    torch.cuda.synchronize()
+    assert _kernels.DEMOD_TAIL.launches == before + 2
+    assert rows.shape == (9, pl.row_words(410, False))
+    assert dd.bits.device == rows.device == c["args"][0].device
+
+
+def test_demod_tail_refuses_what_it_cannot_take(dev):
+    """The wrappers raise on a wrong dtype, device, shape or contiguity;
+    the C entry refuses an unknown stage, wrong counts, S under the
+    unique word and a row width that is not the layout's."""
+    import ctypes
+    from iridium_tpu_torch.runtime import pipeline as pl
+    c = _tail_case(dev, 5, 400, 40, True, seed=6)
+    dm, (out, valid, total, direction), dmo = c["dm"], c["args"], c["dmo"]
+    bad = [(0, out[:, ::2]), (0, out.real.contiguous()), (1, valid.int()),
+           (1, valid[:4]), (2, total.double()), (3, direction.long()),
+           (3, direction.cpu())]
+    args = [out, valid, total, direction]
+    for i, v in bad:
+        with pytest.raises(ValueError):
+            dm.decide(*args[:i], v, *args[i + 1:])
+    dd = dm.decide_plain(*args)
+    for d, m in ((dd._replace(bits=dd.bits.long()), dmo),
+                 (dd._replace(llr=dd.llr[:, :10]), dmo),
+                 (dd._replace(ok=dd.ok.int()), dmo),
+                 (dd, dmo._replace(start_dec=dmo.start_dec.long())),
+                 (dd, dmo._replace(uw_corr=dmo.uw_corr[:3]))):
+        with pytest.raises(ValueError):
+            pl.pack_outputs(m, d, 80, True)
+    with pytest.raises(ValueError):
+        pl.pack_outputs(dmo, dd, 79, True)
+    kn = _kernels.DEMOD_TAIL
+    ptrs = (ctypes.c_void_p * 14)(*([out.data_ptr()] * 14))
+    ints = (ctypes.c_longlong * 3)(80, 1, pl.row_words(80, True))
+    flts = (ctypes.c_float * 3)(8.0, 22.0, 3.0)
+    for stage, n, n_p, n_i, n_f in ((2, 40, 13, 1, 3), (-1, 40, 13, 1, 3),
+                                    (0, 40, 12, 1, 3), (0, 40, 13, 0, 3),
+                                    (0, 11, 13, 1, 3), (1, 80, 13, 3, 0),
+                                    (1, 80, 14, 2, 0), (1, 81, 14, 3, 0)):
+        with pytest.raises(RuntimeError):
+            kn.launch(dev, stage, 5, n, ptrs, n_p, ints, n_i, flts, n_f)
+    bad_w = (ctypes.c_longlong * 3)(80, 1, pl.row_words(80, True) + 1)
+    with pytest.raises(RuntimeError):
+        kn.launch(dev, 1, 5, 80, ptrs, 14, bad_w, 3, flts, 0)

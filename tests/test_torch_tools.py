@@ -8,7 +8,9 @@ shape, its shape table, inputs, checks, bound, adapter and `ptxas`
 summary; the downmix-FIR tool `tools/exp_downmix.py` at its small CPU
 shape, its shape table, inputs, bound and comparison; the downmix-chain
 tool `tools/exp_downmix_chain.py` at its small CPU shape, its shape
-table, inputs, bound and comparison; the SASS chain walk
+table, inputs, bound and comparison; the demod-tail tool
+`tools/exp_demod_tail.py` at its small CPU shape, its edge rows, bound
+and swap; the SASS chain walk
 of `tools/sass_chain.py` on a made-up listing; the line comparison of the
 mesh tool `tools/exp_mesh.py`; the detect_fast tool `tools/exp_fast.py` at
 its small CPU shape, its argument handling, cases, bound and comparison.
@@ -27,6 +29,7 @@ from iridium_tpu_torch.ops import window_gather as wg  # noqa: E402
 from iridium_tpu_torch.tools import exp_frontend, exp_scan, variants  # noqa: E402,E501
 from iridium_tpu_torch.tools import exp_demod, exp_downmix, exp_mesh  # noqa: E402,E501
 from iridium_tpu_torch.tools import captures, exp_fast, exp_window_gather  # noqa: E402,E501
+from iridium_tpu_torch.tools import exp_demod_tail  # noqa: E402
 from iridium_tpu_torch.tools import exp_downmix_chain  # noqa: E402
 
 
@@ -479,6 +482,79 @@ def test_exp_downmix_chain_compare_names_the_first_difference():
     ok = torch.tensor([True, False])
     res = exp_downmix_chain.compare((ok,), (~ok,), ["ok"])
     assert not res["bit_equal"] and res["first_diff"] == ["ok", 0, 0]
+
+
+def test_exp_demod_tail_small_on_cpu(capsys):
+    assert exp_demod_tail.main(["--device", "cpu", "--small"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: cpu")
+    for mode in ("gardner", "no_gardner"):
+        assert f"small 12 x 40 {mode}:" in out
+    assert out.count("bit-equal True") == 2
+    # on the CPU the wrappers are the twins: no launch
+    assert '"launches": 0' in out and '"library_ms": null' in out
+
+
+def test_exp_demod_tail_inputs_have_the_edges():
+    """`inputs` keeps exp_demod's first five lengths and puts the edge
+    rows from row 5 on, as many as the batch holds."""
+    x, n, d = exp_demod_tail.inputs(16, 400, 10.0, seed=3)
+    ex, en, ed = exp_demod_tail.edge_rows(400, 10.0, seed=4)
+    assert list(n[:5]) == [0, 3, 4, 400, 1]
+    np.testing.assert_array_equal(x[5:12], ex)
+    np.testing.assert_array_equal(n[5:12], en)
+    edges = dict(zip(exp_demod_tail.EDGES, range(5, 12)))
+    assert n[edges["zero"]] == 0 and n[edges["short"]] == 80
+    assert not x[edges["short"], 80:].any()
+    r = edges["drop"]
+    assert np.abs(x[r, 200:]).max() < np.abs(x[r, :200]).max() / 8
+    z = x[edges["signed_zero"]].view(np.float32)
+    assert np.signbit(z[z == 0]).any() and not np.signbit(z[z == 0]).all()
+    # a batch of 7 holds two edge rows; one of 3 none
+    x7, n7, _ = exp_demod_tail.inputs(7, 400, 10.0, seed=3)
+    np.testing.assert_array_equal(x7[5:], ex[:2])
+    assert len(exp_demod_tail.inputs(3, 400, 10.0, seed=3)[1]) == 3
+
+
+def test_exp_demod_tail_bound_counts_the_work():
+    """`decide`: the valid flags up to the trim (the row where none), the
+    symbols up to the larger of that and the unique word, the directions
+    and tables read; five fields, the bits and LLRs written. `pack`: the
+    bits, LLRs and eleven fields read, the rows written."""
+    from iridium_tpu_torch.runtime import pipeline
+    sh = dict(exp_demod_tail.SMALL)
+    c = exp_demod_tail.case(sh, True, torch.device("cpu"), seed=8)
+    args = c["args"]
+    want = c["dm"].decide_plain(*args)
+    B, S = sh["B"], sh["S"]
+    b = exp_demod_tail.bound(args, want, 2 * S, True)
+    n_sym = args[1].sum(1)
+    actual = want.n_symbols.long()
+    trimmed = actual < n_sym
+    assert bool(trimmed.any())
+    scan = torch.where(trimmed, actual + 3, S)
+    sym = torch.clamp(torch.maximum(torch.where(trimmed, actual + 3, n_sym),
+                                    torch.tensor(12)), max=S)
+    st = b["launches"]
+    assert st["decide"]["bytes"] == (int(scan.sum()) + 8 * int(sym.sum())
+                                     + 4 * B + 16 * 12 + 32 + 17 * B
+                                     + 16 * B * S)
+    W = pipeline.row_words(2 * S, True)
+    assert W == (2 * S + 31) // 32 + 1 + S + 11
+    assert st["pack"]["bytes"] == 16 * B * S + 38 * B + 4 * B * W
+    assert b["bound_bytes"] == st["decide"]["bytes"] + st["pack"]["bytes"]
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"])
+    assert b["bound_by"] == "bytes"
+
+
+def test_exp_demod_tail_swaps_the_twins_in_and_back():
+    from iridium_tpu_torch.dsp import demod
+    from iridium_tpu_torch.runtime import pipeline
+    kernel = (demod.Demod.decide, pipeline.pack_outputs)
+    with exp_demod_tail.plain_in_place():
+        assert demod.Demod.decide is demod.Demod.decide_plain
+        assert pipeline.pack_outputs is pipeline.pack_plain
+    assert (demod.Demod.decide, pipeline.pack_outputs) == kernel
 
 
 def test_exp_demod_shapes_inputs_and_bound():
