@@ -28,17 +28,19 @@ Phases, each printing one line:
      before the fold, `git show
      8e9722b:iridium_tpu_torch/csrc/downmix_fir.cu`, that design too);
      the downmix chain's four launches (burst start, CFO peak, sync
-     products, sync peaks and extraction) at the same nine batches,
-     through `tools/exp_downmix_chain.py`, each bit-equal to its twin on
-     the twins' chain (and the FIR kernel's stage 1 with the sync
-     search's input to its twin), beside the twins' graph and the bound;
-     the demod tail's two launches (the demodulator's decisions after its
-     loop, `Demod.decide`; the packing of the output rows,
-     `pack_outputs`) at the demod loop's eighteen batches, through
-     `tools/exp_demod_tail.py`, each bit-equal to its twin on the loop
-     kernel's output (edge rows among the bursts; `pack` with and without
-     LLRs), beside the twins eager and as a graph and the bound, with
-     `ptxas -v`'s registers and spills;
+     products, sync peaks and extraction; a row to a cluster of
+     `downmix.plan`'s blocks) at the same nine batches, each with the
+     layout it ran, through `tools/exp_downmix_chain.py`, each bit-equal
+     to its twin on the twins' chain (and the FIR kernel's stage 1 with
+     the sync search's input to its twin), beside the twins' graph and
+     the bound; the demod tail (`pipeline.decide_pack`, one launch: the
+     demodulator's decisions after its loop and the packing of the output
+     rows) at the demod loop's eighteen batches, each with `tail_plan`'s
+     layout, through `tools/exp_demod_tail.py`, bit-equal to its twin
+     (`Demod.decide_plain` and `pack_plain` composed) on the loop
+     kernel's output (edge rows among the bursts; with and without LLRs),
+     beside the twins eager and as a graph and the bound, with `ptxas
+     -v`'s registers and spills;
      the detect_fast kernel, one launch a
      block, on the production block (2,048 x 8,192, squelch and emission
      drops reached), bit-equal to `scan_fast_plain` on the card on every
@@ -455,8 +457,9 @@ def check_demod(dev, card: str) -> dict:
     a block, WIDE_1600_RUN), both modes, on
     `tools/exp_demod.py`'s bursts (random lengths, 0, 1, 3, 4 and L among
     them; residual CFO; noise): held to `loop_plain` and, through
-    `Demod.decide`, the demodulator's fields to those on `loop_plain`'s
-    output (`exp_demod.compare_loop`, `compare_demod`), each row with
+    `Demod.decide_plain`, the demodulator's fields to those on
+    `loop_plain`'s output (`exp_demod.compare_loop`, `compare_demod`),
+    each row with
     `bit_equal` and the first symbol where a burst parts (`first_diff`,
     -1 when none does); timed single-call and chained (`ns_per_step`)
     beside the chain bound of a symbol step (`chain_ns`, `chain_bound_ms`:
@@ -548,8 +551,10 @@ def check_downmix_chain(dev, card: str) -> dict:
     its twin; each launch timed single-call and as a graph of its own, the
     four as one CUDA graph (the row's `ms`), beside the twins' tensor code
     eagerly and as one graph and the bound (bytes, FP32 operations). The
-    row reports the 10 MHz small-normal batch, `detail` all nine, with the
-    build's `ptxas -v` registers and spills per kernel function."""
+    row reports the 10 MHz small-normal batch, `detail` all nine, each
+    with the layout it ran (`downmix.plan`: a cluster of 1-8 blocks a
+    row), with the build's `ptxas -v` registers and spills per kernel
+    function."""
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.tools import exp_demod
     from iridium_tpu_torch.tools import exp_downmix
@@ -579,19 +584,20 @@ def check_downmix_chain(dev, card: str) -> dict:
 
 
 def check_demod_tail(dev, card: str) -> dict:
-    """The demod tail's two launches (`Demod.decide`, `pack_outputs`) at
-    the eighteen batches of `check_demod` (the 10 MHz, 400 MHz and 1.6 GHz
-    decodes' three, both modes), through `tools/exp_demod_tail.py`: on the
-    loop kernel's output of that tool's bursts (edge rows among them: a
-    20x magnitude drop, 8 symbols, noise, a UL and a DL burst, length 0,
-    +-0 components), each launch bit-equal to its twin on the same inputs
-    (`pack` with and without LLRs; the tool raises where one parts, with
-    `first_diff`); each timed single-call and as a graph of its own, the
-    two as one CUDA graph (the row's `ms`), beside the twins eagerly and
-    as one graph and the bound (bytes, FP32 operations). The row reports
-    the 10 MHz small-normal batch in Gardner mode, `detail` all eighteen,
-    with the build's `ptxas -v` registers and spills per kernel
-    function."""
+    """The demod tail's launch (`pipeline.decide_pack`) at the eighteen
+    batches of `check_demod` (the 10 MHz, 400 MHz and 1.6 GHz decodes'
+    three, both modes), through `tools/exp_demod_tail.py`: on the loop
+    kernel's output of that tool's bursts (edge rows among them: a 20x
+    magnitude drop, 8 symbols, noise, a UL and a DL burst, length 0, +-0
+    components), bit-equal to its twin (`Demod.decide_plain` and
+    `pack_plain` composed) on the same inputs with and without LLRs (the
+    tool raises where they part, with `first_diff`); timed as a CUDA
+    graph with LLRs (the row's `ms`) and without, and inside a graph
+    (ten calls in one), beside the twins eagerly and as one graph and the
+    bound (bytes, FP32 operations). The row reports the 10 MHz small-normal batch in Gardner
+    mode, `detail` all eighteen, each with the layout it ran
+    (`pipeline.tail_plan`), with the build's `ptxas -v` registers and
+    spills per kernel function."""
     import torch
     from iridium_tpu_torch import _kernels
     from iridium_tpu_torch.tools import exp_demod
@@ -971,12 +977,11 @@ class ReplayCheck:
     front-end within FUSED_MAX_ERR of `fused_plain`, the window gather
     bit-equal to `gather_plain`, the demod loop to `loop_plain` within
     `tools/exp_demod.py`'s limits, and the demodulator's decisions on the
-    kernel's loop output (`Demod.decide`, recorded as `demod_decide`) to
-    its twin's decisions on `loop_plain`'s (`compare_demod`; counted under
-    `demod_loop` as `decide_calls`), the demod tail's two launches
-    (`Demod.decide`, `pack_outputs`) bit-equal to their twins on the same
-    inputs (under `demod_tail`, with the calls per launch in
-    `by_launch`), the downmix FIR kernel's two
+    kernel's loop output to the twin's decisions on `loop_plain`'s
+    (`compare_demod`; counted under `demod_loop` as `decide_calls`), the
+    demod tail's launch (`pipeline.decide_pack`) bit-equal to the two
+    twins composed on the same inputs (under `demod_tail`, with the calls
+    per launch in `by_launch`), the downmix FIR kernel's two
     launches (`downmix.noise_box`, `downmix.frame_rrc_sync`) bit-equal to
     their plain versions (counted under `downmix_fir`), and the downmix
     chain's four (`downmix.burst_start`, `cfo_peak`, `sync_products`,
@@ -1003,9 +1008,9 @@ class ReplayCheck:
         self._plain: dict = {}      # loop output's id -> loop_plain's
         self._cur = None
         saved = self._saved = (ff.fused, wg.gather, demod.loop,
-                               demod.Demod.decide, pl.Captured._capture,
-                               pl.Captured.replay, pl.pack_outputs)
-        (fused, gather, loop, decide, capture, replay, pack) = saved
+                               pl.decide_pack, pl.Captured._capture,
+                               pl.Captured.replay)
+        (fused, gather, loop, decide_pack, capture, replay) = saved
         self._downmix = {name: getattr(downmix, name)
                          for name in DOWNMIX_WRAPPERS}
 
@@ -1034,8 +1039,7 @@ class ReplayCheck:
         ff.fused = record("fused_frontend", fused)
         wg.gather = record("window_gather", gather)
         demod.loop = record("demod_loop", loop)
-        demod.Demod.decide = record("demod_decide", decide)
-        pl.pack_outputs = record("demod_pack", pack)
+        pl.decide_pack = record("decide_pack", decide_pack)
         for name, fn in self._downmix.items():
             setattr(downmix, name, record("downmix." + name, fn))
         pl.Captured._capture = capturing
@@ -1047,9 +1051,8 @@ class ReplayCheck:
         from iridium_tpu_torch.ops import fused_frontend as ff
         from iridium_tpu_torch.ops import window_gather as wg
         from iridium_tpu_torch.runtime import pipeline as pl
-        (ff.fused, wg.gather, demod.loop, demod.Demod.decide,
-         pl.Captured._capture, pl.Captured.replay,
-         pl.pack_outputs) = self._saved
+        (ff.fused, wg.gather, demod.loop, pl.decide_pack,
+         pl.Captured._capture, pl.Captured.replay) = self._saved
         for name, fn in self._downmix.items():
             setattr(downmix, name, fn)
         self.calls.clear()
@@ -1088,35 +1091,30 @@ class ReplayCheck:
                             res["out_max_abs_err"])
             s["bit_equal"] = s.get("bit_equal", True) and res["out_bit_equal"]
             return
-        if name == "demod_decide":
-            dm, pll_out, direction = args[0], args[1], args[4]
-            # the kernel against its twin on the same inputs, bit for bit
-            res = exp_downmix_chain.compare(got, dm.decide_plain(*args[1:]))
-            if not res["bit_equal"]:
-                raise AssertionError(f"Demod.decide {list(pll_out.shape)} "
-                                     f"in a graph replay against its "
-                                     f"twin: {res}")
-            self._tally_tail("decide", list(pll_out.shape))
-            # the decisions on the loop kernel's output against the twin's
-            # on loop_plain's
-            want = dm.decide_plain(*self._plain.pop(id(pll_out)), direction)
+        if name == "decide_pack":
+            dmd, pll_out, dm = args[0], args[1], args[4]
+            # the kernel against the two twins composed on the same
+            # inputs, bit for bit
+            want = pl.decide_pack_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"decide_pack {list(got.shape)} in a graph replay: "
+                    f"{int((got != want).sum())} words differ from the "
+                    "twins'")
+            self._tally_tail("decide_pack", list(pll_out.shape))
+            # the decisions on the loop kernel's output against those on
+            # loop_plain's
             try:
-                res = exp_demod.compare_demod(got, want)
+                res = exp_demod.compare_demod(
+                    dmd.decide_plain(*args[1:4], dm.direction),
+                    dmd.decide_plain(*self._plain.pop(id(pll_out)),
+                                     dm.direction))
             except AssertionError as e:
                 raise AssertionError(f"Demod in a graph replay: {e}")
             s = self.summary["demod_loop"]
             s["decide_calls"] = s.get("decide_calls", 0) + 1
             s["decide_max_abs_err"] = max(s.get("decide_max_abs_err", 0.0),
                                           *res.values())
-            return
-        if name == "demod_pack":
-            want = pl.pack_plain(*args)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"pack_outputs {list(got.shape)} in a graph replay: "
-                    f"{int((got != want).sum())} words differ from its "
-                    "twin's")
-            self._tally_tail("pack", list(got.shape))
             return
         if name == "fused_frontend":
             want = ff.fused_plain(*args)
@@ -1218,7 +1216,7 @@ def demod_phase(dev) -> dict:
     n = torch.full((B,), L, dtype=torch.int32, device=dev)
     direc = torch.zeros(B, dtype=torch.int32, device=dev)
     dm = demod.Demod(S, 10.0, device=dev)
-    ms = time_ms(lambda: dm(xt, n, direc), reps=3)
+    ms = time_ms(lambda: dm.decide_plain(*dm.loop(xt, n), direc), reps=3)
     loop_ms = time_ms(lambda: demod.loop(xt, n.long(), 10.0, S, True),
                       reps=3)
     return dict(phase="demod_loop", batch=B, symbols=S, ms=ms,
@@ -1537,9 +1535,10 @@ def parsed_phase(dev, tmp) -> dict:
     the calls the CLI's decode loop makes: the pipeline with LLRs, one
     block-batched protocol decode per block, `IDA:` lines, the ACARS
     reassembler and decoder. Every packed batch captured into the group
-    graph is recorded, and after the counted decode its unpacked LLRs
-    (those of the graph's last replay) are held against the demod's f32
-    LLRs of that replay."""
+    graph is recorded (`decide_pack`'s inputs and rows), and after the
+    counted decode its unpacked LLRs (those of the graph's last replay)
+    are held against the demod's f32 LLRs of that replay (the twin's
+    decisions on the recorded loop output)."""
     import io
     import torch
     from iridium_tpu_torch import _kernels
@@ -1556,12 +1555,12 @@ def parsed_phase(dev, tmp) -> dict:
     seconds = len(cap) / PROD["sample_rate"]
     det = DetectorConfig(**PROD)
     packed = []
-    kernel_pack = pl.pack_outputs
+    kernel_pack = pl.decide_pack
 
-    def recording(dm, dd, s2_pad, want_llr):
-        out = kernel_pack(dm, dd, s2_pad, want_llr)
+    def recording(*args):
+        out = kernel_pack(*args)
         if torch.cuda.is_current_stream_capturing():
-            packed.append((dd.llr, out, s2_pad // 2))
+            packed.append((args, out, args[5] // 2))
         return out
 
     pipe = pl.Pipeline(det_cfg=det, device=dev, want_llr=True)
@@ -1584,11 +1583,11 @@ def parsed_phase(dev, tmp) -> dict:
                 reasm.flush(f["timestamp_ns"])
         return lines, decoded, acars
 
-    pl.pack_outputs = recording
+    pl.decide_pack = recording
     try:
         decode()                               # warm-up, graph capture
     finally:
-        pl.pack_outputs = kernel_pack
+        pl.decide_pack = kernel_pack
     if not packed:
         raise AssertionError("no packed batch was captured")
     torch.cuda.synchronize()
@@ -1618,9 +1617,10 @@ def parsed_phase(dev, tmp) -> dict:
         raise AssertionError(f"ACARS text: {texts}")
     # unpacked LLRs within one quantum (scale / 65535) of the f32 LLRs
     worst = 0.0
-    for llr, out, ms in packed:
+    for (dmd, pll_out, valid, total, dm, *_), out, ms in packed:
         u = pl.unpack_outputs(out.cpu().numpy(), ms, True)["llr"]
-        f32 = llr.cpu().numpy()
+        f32 = dmd.decide_plain(pll_out, valid, total,
+                               dm.direction).llr.cpu().numpy()
         q = f32.max(1, keepdims=True) / 65535.0
         err = np.abs(u[:, :f32.shape[1]] - f32)
         if (err > q + 1e-7 * np.abs(f32)).any():

@@ -215,10 +215,9 @@ DOWNMIX_CHAIN = Kernel(
 
 DEMOD_TAIL = Kernel(
     "demod_tail",
-    # stage (0 decide, 1 pack), B, the symbols or bits a row, the stage's
-    # device pointers, ints and floats (host arrays) with their counts, the
-    # stream
-    [I, I, LL, P, I, P, I, P, I, P],
+    # B, the symbols a burst, the device pointers, ints and floats (host
+    # arrays) with their counts, the stream
+    [I, LL, P, I, P, I, P, I, P],
     # every product and sum rounded on its own, as the twins' separate
     # tensor operations round them
     extra_flags=("--fmad=false",))

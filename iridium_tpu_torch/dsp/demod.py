@@ -16,16 +16,18 @@ chain over rows staged in shared memory, a second warp the PLL), on a
 CPU tensor `loop_plain`, a Python loop over symbols on (B,) tensors. The sample reads are plain indexing (the JAX package's
 "gather" form); its static-window form existed only to avoid dynamic
 addressing on the TPU and gives the same values for every valid symbol.
-The rest of the demodulator (`Demod.decide`: hard decisions, end-of-frame
-trim, confidence, UW checks, bits and LLRs; the JAX package's `demod`
-:258-347) is `decide`'s stage of csrc/demod_tail.cu on a CUDA tensor (a
-warp a burst), its twin `Demod.decide_plain` on a CPU tensor. The twin
-takes its two f32 sums in the kernel's order (`warp_sum`).
+The rest of the demodulator (hard decisions, end-of-frame trim,
+confidence, UW checks, bits and LLRs; the JAX package's `demod`
+:258-347) is `Demod.decide_plain`, tensor code. On the card the class
+batches run it and the packing of their rows as one launch of
+csrc/demod_tail.cu (runtime/pipeline.py `decide_pack`, whose twin
+composes `decide_plain` and the packing), so `Demod.decide` and
+`Demod.__call__` take CPU tensors only. The twin takes its two f32 sums
+in the kernel's order (`warp_sum`).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -267,17 +269,6 @@ def warp_sum(x: torch.Tensor) -> torch.Tensor:
     return acc[:, 0]
 
 
-def tail(stage: int, dev: torch.device, B: int, n: int, ptrs: list,
-         ints=(), floats=()) -> None:
-    """One launch of csrc/demod_tail.cu's `stage` (0 decide, 1 pack) over
-    B bursts of n symbols (decide) or B rows of n bits (pack), with its
-    pointers, ints and floats packed as the C entry takes them."""
-    _kernels.DEMOD_TAIL.launch(
-        dev, stage, B, n, (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
-        (ctypes.c_longlong * len(ints))(*ints), len(ints),
-        (ctypes.c_float * len(floats))(*floats), len(floats))
-
-
 class Demod:
     """`demod(x, n_samples, direction)` over a (B, L) burst batch. Its
     constant tables live on `device`, so that a call copies nothing from
@@ -295,53 +286,25 @@ class Demod:
 
     def __call__(self, x: torch.Tensor, n_samples: torch.Tensor,
                  direction: torch.Tensor) -> DemodOut:
+        """The demodulator on CPU tensors: `loop`, then `decide`."""
+        return self.decide(*self.loop(x, n_samples), direction)
+
+    def loop(self, x: torch.Tensor, n_samples: torch.Tensor):
+        """The symbol loop over x (B, L): (pll_out, valid, total_phase)."""
         # `loop` by its module global, so that a caller can wrap it
-        pll_out, valid, total_phase = loop(x, n_samples.long(), self.sps,
-                                           self.S, self.use_gardner)
-        return self.decide(pll_out, valid, total_phase, direction)
+        return loop(x, n_samples.long(), self.sps, self.S, self.use_gardner)
 
     def decide(self, pll_out: torch.Tensor, valid: torch.Tensor,
                total_phase: torch.Tensor, direction: torch.Tensor
                ) -> DemodOut:
-        """`decide_plain`'s function: on a CPU tensor the twin, on a CUDA
-        tensor one launch of csrc/demod_tail.cu (`decide`), or a raise.
-        On the card it takes the loop kernel's outputs as they stand:
-        pll_out (B, S) c64, valid (B, S) bool, direction (B,) i32."""
-        if pll_out.device.type == "cpu":
-            return self.decide_plain(pll_out, valid, total_phase, direction)
-        dev = pll_out.device
-        S = self.S
-        _kernels.check(pll_out, "pll_out", torch.complex64, dev)
-        if pll_out.dim() != 2 or pll_out.shape[1] != S:
-            raise ValueError(f"pll_out must be (B, {S}), got "
-                             f"{tuple(pll_out.shape)}")
-        B = pll_out.shape[0]
-        _kernels.check(valid, "valid", torch.bool, dev, (B, S))
-        _kernels.check(total_phase, "total_phase", torch.float32, dev, (B,))
-        _kernels.check(direction, "direction", torch.int32, dev, (B,))
-        U = iridium.UW_LENGTH
-        for name, t, n in (("uw_dl", self.uw_dl, U), ("uw_ul", self.uw_ul, U),
-                           ("dqpsk_map", self.dqpsk_map, 4)):
-            _kernels.check(t, name, torch.int64, dev, (n,))
-        if S < U:
-            raise ValueError(f"the UW checks need S >= {U} symbols, got {S}")
-        ok = torch.empty(B, dtype=torch.bool, device=dev)
-        direction_out = torch.empty(B, dtype=torch.int32, device=dev)
-        n_symbols = torch.empty_like(direction_out)
-        confidence = torch.empty_like(direction_out)
-        level = torch.empty(B, dtype=torch.float32, device=dev)
-        bits = torch.empty((B, 2 * S), dtype=torch.int32, device=dev)
-        llr = torch.empty((B, 2 * S), dtype=torch.float32, device=dev)
-        p = _kernels.ptr
-        tail(0, dev, B, S,
-             [p(pll_out), p(valid), p(direction), p(self.uw_dl),
-              p(self.uw_ul), p(self.dqpsk_map), p(ok), p(direction_out),
-              p(n_symbols), p(confidence), p(level), p(bits), p(llr)],
-             [UW_MAX_ERRORS],
-             [MAGNITUDE_DROP, CONFIDENCE_ANGLE, UW_SOFT_THRESHOLD])
-        return DemodOut(ok=ok, direction=direction_out, n_symbols=n_symbols,
-                        confidence=confidence, level=level,
-                        total_phase=total_phase, bits=bits, llr=llr)
+        """`decide_plain` on CPU tensors. The card has no launch of the
+        decisions alone (the class batches decide and pack in one,
+        runtime/pipeline.py `decide_pack`), so any other device raises."""
+        if pll_out.device.type != "cpu":
+            raise ValueError(f"Demod.decide takes CPU tensors, got "
+                             f"{pll_out.device}: on the card the decisions "
+                             "run in runtime/pipeline.py `decide_pack`")
+        return self.decide_plain(pll_out, valid, total_phase, direction)
 
     def decide_plain(self, pll_out: torch.Tensor, valid: torch.Tensor,
                      total_phase: torch.Tensor, direction: torch.Tensor

@@ -24,8 +24,9 @@ card) are four launches of csrc/downmix_chain.cu on a CUDA tensor:
 `burst_start` (the burst start and the fine CFO estimate's input),
 `cfo_peak` (the fine CFO's peak), `sync_products` (the correlation's
 template products) and `sync_extract` (the sync peaks and the choice,
-phase align, extraction); on a CPU tensor their plain versions, the
-tensor code `Downmix.forward` ran before the kernel (`burst_start_plain`,
+phase align, extraction), the first, second and fourth a row to a cluster
+of `plan`'s blocks; on a CPU tensor their plain versions, the tensor code
+`Downmix.forward` ran before the kernel (`burst_start_plain`,
 `cfo_peak_plain`, `sync_products_plain`, `sync_extract_plain`).
 `Downmix.forward` calls every wrapper by its module global, so that a
 caller can wrap or swap it.
@@ -524,6 +525,59 @@ def sync_extract_plain(cc: torch.Tensor, xr: torch.Tensor,
         uw_corr=uw_corr)
 
 
+# the chain kernel's layouts: csrc/downmix_chain.cu, whose limits these are
+SMS = 132                      # the H100's SMs
+CLUSTERS = (1, 2, 4, 8)        # blocks a row: a portable cluster
+# the largest cluster `plan` picks where a row's shared memory does not
+# ask for more: at the 24- to 48-row class batches 4 blocks a row measured
+# ~1 us faster a chain than 8 (tools/exp_downmix_chain.py --clusters, on an
+# H100 80GB HBM3 at 700 W)
+DEFAULT_MAX_CLUSTER = 4
+MAX_STAGED = 232_448 - 1_024   # bytes of filt a block of stage 0 stages
+
+
+class ChainPlan(NamedTuple):
+    cluster: int    # blocks a row (stages 0, 1 and 3)
+    part: int       # filt positions a block of stage 0 stages
+    smem: int       # stage 0's dynamic shared memory bytes a block
+
+
+def plan(B: int, L: int, cluster: int | None = None) -> ChainPlan:
+    """The chain kernel's layout for B rows of L, which its C entry
+    checks: a cluster of `cluster` blocks a row where given, else the
+    fewest of CLUSTERS up to DEFAULT_MAX_CLUSTER whose B cluster blocks
+    reach the SMS SMs (rows of 1,024 one block, 96 two, 48 and fewer
+    four), and more (up to 8) where a block's part of a row of filt
+    would not fit its shared memory; each block stages ceil(L / cluster)
+    positions rounded up to a multiple of 4 (the 16-byte copies), in 4
+    (part + 4) bytes. Raises where no layout takes the rows."""
+    if B < 0 or L < 1:
+        raise ValueError(f"the chain kernel takes B >= 0 rows of L >= 1, "
+                         f"got {B} x {L}")
+    if cluster is None:
+        cluster = next((c for c in CLUSTERS if B * c >= SMS
+                        or c == DEFAULT_MAX_CLUSTER), DEFAULT_MAX_CLUSTER)
+        while (cluster < CLUSTERS[-1]
+               and 4 * (_part(L, cluster) + 4) > MAX_STAGED):
+            cluster *= 2
+    if cluster not in CLUSTERS:
+        raise ValueError(f"the chain kernel takes a cluster of "
+                         f"{CLUSTERS} blocks, got {cluster}")
+    part = _part(L, cluster)
+    smem = 4 * (part + 4)
+    if smem > MAX_STAGED or B * cluster >= 2 ** 31:
+        raise ValueError(f"{B} rows of {L} in clusters of {cluster}: "
+                         f"{B * cluster} blocks of {smem} bytes of shared "
+                         f"memory, at most 2^31 - 1 of {MAX_STAGED}")
+    return ChainPlan(cluster, part, smem)
+
+
+def _part(L: int, cluster: int) -> int:
+    """ceil(L / cluster) rounded up to a multiple of 4."""
+    each = -(-L // cluster)
+    return -(-each // 4) * 4
+
+
 def _chain(stage: int, dev: torch.device, B: int, L: int, ptrs: list,
            ints=(), floats=()) -> None:
     """One launch of csrc/downmix_chain.cu's `stage` over B rows of L,
@@ -557,7 +611,8 @@ def burst_start(xd: torch.Tensor, filt: torch.Tensor, ext_len: torch.Tensor,
                 dec_len: torch.Tensor, shift_dec: torch.Tensor,
                 cfo_win: torch.Tensor, k: ChainConsts):
     """`burst_start_plain`'s function: on a CPU tensor the twin, on a CUDA
-    tensor one launch of csrc/downmix_chain.cu (stage 0), or a raise."""
+    tensor one launch of csrc/downmix_chain.cu (stage 0) at `plan`'s
+    layout, or a raise."""
     if xd.device.type == "cpu":
         return burst_start_plain(xd, filt, ext_len, dec_len, shift_dec,
                                  cfo_win, k)
@@ -578,17 +633,19 @@ def burst_start(xd: torch.Tensor, filt: torch.Tensor, ext_len: torch.Tensor,
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     z = torch.empty((B, k.cfo_total), dtype=torch.complex64, device=dev)
     p = _kernels.ptr
+    lay = plan(B, L)
     _chain(0, dev, B, L,
            [p(xd), p(filt), p(ext_len), p(dec_len), p(shift_dec),
             p(cfo_win), p(start), p(frame_len), p(ok), p(z)],
            [k.decim, k.box_ntaps, k.pre_start, cfo_win.shape[0],
-            k.cfo_total], [START_THRESHOLD])
+            k.cfo_total, lay.cluster, lay.part], [START_THRESHOLD])
     return start, frame_len, ok, z
 
 
 def cfo_peak(spec: torch.Tensor):
     """`cfo_peak_plain`'s function: on a CPU tensor the twin, on a CUDA
-    tensor one launch of csrc/downmix_chain.cu (stage 1), or a raise."""
+    tensor one launch of csrc/downmix_chain.cu (stage 1) at `plan`'s
+    layout, or a raise."""
     if spec.device.type == "cpu":
         return cfo_peak_plain(spec)
     dev = spec.device
@@ -598,7 +655,8 @@ def cfo_peak(spec: torch.Tensor):
     corr = torch.empty(B, dtype=torch.float32, device=dev)
     fine_offset = torch.empty_like(corr)
     p = _kernels.ptr
-    _chain(1, dev, B, n, [p(spec), p(u), p(corr), p(fine_offset)])
+    _chain(1, dev, B, n, [p(spec), p(u), p(corr), p(fine_offset)],
+           [plan(B, n).cluster])
     return u, corr, fine_offset
 
 
@@ -625,7 +683,8 @@ def sync_extract(cc: torch.Tensor, xr: torch.Tensor, start: torch.Tensor,
                  center_bin: torch.Tensor, fine_offset: torch.Tensor,
                  k: ChainConsts) -> DownmixOut:
     """`sync_extract_plain`'s function: on a CPU tensor the twin, on a CUDA
-    tensor one launch of csrc/downmix_chain.cu (stage 3), or a raise."""
+    tensor one launch of csrc/downmix_chain.cu (stage 3) at `plan`'s
+    layout, or a raise."""
     if xr.device.type == "cpu":
         return sync_extract_plain(cc, xr, start, frame_len, ok, center_bin,
                                   fine_offset, k)
@@ -655,7 +714,8 @@ def sync_extract(cc: torch.Tensor, xr: torch.Tensor, start: torch.Tensor,
             p(fine_offset), p(samples), p(n_samples), p(ok_out),
             p(direction), p(start_dec), p(uw_corr)],
            [k.search_cap, cc.shape[2], k.max_frame_cap, k.fft_size,
-            *k.sync_len, *k.pre_off, *k.max_len, *k.min_len],
+            *k.sync_len, *k.pre_off, *k.max_len, *k.min_len,
+            plan(B, L).cluster],
            [k.center_frequency, k.in_rate, k.out_rate,
             iridium.SIMPLEX_FREQUENCY_MIN])
     return DownmixOut(samples=samples, n_samples=n_samples, ok=ok_out,

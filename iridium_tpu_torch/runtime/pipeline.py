@@ -48,12 +48,13 @@ Timestamp arithmetic matches the reference exactly:
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import gc
 import os
 import sys
 import time
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -104,40 +105,131 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
 
 def pack_outputs(dm: downmix.DownmixOut, dd: demod_mod.DemodOut,
                  s2_pad: int, want_llr: bool) -> torch.Tensor:
-    """`pack_plain`'s function: on a CPU tensor the twin, on a CUDA tensor
-    one launch of csrc/demod_tail.cu (`pack`, a warp a row, which writes
-    the (B, W) rows directly), or a raise."""
-    if dd.bits.device.type == "cpu":
-        return pack_plain(dm, dd, s2_pad, want_llr)
-    dev = dd.bits.device
-    _kernels.check(dd.bits, "bits", torch.int32, dev)
-    if dd.bits.dim() != 2 or dd.bits.shape[1] < 1:
-        raise ValueError(f"bits must be (B, S2) with S2 >= 1, got "
-                         f"{tuple(dd.bits.shape)}")
-    B, S2 = dd.bits.shape
-    if not S2 <= s2_pad < 2 ** 30:
-        raise ValueError(f"s2_pad = {s2_pad}: the rows pad {S2} bits "
+    """`pack_plain` on CPU tensors. The card has no launch of the packing
+    alone (the class batches decide and pack in one, `decide_pack`), so
+    any other device raises."""
+    if dd.bits.device.type != "cpu":
+        raise ValueError(f"pack_outputs takes CPU tensors, got "
+                         f"{dd.bits.device}: on the card the rows are "
+                         "packed in `decide_pack`")
+    return pack_plain(dm, dd, s2_pad, want_llr)
+
+
+# csrc/demod_tail.cu (`decide_pack`): its limits and its layout
+TAIL_MAX_CHUNKS = 8      # chunks of 32 symbols a warp holds
+TAIL_MAX_WARPS = 16      # warps a block
+TAIL_MAX_SMEM = 48 * 1024
+# the most warps `tail_plan` gives a batch in all, and a burst: at the
+# class batches the layouts under these measured fastest (S = 205: 2 warps
+# a burst at 1,024 bursts, 8 at 32; S = 471: 8 at 24-96 bursts;
+# tools/exp_demod_tail.py --layouts, on an H100 80GB HBM3 at 700 W)
+TAIL_BATCH_WARPS = 16 * 132
+TAIL_BURST_WARPS = 8
+
+
+class TailPlan(NamedTuple):
+    warps: int      # warps a burst
+    bursts: int     # bursts a block
+    chunks: int     # chunks of 32 symbols a warp (at most)
+    threads: int
+    smem: int       # dynamic shared memory bytes a block
+
+
+def tail_plan(B: int, S: int, warps: int | None = None) -> TailPlan:
+    """The layout of `decide_pack`'s launch for B bursts of S symbols,
+    which its C entry checks: `warps` warps a burst where given, else the
+    most of 1, 2, 4 and 8 that the burst's C = ceil(S / 32) chunks of 32
+    symbols fill (at most the power of two at or above C) and that keep
+    the batch within TAIL_BATCH_WARPS warps, and at least so many that a
+    warp holds at most TAIL_MAX_CHUNKS chunks (in registers); as many
+    bursts a block as make 4 warps (one where a burst has more); a burst's
+    shared memory 4 (5 warps + 1 + 33 chunks) bytes (csrc/demod_tail.cu
+    `slot_words`). Raises where no layout takes S."""
+    C = max(1, -(-S // 32))
+    if warps is None:
+        warps = 1
+        while (2 * warps <= TAIL_BURST_WARPS and warps < C
+               and B * 2 * warps <= TAIL_BATCH_WARPS):
+            warps *= 2
+        warps = max(warps, -(-C // TAIL_MAX_CHUNKS))
+    chunks = -(-C // max(warps, 1))
+    if not (1 <= warps <= TAIL_MAX_WARPS and chunks <= TAIL_MAX_CHUNKS):
+        raise ValueError(f"decide_pack takes at most {TAIL_MAX_CHUNKS} "
+                         f"chunks of 32 symbols a warp and {TAIL_MAX_WARPS} "
+                         f"warps a burst: S = {S}, {warps} warps")
+    bursts = max(1, 4 // warps)
+    slot = 4 * (5 * warps + 1 + 33 * C)
+    if bursts * slot > TAIL_MAX_SMEM:
+        raise ValueError(f"decide_pack: {slot} bytes of shared memory a "
+                         f"burst of {S} symbols, at most {TAIL_MAX_SMEM}")
+    return TailPlan(warps, bursts, chunks, 32 * warps * bursts,
+                    bursts * slot)
+
+
+def decide_pack_plain(dmd: demod_mod.Demod, pll_out: torch.Tensor,
+                      valid: torch.Tensor, total_phase: torch.Tensor,
+                      dm: downmix.DownmixOut, s2_pad: int,
+                      want_llr: bool) -> torch.Tensor:
+    """The demodulator's decisions on its loop's output and the packed
+    rows, as the two twins composed: `pack_plain` of `Demod.decide_plain`
+    (with the downmix's direction)."""
+    return pack_plain(dm, dmd.decide_plain(pll_out, valid, total_phase,
+                                           dm.direction), s2_pad, want_llr)
+
+
+def decide_pack(dmd: demod_mod.Demod, pll_out: torch.Tensor,
+                valid: torch.Tensor, total_phase: torch.Tensor,
+                dm: downmix.DownmixOut, s2_pad: int,
+                want_llr: bool) -> torch.Tensor:
+    """`decide_pack_plain`'s function: on a CPU tensor the twin, on a CUDA
+    tensor one launch of csrc/demod_tail.cu (at `tail_plan`'s layout),
+    which writes the (B, W) rows from the loop's
+    pll_out (B, S) c64, valid (B, S) bool and total_phase (B,) f32 and the
+    downmix's fields, or a raise."""
+    if pll_out.device.type == "cpu":
+        return decide_pack_plain(dmd, pll_out, valid, total_phase, dm,
+                                 s2_pad, want_llr)
+    dev = pll_out.device
+    S = dmd.S
+    _kernels.check(pll_out, "pll_out", torch.complex64, dev)
+    if pll_out.dim() != 2 or pll_out.shape[1] != S:
+        raise ValueError(f"pll_out must be (B, {S}), got "
+                         f"{tuple(pll_out.shape)}")
+    B = pll_out.shape[0]
+    U = iridium.UW_LENGTH
+    if S < U:
+        raise ValueError(f"the UW checks need S >= {U} symbols, got {S}")
+    if not 2 * S <= s2_pad < 2 ** 30:
+        raise ValueError(f"s2_pad = {s2_pad}: the rows pad {2 * S} bits "
                          "up, to under 2^30")
-    _kernels.check(dd.llr, "llr", torch.float32, dev, (B, S2))
+    _kernels.check(valid, "valid", torch.bool, dev, (B, S))
     f32, i32 = torch.float32, torch.int32
     for name, t, dtype in (
+            ("total_phase", total_phase, f32),
+            ("direction", dm.direction, i32),
             ("fine_offset", dm.fine_offset, f32), ("uw_corr", dm.uw_corr, f32),
             ("dm.ok", dm.ok, torch.bool), ("start_dec", dm.start_dec, i32),
-            ("n_samples", dm.n_samples, i32), ("level", dd.level, f32),
-            ("total_phase", dd.total_phase, f32),
-            ("dd.ok", dd.ok, torch.bool), ("n_symbols", dd.n_symbols, i32),
-            ("confidence", dd.confidence, i32),
-            ("direction", dd.direction, i32)):
+            ("n_samples", dm.n_samples, i32)):
         _kernels.check(t, name, dtype, dev, (B,))
+    for name, t, n in (("uw_dl", dmd.uw_dl, U), ("uw_ul", dmd.uw_ul, U),
+                       ("dqpsk_map", dmd.dqpsk_map, 4)):
+        _kernels.check(t, name, torch.int64, dev, (n,))
+    lay = tail_plan(B, S)
     W = row_words(s2_pad, want_llr)
     rows = torch.empty((B, W), dtype=torch.int32, device=dev)
     p = _kernels.ptr
-    demod_mod.tail(1, dev, B, S2,
-                   [p(dd.bits), p(dd.llr), p(dm.fine_offset), p(dm.uw_corr),
-                    p(dm.ok), p(dm.start_dec), p(dm.n_samples), p(dd.level),
-                    p(dd.total_phase), p(dd.ok), p(dd.n_symbols),
-                    p(dd.confidence), p(dd.direction), p(rows)],
-                   [s2_pad, int(want_llr), W])
+    ptrs = [p(pll_out), p(valid), p(dm.direction), p(dmd.uw_dl),
+            p(dmd.uw_ul), p(dmd.dqpsk_map), p(total_phase), p(dm.fine_offset),
+            p(dm.uw_corr), p(dm.ok), p(dm.start_dec), p(dm.n_samples),
+            p(rows)]
+    ints = [demod_mod.UW_MAX_ERRORS, s2_pad, int(want_llr), W, lay.warps,
+            lay.bursts]
+    floats = [demod_mod.MAGNITUDE_DROP, demod_mod.CONFIDENCE_ANGLE,
+              demod_mod.UW_SOFT_THRESHOLD]
+    _kernels.DEMOD_TAIL.launch(
+        dev, B, S, (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        (ctypes.c_longlong * len(ints))(*ints), len(ints),
+        (ctypes.c_float * len(floats))(*floats), len(floats))
     return rows
 
 
@@ -296,9 +388,11 @@ class BurstClass:
         self.want_llr = pipe.want_llr
         self.W = packed_width(self.max_symbols, pipe.want_llr)
 
-    def forward(self, planes: torch.Tensor, params: torch.Tensor):
+    def rows(self, planes: torch.Tensor, params: torch.Tensor):
         """params (5, n) i32 rows [tile, r, ext_len, bin, shift_dec] ->
-        the batch's DownmixOut and DemodOut."""
+        the batch's DownmixOut and its packed (n, W) i32 rows: the
+        front-end, the downmix, the demod loop, then the decisions and the
+        packing in one (`decide_pack`)."""
         starts2 = params[:2].T.contiguous()
         bins = params[3]
         ks = (bins - self.ramp.shape[1] // 2).contiguous()
@@ -309,9 +403,10 @@ class BurstClass:
             re, im = re[:, :self.dec_cap], im[:, :self.dec_cap]
         else:
             re, im = self._gather_rotate(planes, starts2, ks)
-        dm = self.downmix(torch.complex(re, im), params[2], bins,
-                          params[4])
-        return dm, self.demod(dm.samples, dm.n_samples, dm.direction)
+        dm = self.downmix(torch.complex(re, im), params[2], bins, params[4])
+        d = self.demod
+        return dm, decide_pack(d, *d.loop(dm.samples, dm.n_samples), dm,
+                               2 * self.max_symbols, self.want_llr)
 
     def _gather_rotate(self, planes: torch.Tensor, starts2: torch.Tensor,
                        ks: torch.Tensor):
@@ -341,8 +436,7 @@ class BurstClass:
     def run(self, planes: torch.Tensor, params: torch.Tensor
             ) -> torch.Tensor:
         """params (5, n) -> packed (n, W) i32 rows."""
-        dm, dd = self.forward(planes, params)
-        return pack_outputs(dm, dd, 2 * self.max_symbols, self.want_llr)
+        return self.rows(planes, params)[1]
 
     def run_jobs(self, planes: torch.Tensor, params: torch.Tensor
                  ) -> torch.Tensor:
@@ -1162,27 +1256,23 @@ class Pipeline(BurstDecoder):
         for bi, g, base_index in blocks_g:
             jobs += self._route_bursts(bi, g, base_index)
         t0 = time.perf_counter()
-        res = []
-        for *_, cls, params in jobs:
-            dm, dd = cls.forward(planes,
-                                 torch.from_numpy(params).to(self.device))
-            res.append((dm, dd, pack_outputs(dm, dd, 2 * cls.max_symbols,
-                                             self.want_llr)))
-        pf_all = torch.cat([r[2] for r in res]).cpu().numpy()
+        res = [cls.rows(planes, torch.from_numpy(params).to(self.device))
+               for *_, cls, params in jobs]
+        pf_all = torch.cat([r[1] for r in res]).cpu().numpy()
         self.timing["burst_fetch_wait"] += time.perf_counter() - t0
         self.timing["n_burst_batches"] += len(jobs)
         o = 0
-        for (bi, g, base, cl, sel, cls, _), (dm, dd, _) in zip(jobs, res):
+        for (bi, g, base, cl, sel, cls, _), (dm, _) in zip(jobs, res):
             pf = pf_all[o:o + len(sel)]
             o += len(sel)
-            out[bi] += self._format_batch(pf, cls, dm, dd, g, sel, base, cl)
+            out[bi] += self._format_batch(pf, cls, dm, g, sel, base, cl)
         return out
 
-    def _format_batch(self, pf, cls, dm, dd, g, sel, base_index,
+    def _format_batch(self, pf, cls, dm, g, sel, base_index,
                       abs_start_cl) -> list[dict]:
         u = unpack_outputs(pf, cls.max_symbols, self.want_llr)
         if self.save_bursts_dir:
-            self._save_bursts(dm, dd, g, sel, base_index)
+            self._save_bursts(dm, u, g, sel, base_index)
         self.stats.n_handled += int(u["dm_ok"].sum())
         ok = u["dm_ok"] & u["dd_ok"]
         self.stats.n_ok += int(ok.sum())
@@ -1197,7 +1287,7 @@ class Pipeline(BurstDecoder):
         self.timing["host_format"] += time.perf_counter() - t1
         return frames
 
-    def _save_bursts(self, dm, dd, g, sel, base_index) -> None:
+    def _save_bursts(self, dm, u, g, sel, base_index) -> None:
         """--save-bursts: per-burst cf32 + metadata dumps (reference
         qpsk_demod.c:339-389; `_save_bursts` :1339-1391)."""
         try:
@@ -1212,8 +1302,7 @@ class Pipeline(BurstDecoder):
         samples = dm.samples.cpu().numpy()
         n_samp = dm.n_samples.cpu().numpy()
         dm_ok = dm.ok.cpu().numpy()
-        dd_ok = dd.ok.cpu().numpy()
-        direc = dd.direction.cpu().numpy()
+        dd_ok, direc = u["dd_ok"], u["direc"]
         sdec = dm.start_dec.cpu().numpy()
         uw_corr = dm.uw_corr.cpu().numpy()
         for j in range(len(sel)):

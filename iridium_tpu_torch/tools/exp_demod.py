@@ -18,9 +18,10 @@ past each length as the downmix leaves them.
 For each shape, in both modes (Gardner and `--no-gardner`), the kernel
 (`loop` on the card) is held against `loop_plain` on the same inputs: the
 valid flags equal, the output within 1e-4 of each burst's peak magnitude,
-the summed corrections within rtol 1e-4, atol 1e-5; and `Demod.decide`
-on both gives equal ok, direction, n_symbols, confidence and bits, and
-level, total_phase and LLRs within rtol 1e-4, atol 1e-5. Each row says
+the summed corrections within rtol 1e-4, atol 1e-5; and
+`Demod.decide_plain` on both gives equal ok, direction, n_symbols,
+confidence and bits, and level, total_phase and LLRs within rtol 1e-4,
+atol 1e-5. Each row says
 whether output, flags and corrections are bit-equal (`bit_equal`) and
 the first symbol where any burst's output parts (`first_diff`, -1 when
 none does). Then the tool times the kernel (median single call, and a
@@ -47,8 +48,8 @@ on a made-up symbol), which are compared but not held to the limits.
 first group (4 blocks) of `tools/captures.py`'s dense capture three
 times, as the package runs it, with `loop_plain` in the loop kernel's
 place (this tool's swap; the package has no switch) and with the demod
-tail's twins in its kernel's (`tail_plain`: `Demod.decide_plain`,
-`pack_plain`; tools/exp_demod_tail.py's swap), and prints each class
+tail's twins in its kernel's (`tail_plain`: `decide_pack_plain`;
+tools/exp_demod_tail.py's swap), and prints each class
 graph's nodes, capture and instantiate seconds and replay ms, and each
 decode's wall (its first, which captures the graphs, and a second on
 them, with its group stages): the class graphs before and after the
@@ -251,6 +252,13 @@ def plain_graph(fn) -> dict:
     return res
 
 
+def in_graph_ms(fn, n: int = 10) -> float:
+    """The device's ms a call of `fn` takes inside a CUDA graph: n calls
+    captured as one graph (`plain_graph`), its replay's ms over n, so that
+    the replay's own launch is shared by the n."""
+    return plain_graph(lambda: [fn() for _ in range(n)])["replay_ms"] / n
+
+
 def run_shape(sh: dict, dev: torch.device, graphs: bool = True,
               reps: int = 7, cands=None, lat: dict | None = None
               ) -> list[dict]:
@@ -287,8 +295,9 @@ def run_shape(sh: dict, dev: torch.device, graphs: bool = True,
                 got = demod.loop(*args)
                 res.update(compare_loop(got, want, checked))
                 if checked:
-                    res.update(compare_demod(dm.decide(*got, direction),
-                                             dm.decide(*want, direction)))
+                    res.update(compare_demod(
+                        dm.decide_plain(*got, direction),
+                        dm.decide_plain(*want, direction)))
                 del got
                 fn = lambda: demod.loop(*args)  # noqa: E731
                 ms = statistics.median(samples_ms(fn, dev, reps))
@@ -535,9 +544,9 @@ def stage_graphs(pipe, g, dev: torch.device) -> dict:
     graph `g`'s buffers (the first call of each stage is that class's):
     the front-end, the downmix (with its FIR launches, `noise_box` and
     `frame_rrc_sync`, and its chain's, `burst_start`, `cfo_peak`,
-    `sync_products` and `sync_extract`, also alone), the demod loop and
-    its tail (`Demod.decide`), the packing; per stage its nodes and
-    replay ms (median of 5)."""
+    `sync_products` and `sync_extract`, also alone), the demod loop, its
+    tail with the packing (`decide_pack`); per stage its nodes and replay
+    ms (median of 5)."""
     from ..dsp import downmix
     from ..ops import fused_frontend
     from ..runtime import pipeline
@@ -547,8 +556,7 @@ def stage_graphs(pipe, g, dev: torch.device) -> dict:
                    "noise_box", "burst_start", "cfo_peak", "frame_rrc_sync",
                    "sync_products", "sync_extract")},
                "demod_loop": (demod, "loop"),
-               "demod_tail": (demod.Demod, "decide"),
-               "pack": (pipeline, "pack_outputs")}
+               "decide_pack": (pipeline, "decide_pack")}
     saved = {k: getattr(obj, name) for k, (obj, name) in targets.items()}
     first = {}
 

@@ -1,8 +1,9 @@
-"""The demodulator's tail and the packing of the output rows (dsp/demod.py
-`Demod.decide`, runtime/pipeline.py `pack_outputs`: csrc/demod_tail.cu's
-two launches, `decide` and `pack`) at the burst classes' batches.
+"""The demodulator's tail and the packing of the output rows
+(runtime/pipeline.py `decide_pack`: csrc/demod_tail.cu's one launch) at
+the burst classes' batches.
 
     python -m iridium_tpu_torch.tools.exp_demod_tail [--rates 10,400,1600]
+        [--layouts] [--source PATH ...]
     python -m iridium_tpu_torch.tools.exp_demod_tail --device cpu --small
 
 The shapes follow the code: the three class batches (B, L, S, sps) of the
@@ -14,20 +15,35 @@ and 1.6 GHz (256 frames a block) decodes at `exp_demod.WIDE_RUN`
 20x mid-burst (the end-of-frame trim), 8 symbols (under the unique word),
 noise alone, a clean UL burst, a clean DL burst, a zero-length row, and
 tiny symbols with +-0 components. The loop (`demod.loop`: its kernel on
-the card) turns them into `decide`'s inputs; `pack`'s downmix fields are
+the card) turns them into the tail's inputs; the downmix fields are
 random from the seed.
 
-Each launch is held to its twin on the same inputs (`decide_plain`;
-`pack_plain` with and without LLRs): `bit_equal` (torch.equal of every
-field, and of the rows' words) and, where they part, the first field, row
-and index (`first_diff`); the tool raises where one parts. Then it times
-each launch (median single call) and, on the card, each as a CUDA graph of
-its own, both as one graph (`graph_ms`, the row's `ms`; on the CPU the
-chained host time), and the twins eagerly and as one graph (`plain_ms`,
-`plain_graph_ms`, with the graph's nodes). `bound` counts what this data
-needs: bytes, each input read once where the trim reads it and each output
-written once, at 3.35 TB/s; FP32 operations (OPS_PER_SYMBOL, OPS_PER_LLR)
-at 67 TFLOP/s. No PyTorch call computes these steps (`library_ms` None).
+The launch is held to its twin, `decide_pack_plain` (`Demod.decide_plain`
+and `pack_plain` composed), on the same inputs, with and without LLRs:
+`bit_equal` (torch.equal of the rows' words) and, where they part, the
+first row and word (`first_diff`); the tool raises where they part. Then
+it times the launch (median single call) and, on the card, as a CUDA
+graph of one node with LLRs (`graph_ms`, the row's `ms`; on the CPU its
+host time) and without (`raw_graph_ms`), and ten calls captured as one
+graph, its replay over ten (`in_graph_ms`: the device's time a call
+inside a class graph, without the replay's own launch), beside the twins
+eagerly and as one graph (`plain_ms`, `plain_graph_ms`, with the graph's
+nodes); the row gives the layout (`runtime/pipeline.py` `tail_plan`).
+`--layouts` (card only) gives `in_graph_ms` at every layout the kernel
+takes at the batch's S (1, 2, 4, 8 and 16 warps a burst; each held
+bit-equal first), `by_layout`. `--source PATH` (card only, repeatable)
+builds another source of the kernel under the git-ignored build/
+(`tools/variants.py`) and times it beside the package's on the same
+inputs, in `designs`: a source with the package's entry as that launch; a
+source whose entry takes a stage first (the design of two launches,
+`decide` then `pack`: `git show
+f8c2903:iridium_tpu_torch/csrc/demod_tail.cu > build/old_tail.cu`)
+through `two_launches`, each launch held bit-equal to its twin. `bound`
+counts what the two launches' data needs, `fused_bound` what
+`decide_pack`'s does (the row's bound): bytes, each input read once where
+the trim reads it and each output written once, at 3.35 TB/s; FP32
+operations (OPS_PER_SYMBOL, OPS_PER_LLR) at 67 TFLOP/s. No PyTorch call
+computes these steps (`library_ms` None).
 
 On the CPU (`--small`: 12 bursts of 400 samples, 40 symbols) the wrappers
 are the twins, and times are the host clock's.
@@ -37,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import json
 import statistics
@@ -49,7 +66,7 @@ from .. import _kernels, device as device_mod, iridium
 from ..dsp import demod, downmix
 from ..io import synth
 from ..runtime import pipeline
-from . import exp_demod
+from . import exp_demod, variants
 from .exp_block_gather import time_gather
 from .exp_downmix_chain import compare
 from .exp_frontend import HBM_BYTES_PER_S
@@ -198,38 +215,183 @@ def bound(args: tuple, want: demod.DemodOut, s2_pad: int,
                 launches=res)
 
 
+def fused_bound(args: tuple, want: demod.DemodOut, s2_pad: int,
+                want_llr: bool) -> dict:
+    """What `decide_pack`'s data needs: `decide`'s reads (`bound`), the
+    six downmix and loop fields `pack` reads besides the decisions
+    (total_phase, fine_offset, uw_corr, dm.ok, start_dec, n_samples: 21
+    bytes a burst), the rows written; `decide`'s and `pack`'s operations.
+    The bits and LLRs are neither read nor written."""
+    pll_out = args[0]
+    B, S = pll_out.shape
+    two = bound(args, want, s2_pad, want_llr)["launches"]
+    W = pipeline.row_words(s2_pad, want_llr)
+    nb = (two["decide"]["bytes"] - 17 * B - 16 * B * S + 21 * B
+          + 4 * B * W)
+    ops = two["decide"]["ops"] + two["pack"]["ops"]
+    t_b, t_o = nb / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bound_bytes=nb, bytes_ms=t_b, bound_ops=ops, ops_ms=t_o)
+
+
 @contextlib.contextmanager
 def plain_in_place():
-    """The twins wherever the package calls `Demod.decide` and
-    `pack_outputs`."""
-    saved = demod.Demod.decide, pipeline.pack_outputs
-    demod.Demod.decide = demod.Demod.decide_plain
-    pipeline.pack_outputs = pipeline.pack_plain
+    """The twins wherever the package calls `decide_pack`."""
+    saved = pipeline.decide_pack
+    pipeline.decide_pack = pipeline.decide_pack_plain
     try:
         yield
     finally:
-        demod.Demod.decide, pipeline.pack_outputs = saved
+        pipeline.decide_pack = saved
 
 
-def check(c: dict) -> tuple[dict, demod.DemodOut]:
-    """Both launches against their twins on one case's inputs, `pack` on
-    the twin's `decide` output with LLRs and without (`pack_raw`):
-    ({launch: compare's result}, the twin's DemodOut)."""
+def check(c: dict) -> dict:
+    """`decide_pack` against the twins composed on one case's inputs, with
+    LLRs and without (`decide_pack_raw`): {launch: compare's result}."""
     dm, args, dmo = c["dm"], c["args"], c["dmo"]
     s2 = 2 * dm.S
-    want = dm.decide_plain(*args)
-    res = dict(decide=compare(dm.decide(*args), want))
+    return {name: compare(
+        pipeline.decide_pack(dm, *args[:3], dmo, s2, want_llr),
+        pipeline.decide_pack_plain(dm, *args[:3], dmo, s2, want_llr),
+        ["rows"]) for name, want_llr in (("decide_pack", True),
+                                         ("decide_pack_raw", False))}
+
+
+# The C entry of the design of two launches (`decide`, then `pack`): the
+# package's with a stage first
+STAGED = 'extern "C" int demod_tail(int stage,'
+
+
+def staged(kernel: _kernels.Kernel) -> bool:
+    """Whether a source of the kernel is the design of two launches."""
+    text = (kernel.text if isinstance(kernel, variants.Variant)
+            else kernel.source.read_text())
+    return STAGED in text
+
+
+def _staged_launch(kernel, stage: int, dev, B: int, n: int, ptrs: list,
+                   ints=(), floats=()) -> None:
+    kernel.launch(
+        dev, stage, B, n, (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs),
+        (ctypes.c_longlong * len(ints))(*ints), len(ints),
+        (ctypes.c_float * len(floats))(*floats), len(floats))
+
+
+def old_decide(kernel, dm: demod.Demod, pll_out, valid, total_phase,
+               direction) -> demod.DemodOut:
+    """`Demod.decide_plain`'s function as the design of two launches
+    computes it: its stage 0 (`decide`, a warp a burst), the (B, 2S) bits
+    and LLRs written to device memory."""
+    dev = pll_out.device
+    B, S = pll_out.shape
+    i32 = torch.int32
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    direction_out = torch.empty(B, dtype=i32, device=dev)
+    n_symbols = torch.empty_like(direction_out)
+    confidence = torch.empty_like(direction_out)
+    level = torch.empty(B, dtype=torch.float32, device=dev)
+    bits = torch.empty((B, 2 * S), dtype=i32, device=dev)
+    llr = torch.empty((B, 2 * S), dtype=torch.float32, device=dev)
+    p = _kernels.ptr
+    _staged_launch(kernel, 0, dev, B, S,
+                   [p(pll_out), p(valid), p(direction), p(dm.uw_dl),
+                    p(dm.uw_ul), p(dm.dqpsk_map), p(ok), p(direction_out),
+                    p(n_symbols), p(confidence), p(level), p(bits), p(llr)],
+                   [demod.UW_MAX_ERRORS],
+                   [demod.MAGNITUDE_DROP, demod.CONFIDENCE_ANGLE,
+                    demod.UW_SOFT_THRESHOLD])
+    return demod.DemodOut(ok=ok, direction=direction_out,
+                          n_symbols=n_symbols, confidence=confidence,
+                          level=level, total_phase=total_phase, bits=bits,
+                          llr=llr)
+
+
+def old_pack(kernel, dmo: downmix.DownmixOut, dd: demod.DemodOut,
+             s2_pad: int, want_llr: bool) -> torch.Tensor:
+    """`pack_plain`'s function as the design of two launches computes it:
+    its stage 1 (`pack`, a warp a row)."""
+    dev = dd.bits.device
+    B, S2 = dd.bits.shape
+    W = pipeline.row_words(s2_pad, want_llr)
+    rows = torch.empty((B, W), dtype=torch.int32, device=dev)
+    p = _kernels.ptr
+    _staged_launch(kernel, 1, dev, B, S2,
+                   [p(dd.bits), p(dd.llr), p(dmo.fine_offset),
+                    p(dmo.uw_corr), p(dmo.ok), p(dmo.start_dec),
+                    p(dmo.n_samples), p(dd.level), p(dd.total_phase),
+                    p(dd.ok), p(dd.n_symbols), p(dd.confidence),
+                    p(dd.direction), p(rows)],
+                   [s2_pad, int(want_llr), W])
+    return rows
+
+
+def two_launches(kernel, dm, pll_out, valid, total_phase, dmo, s2_pad,
+                 want_llr) -> torch.Tensor:
+    """`decide_pack`'s function as the design of two launches computes
+    it: `old_decide`, then `old_pack`."""
+    return old_pack(kernel, dmo, old_decide(kernel, dm, pll_out, valid,
+                                            total_phase, dmo.direction),
+                    s2_pad, want_llr)
+
+
+def check_two(kernel, c: dict, want: demod.DemodOut) -> dict:
+    """The design of two launches against the twins on one case's inputs:
+    `decide` against `Demod.decide_plain`, `pack` against `pack_plain`
+    on the twin's output, with and without LLRs (`pack_raw`)."""
+    dm, args, dmo = c["dm"], c["args"], c["dmo"]
+    s2 = 2 * dm.S
+    res = dict(decide=compare(old_decide(kernel, dm, *args), want))
     for name, want_llr in (("pack", True), ("pack_raw", False)):
-        res[name] = compare(pipeline.pack_outputs(dmo, want, s2, want_llr),
+        res[name] = compare(old_pack(kernel, dmo, want, s2, want_llr),
                             pipeline.pack_plain(dmo, want, s2, want_llr),
                             ["rows"])
-    return res, want
+    return res
 
 
-def run_shape(sh: dict, dev: torch.device, reps: int = 7) -> list[dict]:
-    """Both modes at one shape, a dict each: both launches held to their
-    twins (with and without LLRs; raises where one parts), then the
-    times and the bound (with LLRs, as the parsed decode packs them)."""
+def candidates(sources=()) -> list[tuple]:
+    """[(name, kernel)]: the package's kernel and a Variant of it per
+    source, built at once; a source of the design of two launches binds
+    its entry with the stage first."""
+    cands = variants.candidates(_kernels.DEMOD_TAIL, sources)
+    for _, k in cands[1:]:
+        if staged(k):
+            k.argtypes = [ctypes.c_int] + list(k.argtypes)
+    return cands
+
+
+def layouts(B: int, S: int) -> list[int]:
+    """The warps a burst of `tail_plan`'s layouts the kernel takes at S."""
+    ok = []
+    for w in (1, 2, 4, 8, 16):
+        try:
+            pipeline.tail_plan(B, S, w)
+        except ValueError:
+            continue
+        ok.append(w)
+    return ok
+
+
+@contextlib.contextmanager
+def forced_layout(warps: int):
+    """`decide_pack` at `warps` warps a burst, whatever `tail_plan`
+    picks."""
+    saved = pipeline.tail_plan
+    pipeline.tail_plan = lambda B, S: saved(B, S, warps)
+    try:
+        yield
+    finally:
+        pipeline.tail_plan = saved
+
+
+def run_shape(sh: dict, dev: torch.device, reps: int = 7,
+              by_layout: bool = False, cands=None) -> list[dict]:
+    """Both modes at one shape, a dict each: the launch held to the twins
+    (with and without LLRs; raises where they part), then the times and
+    the bound (with LLRs, as the parsed decode packs them); with
+    `by_layout`, the launch at each of `layouts`; each of `cands` ((name,
+    kernel) from `candidates` but the package's) held and timed in
+    `designs`."""
     B, L, S = sh["B"], sh["L"], sh["S"]
     out = []
     for use_gardner in (True, False):
@@ -238,64 +400,98 @@ def run_shape(sh: dict, dev: torch.device, reps: int = 7) -> list[dict]:
         s2 = 2 * S
         res = dict(rate_mhz=sh["rate_mhz"], shape=sh["shape"], B=B, L=L,
                    S=S, sps=sh["sps"],
-                   mode="gardner" if use_gardner else "no_gardner")
+                   mode="gardner" if use_gardner else "no_gardner",
+                   layout=pipeline.tail_plan(B, S)._asdict())
         before = _kernels.DEMOD_TAIL.launches
-        res["per_launch"], want = check(c)
+        res["per_launch"] = check(c)
         res["launches"] = _kernels.DEMOD_TAIL.launches - before
-        res["bit_equal"] = all(v["bit_equal"]
-                               for v in res["per_launch"].values())
-        res["max_abs_err"] = max(v["max_abs_err"]
-                                 for v in res["per_launch"].values())
-        res["first_diff"] = next(([k] + v["first_diff"] for k, v in
-                                  res["per_launch"].items()
-                                  if v["first_diff"]), None)
-        if not res["bit_equal"]:
-            raise AssertionError(f"demod tail at {B} x {S} "
-                                 f"({res['mode']}) against its twins: "
-                                 f"{res['per_launch']}")
+        _verdict(res, f"demod tail at {B} x {S} ({res['mode']})")
+        want = dm.decide_plain(*args)
         res["rows"] = dict(ok=int(want.ok.sum()),
                            ul=int((want.direction == 1).sum()),
                            trimmed=int((want.n_symbols.long()
                                         < args[1].sum(1)).sum()))
-
-        def decide():
-            return dm.decide(*args)
-
-        def pack():
-            return pipeline.pack_outputs(dmo, want, s2, True)
-
-        def both():
-            return pipeline.pack_outputs(dmo, dm.decide(*args), s2, True)
-
-        def plain():
-            return pipeline.pack_plain(dmo, dm.decide_plain(*args), s2,
-                                       True)
-        pl = res["per_launch"]
-        pl["decide"]["ms"] = statistics.median(samples_ms(decide, dev, reps))
-        pl["pack"]["ms"] = statistics.median(samples_ms(pack, dev, reps))
-        res["chained_ms"] = time_gather(both, dev, reps)
+        fns = _fns(dm, args, dmo, s2)
+        res["single_ms"] = statistics.median(samples_ms(
+            fns["decide_pack"], dev, reps))
+        res["chained_ms"] = time_gather(fns["decide_pack"], dev, reps)
         res["plain_ms"] = statistics.median(samples_ms(
-            plain, dev, 3 if dev.type == "cuda" else 2))
+            fns["plain"], dev, 3 if dev.type == "cuda" else 2))
         if dev.type == "cuda":
-            g = exp_demod.plain_graph(both)
+            g = exp_demod.plain_graph(fns["decide_pack"])
             res["graph_ms"], res["graph_nodes"] = g["replay_ms"], g["nodes"]
-            res["plain_graph"] = exp_demod.plain_graph(plain)
+            res["in_graph_ms"] = exp_demod.in_graph_ms(fns["decide_pack"])
+            res["raw_graph_ms"] = exp_demod.plain_graph(
+                fns["decide_pack_raw"])["replay_ms"]
+            res["plain_graph"] = exp_demod.plain_graph(fns["plain"])
             res["plain_graph_ms"] = res["plain_graph"]["replay_ms"]
-            for name, fn in (("decide", decide), ("pack", pack)):
-                pl[name]["graph_ms"] = exp_demod.plain_graph(fn)["replay_ms"]
+            if by_layout:
+                res["by_layout"] = {}
+                for w in layouts(B, S):
+                    with forced_layout(w):
+                        got = fns["decide_pack"]()
+                        if not torch.equal(got, fns["plain"]()):
+                            raise AssertionError(
+                                f"decide_pack at {w} warps a burst, {B} x "
+                                f"{S}: not bit-equal to the twins")
+                        res["by_layout"][w] = exp_demod.in_graph_ms(
+                            fns["decide_pack"])
+            res["designs"] = [_design(name, kern, c, want)
+                              for name, kern in cands or ()]
         res["ms"] = res.get("graph_ms", res["chained_ms"])
-        b = bound(args, want, s2, True)
-        for name in ("decide", "pack"):
-            pl[name]["bound_ms"] = b["launches"][name]["bound_ms"]
-        del b["launches"]
-        res.update(b, library_ms=None,
-                   share_of_bound=b["bound_ms"] / res["ms"])
+        res["two_launch_bound_ms"] = bound(args, want, s2, True)["bound_ms"]
+        fb = fused_bound(args, want, s2, True)
+        res.update(fb, library_ms=None,
+                   share_of_bound=fb["bound_ms"] / res["ms"])
         out.append(res)
-        del c, args, dmo, want
+        del c, args, dmo, want, fns
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def _verdict(res: dict, where: str) -> None:
+    """`bit_equal`, `max_abs_err` and `first_diff` over `per_launch`;
+    raises where a launch parts from its twin."""
+    per = res["per_launch"]
+    res["bit_equal"] = all(v["bit_equal"] for v in per.values())
+    res["max_abs_err"] = max(v["max_abs_err"] for v in per.values())
+    res["first_diff"] = next(([k] + v["first_diff"] for k, v in per.items()
+                              if v["first_diff"]), None)
+    if not res["bit_equal"]:
+        raise AssertionError(f"{where} against its twins: {per}")
+
+
+def _fns(dm, args, dmo, s2: int) -> dict:
+    """The calls the tool times, by name."""
+    return dict(
+        decide_pack=lambda: pipeline.decide_pack(dm, *args[:3], dmo, s2,
+                                                 True),
+        decide_pack_raw=lambda: pipeline.decide_pack(dm, *args[:3], dmo, s2,
+                                                     False),
+        plain=lambda: pipeline.decide_pack_plain(dm, *args[:3], dmo, s2,
+                                                 True))
+
+
+def _design(name: str, kern: _kernels.Kernel, c: dict, want) -> dict:
+    """Another source of the kernel on the case `c`: held bit-equal to the
+    twins, then its tail timed as a CUDA graph and in one (the package's
+    launch, or `two_launches` where the source is that design)."""
+    two = staged(kern)
+    dm, args, dmo = c["dm"], c["args"], c["dmo"]
+    s2 = 2 * dm.S
+    with variants.swapped("DEMOD_TAIL", kern):
+        per = check_two(kern, c, want) if two else check(c)
+        d = dict(design=name, launches=2 if two else 1, per_launch=per)
+        _verdict(d, f"demod tail ({name})")
+        fn = ((lambda: two_launches(kern, dm, *args[:3], dmo, s2, True))
+              if two else _fns(dm, args, dmo, s2)["decide_pack"])
+        g = exp_demod.plain_graph(fn)
+        d.update(graph_ms=g["replay_ms"], graph_nodes=g["nodes"],
+                 in_graph_ms=exp_demod.in_graph_ms(fn),
+                 ptxas=exp_demod.ptxas_summary(kern))
+    return d
 
 
 def main(argv=None) -> int:
@@ -308,23 +504,36 @@ def main(argv=None) -> int:
     ap.add_argument("--rates", default="10",
                     help="comma-separated decodes whose class batches to "
                     "run, in MHz: 10, 400, 1600")
+    ap.add_argument("--layouts", action="store_true",
+                    help="time decide_pack at every layout the kernel "
+                    "takes (card only)")
+    ap.add_argument("--source", action="append", default=[],
+                    help="time the package's kernel beside this kernel "
+                    "source, repeatable (card only)")
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
+    if (args.layouts or args.source) and dev.type != "cuda":
+        ap.error("--layouts and --source need the card")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"device: {name}", flush=True)
+    cands = []
     if dev.type == "cuda":
-        _kernels.DEMOD_TAIL.build()
-        print("ptxas " + json.dumps(exp_demod.ptxas_summary(
-            _kernels.DEMOD_TAIL)), flush=True)
+        cands = candidates(args.source)
+        for cname, k in cands:
+            print(f"ptxas {cname} " + json.dumps(exp_demod.ptxas_summary(k)),
+                  flush=True)
     shapes = ([SMALL] if args.small else
               [sh for r in args.rates.split(",")
                for sh in exp_demod.decode_shapes(float(r))])
     for sh in shapes:
-        for r in run_shape(sh, dev, reps=3 if args.small else 7):
+        for r in run_shape(sh, dev, reps=3 if args.small else 7,
+                           by_layout=args.layouts, cands=cands[1:]):
             print(f"{r['shape']} {r['B']} x {r['S']} {r['mode']}: "
                   f"{r['ms']:.4f} ms, bit-equal {r['bit_equal']}, plain "
-                  f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.5f} "
+                  f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.5f}"
+                  + "".join(f"; {d['design']} {d['graph_ms']:.4f}"
+                            for d in r.get("designs", ())) + " "
                   + json.dumps(r), flush=True)
     return 0
 

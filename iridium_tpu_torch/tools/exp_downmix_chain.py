@@ -4,6 +4,7 @@ the sync search's input that the FIR kernel's stage 1 writes
 (`frame_rrc_sync`) at the burst classes' batches.
 
     python -m iridium_tpu_torch.tools.exp_downmix_chain [--rates 10,400,1600]
+        [--clusters] [--source PATH ...]
     python -m iridium_tpu_torch.tools.exp_downmix_chain --device cpu --small
 
 The shapes follow the code: the three class batches (batch, dec_cap) of
@@ -31,7 +32,22 @@ product six) at 128 lanes x 132 SMs at the card's top SM clock. No
 PyTorch call computes these steps (`library_ms` None). `ffts` says
 whether cuFFT gives the zero-padded FFTs the same values as torch.fft's
 n= padding, and the one inverse FFT of both templates the same values as
-one of each.
+one of each. `layout` is the batch's `downmix.plan` (the cluster of
+stages 0 and 3, stage 0's staged part and shared memory, and stage 1's
+cluster).
+
+`--clusters` (card only) runs the four launches at every cluster size of
+`downmix.CLUSTERS` (each launch held bit-equal first) and times them as a
+graph (`by_cluster`). `--source PATH` (card only, repeatable) builds
+another source of the kernel under the git-ignored build/
+(`tools/variants.py`) and times its four launches beside the package's on
+the same inputs, each held bit-equal to its twin (`designs`); a source
+whose entry takes no layout (the design of a block a row: `git show
+f8c2903:iridium_tpu_torch/csrc/downmix_chain.cu > build/old_chain.cu`)
+gets an adapter (`adapted`). On the card each time as a graph also has
+`in_graph_ms`: ten calls captured as one graph, its replay over ten, the
+device's time a call inside a class graph without the replay's own
+launch; `by_cluster` is that time.
 
 On the CPU (`--small`: 12 rows of 1,024 samples at 10 MHz) the wrappers
 are the twins, and times are the host clock's.
@@ -40,6 +56,7 @@ are the twins, and times are the host clock's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import statistics
@@ -51,7 +68,7 @@ import torch
 from .. import _kernels, device as device_mod
 from ..config import DetectorConfig
 from ..dsp import downmix
-from . import exp_demod
+from . import exp_demod, variants
 from .exp_block_gather import time_gather
 from .exp_downmix import LANES, SMS, sm_clock_hz
 from .exp_frontend import HBM_BYTES_PER_S
@@ -245,15 +262,78 @@ def bound(run: dict, clock_hz: float) -> dict:
                 clock_hz=clock_hz, stages=res)
 
 
-KERNEL_FNS = {name: getattr(downmix, name) for name in STAGES}
 PLAIN_FNS = {name: getattr(downmix, name + "_plain") for name in STAGES}
+# the layout's ints each stage's C entry takes last (`downmix.plan`)
+LAYOUT_INTS = (2, 1, 0, 1)
+
+
+def adapted(text: str) -> str:
+    """A source whose `downmix_chain` entry takes no layout (its stage 0
+    takes five ints) behind an entry that drops the layout's ints
+    (LAYOUT_INTS) before it; a source that takes one as it is."""
+    if "{{10, 5, 1}" not in text:
+        return text
+    text = text.replace('extern "C" int downmix_chain(',
+                        'static int downmix_chain_inner(', 1)
+    return text + """
+// the package's entry: the layout's ints, which this design takes none of,
+// dropped
+extern "C" int downmix_chain(int stage, int B, long long L,
+                             void* const* ptrs, int n_ptrs,
+                             const long long* ints, int n_ints,
+                             const float* floats, int n_floats,
+                             cudaStream_t stream) {
+  static const int kLayout[4] = {""" + ", ".join(map(str, LAYOUT_INTS)) + \
+        """};
+  const int drop = stage >= 0 && stage < 4 ? kLayout[stage] : 0;
+  return downmix_chain_inner(stage, B, L, ptrs, n_ptrs, ints, n_ints - drop,
+                             floats, n_floats, stream);
+}
+"""
+
+
+def candidates(sources=()) -> list[tuple]:
+    """[(name, kernel)]: the package's kernel and a Variant of it per
+    source (`adapted`), built at once."""
+    return variants.candidates(_kernels.DOWNMIX_CHAIN, sources, adapted)
+
+
+@contextlib.contextmanager
+def forced_cluster(cluster: int):
+    """Stages 0, 1 and 3 at clusters of `cluster` blocks, whatever
+    `downmix.plan` picks."""
+    saved = downmix.plan
+    downmix.plan = lambda B, L: saved(B, L, cluster=cluster)
+    try:
+        yield
+    finally:
+        downmix.plan = saved
+
+
+def held(a: dict, w: dict, where: str) -> dict:
+    """The four launches on the chain's arguments `a`, each held to its
+    twin's outputs `w` (raises where one parts): {launch: compare's}."""
+    res = {}
+    for name in STAGES:
+        got = getattr(downmix, name)(*a[name])
+        res[name] = compare(got, w[name])
+        del got
+    bad = {n: r for n, r in res.items() if not r["bit_equal"]}
+    if bad:
+        raise AssertionError(f"downmix chain ({where}) against its twins: "
+                             f"{bad}")
+    return res
 
 
 def run_shape(sh: dict, dev: torch.device, reps: int = 7,
-              clock_hz: float | None = None) -> dict:
+              clock_hz: float | None = None, clusters: bool = False,
+              cands=None) -> dict:
     """One shape: each launch held to its twin on the chain's inputs
     (raises where one parts, with its `first_diff`), `frame_rrc_sync` to
-    its twin too, the FFTs' equalities, then the times and the bound."""
+    its twin too, the FFTs' equalities, then the times and the bound; with
+    `clusters`, the four at every cluster size (`by_cluster`); each of
+    `cands` ((name, kernel) from `candidates` but the package's) held and
+    timed in `designs`."""
     B, L = sh["B"], sh["L"]
     dm = sh["dm"].to(dev)
     k = dm.chain
@@ -261,13 +341,13 @@ def run_shape(sh: dict, dev: torch.device, reps: int = 7,
         B, L, k, dm.in_ntaps, SEED + B + L).items()}
     run = chain(t, dm)
     a, w = run["args"], run["want"]
+    lay = downmix.plan(B, L)
     res = dict(rate_mhz=sh["rate_mhz"], shape=sh["shape"], B=B, L=L,
-               per_launch={})
+               layout=dict(lay._asdict(),
+                           cfo_peak_cluster=downmix.plan(
+                               B, k.cfo_total).cluster))
     before = _kernels.DOWNMIX_CHAIN.launches
-    for name in STAGES:
-        got = KERNEL_FNS[name](*a[name])
-        res["per_launch"][name] = compare(got, w[name])
-        del got
+    res["per_launch"] = held(a, w, f"{B} x {L}")
     got = downmix.frame_rrc_sync(*a["frame_rrc_sync"])
     res["frame_rrc_sync"] = compare(got, w["frame_rrc_sync"],
                                     ("xr", "fwd_in"))
@@ -279,12 +359,9 @@ def run_shape(sh: dict, dev: torch.device, reps: int = 7,
     res["first_diff"] = next(([n] + r["first_diff"] for n, r in
                               res["per_launch"].items() if r["first_diff"]),
                              None)
-    bad = {n: r for n, r in list(res["per_launch"].items())
-           + [("frame_rrc_sync", res["frame_rrc_sync"])]
-           if not r["bit_equal"]}
-    if bad:
-        raise AssertionError(f"downmix chain at {B} x {L} against its "
-                             f"twins: {bad}")
+    if not res["frame_rrc_sync"]["bit_equal"]:
+        raise AssertionError(f"frame_rrc_sync at {B} x {L} against its "
+                             f"twin: {res['frame_rrc_sync']}")
     res["ffts"] = ffts(w["burst_start"][3], dm.cfo_win.shape[0],
                        w["sync_products"])
     res["rows"] = dict(ok=int(w["sync_extract"].ok.sum()),
@@ -292,25 +369,50 @@ def run_shape(sh: dict, dev: torch.device, reps: int = 7,
                        no_hit=int((run["dec_len"] - k.box_ntaps + 1 <= 0)
                                   .sum()))
 
-    def launches(fns):
+    def launches(fns=None):
+        # the wrappers by their module globals, so that a swap takes them
         def fn():
             for name in STAGES:
-                fns[name](*a[name])
+                (fns or vars(downmix))[name](*a[name])
         return fn
-    both, plain = launches(KERNEL_FNS), launches(PLAIN_FNS)
+    both, plain = launches(), launches(PLAIN_FNS)
     for name in STAGES:
         res["per_launch"][name]["ms"] = statistics.median(samples_ms(
-            lambda name=name: KERNEL_FNS[name](*a[name]), dev, reps))
+            lambda name=name: getattr(downmix, name)(*a[name]), dev, reps))
     res["chained_ms"] = time_gather(both, dev, reps)
     res["plain_ms"] = statistics.median(samples_ms(
         plain, dev, 1 if dev.type == "cuda" else 2))
     if dev.type == "cuda":
         res["graph_ms"] = exp_demod.plain_graph(both)["replay_ms"]
+        res["in_graph_ms"] = exp_demod.in_graph_ms(both)
         res["plain_graph"] = exp_demod.plain_graph(plain)
         res["plain_graph_ms"] = res["plain_graph"]["replay_ms"]
         for name in STAGES:
+            fn = (lambda name=name: getattr(downmix, name)(*a[name]))
             res["per_launch"][name]["graph_ms"] = exp_demod.plain_graph(
-                lambda name=name: KERNEL_FNS[name](*a[name]))["replay_ms"]
+                fn)["replay_ms"]
+            res["per_launch"][name]["in_graph_ms"] = exp_demod.in_graph_ms(fn)
+        if clusters:
+            res["by_cluster"] = {}
+            for c in downmix.CLUSTERS:
+                with forced_cluster(c):
+                    held(a, w, f"{B} x {L}, clusters of {c}")
+                    res["by_cluster"][c] = exp_demod.in_graph_ms(both)
+        res["designs"] = []
+        for name, kern in cands or ():
+            with variants.swapped("DOWNMIX_CHAIN", kern):
+                d = dict(design=name,
+                         per_launch=held(a, w, f"{name}, {B} x {L}"))
+                d["graph_ms"] = exp_demod.plain_graph(both)["replay_ms"]
+                d["in_graph_ms"] = exp_demod.in_graph_ms(both)
+                for n in STAGES:
+                    fn = (lambda n=n: getattr(downmix, n)(*a[n]))
+                    d["per_launch"][n]["graph_ms"] = exp_demod.plain_graph(
+                        fn)["replay_ms"]
+                    d["per_launch"][n]["in_graph_ms"] = (
+                        exp_demod.in_graph_ms(fn))
+                d["ptxas"] = exp_demod.ptxas_summary(kern)
+            res["designs"].append(d)
         fr = a["frame_rrc_sync"]
         res["frame_rrc_sync_graph_ms"] = exp_demod.plain_graph(
             lambda: downmix.frame_rrc_sync(*fr))["replay_ms"]
@@ -341,24 +443,38 @@ def main(argv=None) -> int:
     ap.add_argument("--rates", default="10",
                     help="comma-separated decodes whose class batches to "
                     "run, in MHz: 10, 400, 1600")
+    ap.add_argument("--clusters", action="store_true",
+                    help="time the launches at every cluster size (card "
+                    "only)")
+    ap.add_argument("--source", action="append", default=[],
+                    help="time the package's kernel beside this kernel "
+                    "source, repeatable (card only)")
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
+    if (args.clusters or args.source) and dev.type != "cuda":
+        ap.error("--clusters and --source need the card")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"device: {name}", flush=True)
+    cands = []
     if dev.type == "cuda":
-        _kernels.DOWNMIX_CHAIN.build()
-        print("ptxas " + json.dumps(exp_demod.ptxas_summary(
-            _kernels.DOWNMIX_CHAIN)), flush=True)
+        cands = candidates(args.source)
+        for cname, k in cands:
+            print(f"ptxas {cname} " + json.dumps(exp_demod.ptxas_summary(k)),
+                  flush=True)
     shapes = ([small_shape()] if args.small else
               [sh for r in args.rates.split(",")
                for sh in class_shapes(float(r))])
     clock = sm_clock_hz(dev)
     for sh in shapes:
-        r = run_shape(sh, dev, reps=3 if args.small else 7, clock_hz=clock)
+        r = run_shape(sh, dev, reps=3 if args.small else 7, clock_hz=clock,
+                      clusters=args.clusters, cands=cands[1:])
         print(f"{r['shape']} {r['B']} x {r['L']}: {r['ms']:.4f} ms, "
               f"bit-equal {r['bit_equal']}, plain {r['plain_ms']:.3f}, "
-              f"bound {r['bound_ms']:.5f} " + json.dumps(r), flush=True)
+              f"bound {r['bound_ms']:.5f}"
+              + "".join(f"; {d['design']} {d['graph_ms']:.4f}"
+                        for d in r.get("designs", ())) + " "
+              + json.dumps(r), flush=True)
     return 0
 
 

@@ -19,10 +19,12 @@ their sums in different places; the twin sums in the kernel's order,
 `demod.warp_sum`). Packed rows: the words equal but for the LLR quanta,
 which agree within one (tests/test_torch_packed_rows.py's reason).
 
-On a CPU tensor `decide` and `pack_outputs` are the twins and never reach
-the kernel; on any other device they launch it (checked here on the meta
-device with the launch recorded) and never run the twins. The kernel is
-held to the twins on the card in tests/test_torch_kernels_cuda.py.
+On a CPU tensor `decide`, `pack_outputs` and `decide_pack` are the twins
+and never reach the kernel; on any other device `decide_pack` launches it
+(checked here on the meta device with the launch recorded) and never runs
+the twins, and `decide` and `pack_outputs`, which have no launch of their
+own, raise. The kernel is held to the twins on the card in
+tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -265,21 +267,17 @@ def _meta_demod_out(Bm, meta):
     return dmo, dd
 
 
-def test_tail_elsewhere_launches_the_kernel_only(monkeypatch):
-    """Tensors that are not on the CPU go to the kernel, one launch each
-    with the C entry's counts, and never to the twins; what the kernel
-    cannot take raises."""
-    calls = []
-
-    def record(device, *args):
-        calls.append((device, args))
-
+def test_decide_and_pack_outputs_take_cpu_tensors_only(monkeypatch):
+    """`Demod.decide`, `Demod.__call__` and `pack_outputs` on tensors that
+    are not on the CPU raise, and neither launch the kernel nor run the
+    twins: on the card the class batches decide and pack in one launch
+    (`decide_pack`)."""
     def refuse(*args):
-        raise AssertionError("a twin ran for a non-CPU tensor")
-    monkeypatch.setattr(_kernels.DEMOD_TAIL, "launch", record)
+        raise AssertionError("a launch or a twin ran for a non-CPU tensor")
+    monkeypatch.setattr(_kernels.DEMOD_TAIL, "launch", refuse)
     monkeypatch.setattr(demod.Demod, "decide_plain", refuse)
     monkeypatch.setattr(pl, "pack_plain", refuse)
-    monkeypatch.setattr(_kernels, "ptr", lambda t: 0)
+    monkeypatch.setattr(demod, "loop", lambda *a: (out, valid, total))
     meta = torch.device("meta")
     Bm = 6
     dm = demod.Demod(S, SPS, True, meta)
@@ -287,34 +285,132 @@ def test_tail_elsewhere_launches_the_kernel_only(monkeypatch):
     valid = torch.empty((Bm, S), dtype=torch.bool, device=meta)
     total = torch.empty(Bm, dtype=torch.float32, device=meta)
     direction = torch.empty(Bm, dtype=torch.int32, device=meta)
-    got = dm.decide(out, valid, total, direction)
-    assert got.bits.shape == got.llr.shape == (Bm, 2 * S)
-    assert got.bits.dtype == torch.int32 and got.llr.dtype == torch.float32
-    assert got.ok.dtype == torch.bool and got.level.dtype == torch.float32
-    assert got.total_phase is total
-    (device, args), = calls
-    # stage, B, S, 13 pointers, 1 int (UW_MAX_ERRORS), 3 floats
-    assert device == meta and args[:3] == (0, Bm, S)
-    assert (args[4], args[6], args[8]) == (13, 1, 3)
-    assert list(args[5]) == [demod.UW_MAX_ERRORS]
-    assert list(args[7]) == [demod.MAGNITUDE_DROP, demod.CONFIDENCE_ANGLE,
-                             demod.UW_SOFT_THRESHOLD]
-    calls.clear()
+    with pytest.raises(ValueError, match="decide_pack"):
+        dm.decide(out, valid, total, direction)
+    with pytest.raises(ValueError, match="decide_pack"):
+        dm(out, total.int(), direction)
     dmo, dd = _meta_demod_out(Bm, meta)
-    rows = pl.pack_outputs(dmo, dd, 2 * S + 6, True)
+    with pytest.raises(ValueError, match="decide_pack"):
+        pl.pack_outputs(dmo, dd, 2 * S, True)
+
+
+# (B, S) of every class batch of the 10 MHz, 400 MHz and 1.6 GHz decodes,
+# each run in both modes (tools/exp_demod.py `decode_shapes`)
+TAIL_BATCHES = [(1024, 205), (96, 471), (48, 471), (32, 205), (24, 471),
+                (24, 471), (32, 205), (24, 471), (24, 471)]
+
+
+@pytest.mark.parametrize("B, S", TAIL_BATCHES + [(13, 12), (1, 40)])
+def test_tail_plan_gives_every_batch_a_layout(B, S):
+    """`decide_pack`'s layout at each class batch (and S = UW_LENGTH): the
+    warps a burst hold its chunks of 32 symbols, at most 8 a warp; a block
+    of at most 16 warps; shared memory a burst's words times its bursts,
+    within 48 KiB (and so within a block's 232,448 bytes)."""
+    p = pl.tail_plan(B, S)
+    C = -(-S // 32)
+    assert p.warps * p.chunks >= C and p.chunks <= pl.TAIL_MAX_CHUNKS
+    assert p.chunks == -(-C // p.warps)
+    assert p.threads == 32 * p.warps * p.bursts <= 32 * pl.TAIL_MAX_WARPS
+    assert p.smem == 4 * p.bursts * (5 * p.warps + 1 + 33 * C)
+    assert p.smem <= pl.TAIL_MAX_SMEM <= 232_448
+    # more than one warp a burst at S = 471: more blocks than bursts / 4
+    if S == 471:
+        assert p.warps > 1 and -(-B // p.bursts) > B // 4
+
+
+def test_tail_plan_refuses_what_the_kernel_does_not_take():
+    """More than 8 chunks a warp, no warps or more than 16, a burst past
+    16 warps of 8 chunks."""
+    for S, warps in ((471, 1), (205, 0), (205, 17), (300, 1)):
+        with pytest.raises(ValueError):
+            pl.tail_plan(8, S, warps)
+    with pytest.raises(ValueError):
+        pl.tail_plan(8, 16 * 8 * 32 + 1)
+    assert pl.tail_plan(8, 16 * 8 * 32).warps == 16
+
+
+@pytest.mark.parametrize("want_llr,pad",
+                         [(True, 0), (False, 0), (True, 10)])
+def test_decide_pack_plain_matches_jax(case, want_llr, pad):
+    """The twins composed (`decide_pack_plain`, which `decide_pack` is on a
+    CPU tensor) against the JAX package's tail and packing of its own
+    demodulator's outputs, unpacked: integer fields and bits exact, level
+    and total_phase within rtol 1e-4, atol 1e-5, LLRs within two quanta
+    of each one's scale (each side quantises its own f32 LLRs, which
+    agree within rtol 1e-4)."""
+    dm, loop_out, dd = _port(case["use_gardner"], case["x"], case["n"],
+                             case["direction"])
+    f = tool.pack_fields(B, torch.device("cpu"), seed=9)
+    dmo = downmix.DownmixOut(samples=torch.from_numpy(case["x"]),
+                             n_samples=f["n_samples"], ok=f["ok"],
+                             direction=torch.from_numpy(case["direction"]),
+                             start_dec=f["start_dec"],
+                             fine_offset=f["fine_offset"],
+                             uw_corr=f["uw_corr"])
+    s2_pad = 2 * S + pad
+    got = pl.decide_pack(dm, *loop_out, dmo, s2_pad, want_llr)
+    assert torch.equal(got, pl.pack_plain(dmo, dd, s2_pad, want_llr))
+    w = case["want"]
+    jdm = jdemod.DemodOut(**{k: jnp.asarray(getattr(w, k))
+                             for k in jdemod.DemodOut._fields})
+
+    class JDm:
+        fine_offset = jnp.asarray(dmo.fine_offset.numpy())
+        uw_corr = jnp.asarray(dmo.uw_corr.numpy())
+        ok = jnp.asarray(dmo.ok.numpy())
+        start_dec = jnp.asarray(dmo.start_dec.numpy())
+        n_samples = jnp.asarray(dmo.n_samples.numpy())
+    want = np.asarray(jpl.pack_outputs(JDm, jdm, want_llr, s2_pad))
+    assert got.shape == want.shape
+    u = pl.unpack_outputs(got.numpy(), S + pad // 2, want_llr)
+    v = pl.unpack_outputs(want, S + pad // 2, want_llr)
+    for k in ("dm_ok", "dd_ok", "n_sym", "conf", "direc", "sdec", "bits"):
+        np.testing.assert_array_equal(u[k], v[k], err_msg=k)
+    for k in ("fine", "level", "total"):
+        np.testing.assert_allclose(u[k], v[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    q = np.maximum(w.llr.max(1, initial=0), 1e-30)[:, None] / 65535
+    assert (np.abs(u["llr"][:, :2 * S] - v["llr"][:, :2 * S])
+            <= 2 * q + 1e-4 * np.abs(v["llr"][:, :2 * S])).all()
+
+
+def test_decide_pack_elsewhere_launches_the_kernel_only(monkeypatch):
+    """Tensors that are not on the CPU go to `decide_pack`'s launch, once,
+    with the C entry's counts and `tail_plan`'s layout last, and never to
+    the twins; what the kernel cannot take raises."""
+    calls = []
+    monkeypatch.setattr(_kernels.DEMOD_TAIL, "launch",
+                        lambda device, *a: calls.append((device, a)))
+
+    def refuse(*args):
+        raise AssertionError("a twin ran for a non-CPU tensor")
+    monkeypatch.setattr(demod.Demod, "decide_plain", refuse)
+    monkeypatch.setattr(pl, "pack_plain", refuse)
+    monkeypatch.setattr(pl, "decide_pack_plain", refuse)
+    monkeypatch.setattr(_kernels, "ptr", lambda t: 0)
+    meta = torch.device("meta")
+    Bm = 6
+    dm = demod.Demod(S, SPS, True, meta)
+    out = torch.empty((Bm, S), dtype=torch.complex64, device=meta)
+    valid = torch.empty((Bm, S), dtype=torch.bool, device=meta)
+    total = torch.empty(Bm, dtype=torch.float32, device=meta)
+    dmo, _ = _meta_demod_out(Bm, meta)
+    rows = pl.decide_pack(dm, out, valid, total, dmo, 2 * S + 6, True)
     W = pl.row_words(2 * S + 6, True)
     assert rows.shape == (Bm, W) and rows.dtype == torch.int32
     (device, args), = calls
-    assert args[:3] == (1, Bm, 2 * S) and (args[4], args[6]) == (14, 3)
-    assert list(args[5]) == [2 * S + 6, 1, W]
-    with pytest.raises(ValueError):
-        dm.decide(out[:, :S - 1].contiguous(), valid[:, :S - 1], total,
-                  direction)
-    with pytest.raises(ValueError):
-        dm.decide(out, valid, total, direction.long())
-    with pytest.raises(ValueError):
-        pl.pack_outputs(dmo, dd, 2 * S - 1, True)
-    with pytest.raises(ValueError):
-        pl.pack_outputs(dmo, dd._replace(llr=dd.llr.double()), 2 * S, True)
-    with pytest.raises(ValueError):
-        pl.pack_outputs(dmo._replace(ok=dmo.ok.int()), dd, 2 * S, True)
+    lay = pl.tail_plan(Bm, S)
+    assert device == meta and args[:2] == (Bm, S)
+    assert (args[3], args[5], args[7]) == (13, 6, 3)
+    assert list(args[4]) == [demod.UW_MAX_ERRORS, 2 * S + 6, 1, W,
+                             lay.warps, lay.bursts]
+    assert list(args[6]) == [demod.MAGNITUDE_DROP, demod.CONFIDENCE_ANGLE,
+                             demod.UW_SOFT_THRESHOLD]
+    for bad in ((out[:, :S - 1].contiguous(), valid, total, dmo, 2 * S),
+                (out, valid, total, dmo, 2 * S - 1),
+                (out, valid.int(), total, dmo, 2 * S),
+                (out, valid, total, dmo._replace(ok=dmo.ok.int()), 2 * S),
+                (out, valid, total, dmo._replace(
+                    direction=dmo.direction.long()), 2 * S)):
+        with pytest.raises(ValueError):
+            pl.decide_pack(dm, *bad, True)

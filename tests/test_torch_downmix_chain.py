@@ -494,3 +494,80 @@ def test_downmix_goes_through_the_wrappers(setup, monkeypatch):
     assert calls == list(names)
     for name, a, b in zip(got._fields, got, want):
         assert torch.equal(a, b), name
+
+
+# (B, L) of every class batch of the 10 MHz, 400 MHz and 1.6 GHz decodes
+# (tools/exp_downmix_chain.py `class_shapes`)
+CLASS_BATCHES = [(1024, 8172), (96, 8172), (48, 28140), (32, 4749),
+                 (24, 4749), (24, 28160), (32, 4679), (24, 4679),
+                 (24, 28144)]
+
+
+@pytest.mark.parametrize("B, L", CLASS_BATCHES)
+def test_plan_gives_every_class_batch_a_layout(B, L):
+    """Each class batch gets a cluster whose blocks reach the 132 SMs (or
+    the largest the plan picks, 4), a staged part of filt that covers the
+    row in 16-byte
+    copies, and shared memory within a block's 232,448 bytes; stage 1's
+    rows (the CFO FFT's 4,096) the same cluster."""
+    p = downmix.plan(B, L)
+    assert p.cluster in downmix.CLUSTERS
+    assert (B * p.cluster >= downmix.SMS
+            or p.cluster == downmix.DEFAULT_MAX_CLUSTER)
+    assert p.cluster == 1 or B * p.cluster // 2 < downmix.SMS
+    assert p.part % 4 == 0 and p.part * p.cluster >= L
+    assert p.part - 4 < -(-L // p.cluster)
+    assert p.smem == 4 * (p.part + 4) <= 232_448
+    assert downmix.plan(B, 4096).cluster == p.cluster
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    """A cluster other than 1, 2, 4 or 8; a row whose part overflows a
+    block's shared memory at a cluster of 8; no rows of nothing. A row too
+    long for one block goes over a cluster."""
+    for c in (0, 3, 16):
+        with pytest.raises(ValueError):
+            downmix.plan(10, 1000, cluster=c)
+    with pytest.raises(ValueError):
+        downmix.plan(1, 8 * 57_856 + 1)
+    with pytest.raises(ValueError):
+        downmix.plan(4, 0)
+    with pytest.raises(ValueError):
+        downmix.plan(200, 60_000, cluster=1)
+    assert downmix.plan(200, 60_000).cluster == 2
+    assert downmix.plan(1, 8 * 57_852).cluster == 8
+    assert downmix.plan(0, 100).cluster == downmix.DEFAULT_MAX_CLUSTER
+
+
+def test_chain_elsewhere_launches_the_kernel_only(setup, monkeypatch):
+    """Tensors that are not on the CPU go to the kernel, one launch each
+    with the C entry's counts and `plan`'s layout last, and never to the
+    twins."""
+    calls = []
+    monkeypatch.setattr(downmix._kernels.DOWNMIX_CHAIN, "launch",
+                        lambda device, *a: calls.append(a))
+    monkeypatch.setattr(downmix._kernels, "ptr", lambda t: 0)
+    for name in ("burst_start", "cfo_peak", "sync_products",
+                 "sync_extract"):
+        monkeypatch.setattr(downmix, name + "_plain", None)
+    meta, k = torch.device("meta"), setup["k"]
+    B, Lm = 40, 5000
+    lay = downmix.plan(B, Lm)
+
+    def e(dtype, *shape):
+        return torch.empty(shape or (B,), dtype=dtype, device=meta)
+    c64, i64 = torch.complex64, torch.int64
+    downmix.burst_start(e(c64, B, Lm), e(torch.float32, B, Lm), e(i64),
+                        e(i64), e(i64), e(torch.float32, 256), k)
+    downmix.cfo_peak(e(c64, B, k.cfo_total))
+    downmix.sync_products(e(c64, B, k.corr_n), e(c64, k.corr_n),
+                          e(c64, k.corr_n))
+    downmix.sync_extract(e(c64, 2, B, k.corr_n), e(c64, B, Lm), e(i64),
+                         e(i64), e(torch.bool), e(i64), e(torch.float32), k)
+    stages = [a[0] for a in calls]
+    assert stages == [0, 1, 2, 3]
+    counts = [(a[4], a[6], a[8]) for a in calls]
+    assert counts == [(10, 7, 1), (4, 1, 0), (4, 0, 0), (13, 13, 4)]
+    assert list(calls[0][5])[-2:] == [lay.cluster, lay.part]
+    assert list(calls[1][5]) == [downmix.plan(B, k.cfo_total).cluster]
+    assert list(calls[3][5])[-1] == lay.cluster

@@ -972,23 +972,23 @@ def test_demod_loop_matches_plain(dev, use_gardner):
     assert _kernels.DEMOD_LOOP.launches == before + 1
     exp_demod.compare_loop(got, want)
     dm = demod.Demod(S, 10.0, use_gardner, dev)
-    exp_demod.compare_demod(dm.decide(*got, direction),
-                            dm.decide(*want, direction))
+    exp_demod.compare_demod(dm.decide_plain(*got, direction),
+                            dm.decide_plain(*want, direction))
 
 
 def test_demod_on_card_launches_the_kernel_only(dev, monkeypatch):
-    """`Demod` on CUDA tensors launches the kernel once a call and never
-    runs `loop_plain`; a tensor the kernel cannot take raises."""
+    """`Demod.loop` on CUDA tensors launches the kernel once a call and
+    never runs `loop_plain`; a tensor the kernel cannot take raises."""
     def refuse(*args):
         raise AssertionError("loop_plain ran on the card")
     x, n, direction = _demod_inputs(dev, B=5)
     monkeypatch.setattr(demod, "loop_plain", refuse)
     for use_gardner in (True, False):
         before = _kernels.DEMOD_LOOP.launches
-        out = demod.Demod(205, 10.0, use_gardner, dev)(x, n.int(), direction)
+        out = demod.Demod(205, 10.0, use_gardner, dev).loop(x, n.int())
         torch.cuda.synchronize()
         assert _kernels.DEMOD_LOOP.launches == before + 1
-        assert out.bits.shape == (5, 410) and out.bits.device == x.device
+        assert out[0].shape == (5, 205) and out[0].device == x.device
     with pytest.raises(ValueError):
         demod.loop(x[:, ::2], n, 10.0, 205, True)
     with pytest.raises(ValueError):
@@ -1254,8 +1254,14 @@ def test_downmix_fir_refuses_what_it_cannot_take(dev):
 
 
 # (B, L) of the chain's card tests: the 10 MHz small-normal class (1,024 x
-# 8,172), one row, an odd L, L the sync search's span (840)
-CHAIN_EDGES = [(1024, 8172), (1, 8172), (37, 3001), (12, 1024), (11, 840)]
+# 8,172), one row, an odd L, L the sync search's span (840); B on both
+# sides of each change of `downmix.plan`'s cluster (4 to 2 at 66, 2 to 1
+# at 132), 7, 32 and 33; the large class (48 x 28,140) and the
+# wideband classes' odd L (4,749); a row longer than one block's shared
+# memory (60,000 f32: a cluster of 2 where 200 rows alone would take 1)
+CHAIN_EDGES = [(1024, 8172), (1, 8172), (37, 3001), (12, 1024), (11, 840),
+               (7, 4749), (32, 4749), (33, 3001), (65, 8172), (66, 8172),
+               (131, 1024), (132, 840), (48, 28140), (200, 60000)]
 
 
 def _chain_run(dev, B, L, seed):
@@ -1288,6 +1294,22 @@ def test_downmix_chain_bit_equal_to_twins(dev, B, L):
     assert res["bit_equal"], ("frame_rrc_sync", res)
     torch.cuda.synchronize()
     assert _kernels.DOWNMIX_CHAIN.launches == before + 4
+
+
+@pytest.mark.parametrize("cluster", downmix.CLUSTERS)
+@pytest.mark.parametrize("B, L", [(48, 28140), (37, 3001), (1, 8172)])
+def test_downmix_chain_every_cluster_bit_equal(dev, monkeypatch, cluster,
+                                               B, L):
+    """Each launch at every cluster size, not only `plan`'s, bit-equal to
+    its twin (the reduction does not depend on its order)."""
+    plan = downmix.plan
+    monkeypatch.setattr(downmix, "plan",
+                        lambda b, n: plan(b, n, cluster=cluster))
+    run = _chain_run(dev, B, L, seed=B + L + cluster)
+    for name in exp_downmix_chain.STAGES:
+        got = getattr(downmix, name)(*run["args"][name])
+        res = exp_downmix_chain.compare(got, run["want"][name])
+        assert res["bit_equal"], (name, cluster, res)
 
 
 def test_downmix_chain_in_a_cuda_graph(dev):
@@ -1386,13 +1408,27 @@ def test_downmix_chain_refuses_what_it_cannot_take(dev):
     import ctypes
     kn = _kernels.DOWNMIX_CHAIN
     ptrs = (ctypes.c_void_p * 13)(*([spec.data_ptr()] * 13))
-    ints = (ctypes.c_longlong * 12)(*([1] * 12))
+    ints = (ctypes.c_longlong * 13)(*([1] * 13))
     flts = (ctypes.c_float * 4)()
-    for stage, n_p, n_i, n_f in ((4, 4, 0, 0), (-1, 4, 0, 0), (1, 3, 0, 0),
-                                 (1, 4, 1, 0), (0, 10, 5, 0), (2, 5, 0, 0),
-                                 (3, 13, 11, 4), (3, 13, 12, 3)):
+    for stage, n_p, n_i, n_f in ((4, 4, 0, 0), (-1, 4, 0, 0), (1, 3, 1, 0),
+                                 (1, 4, 0, 0), (1, 4, 2, 0), (0, 10, 6, 1),
+                                 (2, 5, 0, 0), (3, 13, 12, 4),
+                                 (3, 13, 13, 3)):
         with pytest.raises(RuntimeError):
             kn.launch(dev, stage, 5, 4096, ptrs, n_p, ints, n_i, flts, n_f)
+    # layouts the kernel does not take: a cluster of 3 or 16; stage 0's
+    # staged part not a multiple of 4, or short of L / cluster
+    for c in (3, 16, 0):
+        one = (ctypes.c_longlong * 1)(c)
+        with pytest.raises(RuntimeError):
+            kn.launch(dev, 1, 5, 4096, ptrs, 4, one, 1, flts, 0)
+    for cluster, part in ((1, 4094), (2, 2044), (1, 4097)):
+        start = (ctypes.c_longlong * 7)(40, 20, 10, 256, 4096, cluster,
+                                        part)
+        with pytest.raises(RuntimeError):
+            kn.launch(dev, 0, 5, 4096, ptrs, 10, start, 7, flts, 1)
+    with pytest.raises(ValueError):
+        downmix.plan(5, 4096, cluster=3)
 
 
 # (B, L, S) of the demod tail's card tests: the 10 MHz small-normal class
@@ -1409,35 +1445,63 @@ def _tail_case(dev, B, L, S, use_gardner, seed):
 
 
 def _tail_bit_equal(c, want_llr=True, s2_pad=None):
+    """`decide_pack` against the two twins composed: one launch."""
     from iridium_tpu_torch.runtime import pipeline as pl
-    from iridium_tpu_torch.tools import exp_demod_tail
     dm, args, dmo = c["dm"], c["args"], c["dmo"]
-    got = dm.decide(*args)
-    want = dm.decide_plain(*args)
-    res = exp_demod_tail.compare(got, want)
-    assert res["bit_equal"], ("decide", res)
     s2 = s2_pad or 2 * dm.S
-    rows = pl.pack_outputs(dmo, want, s2, want_llr)
-    plain = pl.pack_plain(dmo, want, s2, want_llr)
-    assert torch.equal(rows, plain), ("pack", exp_demod_tail.compare(
-        rows, plain, ["rows"]))
-    return want
+    got = pl.decide_pack(dm, *args[:3], dmo, s2, want_llr)
+    want = pl.decide_pack_plain(dm, *args[:3], dmo, s2, want_llr)
+    assert torch.equal(got, want), _rows_cmp(got, want)
 
 
 @pytest.mark.parametrize("use_gardner", [True, False],
                          ids=["gardner", "no_gardner"])
 @pytest.mark.parametrize("B, L, S", TAIL_SHAPES)
 def test_demod_tail_bit_equal_to_twins(dev, use_gardner, B, L, S):
-    """Both launches of csrc/demod_tail.cu bit-equal to their twins on the
-    loop kernel's output of `exp_demod_tail.inputs`' bursts (its edge
-    rows from row 5 on where B holds them), `pack` with and without LLRs
-    and with s2_pad past 2S. Four launches."""
+    """csrc/demod_tail.cu's launch (`decide_pack`, at `tail_plan`'s
+    layout) bit-equal to the two twins composed on the loop kernel's
+    output of `exp_demod_tail.inputs`' bursts (its edge rows from row 5
+    on where B holds them), with LLRs, and without them with s2_pad past
+    2S. Two launches."""
     c = _tail_case(dev, B, L, S, use_gardner, seed=B + L + S)
     before = _kernels.DEMOD_TAIL.launches
     _tail_bit_equal(c, True)
     _tail_bit_equal(c, False, 2 * S + 70)
     torch.cuda.synchronize()
-    assert _kernels.DEMOD_TAIL.launches == before + 4
+    assert _kernels.DEMOD_TAIL.launches == before + 2
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("B, L, S", [(1024, 1918, 205), (7, 1918, 205),
+                                     (48, 4440, 471), (13, 400, 12)])
+def test_decide_pack_every_layout_bit_equal(dev, monkeypatch, warps, B, L,
+                                            S):
+    """`decide_pack` at every warps-a-burst layout the kernel takes at S
+    (a burst over 1 to 16 warps, several bursts a block), not only
+    `tail_plan`'s, bit-equal to the twins composed, with and without LLRs
+    and with s2_pad past 2S; a layout whose warps would hold more than 8
+    chunks of 32 symbols each is refused."""
+    from iridium_tpu_torch.runtime import pipeline as pl
+    if -(-(-(-S // 32)) // warps) > pl.TAIL_MAX_CHUNKS:
+        with pytest.raises(ValueError):
+            pl.tail_plan(B, S, warps)
+        return
+    plan = pl.tail_plan
+    monkeypatch.setattr(pl, "tail_plan",
+                        lambda b, n: plan(b, n, warps))
+    c = _tail_case(dev, B, L, S, True, seed=B + S + warps)
+    dm, args, dmo = c["dm"], c["args"], c["dmo"]
+    for want_llr, s2 in ((True, 2 * S), (False, 2 * S), (True, 2 * S + 70)):
+        got = pl.decide_pack(dm, *args[:3], dmo, s2, want_llr)
+        want = pl.decide_pack_plain(dm, *args[:3], dmo, s2, want_llr)
+        assert torch.equal(got, want), (want_llr, s2, _rows_cmp(
+            got, want))
+
+
+def _rows_cmp(got, want):
+    """Where two packed row matrices part (`exp_demod_tail.compare`)."""
+    from iridium_tpu_torch.tools import exp_demod_tail
+    return exp_demod_tail.compare(got, want, ["rows"])
 
 
 @pytest.mark.parametrize("use_gardner", [True, False],
@@ -1470,6 +1534,7 @@ def test_demod_tail_both_hard_checks_keep_the_direction(dev):
     """With UL's unique word within UW_MAX_ERRORS of DL's (the CPU test's
     NEAR_UL), clean DL bursts pass both hard checks and keep the
     direction given: bit-equal, and the directions are the inputs'."""
+    from iridium_tpu_torch.runtime import pipeline as pl
     from iridium_tpu_torch.tools import exp_demod_tail
     L, S = 1918, 205
     x, n, _ = exp_demod_tail.edge_rows(L, 10.0, seed=19)
@@ -1480,95 +1545,118 @@ def test_demod_tail_both_hard_checks_keep_the_direction(dev):
     dm = demod.Demod(S, 10.0, True, dev)
     dm.uw_ul = torch.tensor((1, 2, 2, 2, 2, 0, 0, 0, 2, 0, 0, 1),
                             device=dev)
-    args = (*demod.loop(xt, nt, 10.0, S, True), dt)
-    got, want = dm.decide(*args), dm.decide_plain(*args)
-    assert exp_demod_tail.compare(got, want)["bit_equal"]
-    assert got.direction.tolist() == [0, 1] and bool(got.ok.all())
+    f = exp_demod_tail.pack_fields(2, dev, seed=20)
+    dmo = downmix.DownmixOut(samples=xt, n_samples=f["n_samples"],
+                             ok=f["ok"], direction=dt,
+                             start_dec=f["start_dec"],
+                             fine_offset=f["fine_offset"],
+                             uw_corr=f["uw_corr"])
+    loop_out = demod.loop(xt, nt, 10.0, S, True)
+    got = pl.decide_pack(dm, *loop_out, dmo, 2 * S, True)
+    want = pl.decide_pack_plain(dm, *loop_out, dmo, 2 * S, True)
+    assert torch.equal(got, want), _rows_cmp(got, want)
+    u = pl.unpack_outputs(got.cpu().numpy(), S, True)
+    assert u["direc"].tolist() == [0, 1] and bool(u["dd_ok"].all())
 
 
-def test_demod_tail_in_a_cuda_graph(dev):
-    """Both launches captured into a CUDA graph (two nodes), replayed on
-    new loop outputs copied into the captured ones: bit-equal to the
-    twins each time."""
+def test_decide_pack_in_a_cuda_graph(dev):
+    """`decide_pack` captured into a CUDA graph (one node), replayed on new
+    loop outputs copied into the captured ones: bit-equal to the twins
+    composed each time."""
     from iridium_tpu_torch.runtime import pipeline as pl
-    B, L, S = 37, 1918, 205
-    c = _tail_case(dev, B, L, S, True, seed=1)
+    B, L, S = 96, 4440, 471
+    c = _tail_case(dev, B, L, S, True, seed=11)
     dm, args, dmo = c["dm"], c["args"], c["dmo"]
 
-    def launches():
-        return pl.pack_outputs(dmo, dm.decide(*args), 2 * S, True)
-    launches()                                     # loads the library
+    def launch():
+        return pl.decide_pack(dm, *args[:3], dmo, 2 * S, True)
+    launch()                                       # loads the library
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g):
-        rows = launches()
-    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 2
+        rows = launch()
+    assert _kernels.graph_nodes(g.raw_cuda_graph()) == 1
     g.instantiate()
-    for seed in (2, 3):
-        new = _tail_case(dev, B, L, S, seed == 2, seed)["args"]
+    for seed in (12, 13):
+        new = _tail_case(dev, B, L, S, seed == 12, seed)["args"]
         for x, y in zip(args, new):
             x.copy_(y)
         g.replay()
         torch.cuda.synchronize()
-        want = pl.pack_plain(dmo, dm.decide_plain(*args), 2 * S, True)
+        want = pl.decide_pack_plain(dm, *args[:3], dmo, 2 * S, True)
         assert torch.equal(rows, want), seed
 
 
 def test_demod_tail_on_card_launches_the_kernel_only(dev, monkeypatch):
-    """On CUDA tensors `Demod.decide` and `pack_outputs` launch the kernel
-    once a call and never run their twins; the pipeline's class batch
-    (`BurstClass.run`) packs through it."""
+    """On CUDA tensors `decide_pack` launches the kernel once a call and
+    never runs the twins; `Demod.decide` and `pack_outputs`, which have no
+    launch of their own, raise and launch nothing."""
     from iridium_tpu_torch.runtime import pipeline as pl
 
     def refuse(*args):
         raise AssertionError("a twin ran on the card")
     c = _tail_case(dev, 9, 1918, 205, True, seed=4)
+    dd = c["dm"].decide_plain(*c["args"])
     monkeypatch.setattr(demod.Demod, "decide_plain", refuse)
     monkeypatch.setattr(pl, "pack_plain", refuse)
+    monkeypatch.setattr(pl, "decide_pack_plain", refuse)
     before = _kernels.DEMOD_TAIL.launches
-    dd = c["dm"].decide(*c["args"])
-    rows = pl.pack_outputs(c["dmo"], dd, 410, False)
+    rows = pl.decide_pack(c["dm"], *c["args"][:3], c["dmo"], 410, False)
     torch.cuda.synchronize()
-    assert _kernels.DEMOD_TAIL.launches == before + 2
+    assert _kernels.DEMOD_TAIL.launches == before + 1
     assert rows.shape == (9, pl.row_words(410, False))
-    assert dd.bits.device == rows.device == c["args"][0].device
+    assert rows.device == c["args"][0].device
+    with pytest.raises(ValueError):
+        c["dm"].decide(*c["args"])
+    with pytest.raises(ValueError):
+        pl.pack_outputs(c["dmo"], dd, 410, False)
+    assert _kernels.DEMOD_TAIL.launches == before + 1
 
 
 def test_demod_tail_refuses_what_it_cannot_take(dev):
-    """The wrappers raise on a wrong dtype, device, shape or contiguity;
-    the C entry refuses an unknown stage, wrong counts, S under the
-    unique word and a row width that is not the layout's."""
+    """The wrapper raises on a wrong dtype, device, shape or contiguity;
+    the C entry refuses wrong counts, S under the unique word, s2_pad
+    under 2S, a row width that is not the layout's and layouts it does not
+    take."""
     import ctypes
     from iridium_tpu_torch.runtime import pipeline as pl
     c = _tail_case(dev, 5, 400, 40, True, seed=6)
     dm, (out, valid, total, direction), dmo = c["dm"], c["args"], c["dmo"]
-    bad = [(0, out[:, ::2]), (0, out.real.contiguous()), (1, valid.int()),
-           (1, valid[:4]), (2, total.double()), (3, direction.long()),
-           (3, direction.cpu())]
-    args = [out, valid, total, direction]
-    for i, v in bad:
+    for bad in ((out[:, ::2], valid, total, dmo),
+                (out.real.contiguous(), valid, total, dmo),
+                (out, valid.int(), total, dmo), (out, valid[:4], total, dmo),
+                (out, valid, total.cpu(), dmo),
+                (out, valid, total, dmo._replace(
+                    start_dec=dmo.start_dec.long())),
+                (out, valid, total, dmo._replace(uw_corr=dmo.uw_corr[:3]))):
         with pytest.raises(ValueError):
-            dm.decide(*args[:i], v, *args[i + 1:])
-    dd = dm.decide_plain(*args)
-    for d, m in ((dd._replace(bits=dd.bits.long()), dmo),
-                 (dd._replace(llr=dd.llr[:, :10]), dmo),
-                 (dd._replace(ok=dd.ok.int()), dmo),
-                 (dd, dmo._replace(start_dec=dmo.start_dec.long())),
-                 (dd, dmo._replace(uw_corr=dmo.uw_corr[:3]))):
-        with pytest.raises(ValueError):
-            pl.pack_outputs(m, d, 80, True)
-    with pytest.raises(ValueError):
-        pl.pack_outputs(dmo, dd, 79, True)
+            pl.decide_pack(dm, *bad, 80, True)
     kn = _kernels.DEMOD_TAIL
-    ptrs = (ctypes.c_void_p * 14)(*([out.data_ptr()] * 14))
-    ints = (ctypes.c_longlong * 3)(80, 1, pl.row_words(80, True))
+    ptrs = (ctypes.c_void_p * 13)(*([out.data_ptr()] * 13))
     flts = (ctypes.c_float * 3)(8.0, 22.0, 3.0)
-    for stage, n, n_p, n_i, n_f in ((2, 40, 13, 1, 3), (-1, 40, 13, 1, 3),
-                                    (0, 40, 12, 1, 3), (0, 40, 13, 0, 3),
-                                    (0, 11, 13, 1, 3), (1, 80, 13, 3, 0),
-                                    (1, 80, 14, 2, 0), (1, 81, 14, 3, 0)):
+    # wrong counts, S under the unique word, S past the layout's chunks,
+    # layouts it does not take (no warps, 9 chunks a warp, 32 warps a
+    # block)
+    for n, n_p, n_i, n_f, lay in ((40, 12, 6, 3, (1, 1)),
+                                  (40, 13, 5, 3, (1, 1)),
+                                  (40, 13, 6, 2, (1, 1)),
+                                  (11, 13, 6, 3, (1, 1)),
+                                  (40, 13, 6, 3, (0, 1)),
+                                  (300, 13, 6, 3, (1, 1)),
+                                  (40, 13, 6, 3, (8, 4))):
+        six = (ctypes.c_longlong * 6)(2, 2 * n, 1,
+                                      pl.row_words(2 * n, True), *lay)
         with pytest.raises(RuntimeError):
-            kn.launch(dev, stage, 5, n, ptrs, n_p, ints, n_i, flts, n_f)
-    bad_w = (ctypes.c_longlong * 3)(80, 1, pl.row_words(80, True) + 1)
-    with pytest.raises(RuntimeError):
-        kn.launch(dev, 1, 5, 80, ptrs, 14, bad_w, 3, flts, 0)
+            kn.launch(dev, 5, n, ptrs, n_p, six, n_i, flts, n_f)
+    W = pl.row_words(80, True)
+    for s2_pad, w in ((79, pl.row_words(79, True)), (80, W + 1)):
+        six = (ctypes.c_longlong * 6)(2, s2_pad, 1, w, 1, 1)
+        with pytest.raises(RuntimeError):
+            kn.launch(dev, 5, 40, ptrs, 13, six, 6, flts, 3)
+    with pytest.raises(ValueError):
+        pl.decide_pack(dm, out, valid, total, dmo, 79, True)
+    with pytest.raises(ValueError):
+        pl.decide_pack(dm, out, valid, total.double(), dmo, 80, True)
+    with pytest.raises(ValueError):
+        pl.decide_pack(dm, out, valid, total,
+                       dmo._replace(direction=dmo.direction.long()), 80, True)

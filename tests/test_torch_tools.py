@@ -484,6 +484,131 @@ def test_exp_downmix_chain_compare_names_the_first_difference():
     assert not res["bit_equal"] and res["first_diff"] == ["ok", 0, 0]
 
 
+def test_exp_downmix_chain_card_flags_need_the_card():
+    """`--clusters` and `--source` time on the card only."""
+    for flag in (["--clusters"], ["--source", "x.cu"]):
+        with pytest.raises(SystemExit):
+            exp_downmix_chain.main(["--device", "cpu", "--small", *flag])
+
+
+def test_exp_downmix_chain_adapts_a_layoutless_entry():
+    """`--source`: a source whose entry takes no layout (stage 0 five ints)
+    is renamed behind an entry that drops each stage's layout ints; the
+    package's source is taken as it is."""
+    text = ('static const int kCounts[4][3] = {{10, 5, 1}, {4, 0, 0}, '
+            '{4, 0, 0},\n {13, 12, 4}};\n'
+            'extern "C" int downmix_chain(int stage) { return 0; }\n')
+    got = exp_downmix_chain.adapted(text)
+    assert got.count('static int downmix_chain_inner(int stage)') == 1
+    assert got.count('extern "C" int downmix_chain(') == 1
+    assert "kLayout[4] = {2, 1, 0, 1}" in got
+    assert "n_ints - drop" in got
+    pkg = _kernels.DOWNMIX_CHAIN.source.read_text()
+    assert exp_downmix_chain.adapted(pkg) == pkg
+    assert exp_downmix_chain.LAYOUT_INTS == (2, 1, 0, 1)
+
+
+def test_exp_downmix_chain_forces_a_cluster_and_restores_the_plan():
+    """`--clusters`: inside `forced_cluster(c)` every wrapper's plan has c
+    blocks a row; after it the package's plan is back."""
+    from iridium_tpu_torch.dsp import downmix
+    plan = downmix.plan
+    for c in downmix.CLUSTERS:
+        with exp_downmix_chain.forced_cluster(c):
+            assert downmix.plan(1024, 8172).cluster == c
+    assert downmix.plan is plan
+
+
+def test_exp_demod_tail_card_flags_need_the_card():
+    """`--layouts` and `--source` time on the card only."""
+    for flag in (["--layouts"], ["--source", "x.cu"]):
+        with pytest.raises(SystemExit):
+            exp_demod_tail.main(["--device", "cpu", "--small", *flag])
+
+
+def test_exp_demod_tail_layouts_and_sources():
+    """`--layouts`: the warps a burst the kernel takes at S, each forced in
+    turn and the plan restored; `--source`: a source whose entry takes a
+    stage first runs as `decide` then `pack` (`staged`)."""
+    from iridium_tpu_torch.runtime import pipeline
+    assert exp_demod_tail.layouts(1024, 205) == [1, 2, 4, 8, 16]
+    assert exp_demod_tail.layouts(48, 471) == [2, 4, 8, 16]
+    plan = pipeline.tail_plan
+    with exp_demod_tail.forced_layout(8):
+        assert pipeline.tail_plan(48, 471).warps == 8
+    assert pipeline.tail_plan is plan
+    assert not exp_demod_tail.staged(_kernels.DEMOD_TAIL)
+    old = variants.Variant.__new__(variants.Variant)
+    old.text = 'extern "C" int demod_tail(int stage, int B, long long n,'
+    assert exp_demod_tail.staged(old)
+
+
+def test_exp_demod_tail_fused_bound_counts_the_work():
+    """`decide_pack`: `decide`'s reads, six fields (21 bytes a burst) and
+    the rows written; no bits or LLRs either way."""
+    from iridium_tpu_torch.runtime import pipeline
+    sh = dict(exp_demod_tail.SMALL)
+    c = exp_demod_tail.case(sh, True, torch.device("cpu"), seed=8)
+    args = c["args"]
+    want = c["dm"].decide_plain(*args)
+    B, S = sh["B"], sh["S"]
+    two = exp_demod_tail.bound(args, want, 2 * S, True)["launches"]
+    b = exp_demod_tail.fused_bound(args, want, 2 * S, True)
+    W = pipeline.row_words(2 * S, True)
+    assert b["bound_bytes"] == (two["decide"]["bytes"] - 17 * B
+                                - 16 * B * S + 21 * B + 4 * B * W)
+    assert b["bound_ops"] == two["decide"]["ops"] + two["pack"]["ops"]
+    assert b["bound_ms"] == max(b["bytes_ms"], b["ops_ms"])
+
+
+def test_exp_demod_tail_runs_the_two_launch_design(monkeypatch):
+    """`--source` of the design of two launches: its Variant binds the
+    entry with the stage first (the package's kernel keeps its own), and
+    `two_launches` packs stage 0 (`decide`: 13 pointers, UW_MAX_ERRORS,
+    three floats, the (B, 2S) bits and LLRs) then stage 1 (`pack`: 14
+    pointers, s2_pad, want_llr and the row width) as that entry takes
+    them."""
+    import ctypes
+    from iridium_tpu_torch.dsp import demod, downmix
+    from iridium_tpu_torch.runtime import pipeline
+    base = _kernels.DEMOD_TAIL
+    old = variants.Variant(base, 'extern "C" int demod_tail(int stage,')
+    monkeypatch.setattr(variants, "candidates",
+                        lambda b, sources: [("package", b), ("old", old)])
+    cands = exp_demod_tail.candidates(["old.cu"])
+    assert old.argtypes == [ctypes.c_int] + list(base.argtypes)
+    assert base.argtypes[0] is ctypes.c_int and len(base.argtypes) == 9
+    calls = []
+
+    class Fake:
+        def launch(self, device, *args):
+            calls.append((device, args))
+    monkeypatch.setattr(_kernels, "ptr", lambda t: 0)
+    meta = torch.device("meta")
+    B, S = 5, 40
+    dm = demod.Demod(S, 10.0, True, meta)
+
+    def e(dtype, *shape):
+        return torch.empty(shape or (B,), dtype=dtype, device=meta)
+    dmo = downmix.DownmixOut(samples=e(torch.complex64, B, 400),
+                             n_samples=e(torch.int32), ok=e(torch.bool),
+                             direction=e(torch.int32),
+                             start_dec=e(torch.int32),
+                             fine_offset=e(torch.float32),
+                             uw_corr=e(torch.float32))
+    rows = exp_demod_tail.two_launches(
+        Fake(), dm, e(torch.complex64, B, S), e(torch.bool, B, S),
+        e(torch.float32), dmo, 2 * S + 6, True)
+    W = pipeline.row_words(2 * S + 6, True)
+    assert rows.shape == (B, W) and cands[1][1] is old
+    (d0, a0), (d1, a1) = calls
+    assert d0 == d1 == meta and a0[:3] == (0, B, S) and a1[:3] == (1, B, 2 * S)
+    assert (a0[4], a0[6], a0[8]) == (13, 1, 3)
+    assert list(a0[5]) == [demod.UW_MAX_ERRORS]
+    assert (a1[4], a1[6], a1[8]) == (14, 3, 0)
+    assert list(a1[5]) == [2 * S + 6, 1, W]
+
+
 def test_exp_demod_tail_small_on_cpu(capsys):
     assert exp_demod_tail.main(["--device", "cpu", "--small"]) == 0
     out = capsys.readouterr().out
@@ -550,11 +675,12 @@ def test_exp_demod_tail_bound_counts_the_work():
 def test_exp_demod_tail_swaps_the_twins_in_and_back():
     from iridium_tpu_torch.dsp import demod
     from iridium_tpu_torch.runtime import pipeline
-    kernel = (demod.Demod.decide, pipeline.pack_outputs)
+    kernel = pipeline.decide_pack
+    decide, pack = demod.Demod.decide, pipeline.pack_outputs
     with exp_demod_tail.plain_in_place():
-        assert demod.Demod.decide is demod.Demod.decide_plain
-        assert pipeline.pack_outputs is pipeline.pack_plain
-    assert (demod.Demod.decide, pipeline.pack_outputs) == kernel
+        assert pipeline.decide_pack is pipeline.decide_pack_plain
+    assert pipeline.decide_pack is kernel
+    assert (demod.Demod.decide, pipeline.pack_outputs) == (decide, pack)
 
 
 def test_exp_demod_shapes_inputs_and_bound():
