@@ -11,7 +11,8 @@ The decoders are host code (numpy); their LLRs come off the card with the
 packed rows only when a decoder is on. `--agg-blocks` sets the blocks that
 share one group program and one result copy (4 for a file, 1 for stdin),
 `--save-bursts` dumps each burst's samples (the per-batch flow), and
-`--profile` writes a torch.profiler trace and prints the per-stage times.
+`--profile` writes a torch.profiler trace, with the pipeline's tracing on
+while it records, and prints every key of the pipeline's timing.
 `--mesh N` decodes through the sharded pipeline (parallel/stream.py,
 replicated detect) over N ranks, one card each (gloo ranks with `--device
 cpu`): under torchrun it joins the launcher's group, which must have N
@@ -92,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save IQ samples of decoded bursts to directory")
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler trace (Chrome/Perfetto "
-                        "JSON) of the run into DIR and print the "
-                        "per-stage timing breakdown")
+                        "JSON) of the run, the pipeline's spans and device "
+                        "events in it, into DIR and print every key of the "
+                        "pipeline's timing")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="accepted for compatibility with iridium-tpu")
     p.add_argument("--burst-batch", type=int, default=128,
@@ -404,7 +406,7 @@ def _decode(args, pipe, native, live: bool, host0: bool) -> int:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")
         prof.export_chrome_trace(trace)
-        print_profile(pipe.timing, trace)
+        print_profile(pipe.tracer, trace)
 
     # Shutdown summary prints unconditionally, like the reference
     # (burst_detect.c:350-351).
@@ -437,19 +439,24 @@ def profiler(trace_dir: str | None, device):
     return profile(activities=acts)
 
 
-def print_profile(t, trace: str) -> None:
-    """The per-stage breakdown under the JAX package's keys
-    (iridium_tpu/cli.py:393-407): cumulative host wall seconds."""
+def print_profile(tracer, trace: str) -> None:
+    """Every key of the pipeline's timing (`runtime/tracing.py`, the JAX
+    package's stage keys among them, iridium_tpu/cli.py:393-407): host
+    spans, then device seconds, in cumulative seconds and ms a block (a
+    child span's time is also in its parent's), then the counts."""
+    from .runtime import tracing
+    t, kinds = tracer.totals, tracer.kinds
     nb = max(t["n_blocks"], 1)
-    print("profile: per-stage cumulative wall seconds "
-          "(ratios localize the bottleneck):", file=sys.stderr)
-    for k in ("read", "step_dispatch", "group_dispatch",
-              "result_fetch_wait", "host_parse", "host_format"):
-        print(f"profile:   {k:<18} {t[k]:8.3f} s "
-              f"({t[k] / nb * 1e3:7.2f} ms/block)", file=sys.stderr)
-    print(f"profile:   blocks={t['n_blocks']} groups={t['n_groups']} "
-          f"overflow_rounds={t['n_overflow_rounds']}; "
-          f"trace written to {trace}", file=sys.stderr)
+    print("profile: cumulative seconds a span (ratios localize the "
+          "bottleneck):", file=sys.stderr)
+    for kind in (tracing.HOST, tracing.DEVICE):
+        for k in (k for k in t if kinds.get(k) == kind):
+            print(f"profile:   {k:<18} {t[k]:8.3f} s "
+                  f"({t[k] / nb * 1e3:7.2f} ms/block) {kind}",
+                  file=sys.stderr)
+    counts = " ".join(f"{k}={t[k]}" for k in t
+                      if kinds.get(k) == tracing.COUNT)
+    print(f"profile:   {counts}; trace written to {trace}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -80,6 +80,7 @@ from ..dsp import state as state_mod
 from ..io import native
 from ..ops import window_gather
 from ..runtime import pipeline as pl
+from ..runtime import tracing
 from . import distributed
 
 DEPTH = 3        # groups in flight before the oldest is finished
@@ -159,8 +160,6 @@ class ShardedPipeline(pl.BurstDecoder):
         self._scan, self._init_state = self._build_detect(detect_impl)
         self._graph = None            # card only
         self._local = None            # this rank's slice on the card
-        # (start, end, timing key) around collectives and detect graphs
-        self._events: list = []
         self.reset(start_time_ns)
 
     def _build_detect(self, detect_impl: str):
@@ -214,13 +213,10 @@ class ShardedPipeline(pl.BurstDecoder):
                 return run(m, st, nv, **rng)
             # the replay is timed as one span; its all_reduces count by
             # frames
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = run(m, st, nv, **rng)
-            b.record()
-            self._events.append((a, b, "detect_graph"))
-            self.timing["n_collectives"] += detect_fast.active_frames(p, nv)
+            with self.tracer.device("detect_graph", always=True):
+                out = run(m, st, nv, **rng)
+            self.tracer.count("n_collectives",
+                              detect_fast.active_frames(p, nv))
             return out
         return scan, lambda: state_mod.init_state(p, dev, id_offset=r,
                                                   n_bins=FL)
@@ -237,45 +233,33 @@ class ShardedPipeline(pl.BurstDecoder):
         self.start_time_ns = start_time_ns
         self._noise_sum = 0.0         # owned bins' baseline sums, all ranks
         self._peak = 0.0
-        # host seconds per stage under the single card's keys, and
+        # `timing`: host spans under the single card's keys, and
         # `collectives`: the device seconds (host on the CPU) between the
         # start and the end of every collective, its wait for the slowest
-        # rank included, `n_collectives`, `detect_graph`: the device
+        # rank included, `n_collectives`, and `detect_graph`: the device
         # seconds of binshard's detect graphs on the card at world size 1
         # (the kernel's launches and the all_reduce of every frame, which
-        # n_collectives counts), and
+        # n_collectives counts), both timed whether tracing is on or not;
         # `left_ring` / `left_gather`: the blocks whose left part came by
         # ring shifts or by the gathered block
-        self.timing = collections.Counter()
+        self.tracer.reset()
 
     # ---- collectives ----
 
     def _coll(self, fn, *args) -> None:
         """Run one collective, timed; one captured into a CUDA graph is
         neither timed nor counted here (its graph's replay is)."""
-        if (self.device.type == "cuda"
-                and torch.cuda.is_current_stream_capturing()):
+        tr = self.tracer
+        if self.device.type != "cuda":
+            tr.count("n_collectives")
+            with tr.span("collectives"):
+                fn(*args)
+        elif torch.cuda.is_current_stream_capturing():
             fn(*args)
-            return
-        self.timing["n_collectives"] += 1
-        if self.device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(*args)
-            b.record()
-            self._events.append((a, b, "collectives"))
         else:
-            t0 = time.perf_counter()
-            fn(*args)
-            self.timing["collectives"] += time.perf_counter() - t0
-
-    def _drain_events(self) -> None:
-        """Add the finished collectives' and detect graphs' device times
-        to the timing."""
-        while self._events and self._events[0][1].query():
-            a, b, key = self._events.pop(0)
-            self.timing[key] += a.elapsed_time(b) / 1e3
+            tr.count("n_collectives")
+            with tr.device("collectives", always=True):
+                fn(*args)
 
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(n * len(x), ...) : every rank's x in rank order."""
@@ -400,13 +384,13 @@ class ShardedPipeline(pl.BurstDecoder):
             left = torch.cat(parts[::-1])[-L:]
             # the block's last T samples: on the last ranks
             end = self._all_gather(local[-min(ls, T):])[-T:]
-            self.timing["left_ring"] += 1
+            self.tracer.count("left_ring")
         else:
             # windows longer than two slices: the whole block (:503-507)
             blk = self._all_gather(local)
             left = torch.cat([tail, blk])[r * ls:r * ls + L]
             end = blk[-T:]
-            self.timing["left_gather"] += 1
+            self.tracer.count("left_gather")
         self.tail = torch.cat([tail, end])[-L:]
         planes = torch.empty((2, self.stream_len), dtype=torch.float32,
                              device=local.device)
@@ -420,26 +404,25 @@ class ShardedPipeline(pl.BurstDecoder):
         p = self.p
         if self.start_time_ns is None:
             self.start_time_ns = time.time_ns()
-        t0 = time.perf_counter()
-        local = self._upload(samples)
-        if self._rebase:
-            state_mod.rebase_(self.state, p.block_samples)
-        mag2 = detect_scan.spectrogram(local, p, self._det_window,
-                                       self.frames_local)
-        if self.replicated:
-            mag2 = self._all_gather(mag2)
-        else:
-            mag2 = self._bin_slice(mag2)
-        self.state = self._scan(mag2, self.state, n_valid)
-        table = self._table()
-        tables = (table[None] if self.replicated
-                  else self._all_gather(table[None]))
-        blk = _Block(self._stream(local), tables, self.base_index)
-        self._rebase = True
-        self.stats.n_samples += n_valid
-        self.base_index += p.block_samples
-        self.timing["step_dispatch"] += time.perf_counter() - t0
-        self.timing["n_blocks"] += 1
+        with self.tracer.span("step_dispatch"):
+            local = self._upload(samples)
+            if self._rebase:
+                state_mod.rebase_(self.state, p.block_samples)
+            mag2 = detect_scan.spectrogram(local, p, self._det_window,
+                                           self.frames_local)
+            if self.replicated:
+                mag2 = self._all_gather(mag2)
+            else:
+                mag2 = self._bin_slice(mag2)
+            self.state = self._scan(mag2, self.state, n_valid)
+            table = self._table()
+            tables = (table[None] if self.replicated
+                      else self._all_gather(table[None]))
+            blk = _Block(self._stream(local), tables, self.base_index)
+            self._rebase = True
+            self.stats.n_samples += n_valid
+            self.base_index += p.block_samples
+        self.tracer.count("n_blocks")
         return blk
 
     # ---- process step ----
@@ -483,7 +466,7 @@ class ShardedPipeline(pl.BurstDecoder):
         return torch.cat([head] + pl.class_program(
             self.classes, planes,
             lambda: self.route(tables, scal_t[0], scal_t[1:]), skips,
-            graph))
+            self.tracer, graph))
 
     def _gather_results(self, bufs: list) -> tuple:
         """Every rank's process buffers of a round, (n, len(bufs), W) i32,
@@ -499,11 +482,10 @@ class ShardedPipeline(pl.BurstDecoder):
 
     def _wait(self, res) -> np.ndarray:
         host, ev = res
-        t0 = time.perf_counter()
-        if ev is not None:
-            ev.synchronize()
-            self._drain_events()
-        self.timing["result_fetch_wait"] += time.perf_counter() - t0
+        with self.tracer.span("result_fetch_wait"):
+            if ev is not None:
+                ev.synchronize()
+        self.tracer.drain()
         return host.numpy()
 
     # ---- finish ----
@@ -545,24 +527,24 @@ class ShardedPipeline(pl.BurstDecoder):
     def _finish_group(self, blocks: list, res) -> list[list[dict]]:
         """Per-block frame lists of a group, each sorted by burst id; a
         block whose classes overflowed takes more rounds, on every rank."""
+        tr = self.tracer
         buf_all = self._wait(res)
-        self.timing["n_groups"] += 1
+        tr.count("n_groups")
         out = []
         for i, blk in enumerate(blocks):
-            t1 = time.perf_counter()
             frames: list[dict] = []
-            skips, done = self._consume(buf_all[:, i], blk,
-                                        np.zeros(3, np.int64), frames, True)
-            self.timing["host_parse"] += time.perf_counter() - t1
+            with tr.span("host_parse"):
+                skips, done = self._consume(buf_all[:, i], blk,
+                                            np.zeros(3, np.int64), frames,
+                                            True)
             while not done:
-                t0 = time.perf_counter()
-                r = self._gather_results([self._process(blk, skips)])
-                self.timing["group_dispatch"] += time.perf_counter() - t0
+                with tr.span("group_dispatch"):
+                    r = self._gather_results([self._process(blk, skips)])
                 buf = self._wait(r)[:, 0]
-                self.timing["n_overflow_rounds"] += 1
-                t1 = time.perf_counter()
-                skips, done = self._consume(buf, blk, skips, frames, False)
-                self.timing["host_parse"] += time.perf_counter() - t1
+                tr.count("n_overflow_rounds")
+                with tr.span("host_parse"):
+                    skips, done = self._consume(buf, blk, skips, frames,
+                                                False)
             frames.sort(key=lambda f: f["id"])
             out.append(frames)
         return out
@@ -575,24 +557,25 @@ class ShardedPipeline(pl.BurstDecoder):
         `agg_blocks` blocks make a group whose first round is dispatched at
         once and finished once more than DEPTH groups are in flight (as
         `Pipeline.run_blocks`). The finish is on the calling thread: every
-        rank issues the same collectives in the same order."""
+        rank issues the same collectives in the same order. Tracing is on
+        for the call while a torch profiler records (`tracing`)."""
+        tr = self.tracer
+        tr.on = tracing.recording()
         fut: collections.deque = collections.deque()
         pend: list[_Block] = []
 
         def flush():
-            t0 = time.perf_counter()
             zero = np.zeros(3, np.int64)
-            res = self._gather_results([self._process(b, zero)
-                                        for b in pend])
-            self.timing["group_dispatch"] += time.perf_counter() - t0
+            with tr.span("group_dispatch"):
+                res = self._gather_results([self._process(b, zero)
+                                            for b in pend])
             fut.append((list(pend), res))
             pend.clear()
 
         it = iter(blocks)
         while True:
-            t0 = time.perf_counter()
-            nxt = next(it, None)
-            self.timing["read"] += time.perf_counter() - t0
+            with tr.span("read"):
+                nxt = next(it, None)
             if nxt is None:
                 break
             pend.append(self._dispatch_step(*nxt))

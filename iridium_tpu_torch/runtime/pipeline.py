@@ -68,6 +68,7 @@ from ..dsp import detect, detect_fast, detect_scan, downmix
 from ..dsp import state as state_mod
 from ..io import native
 from ..ops import fused_frontend, window_gather
+from . import tracing
 
 
 def _round_up(x: int, m: int) -> int:
@@ -459,19 +460,27 @@ class BurstClass:
 
 
 def class_program(classes, planes: torch.Tensor, routing, skips,
-                  graph=None) -> list:
+                  tracer: tracing.Tracer, graph=None) -> list:
     """The routing (`routing()` -> `_route_windows`' result) and the class
     batches of one round, as [class counts (3,), meta per class, table rows
     per class (6 x batch), packed rows per class (batch x W)], all i32 and
     1-D. With `graph` (a GroupGraph whose static buffers the inputs are)
     the routing is its part 0 and class c its part 1 + c, each replayed as
-    a CUDA graph. The class counts come to the host (12 bytes): a class
-    with no member in its window runs no batch and gives zero rows."""
+    a CUDA graph. The class counts come to the host (12 bytes; `tracer`'s
+    `counts_wait`, a wait for the device): a class with no member in its
+    window runs no batch and gives zero rows. Each batch that runs counts
+    its live rows and its rows (`rows_live`, `rows_run`)."""
     def run(part, fn):
         return fn() if graph is None else graph.parts[part].replay(fn)
 
     ncs, routed = run(0, routing)
-    live = [n > s for n, s in zip(ncs.tolist(), skips)]
+    with tracer.span("counts_wait"):
+        counts = ncs.tolist()
+    live = [n > s for n, s in zip(counts, skips)]
+    for cls, n, s, run_c in zip(classes, counts, skips, live):
+        if run_c:
+            tracer.count("rows_live", min(n - s, cls.batch))
+            tracer.count("rows_run", cls.batch)
     parts = [ncs]
     parts += [meta for meta, _, _ in routed]
     parts += [tw.reshape(-1) for _, tw, _ in routed]
@@ -495,6 +504,9 @@ class BurstDecoder:
                  dm_cfg: DownmixConfig | None, dev: torch.device,
                  use_gardner: bool, want_llr: bool):
         self.device = dev
+        # the JAX package's counts of its profile's summary, at 0 too
+        self.tracer = tracing.Tracer(
+            dev, counts=("n_blocks", "n_groups", "n_overflow_rounds"))
         self.p: DetectorParams = (det_cfg or DetectorConfig()).derived()
         self.dmp: DownmixParams = (dm_cfg or DownmixConfig()).derived(self.p)
         p, dmp = self.p, self.dmp
@@ -528,6 +540,12 @@ class BurstDecoder:
             (iridium.SIMPLEX_FREQUENCY_MIN - margin_hz
              - p.center_frequency) * p.fft_size / p.sample_rate)
         ) + p.fft_size // 2
+
+    @property
+    def timing(self) -> collections.Counter:
+        """The tracer's totals: cumulative seconds and counts by key
+        (`reset` starts new ones)."""
+        return self.tracer.totals
 
     def _burst_classes(self, jobs, per_job) -> tuple:
         """The small-normal, small-simplex and large classes (in that
@@ -666,19 +684,19 @@ class BurstDecoder:
             self.stats.n_ok += int(ok.sum())
             if not ok.any():
                 continue
-            t1 = time.perf_counter()
-            js = np.nonzero(ok)[0]
-            m = meta[js].astype(np.int64)
-            cl, fpos = locate(m, tw[:, js].astype(np.int64))
-            # the alignment lead, from the routing's arithmetic
-            lead = fpos % window_gather.ALIGN - fpos % dmp.decimation
-            frames = build_frames_np(
-                p, dmp, self.in_ntaps, self.start_time_ns, tw[0, js],
-                tw[3, js], np.ascontiguousarray(tw[4, js]).view(np.float32),
-                np.ascontiguousarray(tw[5, js]).view(np.float32),
-                cl - lead, u, js)
-            found += zip(m.tolist(), frames)
-            self.timing["host_format"] += time.perf_counter() - t1
+            with self.tracer.span("host_format"):
+                js = np.nonzero(ok)[0]
+                m = meta[js].astype(np.int64)
+                cl, fpos = locate(m, tw[:, js].astype(np.int64))
+                # the alignment lead, from the routing's arithmetic
+                lead = fpos % window_gather.ALIGN - fpos % dmp.decimation
+                frames = build_frames_np(
+                    p, dmp, self.in_ntaps, self.start_time_ns, tw[0, js],
+                    tw[3, js],
+                    np.ascontiguousarray(tw[4, js]).view(np.float32),
+                    np.ascontiguousarray(tw[5, js]).view(np.float32),
+                    cl - lead, u, js)
+                found += zip(m.tolist(), frames)
         want = ncs.max(axis=0)
         lim = skips + caps
         return found, np.minimum(lim, want), bool(np.all(want <= lim))
@@ -686,11 +704,13 @@ class BurstDecoder:
 @dataclasses.dataclass
 class _Group:
     """Blocks finished together, with the buffers their detect steps fill
-    (block i at planes[:, i*stream_len:(i+1)*stream_len], tables[i]) and,
-    on the device flow, the pinned result of its last dispatched round."""
+    (block i at planes[:, i*stream_len:(i+1)*stream_len], tables[i]), the
+    host clock at the end of each block's detect step and, on the device
+    flow, the pinned result of its last dispatched round."""
     planes: torch.Tensor        # (2, agg_blocks * stream_len) f32
     tables: torch.Tensor        # (agg_blocks, G + 1, 6) i32
     bases: list = dataclasses.field(default_factory=list)
+    stepped: list = dataclasses.field(default_factory=list)
     result: torch.Tensor | None = None
     event: torch.cuda.Event | None = None
 
@@ -862,13 +882,17 @@ class Pipeline(BurstDecoder):
         self.prev_tagged = 0
         self.stats = PipelineStats()
         self.start_time_ns = start_time_ns
-        # cumulative host wall seconds per stage and counts, under the
-        # JAX package's keys (device flow: step_dispatch, group_dispatch,
-        # result_fetch_wait, host_parse, host_format, n_blocks, n_groups,
-        # n_overflow_rounds; the other flows: gone_fetch_wait,
-        # burst_fetch_wait, n_burst_batches), and `read`: the seconds
-        # run_blocks waits for the next block from its reader
-        self.timing = collections.Counter()
+        # `timing`: host spans (seconds) under the JAX package's keys,
+        # read, step_dispatch, group_dispatch (counts_wait inside),
+        # result_fetch_wait, host_parse (host_format inside), and finish
+        # (the last three and the overflow rounds' group_dispatch inside)
+        # and consumer; device seconds while tracing, upload_dev, step_dev,
+        # round_dev, copy_dev; counts n_blocks, n_groups,
+        # n_overflow_rounds, n_burst_batches (the other flows),
+        # upload_bytes, rows_live, rows_run; and queue_wait, the host
+        # seconds blocks wait between their detect step and their group's
+        # finish (`tracing`)
+        self.tracer.reset()
 
     # ---- detect steps ----
 
@@ -888,8 +912,11 @@ class Pipeline(BurstDecoder):
         pinned memory on the card) is only copied to the device; the
         reader gives its buffer back once that copy has run. A numpy block
         goes through a ring of two pinned buffers on the card; one is
-        refilled only after its copy ran."""
+        refilled only after its copy ran. Counts the block's bytes
+        (`upload_bytes`)."""
+        tr = self.tracer
         if isinstance(samples, torch.Tensor):
+            tr.count("upload_bytes", samples.numel() * samples.element_size())
             if self.device.type == "cpu":
                 return samples
             if not samples.is_pinned():
@@ -897,9 +924,11 @@ class Pipeline(BurstDecoder):
             if self._block is None:
                 self._block = torch.empty(samples.shape, dtype=samples.dtype,
                                           device=self.device)
-            self._block.copy_(samples, non_blocking=True)
+            with tr.device("upload_dev"):
+                self._block.copy_(samples, non_blocking=True)
             return self._block
         x = np.ascontiguousarray(samples, np.complex64)
+        tr.count("upload_bytes", x.nbytes)
         if self.device.type == "cpu":
             return torch.from_numpy(x)
         if self._block is None:
@@ -914,7 +943,8 @@ class Pipeline(BurstDecoder):
         host, ev = self._uploads[i]
         ev.synchronize()
         host.numpy()[:] = x
-        self._block.copy_(host, non_blocking=True)
+        with tr.device("upload_dev"):
+            self._block.copy_(host, non_blocking=True)
         ev.record()
         return self._block
 
@@ -928,8 +958,22 @@ class Pipeline(BurstDecoder):
         if samples.shape != (p.block_samples,):
             raise ValueError(f"block of shape {samples.shape}, expected "
                              f"({p.block_samples},)")
-        t0 = time.perf_counter()
-        block = self._upload(samples)
+        tr = self.tracer
+        with tr.span("step_dispatch"):
+            block = self._upload(samples)
+            with tr.device("step_dev"):
+                self._detect_into(group, block, n_valid)
+            self.stats.n_samples += n_valid
+            group.bases.append(self.base_index)
+            self.base_index += p.block_samples
+        tr.count("n_blocks")
+        group.stepped.append(time.perf_counter())
+
+    def _detect_into(self, group: _Group, block: torch.Tensor,
+                     n_valid: int) -> None:
+        """The detect step of the block on the device: the scan, then the
+        block's stream planes and gone table in `group`."""
+        p = self.p
         if self._rebase:
             state_mod.rebase_(self.state, p.block_samples)
         self.state = self._detect(block, self.state, n_valid,
@@ -951,11 +995,6 @@ class Pipeline(BurstDecoder):
             [st.g_id, st.g_start, st.g_stop, st.g_bin,
              st.g_mag.view(torch.int32), st.g_noise.view(torch.int32)], 1))
         self._rebase = True
-        self.stats.n_samples += n_valid
-        group.bases.append(self.base_index)
-        self.base_index += bs
-        self.timing["step_dispatch"] += time.perf_counter() - t0
-        self.timing["n_blocks"] += 1
 
     def _group_planes(self, group: _Group) -> torch.Tensor:
         nb = len(group.bases)
@@ -1013,33 +1052,38 @@ class Pipeline(BurstDecoder):
         capture time (PERF.md)."""
         return torch.cat([tables[:, 0, :].reshape(-1)] + class_program(
             self.classes, planes,
-            lambda: self.route(tables, scal[0], scal[1:]), skips, graph))
+            lambda: self.route(tables, scal[0], scal[1:]), skips,
+            self.tracer, graph))
 
     def _dispatch_group(self, group: _Group, skips: np.ndarray) -> None:
-        """Enqueue one round of the group program for `group` and the copy
-        of its result to the host."""
+        """Enqueue one round of the group program for `group` (`round_dev`
+        on the device) and the copy of its result to the host
+        (`copy_dev`)."""
         nb = len(group.bases)
         skips = [int(s) for s in skips]
         scal = [-group.bases[0]] + skips
-        t0 = time.perf_counter()
-        if self.device.type == "cpu":
-            group.result = self.group_program(
-                self._group_planes(group), group.tables[:nb],
-                torch.tensor(scal, dtype=torch.int64), skips)
-        else:
+        tr = self.tracer
+        with tr.span("group_dispatch"):
+            if self.device.type == "cpu":
+                group.result = self.group_program(
+                    self._group_planes(group), group.tables[:nb],
+                    torch.tensor(scal, dtype=torch.int64), skips)
+                return
             g = self.graphs.get(nb)
             if g is None:
                 g = self.graphs[nb] = GroupGraph(
                     self, nb * self.stream_len, nb)
-            g.load(group.planes[:, :nb * self.stream_len], group.tables[:nb],
-                   scal)
-            buf = self.group_program(g.planes, g.tables, g.scal, skips, g)
+            with tr.device("round_dev"):
+                g.load(group.planes[:, :nb * self.stream_len],
+                       group.tables[:nb], scal)
+                buf = self.group_program(g.planes, g.tables, g.scal, skips,
+                                         g)
             group.result = torch.empty(buf.shape, dtype=torch.int32,
                                        pin_memory=True)
-            group.result.copy_(buf, non_blocking=True)
+            with tr.device("copy_dev"):
+                group.result.copy_(buf, non_blocking=True)
             group.event = torch.cuda.Event()
             group.event.record()
-        self.timing["group_dispatch"] += time.perf_counter() - t0
 
     def _parse_group_buf(self, buf: np.ndarray, group: _Group,
                          skips: np.ndarray, out: list[list[dict]],
@@ -1072,14 +1116,21 @@ class Pipeline(BurstDecoder):
 
     def _finish_group(self, group: _Group) -> list[list[dict]]:
         """Per-block frame lists of a group, in block order, each sorted by
-        burst id; the group's buffers go back to the free list."""
-        if self.save_bursts_dir or self.host_routed:
-            out = self._finish_group_host(group)
-        else:
-            out = self._finish_group_device(group)
-        for frames in out:
-            frames.sort(key=lambda f: f["id"])
-        self._free.append((group.planes, group.tables))
+        burst id; the group's buffers go back to the free list. Adds its
+        blocks' waits since their detect steps to `queue_wait`, and
+        resolves the device spans that have run."""
+        tr = self.tracer
+        now = time.perf_counter()
+        tr.add("queue_wait", sum(now - t for t in group.stepped))
+        with tr.span("finish"):
+            if self.save_bursts_dir or self.host_routed:
+                out = self._finish_group_host(group)
+            else:
+                out = self._finish_group_device(group)
+            for frames in out:
+                frames.sort(key=lambda f: f["id"])
+            self._free.append((group.planes, group.tables))
+        tr.drain()
         return out
 
     def _finish_group_device(self, group: _Group) -> list[list[dict]]:
@@ -1088,17 +1139,16 @@ class Pipeline(BurstDecoder):
         if group.result is None:
             self._dispatch_group(group, skips)
         first = True
+        tr = self.tracer
         while True:
-            t0 = time.perf_counter()
-            if group.event is not None:
-                group.event.synchronize()
-            buf = group.result.numpy()
-            self.timing["result_fetch_wait"] += time.perf_counter() - t0
-            self.timing["n_groups" if first else "n_overflow_rounds"] += 1
-            t1 = time.perf_counter()
-            skips, done = self._parse_group_buf(buf, group, skips, out,
-                                                first)
-            self.timing["host_parse"] += time.perf_counter() - t1
+            with tr.span("result_fetch_wait"):
+                if group.event is not None:
+                    group.event.synchronize()
+                buf = group.result.numpy()
+            tr.count("n_groups" if first else "n_overflow_rounds")
+            with tr.span("host_parse"):
+                skips, done = self._parse_group_buf(buf, group, skips, out,
+                                                    first)
             first = False
             if done:
                 return out
@@ -1112,10 +1162,8 @@ class Pipeline(BurstDecoder):
         p = self.p
         nb = len(group.bases)
         out: list[list[dict]] = [[] for _ in group.bases]
-        t0 = time.perf_counter()
         tabs = group.tables[:nb].cpu().numpy()
-        self.timing["gone_fetch_wait"] += time.perf_counter() - t0
-        self.timing["n_groups"] += 1
+        self.tracer.count("n_groups")
         self._count_heads(tabs[:, 0])
         blocks_g = []
         for bi, (tab, base) in enumerate(zip(tabs, group.bases)):
@@ -1147,13 +1195,11 @@ class Pipeline(BurstDecoder):
                 meta = np.full(cls.batch, -1, np.int64)
                 meta[:len(sel)] = sel
                 rounds.append((cls, params, meta))
-        t0 = time.perf_counter()
         pf_all = torch.cat([
             cls.run_jobs(planes, torch.from_numpy(params).to(self.device)
                          ).reshape(-1)
             for cls, params, _ in rounds]).cpu().numpy()
-        self.timing["burst_fetch_wait"] += time.perf_counter() - t0
-        self.timing["n_burst_batches"] += len(rounds)
+        self.tracer.count("n_burst_batches", len(rounds))
         o = 0
         for cls, params, meta in rounds:
             rows = pf_all[o:o + cls.batch * cls.W].reshape(cls.batch, cls.W)
@@ -1206,16 +1252,15 @@ class Pipeline(BurstDecoder):
         self.stats.n_ok += int(ok.sum())
         if not ok.any():
             return
-        t1 = time.perf_counter()
-        js = np.nonzero(ok)[0]
-        e = meta[js]
-        frames = build_frames_np(
-            self.p, self.dmp, self.in_ntaps, self.start_time_ns,
-            ginfo["id"][e], ginfo["bin"][e], ginfo["mag"][e],
-            ginfo["noise"][e], ginfo["abs_al"][e], u, js)
-        for f, bi in zip(frames, ginfo["blk"][e].tolist()):
-            out[bi].append(f)
-        self.timing["host_format"] += time.perf_counter() - t1
+        with self.tracer.span("host_format"):
+            js = np.nonzero(ok)[0]
+            e = meta[js]
+            frames = build_frames_np(
+                self.p, self.dmp, self.in_ntaps, self.start_time_ns,
+                ginfo["id"][e], ginfo["bin"][e], ginfo["mag"][e],
+                ginfo["noise"][e], ginfo["abs_al"][e], u, js)
+            for f, bi in zip(frames, ginfo["blk"][e].tolist()):
+                out[bi].append(f)
 
     # ---- the per-batch flow (--save-bursts) ----
 
@@ -1258,12 +1303,10 @@ class Pipeline(BurstDecoder):
         jobs = []
         for bi, g, base_index in blocks_g:
             jobs += self._route_bursts(bi, g, base_index)
-        t0 = time.perf_counter()
         res = [cls.rows(planes, torch.from_numpy(params).to(self.device))
                for *_, cls, params in jobs]
         pf_all = torch.cat([r[1] for r in res]).cpu().numpy()
-        self.timing["burst_fetch_wait"] += time.perf_counter() - t0
-        self.timing["n_burst_batches"] += len(jobs)
+        self.tracer.count("n_burst_batches", len(jobs))
         o = 0
         for (bi, g, base, cl, sel, cls, _), (dm, _) in zip(jobs, res):
             pf = pf_all[o:o + len(sel)]
@@ -1281,14 +1324,13 @@ class Pipeline(BurstDecoder):
         self.stats.n_ok += int(ok.sum())
         if not ok.any():
             return []
-        t1 = time.perf_counter()
-        js = np.nonzero(ok)[0]
-        e = sel[js]
-        frames = build_frames_np(
-            self.p, self.dmp, self.in_ntaps, self.start_time_ns, g["id"][e],
-            g["bin"][e], g["mag"][e], g["noise"][e], abs_start_cl[e], u, js)
-        self.timing["host_format"] += time.perf_counter() - t1
-        return frames
+        with self.tracer.span("host_format"):
+            js = np.nonzero(ok)[0]
+            e = sel[js]
+            return build_frames_np(
+                self.p, self.dmp, self.in_ntaps, self.start_time_ns,
+                g["id"][e], g["bin"][e], g["mag"][e], g["noise"][e],
+                abs_start_cl[e], u, js)
 
     def _save_bursts(self, dm, u, g, sel, base_index) -> None:
         """--save-bursts: per-burst cf32 + metadata dumps (reference
@@ -1345,7 +1387,8 @@ class Pipeline(BurstDecoder):
                       ) -> list[dict]:
         """Feed one block (padded to block_samples) as a group of its own;
         returns its frames."""
-        return next(iter(self.run_blocks([(samples, n_valid)])))
+        (frames,) = self.run_blocks([(samples, n_valid)])
+        return frames
 
     def run_blocks(self, blocks, depth: int = 3) -> Iterator[list[dict]]:
         """Pipelined driver (`run_blocks` :1196-1252): `blocks` yields
@@ -1353,15 +1396,18 @@ class Pipeline(BurstDecoder):
         steps are dispatched as blocks arrive; every `agg_blocks` blocks
         make a group whose first round is dispatched at once, and a group
         is finished (waited on, parsed) only when more than `depth` are in
-        flight, or at the end."""
+        flight, or at the end. Tracing is on for the call while a torch
+        profiler records (`tracing`); the caller's time between a yield and
+        its next request is the `consumer` span."""
         agg = self.agg_blocks
+        tr = self.tracer
+        tr.on = tracing.recording()
         fut: collections.deque[_Group] = collections.deque()
         group = None
         it = iter(blocks)
         while True:
-            t0 = time.perf_counter()
-            nxt = next(it, None)
-            self.timing["read"] += time.perf_counter() - t0
+            with tr.span("read"):
+                nxt = next(it, None)
             if nxt is None:
                 break
             samples, n_valid = nxt
@@ -1376,12 +1422,16 @@ class Pipeline(BurstDecoder):
                 self.stats.q_peak,
                 len(fut) * agg + (len(group.bases) if group else 0))
             while len(fut) > depth:
-                yield from self._finish_group(fut.popleft())
+                for frames in self._finish_group(fut.popleft()):
+                    with tr.span("consumer"):
+                        yield frames
         if group is not None:
             self._begin_group(group)
             fut.append(group)
         while fut:
-            yield from self._finish_group(fut.popleft())
+            for frames in self._finish_group(fut.popleft()):
+                with tr.span("consumer"):
+                    yield frames
 
     def take_q_peak(self) -> int:
         """Read and reset the peak in-flight depth (q_max: reset each stats

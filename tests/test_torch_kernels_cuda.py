@@ -863,6 +863,46 @@ def test_detect_fast_split_squelch_and_force_through_the_coupling(dev):
                                res["summed"][r].baseline_sum), r
 
 
+def test_tracer_device_spans_under_a_profiler(dev, monkeypatch):
+    """The pipeline's first decode on the card under torch.profiler, its
+    group graphs captured inside it: no event is recorded during a
+    capture, and once `run_blocks` has returned every device span is
+    resolved and positive. A decode without a profiler records none."""
+    from iridium_tpu_torch.io import synth
+    from iridium_tpu_torch.runtime import tracing
+    from iridium_tpu_torch.runtime.pipeline import Pipeline
+    cfg = DetectorConfig(sample_rate=10_000_000, history_size=64,
+                         frames_per_block=64, gone_capacity=64)
+    bits = np.random.default_rng(3).integers(0, 2, 300).astype(np.uint8)
+    cap = synth.make_capture(bits, sample_rate=10_000_000,
+                             freq_offset_hz=137_000.0, snr_db=30.0)
+    pipe = Pipeline(det_cfg=cfg, burst_batch=4, group_jobs=2, agg_blocks=2,
+                    device=dev, want_llr=False)
+    assert not pipe.graphs
+    in_capture = []
+    record = torch.cuda.Event.record
+
+    def spy(self, *a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            in_capture.append(self)
+        return record(self, *a, **kw)
+    monkeypatch.setattr(torch.cuda.Event, "record", spy)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        n = len(list(pipe.run_array(cap)))
+    assert n >= 1 and sorted(pipe.graphs) == [1, 2]
+    assert not in_capture
+    assert not pipe.tracer.pending
+    t = pipe.timing
+    for key in ("step_dev", "round_dev", "upload_dev", "copy_dev"):
+        assert pipe.tracer.kinds[key] == tracing.DEVICE
+        assert t[key] > 0, key
+    pipe.reset()
+    assert len(list(pipe.run_array(cap))) == n
+    assert not [k for k in pipe.timing if k.endswith("_dev")]
+
+
 def test_native_ring_reused_across_blocks(dev, tmp_path):
     """Nine blocks through the reader's ring of N_BUFFERS (3) pinned
     buffers, each copied to the card behind a device delay: a buffer
