@@ -11,6 +11,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
+# a bool array's bytes (0 and 1) to the ASCII digits '0' and '1'
+_BITS_ASCII = bytes.maketrans(b"\x00\x01", b"01")
+
 
 class RawPrinter:
     """Stateful printer mirroring frame_output.c's t0/file_info latching
@@ -30,12 +35,14 @@ class RawPrinter:
 
     def format(self, frame: dict) -> str:
         """frame keys: timestamp_ns, frequency, magnitude, noise, id,
-        confidence, level, n_symbols, bits (iterable of 0/1)."""
+        confidence, level, n_symbols, bits (a 1-D array or sequence: a
+        nonzero element prints as 1, a zero as 0)."""
         self._ensure_init(frame["timestamp_ns"])
         ts_ms = (frame["timestamp_ns"] - self.t0_ns) / 1e6
         freq_hz = int(frame["frequency"] + 0.5)
         n_payload = max(frame["n_symbols"] - 12, 0)
-        bits = "".join("1" if b else "0" for b in frame["bits"])
+        bits = (np.asarray(frame["bits"], bool).tobytes()
+                .translate(_BITS_ASCII).decode("ascii"))
         return (f"RAW: {self.file_info} {ts_ms:012.4f} {freq_hz:010d} "
                 f"N:{frame['magnitude']:05.2f}{frame['noise']:+06.2f} "
                 f"I:{frame['id']:011d} {frame['confidence']:3d}% "
